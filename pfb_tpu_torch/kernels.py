@@ -21,8 +21,9 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("cfft.cu", "psf_conv.cu")
-_HEADERS = ("fft_lines.cuh",)
+_SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
+            "pg_degrid.cu")
+_HEADERS = ("fft_lines.cuh", "pg_es.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / \
     "pfb_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -30,10 +31,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     "pfbt_cfft": [_P] * 4 + [_I] * 8 + [_P] * 2,
     "pfbt_psf_conv": [_P] * 8 + [_I] * 5 + [_P] * 3,
     "pfbt_twiddles": [_I, _P, _P],
+    "pfbt_pg_spread": [_P] * 5 + [_I] * 6 + [_D, _P],
+    "pfbt_pg_fold": [_P] * 3 + [_I] * 11 + [_P],
+    "pfbt_pg_degrid": [_P] * 5 + [_I] * 11 + [_D, _P],
 }
 
 
@@ -72,18 +77,35 @@ def build(verbose=False):
     if lib_path.exists() and not verbose:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libpfbt_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    tag = os.getpid()
+    tmp = out_dir / f"libpfbt_kernels.{tag}.so"
+    nvcc = _nvcc()
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp)] + [str(_CSRC / s) for s in _SOURCES]
+        flags += ["-Xptxas", "-v"]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
+    # one nvcc per source, all started together, then one link
+    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in _SOURCES]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(o),
+                               str(_CSRC / s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(_SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s, p.returncode, log) for s, p, log in
+              zip(_SOURCES, procs, logs) if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp)]
+                             + [str(o) for o in objs], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            failed.append(("link", res.returncode, res.stdout + res.stderr))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{s} ({rc}):\n{log}" for s, rc, log in failed))
     if verbose:
-        print(res.stdout + res.stderr)
+        print("".join(logs))
     os.replace(tmp, lib_path)
     _State.build_seconds = time.perf_counter() - t0
     return lib_path
@@ -132,6 +154,16 @@ def require_cuda_f32(name, *tensors):
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: operands on {dev} and {t.device}")
         dev = t.device
+
+
+def require_cuda_i32(name, *tensors):
+    """Validate index operands: CUDA, int32, contiguous."""
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.int32 or \
+                not t.is_contiguous():
+            raise ValueError(f"{name}: index operands must be contiguous "
+                             f"int32 CUDA tensors, got {t.dtype} on "
+                             f"{t.device}")
 
 
 _TWIDDLES = {}

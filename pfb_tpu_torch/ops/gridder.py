@@ -1,33 +1,43 @@
 """Measurement-operator products and the vis-space Hessian
-(counterpart of pfb_tpu/ops/gridder.py, dft and wgrid backends).
+(counterpart of pfb_tpu/ops/gridder.py: the dft, wgrid and pg backends,
+robust weighting).
 
-The port has no robust weighting yet (``counts`` must be None), and no
-``pg``/``mm`` backends.
+Not ported: the ``mm`` backend and the pg gridder's w-plane-blocked
+engine (``plane_block``, kernels K7-K9).
 """
 
 from functools import partial
 
+import numpy as np
 import torch
 
 from pfb_tpu_torch.ops.dft import dirty2vis_dft, vis2dirty_dft
 from pfb_tpu_torch.ops.fft import make_psfhat
+from pfb_tpu_torch.ops.weighting import counts_to_weights
 
 
 def get_backend(backend, epsilon=None, do_wgridding=None,
                 double_accum=None):
     """(dirty2vis, vis2dirty) for the named backend, with epsilon /
     do_wgridding / double_accum bound in when given (the exact DFT maps
-    do_wgridding onto its do_wterm switch and takes no epsilon)."""
+    do_wgridding onto its do_wterm switch and takes no epsilon; the pg
+    gridder is float32 on the card and takes no double_accum, as in the
+    JAX package)."""
     if backend == "dft":
         d2v, v2d = dirty2vis_dft, vis2dirty_dft
         if do_wgridding is not None:
             d2v = partial(d2v, do_wterm=do_wgridding)
             v2d = partial(v2d, do_wterm=do_wgridding)
         return d2v, v2d
-    if backend != "wgrid":
+    if backend == "wgrid":
+        from pfb_tpu_torch.ops.wgridder import (dirty2vis_wgrid,
+                                                vis2dirty_wgrid)
+        d2v, v2d = dirty2vis_wgrid, vis2dirty_wgrid
+    elif backend == "pg":
+        from pfb_tpu_torch.ops.pgridder import dirty2vis_pg, vis2dirty_pg
+        d2v, v2d = dirty2vis_pg, vis2dirty_pg
+    else:
         raise ValueError(f"Unknown or unported gridder backend {backend}")
-    from pfb_tpu_torch.ops.wgridder import dirty2vis_wgrid, vis2dirty_wgrid
-    d2v, v2d = dirty2vis_wgrid, vis2dirty_wgrid
     kw = {}
     if epsilon is not None:
         kw["epsilon"] = epsilon
@@ -35,7 +45,7 @@ def get_backend(backend, epsilon=None, do_wgridding=None,
         kw["do_wgridding"] = do_wgridding
     if kw:
         d2v, v2d = partial(d2v, **kw), partial(v2d, **kw)
-    if double_accum is not None:
+    if double_accum is not None and backend == "wgrid":
         v2d = partial(v2d, double_accum=double_accum)
     return d2v, v2d
 
@@ -74,10 +84,8 @@ def image_data_products(uvw, freq, vis, wgt, mask, counts, nx, ny, nx_psf,
                         double_accum=None):
     """DIRTY, WSUM, PSF(+PSFHAT), RESIDUAL and effective WEIGHT for one
     (time, band) dataset, keyed with the reference's dds field names.
-    All inputs are tensors on one device."""
-    if robustness is not None or counts is not None:
-        raise NotImplementedError(
-            "robust weighting (ops/weighting.py) is not ported yet")
+    All inputs are tensors on one device; ``counts`` (nx, ny) feeds the
+    Briggs weights of ``robustness``."""
     d2v, v2d = get_backend(backend, epsilon, do_wgridding, double_accum)
     out = {}
     nrow = uvw.shape[0]
@@ -97,6 +105,13 @@ def image_data_products(uvw, freq, vis, wgt, mask, counts, nx, ny, nx_psf,
         ressq = residual_vis[0] ** 2 + residual_vis[1] ** 2
         ovar = ressq.sum() / mask.sum()
         wgt = (l2reweight_dof + 1) / (l2reweight_dof + ressq / ovar) / ovar
+
+    if robustness is not None:
+        if counts is None:
+            raise ValueError("counts are None but robustness specified.")
+        imwgt = counts_to_weights(counts, uvw, freq, nx, ny, cellx, celly,
+                                  robustness)
+        wgt = imwgt if wgt is None else wgt * imwgt
 
     if do_weight:
         out["WEIGHT"] = wgt[:nrow]
@@ -177,18 +192,35 @@ def hessian_dds(x, dds, wsum, sigmainv=0.0, mask_image=None,
     return out
 
 
+def _ds_beam(ds, use_beam, mask_image, device):
+    beam = None
+    if use_beam and "BEAM" in ds:
+        beam = torch.as_tensor(ds["BEAM"]).to(device)
+    if mask_image is not None:
+        mi = torch.as_tensor(mask_image).to(device)
+        beam = mi if beam is None else beam * mi
+    return beam
+
+
 def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
                      mask_image=None, use_beam=True, backend="dft",
-                     epsilon=1e-7, do_wgridding=True, device="cpu"):
+                     epsilon=1e-7, do_wgridding=True, plane_block=None,
+                     device="cpu"):
     """The exact-residual operator of the major cycle, built once:
     x (nband, nx, ny) tensor -> R.H W R x / wsum per band.
 
-    For ``backend != "dft"`` this is :func:`hessian_dds`, which (as in
-    the JAX package, ops/gridder.py:427-432) does not pass ``epsilon``
-    on: the wgrid residual runs at epsilon = 1e-7. The dft residual,
-    also as in the JAX package, always evaluates the w term."""
+    - ``wgrid`` runs :func:`hessian_dds`, which (as in the JAX package,
+      ops/gridder.py:427-432) does not pass ``epsilon`` or
+      ``do_wgridding`` on: the residual runs at epsilon = 1e-7, always
+      w-gridded.
+    - ``pg`` plans every dataset with the caller's ``epsilon`` and
+      ``do_wgridding`` (JAX ops/gridder.py:340-383): one shared geometry
+      for more than one dataset, else the dataset's own plan. The
+      returned matvec carries its plans as ``matvec.plans``.
+      ``plane_block`` (the w-plane-blocked engine) is not ported.
+    - ``dft``, as in the JAX package, always evaluates the w term."""
     device = torch.device(device)
-    if backend != "dft":
+    if backend == "wgrid":
         cache = [_ds_tensors(ds, device) for ds in dds]
 
         def matvec_loop(x):
@@ -197,16 +229,54 @@ def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
                                backend=backend, _cache=cache)
         return matvec_loop
 
+    if backend == "pg":
+        from pfb_tpu_torch.ops.pgridder import (make_hessian_pg,
+                                                make_hessian_pg_stacked,
+                                                pgrid_plan)
+        if plane_block and do_wgridding:
+            raise NotImplementedError(
+                "plane_block: the w-plane-blocked pg engine (kernels "
+                "K7-K9, ops/pg_stream.py) is not ported yet")
+        if len(dds) > 1:
+            return make_hessian_pg_stacked(
+                dds, nband, wsum, nx, ny, sigmainv=sigmainv,
+                use_beam=use_beam, mask_image=mask_image, epsilon=epsilon,
+                do_wgridding=do_wgridding, device=device)
+        per_ds = []
+        for ds in dds:
+            plan = pgrid_plan(
+                np.asarray(ds["UVW"]), np.asarray(ds["FREQ"]), nx=nx, ny=ny,
+                cellx=float(ds["cell_rad"]), celly=float(ds["cell_rad"]),
+                epsilon=epsilon, do_wgridding=do_wgridding,
+                x0=float(ds.get("x0", 0.0)), y0=float(ds.get("y0", 0.0)),
+                device=device)
+            per_ds.append((ds["bandid"],
+                           _ds_beam(ds, use_beam, mask_image, device),
+                           make_hessian_pg(plan, wgt=ds["WEIGHT"],
+                                           mask=ds["MASK"])))
+
+        def matvec_pg(x):
+            conv = [torch.zeros_like(x[0]) for _ in range(nband)]
+            for b, beam, h in per_ds:
+                c = h(x[b] if beam is None else beam * x[b]).to(x.dtype)
+                conv[b] = conv[b] + (c if beam is None else beam * c)
+            out = torch.stack(conv) / wsum
+            if sigmainv:
+                out = out + x * sigmainv**2
+            return out
+
+        matvec_pg.plans = [p for _, _, h in per_ds for p in h.plans]
+        return matvec_pg
+
+    if backend != "dft":
+        raise ValueError(f"Unknown or unported gridder backend {backend}")
+
     per_ds = []
     for ds in dds:
         t = _ds_tensors(ds, device)
-        beam = None
-        if use_beam and "BEAM" in ds:
-            beam = torch.as_tensor(ds["BEAM"]).to(device)
-        if mask_image is not None:
-            mi = torch.as_tensor(mask_image).to(device)
-            beam = mi if beam is None else beam * mi
-        per_ds.append((ds["bandid"], beam, t, float(ds["cell_rad"]),
+        per_ds.append((ds["bandid"],
+                       _ds_beam(ds, use_beam, mask_image, device), t,
+                       float(ds["cell_rad"]),
                        float(ds.get("x0", 0.0)), float(ds.get("y0", 0.0))))
 
     def matvec_dft(x):

@@ -1,10 +1,12 @@
 """grid worker: xds -> dds (dirty/PSF/PSFHAT/weights per (time, band)).
 Counterpart of pfb_tpu/workers/grid.py: image sizing from uv_max, then
-one image_data_products pass per dataset on ``device``.
+one image_data_products pass per dataset on ``device``. ``robustness``
+sets Briggs weights from host uv counts (ops/weighting.py), written to
+the dds as COUNTS; ``backend`` is "dft", "wgrid" or "pg".
 
-Not ported yet (they raise): robust weighting (``robustness``),
-channel re-binning (``nband`` != the xds band count), ``concat_row``,
-``row_shards``, ``target`` and ``transfer_model_from``.
+Not ported yet (they raise): channel re-binning (``nband`` != the xds
+band count), ``concat_row``, ``row_shards``, ``target`` and
+``transfer_model_from``.
 """
 
 import numpy as np
@@ -14,6 +16,8 @@ from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.ops.dft import LIGHTSPEED
 from pfb_tpu_torch.ops.fft import good_even_size
 from pfb_tpu_torch.ops.gridder import image_data_products
+from pfb_tpu_torch.ops.weighting import (compute_counts_host,
+                                         filter_extreme_counts)
 from pfb_tpu_torch.utils import dstore
 
 
@@ -21,15 +25,15 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
           nband=None, field_of_view=None, cell_size=None, nx=None,
           ny=None, super_resolution_factor=2.0, robustness=None,
           dirty=True, psf=True, psf_oversize=2.0, residual=True,
-          weight=True, l2reweight_dof=None, overwrite=True, write=True,
+          weight=True, filter_extreme_counts_flag=False,
+          filter_level=10.0, filter_nbox=None, l2reweight_dof=None,
+          overwrite=True, write=True,
           backend="dft", epsilon=1e-7, do_wgridding=True,
           double_accum=True, transfer_model_from=None,
           use_best_model=False, target=None, x0=0.0, y0=0.0, xds=None,
           row_shards=0, device=None, **kw):
     """Returns the list of dds datasets (and writes
     ``{output_filename}_{PRODUCT}_{suffix}.dds`` unless write=False)."""
-    if robustness is not None:
-        raise NotImplementedError("robust weighting is not ported yet")
     if transfer_model_from is not None or target is not None or \
             (row_shards and int(row_shards) > 1) or kw.get("concat_row"):
         raise NotImplementedError(
@@ -87,16 +91,25 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
         model = ds.get("MODEL")
         if use_best_model:
             model = ds.get("MODEL_BEST", model)
+        counts = None
+        if robustness is not None:
+            counts = compute_counts_host(ds["UVW"], ds["FREQ"], ds["MASK"],
+                                         nx, ny, cell_rad, cell_rad)
+            if filter_extreme_counts_flag:
+                counts = filter_extreme_counts(counts, level=filter_level,
+                                               nbox=filter_nbox)
         out = image_data_products(
             tens(ds["UVW"]), tens(ds["FREQ"]), tens(ds["VIS"]),
-            tens(ds["WEIGHT"]), tens(ds["MASK"]), None, nx, ny, nx_psf,
-            ny_psf, cell_rad, cell_rad,
+            tens(ds["WEIGHT"]), tens(ds["MASK"]),
+            None if counts is None else tens(counts.astype(real_type)),
+            nx, ny, nx_psf,
+            ny_psf, cell_rad, cell_rad, robustness=robustness,
             model=None if model is None else tens(model), x0=x0, y0=y0,
             l2reweight_dof=l2reweight_dof, do_dirty=dirty, do_psf=psf,
             do_weight=weight, do_residual=residual, backend=backend,
             epsilon=epsilon, do_wgridding=do_wgridding,
             double_accum=double_accum)
-        return dict(ds=ds, out=out, model=model,
+        return dict(ds=ds, out=out, model=model, counts=counts,
                     bandid=int(np.where(freqs_out == ds["freq_out"])[0][0]),
                     timeid=int(np.where(times_out == ds["time_out"])[0][0]))
 
@@ -134,6 +147,8 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
             out_ds["RESIDUAL"] = host("RESIDUAL")
         if p["model"] is not None:
             out_ds["MODEL"] = np.asarray(p["model"])
+        if p["counts"] is not None:
+            out_ds["COUNTS"] = p["counts"]
         return out_ds
 
     dds = []

@@ -43,7 +43,7 @@ def _spotless(ddsi=None, output_filename=None, product="I",
               pm_verbose=0, pm_report_freq=100, pd_tol=1e-5, pd_maxit=500,
               pd_verbose=0, pd_report_freq=50, positivity=1,
               epsilon=1e-7, do_wgridding=True, backend="dft",
-              engine="fft", diverge_count=3, write=True, band_chunk=None,
+              engine="fft", plane_block=0, diverge_count=3, write=True, band_chunk=None,
               verbose=1, device=None, stats=None, **kw):
     """Returns (model, residual_cube) as numpy arrays and writes back
     into the dds store. ``stats``, when a dict, receives ``hessnorm``,
@@ -164,7 +164,8 @@ def _spotless(ddsi=None, output_filename=None, product="I",
 
     hess = make_hessian_dds(dds, nband, wsum, nx, ny, use_beam=False,
                             backend=backend, epsilon=epsilon,
-                            do_wgridding=do_wgridding, device=device)
+                            do_wgridding=do_wgridding,
+                            plane_block=plane_block or None, device=device)
 
     if use_fused:
         pd_solve = make_primal_dual_fused(

@@ -3,15 +3,20 @@ PyTorch versions on the card. Skipped without a CUDA device; on the
 card run ``python -m pytest --noconftest tests/test_torch_gpu.py`` (the
 repo's conftest imports jax, which the card's machine need not have).
 
-Tolerance max|kernel - plain| <= 1e-5 max|plain|: both are float32
-FFT pipelines (expected ~1e-6 log2 N)."""
+Tolerance max|kernel - plain| <= 1e-5 max|plain|: the FFT kernels are
+float32 FFT pipelines (expected ~1e-6 log2 N); the pg gridder's kernels
+sum at most a tile's visibilities per grid point, or k^3 taps per
+visibility, in float32 (expected ~1e-7 to 1e-6)."""
 
+import numpy as np
 import pytest
 import torch
 
+from pfb_tpu_torch.ops import pgridder as pg
 from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
 from pfb_tpu_torch.ops.psf import (prep_h, psf_convolve_h,
                                    psf_convolve_h_plain)
+from pfb_tpu_torch.utils.simulation import image_size_for, simulate_obs
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-5
@@ -79,3 +84,138 @@ def test_wrappers_reject_bad_operands(cuda):
     h = torch.zeros((1, 129, 256), device=cuda)
     with pytest.raises(ValueError):
         psf_convolve_h(y, h.double())
+
+
+def _pg_plan(cuda, nx, eps, do_w, tiles=(None, None), seed=0):
+    """A float32 pg plan on the card from a simulated observation whose uv
+    coverage reaches both signs of u and v (so tiles wrap)."""
+    obs = simulate_obs(nant=16, ntime=24, nchan=4, seed=seed)
+    _, cell = image_size_for(obs, fov_deg=1.0)
+    return pg.pgrid_plan(obs.uvw, obs.freq, nx=nx, ny=nx, cellx=cell,
+                         celly=cell, epsilon=eps, do_wgridding=do_w,
+                         tile_u=tiles[0], tile_v=tiles[1],
+                         dtype=torch.float32, device=cuda)
+
+
+def _spread_fold(p, vis, kernel):
+    k, nw, txs, tys = p["k"], p["nw"], p["txs"], p["tys"]
+    slots = pg._compact_slots(p["tid"], p["pm"], p["ntx"], p["nty"], txs,
+                              tys, k)
+    kw = dict(beta=p["beta"], k=k, nw=nw, Thx=txs + k, Thy=tys + k)
+    spread = pg.pg_spread if kernel else pg.pg_spread_plain
+    Y = spread(p["pos"], vis, slots, **kw)
+    Y = Y.reshape(2 * nw, slots["NS"], txs + k, tys + k)
+    fkw = dict(nty=p["nty"], txs=txs, tys=tys, k=k, Nx=p["Nx"], Ny=p["Ny"])
+    if kernel:
+        G = pg.pg_fold(Y, slots, ntx=p["ntx"], **fkw)
+    else:
+        G = pg.pg_fold_plain(Y, slots, **fkw)
+    return Y[:, slots["live"]], G  # only live slots hold a result
+
+
+# (nx, epsilon -> k, w planes, tiles): k = 7 and 9, nw = 1 and > 1,
+# default and auto-ladder tiles, an 8192-point grid (periodic wrap of the
+# tiles at both edges)
+PG_CASES = [(512, 1e-5, True, (None, None)),
+            (512, 1e-7, True, (None, None)),
+            (512, 1e-5, False, (None, None)),
+            (1024, 1e-5, True, (57, 249)),
+            (1024, 1e-7, False, (63, 247)),
+            (4096, 1e-5, True, (None, None))]
+
+
+@pytest.mark.parametrize("nx,eps,do_w,tiles", PG_CASES)
+def test_pg_spread_fold_kernels_match_plain(cuda, nx, eps, do_w, tiles):
+    p = _pg_plan(cuda, nx, eps, do_w, tiles, seed=nx)
+    assert (p["nw"] > 1) == do_w
+    g = torch.Generator(device=cuda).manual_seed(nx)
+    vis = torch.randn((p["nentries"], 2, p["C"]), generator=g,
+                      device=cuda) * p["pm"][:, None]
+    n4, n5 = pg.pg_spread.launches, pg.pg_fold.launches
+    Yk, Gk = _spread_fold(p, vis.contiguous(), kernel=True)
+    torch.cuda.synchronize()
+    assert (pg.pg_spread.launches, pg.pg_fold.launches) == (n4 + 1, n5 + 1)
+    Yp, Gp = _spread_fold(p, vis, kernel=False)
+    assert _ok(Yk, Yp)
+    assert _ok(Gk, Gp)
+
+
+@pytest.mark.parametrize("nx,eps,do_w,tiles", PG_CASES)
+def test_pg_degrid_kernel_matches_plain(cuda, nx, eps, do_w, tiles):
+    p = _pg_plan(cuda, nx, eps, do_w, tiles, seed=nx + 1)
+    g = torch.Generator(device=cuda).manual_seed(nx)
+    gr = torch.randn((p["nw"], p["Nx"], p["Ny"]), generator=g, device=cuda)
+    gi = torch.randn_like(gr)
+    kw = dict(beta=p["beta"], k=p["k"], nw=p["nw"], txs=p["txs"],
+              tys=p["tys"], nty=p["nty"])
+    n6 = pg.pg_degrid.launches
+    out = pg.pg_degrid(gr, gi, p["pos"], p["tid"], **kw)
+    torch.cuda.synchronize()
+    assert pg.pg_degrid.launches == n6 + 1
+    assert _ok(out, pg.pg_degrid_plain(gr, gi, p["pos"], p["tid"], **kw))
+
+
+def test_pg_kernel_reruns_bitwise_equal(cuda):
+    """K4, K5 and K6 sum in a fixed order (no atomics): reruns give the
+    same bits."""
+    p = _pg_plan(cuda, 1024, 1e-5, True, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    vis = (torch.randn((p["nentries"], 2, p["C"]), generator=g,
+                       device=cuda) * p["pm"][:, None]).contiguous()
+    runs = [_spread_fold(p, vis, kernel=True) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    gr, gi = runs[0][1][:p["nw"]], runs[0][1][p["nw"]:]
+    kw = dict(beta=p["beta"], k=p["k"], nw=p["nw"], txs=p["txs"],
+              tys=p["tys"], nty=p["nty"])
+    a = pg.pg_degrid(gr, gi, p["pos"], p["tid"], **kw)
+    b = pg.pg_degrid(gr, gi, p["pos"], p["tid"], **kw)
+    assert torch.equal(a, b)
+
+
+def test_pg_operator_f32_card_matches_f64_cpu(cuda):
+    """vis2dirty_pg / dirty2vis_pg through the kernels (float32, card)
+    against the plain versions in float64 on the CPU: 1e-5."""
+    obs = simulate_obs(nant=16, ntime=24, nchan=4, seed=9)
+    _, cell = image_size_for(obs, fov_deg=1.0)
+    rng = np.random.default_rng(9)
+    shape = (obs.uvw.shape[0], obs.freq.size)
+    vis = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    img = rng.normal(size=(256, 256))
+    kw = dict(nx=256, ny=256, cellx=cell, celly=cell, epsilon=1e-5)
+    ref = pg.vis2dirty_pg(obs.uvw, obs.freq, torch.as_tensor(vis), **kw)
+    got = pg.vis2dirty_pg(obs.uvw, obs.freq,
+                          torch.as_tensor(vis.astype(np.complex64)).to(cuda),
+                          **kw)
+    assert _ok(got.cpu().double(), ref)
+    dkw = dict(epsilon=1e-5)
+    ref = pg.dirty2vis_pg(obs.uvw, obs.freq, torch.as_tensor(img), cell,
+                          cell, **dkw)
+    got = pg.dirty2vis_pg(obs.uvw, obs.freq,
+                          torch.as_tensor(img, dtype=torch.float32).to(cuda),
+                          cell, cell, **dkw)
+    assert _ok(got.cpu().to(torch.complex128), ref)
+
+
+def test_pg_wrappers_reject_bad_operands(cuda):
+    p = _pg_plan(cuda, 512, 1e-5, True)
+    k, nw, txs, tys = p["k"], p["nw"], p["txs"], p["tys"]
+    slots = pg._compact_slots(p["tid"], p["pm"], p["ntx"], p["nty"], txs,
+                              tys, k)
+    kw = dict(beta=p["beta"], k=k, nw=nw, Thx=txs + k, Thy=tys + k)
+    vis = torch.zeros((p["nentries"], 2, p["C"]), device=cuda)
+    with pytest.raises(ValueError):
+        pg.pg_spread(p["pos"].double(), vis.double(), slots, **kw)
+    with pytest.raises(ValueError):
+        pg.pg_spread(p["pos"], vis[:, :1], slots, **kw)
+    Y = torch.zeros((2 * nw, slots["NS"], txs + k, tys + k), device=cuda)
+    with pytest.raises(ValueError):
+        pg.pg_fold(Y, dict(slots, tslot=slots["tslot"].long()),
+                   ntx=p["ntx"], nty=p["nty"], txs=txs, tys=tys, k=k,
+                   Nx=p["Nx"], Ny=p["Ny"])
+    g = torch.zeros((nw, p["Nx"], p["Ny"]), device=cuda)
+    dkw = dict(beta=p["beta"], k=k, nw=nw, txs=txs, tys=tys, nty=p["nty"])
+    with pytest.raises(ValueError):
+        pg.pg_degrid(g, g[:, :, :-1], p["pos"], p["tid"], **dkw)
+    with pytest.raises(ValueError):
+        pg.pg_degrid(g, g, p["pos"], p["tid"].long(), **dkw)

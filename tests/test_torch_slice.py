@@ -1,6 +1,7 @@
-"""The port's main path, simulate -> _init -> _grid(wgrid) ->
-_spotless, against pfb_tpu on the same observation (CPU, float64 unless
-stated), plus the import boundary of pfb_tpu_torch."""
+"""The port's main paths, simulate -> _init -> _grid(wgrid, or pg with
+Briggs weights) -> _spotless, against pfb_tpu on the same observation
+(CPU, float64 unless stated), plus the import boundary of
+pfb_tpu_torch."""
 
 import os
 import shutil
@@ -131,6 +132,38 @@ def test_port_deconvolves_store_written_by_jax(run, tmp_path):
     assert _rel(np.stack([ds["MODEL"] for ds in back]), mt) < 1e-12
 
 
+@pytest.fixture(scope="module")
+def run_pg(run):
+    """The pg path on the same xds: Briggs 0, epsilon 1e-5."""
+    kw = dict(GRID, backend="pg", robustness=0.0)
+    dj = grid_j(xdsi=run["xj"], output_filename=str(run["d"] / "jpg"), **kw)
+    dt = grid_t(xdsi=run["xt"], write=False, device="cpu", **kw)
+    return dict(dj=dj, dt=dt)
+
+
+def test_pg_grid_matches_jax(run_pg):
+    """pg DIRTY/PSF/WEIGHT against JAX pg (its Pallas kernels in
+    interpret mode): 1e-10 relative."""
+    for p, q in zip(run_pg["dj"], run_pg["dt"]):
+        for key in ("DIRTY", "PSF", "PSFHAT_real", "PSFHAT_imag", "WEIGHT",
+                    "COUNTS"):
+            assert _rel(q[key], p[key]) < 1e-10, key
+        assert q["WSUM"][0] == pytest.approx(p["WSUM"][0], rel=1e-12)
+
+
+def test_pg_spotless_matches_jax(run, run_pg):
+    """spotless with the pg residual (2 datasets: the shared-geometry
+    Hessian), engine="fft", same hessnorm: model and residual at 1e-8
+    relative."""
+    kw = dict(SPOT, backend="pg", engine="fft", hessnorm=run["hessnorm"])
+    mj, rj = spotless_j(ddsi=[dict(x) for x in run_pg["dj"]], **kw)
+    mt, rt = spotless_t(ddsi=[dict(x) for x in run_pg["dt"]], device="cpu",
+                        **kw)
+    assert np.abs(mj).max() > 0
+    assert _rel(mt, mj) < 1e-8
+    assert _rel(rt, rj) < 1e-8
+
+
 def test_import_leaves_jax_out(tmp_path):
     """Importing pfb_tpu_torch and running its CPU path imports neither
     jax nor pfb_tpu."""
@@ -148,6 +181,10 @@ dds = _grid(xdsi=xds, write=False, device="cpu", nx=128, backend="wgrid",
             psf=True, residual=False)
 _spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
           pd_maxit=2, pm_maxit=3, backend="wgrid", verbose=0)
+dds = _grid(xdsi=xds, write=False, device="cpu", nx=128, backend="pg",
+            robustness=0.0, psf=True, residual=False)
+_spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
+          pd_maxit=2, pm_maxit=3, backend="pg", verbose=0)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "pfb_tpu")]
 assert not bad, bad
 print("clean")
