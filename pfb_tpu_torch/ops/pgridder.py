@@ -680,7 +680,7 @@ def w_geometry_union(dss, nx, ny, cellx, celly, x0, y0, sigma, k,
                       celly, x0, y0, sigma, k, do_wgridding)
 
 
-def stack_pg_plans(dds, nband, *, nx, ny, epsilon=1e-7, do_wgridding=True,
+def stack_pg_plans(dds, *, nx, ny, epsilon=1e-7, do_wgridding=True,
                    use_beam=True, mask_image=None, capacity=128,
                    device="cpu", dtype=None):
     """Per-dataset pg plans with one shared geometry: one w-plane grid
@@ -737,7 +737,7 @@ def make_hessian_pg_stacked(dds, nband, wsum, nx, ny, sigmainv=0.0,
     plans with one shared geometry (:func:`stack_pg_plans`): x (nband,
     nx, ny) -> per band sum_d beam R.H W R (beam x) / wsum, one dataset
     at a time (bounds the working set to one dataset's w-plane grids)."""
-    st = stack_pg_plans(dds, nband, nx=nx, ny=ny, epsilon=epsilon,
+    st = stack_pg_plans(dds, nx=nx, ny=ny, epsilon=epsilon,
                         do_wgridding=do_wgridding, use_beam=use_beam,
                         mask_image=mask_image, device=device)
     p0 = st["p0"]

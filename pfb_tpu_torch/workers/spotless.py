@@ -43,8 +43,8 @@ def _spotless(ddsi=None, output_filename=None, product="I",
               pm_verbose=0, pm_report_freq=100, pd_tol=1e-5, pd_maxit=500,
               pd_verbose=0, pd_report_freq=50, positivity=1,
               epsilon=1e-7, do_wgridding=True, backend="dft",
-              engine="fft", plane_block=0, diverge_count=3, write=True, band_chunk=None,
-              verbose=1, device=None, stats=None, **kw):
+              engine="fft", plane_block=0, diverge_count=3, write=True,
+              band_chunk=None, verbose=1, device=None, stats=None, **kw):
     """Returns (model, residual_cube) as numpy arrays and writes back
     into the dds store. ``stats``, when a dict, receives ``hessnorm``,
     ``engine`` and per-major-iteration ``rms``, ``rmax`` and

@@ -225,7 +225,8 @@ def _datasets(obs, nband=2, ndata=2, seed=11):
     for i, rows in enumerate(np.split(np.arange(nrow), cuts)):
         shape = (rows.size, obs["freq"].size)
         mask = (rng.random(shape) > 0.1).astype(np.float64)
-        dds.append(dict(UVW=obs["uvw"][rows], FREQ=obs["freq"] * (1 + 0.05 * i),
+        dds.append(dict(UVW=obs["uvw"][rows],
+                        FREQ=obs["freq"] * (1 + 0.05 * i),
                         WEIGHT=rng.random(shape), MASK=mask,
                         bandid=i % nband, cell_rad=obs["cell"]))
     return dds
