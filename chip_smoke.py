@@ -30,9 +30,35 @@ Phases:
      against the wgrid dirty image of the same dataset and weights
      (max|diff| <= 1e-4 max|wgrid|);
   8. checks of the pg path, as in 5, with K4 and K5 launched in grid and
-     spotless and K6 in spotless.
+     spotless and K6 in spotless;
+  9. klean path, same observation, reusing the pg path's xds and copies
+     of its dds: klean(backend="pg", plane_block=4, epsilon=1e-5, 3 major
+     iterations, sub_peak_factor 0.9, see KLEAN), counts reset just
+     before and read just after; K7-K9
+     must launch inside klean and K4-K6 must not (its residual takes the
+     w-plane-blocked engine), the MFS residual rms must end below the
+     dirty rms and the brightest sources must sit at their pixels;
+ 10. blocked against unblocked on one pg dataset at 2048^2: the
+     plane_block=4 residual operator against the all-planes one on the
+     pg path's model (max|diff| <= 1e-5 max), and the blocked spread (K7)
+     and fold (K8) on the block with the most entries, the blocked degrid
+     (K9) on that block with its model grids, against their plain
+     versions;
+ 11. the blocked engine at its own scale, the flagship operator of
+     bench.py: 1,000,000 rows x 8 channels from default_rng(0), 4096^2,
+     epsilon 1e-5, plane_block 4 (nw 20, 5 blocks, 8192^2 grids): host
+     plan seconds, adjoint and Hessian seconds (median of 3 after a
+     warm-up) and Mvis/s, peak device memory, for plane_block=4 and for
+     all planes at once; blocked against unblocked (<= 1e-5 max); K7-K9
+     against plain on the largest block.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
-CUDA-event medians of both.
+CUDA-event medians of both. Every kernel record also carries the least
+time the card could take for the same work (``bound_ms``: the larger of
+the bytes the function must move over 3.35 TB/s and its FP32 operations
+over 67 TFLOP/s, counted for this run's inputs; ``bound_by`` says which)
+and the time of one PyTorch call that computes the same function where
+there is one (``library_ms``: torch.fft for K3, ``index_add_`` for the
+folds; None otherwise).
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -41,6 +67,7 @@ The last line of standard output is
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -48,6 +75,9 @@ from pathlib import Path
 
 TOL = 1e-5
 XTOL = 1e-4  # pg against wgrid dirty image
+BTOL = 1e-5  # blocked against unblocked residual operator
+HBM_BPS = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+FP32_FLOPS = 67e12  # H100 SXM FP32 rate outside the tensor cores
 NX = 2048
 SIM = dict(nant=64, ntime=128, nchan=8, nsource=20, extent=4000.0,
            seed=7, gains=False)
@@ -57,6 +87,14 @@ SPOT = dict(engine="pallas", backend="wgrid", epsilon=1e-5,
             bases="self,db1,db2", nlevels=3, niter=3, pd_maxit=100)
 GRID_PG = dict(GRID, backend="pg", robustness=0.0)
 SPOT_PG = dict(SPOT, backend="pg")
+# sub_peak_factor 0.9, not the default 0.5: the Clark subminor of both
+# packages adds gamma xhat / w_b to the model but subtracts gamma xhat
+# PSF_b, whose peak is w_b (about 1 / nband), so it overshoots unless
+# nband ln(1 / sub_peak_factor) < 1; with 8 bands and 0.5 it diverges
+KLEAN = dict(backend="pg", plane_block=4, epsilon=1e-5, niter=3,
+             sub_peak_factor=0.9)
+FLAGSHIP = dict(nx=4096, nrow=1_000_000, nchan=8, seed=0, epsilon=1e-5,
+                plane_block=4)
 
 
 class SmokeFailure(Exception):
@@ -93,10 +131,44 @@ def cuda_ms(fn, reps=5):
 def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
     from pfb_tpu_torch.ops.cfft import fftx_c2c
+    from pfb_tpu_torch.ops.pg_stream import (pg_degrid_gs, pg_fold_gs,
+                                             pg_spread_gs)
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
     from pfb_tpu_torch.ops.psf import psf_convolve_h
     return {"K1": psf_convolve_h, "K3": fftx_c2c, "K4": pg_spread,
-            "K5": pg_fold, "K6": pg_degrid}
+            "K5": pg_fold, "K6": pg_degrid, "K7": pg_spread_gs,
+            "K8": pg_fold_gs, "K9": pg_degrid_gs}
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the FP32 operations over the FP32 rate."""
+    tb, tf = nbytes / HBM_BPS, flops / FP32_FLOPS
+    return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def fft_flops(n, lines, real=False):
+    """5 n log2 n operations for each complex line of length n (half for
+    a real line)."""
+    return lines * 5.0 * n * math.log2(n) * (0.5 if real else 1.0)
+
+
+def taps_in(w, k, P):
+    """Each visibility's w taps inside planes [0, P) (|p - w| <= k/2)."""
+    import torch
+    lo = torch.ceil(w - k / 2).clamp(min=0)
+    hi = torch.floor(w + k / 2).clamp(max=P - 1)
+    return (hi - lo + 1).clamp(min=0)
+
+
+def gridding_flops(k, ntaps_w):
+    """Operations of spreading or degridding visibilities whose w taps
+    are ``ntaps_w`` (a tensor): 2 FMAs (4 operations) for each of the
+    (k+1)^2 uv taps of each w tap, both components, plus about 8 for each
+    of the 3 (k+1) kernel factors."""
+    n = float(ntaps_w.numel())
+    return float(4.0 * (k + 1) ** 2 * ntaps_w.double().sum()) + \
+        n * 24.0 * (k + 1)
 
 
 def simulate(workdir, nx=NX, sim=SIM):
@@ -197,18 +269,24 @@ def _fft2_pruned_plain(xr, xi, Nx, Ny, inverse, pruned_in, pruned_out):
     return yr.reshape(P, nrow, -1), yi.reshape(P, nrow, -1)
 
 
-def _record(name, shape, out, ref, fk, fp, timing):
-    """One kernel-against-plain comparison (and CUDA-event times)."""
+def _record(name, shape, out, ref, fk, fp, timing, work=None, flib=None,
+            reps=5):
+    """One kernel-against-plain comparison, with CUDA-event times of the
+    kernel, its plain version and the library call ``flib`` (when
+    given), and the bound of ``work`` = (bytes, operations)."""
     import numpy as np
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
     r = dict(name=name, shape=list(shape), max_abs_err=err,
              rel_err=err / scale, tol=TOL, ok=bool(err <= TOL * scale))
+    if work is not None:
+        r["bound_ms"], r["bound_by"] = bound(*work)
     if timing:
         # alternate plain and kernel so both see the same clocks
-        r["plain_ms"] = cuda_ms(fp)
-        r["ms"] = cuda_ms(fk)
-        r["plain_ms"] = 0.5 * (r["plain_ms"] + cuda_ms(fp))
+        r["plain_ms"] = cuda_ms(fp, reps)
+        r["ms"] = cuda_ms(fk, reps)
+        r["plain_ms"] = 0.5 * (r["plain_ms"] + cuda_ms(fp, reps))
+        r["library_ms"] = None if flib is None else cuda_ms(flib, reps)
     r["max_abs_err"] = float(np.float64(r["max_abs_err"]))
     return r
 
@@ -230,14 +308,24 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
     g = torch.Generator(device=device).manual_seed(1)
     x = torch.randn((nband, nx, nx), generator=g, device=device)
     # complex H, then the even part (real H) of the same PSF
+    NX = NY = 2 * nx
     for mode in (False, True):
         hr, hi = prep_h(psf_t, nx, nx, torch.float32, real_transfer=mode)
         out = psf_convolve_h(x, hr, hi)
         ref = psf_convolve_h_plain(x, hr, hi)
+        # x read, H read, out written; per band a real x transform of
+        # each of ny columns and back, a complex y transform of nx + 1
+        # rows and back, and the product with H
+        nbytes = 4 * (2 * x.numel() + hr.numel()
+                      + (0 if hi is None else hi.numel()))
+        flops = nband * (fft_flops(NX, 2 * nx, real=True)
+                         + fft_flops(NY, 2 * (nx + 1))
+                         + (nx + 1) * NY * (2 if hi is None else 6))
         recs.append(_record(
             f"K1 psf_convolve_h {'real' if hi is None else 'complex'}-H",
             x.shape, out, ref, lambda: psf_convolve_h(x, hr, hi),
-            lambda: psf_convolve_h_plain(x, hr, hi), timing))
+            lambda: psf_convolve_h_plain(x, hr, hi), timing,
+            work=(nbytes, flops)))
         del hr, hi, out, ref
     del psf_t
 
@@ -258,17 +346,82 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
         rr, ri = _fft2_pruned_plain(xr, xi, Ng, Ng, inv, pin, pout)
         out = torch.complex(yr, yi)
         ref = torch.complex(rr, ri)
+        nout = out.shape[-1]
         del yr, yi, rr, ri
+        # the library call: one torch.fft over the zero-padded stack
+        zpad = torch.zeros((P, Ng, Ng), dtype=torch.complex64,
+                           device=device)
+        zpad[:, :nin, :nin] = torch.complex(xr, xi)
+        flib = torch.fft.ifft2 if inv else torch.fft.fft2
         recs.append(_record(
             name, (P, nin, nin), out, ref,
             lambda: fft2_c2c_pruned(xr, xi, pruned_in=pin,
                                     pruned_out=pout, **kw),
             lambda: _fft2_pruned_plain(xr, xi, Ng, Ng, inv, pin, pout),
-            timing))
-        del out, ref, xr, xi
+            timing, work=(8 * P * (nin ** 2 + nout ** 2),
+                          P * fft_flops(Ng, nin + nout)),
+            flib=lambda: flib(zpad)))
+        del out, ref, xr, xi, zpad
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return recs
+
+
+def _wtaps(w, live, k, P):
+    """The w taps in planes [0, P) of each live visibility (one each
+    without w gridding, ``w`` None)."""
+    import torch
+    if w is None:
+        return torch.ones(int(live.sum()), device=live.device)
+    return taps_in(w[live], k, P)
+
+
+def spread_work(w, live, k, P, nslots, Thx, Thy):
+    """(bytes, operations) of a spread of (entries, C) visibilities:
+    positions (rows 0-2), weighted visibilities and slot ranges read
+    once, the live slots' (2, P, Thx, Thy) blocks written once. ``w``:
+    the visibilities' w coordinates relative to the first of the P
+    planes (None without w gridding); ``live``: their mask."""
+    ne, C = live.shape
+    nbytes = 4 * (5 * ne * C + ne + 2 * nslots + 2 * P * nslots * Thx * Thy)
+    return nbytes, gridding_flops(k, _wtaps(w, live, k, P))
+
+
+def degrid_work(w, live, k, P, ntiles, Thx, Thy, Nx, Ny, accumulate=False):
+    """(bytes, operations) of a degrid: positions and tile ids read once,
+    the grid points under the ``ntiles`` live tiles' windows (both
+    components, P planes) read once, the visibilities written once (and
+    read, when they are accumulated)."""
+    ne, C = live.shape
+    npts = min(ntiles * Thx * Thy, Nx * Ny)
+    nbytes = 4 * (3 * ne * C + ne + 2 * P * npts
+                  + (4 if accumulate else 2) * ne * C)
+    return nbytes, gridding_flops(k, _wtaps(w, live, k, P))
+
+
+def fold_work(nq, nslots, Thx, Thy, ntiles, Nx, Ny):
+    """(bytes, operations) of a fold: the live blocks and the tile table
+    read once, the grids written once; one add per block element."""
+    nel = nq * nslots * Thx * Thy
+    return 4 * (nel + ntiles + nq * Nx * Ny), float(nel)
+
+
+def fold_library(Y, tile, live, nty, txs, tys, k, Nx, Ny):
+    """One ``index_add_`` that folds the live slots of Y (nq, NS, Thx,
+    Thy) into (nq, Nx * Ny) grids: the indices and the source are made
+    here, outside the timed call."""
+    import torch
+    nq, _, Thx, Thy = Y.shape
+    dev = Y.device
+    t = tile[live].long()
+    X = torch.remainder(((t // nty) * txs - k // 2)[:, None]
+                        + torch.arange(Thx, device=dev), Nx)
+    Yi = torch.remainder(((t % nty) * tys - k // 2)[:, None]
+                         + torch.arange(Thy, device=dev), Ny)
+    flat = (X[:, :, None] * Ny + Yi[:, None, :]).reshape(-1)
+    src = Y[:, live].reshape(nq, -1).contiguous()
+    out = torch.zeros((nq, Nx * Ny), dtype=Y.dtype, device=dev)
+    return lambda: out.index_add_(1, flat, src)
 
 
 def pg_plans(ds, nx, epsilon, device):
@@ -343,13 +496,20 @@ def pg_kernel_checks(res, nx, epsilon, device, timing=True):
 
         Yk, Yp = spread_k(), spread_p().contiguous()
         live = slots["live"]  # the kernel writes live slots only
+        work = spread_work(p["pos"][:, 2] if nw > 1 else None,
+                           p["pm"] != 0, k, nw, int(live.sum()), Thx, Thy)
         recs.append(_record(f"K4 pg_spread ({label} plan)", shape,
                             Yk[:, live], Yp[:, live], spread_k, spread_p,
-                            timing))
+                            timing, work=work))
         del Yk
         Gk, Gp = fold_k(Yp), fold_p(Yp)
-        recs.append(_record(f"K5 pg_fold ({label} plan)", Gp.shape, Gk, Gp,
-                            lambda: fold_k(Yp), lambda: fold_p(Yp), timing))
+        recs.append(_record(
+            f"K5 pg_fold ({label} plan)", Gp.shape, Gk, Gp,
+            lambda: fold_k(Yp), lambda: fold_p(Yp), timing,
+            work=fold_work(Yp.shape[0], int(live.sum()), Thx, Thy,
+                           p["ntx"] * p["nty"], p["Nx"], p["Ny"]),
+            flib=fold_library(Yp, slots["tile"], live, p["nty"], txs, tys,
+                              k, p["Nx"], p["Ny"])))
         del Gk, Gp, Yp
         Gk, Gp = fold_k(spread_k()), fold_p(spread_p())
         recs.append(_record(f"K4+K5 grids ({label} plan)", Gp.shape, Gk, Gp,
@@ -374,9 +534,14 @@ def pg_kernel_checks(res, nx, epsilon, device, timing=True):
     def degrid_p():
         return pg.pg_degrid_plain(gr, gi, p["pos"], p["tid"], **dkw)
 
+    live = p["pm"] != 0
+    ntiles = int(torch.unique(p["tid"][live.any(dim=1)]).numel())
+    work = degrid_work(p["pos"][:, 2] if p["nw"] > 1 else None, live,
+                       p["k"], p["nw"], ntiles, p["txs"] + p["k"],
+                       p["tys"] + p["k"], p["Nx"], p["Ny"])
     recs.append(_record("K6 pg_degrid (image plan, model grids)",
                         (p["nentries"], 2, p["C"]), degrid_k(), degrid_p(),
-                        degrid_k, degrid_p, timing))
+                        degrid_k, degrid_p, timing, work=work))
     return recs, plans
 
 
@@ -448,6 +613,273 @@ def report_path(tag, res, truth, nx):
     need(all(s["local_max"] for s in srcs),
          f"{tag}: bright sources not recovered at their pixels: {srcs}")
     return srcs
+
+
+def klean_path(rpg, device):
+    """_klean on copies of the pg path's dds (its xds and gridding
+    reused); returns a dict like main_path's, every kernel's launches in
+    the klean stage (counts set to 0 just before and read just after)."""
+    import torch
+
+    from pfb_tpu_torch.workers.klean import _klean
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    dds = [dict(ds) for ds in rpg["dds"]]
+    stats = {}
+    t0 = time.perf_counter()
+    model, residual = _klean(ddsi=dds, write=False, device=device,
+                             stats=stats, verbose=0, **KLEAN)
+    sync(device)
+    res = dict(t={"klean": time.perf_counter() - t0},
+               launches={"klean": {k: fn.launches for k, fn in cnt.items()}},
+               stats=stats, model=model, residual=residual, dds=dds,
+               dirty_rms=rpg["dirty_rms"])
+    if device.type == "cuda":
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def blocked_summary(bp):
+    p0 = bp["p0"]
+    return dict(k=p0["k"], nw=bp["nw"], nblocks=bp["nblocks"], B=bp["B"],
+                Nx=p0["Nx"], NEg=bp["NEg"], C=p0["C"],
+                tiles=[p0["txs"], p0["tys"]], NT=bp["NT"],
+                entries_per_block=[int(n) for n in bp["nelive"]])
+
+
+def gs_kernel_checks(bp, vr, vi, w, image, label, timing=True, reps=5):
+    """K7, K8 and K9 against their plain versions on the block of ``bp``
+    with the most entries: the spread of the weighted visibilities (vr,
+    vi, weights w), the fold of its slots, the degrid of the block's
+    grids of ``image``."""
+    import torch
+
+    from pfb_tpu_torch.ops import pg_stream as pgs
+    from pfb_tpu_torch.ops.wgridder import _image_to_grid
+    p0 = bp["p0"]
+    k, B, NT = p0["k"], bp["B"], bp["NT"]
+    txs, tys = p0["txs"], p0["tys"]
+    Thx, Thy = txs + k, tys + k
+    b = int(bp["nelive"].argmax())
+    ne = int(bp["nelive"][b])
+    gmap = bp["gmap"][b, :ne]
+    woff = int(bp["woff"][b, 0])
+    st, ct, tslot = bp["start"][b], bp["count"][b], bp["tslot"][b]
+    vis = pgs._weighted_vispack(bp, vr, vi, w)
+    g = gmap.long()
+    wrel = bp["pos"][g, 2] - woff
+    live = bp["gpm"][g] != 0
+    nslots = int((ct > 0).sum())
+    tag = f"({label}, block {b} of {bp['nblocks']}, {ne} entries)"
+    recs = []
+
+    skw = dict(woff=woff, beta=p0["beta"], k=k, B=B, Thx=Thx, Thy=Thy)
+
+    def spread_k():
+        return pgs.pg_spread_gs(bp["pos"], vis, gmap, st, ct, **skw)
+
+    def spread_p():
+        return pgs.pg_spread_gs_plain(bp["pos"], vis, gmap, st, ct, **skw)
+
+    Yk, Yp = spread_k(), spread_p()
+    sl = ct > 0  # the kernel writes the slots with entries only
+    recs.append(_record(f"K7 pg_spread_gs {tag}", Yp.shape, Yk[:, :, sl],
+                        Yp[:, :, sl], spread_k, spread_p, timing,
+                        work=spread_work(wrel, live, k, B, nslots, Thx,
+                                         Thy), reps=reps))
+    del Yk
+    Y = Yp.reshape(2 * B, NT, Thx, Thy).contiguous()
+    del Yp
+    fkw = dict(nty=p0["nty"], txs=txs, tys=tys, k=k, Nx=p0["Nx"],
+               Ny=p0["Ny"])
+
+    def fold_k():
+        return pgs.pg_fold_gs(Y, tslot, ntx=p0["ntx"], **fkw)
+
+    def fold_p():
+        return pgs.pg_fold_gs_plain(Y, tslot, **fkw)
+
+    tile = torch.zeros(NT, dtype=torch.long, device=Y.device)
+    inb = tslot >= 0
+    tile[tslot[inb].long()] = torch.arange(tslot.numel(),
+                                           device=Y.device)[inb]
+    recs.append(_record(f"K8 pg_fold_gs {tag}", (2 * B, p0["Nx"], p0["Ny"]),
+                        fold_k(), fold_p(), fold_k, fold_p, timing,
+                        work=fold_work(2 * B, nslots, Thx, Thy,
+                                       tslot.numel(), p0["Nx"], p0["Ny"]),
+                        flib=fold_library(Y, tile, sl, p0["nty"], txs, tys,
+                                          k, p0["Nx"], p0["Ny"]),
+                        reps=reps))
+    del Y
+
+    gr, gi = _image_to_grid(image.to(p0["rdtype"]), p0["nx"], p0["ny"],
+                            p0["cellx"], p0["celly"], k, p0["beta"],
+                            p0["Nx"], p0["Ny"], True, B,
+                            float(bp["w0s"][b]), float(bp["dw"]), False,
+                            p0["x0"], p0["y0"])
+    gr, gi = gr.contiguous(), gi.contiguous()
+    dkw = dict(woff=woff, beta=p0["beta"], k=k, B=B, txs=txs, tys=tys,
+               nty=p0["nty"])
+    acc_shape = (bp["NEg"] + 1, 2, p0["C"])
+    acc_t = torch.zeros(acc_shape, dtype=gr.dtype, device=gr.device)
+    gpm = bp["gpm"][:, None]
+
+    def degrid(fn, acc):
+        return fn(gr, gi, bp["pos"], bp["utid"], gmap, acc, **dkw)
+
+    out = degrid(pgs.pg_degrid_gs, torch.zeros_like(acc_t)) * gpm
+    ref = degrid(pgs.pg_degrid_gs_plain, torch.zeros_like(acc_t)) * gpm
+    recs.append(_record(
+        f"K9 pg_degrid_gs {tag}", acc_shape, out, ref,
+        lambda: degrid(pgs.pg_degrid_gs, acc_t),
+        lambda: degrid(pgs.pg_degrid_gs_plain, acc_t), timing,
+        work=degrid_work(wrel, live, k, B, nslots, Thx, Thy, p0["Nx"],
+                         p0["Ny"], accumulate=True), reps=reps))
+    return recs
+
+
+def blocked_checks(rpg, nx, device, timing=True):
+    """The blocked residual operator (plane_block=4) against the
+    all-planes one on one pg dataset and the pg path's model, and K7-K9
+    against plain on its largest block; returns (relative difference,
+    the blocked plan's summary, records)."""
+    import torch
+
+    from pfb_tpu_torch.ops.gridder import make_hessian_dds
+    ds = dict(rpg["dds"][0], bandid=0)
+    rdt = torch.float32 if device.type == "cuda" else torch.float64
+    x = torch.as_tensor(rpg["model"][rpg["dds"][0]["bandid"]][None]).to(
+        device, rdt)
+    kw = dict(backend="pg", epsilon=KLEAN["epsilon"], use_beam=False,
+              device=device)
+    hb = make_hessian_dds([ds], 1, 1.0, nx, nx,
+                          plane_block=KLEAN["plane_block"], **kw)
+    yb = hb(x)
+    yu = make_hessian_dds([ds], 1, 1.0, nx, nx, plane_block=None, **kw)(x)
+    err = float((yb - yu).abs().max() / yu.abs().max())
+    del yb, yu
+    bp = hb.plans[0]
+    vis = torch.as_tensor(rpg["xds"][0]["VIS"]).to(device)
+    w = torch.as_tensor(ds["WEIGHT"] * ds["MASK"]).to(device, rdt)
+    recs = gs_kernel_checks(bp, vis.real.to(rdt), vis.imag.to(rdt), w, x[0],
+                            f"{nx}^2 klean dataset 0", timing=timing)
+    return err, blocked_summary(bp), recs
+
+
+def flagship(device, cfg=FLAGSHIP, timing=True, reps=3):
+    """bench.py's flagship operator through the blocked engine and
+    through all planes at once: host plan seconds, adjoint and Hessian
+    seconds (median of ``reps`` after a warm-up, host clock ending in a
+    synchronise), Mvis/s and peak device memory of each, their relative
+    difference, and K7-K9 against plain on the largest block."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.ops.gridder import make_hessian_dds
+    from pfb_tpu_torch.ops.pg_stream import make_adjoint_pg_wblocked
+    from pfb_tpu_torch.ops.pgridder import _adjoint_from_plan, plan_consts
+    rng = np.random.default_rng(cfg["seed"])
+    nrow, nchan, nx = cfg["nrow"], cfg["nchan"], cfg["nx"]
+    uvw = rng.normal(scale=1000.0, size=(nrow, 3))
+    uvw[:, 2] *= 0.1
+    freq = np.linspace(0.9e9, 1.1e9, nchan)
+    umax = np.abs(uvw[:, :2]).max() * freq[-1] / 299792458.0
+    cell = 1.0 / (2.0 * umax * 2.0)
+    nvis = nrow * nchan
+    vr = torch.as_tensor(rng.normal(size=(nrow, nchan)).astype(
+        np.float32)).to(device)
+    vi = torch.as_tensor(rng.normal(size=(nrow, nchan)).astype(
+        np.float32)).to(device)
+    ds = dict(UVW=uvw, FREQ=freq, WEIGHT=np.ones((nrow, nchan), np.float32),
+              MASK=np.ones((nrow, nchan), np.float32), bandid=0,
+              cell_rad=cell)
+
+    def timed(fn, *args):
+        out = fn(*args)
+        sync(device)
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync(device)
+            ts.append(time.perf_counter() - t0)
+        return out, sorted(ts)[len(ts) // 2]
+
+    out, imgs = {}, {}
+    for label, pb in (("blocked", cfg["plane_block"]), ("all planes", None)):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hess = make_hessian_dds([ds], 1, 1.0, nx, nx, backend="pg",
+                                epsilon=cfg["epsilon"], plane_block=pb,
+                                use_beam=False, device=device)
+        sync(device)
+        t_plan = time.perf_counter() - t0
+        p = hess.plans[0]
+        if pb:
+            adj = make_adjoint_pg_wblocked(p)
+        else:
+            def adj(a, b, p=p, consts=plan_consts(p)):
+                return _adjoint_from_plan(p, a, b, None, consts=consts)
+        img, t_adj = timed(adj, vr, vi)
+        himg, t_hess = timed(hess, img[None])
+        r = dict(plan_s=t_plan, adjoint_s=t_adj, hessian_s=t_hess,
+                 adjoint_Mvis_s=nvis / t_adj / 1e6,
+                 hessian_Mvis_s=nvis / t_hess / 1e6)
+        if pb:
+            r["plan"] = blocked_summary(p)
+        else:
+            r["plan"] = dict(k=p["k"], nw=p["nw"], Nx=p["Nx"],
+                             entries=p["nentries"], C=p["C"],
+                             tiles=[p["txs"], p["tys"]])
+        if device.type == "cuda":
+            r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        out[label] = r
+        imgs[label] = (img, himg[0])
+        if pb:
+            bp = p
+        del hess, adj, p
+    (ab, hb), (au, hu) = imgs["blocked"], imgs["all planes"]
+    out["adjoint_rel_diff"] = float((ab - au).abs().max() / au.abs().max())
+    out["hessian_rel_diff"] = float((hb - hu).abs().max() / hu.abs().max())
+    del imgs, au, hu, hb
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    recs = gs_kernel_checks(bp, vr, vi, None, ab, f"flagship {nx}^2",
+                            timing=timing, reps=reps)
+    return out, recs
+
+
+def report_klean(rkl, truth, nx):
+    """Print the klean path's stage time, memory, residuals and
+    launches; check its residual and image."""
+    import numpy as np
+    st = rkl["stats"]
+    print("[klean] stage seconds " + json.dumps(
+        {k: round(v, 3) for k, v in rkl["t"].items()}))
+    print(f"[klean] peak device memory {rkl['peak_mem_gb']:.2f} GiB; "
+          f"dirty MFS rms {rkl['dirty_rms']:.6e}")
+    for k, (r, m, c) in enumerate(zip(st["rms"], st["rmax"],
+                                      st["status"])):
+        print(f"[klean] major {k + 1}: MFS residual rms {r:.6e}, "
+              f"peak {m:.6e}, clark status {c}")
+    print("[klean] launches " + json.dumps(rkl["launches"]))
+    srcs = source_checks(rkl, truth)
+    for s in srcs:
+        print(f"[klean] source {s}")
+    need(st["rms"] and all(np.isfinite(v) for v in st["rms"]) and
+         np.isfinite(rkl["model"]).all(), "klean: non-finite model/residual")
+    need(rkl["model"].shape == (len(rkl["dds"]), nx, nx),
+         f"klean: model shape {rkl['model'].shape}")
+    need(st["rms"][-1] < rkl["dirty_rms"],
+         f"klean: residual rms {st['rms'][-1]} not below dirty rms "
+         f"{rkl['dirty_rms']}")
+    need(all(s["local_max"] for s in srcs),
+         f"klean: bright sources not recovered at their pixels: {srcs}")
 
 
 def main():
@@ -541,9 +973,52 @@ def main():
             need(lp["spotless"][k] > 0,
                  f"{k} never launched inside pg _spotless")
         need(lp["spotless"]["K6"] > 0, "K6 never launched inside _spotless")
+        need(xerr <= XTOL, f"pg vs wgrid dirty {xerr} > {XTOL}")
+
+        # 9. klean path (the pg path's xds and dds reused)
+        print("[klean] reuses the pg path's xds and copies of its dds")
+        rkl = klean_path(rpg, device)
+        report_klean(rkl, truth, NX)
+        lk = rkl["launches"]["klean"]
+        for k in launches:
+            launches[k] += lk[k]
+        del rkl
+
+        # 10. blocked against unblocked, K7-K9 against plain (2048^2)
+        berr, bsum, gs_recs = blocked_checks(rpg, NX, device)
+        print("[blocked] klean path's blocked plan (dataset 0) "
+              + json.dumps(bsum))
+        print(f"[blocked] residual operator plane_block="
+              f"{KLEAN['plane_block']} vs all planes (dataset 0, pg model):"
+              f" max|diff|/max = {berr:.3e} (bound {BTOL})")
+        for r in gs_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += gs_recs
+        del rpg
+        torch.cuda.empty_cache()
+
+        # 11. the blocked engine at the flagship size
+        fl, fl_recs = flagship(device)
+        for label in ("blocked", "all planes"):
+            print(f"[flagship] {label} " + json.dumps(fl[label]))
+        print(f"[flagship] blocked vs all planes: adjoint "
+              f"{fl['adjoint_rel_diff']:.3e}, Hessian "
+              f"{fl['hessian_rel_diff']:.3e} (bound {BTOL})")
+        for r in fl_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += fl_recs
+
+        # checks of phases 9-11 and of every kernel record
+        for k in ("K7", "K8", "K9"):
+            need(lk[k] > 0, f"{k} never launched inside _klean")
+        for k in ("K4", "K5", "K6"):
+            need(lk[k] == 0, f"{k} launched inside _klean: its residual "
+                 "did not take the blocked engine")
         bad = [r["name"] for r in recs if not r["ok"]]
         need(not bad, f"kernel disagrees with its plain version: {bad}")
-        need(xerr <= XTOL, f"pg vs wgrid dirty {xerr} > {XTOL}")
+        need(berr <= BTOL, f"blocked vs all planes at {NX}^2: {berr}")
+        for key in ("adjoint_rel_diff", "hessian_rel_diff"):
+            need(fl[key] <= BTOL, f"flagship {key} {fl[key]} > {BTOL}")
 
         def worst(prefix):
             return max(r["max_abs_err"] for r in recs
@@ -562,13 +1037,19 @@ def main():
                  ("K5", "pg_fold", "pg_fold.cu",
                   "pfb_tpu/ops/pgridder.py:511"),
                  ("K6", "pg_degrid", "pg_degrid.cu",
-                  "pfb_tpu/ops/pgridder.py:848")]
+                  "pfb_tpu/ops/pgridder.py:848"),
+                 ("K7", "pg_spread_gs", "pg_grid.cu",
+                  "pfb_tpu/ops/pg_stream.py:379"),
+                 ("K8", "pg_fold_gs", "pg_fold.cu",
+                  "pfb_tpu/ops/pg_stream.py:481"),
+                 ("K9", "pg_degrid_gs", "pg_degrid.cu",
+                  "pfb_tpu/ops/pg_stream.py:586")]
         kern = {"kernels": [
             {"name": name, "route": "cuda",
              "source": f"pfb_tpu_torch/csrc/{src}", "replaces": rep,
              "launches": launches[k], "max_abs_err": worst(k + " "),
-             "ms": first(k + " ", "ms"),
-             "plain_ms": first(k + " ", "plain_ms")}
+             **{key: first(k + " ", key) for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
             for k, name, src, rep in table]}
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

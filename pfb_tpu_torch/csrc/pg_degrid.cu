@@ -23,18 +23,37 @@
 //   (loops over kMaxTaps taps, unrolled, with a guard on k).
 // FP32 FMA throughout, expf/sqrtf for the factors; no fast math.
 // Deterministic: each output is summed by one thread in a fixed order.
+//
+// K9, the same kernel over one w block of the w-plane-blocked engine
+// (pfb_tpu_torch/ops/pg_stream.py), replaces
+// pfb_tpu/ops/pg_stream.py:_degrid_pallas_gs (Pallas kernel
+// _degrid_kernel_gs): one CUDA block per position of the block's entry
+// map gmap, whose global entry e it degrids from the block's B planes
+// (w relative to the block's first plane woff, w factors always) and
+// ADDS to acc[e]. No wrap-padded grid copies, no (8, 128)-aligned window
+// starts (pos rows 3-6): indices are taken modulo (Nx, Ny) from the
+// tile's true window start. A block's map holds each entry once, so the
+// add needs no atomics, and blocks are launched one after another, so
+// the sum over the 2-3 blocks an entry reaches has a fixed order.
 #include "pg_es.cuh"
 
 namespace pfbt {
 
+// kGS: K9 (entry gmap[blockIdx.x], w relative to woff, w factors
+// always, the result added to out); otherwise K6 (entry blockIdx.x, w
+// factors when nw > 1, the result written).
+template <bool kGS>
 __global__ void pg_degrid_kernel(const float* __restrict__ gr,
                                  const float* __restrict__ gi,
                                  const float* __restrict__ pos,
                                  const int* __restrict__ tid,
+                                 const int* __restrict__ gmap,
                                  float* __restrict__ out, int C, int nw,
                                  int Thx, int Thy, int txs, int tys, int nty,
-                                 int Nx, int Ny, int k, float beta) {
-  const int e = blockIdx.x;
+                                 int Nx, int Ny, int k, float beta,
+                                 float woff) {
+  const int e = kGS ? gmap[blockIdx.x] : blockIdx.x;
+  const bool do_w = kGS || nw > 1;
   const int t = tid[e];
   const int h = k / 2;
   const int sx = posmod((t / nty) * txs - h, Nx);
@@ -45,10 +64,10 @@ __global__ void pg_degrid_kernel(const float* __restrict__ gr,
   const float* pe = pos + static_cast<size_t>(e) * 8 * C;
   const size_t plane = static_cast<size_t>(Nx) * Ny;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float u = pe[c], v = pe[C + c], wf = pe[2 * C + c];
+    const float u = pe[c], v = pe[C + c], wf = pe[2 * C + c] - woff;
     const int x0 = first_tap(u, kh), y0 = first_tap(v, kh);
-    const int p0 = nw > 1 ? first_tap(wf, kh) : 0;
-    const int KW = nw > 1 ? k + 1 : 1;
+    const int p0 = do_w ? first_tap(wf, kh) : 0;
+    const int KW = do_w ? k + 1 : 1;
     float cv[kMaxTaps];
     int ycol[kMaxTaps];
 #pragma unroll
@@ -62,7 +81,7 @@ __global__ void pg_degrid_kernel(const float* __restrict__ gr,
     for (int dp = 0; dp < KW; ++dp) {
       const int p = p0 + dp;
       if (p < 0 || p >= nw) continue;
-      const float cw = nw > 1
+      const float cw = do_w
           ? es_tap(static_cast<float>(p), wf, rkh, betak) : 1.0f;
 #pragma unroll
       for (int dx = 0; dx < kMaxTaps; ++dx) {
@@ -86,26 +105,57 @@ __global__ void pg_degrid_kernel(const float* __restrict__ gr,
         ai = fmaf(f, si, ai);
       }
     }
-    out[(static_cast<size_t>(e) * 2) * C + c] = ar;
-    out[(static_cast<size_t>(e) * 2 + 1) * C + c] = ai;
+    float* o = out + static_cast<size_t>(e) * 2 * C + c;
+    if (kGS) {
+      o[0] += ar;
+      o[C] += ai;
+    } else {
+      o[0] = ar;
+      o[C] = ai;
+    }
   }
+}
+
+template <bool kGS>
+int launch_degrid(const float* gr, const float* gi, const float* pos,
+                  const int* tid, const int* gmap, float* out, int NE, int C,
+                  int nw, int Thx, int Thy, int txs, int tys, int nty, int Nx,
+                  int Ny, int k, double beta, int woff, void* stream) {
+  if (k < 1 || k + 1 > kMaxTaps || NE < 1 || C < 1 || nw < 1 || Thx > Nx ||
+      Thy > Ny)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int T = C < 128 ? C : 128;
+  pg_degrid_kernel<kGS><<<NE, T, 0, static_cast<cudaStream_t>(stream)>>>(
+      gr, gi, pos, tid, gmap, out, C, nw, Thx, Thy, txs, tys, nty, Nx, Ny, k,
+      static_cast<float>(beta), static_cast<float>(woff));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace pfbt
 
-// gr, gi (nw, Nx, Ny), pos (NE, 8, C), tid (NE,) int32 -> out (NE, 2, C).
-// Returns a CUDA error code (0 on success).
+// K6. gr, gi (nw, Nx, Ny), pos (NE, 8, C), tid (NE,) int32 -> out (NE, 2,
+// C). Returns a CUDA error code (0 on success).
 extern "C" int pfbt_pg_degrid(const float* gr, const float* gi,
                               const float* pos, const int* tid, float* out,
                               int NE, int C, int nw, int Thx, int Thy,
                               int txs, int tys, int nty, int Nx, int Ny,
                               int k, double beta, void* stream) {
-  if (k < 1 || k + 1 > pfbt::kMaxTaps || NE < 1 || C < 1 || nw < 1 ||
-      Thx > Nx || Thy > Ny)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int T = C < 128 ? C : 128;
-  pfbt::pg_degrid_kernel<<<NE, T, 0, static_cast<cudaStream_t>(stream)>>>(
-      gr, gi, pos, tid, out, C, nw, Thx, Thy, txs, tys, nty, Nx, Ny, k,
-      static_cast<float>(beta));
-  return static_cast<int>(cudaGetLastError());
+  return pfbt::launch_degrid<false>(gr, gi, pos, tid, nullptr, out, NE, C,
+                                    nw, Thx, Thy, txs, tys, nty, Nx, Ny, k,
+                                    beta, 0, stream);
+}
+
+// K9. The block's grids gr, gi (B, Nx, Ny), the global stream's pos
+// (NEg + 1, 8, C) and entry tiles utid (NEg,) int32, the live prefix of
+// the block's entry map gmap (NE,) int32 and its first plane woff; adds
+// each mapped entry's visibilities to acc (NEg + 1, 2, C).
+extern "C" int pfbt_pg_degrid_gs(const float* gr, const float* gi,
+                                 const float* pos, const int* utid,
+                                 const int* gmap, float* acc, int NE, int C,
+                                 int B, int Thx, int Thy, int txs, int tys,
+                                 int nty, int Nx, int Ny, int k, int woff,
+                                 double beta, void* stream) {
+  return pfbt::launch_degrid<true>(gr, gi, pos, utid, gmap, acc, NE, C, B,
+                                   Thx, Thy, txs, tys, nty, Nx, Ny, k, beta,
+                                   woff, stream);
 }

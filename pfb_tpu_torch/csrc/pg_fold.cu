@@ -20,6 +20,17 @@
 //   needs no zeroing pass.
 // - The pass moves the grid stack once (write) and the live blocks about
 //   once (read, coalesced along y), so device-memory bandwidth bounds it.
+//
+// K8 is the same kernel over one w block of the w-plane-blocked engine
+// (pfb_tpu_torch/ops/pg_stream.py), through its own entry point: it
+// replaces pfb_tpu/ops/pg_stream.py:_fold_pallas_gs (Pallas kernel
+// _fold_kernel_batched), which folds the block's compact slots
+// (2B, NT, Thx, Thy) with unshifted origins into an extended buffer,
+// wraps its margins (_fold_finish) and rolls by (-k/2, -k/2). Shifted
+// origins taken mod N give the same grids, and the gather needs none of
+// the colour batches, DMA semaphores, extended buffer or roll; the
+// block's tile -> slot table (-1 for a tile outside the block) comes
+// from the plan.
 #include "pg_es.cuh"
 
 namespace pfbt {
@@ -81,8 +92,8 @@ __global__ void pg_fold_kernel(const float* __restrict__ Yc,
 
 }  // namespace pfbt
 
-// Yc (nq, NS, Thx, Thy), tslot (ntx * nty,) int32 (compact slot of a live
-// tile, -1 otherwise) -> out (nq, Nx, Ny). Needs Nx >= Thx and
+// K5. Yc (nq, NS, Thx, Thy), tslot (ntx * nty,) int32 (compact slot of a
+// live tile, -1 otherwise) -> out (nq, Nx, Ny). Needs Nx >= Thx and
 // Ny >= Thy. Returns a CUDA error code (0 on success).
 extern "C" int pfbt_pg_fold(const float* Yc, const int* tslot, float* out,
                             int nq, int NS, int Thx, int Thy, int txs,
@@ -95,4 +106,15 @@ extern "C" int pfbt_pg_fold(const float* Yc, const int* tslot, float* out,
   pfbt::pg_fold_kernel<<<grid, T, 0, static_cast<cudaStream_t>(stream)>>>(
       Yc, tslot, out, nq, NS, Thx, Thy, txs, tys, ntx, nty, k / 2, Nx, Ny);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8. One w block's slots Yc (2B, NT, Thx, Thy) and its tile -> slot
+// table tslot (ntx * nty,) int32 -> the block's periodic grids out (2B,
+// Nx, Ny).
+extern "C" int pfbt_pg_fold_gs(const float* Yc, const int* tslot, float* out,
+                               int nq, int NT, int Thx, int Thy, int txs,
+                               int tys, int ntx, int nty, int k, int Nx,
+                               int Ny, void* stream) {
+  return pfbt_pg_fold(Yc, tslot, out, nq, NT, Thx, Thy, txs, tys, ntx, nty,
+                      k, Nx, Ny, stream);
 }

@@ -33,6 +33,19 @@
 //   which sums its visibilities in plan order, so reruns are bitwise
 //   equal.
 // FP32 FMA throughout, expf/sqrtf for the factors; no fast math.
+//
+// K7, the same kernel over one w block of the w-plane-blocked engine
+// (pfb_tpu_torch/ops/pg_stream.py), replaces
+// pfb_tpu/ops/pg_stream.py:_grid_pallas_gs (Pallas kernel
+// _grid_kernel_gs, "identical math to pgridder._grid_kernel"): a slot's
+// entries are positions [start, start + count) of the block's entry map
+// gmap, which point into the global (tile, w)-sorted stream; the w
+// coordinate there is absolute and the block's first plane woff is
+// subtracted in float32 (exact for the planes a visibility reaches, so
+// taps at exactly k/2 are decided as in K4), and the w factors are
+// evaluated for every block size, one plane included. Output (2, B, NT,
+// Thx, Thy) for the block's B planes and NT compact slots; slots with no
+// entry (the colour padding) are left unwritten.
 #include "pg_es.cuh"
 
 namespace pfbt {
@@ -40,20 +53,26 @@ namespace pfbt {
 constexpr int kRows = 16;  // rows of a warp's patch
 constexpr int kWarps = 8;  // patches (warps) of a block
 
+// kGS: K7 (entries through the block's map gmap, w relative to woff,
+// w factors always); otherwise K4 (entries in plan order, w factors when
+// nw > 1).
+template <bool kGS>
 __global__ void pg_spread_kernel(const float* __restrict__ pos,
                                  const float* __restrict__ vis,
+                                 const int* __restrict__ gmap,
                                  const int* __restrict__ start,
                                  const int* __restrict__ count,
                                  float* __restrict__ out, int C, int NS,
                                  int nw, int Thx, int Thy, int k,
-                                 float beta) {
+                                 float beta, float woff) {
   extern __shared__ int4 smi[];
   const int s = blockIdx.x;
   const int e0 = start[s];
   const int ne = count[s];
   if (ne == 0) return;  // no live tile: the fold never reads this slot
   const int KT = k + 1;
-  const int KW = nw > 1 ? KT : 1;
+  const bool do_w = kGS || nw > 1;
+  const int KW = do_w ? KT : 1;
   const int RB = (Thx + kRows - 1) / kRows, CB = (Thy + 31) / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int patch = blockIdx.y * kWarps + warp;
@@ -78,13 +97,14 @@ __global__ void pg_spread_kernel(const float* __restrict__ pos,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) ar[r] = ai[r] = 0.0f;
 
-  for (int e = e0; e < e0 + ne; ++e) {
+  for (int m = e0; m < e0 + ne; ++m) {
     __syncthreads();  // the previous entry's data are consumed
+    const int e = kGS ? gmap[m] : m;
     const float* pe = pos + static_cast<size_t>(e) * 8 * C;
     const float* ve = vis + static_cast<size_t>(e) * 2 * C;
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
       tap[c] = make_int4(first_tap(pe[c], kh), first_tap(pe[C + c], kh),
-                         nw > 1 ? first_tap(pe[2 * C + c], kh) : 0, 0);
+                         do_w ? first_tap(pe[2 * C + c] - woff, kh) : 0, 0);
       vr[c] = ve[c];
       vi[c] = ve[C + c];
     }
@@ -92,9 +112,9 @@ __global__ void pg_spread_kernel(const float* __restrict__ pos,
       const int a = i / (C * KT);
       const int r = i - a * C * KT;
       const int c = r / KT, j = r - c * KT;
-      const float x = pe[a * C + c];
+      const float x = a == 2 ? pe[a * C + c] - woff : pe[a * C + c];
       fu[a * C * KT + r] =
-          a < 2 || nw > 1
+          a < 2 || do_w
               ? es_tap(static_cast<float>(first_tap(x, kh) + j), x, rkh,
                        betak)
               : (j == 0 ? 1.0f : 0.0f);
@@ -135,30 +155,51 @@ __global__ void pg_spread_kernel(const float* __restrict__ pos,
   }
 }
 
+template <bool kGS>
+int launch_spread(const float* pos, const float* vis, const int* gmap,
+                  const int* start, const int* count, float* out, int C,
+                  int NS, int nw, int Thx, int Thy, int k, double beta,
+                  int woff, void* stream) {
+  if (k < 1 || k + 1 > kMaxTaps || NS < 1 || nw < 1 || C < 1 || Thx < 1 ||
+      Thy < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(C) *
+      (sizeof(int4) + (3 * (k + 1) + 2) * sizeof(float));
+  const int npatch = nw * ((Thx + kRows - 1) / kRows) * ((Thy + 31) / 32);
+  cudaError_t err = cudaFuncSetAttribute(
+      pg_spread_kernel<kGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(NS, (npatch + kWarps - 1) / kWarps);
+  pg_spread_kernel<kGS><<<grid, 32 * kWarps, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      pos, vis, gmap, start, count, out, C, NS, nw, Thx, Thy, k,
+      static_cast<float>(beta), static_cast<float>(woff));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace pfbt
 
-// pos (NE, 8, C), vis (NE, 2, C), start/count (NS,) int32 -> out (2, nw,
-// NS, Thx, Thy); slots with no entries are left unwritten. Returns a
+// K4. pos (NE, 8, C), vis (NE, 2, C), start/count (NS,) int32 -> out (2,
+// nw, NS, Thx, Thy); slots with no entries are left unwritten. Returns a
 // CUDA error code (0 on success).
 extern "C" int pfbt_pg_spread(const float* pos, const float* vis,
                               const int* start, const int* count,
                               float* out, int C, int NS, int nw, int Thx,
                               int Thy, int k, double beta, void* stream) {
-  if (k < 1 || k + 1 > pfbt::kMaxTaps || NS < 1 || nw < 1 || C < 1 ||
-      Thx < 1 || Thy < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(C) *
-      (sizeof(int4) + (3 * (k + 1) + 2) * sizeof(float));
-  const int npatch = nw * ((Thx + pfbt::kRows - 1) / pfbt::kRows) *
-                     ((Thy + 31) / 32);
-  cudaError_t err = cudaFuncSetAttribute(
-      pfbt::pg_spread_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(NS, (npatch + pfbt::kWarps - 1) / pfbt::kWarps);
-  pfbt::pg_spread_kernel<<<grid, 32 * pfbt::kWarps, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      pos, vis, start, count, out, C, NS, nw, Thx, Thy, k,
-      static_cast<float>(beta));
-  return static_cast<int>(cudaGetLastError());
+  return pfbt::launch_spread<false>(pos, vis, nullptr, start, count, out, C,
+                                    NS, nw, Thx, Thy, k, beta, 0, stream);
+}
+
+// K7. pos (NEg + 1, 8, C) and vis (NEg + 1, 2, C) of the global stream,
+// the block's entry map gmap (its live prefix) and per-slot map ranges
+// start/count (NT,) int32, the block's first plane woff -> out (2, B, NT,
+// Thx, Thy); slots with no entries are left unwritten.
+extern "C" int pfbt_pg_spread_gs(const float* pos, const float* vis,
+                                 const int* gmap, const int* start,
+                                 const int* count, float* out, int C, int NT,
+                                 int B, int Thx, int Thy, int k, int woff,
+                                 double beta, void* stream) {
+  return pfbt::launch_spread<true>(pos, vis, gmap, start, count, out, C, NT,
+                                   B, Thx, Thy, k, beta, woff, stream);
 }

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "pfbt_pg_spread": [_P] * 5 + [_I] * 6 + [_D, _P],
     "pfbt_pg_fold": [_P] * 3 + [_I] * 11 + [_P],
     "pfbt_pg_degrid": [_P] * 5 + [_I] * 11 + [_D, _P],
+    "pfbt_pg_spread_gs": [_P] * 6 + [_I] * 7 + [_D, _P],
+    "pfbt_pg_fold_gs": [_P] * 3 + [_I] * 11 + [_P],
+    "pfbt_pg_degrid_gs": [_P] * 6 + [_I] * 12 + [_D, _P],
 }
 
 

@@ -1,8 +1,9 @@
 """Native (C++) host plan building, loaded via ctypes (counterpart of
 pfb_tpu/native/__init__.py).
 
-``plan.cc`` holds the pg gridder's plan builder (uv-tile binning and
-entry packing) and the uv counts of robust weighting. It is host code,
+``plan.cc`` holds the pg gridder's plan builders (uv-tile binning and
+entry packing, and the (tile, w)-sorted global stream of the
+w-plane-blocked engine) and the uv counts of robust weighting. It is host code,
 not a device kernel: ``g++`` compiles it on first use into
 ``build/pfb_tpu_torch/native/<source hash>/`` beside the package (with
 OpenMP when the compiler has it), and a later process loads the built
@@ -78,7 +79,15 @@ def get_lib():
     lib.pg_compute_counts.argtypes = [
         p_dbl, i64, p_dbl, i64, p_u8, i64, i64, dbl, dbl,
         ctypes.c_int, p_dbl]
-    for fn in (lib.pg_plan_count, lib.pg_plan_fill, lib.pg_compute_counts):
+    lib.pg_gs_count.argtypes = [
+        p_dbl, i64, p_dbl, i64, dbl, dbl, i64, i64, i64, i64, i64,
+        i64, dbl, dbl, ctypes.c_int, p_i64]
+    lib.pg_gs_fill.argtypes = [
+        p_dbl, i64, p_dbl, i64, dbl, dbl, i64, i64, i64, i64, i64,
+        i64, dbl, dbl, ctypes.c_int, i64, i64, p_i64, p_i64, p_i64,
+        i64, p_dbl, p_i32, p_dbl, p_i32, p_i64, p_i64, p_i64]
+    for fn in (lib.pg_plan_count, lib.pg_plan_fill, lib.pg_compute_counts,
+               lib.pg_gs_count, lib.pg_gs_fill):
         fn.restype = ctypes.c_int
     _State.lib = lib
     return lib
@@ -137,3 +146,44 @@ def pg_counts_native(uvw, freq, mask, nx, ny, cellx, celly, k=6):
     if code != 0:
         raise ValueError(f"pg_compute_counts: stencil k={k} outside 0..16")
     return out.reshape(int(nx), int(ny))
+
+
+def pg_gs_plan_native(uvw, freq, *, Nx, Ny, cellx, celly, txs, tys, ntx,
+                      nty, w0, dw, nw, C, k):
+    """Native global-stream plan builder (per-visibility coordinates,
+    (tile, w) sort, entry packing) for ops/pg_stream.py: returns (pos
+    (NEg+1, 8, C) f64, gidx (NEg+1, C) i32, gpm (NEg+1, C) f64 0/1,
+    utid (NEg,) i64, pmin, pmax, sxy (NEg,) i64) bit-identical to the
+    numpy twin, or None when no native library is available."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    uvw = np.ascontiguousarray(uvw, np.float64)
+    freq = np.ascontiguousarray(freq, np.float64)
+    nrow, nchan = uvw.shape[0], freq.shape[0]
+    ntiles = ntx * nty
+    counts = np.zeros(ntiles, np.int64)
+    lib.pg_gs_count(uvw, nrow, freq, nchan, cellx, celly, Nx, Ny,
+                    txs, tys, ntx, nty, w0, dw, nw, counts)
+    vis_offsets = np.zeros(ntiles, np.int64)
+    np.cumsum(counts[:-1], out=vis_offsets[1:])
+    entries_per = -(-counts // C)  # 0 for empty tiles
+    entry_offsets = np.zeros(ntiles, np.int64)
+    np.cumsum(entries_per[:-1], out=entry_offsets[1:])
+    NEg = int(entries_per.sum())
+    pos = np.zeros((NEg + 1, 8, C), np.float64)
+    gidx = np.zeros((NEg + 1, C), np.int32)
+    gpm = np.zeros((NEg + 1, C), np.float64)
+    utid = np.zeros(NEg, np.int32)
+    pmin = np.zeros(NEg, np.int64)
+    pmax = np.zeros(NEg, np.int64)
+    sxy = np.zeros(NEg, np.int64)
+    lib.pg_gs_fill(uvw, nrow, freq, nchan, cellx, celly, Nx, Ny,
+                   txs, tys, ntx, nty, w0, dw, nw, C, k, counts,
+                   vis_offsets, entry_offsets, NEg,
+                   pos.reshape(-1), gidx.reshape(-1),
+                   gpm.reshape(-1), utid, pmin, pmax, sxy)
+    # the null entry (coordinates -2k: identically zero factors)
+    pos[NEg, 0:2] = -2.0 * k
+    pos[NEg, 3:5] = -2.0 * k
+    return pos, gidx, gpm, utid.astype(np.int64), pmin, pmax, sxy

@@ -1,6 +1,5 @@
 // Native gridder plan builder (a copy of pfb_tpu/native/plan.cc, so the
-// port builds the same plans without importing the JAX package; the
-// global-stream builder pg_gs_* is not carried over yet).
+// port builds the same plans without importing the JAX package).
 //
 // The pg gridder (pfb_tpu_torch/ops/pgridder.py) needs a host-side plan:
 // every (row, chan) visibility is binned to a uv tile, tiles are packed
@@ -306,6 +305,146 @@ int pg_compute_counts(const double* uvw, int64_t nrow,
       for (int64_t i = 0; i < npix; ++i) out[i] += loc[i];
     }
   }
+  return 0;
+}
+
+
+// ---------------------------------------------------------------
+// Global-stream (tile, w)-sorted plan builder: the native twin of
+// pfb_tpu_torch/ops/pg_stream.py:_pg_plan_gs_numpy. Pass 1 counts
+// visibilities per uv tile; the caller derives entry offsets
+// (ceil(count/C) entries per non-empty tile); pass 2 buckets the
+// visibilities tile-major, stable-sorts each tile's slice by
+// fractional w-plane position (ties keep original order — matching
+// np.lexsort((wpos, tid))), and packs the per-entry position/index/
+// mask arrays bit-identically to the numpy path. It keeps no
+// fixed-size tap arrays, so it takes any support k.
+
+int pg_gs_count(const double* uvw, int64_t nrow, const double* freq,
+                int64_t nchan, double cellx, double celly, int64_t Nx,
+                int64_t Ny, int64_t txs, int64_t tys, int64_t ntx,
+                int64_t nty, double w0, double dw, int nw,
+                int64_t* tile_counts) {
+  Geom g{uvw, freq, nrow, nchan, cellx, celly, Nx, Ny,
+         txs, tys, nty, w0, dw, nw};
+  const int64_t n = nrow * nchan;
+  const int64_t ntiles = ntx * nty;
+#pragma omp parallel
+  {
+    std::vector<int64_t> loc(ntiles, 0);
+#pragma omp for schedule(static) nowait
+    for (int64_t i = 0; i < n; ++i) {
+      double ug, vg, wp;
+      int64_t tid;
+      vis_coords(g, i, &ug, &vg, &wp, &tid);
+      loc[tid]++;
+    }
+#pragma omp critical
+    {
+      for (int64_t t = 0; t < ntiles; ++t) tile_counts[t] += loc[t];
+    }
+  }
+  return 0;
+}
+
+int pg_gs_fill(const double* uvw, int64_t nrow, const double* freq,
+               int64_t nchan, double cellx, double celly, int64_t Nx,
+               int64_t Ny, int64_t txs, int64_t tys, int64_t ntx,
+               int64_t nty, double w0, double dw, int nw, int64_t C,
+               int64_t k, const int64_t* tile_counts,
+               const int64_t* vis_offsets,
+               const int64_t* entry_offsets, int64_t NEg,
+               double* pos, int32_t* gidx, double* gpm,
+               int32_t* utid, int64_t* pmin, int64_t* pmax,
+               int64_t* sxy) {
+  Geom g{uvw, freq, nrow, nchan, cellx, celly, Nx, Ny,
+         txs, tys, nty, w0, dw, nw};
+  const int64_t n = nrow * nchan;
+  const int64_t ntiles = ntx * nty;
+  // bucket visibilities tile-major (stable: ascending i within tile)
+  std::vector<int64_t> order(n);
+  std::vector<double> wpos(n);
+  {
+    std::vector<int64_t> cursor(ntiles);
+    for (int64_t t = 0; t < ntiles; ++t) cursor[t] = vis_offsets[t];
+    for (int64_t i = 0; i < n; ++i) {
+      double ug, vg, wp;
+      int64_t tid;
+      vis_coords(g, i, &ug, &vg, &wp, &tid);
+      wpos[i] = wp;
+      order[cursor[tid]++] = i;
+    }
+  }
+  const int64_t h = k / 2;
+#pragma omp parallel for schedule(dynamic, 64)
+  for (int64_t t = 0; t < ntiles; ++t) {
+    const int64_t cnt = tile_counts[t];
+    if (!cnt) continue;
+    int64_t* slice = order.data() + vis_offsets[t];
+    std::stable_sort(slice, slice + cnt,
+                     [&](int64_t a, int64_t b) {
+                       return wpos[a] < wpos[b];
+                     });
+    const int64_t tx = t / nty, ty = t % nty;
+    const int64_t sxv = posmod(tx * txs - h, Nx);
+    const int64_t syv = posmod(ty * tys - h, Ny);
+    const int64_t ax = (sxv / 8) * 8, ay = (syv / 128) * 128;
+    const double dxw = (double)(sxv - ax), dyw = (double)(syv - ay);
+    const int64_t ne = (cnt + C - 1) / C;
+    for (int64_t e = 0; e < ne; ++e) {
+      const int64_t ent = entry_offsets[t] + e;
+      utid[ent] = (int32_t)t;
+      sxy[ent] = (ax / 8) * 512 + (ay / 128);
+      double wmin = 1e300, wmax = -1e300;
+      double* p = pos + ent * 8 * C;
+      int32_t* gi = gidx + ent * C;
+      double* pm = gpm + ent * C;
+      for (int64_t s = 0; s < C; ++s) {
+        const int64_t sv = e * C + s;
+        double ug = 0.0, vg = 0.0, wp = 0.0;
+        if (sv < cnt) {
+          const int64_t i = slice[sv];
+          int64_t tid_;
+          vis_coords(g, i, &ug, &vg, &wp, &tid_);
+          gi[s] = (int32_t)i;
+          pm[s] = 1.0;
+          if (wp < wmin) wmin = wp;
+          if (wp > wmax) wmax = wp;
+        } else {
+          gi[s] = 0;
+          pm[s] = 0.0;
+        }
+        // identical transforms to _pg_plan_gs (incl. pad slots at
+        // coordinate 0.0, whose values flow through the same mod /
+        // unwrap arithmetic)
+        double ul = std::fmod(ug, (double)Nx);
+        if (ul < 0) ul += (double)Nx;
+        ul = ul - (double)(tx * txs) + (double)h;
+        if (ul < 0) ul += (double)Nx;
+        if (ul > (double)(txs + k)) ul -= (double)Nx;
+        double vl = std::fmod(vg, (double)Ny);
+        if (vl < 0) vl += (double)Ny;
+        vl = vl - (double)(ty * tys) + (double)h;
+        if (vl < 0) vl += (double)Ny;
+        if (vl > (double)(tys + k)) vl -= (double)Ny;
+        p[0 * C + s] = ul;
+        p[1 * C + s] = vl;
+        p[2 * C + s] = wp;
+        p[3 * C + s] = ul + dxw;
+        p[4 * C + s] = vl + dyw;
+        p[5 * C + s] = (double)ax;
+        p[6 * C + s] = (double)ay;
+        p[7 * C + s] = 0.0;
+      }
+      int64_t lo = (int64_t)std::ceil(wmin - (double)k / 2.0);
+      int64_t hi2 = (int64_t)std::floor(wmax + (double)k / 2.0);
+      if (lo < 0) lo = 0;
+      if (hi2 > nw - 1) hi2 = nw - 1;
+      pmin[ent] = lo;
+      pmax[ent] = hi2;
+    }
+  }
+  (void)NEg;
   return 0;
 }
 

@@ -1,9 +1,8 @@
 """Measurement-operator products and the vis-space Hessian
 (counterpart of pfb_tpu/ops/gridder.py: the dft, wgrid and pg backends,
-robust weighting).
+the pg gridder's w-plane-blocked engine, robust weighting).
 
-Not ported: the ``mm`` backend and the pg gridder's w-plane-blocked
-engine (``plane_block``, kernels K7-K9).
+Not ported: the ``mm`` backend.
 """
 
 from functools import partial
@@ -11,6 +10,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.ops.dft import dirty2vis_dft, vis2dirty_dft
 from pfb_tpu_torch.ops.fft import make_psfhat
 from pfb_tpu_torch.ops.weighting import counts_to_weights
@@ -202,10 +202,28 @@ def _ds_beam(ds, use_beam, mask_image, device):
     return beam
 
 
+def _reduce_datasets(per_ds, nband, wsum, sigmainv):
+    """x (nband, nx, ny) -> per band sum_d beam H_d(beam x) / wsum (+
+    sigmainv^2 x) over (bandid, beam or None, H_d) triples; the matvec
+    carries the datasets' plans as ``matvec.plans``."""
+    def matvec(x):
+        conv = [torch.zeros_like(x[0]) for _ in range(nband)]
+        for b, beam, h in per_ds:
+            c = h(x[b] if beam is None else beam * x[b]).to(x.dtype)
+            conv[b] = conv[b] + (c if beam is None else beam * c)
+        out = torch.stack(conv) / wsum
+        if sigmainv:
+            out = out + x * sigmainv**2
+        return out
+
+    matvec.plans = [p for _, _, h in per_ds for p in h.plans]
+    return matvec
+
+
 def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
                      mask_image=None, use_beam=True, backend="dft",
                      epsilon=1e-7, do_wgridding=True, plane_block=None,
-                     device="cpu"):
+                     device=None):
     """The exact-residual operator of the major cycle, built once:
     x (nband, nx, ny) tensor -> R.H W R x / wsum per band.
 
@@ -217,9 +235,13 @@ def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
       ``do_wgridding`` (JAX ops/gridder.py:340-383): one shared geometry
       for more than one dataset, else the dataset's own plan. The
       returned matvec carries its plans as ``matvec.plans``.
-      ``plane_block`` (the w-plane-blocked engine) is not ported.
-    - ``dft``, as in the JAX package, always evaluates the w term."""
-    device = torch.device(device)
+    - ``pg`` with ``plane_block`` and w-gridding runs every dataset
+      through the w-plane-blocked engine (ops/pg_stream.py, JAX
+      ops/gridder.py:303-338): one plan per dataset on its own rows,
+      grid memory O(plane_block x padded grid).
+    - ``dft``, as in the JAX package, always evaluates the w term.
+    ``device`` None means the card when there is one."""
+    device = as_device(device)
     if backend == "wgrid":
         cache = [_ds_tensors(ds, device) for ds in dds]
 
@@ -229,14 +251,27 @@ def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
                                backend=backend, _cache=cache)
         return matvec_loop
 
+    if backend == "pg" and plane_block and do_wgridding:
+        from pfb_tpu_torch.ops.pg_stream import (make_hessian_pg_wblocked,
+                                                 pgrid_plan_wblocked)
+        per_ds = []
+        for ds in dds:
+            bp = pgrid_plan_wblocked(
+                np.asarray(ds["UVW"]), np.asarray(ds["FREQ"]), nx=nx, ny=ny,
+                cellx=float(ds["cell_rad"]), celly=float(ds["cell_rad"]),
+                epsilon=epsilon, plane_block=int(plane_block),
+                x0=float(ds.get("x0", 0.0)), y0=float(ds.get("y0", 0.0)),
+                device=device)
+            per_ds.append((ds["bandid"],
+                           _ds_beam(ds, use_beam, mask_image, device),
+                           make_hessian_pg_wblocked(bp, wgt=ds["WEIGHT"],
+                                                    mask=ds["MASK"])))
+        return _reduce_datasets(per_ds, nband, wsum, sigmainv)
+
     if backend == "pg":
         from pfb_tpu_torch.ops.pgridder import (make_hessian_pg,
                                                 make_hessian_pg_stacked,
                                                 pgrid_plan)
-        if plane_block and do_wgridding:
-            raise NotImplementedError(
-                "plane_block: the w-plane-blocked pg engine (kernels "
-                "K7-K9, ops/pg_stream.py) is not ported yet")
         if len(dds) > 1:
             return make_hessian_pg_stacked(
                 dds, nband, wsum, nx, ny, sigmainv=sigmainv,
@@ -254,19 +289,7 @@ def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
                            _ds_beam(ds, use_beam, mask_image, device),
                            make_hessian_pg(plan, wgt=ds["WEIGHT"],
                                            mask=ds["MASK"])))
-
-        def matvec_pg(x):
-            conv = [torch.zeros_like(x[0]) for _ in range(nband)]
-            for b, beam, h in per_ds:
-                c = h(x[b] if beam is None else beam * x[b]).to(x.dtype)
-                conv[b] = conv[b] + (c if beam is None else beam * c)
-            out = torch.stack(conv) / wsum
-            if sigmainv:
-                out = out + x * sigmainv**2
-            return out
-
-        matvec_pg.plans = [p for _, _, h in per_ds for p in h.plans]
-        return matvec_pg
+        return _reduce_datasets(per_ds, nband, wsum, sigmainv)
 
     if backend != "dft":
         raise ValueError(f"Unknown or unported gridder backend {backend}")

@@ -16,15 +16,15 @@ hand-written kernel (``csrc/pg_grid.cu``, ``pg_fold.cu``,
 it (``*_plain``), which the CPU tests hold against the JAX package's
 Pallas kernels in interpret mode.
 
-Not ported: the w-plane-blocked engine (``plane_block``, kernels K7-K9
-of ops/pg_stream.py) and the row-distributed adjoint.
+The w-plane-blocked engine (``plane_block``, kernels K7-K9) is
+ops/pg_stream.py. Not ported: the row-distributed adjoint.
 """
 
 import numpy as np
 import torch
 
 from pfb_tpu_torch import kernels
-from pfb_tpu_torch.config import kernel_dtype
+from pfb_tpu_torch.config import as_device, kernel_dtype
 from pfb_tpu_torch.native import pg_plan_native
 from pfb_tpu_torch.ops.dft import LIGHTSPEED
 from pfb_tpu_torch.ops.mmgridder import (_bin_to_tiles, _pad_tiles,
@@ -144,18 +144,19 @@ def _auto_tiles(uvw_np, freq_np, Nx, Ny, cellx, celly, k, C):
 def pgrid_plan(uvw, freq, *, nx, ny, cellx, celly, epsilon=1e-7,
                do_wgridding=True, sigma=2.0, capacity=128, tile_u=None,
                tile_v=None, dtype=None, x0=0.0, y0=0.0, w_params=None,
-               nentries_to=None, device="cpu"):
+               nentries_to=None, device=None):
     """Reusable plan: geometry + per-uv-tile binning of the (row, chan)
     visibilities into capacity-C entries, the JAX package's format.
     ``w_params=(nw, w0, dw)`` overrides the w-plane geometry;
     ``nentries_to`` pads the entry stream with no-op entries. Arrays go
-    to ``device``: pos and pm in ``dtype`` (float32 on CUDA, float64 on
-    the CPU by default), tid and idx as int32."""
+    to ``device`` (None: the card when there is one): pos and pm in
+    ``dtype`` (float32 on CUDA, float64 on the CPU by default), tid and
+    idx as int32."""
     k, beta = kernel_params(epsilon)
     Nx, Ny = _grid_setup(nx, ny, cellx, celly, sigma)
     uvw_np = _np(uvw).astype(np.float64)
     freq_np = _np(freq).astype(np.float64)
-    device = torch.device(device)
+    device = as_device(device)
     if dtype is None:
         dtype = kernel_dtype(device, torch.float64)
 
@@ -223,10 +224,10 @@ def pgrid_plan(uvw, freq, *, nx, ny, cellx, celly, epsilon=1e-7,
         uvw_d=dev(uvw_np, dtype), freq_d=dev(freq_np, dtype))
 
 
-def plan_from_jax(plan, device="cpu", dtype=None):
+def plan_from_jax(plan, device=None, dtype=None):
     """The port's plan from a JAX ``pgrid_plan`` dict (arrays as numpy
     or JAX arrays), so that both packages run on the same binning."""
-    device = torch.device(device)
+    device = as_device(device)
     if dtype is None:
         dtype = torch.float64 if np.dtype(plan["rdtype"]) == np.float64 \
             else torch.float32
@@ -305,12 +306,13 @@ def _compact_slots(tid, pm, ntx, nty, txs, tys, k):
 # K4: spread
 
 
-def _factors(pos, lo, hi, beta, k, nw, Thx, Thy):
+def _factors(pos, lo, hi, beta, k, nw, Thx, Thy, do_w=None):
     """Dense ES factors of entries [lo, hi): CU (E, Thx, C), CV (E, C,
     Thy), CW (E, nw, C) from pos rows 0-2. The argument is scaled by
     1/(k/2), as XLA evaluates the JAX package's division by k/2; it
     decides the taps at exactly k/2 (the lowest visibility w sits at
-    exactly k/2 planes from the first plane)."""
+    exactly k/2 planes from the first plane). The w factors are ones
+    unless ``do_w`` (default: nw > 1)."""
     rkh = 1.0 / (k / 2.0)
     p = pos[lo:hi]
     dt, dev = pos.dtype, pos.device
@@ -319,7 +321,9 @@ def _factors(pos, lo, hi, beta, k, nw, Thx, Thy):
     ys = torch.arange(Thy, dtype=dt, device=dev)
     CU = es_kernel((xs[None, :, None] - u[:, None, :]) * rkh, beta, k)
     CV = es_kernel((ys[None, None, :] - v[:, :, None]) * rkh, beta, k)
-    if nw > 1:
+    if do_w is None:
+        do_w = nw > 1
+    if do_w:
         ps = torch.arange(nw, dtype=dt, device=dev)
         CW = es_kernel((ps[None, :, None] - wf[:, None, :]) * rkh, beta, k)
     else:
@@ -327,7 +331,7 @@ def _factors(pos, lo, hi, beta, k, nw, Thx, Thy):
     return CU, CV, CW
 
 
-def pg_spread_plain(pos, vis, slots, *, beta, k, nw, Thx, Thy):
+def pg_spread_plain(pos, vis, slots, *, beta, k, nw, Thx, Thy, do_w=None):
     """Plain K4: per entry the dense product A @ CVv with A[(p, x), c] =
     CW[p, c] CU[x, c] and CVv = [CV v_r, CV v_i] (the TPU kernel's
     formulation), then a segment sum over the compact slots. Returns
@@ -339,7 +343,7 @@ def pg_spread_plain(pos, vis, slots, *, beta, k, nw, Thx, Thy):
     step = max(1, _PLAIN_CHUNK // (nw * Thx * 2 * Thy))
     for lo in range(0, NE, step):
         hi = min(lo + step, NE)
-        CU, CV, CW = _factors(pos, lo, hi, beta, k, nw, Thx, Thy)
+        CU, CV, CW = _factors(pos, lo, hi, beta, k, nw, Thx, Thy, do_w)
         A = (CW[:, :, None, :] * CU[:, None, :, :]).reshape(
             hi - lo, nw * Thx, C)
         vr, vi = vis[lo:hi, 0], vis[lo:hi, 1]
@@ -437,7 +441,8 @@ pg_fold.launches = 0
 # K6: degrid
 
 
-def pg_degrid_plain(gr, gi, pos, tid, *, beta, k, nw, txs, tys, nty):
+def pg_degrid_plain(gr, gi, pos, tid, *, beta, k, nw, txs, tys, nty,
+                    do_w=None):
     """Plain K6, the JAX package's engine="xla" formulation: per entry
     the (nw, Thx, Thy) window from the true window start (indices modulo
     the grid), T[p, c, y] = sum_x CU[c, x] G[p, x, y], then
@@ -456,7 +461,7 @@ def pg_degrid_plain(gr, gi, pos, tid, *, beta, k, nw, txs, tys, nty):
         t = tid[lo:hi].long()
         X = torch.remainder(((t // nty) * txs - h)[:, None] + ax, Nx)
         Y = torch.remainder(((t % nty) * tys - h)[:, None] + ay, Ny)
-        CUT, CV, CW = _factors(pos, lo, hi, beta, k, nw, Thx, Thy)
+        CUT, CV, CW = _factors(pos, lo, hi, beta, k, nw, Thx, Thy, do_w)
         CU = CUT.transpose(1, 2)
         for comp, g in enumerate((gr, gi)):
             win = g[:, X[:, :, None], Y[:, None, :]]  # (nw, E, Thx, Thy)
@@ -682,13 +687,13 @@ def w_geometry_union(dss, nx, ny, cellx, celly, x0, y0, sigma, k,
 
 def stack_pg_plans(dds, *, nx, ny, epsilon=1e-7, do_wgridding=True,
                    use_beam=True, mask_image=None, capacity=128,
-                   device="cpu", dtype=None):
+                   device=None, dtype=None):
     """Per-dataset pg plans with one shared geometry: one w-plane grid
     (:func:`w_geometry_union`) and one tile choice from all datasets.
     Unlike the JAX package, rows and entry counts are not padded to a
     common bucket (that served XLA's compile cache). Returns dict(p0,
     items=[(bandid, plan, weights, beam or None)])."""
-    device = torch.device(device)
+    device = as_device(device)
     cell = float(dds[0]["cell_rad"])
     x0 = float(dds[0].get("x0", 0.0))
     y0 = float(dds[0].get("y0", 0.0))
@@ -732,7 +737,7 @@ def stack_pg_plans(dds, *, nx, ny, epsilon=1e-7, do_wgridding=True,
 
 def make_hessian_pg_stacked(dds, nband, wsum, nx, ny, sigmainv=0.0,
                             use_beam=True, mask_image=None, epsilon=1e-7,
-                            do_wgridding=True, device="cpu"):
+                            do_wgridding=True, device=None):
     """Dataset-reduced vis-space Hessian through the pg gridder over
     plans with one shared geometry (:func:`stack_pg_plans`): x (nband,
     nx, ny) -> per band sum_d beam R.H W R (beam x) / wsum, one dataset

@@ -23,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.ops.cfft import cfft_supported, fft2_c2c_pruned
 from pfb_tpu_torch.ops.dft import LIGHTSPEED, nterm
 
@@ -222,10 +223,12 @@ def _resolve_cfft(fft_engine, rdtype, nx, ny, Nx, Ny, is_cuda):
 
 
 def gi_consts(nx, ny, cellx, celly, k, beta, Nx, Ny, do_w, dw, x0=0.0,
-              y0=0.0, rdtype=torch.float32, device="cpu"):
+              y0=0.0, rdtype=torch.float32, device=None):
     """Grid-correction and w-screen constants shared by
     :func:`_grid_to_image` and :func:`_image_to_grid` (computed in
-    float64, stored in ``rdtype``)."""
+    float64, stored in ``rdtype``, on ``device``; None means the card
+    when there is one)."""
+    device = as_device(device)
     f64 = torch.float64
     li = torch.arange(nx, dtype=f64, device=device) - nx // 2
     mi = torch.arange(ny, dtype=f64, device=device) - ny // 2

@@ -1,1 +1,2 @@
-"""Solvers of the port: power method, primal-dual."""
+"""Solvers of the port: power method, primal-dual, conjugate
+gradients."""

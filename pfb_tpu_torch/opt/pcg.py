@@ -1,0 +1,193 @@
+"""Conjugate-gradient solvers (counterpart of pfb_tpu/opt/pcg.py).
+
+The JAX ``lax.while_loop``s are Python loops here; each iteration reads
+its stopping test from the device. Ported: :func:`cg`, :func:`pcg`
+(one system, global inner products, backtracking), :func:`pcg_bands`
+(per-band step sizes, backtracking and convergence freezing) and
+:func:`pcg_psf`, the klean flux mop's solve. Not ported yet:
+``pcg_bands_hostloop``, ``make_pcg_bands_fused`` (with its CG-fused PSF
+kernel, K2) and ``cg_dct``.
+"""
+
+import torch
+
+from pfb_tpu_torch.ops.psf import hessian_psf_cube
+from pfb_tpu_torch.opt.primal_dual import norm_diff
+from pfb_tpu_torch.utils.logging import get_logger
+
+log = get_logger("PCG")
+
+
+def _vdot(a, b):
+    return torch.sum(a * b)
+
+
+def cg(A, b, x0=None, tol=1e-5, maxit=500):
+    """Textbook CG; converges on the absolute residual norm r.r, as the
+    reference does."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = A(x) - b
+    p = -r
+    rnorm = _vdot(r, r)
+    k = 0
+    while float(rnorm) > tol and k < maxit:
+        Ap = A(p)
+        alpha = rnorm / _vdot(p, Ap)
+        x = x + alpha * p
+        r = r + alpha * Ap
+        rnorm_next = _vdot(r, r)
+        beta = rnorm_next / rnorm
+        p = beta * p - r
+        rnorm = rnorm_next
+        k += 1
+    return x
+
+
+def _safe_div(num, den):
+    """num / den where den != 0, else 0 (the JAX package's guard of the
+    exactly converged case)."""
+    one = torch.ones((), dtype=den.dtype, device=den.device)
+    return torch.where(den != 0, num / torch.where(den == 0, one, den),
+                       torch.zeros_like(num))
+
+
+def _report(name, k, eps, report_freq, verbosity):
+    if verbosity >= 2 and report_freq and k % report_freq == 0:
+        log.info(f"{name}: iter {k}  eps {float(torch.max(eps)):.3e}")
+
+
+def pcg(A, b, x0=None, M=None, tol=1e-5, maxit=500, minit=100,
+        backtrack=True, return_resid=False, verbosity=0, report_freq=10,
+        name="pcg"):
+    """PCG with preconditioner M, at least ``minit`` iterations and a
+    backtracking line search that shrinks alpha by 0.75 while the
+    preconditioned residual norm grows; converges on the relative change
+    of x (norm_diff)."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    if M is None:
+        def M(v):
+            return v
+    r = A(x) - b
+    y = M(r)
+    p = -y
+    eps = 1.0
+    k = 0
+    while (eps > tol or k < minit) and k < maxit:
+        xp, rp = x, r
+        Ap = A(p)
+        rnorm = _vdot(r, y)
+        alpha = _safe_div(rnorm, _vdot(p, Ap))
+        x = xp + alpha * p
+        r = rp + alpha * Ap
+        y = M(r)
+        rnorm_next = _vdot(r, y)
+        while backtrack and bool(rnorm_next > rnorm):
+            alpha = alpha * 0.75
+            x = xp + alpha * p
+            r = rp + alpha * Ap
+            y = M(r)
+            rnorm_next = _vdot(r, y)
+        beta = _safe_div(rnorm_next, rnorm)
+        p = beta * p - y
+        eps_t = norm_diff(x, xp)
+        _report(name, k, eps_t, report_freq, verbosity)
+        eps = float(eps_t)
+        k += 1
+    if verbosity >= 1:
+        log.info(f"{name}: done at iter {k}  eps {eps:.3e}")
+    if return_resid:
+        return x, r
+    return x
+
+
+def _band_vdot(a, b):
+    """Per-band inner product over the trailing (nx, ny) axes."""
+    return torch.sum(a * b, dim=(-2, -1), keepdim=True)
+
+
+def pcg_bands(A, b, x0=None, M=None, tol=1e-5, maxit=500, minit=100,
+              backtrack=True, verbosity=0, report_freq=10, name="pcg"):
+    """Per-band PCG: nband independent systems at once (``A`` acts
+    band-wise on (nband, nx, ny) cubes), each with its own alpha, beta,
+    backtracking and convergence; a converged band freezes (zero step).
+    ``tol <= 0`` runs ``maxit`` plain iterations with no freezing."""
+    x0 = torch.zeros_like(b) if x0 is None else x0
+    has_M = M is not None
+    r = A(x0) - b
+    y = M(r) if has_M else r
+    p = -y
+    rnorm = _band_vdot(r, y)
+    x = x0
+
+    if tol <= 0:
+        for _ in range(maxit):
+            Ap = A(p)
+            alpha = _safe_div(rnorm, _band_vdot(p, Ap))
+            x = x + alpha * p
+            r = r + alpha * Ap
+            y = M(r) if has_M else r
+            rnorm_next = _band_vdot(r, y)
+            p = _safe_div(rnorm_next, rnorm) * p - y
+            rnorm = rnorm_next
+        if verbosity >= 1:
+            log.info(f"{name}: done at iter {maxit}")
+        return x
+
+    dt = torch.promote_types(b.dtype, torch.float32)
+    eps = torch.ones_like(b[:, :1, :1], dtype=dt)
+    active = torch.ones_like(b[:, :1, :1], dtype=torch.bool)
+    k = 0
+    while k < maxit and bool(active.any()):
+        xp = x
+        Ap = A(p)
+        actf = active.to(rnorm.dtype)
+        alpha = _safe_div(rnorm, _band_vdot(p, Ap)) * actf
+
+        def step(alpha):
+            x_ = xp + alpha * p
+            r_ = r + alpha * Ap
+            y_ = M(r_) if has_M else r_
+            return x_, r_, y_, _band_vdot(r_, y_)
+
+        xn, rn, yn, rnorm_next = step(alpha)
+        if backtrack:
+            grow = active & (rnorm_next > rnorm)
+            while bool(grow.any()):
+                alpha = torch.where(grow, alpha * 0.75, alpha)
+                xn, rn, yn, rnorm_next = step(alpha)
+                grow = active & (rnorm_next > rnorm)
+
+        beta = torch.where(active, _safe_div(rnorm_next, rnorm),
+                           torch.ones_like(rnorm))
+        p = beta * p - actf * yn
+        num = torch.sum((xn - xp) ** 2, dim=(-2, -1), keepdim=True)
+        den = 1e-12 + torch.sum(xn ** 2, dim=(-2, -1), keepdim=True)
+        eps = torch.where(active, torch.sqrt(num / den), eps)
+        active = active & ((eps > tol) | (k + 1 < minit))
+        rnorm = torch.where(actf > 0, rnorm_next, rnorm)
+        x, r, y = xn, rn, yn
+        _report(name, k, eps, report_freq, verbosity)
+        k += 1
+    if verbosity >= 1:
+        log.info(f"{name}: done at iter {k}  eps "
+                 f"{float(torch.max(eps)):.3e}")
+    return x
+
+
+def pcg_psf(psfhat, b, x0, beam=None, lastsize=None, sigmainv=0.0, tol=1e-5,
+            maxit=500, minit=100, backtrack=True, verbosity=0,
+            report_freq=10):
+    """Per-band PCG against the PSF Hessian (the klean flux mop):
+    sigmainv > 0 adds Tikhonov regularisation and the diagonal
+    preconditioner M(x) = x / sigmainv."""
+    if lastsize is None:
+        lastsize = psfhat.shape[-2]
+
+    def A(x):
+        return hessian_psf_cube(x, psfhat, beam=beam, lastsize=lastsize,
+                                sigmainv=sigmainv)
+
+    M = (lambda x: x / sigmainv) if sigmainv > 0 else None
+    return pcg_bands(A, b, x0=x0, M=M, tol=tol, maxit=maxit, minit=minit,
+                     backtrack=backtrack, verbosity=verbosity,
+                     report_freq=report_freq)

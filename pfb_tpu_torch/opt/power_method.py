@@ -4,18 +4,21 @@ the JAX while_loop; the convergence test reads eps every iteration."""
 
 import torch
 
+from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.utils.logging import get_logger
 
 
 def power_method(A, imsize, b0=None, tol=1e-5, maxit=250, generator=None,
-                 dtype=torch.float64, device="cpu", verbosity=0,
+                 dtype=torch.float64, device=None, verbosity=0,
                  report_freq=100):
     """Dominant eigenvalue (and eigenvector) of the symmetric operator A:
     b <- A(b_prev); beta = <b_prev, b> / <b_prev, b_prev>; b <- b/|b|;
     eps = |beta - beta_prev| / beta_prev. The start vector is ``b0`` or
     normal draws from ``generator`` (a seeded torch.Generator on
-    ``device``; seed 42 when None)."""
+    ``device``, None meaning the card when there is one; seed 42 when
+    None)."""
     if b0 is None:
+        device = as_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(42)
         b = torch.randn(imsize, generator=generator, dtype=dtype,

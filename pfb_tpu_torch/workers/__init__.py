@@ -1,1 +1,1 @@
-"""Pipeline workers of the port: init -> grid -> spotless."""
+"""Pipeline workers of the port: init -> grid -> spotless or klean."""

@@ -4,14 +4,16 @@ card run ``python -m pytest --noconftest tests/test_torch_gpu.py`` (the
 repo's conftest imports jax, which the card's machine need not have).
 
 Tolerance max|kernel - plain| <= 1e-5 max|plain|: the FFT kernels are
-float32 FFT pipelines (expected ~1e-6 log2 N); the pg gridder's kernels
-sum at most a tile's visibilities per grid point, or k^3 taps per
-visibility, in float32 (expected ~1e-7 to 1e-6)."""
+float32 FFT pipelines (expected ~1e-6 log2 N); the pg gridder's kernels,
+all planes (K4-K6) or one w block (K7-K9), sum at most a tile's
+visibilities per grid point, or k^3 taps per visibility, in float32
+(expected ~1e-7 to 1e-6)."""
 
 import numpy as np
 import pytest
 import torch
 
+from pfb_tpu_torch.ops import pg_stream as pgs
 from pfb_tpu_torch.ops import pgridder as pg
 from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
 from pfb_tpu_torch.ops.psf import (prep_h, psf_convolve_h,
@@ -219,3 +221,136 @@ def test_pg_wrappers_reject_bad_operands(cuda):
         pg.pg_degrid(g, g[:, :, :-1], p["pos"], p["tid"], **dkw)
     with pytest.raises(ValueError):
         pg.pg_degrid(g, g, p["pos"], p["tid"].long(), **dkw)
+
+
+def _gs_plan(cuda, nx, eps, tiles=(None, None), seed=0):
+    """A float32 w-blocked plan on the card (plane_block 2)."""
+    obs = simulate_obs(nant=16, ntime=24, nchan=4, seed=seed)
+    _, cell = image_size_for(obs, fov_deg=1.0)
+    return pgs.pgrid_plan_wblocked(obs.uvw, obs.freq, nx=nx, ny=nx,
+                                   cellx=cell, celly=cell, epsilon=eps,
+                                   plane_block=2, tile_u=tiles[0],
+                                   tile_v=tiles[1], dtype=torch.float32,
+                                   device=cuda)
+
+
+def _gs_block(bp, b, vis, acc, kernel):
+    """K7, K8 and K9 chained (or their plain versions) on block b: the
+    spread's slots with entries, the fold of the spread and the
+    accumulator after the degrid of those grids. (The kernels' fold reads
+    only the slots with entries, which their spread writes.)"""
+    p0 = bp["p0"]
+    k, B, NT = p0["k"], bp["B"], bp["NT"]
+    txs, tys = p0["txs"], p0["tys"]
+    ne = int(bp["nelive"][b])
+    gmap, woff = bp["gmap"][b, :ne], int(bp["woff"][b, 0])
+    st, ct = bp["start"][b], bp["count"][b]
+    kw = dict(woff=woff, beta=p0["beta"], k=k, B=B, Thx=txs + k,
+              Thy=tys + k)
+    spread = pgs.pg_spread_gs if kernel else pgs.pg_spread_gs_plain
+    Y = spread(bp["pos"], vis, gmap, st, ct, **kw)
+    Yf = Y.reshape(2 * B, NT, txs + k, tys + k)
+    fkw = dict(nty=p0["nty"], txs=txs, tys=tys, k=k, Nx=p0["Nx"],
+               Ny=p0["Ny"])
+    if kernel:
+        G = pgs.pg_fold_gs(Yf, bp["tslot"][b], ntx=p0["ntx"], **fkw)
+    else:
+        G = pgs.pg_fold_gs_plain(Yf, bp["tslot"][b], **fkw)
+    degrid = pgs.pg_degrid_gs if kernel else pgs.pg_degrid_gs_plain
+    acc = degrid(G[:B].contiguous(), G[B:].contiguous(), bp["pos"],
+                 bp["utid"], gmap, acc.clone(), woff=woff, beta=p0["beta"],
+                 k=k, B=B, txs=txs, tys=tys, nty=p0["nty"])
+    return Y[:, :, ct > 0], G, acc
+
+
+# (nx, epsilon, tiles): k = 7 and 9, default and auto-ladder tiles, an
+# 8192-point grid
+GS_CASES = [(512, 1e-5, (None, None)), (512, 1e-7, (None, None)),
+            (1024, 1e-5, (57, 249)), (4096, 1e-5, (None, None))]
+
+
+@pytest.mark.parametrize("nx,eps,tiles", GS_CASES)
+def test_pg_gs_kernels_match_plain(cuda, nx, eps, tiles):
+    """K7, K8 and K9 against their plain versions on every live block."""
+    bp = _gs_plan(cuda, nx, eps, tiles, seed=nx)
+    assert bp["nblocks"] > 1
+    g = torch.Generator(device=cuda).manual_seed(nx)
+    vis = (torch.randn((bp["NEg"] + 1, 2, bp["p0"]["C"]), generator=g,
+                       device=cuda) * bp["gpm"][:, None]).contiguous()
+    acc = torch.randn(vis.shape, generator=g, device=cuda)
+    for b in range(bp["nblocks"]):
+        if not bp["blive"][b]:
+            continue
+        n = [f.launches for f in (pgs.pg_spread_gs, pgs.pg_fold_gs,
+                                  pgs.pg_degrid_gs)]
+        got = _gs_block(bp, b, vis, acc, kernel=True)
+        torch.cuda.synchronize()
+        assert [f.launches for f in (pgs.pg_spread_gs, pgs.pg_fold_gs,
+                                     pgs.pg_degrid_gs)] == [x + 1 for x in n]
+        ref = _gs_block(bp, b, vis, acc, kernel=False)
+        for a, r in zip(got, ref):
+            assert _ok(a, r)
+
+
+def test_pg_gs_kernel_reruns_bitwise_equal(cuda):
+    """K7, K8 and K9 sum in a fixed order (no atomics)."""
+    bp = _gs_plan(cuda, 1024, 1e-5, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    vis = (torch.randn((bp["NEg"] + 1, 2, bp["p0"]["C"]), generator=g,
+                       device=cuda) * bp["gpm"][:, None]).contiguous()
+    acc = torch.zeros_like(vis)
+    b = int(bp["nelive"].argmax())
+    runs = [_gs_block(bp, b, vis, acc, kernel=True) for _ in range(2)]
+    for a, r in zip(*runs):
+        assert torch.equal(a, r)
+
+
+def test_pg_wblocked_hessian_f32_card_matches_f64_cpu(cuda):
+    """The blocked Hessian through K7-K9 and K3 (float32, card) against
+    its plain versions in float64 on the CPU: 1e-5."""
+    obs = simulate_obs(nant=16, ntime=24, nchan=4, seed=9)
+    _, cell = image_size_for(obs, fov_deg=1.0)
+    img = np.random.default_rng(9).normal(size=(256, 256))
+    kw = dict(nx=256, ny=256, cellx=cell, celly=cell, epsilon=1e-5,
+              plane_block=2)
+    ref = pgs.make_hessian_pg_wblocked(pgs.pgrid_plan_wblocked(
+        obs.uvw, obs.freq, device="cpu", **kw))(torch.as_tensor(img))
+    bp = pgs.pgrid_plan_wblocked(obs.uvw, obs.freq, device=cuda, **kw)
+    assert bp["nblocks"] > 1
+    got = pgs.make_hessian_pg_wblocked(bp)(
+        torch.as_tensor(img, dtype=torch.float32).to(cuda))
+    assert _ok(got.cpu().double(), ref)
+
+
+def test_pg_gs_wrappers_reject_bad_operands(cuda):
+    bp = _gs_plan(cuda, 512, 1e-5)
+    p0 = bp["p0"]
+    k, B = p0["k"], bp["B"]
+    txs, tys = p0["txs"], p0["tys"]
+    gmap = bp["gmap"][0, :int(bp["nelive"][0])]
+    st, ct = bp["start"][0], bp["count"][0]
+    vis = torch.zeros((bp["NEg"] + 1, 2, p0["C"]), device=cuda)
+    kw = dict(woff=0, beta=p0["beta"], k=k, B=B, Thx=txs + k, Thy=tys + k)
+    with pytest.raises(ValueError):
+        pgs.pg_spread_gs(bp["pos"].double(), vis.double(), gmap, st, ct,
+                         **kw)
+    with pytest.raises(ValueError):
+        pgs.pg_spread_gs(bp["pos"], vis, gmap.long(), st, ct, **kw)
+    with pytest.raises(ValueError):
+        pgs.pg_spread_gs(bp["pos"], vis[:, :1], gmap, st, ct, **kw)
+    Y = torch.zeros((2 * B, bp["NT"], txs + k, tys + k), device=cuda)
+    fkw = dict(ntx=p0["ntx"], nty=p0["nty"], txs=txs, tys=tys, k=k,
+               Nx=p0["Nx"], Ny=p0["Ny"])
+    with pytest.raises(ValueError):
+        pgs.pg_fold_gs(Y, bp["tslot"][0, :-1], **fkw)
+    with pytest.raises(ValueError):
+        pgs.pg_fold_gs(Y, bp["tslot"][0].long(), **fkw)
+    grid = torch.zeros((B, p0["Nx"], p0["Ny"]), device=cuda)
+    dkw = dict(woff=0, beta=p0["beta"], k=k, B=B, txs=txs, tys=tys,
+               nty=p0["nty"])
+    with pytest.raises(ValueError):
+        pgs.pg_degrid_gs(grid, grid[:, :, :-1], bp["pos"], bp["utid"], gmap,
+                         vis, **dkw)
+    with pytest.raises(ValueError):
+        pgs.pg_degrid_gs(grid, grid, bp["pos"], bp["utid"], gmap,
+                         vis.double(), **dkw)

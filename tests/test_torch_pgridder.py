@@ -268,9 +268,3 @@ def test_make_hessian_dds_pg_plans_with_callers_epsilon(obs, ndata):
     assert [p["k"] for p in ht.plans] == [7] * ndata
     hj = gridder_j.make_hessian_dds(dds, nband, 2.0, NX, NX, **kw)
     assert _rel(ht(_t(x)).numpy(), hj(jnp.asarray(x))) < 1e-10
-
-
-def test_make_hessian_dds_plane_block_unported(obs):
-    with pytest.raises(NotImplementedError, match="K7-K9"):
-        gridder_t.make_hessian_dds(_datasets(obs)[:1], 1, 1.0, NX, NX,
-                                   backend="pg", plane_block=2)

@@ -1,7 +1,7 @@
 """The port's main paths, simulate -> _init -> _grid(wgrid, or pg with
-Briggs weights) -> _spotless, against pfb_tpu on the same observation
-(CPU, float64 unless stated), plus the import boundary of
-pfb_tpu_torch."""
+Briggs weights) -> _spotless or _klean (the pg residual all-planes or
+w-plane-blocked), against pfb_tpu on the same observation (CPU, float64
+unless stated), plus the import boundary of pfb_tpu_torch."""
 
 import os
 import shutil
@@ -16,10 +16,12 @@ import torch
 from pfb_tpu.utils.ms import simulate_ms as simulate_ms_j
 from pfb_tpu.workers.grid import _grid as grid_j
 from pfb_tpu.workers.init import _init as init_j
+from pfb_tpu.workers.klean import _klean as klean_j
 from pfb_tpu.workers.spotless import _spotless as spotless_j
 from pfb_tpu_torch.utils.ms import simulate_ms as simulate_ms_t
 from pfb_tpu_torch.workers.grid import _grid as grid_t
 from pfb_tpu_torch.workers.init import _init as init_t
+from pfb_tpu_torch.workers.klean import _klean as klean_t
 from pfb_tpu_torch.workers.spotless import _spotless as spotless_t
 
 torch.set_num_threads(1)
@@ -29,6 +31,8 @@ GRID = dict(suffix="main", field_of_view=0.2, psf=True, residual=False,
             nx=NX, ny=NX, backend="wgrid", epsilon=1e-5)
 SPOT = dict(niter=2, rmsfactor=0.8, l1reweight_from=1, pd_maxit=30,
             verbose=0, write=False, backend="wgrid", epsilon=1e-5)
+KLEAN = dict(niter=2, epsilon=1e-5, verbose=0, write=False, minor_maxit=20,
+             cg_maxit=20)
 
 
 def _rel(a, b):
@@ -164,6 +168,45 @@ def test_pg_spotless_matches_jax(run, run_pg):
     assert _rel(rt, rj) < 1e-8
 
 
+def _pg_blocks(dds):
+    """The blocked plans of a plane_block=2 residual on these datasets."""
+    from pfb_tpu_torch.ops.gridder import make_hessian_dds
+    return [(bp["nw"], bp["B"], bp["nblocks"]) for bp in make_hessian_dds(
+        dds, 2, 1.0, NX, NX, backend="pg", epsilon=1e-5, plane_block=2,
+        device="cpu").plans]
+
+
+def test_pg_spotless_plane_block_matches_jax(run, run_pg):
+    """spotless with the w-plane-blocked pg residual (plane_block=2, one
+    blocked plan per dataset), engine="fft", same hessnorm: model and
+    residual at 1e-8 relative."""
+    assert all(nb > 1 and B == 2 for _, B, nb in _pg_blocks(run_pg["dt"]))
+    kw = dict(SPOT, backend="pg", engine="fft", plane_block=2,
+              hessnorm=run["hessnorm"])
+    mj, rj = spotless_j(ddsi=[dict(x) for x in run_pg["dj"]], **kw)
+    mt, rt = spotless_t(ddsi=[dict(x) for x in run_pg["dt"]], device="cpu",
+                        **kw)
+    assert np.abs(mj).max() > 0
+    assert _rel(mt, mj) < 1e-8
+    assert _rel(rt, rj) < 1e-8
+
+
+def test_pg_klean_plane_block_matches_jax(run_pg):
+    """klean with the w-plane-blocked pg residual (plane_block=2): Clark
+    minor cycles, the exact residual, the flux mop at the last
+    iteration; model and residual at 1e-8 relative."""
+    assert all(nb > 1 for _, _, nb in _pg_blocks(run_pg["dt"]))
+    kw = dict(KLEAN, backend="pg", plane_block=2)
+    mj, rj = klean_j(ddsi=[dict(x) for x in run_pg["dj"]], **kw)
+    st = {}
+    mt, rt = klean_t(ddsi=[dict(x) for x in run_pg["dt"]], device="cpu",
+                     stats=st, **kw)
+    assert np.abs(mj).max() > 0
+    assert len(st["rms"]) == KLEAN["niter"]
+    assert _rel(mt, mj) < 1e-8
+    assert _rel(rt, rj) < 1e-8
+
+
 def test_import_leaves_jax_out(tmp_path):
     """Importing pfb_tpu_torch and running its CPU path imports neither
     jax nor pfb_tpu."""
@@ -174,6 +217,7 @@ from pfb_tpu_torch.utils.ms import simulate_ms
 from pfb_tpu_torch.workers.init import _init
 from pfb_tpu_torch.workers.grid import _grid
 from pfb_tpu_torch.workers.spotless import _spotless
+from pfb_tpu_torch.workers.klean import _klean
 ms = {str(tmp_path / 'o.npz')!r}
 simulate_ms(ms, nant=5, ntime=2, nchan=1, nsource=1, fov_deg=0.1, seed=1)
 xds = _init(ms=ms, write=False, device="cpu")
@@ -185,6 +229,8 @@ dds = _grid(xdsi=xds, write=False, device="cpu", nx=128, backend="pg",
             robustness=0.0, psf=True, residual=False)
 _spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
           pd_maxit=2, pm_maxit=3, backend="pg", verbose=0)
+_klean(ddsi=dds, write=False, device="cpu", niter=1, backend="pg",
+       plane_block=2, minor_maxit=2, cg_maxit=3, verbose=0)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "pfb_tpu")]
 assert not bad, bad
 print("clean")
