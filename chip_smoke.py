@@ -50,7 +50,27 @@ Phases:
      plan seconds, adjoint and Hessian seconds (median of 3 after a
      warm-up) and Mvis/s, peak device memory, for plane_block=4 and for
      all planes at once; blocked against unblocked (<= 1e-5 max); K7-K9
-     against plain on the largest block.
+     against plain on the largest block;
+ 12. K11 path: the same observation re-simulated at 3072^2 with the cell
+     at 2/3 of the 2048^2 paths' (same 0.93 deg field, same w planes),
+     then init -> grid(backend="pg", robustness=0, 3072^2, PSF 6144^2) ->
+     spotless(engine="pallas", backend="pg", 3 major iterations): NX =
+     6144 fails v3's factor rule, so spotless takes the general PSF
+     kernel (K11) with the host power method and primal_dual_hostloop;
+     K11 must launch inside spotless and K1 and K2 must not; residual
+     and sources checked as in 5;
+ 13. K11 against plain: at (8, 3072^2) in 6144^2 with the phase-12 PSF's
+     full transfer function, and at psf_oversize 1.5 (3072^2 in 4608^2)
+     with a random non-Hermitian H;
+ 14. K2 path: with the pg path's 2048^2 PSF cube, per-band wsum shares
+     and sigmainv 1e-2, the CG-fused solver (make_pcg_bands_fused with
+     apply_cg, on K2) against pcg_bands(tol=0) on K1 for 25 iterations
+     (<= 1e-4 of max), K2 against plain there; then bench.py's PCG case
+     (4096^2 x 8, delta PSF 0.5 at the centre, real_transfer=False, 50
+     iterations, no backtracking): K2 and K1 against plain, and PCG it/s
+     of the CG-fused solver, of pcg_bands on K1 and of
+     pcg_bands_hostloop on K1, counts reset just before and read just
+     after.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -58,7 +78,8 @@ the bytes the function must move over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, counted for this run's inputs; ``bound_by`` says which)
 and the time of one PyTorch call that computes the same function where
 there is one (``library_ms``: torch.fft for K3, ``index_add_`` for the
-folds; None otherwise).
+folds; None otherwise: no single call computes K1's, K2's or K11's padded
+convolution).
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -95,6 +116,12 @@ KLEAN = dict(backend="pg", plane_block=4, epsilon=1e-5, niter=3,
              sub_peak_factor=0.9)
 FLAGSHIP = dict(nx=4096, nrow=1_000_000, nchan=8, seed=0, epsilon=1e-5,
                 plane_block=4)
+NX_K11 = 3072  # NX = 6144 = 96 x 64: outside v3, the general PSF kernel
+# cells of 1 / (2 srf uv_max f_max / c) with srf 3: 2/3 of the 2048^2
+# paths' (srf 2), the same field of view
+GRID_K11 = dict(GRID_PG, nx=NX_K11, ny=NX_K11, super_resolution_factor=3.0)
+CTOL = 1e-4  # CG-fused solve against pcg_bands on K1
+PCG = dict(nx=4096, nband=8, niter=50)  # bench.py's PCG case
 
 
 class SmokeFailure(Exception):
@@ -134,10 +161,12 @@ def counters():
     from pfb_tpu_torch.ops.pg_stream import (pg_degrid_gs, pg_fold_gs,
                                              pg_spread_gs)
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
-    from pfb_tpu_torch.ops.psf import psf_convolve_h
-    return {"K1": psf_convolve_h, "K3": fftx_c2c, "K4": pg_spread,
-            "K5": pg_fold, "K6": pg_degrid, "K7": pg_spread_gs,
-            "K8": pg_fold_gs, "K9": pg_degrid_gs}
+    from pfb_tpu_torch.ops.psf import (psf_convolve_full, psf_convolve_h,
+                                       psf_convolve_h_cg)
+    return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
+            "K4": pg_spread, "K5": pg_fold, "K6": pg_degrid,
+            "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
+            "K11": psf_convolve_full}
 
 
 def bound(nbytes, flops):
@@ -171,10 +200,10 @@ def gridding_flops(k, ntaps_w):
         n * 24.0 * (k + 1)
 
 
-def simulate(workdir, nx=NX, sim=SIM):
+def simulate(workdir, nx=NX, sim=SIM, srf=2.0):
     """The simulated observation (an npz measurement set) and its truth;
-    field of view of exactly nx cells, so the true model sits on the
-    grid's pixels."""
+    field of view of exactly nx cells of 1 / (2 srf uv_max f_max / c), so
+    the true model sits on the grid's pixels."""
     import numpy as np
 
     from pfb_tpu_torch.utils.ms import simulate_ms
@@ -183,11 +212,11 @@ def simulate(workdir, nx=NX, sim=SIM):
     obs = simulate_obs(nant=sim["nant"], ntime=sim["ntime"],
                        nchan=sim["nchan"], seed=sim["seed"],
                        extent=sim["extent"])
-    _, cell = image_size_for(obs, fov_deg=1.0)
+    _, cell = image_size_for(obs, fov_deg=1.0, srf=srf)
     fov = (nx + 0.5) * np.rad2deg(cell)
-    ms = str(Path(workdir) / "sim.npz")
+    ms = str(Path(workdir) / f"sim{nx}.npz")
     model_true, Ix, Iy, nx_sim, cell_rad, _ = simulate_ms(
-        ms, fov_deg=fov, **sim)
+        ms, fov_deg=fov, srf=srf, **sim)
     need(nx_sim == nx, f"simulated model is {nx_sim}^2, not {nx}^2")
     return dict(ms=ms, model_true=model_true, Ix=Ix, Iy=Iy,
                 cell_rad=cell_rad, nvis=obs.uvw.shape[0] * sim["nchan"],
@@ -854,6 +883,170 @@ def flagship(device, cfg=FLAGSHIP, timing=True, reps=3):
     return out, recs
 
 
+def conv_work(nb, nx, ny, NX, NY, hr_numel, complex_h, extra=0):
+    """(bytes, operations) of a padded PSF convolution of an (nb, nx, ny)
+    cube: x read, H (``hr_numel`` elements, twice for a complex H) read,
+    out written, plus ``extra`` cube passes of 4 bytes an element; per
+    band a real x transform of each of ny columns and back, a complex y
+    transform of NX/2 + 1 rows and back, the product with H."""
+    nxh = NX // 2 + 1
+    nbytes = 4 * ((2 + extra) * nb * nx * ny
+                  + hr_numel * (2 if complex_h else 1))
+    flops = nb * (fft_flops(NX, 2 * ny, real=True) + fft_flops(NY, 2 * nxh)
+                  + nxh * NY * (6 if complex_h else 2))
+    return nbytes, flops
+
+
+def k11_kernel_checks(dds, nx, device, timing=True):
+    """K11 against its plain version: the phase-12 grid PSF's full
+    transfer function at (nband, nx^2), and a random non-Hermitian H at
+    psf_oversize 1.5 on two bands."""
+    import torch
+
+    from pfb_tpu_torch.ops.fft import good_even_size
+    from pfb_tpu_torch.ops.psf import (prep_h_full, psf_convolve_full,
+                                       psf_convolve_full_plain)
+    from pfb_tpu_torch.workers.cubes import dds2cubes
+    nband = max(ds["bandid"] for ds in dds) + 1
+    psf_t = torch.as_tensor(dds2cubes(dds, nband)[3], dtype=torch.float32,
+                            device=device)
+    hr, hi = prep_h_full(psf_t, torch.float32)
+    NX, NY = psf_t.shape[-2:]
+    del psf_t
+    g = torch.Generator(device=device).manual_seed(12)
+    x = torch.randn((nband, nx, nx), generator=g, device=device)
+
+    def record(label, xs, hr, hi):
+        return _record(
+            f"K11 psf_convolve_full ({xs.shape[0]}, {nx}^2) in "
+            f"{hr.shape[-2]}x{hr.shape[-1]}, {label}", xs.shape,
+            psf_convolve_full(xs, hr, hi), psf_convolve_full_plain(xs, hr, hi),
+            lambda: psf_convolve_full(xs, hr, hi),
+            lambda: psf_convolve_full_plain(xs, hr, hi), timing,
+            work=conv_work(xs.shape[0], nx, nx, *hr.shape[-2:], hr.numel(),
+                           True))
+
+    recs = [record("grid PSF", x, hr, hi)]
+    del hr, hi
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    N15 = good_even_size(int(1.5 * nx))
+    hr = torch.randn((2, N15, N15), generator=g, device=device)
+    recs.append(record("random H", x[:2].contiguous(), hr,
+                       torch.randn_like(hr)))
+    return recs, (NX, NY)
+
+
+def pcg_rate(fn, niter, device):
+    """PCG iterations a second of one solve after a warm-up solve (host
+    clock ending in a synchronise)."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    fn()
+    sync(device)
+    return niter / (time.perf_counter() - t0)
+
+
+def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
+    """Phase 14: the CG-fused solve on K2 against pcg_bands on K1 with the
+    grid-phase PSF cube ``psf`` (nband, 2nx, 2nx), wsum shares and
+    sigmainv 1e-2 (25 iterations), K2 against plain there; then bench.py's
+    PCG case: K1 and K2 against plain, and the PCG rates of the fused
+    solve, pcg_bands and pcg_bands_hostloop, with every kernel's launches
+    counted over those solves alone. Returns (relative error, records,
+    rates, launches)."""
+    import torch
+
+    from pfb_tpu_torch.ops.psf import (make_psf_convolve_pallas,
+                                       psf_convolve_h, psf_convolve_h_cg,
+                                       psf_convolve_h_cg_plain,
+                                       psf_convolve_h_plain)
+    from pfb_tpu_torch.opt.pcg import (make_pcg_bands_fused, pcg_bands,
+                                       pcg_bands_hostloop)
+    nb, nx = psf.shape[0], psf.shape[-1] // 2
+    ws = torch.as_tensor(wsums / wsums.sum(), dtype=torch.float32,
+                         device=device)[:, None, None]
+    conv = make_psf_convolve_pallas(
+        torch.as_tensor(psf, dtype=torch.float32, device=device), nx, nx,
+        sigmainv=1e-2, wsum=ws)
+    b = conv(torch.as_tensor(model, dtype=torch.float32, device=device))
+    x0 = torch.zeros_like(b)
+    x_ref = pcg_bands(conv, b, x0=x0, tol=0.0, maxit=25)
+    x_cg = make_pcg_bands_fused(conv.apply, tol=0.0, maxit=25,
+                                apply_cg=conv.apply_cg,
+                                cg_scale=conv.cg_scale)(b, x0, conv.consts)
+    err = float((x_cg - x_ref).abs().max() / x_ref.abs().max())
+    del x_ref, x_cg, b, x0
+
+    g = torch.Generator(device=device).manual_seed(14)
+    recs = []
+
+    def cg_records(tag, hr, hi, nb, nx, timing):
+        pp, r = (torch.randn((nb, nx, nx), generator=g, device=device)
+                 for _ in range(2))
+        beta = torch.rand((nb, 1, 1), generator=g, device=device)
+        got = psf_convolve_h_cg(pp, r, beta, hr, hi)
+        ref = psf_convolve_h_cg_plain(pp, r, beta, hr, hi)
+        # p_prev, r read, p and conv written; the axpy and two dots
+        work = conv_work(nb, nx, nx, 2 * nx, 2 * nx, hr.numel(),
+                         hi is not None, extra=2)
+        work = (work[0], work[1] + 6.0 * nb * nx * nx)
+        for i, part in ((1, "conv"), (0, "p"), (2, "pap")):
+            recs.append(_record(
+                f"K2 psf_convolve_h_cg {tag}, {part}", pp.shape, got[i],
+                ref[i], lambda: psf_convolve_h_cg(pp, r, beta, hr, hi),
+                lambda: psf_convolve_h_cg_plain(pp, r, beta, hr, hi),
+                timing and i == 1, work=work))
+
+    # bench.py's case first: its records carry the path's times
+    n, nbp = pcg["nx"], pcg["nband"]
+    psf_b = torch.zeros((nbp, 2 * n, 2 * n), device=device)
+    psf_b[:, n, n] = 0.5
+    hess = make_psf_convolve_pallas(psf_b, n, n, real_transfer=False)
+    del psf_b
+    hr, hi = hess.consts["hr"], hess.consts["hi"]
+    cg_records(f"({nbp}, {n}^2) bench delta PSF, complex-H", hr, hi, nbp,
+               n, timing)
+    xr = torch.randn((nbp, n, n), generator=g, device=device)
+    recs.append(_record(
+        f"K1 psf_convolve_h ({nbp}, {n}^2) bench delta PSF, complex-H",
+        xr.shape, psf_convolve_h(xr, hr, hi),
+        psf_convolve_h_plain(xr, hr, hi), lambda: psf_convolve_h(xr, hr, hi),
+        lambda: psf_convolve_h_plain(xr, hr, hi), timing,
+        work=conv_work(nbp, n, n, 2 * n, 2 * n, hr.numel(), True)))
+    del xr
+    cg_records(f"({nb}, {nx}^2) grid PSF", conv.consts["hr"],
+               conv.consts["hi"], nb, nx, False)
+    del conv
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    x = torch.full((nbp, n, n), 1e-3, device=device)
+    b = hess(x)
+    niter = pcg["niter"]
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    fused = make_pcg_bands_fused(hess.apply, tol=0.0, maxit=niter,
+                                 minit=niter, backtrack=False,
+                                 apply_cg=hess.apply_cg,
+                                 cg_scale=hess.cg_scale)
+    rates = {
+        "cg-fused (K2)": pcg_rate(
+            lambda: fused(b, torch.zeros_like(b), hess.consts), niter,
+            device),
+        "pcg_bands (K1)": pcg_rate(
+            lambda: pcg_bands(hess, b, x0=torch.zeros_like(b), tol=0.0,
+                              maxit=niter, backtrack=False), niter, device),
+        "pcg_bands_hostloop (K1)": pcg_rate(
+            lambda: pcg_bands_hostloop(hess, b, x0=torch.zeros_like(b),
+                                       tol=0.0, maxit=niter, minit=niter),
+            niter, device)}
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    return err, recs, rates, launches
+
+
 def report_klean(rkl, truth, nx):
     """Print the klean path's stage time, memory, residuals and
     launches; check its residual and image."""
@@ -994,7 +1187,12 @@ def main():
         for r in gs_recs:
             print("[kernel] " + json.dumps(r))
         recs += gs_recs
-        del rpg
+        # kept for phase 14: the 2048^2 grid phase's PSF cube, its band
+        # weights and the pg path's model
+        from pfb_tpu_torch.workers.cubes import dds2cubes
+        cubes = dds2cubes(rpg["dds"], len(rpg["dds"]))
+        k2_in = dict(psf=cubes[3], wsums=cubes[6], model=rpg["model"])
+        del rpg, cubes
         torch.cuda.empty_cache()
 
         # 11. the blocked engine at the flagship size
@@ -1007,8 +1205,56 @@ def main():
         for r in fl_recs:
             print("[kernel] " + json.dumps(r))
         recs += fl_recs
+        torch.cuda.empty_cache()
 
-        # checks of phases 9-11 and of every kernel record
+        # 12. K11 path: 3072^2, the general PSF kernel in spotless
+        truth12 = simulate(workdir, nx=NX_K11, srf=3.0)
+        print(f"[k11] simulate {truth12['t_simulate']:.3f} s (host), cell "
+              f"{truth12['cell_rad']:.6e} rad")
+        r12 = main_path(truth12, device, grid=GRID_K11, spot=SPOT_PG)
+        report_path("k11", r12, truth12, NX_K11)
+        l12 = r12["launches"]
+        for k in launches:
+            launches[k] += l12["grid"][k] + l12["spotless"][k]
+        st12 = r12["stats"]
+        print(f"[k11] engine {st12['engine']}, pd solver "
+              f"{st12['pd_solver']}")
+
+        # 13. K11 against plain
+        k11_recs, (NX12, NY12) = k11_kernel_checks(r12["dds"], NX_K11,
+                                                   device)
+        print(f"[k11] PSF {NX12}x{NY12} (v3 needs psf = 2 x image with "
+              "N1 % N2 == 0 in NX's factors)")
+        for r in k11_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += k11_recs
+        del r12, truth12
+        torch.cuda.empty_cache()
+
+        # 14. K2 path: CG-fused PCG
+        cerr, k2_recs, rates, l14 = k2_checks(device=device, **k2_in)
+        del k2_in
+        print(f"[pcg] CG-fused (K2) vs pcg_bands (K1), 2048^2 grid PSF, 25 "
+              f"iterations: max|diff|/max = {cerr:.3e} (bound {CTOL})")
+        print(f"[pcg] {PCG['nx']}^2 x {PCG['nband']}, {PCG['niter']} "
+              "iterations, it/s " + json.dumps(rates))
+        print("[pcg] launches " + json.dumps(l14))
+        for r in k2_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += k2_recs
+        for k in launches:
+            launches[k] += l14[k]
+
+        # checks of phases 9-14 and of every kernel record
+        need(l12["spotless"]["K11"] > 0, "K11 never launched inside the "
+             "3072^2 _spotless")
+        for k in ("K1", "K2"):
+            need(l12["spotless"][k] == 0, f"{k} launched inside the 3072^2 "
+                 "_spotless: it did not take the general PSF kernel")
+        need(st12["pd_solver"] == "primal_dual_hostloop",
+             f"3072^2 spotless ran {st12['pd_solver']}")
+        need(l14["K2"] > 0, "K2 never launched in the CG-fused PCG")
+        need(cerr <= CTOL, f"CG-fused vs pcg_bands {cerr} > {CTOL}")
         for k in ("K7", "K8", "K9"):
             need(lk[k] > 0, f"{k} never launched inside _klean")
         for k in ("K4", "K5", "K6"):
@@ -1030,6 +1276,8 @@ def main():
 
         table = [("K1", "psf_convolve_h", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:877"),
+                 ("K2", "psf_convolve_h_cg", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:963"),
                  ("K3", "fftx_c2c", "cfft.cu",
                   "pfb_tpu/ops/pallas_cfft.py:132"),
                  ("K4", "pg_spread", "pg_grid.cu",
@@ -1043,7 +1291,9 @@ def main():
                  ("K8", "pg_fold_gs", "pg_fold.cu",
                   "pfb_tpu/ops/pg_stream.py:481"),
                  ("K9", "pg_degrid_gs", "pg_degrid.cu",
-                  "pfb_tpu/ops/pg_stream.py:586")]
+                  "pfb_tpu/ops/pg_stream.py:586"),
+                 ("K11", "psf_convolve_full", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:1325")]
         kern = {"kernels": [
             {"name": name, "route": "cuda",
              "source": f"pfb_tpu_torch/csrc/{src}", "replaces": rep,

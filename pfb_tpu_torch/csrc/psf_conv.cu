@@ -1,38 +1,65 @@
-// K1: PSF-Hessian convolution of an image cube,
+// The PSF-Hessian convolution of an image cube,
 //   out_b = crop_{nx,ny}(ifft2(H_b * fft2(pad_{NX,NY}(x_b)))),
-// the operator of pfb_tpu_torch/ops/fft.py:psf_convolve_cube.
+// in three forms that share one stage structure:
 //
-// Replaces pfb_tpu/ops/pallas_fft.py:psf_convolve_pallas_v3_cube (Pallas
-// kernels _k1t_kernel, _k2t_kernel/_k2tr_kernel, _k3t_kernel). It keeps
-// the TPU's three stage boundaries but not its blocking:
+// K1  pfbt_psf_conv: the operator of pfb_tpu_torch/ops/fft.py:
+//     psf_convolve_cube. Replaces pfb_tpu/ops/pallas_fft.py:
+//     psf_convolve_pallas_v3_cube (Pallas kernels _k1t_kernel,
+//     _k2t_kernel/_k2tr_kernel, _k3t_kernel). H is the port's own layout:
+//     the Hermitian half (nb, NX/2+1, NY) float32 real part plus an
+//     optional imaginary part (absent for an even PSF, real_transfer).
+// K2  pfbt_psf_conv_cg: K1 fused with a conjugate-gradient step. Replaces
+//     pallas_fft.py:psf_convolve_pallas_v3_cube_cg (_k1t_cg_kernel,
+//     _k2t/_k2tr, _k3t_cg_kernel): stage 1 forms the direction
+//     p = beta_b p_prev - r as it loads the columns and writes p; stage 3
+//     sums p . conv(p) and p . p per column (float64, fixed order), and a
+//     last small pass adds the columns of each band in a fixed order, so
+//     reruns are bitwise equal (no atomics).
+// K11 pfbt_psf_conv_full: Re(ifft2(H fft2(pad(x))))[:nx, :ny] with the
+//     FULL complex transfer function (nb, NX, NY) and any 5-smooth even
+//     NX >= nx, NY >= ny (the image need not be half the PSF). Replaces
+//     pallas_fft.py:psf_convolve_pallas and its band loop
+//     psf_convolve_pallas_cube (_k1_kernel, _k2_kernel, _k3_kernel); here
+//     the bands ride one launch sequence. For a real x, X(-k) = conj X(k),
+//     so
+//       Re(ifft2(H X)) = ifft2(H_h X),   H_h(k) = (H(k) + conj H(-k)) / 2,
+//     and H_h is Hermitian. Stage 2 forms H_h for kept row kx from rows kx
+//     and (NX - kx) mod NX of H, and the half-spectrum stages of K1 then
+//     give the real part exactly.
+//
+// The stages (the TPU's three stage boundaries, not its blocking):
 //   1. per column: forward x-DFT of the zero-padded real column, keeping
 //      rows 0..NX/2 (Hermitian half);              line_fft_kernel
 //   2. per kept row: forward y-DFT of the zero-padded row, multiply by H,
 //      inverse y-DFT, crop to ny;                   psf_rows_kernel
 //   3. per column: inverse x-DFT with the conjugate mirror rebuilt, real
 //      part, crop to nx, scale 1/(NX NY).           line_fft_kernel
-// H is the port's own layout: (nb, NX/2+1, NY) float32 real part plus an
-// optional imaginary part (absent for an even PSF, real_transfer).
+// Row i of a column is written only for i < nx and read for i <= NX/2, so
+// nx may exceed NX/2 (psf_oversize < 2).
 //
-// What bounds it on the H100: each stage reads and writes the half
+// What bounds them on the H100: each stage reads and writes the half
 // spectrum once (8 bytes per complex element in, 8 out, plus 4 or 8 of H
-// in stage 2), and the FFT passes run in shared memory, so the kernels
-// are bound by shared-memory traffic and by the narrow column strips of
-// the strided x passes (stages 1 and 3), not by FLOPs. The design keeps
-// every line resident in shared memory across all passes of its
-// transform, and stage 2 runs both y transforms and the H multiply on
-// one residency of the row, so the spectrum never goes to HBM between
-// them.
+// in stage 2; 16 for K11's two rows of the full H), and the FFT passes run
+// in shared memory, so the kernels are bound by shared-memory traffic and
+// by the narrow column strips of the strided x passes (stages 1 and 3),
+// not by FLOPs. The design keeps every line resident in shared memory
+// across all passes of its transform, and stage 2 runs both y transforms
+// and the H multiply on one residency of the row, so the spectrum never
+// goes to HBM between them. K2's extra vector work rides the columns that
+// stages 1 and 3 already hold.
 #include "fft_lines.cuh"
 
 namespace pfbt {
 
-template <int VPT>
+// kFull false: row g of the spectrum multiplies row g of the Hermitian
+// half H (nb * (NX/2+1) rows). kFull true: H is the full (nb, NX, NY)
+// transfer function and row g = (b, kx) multiplies H_h(kx, .).
+template <int VPT, bool kFull>
 __global__ void __launch_bounds__(kThreads)
 psf_rows_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                 const float* __restrict__ hr, const float* __restrict__ hi,
                 float* __restrict__ wr, float* __restrict__ wi, int R,
-                int ny, int S, LinePlan p) {
+                int ny, int S, int NX, LinePlan p) {
   extern __shared__ float2 sm[];
   const int N = p.N;
   const long g0 = (long)blockIdx.x * S;
@@ -49,12 +76,23 @@ psf_rows_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
 
   block_fft<VPT>(sm, S, p, false);
 
+  const int nxh = NX / 2 + 1;
   for (int t = threadIdx.x; t < S * N; t += blockDim.x) {
     const int s = fn.div(t), k = t - s * N;
     const long g = g0 + s;
     if (g >= R) continue;
-    const float h_r = hr[g * N + k];
-    const float h_i = hi ? hi[g * N + k] : 0.f;
+    float h_r, h_i;
+    if (kFull) {
+      const long b = g / nxh;
+      const int kx = (int)(g - b * nxh);
+      const long a = (b * NX + kx) * N + k;
+      const long m = (b * NX + (NX - kx) % NX) * N + (N - k) % N;
+      h_r = 0.5f * (hr[a] + hr[m]);
+      h_i = hi ? 0.5f * (hi[a] - hi[m]) : 0.f;
+    } else {
+      h_r = hr[g * N + k];
+      h_i = hi ? hi[g * N + k] : 0.f;
+    }
     const float2 v = sm[spad(t)];
     sm[spad(t)] = make_float2(v.x * h_r - v.y * h_i, v.x * h_i + v.y * h_r);
   }
@@ -72,16 +110,232 @@ psf_rows_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   }
 }
 
-template <int VPT>
+template <int VPT, bool kFull>
 static cudaError_t launch_rows(const float* zr, const float* zi,
                                const float* hr, const float* hi, float* wr,
-                               float* wi, int R, int ny,
+                               float* wi, int R, int ny, int NX,
                                const LineLaunch& c, const LinePlan& p,
                                cudaStream_t st) {
-  cudaError_t e = allow_smem(psf_rows_kernel<VPT>, c.smem);
+  cudaError_t e = allow_smem(psf_rows_kernel<VPT, kFull>, c.smem);
   if (e != cudaSuccess) return e;
-  psf_rows_kernel<VPT><<<(R + c.S - 1) / c.S, c.threads, c.smem, st>>>(
-      zr, zi, hr, hi, wr, wi, R, ny, c.S, p);
+  psf_rows_kernel<VPT, kFull><<<(R + c.S - 1) / c.S, c.threads, c.smem,
+                                st>>>(zr, zi, hr, hi, wr, wi, R, ny, c.S,
+                                      NX, p);
+  return cudaGetLastError();
+}
+
+template <bool kFull>
+static cudaError_t rows_stage(const float* zr, const float* zi,
+                              const float* hr, const float* hi, float* wr,
+                              float* wi, int R, int ny, int NX,
+                              const LinePlan& py, cudaStream_t st) {
+  const LineLaunch c = line_launch(py.N);
+  return c.vpt == kVpt
+             ? launch_rows<kVpt, kFull>(zr, zi, hr, hi, wr, wi, R, ny, NX, c,
+                                        py, st)
+             : launch_rows<2 * kVpt, kFull>(zr, zi, hr, hi, wr, wi, R, ny,
+                                            NX, c, py, st);
+}
+
+// K2 stage 1: p = beta_b p_prev - r on the S columns of a block, written
+// to pn, then the forward x-DFT of the zero-padded columns of p, rows
+// 0..NX/2 kept (line_fft_kernel's natural path with the direction update
+// as its prologue).
+template <int VPT>
+__global__ void __launch_bounds__(kThreads)
+cg_cols_fwd_kernel(const float* __restrict__ pp, const float* __restrict__ rr,
+                   const float* __restrict__ beta, float* __restrict__ pn,
+                   float* __restrict__ zr, float* __restrict__ zi, int nb,
+                   int nx, int ny, int nxh, int S, LinePlan p) {
+  extern __shared__ float2 sm[];
+  const int N = p.N;
+  const int nlines = nb * ny;
+  const int g0 = blockIdx.x * S;
+  const FastDiv fs(S), fl(ny);
+
+  for (int i = threadIdx.x; i < S * N; i += blockDim.x)
+    sm[spad(i)] = make_float2(0.f, 0.f);
+  __syncthreads();
+  for (int t = threadIdx.x; t < S * nx; t += blockDim.x) {
+    const int s = fs.mod(t), i = fs.div(t);
+    const int g = g0 + s;
+    if (g >= nlines) continue;
+    const int b = fl.div(g), j = g - b * ny;
+    const long a = ((long)b * nx + i) * ny + j;
+    const float v = beta[b] * pp[a] - rr[a];
+    pn[a] = v;
+    sm[spad(s * N + i)] = make_float2(v, 0.f);
+  }
+  __syncthreads();
+
+  block_fft<VPT>(sm, S, p, false);
+
+  for (int t = threadIdx.x; t < S * nxh; t += blockDim.x) {
+    const int s = fs.mod(t), r = fs.div(t);
+    const int g = g0 + s;
+    if (g >= nlines) continue;
+    const int b = fl.div(g), j = g - b * ny;
+    const long a = ((long)b * nxh + r) * ny + j;
+    const float2 v = sm[spad(s * N + r)];
+    zr[a] = v.x;
+    zi[a] = v.y;
+  }
+}
+
+// K2 stage 3: inverse x-DFT of the Hermitian-half columns (conjugate
+// mirror rebuilt), real part cropped to nx and scaled, written to out;
+// and per column the float64 sums of p . out and p . p. The launch makes
+// blockDim a multiple of S, so thread t always holds column t mod S; the
+// threads' partial sums are added per column in thread order.
+template <int VPT>
+__global__ void __launch_bounds__(kThreads)
+cg_cols_inv_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
+                   const float* __restrict__ pn, float* __restrict__ out,
+                   double* __restrict__ colsum, int nb, int nx, int ny,
+                   int nxh, float scale, int S, LinePlan p) {
+  extern __shared__ float2 sm[];
+  const int N = p.N;
+  const int nlines = nb * ny;
+  const int g0 = blockIdx.x * S;
+  const FastDiv fs(S), fl(ny);
+
+  for (int t = threadIdx.x; t < S * nxh; t += blockDim.x) {
+    const int s = fs.mod(t), i = fs.div(t);
+    const int g = g0 + s;
+    if (g >= nlines) continue;
+    const int b = fl.div(g), j = g - b * ny;
+    const long a = ((long)b * nxh + i) * ny + j;
+    const float re = wr[a], im = wi[a];
+    sm[spad(s * N + i)] = make_float2(re, im);
+    if (i > 0 && i < N - i) sm[spad(s * N + N - i)] = make_float2(re, -im);
+  }
+  __syncthreads();
+
+  block_fft<VPT>(sm, S, p, true);
+
+  double pap = 0.0, ppp = 0.0;
+  for (int t = threadIdx.x; t < S * nx; t += blockDim.x) {
+    const int s = fs.mod(t), r = fs.div(t);
+    const int g = g0 + s;
+    if (g >= nlines) continue;
+    const int b = fl.div(g), j = g - b * ny;
+    const long a = ((long)b * nx + r) * ny + j;
+    const float v = sm[spad(s * N + r)].x * scale;
+    out[a] = v;
+    const double q = pn[a];
+    pap += q * (double)v;
+    ppp += q * q;
+  }
+  __syncthreads();  // every read of the line buffer is done
+  double* red = reinterpret_cast<double*>(sm);
+  red[2 * threadIdx.x] = pap;
+  red[2 * threadIdx.x + 1] = ppp;
+  __syncthreads();
+  if ((int)threadIdx.x < S && g0 + (int)threadIdx.x < nlines) {
+    double a0 = 0.0, a1 = 0.0;
+    for (int u = threadIdx.x; u < (int)blockDim.x; u += S) {
+      a0 += red[2 * u];
+      a1 += red[2 * u + 1];
+    }
+    colsum[2 * (long)(g0 + threadIdx.x)] = a0;
+    colsum[2 * (long)(g0 + threadIdx.x) + 1] = a1;
+  }
+}
+
+constexpr int kSumThreads = 256;
+
+// K2's last pass: per band, the ny column sums added in a fixed order
+// (strided per thread, then a tree), rounded once to float32:
+// pap[b] = [p . conv(p), p . p].
+__global__ void __launch_bounds__(kSumThreads)
+band_sums_kernel(const double* __restrict__ colsum, float* __restrict__ pap,
+                 int ny) {
+  __shared__ double s0[kSumThreads], s1[kSumThreads];
+  const long b = blockIdx.x;
+  double a0 = 0.0, a1 = 0.0;
+  for (int j = threadIdx.x; j < ny; j += kSumThreads) {
+    a0 += colsum[2 * (b * ny + j)];
+    a1 += colsum[2 * (b * ny + j) + 1];
+  }
+  s0[threadIdx.x] = a0;
+  s1[threadIdx.x] = a1;
+  __syncthreads();
+  for (int h = kSumThreads / 2; h > 0; h >>= 1) {
+    if ((int)threadIdx.x < h) {
+      s0[threadIdx.x] += s0[threadIdx.x + h];
+      s1[threadIdx.x] += s1[threadIdx.x + h];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    pap[2 * b] = (float)s0[0];
+    pap[2 * b + 1] = (float)s1[0];
+  }
+}
+
+// Launch shape of K2's column kernels: line_launch's, with the check that
+// each thread keeps one column and that the reduction scratch fits.
+static inline bool cg_launch(int N, LineLaunch* c) {
+  *c = line_launch(N);
+  return c->threads % c->S == 0 &&
+         (size_t)16 * c->threads <= c->smem;
+}
+
+// Stages 1-3 of K1 (full = false) and K11 (full = true).
+static int conv_stages(const float* x, const float* hr, const float* hi,
+                       float* zr, float* zi, float* wr, float* wi,
+                       float* out, int nb, int nx, int ny, int NX, int NY,
+                       const void* TX, const void* TY, bool full,
+                       cudaStream_t st) {
+  LinePlan px, py;
+  if (NX % 2 || nx > NX || ny > NY || !make_plan(NX, TX, &px) ||
+      !make_plan(NY, TY, &py))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nxh = NX / 2 + 1;
+
+  // 1. x (nb, nx, ny) real -> z (nb, nxh, ny)
+  cudaError_t e = launch_lines(x, nullptr, zr, zi, nb, ny, nx, nxh,
+                               kInNatural, kOutNatural, 0, 1.0f, px, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  // 2. rows of z -> w (nb, nxh, ny)
+  const int R = nb * nxh;
+  e = full ? rows_stage<true>(zr, zi, hr, hi, wr, wi, R, ny, NX, py, st)
+           : rows_stage<false>(zr, zi, hr, hi, wr, wi, R, ny, NX, py, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  // 3. w (nb, nxh, ny) Hermitian half -> out (nb, nx, ny) real
+  const float scale = 1.0f / ((float)NX * (float)NY);
+  e = launch_lines(wr, wi, out, nullptr, nb, ny, nxh, nx, kInHermitian,
+                   kOutNatural, 1, scale, px, st);
+  return static_cast<int>(e);
+}
+
+template <int VPT>
+static cudaError_t cg_stage1(const float* pp, const float* rr,
+                             const float* beta, float* pn, float* zr,
+                             float* zi, int nb, int nx, int ny, int nxh,
+                             const LineLaunch& c, const LinePlan& p,
+                             cudaStream_t st) {
+  cudaError_t e = allow_smem(cg_cols_fwd_kernel<VPT>, c.smem);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = (unsigned)(((long)nb * ny + c.S - 1) / c.S);
+  cg_cols_fwd_kernel<VPT><<<grid, c.threads, c.smem, st>>>(
+      pp, rr, beta, pn, zr, zi, nb, nx, ny, nxh, c.S, p);
+  return cudaGetLastError();
+}
+
+template <int VPT>
+static cudaError_t cg_stage3(const float* wr, const float* wi,
+                             const float* pn, float* out, double* colsum,
+                             int nb, int nx, int ny, int nxh, float scale,
+                             const LineLaunch& c, const LinePlan& p,
+                             cudaStream_t st) {
+  cudaError_t e = allow_smem(cg_cols_inv_kernel<VPT>, c.smem);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = (unsigned)(((long)nb * ny + c.S - 1) / c.S);
+  cg_cols_inv_kernel<VPT><<<grid, c.threads, c.smem, st>>>(
+      wr, wi, pn, out, colsum, nb, nx, ny, nxh, scale, c.S, p);
   return cudaGetLastError();
 }
 
@@ -92,29 +346,61 @@ extern "C" int pfbt_psf_conv(const float* x, const float* hr,
                              float* wr, float* wi, float* out, int nb,
                              int nx, int ny, int NX, int NY, const void* TX,
                              const void* TY, void* stream) {
+  return pfbt::conv_stages(x, hr, hi, zr, zi, wr, wi, out, nb, nx, ny, NX,
+                           NY, TX, TY, false,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pfbt_psf_conv_full(const float* x, const float* hr,
+                                  const float* hi, float* zr, float* zi,
+                                  float* wr, float* wi, float* out, int nb,
+                                  int nx, int ny, int NX, int NY,
+                                  const void* TX, const void* TY,
+                                  void* stream) {
+  return pfbt::conv_stages(x, hr, hi, zr, zi, wr, wi, out, nb, nx, ny, NX,
+                           NY, TX, TY, true,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pfbt_psf_conv_cg(const float* pp, const float* rr,
+                                const float* beta, const float* hr,
+                                const float* hi, float* pn, float* zr,
+                                float* zi, float* wr, float* wi, float* out,
+                                double* colsum, float* pap, int nb, int nx,
+                                int ny, int NX, int NY, const void* TX,
+                                const void* TY, void* stream) {
   using namespace pfbt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   LinePlan px, py;
-  if (NX % 2 || !make_plan(NX, TX, &px) || !make_plan(NY, TY, &py))
+  LineLaunch c;
+  if (NX % 2 || nx > NX || ny > NY || !make_plan(NX, TX, &px) ||
+      !make_plan(NY, TY, &py) || !cg_launch(NX, &c))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nxh = NX / 2 + 1;
 
-  // 1. x (nb, nx, ny) real -> z (nb, nxh, ny)
-  cudaError_t e = launch_lines(x, nullptr, zr, zi, nb, ny, nx, nxh,
-                               kInNatural, kOutNatural, 0, 1.0f, px, st);
+  // 1. p = beta p_prev - r -> pn; its x spectrum -> z (nb, nxh, ny)
+  cudaError_t e =
+      c.vpt == kVpt
+          ? cg_stage1<kVpt>(pp, rr, beta, pn, zr, zi, nb, nx, ny, nxh, c,
+                            px, st)
+          : cg_stage1<2 * kVpt>(pp, rr, beta, pn, zr, zi, nb, nx, ny, nxh,
+                                c, px, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  // 2. rows of z -> w (nb, nxh, ny)
-  const LineLaunch c = line_launch(NY);
-  const int R = nb * nxh;
-  e = c.vpt == kVpt
-          ? launch_rows<kVpt>(zr, zi, hr, hi, wr, wi, R, ny, c, py, st)
-          : launch_rows<2 * kVpt>(zr, zi, hr, hi, wr, wi, R, ny, c, py, st);
+  // 2. rows, as K1
+  e = rows_stage<false>(zr, zi, hr, hi, wr, wi, nb * nxh, ny, NX, py, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  // 3. w (nb, nxh, ny) Hermitian half -> out (nb, nx, ny) real
+  // 3. conv(p) -> out, column sums of p.conv(p) and p.p -> colsum
   const float scale = 1.0f / ((float)NX * (float)NY);
-  e = launch_lines(wr, wi, out, nullptr, nb, ny, nxh, nx, kInHermitian,
-                   kOutNatural, 1, scale, px, st);
-  return static_cast<int>(e);
+  e = c.vpt == kVpt
+          ? cg_stage3<kVpt>(wr, wi, pn, out, colsum, nb, nx, ny, nxh, scale,
+                            c, px, st)
+          : cg_stage3<2 * kVpt>(wr, wi, pn, out, colsum, nb, nx, ny, nxh,
+                                scale, c, px, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  // 4. per band: pap (nb, 1, 2)
+  band_sums_kernel<<<nb, kSumThreads, 0, st>>>(colsum, pap, ny);
+  return static_cast<int>(cudaGetLastError());
 }

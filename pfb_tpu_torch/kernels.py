@@ -35,6 +35,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "pfbt_cfft": [_P] * 4 + [_I] * 8 + [_P] * 2,
     "pfbt_psf_conv": [_P] * 8 + [_I] * 5 + [_P] * 3,
+    "pfbt_psf_conv_full": [_P] * 8 + [_I] * 5 + [_P] * 3,
+    "pfbt_psf_conv_cg": [_P] * 13 + [_I] * 5 + [_P] * 3,
     "pfbt_twiddles": [_I, _P, _P],
     "pfbt_pg_spread": [_P] * 5 + [_I] * 6 + [_D, _P],
     "pfbt_pg_fold": [_P] * 3 + [_I] * 11 + [_P],

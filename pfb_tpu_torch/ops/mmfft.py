@@ -1,0 +1,31 @@
+"""The full PSF transfer function (counterpart of
+pfb_tpu/ops/mmfft.py:make_full_psfhat).
+
+Only this helper comes over: the matmul FFTs of the JAX module are the
+TPU's stepping stones and have no place in the port. The general PSF
+convolution (ops/psf.py:psf_convolve_full, kernel K11) multiplies by the
+full fft2 transfer function this builds.
+"""
+
+import torch
+
+
+def make_full_psfhat(psf):
+    """Full (fft2, not rfft2) transform of ifftshift(psf) over the last
+    two axes as real and imaginary parts, built from the rfft2 half
+    spectrum by Hermitian extension: for a real input X[N1-k1 mod N1,
+    N2-k2 mod N2] = conj X[k1, k2]. Works in the PSF's dtype (the JAX
+    package casts to float32 first); its ``band_chunk`` workspace bound
+    is the caller's band loop here (ops/psf.py:prep_h_full)."""
+    sh = torch.fft.ifftshift(psf, dim=(-2, -1))
+    N2 = sh.shape[-1]
+    H2 = N2 // 2 + 1
+    half = torch.fft.rfft2(sh, dim=(-2, -1))  # (..., N1, H2)
+    hr, hi = half.real, half.imag
+    # the missing columns k2 = H2..N2-1 mirror k2' = N2-k2 in 1..N2-H2,
+    # with the rows reversed mod N1: row 0 stays, rows 1..N1-1 flip
+    src = hr[..., :, 1:N2 - H2 + 1].flip(-1)
+    srci = hi[..., :, 1:N2 - H2 + 1].flip(-1)
+    mr = torch.cat([src[..., :1, :], src[..., 1:, :].flip(-2)], dim=-2)
+    mi = -torch.cat([srci[..., :1, :], srci[..., 1:, :].flip(-2)], dim=-2)
+    return torch.cat([hr, mr], dim=-1), torch.cat([hi, mi], dim=-1)

@@ -5,15 +5,20 @@ Two engines, as in the JAX package:
 - :func:`make_psf_convolve` (``engine="fft"``): ``torch.fft`` on the
   rfft2 transfer function PSFHAT;
 - :func:`make_psf_convolve_pallas` (``engine="pallas"``): the
-  hand-written PSF-convolution kernel ``csrc/psf_conv.cu`` on CUDA
-  (counterpart of ``psf_convolve_pallas_v3_cube``), its plain version
-  :func:`psf_convolve_h_plain` on the CPU.
+  hand-written kernels of ``csrc/psf_conv.cu`` on CUDA, their plain
+  versions on the CPU. Where the JAX package runs its v3 pipeline (psf =
+  2x image, :func:`v3_supported`) that is K1, :func:`psf_convolve_h`
+  (counterpart of ``psf_convolve_pallas_v3_cube``), with K2,
+  :func:`psf_convolve_h_cg`, for the CG-fused solver; elsewhere K11,
+  :func:`psf_convolve_full` (counterpart of ``psf_convolve_pallas``).
 
-The kernel's transfer function H is the port's own layout: the
+K1's and K2's transfer function H is the port's own layout: the
 Hermitian half along x of ``fft2(ifftshift(psf))``, (nb, nx+1, 2ny), as
 a real part plus an optional imaginary part (dropped for an even PSF,
 see :func:`prep_h`). :func:`h_from_jax_v3` converts the JAX package's
-scrambled v3 operands into it.
+scrambled v3 operands into it. K11 takes the full (nb, NX, NY) transfer
+function (:func:`prep_h_full`); :func:`h_from_jax_full` converts the
+JAX package's transposed operands.
 """
 
 import numpy as np
@@ -23,6 +28,7 @@ from pfb_tpu_torch import kernels
 from pfb_tpu_torch.config import kernel_dtype
 from pfb_tpu_torch.ops.cfft import _factor
 from pfb_tpu_torch.ops.fft import psf_convolve_cube
+from pfb_tpu_torch.ops.mmfft import make_full_psfhat
 
 
 def hessian_psf_cube(x, psfhat, beam=None, lastsize=None, sigmainv=0.0,
@@ -91,24 +97,115 @@ def psf_convolve_h(x, hr, hi=None):
     if not x.is_cuda:
         return psf_convolve_h_plain(x, hr, hi)
     kernels.require_cuda_f32("psf_convolve_h", x, hr, hi)
-    NX, NY = 2 * nx, 2 * ny
-    dev = x.device
-    zr = torch.empty((nb, nx + 1, ny), dtype=torch.float32, device=dev)
-    zi, wr, wi = (torch.empty_like(zr) for _ in range(3))
-    out = torch.empty_like(x)
-    WX = kernels.twiddles(NX, dev)
-    WY = kernels.twiddles(NY, dev)
-    code = kernels.library().pfbt_psf_conv(
-        x.data_ptr(), hr.data_ptr(), None if hi is None else hi.data_ptr(),
-        zr.data_ptr(), zi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-        out.data_ptr(), nb, nx, ny, NX, NY,
-        WX.data_ptr(), WY.data_ptr(), kernels.stream_ptr())
-    kernels.check(code, "psf_convolve_h")
+    out = _conv_stages("pfbt_psf_conv", x, hr, hi, 2 * nx, 2 * ny)
     psf_convolve_h.launches += 1
     return out
 
 
 psf_convolve_h.launches = 0
+
+
+def _conv_stages(entry, x, hr, hi, NX, NY):
+    """Launch K1 or K11 (``entry``) on validated CUDA operands: the
+    scratch spectra (nb, NX/2+1, ny) and the output are allocated here."""
+    nb, nx, ny = x.shape
+    dev = x.device
+    zr = torch.empty((nb, NX // 2 + 1, ny), dtype=torch.float32, device=dev)
+    zi, wr, wi = (torch.empty_like(zr) for _ in range(3))
+    out = torch.empty_like(x)
+    WX = kernels.twiddles(NX, dev)
+    WY = kernels.twiddles(NY, dev)
+    code = getattr(kernels.library(), entry)(
+        x.data_ptr(), hr.data_ptr(), None if hi is None else hi.data_ptr(),
+        zr.data_ptr(), zi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+        out.data_ptr(), nb, nx, ny, NX, NY,
+        WX.data_ptr(), WY.data_ptr(), kernels.stream_ptr())
+    kernels.check(code, entry)
+    return out
+
+
+def psf_convolve_full_plain(x, hr, hi):
+    """Plain version of K11: Re(ifft2(H fft2(pad_{NX,NY}(x))))[:nx, :ny]
+    per band, with the full (nb, NX, NY) transfer function as real (+
+    imaginary) parts. Complex transforms only: no c2r transform sees H,
+    so any H is read as given."""
+    nx, ny = x.shape[-2:]
+    NX, NY = hr.shape[-2:]
+    h = hr if hi is None else torch.complex(hr, hi)
+    z = torch.fft.fft2(x, s=(NX, NY)) * h
+    return torch.fft.ifft2(z).real[..., :nx, :ny].contiguous()
+
+
+def psf_convolve_full(x, hr, hi=None):
+    """K11: the PSF convolution of an (nb, nx, ny) cube with the full
+    (nb, NX, NY) transfer function, any even 5-smooth NX >= nx and NY >=
+    ny: the CUDA kernel for CUDA tensors (all bands in one launch
+    sequence), the plain version on the CPU."""
+    nb, nx, ny = x.shape
+    if hr.dim() != 3 or hr.shape[0] != nb or hr.shape[1] < nx or \
+            hr.shape[2] < ny or hr.shape[1] % 2 or \
+            (hi is not None and hi.shape != hr.shape):
+        raise ValueError(f"psf_convolve_full: H {tuple(hr.shape)} does "
+                         f"not match x {tuple(x.shape)}")
+    if not x.is_cuda:
+        return psf_convolve_full_plain(x, hr, hi)
+    kernels.require_cuda_f32("psf_convolve_full", x, hr, hi)
+    out = _conv_stages("pfbt_psf_conv_full", x, hr, hi, *hr.shape[1:])
+    psf_convolve_full.launches += 1
+    return out
+
+
+psf_convolve_full.launches = 0
+
+
+def psf_convolve_h_cg_plain(p_prev, r, beta, hr, hi):
+    """Plain version of K2: p = beta p_prev - r, conv = K1(p), and per
+    band pap = [p . conv, p . p] as an (nb, 1, 2) tensor."""
+    p = beta * p_prev - r
+    conv = psf_convolve_h_plain(p, hr, hi)
+    pap = torch.stack([torch.sum(p * conv, dim=(-2, -1)),
+                       torch.sum(p * p, dim=(-2, -1))], dim=-1)
+    return p, conv, pap[:, None, :]
+
+
+def psf_convolve_h_cg(p_prev, r, beta, hr, hi=None):
+    """K2, the CG-fused K1 (counterpart of
+    psf_convolve_pallas_v3_cube_cg): from p_prev, r (nb, nx, ny) and beta
+    (nb, 1, 1) returns (p, conv(p), pap) with p = beta p_prev - r and pap
+    (nb, 1, 2) = [p . conv(p), p . p]; the CUDA kernel for CUDA tensors,
+    the plain version on the CPU. H as :func:`psf_convolve_h`'s."""
+    nb, nx, ny = p_prev.shape
+    if r.shape != p_prev.shape or tuple(beta.shape) != (nb, 1, 1) or \
+            hr.shape != (nb, nx + 1, 2 * ny) or \
+            (hi is not None and hi.shape != hr.shape):
+        raise ValueError(f"psf_convolve_h_cg: p {tuple(p_prev.shape)}, r "
+                         f"{tuple(r.shape)}, beta {tuple(beta.shape)}, H "
+                         f"{tuple(hr.shape)} do not match")
+    if not p_prev.is_cuda:
+        return psf_convolve_h_cg_plain(p_prev, r, beta, hr, hi)
+    kernels.require_cuda_f32("psf_convolve_h_cg", p_prev, r, beta, hr, hi)
+    NX, NY = 2 * nx, 2 * ny
+    dev = p_prev.device
+    pn = torch.empty_like(p_prev)
+    out = torch.empty_like(p_prev)
+    zr = torch.empty((nb, nx + 1, ny), dtype=torch.float32, device=dev)
+    zi, wr, wi = (torch.empty_like(zr) for _ in range(3))
+    colsum = torch.empty((nb, ny, 2), dtype=torch.float64, device=dev)
+    pap = torch.empty((nb, 1, 2), dtype=torch.float32, device=dev)
+    WX = kernels.twiddles(NX, dev)
+    WY = kernels.twiddles(NY, dev)
+    code = kernels.library().pfbt_psf_conv_cg(
+        p_prev.data_ptr(), r.data_ptr(), beta.data_ptr(), hr.data_ptr(),
+        None if hi is None else hi.data_ptr(), pn.data_ptr(), zr.data_ptr(),
+        zi.data_ptr(), wr.data_ptr(), wi.data_ptr(), out.data_ptr(),
+        colsum.data_ptr(), pap.data_ptr(), nb, nx, ny, NX, NY,
+        WX.data_ptr(), WY.data_ptr(), kernels.stream_ptr())
+    kernels.check(code, "psf_convolve_h_cg")
+    psf_convolve_h_cg.launches += 1
+    return pn, out, pap
+
+
+psf_convolve_h_cg.launches = 0
 
 
 def prep_h(psf, nx, ny, dtype, real_transfer="auto"):
@@ -158,22 +255,71 @@ def h_from_jax_v3(phrT, phiT, nx, ny):
     return one(phrT), (None if phiT is None else one(phiT))
 
 
+def prep_h_full(psf, dtype):
+    """K11's transfer function from an (nb, NX, NY) PSF cube: the full
+    fft2(ifftshift(psf)) (ops/mmfft.py:make_full_psfhat), computed band
+    by band in float64 and stored in ``dtype`` as (hr, hi), each (nb,
+    NX, NY). Always complex, as the JAX package's general route is."""
+    hr = torch.empty(psf.shape, dtype=dtype, device=psf.device)
+    hi = torch.empty_like(hr)
+    for b in range(psf.shape[0]):
+        r, i = make_full_psfhat(psf[b].to(torch.float64))
+        hr[b] = r
+        hi[b] = i
+        del r, i
+    return hr, hi
+
+
+def h_from_jax_full(HrT, HiT):
+    """The JAX package's K11 operands -> the port's: ``psf_convolve_pallas``
+    takes the full transfer function transposed, (nb, NY, NX) (or (NY, NX)
+    for one band; ops/psf.py:238-239 swapaxes make_full_psfhat's output),
+    and K11 takes (nb, NX, NY). Takes and returns numpy arrays; HiT may be
+    None."""
+    def one(a):
+        return np.ascontiguousarray(np.swapaxes(np.asarray(a), -1, -2))
+    return one(HrT), (None if HiT is None else one(HiT))
+
+
 def make_psf_convolve_pallas(psf, nx, ny, beam=None, sigmainv=0.0,
                              wsum=None, real_transfer="auto"):
-    """PSF-Hessian matvec on the PSF-convolution kernel (counterpart of
-    pfb_tpu/ops/psf.py:make_psf_convolve_pallas, v3 route). ``psf`` is
-    the (nband, 2nx, 2ny) PSF tensor; :func:`v3_supported` must hold.
+    """PSF-Hessian matvec on the PSF-convolution kernels (counterpart of
+    pfb_tpu/ops/psf.py:make_psf_convolve_pallas). ``psf`` is the
+    (nband, nx_psf, ny_psf) PSF tensor.
 
-    The operator works in float32 on CUDA (the kernel's type) and in the
-    PSF's dtype on the CPU. The returned matvec has ``.apply(x, consts)``
-    and ``.consts`` so the fused solvers (opt/) keep the JAX package's
-    shape, and ``.real_transfer``."""
-    if not v3_supported(nx, ny):
-        raise ValueError(f"make_psf_convolve_pallas: ({nx}, {ny}) not "
-                         "supported (v3_supported)")
+    Routed on the JAX package's rule: with psf = 2x image and
+    :func:`v3_supported`, K1 (:func:`psf_convolve_h`), and the returned
+    matvec has ``.apply(x, consts)``, ``.consts`` and ``.real_transfer``
+    so the fused solvers (opt/) keep the JAX package's shape; without a
+    beam also ``.apply_cg(p_prev, r, beta, consts)`` on K2 and
+    ``.cg_scale = (wsum, sigmainv or None)`` for
+    opt/pcg.py:make_pcg_bands_fused. Any other shape takes K11
+    (:func:`psf_convolve_full`) with the full complex transfer function
+    (``real_transfer`` is not read there, as in the JAX package), and the
+    matvec has no ``.apply``: callers take the host-loop solvers.
+
+    The operator works in float32 on CUDA (the kernels' type) and in the
+    PSF's dtype on the CPU."""
     dtype = kernel_dtype(psf.device, psf.dtype)
-    hr, hi = prep_h(psf, nx, ny, dtype, real_transfer=real_transfer)
     has_sig = float(sigmainv) != 0.0
+    nx_psf, ny_psf = psf.shape[-2:]
+    if not (nx_psf == 2 * nx and ny_psf == 2 * ny and v3_supported(nx, ny)):
+        hr_f, hi_f = prep_h_full(psf, dtype)
+
+        def matvec_full(x):
+            xin = (x * beam if beam is not None else x).to(dtype)
+            out = psf_convolve_full(xin.contiguous(), hr_f, hi_f)
+            if beam is not None:
+                out = out * beam
+            if wsum is not None:
+                out = out / wsum
+            if has_sig:
+                out = out + x.to(dtype) * sigmainv
+            return out
+
+        return matvec_full
+
+    hr, hi = prep_h(psf, nx, ny, dtype, real_transfer=real_transfer)
 
     def apply(x, consts):
         beam_c = consts["beam"]
@@ -196,4 +342,14 @@ def make_psf_convolve_pallas(psf, nx, ny, beam=None, sigmainv=0.0,
     matvec.consts = consts
     matvec.real_transfer = hi is None
     matvec.dtype = dtype
+    if beam is None:
+        def apply_cg(p_prev, r, beta, consts):
+            """The CG-fused matvec (K2): p = beta p_prev - r, conv(p)
+            and [p . conv(p), p . p]; the solver folds wsum and
+            sigmainv in (cg_scale)."""
+            return psf_convolve_h_cg(p_prev, r, beta, consts["hr"],
+                                     consts["hi"])
+
+        matvec.apply_cg = apply_cg
+        matvec.cg_scale = (wsum, sigmainv if has_sig else None)
     return matvec

@@ -1,12 +1,14 @@
 """Conjugate-gradient solvers (counterpart of pfb_tpu/opt/pcg.py).
 
-The JAX ``lax.while_loop``s are Python loops here; each iteration reads
-its stopping test from the device. Ported: :func:`cg`, :func:`pcg`
-(one system, global inner products, backtracking), :func:`pcg_bands`
-(per-band step sizes, backtracking and convergence freezing) and
-:func:`pcg_psf`, the klean flux mop's solve. Not ported yet:
-``pcg_bands_hostloop``, ``make_pcg_bands_fused`` (with its CG-fused PSF
-kernel, K2) and ``cg_dct``.
+The JAX ``lax.while_loop``s are Python loops here; each iteration of
+:func:`cg`, :func:`pcg` (one system, global inner products,
+backtracking) and :func:`pcg_bands` (per-band step sizes, backtracking
+and convergence freezing) reads its stopping test from the device.
+:func:`pcg_bands_hostloop` reads it every ``check_freq`` iterations
+only, and the fixed-iteration solvers (``tol <= 0``) and the CG-fused
+loop of :func:`make_pcg_bands_fused` (on the PSF kernel K2) read nothing
+inside the loop. Also :func:`pcg_psf`, the klean flux mop's solve, and
+:func:`cg_dct` over dicts of grids.
 """
 
 import torch
@@ -172,6 +174,151 @@ def pcg_bands(A, b, x0=None, M=None, tol=1e-5, maxit=500, minit=100,
         log.info(f"{name}: done at iter {k}  eps "
                  f"{float(torch.max(eps)):.3e}")
     return x
+
+
+def pcg_bands_hostloop(A, b, x0=None, M=None, tol=1e-5, maxit=500,
+                       minit=100, verbosity=0, report_freq=10, name="pcg",
+                       check_freq=4):
+    """Per-band PCG without backtracking or freezing, the convergence
+    test read from the device only every ``check_freq`` iterations from
+    ``minit`` on and at the last iteration (never when ``tol <= 0``).
+    The solve may run up to ``check_freq - 1`` iterations past
+    convergence; those only polish the solution."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    if M is None:
+        def M(v):
+            return v
+    r = A(x) - b
+    y = M(r)
+    p = -y
+    k = 0
+    for k in range(1, maxit + 1):
+        Ap = A(p)
+        rnorm = _band_vdot(r, y)
+        alpha = _safe_div(rnorm, _band_vdot(p, Ap))
+        xn = x + alpha * p
+        r = r + alpha * Ap
+        y = M(r)
+        p = _safe_div(_band_vdot(r, y), rnorm) * p - y
+        check = tol > 0 and k >= minit and \
+            ((k - minit) % check_freq == 0 or k == maxit)
+        report = verbosity > 1 and report_freq and k % report_freq == 0
+        if check or report:
+            num = torch.sum((xn - x) ** 2, dim=(-2, -1), keepdim=True)
+            den = 1e-12 + torch.sum(xn ** 2, dim=(-2, -1), keepdim=True)
+            eps = float(torch.max(torch.sqrt(num / den)))
+            if report:
+                log.info(f"{name}: iter {k}  eps {eps:.3e}")
+        x = xn
+        if check and eps < tol:
+            break
+    if verbosity >= 1:
+        log.info(f"{name}: done at iter {k}")
+    return x
+
+
+def make_pcg_bands_fused(apply, M=None, tol=1e-5, maxit=500, minit=100,
+                         backtrack=True, verbosity=0, report_freq=10,
+                         name="pcg", apply_cg=None, cg_scale=None):
+    """:func:`pcg_bands` around an operator ``apply(x, consts)`` with the
+    operator's constants as a call argument (the shape of the JAX
+    package's fused solver): ``solve = make_pcg_bands_fused(hess.apply)``,
+    then ``x = solve(b, x0, hess.consts)``.
+
+    With ``apply_cg`` (``make_psf_convolve_pallas`` exposes ``.apply_cg``
+    and ``.cg_scale``), ``tol <= 0`` and no ``M``, the loop runs on the
+    CG-fused PSF kernel K2: one launch forms the direction p = beta p_prev
+    - r, conv(p) and the per-band [p . conv(p), p . p]; ``cg_scale =
+    (wsum, sigmainv)`` folds the operator's scaling into alpha and the r
+    update. The (nband, 1, 1) step sizes stay on the device and nothing
+    is read from it inside the loop. The same arithmetic as
+    :func:`pcg_bands`'s fixed-iteration loop."""
+    if apply_cg is not None and tol <= 0 and M is None:
+        ws, sig = cg_scale if cg_scale is not None else (None, None)
+
+        def solve_cg(b, x0, consts):
+            r = apply(x0, consts) - b
+            rnorm0 = _band_vdot(r, r)
+            rnorm = rnorm0
+            x = x0
+            p = torch.zeros_like(r)
+            beta = torch.zeros_like(rnorm0)
+            for k in range(maxit):
+                pn, conv, pap = apply_cg(p, r, beta, consts)
+                papc, ppc = pap[:, :, 0:1], pap[:, :, 1:2]
+                if ws is not None:
+                    papc = papc / ws
+                    conv = conv / ws
+                if sig is not None:
+                    papc = papc + sig * ppc
+                    conv = conv + sig * pn
+                alpha = _safe_div(rnorm, papc)
+                x = x + alpha * pn
+                r = r + alpha * conv
+                rnorm_next = _band_vdot(r, r)
+                beta = _safe_div(rnorm_next, rnorm).contiguous()
+                rnorm, p = rnorm_next, pn
+                _report(name, k, _safe_div(rnorm, rnorm0), report_freq,
+                        verbosity)
+            if verbosity >= 1:
+                eps = float(torch.max(_safe_div(rnorm, rnorm0)))
+                log.info(f"{name}: done at iter {maxit}  eps {eps:.3e}")
+            return x
+
+        return solve_cg
+
+    def solve(b, x0, consts):
+        return pcg_bands(lambda z: apply(z, consts), b, x0=x0, M=M, tol=tol,
+                         maxit=maxit, minit=minit, backtrack=backtrack,
+                         verbosity=verbosity, report_freq=report_freq,
+                         name=name)
+
+    return solve
+
+
+def _leaves(t):
+    """Tensors of a nest of dicts, lists and tuples (dict keys sorted, as
+    jax.tree orders them)."""
+    if isinstance(t, dict):
+        return [v for k in sorted(t) for v in _leaves(t[k])]
+    if isinstance(t, (list, tuple)):
+        return [v for u in t for v in _leaves(u)]
+    return [t]
+
+
+def _tree_map(fn, *trees):
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_tree_map(fn, *u) for u in zip(*trees))
+    return fn(*trees)
+
+
+def cg_dct(A, b, x, tol=1e-5, maxit=500):
+    """CG over a nest of grids (dicts keyed on field, then (t, b)) for
+    multi-field imaging: ``A`` maps and returns nests shaped like ``b``
+    and ``x``; inner products add over every leaf. No preconditioner or
+    backtracking; converges on the absolute r.r. Returns (x, r)."""
+    def vdot(a, c):
+        return sum(float(torch.sum(u.conj() * v).real)
+                   for u, v in zip(_leaves(a), _leaves(c)))
+
+    r = _tree_map(lambda ax, bx: ax - bx, A(x), b)
+    p = _tree_map(lambda u: -u, r)
+    rnorm = vdot(r, r)
+    k = 0
+    while rnorm > tol and k < maxit:
+        Ap = A(p)
+        alpha = rnorm / vdot(p, Ap)
+        x = _tree_map(lambda u, v: u + alpha * v, x, p)
+        r = _tree_map(lambda u, v: u + alpha * v, r, Ap)
+        rnorm_next = vdot(r, r)
+        beta = rnorm_next / rnorm
+        p = _tree_map(lambda u, v: beta * u - v, p, r)
+        rnorm = rnorm_next
+        k += 1
+    return x, r
 
 
 def pcg_psf(psfhat, b, x0, beam=None, lastsize=None, sigmainv=0.0, tol=1e-5,

@@ -5,8 +5,11 @@ Solves argmin_x (xbar - x).H A (xbar - x)/2 + lam ||Psi.H x||_21,
 optionally s.t. x >= 0. Step sizes:
     sigma = L / (2 gamma) / nu
     tau   = 0.9 / (L / (2 gamma) + sigma nu^2)
-The loop runs on the host and tests convergence every iteration, as
-the JAX while_loop does.
+:func:`primal_dual` tests convergence every iteration, as the JAX
+while_loop does; :func:`primal_dual_hostloop` every ``check_freq``
+iterations, as the JAX package's host loop does (the solver spotless
+runs on the general PSF kernel K11 and on the fft fallback of
+``engine="pallas"``).
 """
 
 import torch
@@ -32,15 +35,29 @@ def apply_positivity(x, positivity):
     return x
 
 
+def _pd_steps(L, gamma, nu, sigma):
+    """Chambolle-Pock step sizes (sigma, tau)."""
+    L = float(L)
+    sigma = L / (2.0 * gamma) / nu if sigma is None else float(sigma)
+    return sigma, 0.9 / (L / (2.0 * gamma) + sigma * nu**2)
+
+
+def _pd_iterate(x, v, w, lam, psiH, psi, grad, sigma, tau, positivity):
+    """One iteration: (x, v, eps) with eps the relative change of x, a
+    device scalar."""
+    vnew = dual_update_21m(v, psiH(x), lam, sigma=sigma, weight=w)
+    xout = psi(2.0 * vnew - v) + grad(x)
+    xnew = apply_positivity(x - tau * xout, positivity)
+    return xnew, vnew, norm_diff(xnew, x)
+
+
 def primal_dual(x, v, lam, psiH, psi, L, l1weight, grad, reweighter=None,
                 nu=1.0, sigma=None, tol=1e-5, maxit=1000, positivity=1,
                 gamma=1.0, maxreweight=50, verbosity=0, report_freq=50):
     """Returns (x, v, l1weight, niters). When the relative change drops
     below tol and a reweighter is given, the l1 weights are refreshed
     (up to maxreweight times) and iteration continues."""
-    L = float(L)
-    sigma = L / (2.0 * gamma) / nu if sigma is None else float(sigma)
-    tau = 0.9 / (L / (2.0 * gamma) + sigma * nu**2)
+    sigma, tau = _pd_steps(L, gamma, nu, sigma)
     lam = float(lam)
     log = get_logger("PD")
     w = l1weight
@@ -48,11 +65,9 @@ def primal_dual(x, v, lam, psiH, psi, L, l1weight, grad, reweighter=None,
     k = 0
     eps = 1.0
     while k < maxit:
-        vnew = dual_update_21m(v, psiH(x), lam, sigma=sigma, weight=w)
-        xout = psi(2.0 * vnew - v) + grad(x)
-        xnew = apply_positivity(x - tau * xout, positivity)
-        eps = float(norm_diff(xnew, x))
-        x, v = xnew, vnew
+        x, v, eps_t = _pd_iterate(x, v, w, lam, psiH, psi, grad, sigma, tau,
+                                  positivity)
+        eps = float(eps_t)
         k += 1
         if verbosity > 1 and report_freq and k % report_freq == 0:
             log.info(f"pd: iter {k}  eps {eps:.3e}")
@@ -64,6 +79,41 @@ def primal_dual(x, v, lam, psiH, psi, L, l1weight, grad, reweighter=None,
                 break
     if verbosity >= 1:
         log.info(f"pd: done at iter {k}, eps {eps:.3e}")
+    return x, v, w, k
+
+
+def primal_dual_hostloop(x, v, lam, psiH, psi, L, l1weight, grad,
+                         reweighter=None, nu=1.0, sigma=None, tol=1e-5,
+                         maxit=1000, positivity=1, gamma=1.0,
+                         maxreweight=50, verbosity=0, report_freq=50,
+                         check_freq=4):
+    """:func:`primal_dual` with the convergence test (and so the
+    reweight-on-converge restart) read from the device only every
+    ``check_freq`` iterations and at the last one, never when ``tol <=
+    0``: the solve may run up to ``check_freq - 1`` iterations past
+    convergence before it reweights or stops. ``check_freq=1`` gives
+    :func:`primal_dual`'s iterates."""
+    sigma, tau = _pd_steps(L, gamma, nu, sigma)
+    lam = float(lam)
+    log = get_logger("PD")
+    w = l1weight
+    nrw = 0
+    k = 0
+    while k < maxit:
+        x, v, eps = _pd_iterate(x, v, w, lam, psiH, psi, grad, sigma, tau,
+                                positivity)
+        k += 1
+        if verbosity > 1 and report_freq and k % report_freq == 0:
+            log.info(f"pd: iter {k}  eps {float(eps):.3e}")
+        if tol > 0 and (k % check_freq == 0 or k == maxit) and \
+                float(eps) < tol:
+            if reweighter is not None and nrw < maxreweight:
+                w = reweighter(x)
+                nrw += 1
+            else:
+                break
+    if verbosity >= 1:
+        log.info(f"pd: done at iter {k}")
     return x, v, w, k
 
 

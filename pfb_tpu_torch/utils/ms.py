@@ -212,7 +212,7 @@ def simulate_ms(path, nant=7, ntime=8, nchan=4, nsource=10, fov_deg=1.0,
                 seed=420, gains=False, ncorr=2, pol="linear",
                 duration_h=1.0, extent=1000.0, noise=0.0, nscan=1,
                 gain_mode="diag", gain_nt=None, gain_nf=None,
-                fullpol=False):
+                fullpol=False, srf=2.0):
     """Simulate an observation with point sources (and optionally smooth
     gain corruptions) and write it as an npz MS. Returns
     (model_cube, Ix, Iy, nx, cell_rad, jones) — the ground truth the
@@ -225,7 +225,9 @@ def simulate_ms(path, nant=7, ntime=8, nchan=4, nsource=10, fov_deg=1.0,
     so init's gain binning is exercised. fullpol=True draws polarised
     sources (|Q|,|U|,|V| < I, ncorr=4) and the returned model has a
     leading Stokes axis (4, nband, nx, ny) in I,Q,U,V order (mirrors
-    upstream tests/test_polproducts.py:11-129).
+    upstream tests/test_polproducts.py:11-129). ``srf`` is the
+    super-resolution factor of the cell (1 / (2 srf uv_max f_max / c));
+    the JAX package fixes it at 2.
     """
     from pfb_tpu_torch.utils.simulation import (image_size_for,
                                                 point_source_model,
@@ -233,7 +235,7 @@ def simulate_ms(path, nant=7, ntime=8, nchan=4, nsource=10, fov_deg=1.0,
 
     obs = simulate_obs(nant=nant, ntime=ntime, nchan=nchan, seed=seed,
                        duration_h=duration_h, extent=extent)
-    nx, cell_rad = image_size_for(obs, fov_deg=fov_deg, srf=2.0)
+    nx, cell_rad = image_size_for(obs, fov_deg=fov_deg, srf=srf)
     model, Ix, Iy = point_source_model(nx, nx, obs.freq, nsource=nsource,
                                        seed=seed)
     nrow = obs.uvw.shape[0]

@@ -6,10 +6,14 @@ per-major-iteration primal-dual backward step with positivity, exact
 vis-space residual, l1 reweighting from ``l1reweight_from``, divergence
 guard and MODEL/DUAL/RESIDUAL/MODEL_BEST writeback for resume.
 
-``engine="pallas"`` runs the PSF Hessian on the hand-written kernel
-(ops/psf.py) where the JAX package runs its v3 Pallas pipeline; other
-shapes fall back to ``engine="fft"`` with a logged warning.
-``_spotless_dist`` is not ported yet.
+``engine="pallas"`` routes as the JAX package does. On 128-aligned image
+and PSF shapes it takes ops/psf.py:make_psf_convolve_pallas: where the
+JAX package runs its v3 pipeline (psf = 2x image, v3_supported) that is
+the kernel K1 with the fused power method and primal-dual solver; on
+every other 128-aligned shape it is the general kernel K11 with the host
+power method and ``primal_dual_hostloop``. Other shapes fall back to the
+fft operator with a logged warning and still take
+``primal_dual_hostloop``. ``_spotless_dist`` is not ported yet.
 """
 
 from functools import partial
@@ -19,14 +23,14 @@ import torch
 
 from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.ops.gridder import make_hessian_dds
-from pfb_tpu_torch.ops.psf import (make_psf_convolve,
-                                   make_psf_convolve_pallas, v3_supported)
+from pfb_tpu_torch.ops.psf import make_psf_convolve, make_psf_convolve_pallas
 from pfb_tpu_torch.ops.psi import make_psi, psi_dot, psi_hdot
 from pfb_tpu_torch.opt.power_method import (make_power_method_fused,
                                             power_method)
 from pfb_tpu_torch.opt.primal_dual import (l1reweight_func,
                                            make_primal_dual_fused,
-                                           primal_dual)
+                                           primal_dual,
+                                           primal_dual_hostloop)
 from pfb_tpu_torch.utils import dstore
 from pfb_tpu_torch.utils.logging import get_logger
 from pfb_tpu_torch.utils.misc import fitcleanbeam
@@ -47,8 +51,9 @@ def _spotless(ddsi=None, output_filename=None, product="I",
               band_chunk=None, verbose=1, device=None, stats=None, **kw):
     """Returns (model, residual_cube) as numpy arrays and writes back
     into the dds store. ``stats``, when a dict, receives ``hessnorm``,
-    ``engine`` and per-major-iteration ``rms``, ``rmax`` and
-    ``pd_iters``."""
+    ``engine`` (the operator that ran: "pallas" for the kernels, "fft"),
+    ``pd_solver`` ("fused", "primal_dual_hostloop" or "primal_dual") and
+    per-major-iteration ``rms``, ``rmax`` and ``pd_iters``."""
     device = as_device(device)
     dds_name = None
     if ddsi is None:
@@ -83,23 +88,29 @@ def _spotless(ddsi=None, output_filename=None, product="I",
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
                                                            dtype=dt)
 
-    kernel_shapes = (nx % 128 == 0 and ny % 128 == 0 and nx_psf == 2 * nx
-                     and ny_psf == 2 * ny and v3_supported(nx, ny))
-    if engine == "pallas" and kernel_shapes:
+    aligned = nx % 128 == 0 and ny % 128 == 0 and nx_psf % 128 == 0 and \
+        ny_psf % 128 == 0
+    use_kernels = engine == "pallas" and aligned
+    if use_kernels:
+        # K1 where the JAX package runs v3, K11 elsewhere (no .apply)
         psf_convolve = make_psf_convolve_pallas(tens(psf), nx, ny)
     else:
         if engine == "pallas":
             log.warning(
                 "engine='pallas' unsupported for shapes nx=%d ny=%d "
-                "psf=%dx%d (needs 128-aligned, psf_oversize=2); falling "
-                "back to engine='fft'", nx, ny, nx_psf, ny_psf)
+                "psf=%dx%d (needs 128-aligned); falling back to "
+                "engine='fft' host-loop solvers", nx, ny, nx_psf, ny_psf)
         psf_convolve = make_psf_convolve(
             tens(psfhat, torch.complex128 if dtype == torch.float64
                  else torch.complex64), ny_psf, band_chunk=band_chunk)
     use_fused = hasattr(psf_convolve, "apply")
+    # the JAX package's host loop for every engine="pallas" operator
+    # without .apply (workers/spotless.py:206-215)
+    pd_fn = primal_dual_hostloop if engine == "pallas" else primal_dual
     if stats is not None:
-        stats.update(engine="pallas" if use_fused else "fft", rms=[],
-                     rmax=[], pd_iters=[])
+        stats.update(engine="pallas" if use_kernels else "fft",
+                     pd_solver="fused" if use_fused else pd_fn.__name__,
+                     rms=[], rmax=[], pd_iters=[])
 
     if hessnorm is None:
         gen = torch.Generator(device=device).manual_seed(42)
@@ -198,7 +209,7 @@ def _spotless(ddsi=None, output_filename=None, product="I",
                 def reweighter(x):
                     return l1reweight_func(psiH, rmsfactor, rms_comps_t, x,
                                            alpha)
-            model_t, dual_t, l1weight, pd_iters = primal_dual(
+            model_t, dual_t, l1weight, pd_iters = pd_fn(
                 model_t, dual_t, rf * rms, psiH, psiF, hessnorm, l1weight,
                 grad21, reweighter=reweighter, nu=nbasis, tol=pd_tol,
                 maxit=pd_maxit, positivity=positivity, gamma=gamma,

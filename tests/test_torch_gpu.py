@@ -3,8 +3,9 @@ PyTorch versions on the card. Skipped without a CUDA device; on the
 card run ``python -m pytest --noconftest tests/test_torch_gpu.py`` (the
 repo's conftest imports jax, which the card's machine need not have).
 
-Tolerance max|kernel - plain| <= 1e-5 max|plain|: the FFT kernels are
-float32 FFT pipelines (expected ~1e-6 log2 N); the pg gridder's kernels,
+Tolerance max|kernel - plain| <= 1e-5 max|plain|: the FFT kernels (K1,
+K2, K3, K11) are float32 FFT pipelines (expected ~1e-6 log2 N); the pg
+gridder's kernels,
 all planes (K4-K6) or one w block (K7-K9), sum at most a tile's
 visibilities per grid point, or k^3 taps per visibility, in float32
 (expected ~1e-7 to 1e-6)."""
@@ -16,8 +17,13 @@ import torch
 from pfb_tpu_torch.ops import pg_stream as pgs
 from pfb_tpu_torch.ops import pgridder as pg
 from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
-from pfb_tpu_torch.ops.psf import (prep_h, psf_convolve_h,
+from pfb_tpu_torch.ops.psf import (make_psf_convolve_pallas, prep_h,
+                                   prep_h_full, psf_convolve_full,
+                                   psf_convolve_full_plain, psf_convolve_h,
+                                   psf_convolve_h_cg,
+                                   psf_convolve_h_cg_plain,
                                    psf_convolve_h_plain)
+from pfb_tpu_torch.opt.pcg import make_pcg_bands_fused, pcg_bands
 from pfb_tpu_torch.utils.simulation import image_size_for, simulate_obs
 
 pytestmark = pytest.mark.gpu
@@ -354,3 +360,93 @@ def test_pg_gs_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         pgs.pg_degrid_gs(grid, grid, bp["pos"], bp["utid"], gmap,
                          vis.double(), **dkw)
+
+
+# (nb, nx, ny, NX, NY): psf = 2x, 3x and 1.5x the image, NX != NY, and
+# nx > NX / 2
+K11_CASES = [(2, 128, 128, 384, 384), (8, 256, 256, 384, 384),
+             (1, 1024, 768, 1536, 1280), (2, 320, 200, 480, 256)]
+
+
+@pytest.mark.parametrize("nb,nx,ny,NX,NY", K11_CASES)
+def test_psf_full_kernel_matches_plain(cuda, nb, nx, ny, NX, NY):
+    """K11 with a random non-Hermitian full H, and with the H of a random
+    real PSF; reruns bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(nx + NX)
+    x = torch.randn((nb, nx, ny), generator=g, device=cuda)
+    hr = torch.randn((nb, NX, NY), generator=g, device=cuda)
+    hi = torch.randn_like(hr)
+    n0 = psf_convolve_full.launches
+    out = psf_convolve_full(x, hr, hi)
+    torch.cuda.synchronize()
+    assert psf_convolve_full.launches == n0 + 1
+    assert _ok(out, psf_convolve_full_plain(x, hr, hi))
+    assert torch.equal(out, psf_convolve_full(x, hr, hi))
+    hr, hi = prep_h_full(torch.randn((nb, NX, NY), generator=g,
+                                     device=cuda), torch.float32)
+    assert _ok(psf_convolve_full(x, hr, hi),
+               psf_convolve_full_plain(x, hr, hi))
+    assert _ok(psf_convolve_full(x, hr, None),
+               psf_convolve_full_plain(x, hr, None))
+
+
+@pytest.mark.parametrize("nb,nx", [(2, 128), (3, 1152), (8, 512)])
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_psf_cg_kernel_matches_plain(cuda, nb, nx, complex_h):
+    """K2: p, conv(p) and [p.conv(p), p.p] against the plain version;
+    reruns bitwise equal (fixed-order float64 sums, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(nx + nb)
+    psf = torch.randn((nb, 2 * nx, 2 * nx), generator=g, device=cuda)
+    hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=not complex_h)
+    pp, r = (torch.randn((nb, nx, nx), generator=g, device=cuda)
+             for _ in range(2))
+    beta = torch.rand((nb, 1, 1), generator=g, device=cuda)
+    n0 = psf_convolve_h_cg.launches
+    got = psf_convolve_h_cg(pp, r, beta, hr, hi)
+    torch.cuda.synchronize()
+    assert psf_convolve_h_cg.launches == n0 + 1
+    ref = psf_convolve_h_cg_plain(pp, r, beta, hr, hi)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert _ok(a, b)
+    for a, b in zip(got, psf_convolve_h_cg(pp, r, beta, hr, hi)):
+        assert torch.equal(a, b)
+
+
+def test_cg_fused_on_card_matches_pcg_bands(cuda):
+    """The CG-fused solver on K2 against pcg_bands on K1, 25 fixed
+    iterations, per-band wsum and sigmainv: 1e-4 of max."""
+    nb, nx = 4, 512
+    xg = torch.arange(2 * nx, device=cuda) - nx
+    rr = xg[:, None] ** 2 + xg[None, :] ** 2
+    psf = torch.stack([0.4 * torch.exp(-0.5 * rr / (3.0 + b) ** 2)
+                       for b in range(nb)]).float()
+    psf[:, nx, nx] += 0.6
+    ws = torch.linspace(1.0, 1.5, nb, device=cuda)[:, None, None]
+    conv = make_psf_convolve_pallas(psf, nx, nx, sigmainv=1e-2, wsum=ws)
+    model = torch.zeros((nb, nx, nx), device=cuda)
+    model[:, nx // 3, nx // 2] = 1.0
+    b = conv(model)
+    x0 = torch.zeros_like(b)
+    ref = pcg_bands(conv, b, x0=x0, tol=0.0, maxit=25)
+    n0 = psf_convolve_h_cg.launches
+    got = make_pcg_bands_fused(conv.apply, tol=0.0, maxit=25,
+                               apply_cg=conv.apply_cg,
+                               cg_scale=conv.cg_scale)(b, x0, conv.consts)
+    assert psf_convolve_h_cg.launches == n0 + 25
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_psf_full_and_cg_wrappers_reject_bad_operands(cuda):
+    x = torch.zeros((1, 128, 128), device=cuda)
+    h = torch.zeros((1, 384, 384), device=cuda)
+    with pytest.raises(ValueError):
+        psf_convolve_full(x.double(), h)
+    with pytest.raises(ValueError):
+        psf_convolve_full(x, h, h.double())
+    hh = torch.zeros((1, 129, 256), device=cuda)
+    beta = torch.zeros((1, 1, 1), device=cuda)
+    with pytest.raises(ValueError):
+        psf_convolve_h_cg(x, x.double(), beta, hh)
+    with pytest.raises(ValueError):
+        psf_convolve_h_cg(x, x, beta.double(), hh)

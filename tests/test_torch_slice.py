@@ -1,7 +1,9 @@
 """The port's main paths, simulate -> _init -> _grid(wgrid, or pg with
 Briggs weights) -> _spotless or _klean (the pg residual all-planes or
 w-plane-blocked), against pfb_tpu on the same observation (CPU, float64
-unless stated), plus the import boundary of pfb_tpu_torch."""
+unless stated); spotless(engine="pallas")'s routing outside v3 (the
+general PSF kernel K11 and primal_dual_hostloop) and at unaligned shapes;
+plus the import boundary of pfb_tpu_torch."""
 
 import os
 import shutil
@@ -207,6 +209,75 @@ def test_pg_klean_plane_block_matches_jax(run_pg):
     assert _rel(rt, rj) < 1e-8
 
 
+@pytest.fixture(scope="module")
+def run_general(run):
+    """wgrid DIRTY and a 3x oversized PSF (384^2): 128-aligned, but no v3
+    shape, so engine="pallas" takes the general PSF kernel (K11) in both
+    packages; and the port's hessnorm of that PSF."""
+    kw = dict(GRID, psf_oversize=3.0)
+    dj = grid_j(xdsi=run["xj"], output_filename=str(run["d"] / "jk11"), **kw)
+    dt = grid_t(xdsi=run["xt"], write=False, device="cpu", **kw)
+    st = {}
+    spotless_t(ddsi=[dict(x) for x in dt], engine="fft", stats=st,
+               **dict(SPOT, niter=1, pd_maxit=1))
+    return dict(dj=dj, dt=dt, hessnorm=st["hessnorm"])
+
+
+def test_spotless_pallas_general_route_matches_jax(run_general,
+                                                   monkeypatch):
+    """engine="pallas" at a 128-aligned shape outside v3 (PSF 3x the
+    image): both packages run the general PSF kernel (the port's plain
+    K11 in float64, JAX's Pallas pipeline in interpret mode, float32) and
+    primal_dual_hostloop, which tests convergence every 4 iterations. With
+    no reweighting PD converges before pd_maxit in the second major
+    iteration, where the every-iteration primal_dual stops earlier: the
+    same pd_iters as the JAX package, model within 1e-3 (the bound of
+    test_spotless_pallas_matches_jax_pallas)."""
+    import pfb_tpu.workers.spotless as spotless_mod
+    iters_j = []
+
+    def recording(*a, **k):
+        out = hostloop_j(*a, **k)
+        iters_j.append(int(out[3]))
+        return out
+
+    hostloop_j = spotless_mod.primal_dual_hostloop
+    monkeypatch.setattr(spotless_mod, "primal_dual_hostloop", recording)
+    kw = dict(SPOT, engine="pallas", l1reweight_from=5, pd_maxit=60,
+              pd_tol=1e-2, hessnorm=run_general["hessnorm"])
+    assert run_general["dt"][0]["PSF"].shape == (3 * NX, 3 * NX)
+    mj, _ = spotless_j(ddsi=[dict(x) for x in run_general["dj"]], **kw)
+    st, st_fft = {}, {}
+    mt, _ = spotless_t(ddsi=[dict(x) for x in run_general["dt"]],
+                       device="cpu", stats=st, **kw)
+    spotless_t(ddsi=[dict(x) for x in run_general["dt"]], device="cpu",
+               stats=st_fft, **dict(kw, engine="fft"))
+    assert st["engine"] == "pallas"
+    assert st["pd_solver"] == "primal_dual_hostloop"
+    assert st_fft["pd_solver"] == "primal_dual"
+    assert st["pd_iters"] == iters_j
+    assert iters_j[-1] < kw["pd_maxit"] and iters_j[-1] % 4 == 0
+    assert st_fft["pd_iters"][-1] != iters_j[-1]
+    assert np.abs(mj).max() > 0
+    assert _rel(mt, mj) < 1e-3
+
+
+def test_spotless_pallas_unaligned_falls_back_with_host_loop(run, caplog):
+    """engine="pallas" at an image that is not 128-aligned: the fft
+    operator with a logged warning, and still primal_dual_hostloop, as
+    the JAX package does (workers/spotless.py:75-87, 206-215)."""
+    dt = grid_t(xdsi=run["xt"], write=False, device="cpu",
+                **dict(GRID, nx=120, ny=120))
+    st = {}
+    with caplog.at_level("WARNING"):
+        spotless_t(ddsi=dt, device="cpu", stats=st,
+                   **dict(SPOT, engine="pallas", niter=1, pd_maxit=8,
+                          hessnorm=run["hessnorm"]))
+    assert st["engine"] == "fft"
+    assert st["pd_solver"] == "primal_dual_hostloop"
+    assert "falling back to engine='fft'" in caplog.text
+
+
 def test_import_leaves_jax_out(tmp_path):
     """Importing pfb_tpu_torch and running its CPU path imports neither
     jax nor pfb_tpu."""
@@ -231,6 +302,10 @@ _spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
           pd_maxit=2, pm_maxit=3, backend="pg", verbose=0)
 _klean(ddsi=dds, write=False, device="cpu", niter=1, backend="pg",
        plane_block=2, minor_maxit=2, cg_maxit=3, verbose=0)
+dds = _grid(xdsi=xds, write=False, device="cpu", nx=128, backend="wgrid",
+            psf_oversize=3.0, psf=True, residual=False)
+_spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
+          pd_maxit=2, pm_maxit=3, backend="wgrid", verbose=0)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "pfb_tpu")]
 assert not bad, bad
 print("clean")
