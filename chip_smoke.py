@@ -70,16 +70,36 @@ Phases:
      iterations, no backtracking): K2 and K1 against plain, and PCG it/s
      of the CG-fused solver, of pcg_bands on K1 and of
      pcg_bands_hostloop on K1, counts reset just before and read just
-     after.
+     after;
+ 15. K10 against plain at the dist path's shapes (a (2, 4) mesh: 4-band
+     rows, 512 columns or 513 of the 2052 padded spectrum rows per shard)
+     with the grid phase's PSF, per stage;
+ 16. the space-sharded matvec (hessian_psf_space_dist(method="pallas"),
+     K10 with all-to-all transposes, on a (2, 4) virtual mesh of the card)
+     against K1 on the whole (8, 2048^2) cube (<= 1e-6 of max; whether
+     they are bitwise equal, and both times);
+ 17. dist path: _spotless_dist(engine="pallas", backend="pg", 3 major
+     iterations) on a (2, 4) virtual mesh with the pg path's datasets
+     (init and grid reused) and hessnorm, counts reset just before and
+     read just after: K1 on the band-local data step, K10 in every
+     primal-dual gradient with the halo-exchange Psi, K4-K6 in the exact
+     residual, K11 and K2 never; its model against the pg path's
+     _spotless model (<= 1e-3 of max), residual and sources as in 5;
+ 18. make_vis2dirty_rowdist on a (1, 4) virtual mesh (K4, K5 per row
+     shard, one sum of the grids) against the pg path's one-device dirty
+     image of dataset 0 (<= 1e-5 of max);
+ 19. make_hessian_dds_dist(plane_block=4) (K7-K9) against all planes
+     (K4-K6) on a (2, 1) virtual mesh, the pg path's model (<= 1e-5 of
+     max).
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
 the bytes the function must move over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, counted for this run's inputs; ``bound_by`` says which)
 and the time of one PyTorch call that computes the same function where
-there is one (``library_ms``: torch.fft for K3, ``index_add_`` for the
-folds; None otherwise: no single call computes K1's, K2's or K11's padded
-convolution).
+there is one (``library_ms``: torch.fft for K3 and K10's column stages,
+``index_add_`` for the folds; None otherwise: no single call computes
+K1's, K2's, K10's rows stage's or K11's padded convolution).
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -122,6 +142,9 @@ NX_K11 = 3072  # NX = 6144 = 96 x 64: outside v3, the general PSF kernel
 GRID_K11 = dict(GRID_PG, nx=NX_K11, ny=NX_K11, super_resolution_factor=3.0)
 CTOL = 1e-4  # CG-fused solve against pcg_bands on K1
 PCG = dict(nx=4096, nband=8, niter=50)  # bench.py's PCG case
+NSPACE = 4  # virtual space shards of the dist path: a (2, 4) mesh
+STOL = 1e-6  # space-sharded matvec against K1
+DTOL = 1e-3  # dist model against the one-device model (JAX package's gate)
 
 
 class SmokeFailure(Exception):
@@ -163,10 +186,13 @@ def counters():
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
     from pfb_tpu_torch.ops.psf import (psf_convolve_full, psf_convolve_h,
                                        psf_convolve_h_cg)
+    from pfb_tpu_torch.ops.psf import (psf_stage_cols_fwd,
+                                       psf_stage_cols_inv, psf_stage_rows)
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
             "K4": pg_spread, "K5": pg_fold, "K6": pg_degrid,
             "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
-            "K11": psf_convolve_full}
+            "K10a": psf_stage_cols_fwd, "K10b": psf_stage_rows,
+            "K10c": psf_stage_cols_inv, "K11": psf_convolve_full}
 
 
 def bound(nbytes, flops):
@@ -1047,6 +1073,195 @@ def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
     return err, recs, rates, launches
 
 
+def k10_checks(psf, nx, nspace, device, timing=True):
+    """K10's three stages against their plain versions at the shapes the
+    dist path gives them: the (nb / 2)-band rows of a (2, nspace) mesh,
+    nx / nspace columns or (nx + 1 padded) / nspace spectrum rows per
+    shard, with the grid phase's PSF; returns the records."""
+    import torch
+
+    from pfb_tpu_torch.ops.psf import (prep_h_space, psf_stage_cols_fwd,
+                                       psf_stage_cols_fwd_plain,
+                                       psf_stage_cols_inv,
+                                       psf_stage_cols_inv_plain,
+                                       psf_stage_rows, psf_stage_rows_plain,
+                                       space_rows)
+    nbl = psf.shape[0] // 2
+    psf_t = torch.as_tensor(psf[:nbl], dtype=torch.float32, device=device)
+    hr, hi = prep_h_space(psf_t, nx, nx, nspace, torch.float32)
+    del psf_t
+    NX = NY = 2 * nx
+    rows = space_rows(nx, nspace)
+    nyl, rl, nxh = nx // nspace, rows // nspace, nx + 1
+    hs = [h[:, :rl].contiguous() for h in (hr, hi) if h is not None]
+    del hr, hi
+    g = torch.Generator(device=device).manual_seed(15)
+    recs = []
+    x = torch.randn((nbl, nx, nyl), generator=g, device=device)
+    recs.append(_record(
+        f"K10a psf_stage_cols_fwd ({nbl}, {nx}, {nyl}) -> {rows} rows",
+        x.shape, torch.cat(psf_stage_cols_fwd(x, NX, rows)),
+        torch.cat(psf_stage_cols_fwd_plain(x, NX, rows)),
+        lambda: psf_stage_cols_fwd(x, NX, rows),
+        lambda: psf_stage_cols_fwd_plain(x, NX, rows), timing,
+        work=(4 * (x.numel() + 2 * nbl * rows * nyl),
+              nbl * fft_flops(NX, nyl, real=True)),
+        flib=lambda: torch.fft.rfft(x, n=NX, dim=-2)))
+    zr, zi = (torch.randn((nbl, rl, nx), generator=g, device=device)
+              for _ in range(2))
+    hi_ = hs[1] if len(hs) > 1 else None
+    recs.append(_record(
+        f"K10b psf_stage_rows ({nbl}, {rl}, {nx}), "
+        f"{'complex' if hi_ is not None else 'real'}-H", zr.shape,
+        torch.cat(psf_stage_rows(zr, zi, hs[0], hi_)),
+        torch.cat(psf_stage_rows_plain(zr, zi, hs[0], hi_)),
+        lambda: psf_stage_rows(zr, zi, hs[0], hi_),
+        lambda: psf_stage_rows_plain(zr, zi, hs[0], hi_), timing,
+        work=(4 * (4 * zr.numel() + sum(h.numel() for h in hs)),
+              fft_flops(NY, 2 * nbl * rl) + nbl * rl * NY *
+              (6 if hi_ is not None else 2))))
+    del zr, zi, hs
+    wr, wi = (torch.randn((nbl, rows, nyl), generator=g, device=device)
+              for _ in range(2))
+    wc = torch.complex(wr[:, :nxh], wi[:, :nxh])
+    wc[:, 0].imag.zero_()
+    wc[:, nxh - 1].imag.zero_()
+    recs.append(_record(
+        f"K10c psf_stage_cols_inv ({nbl}, {rows}, {nyl}) -> {nx} rows",
+        (nbl, rows, nyl), psf_stage_cols_inv(wr, wi, nx, NX, NY),
+        psf_stage_cols_inv_plain(wr, wi, nx, NX, NY),
+        lambda: psf_stage_cols_inv(wr, wi, nx, NX, NY),
+        lambda: psf_stage_cols_inv_plain(wr, wi, nx, NX, NY), timing,
+        work=(4 * (2 * nbl * nxh * nyl + nbl * nx * nyl),
+              nbl * fft_flops(NX, nyl, real=True)),
+        flib=lambda: torch.fft.irfft(wc, n=NX, dim=-2)[..., :nx, :]))
+    return recs
+
+
+def space_matvec_check(psf, nx, nspace, device, timing=True):
+    """hessian_psf_space_dist(method="pallas") on a (2, nspace) virtual
+    mesh of the card against K1 on the whole cube, with the grid phase's
+    PSF: (max|diff| / max, bitwise equal, ms of each)."""
+    import torch
+
+    from pfb_tpu_torch.ops.psf import prep_h_space, psf_convolve_h
+    from pfb_tpu_torch.parallel.dist import hessian_psf_space_dist
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    nb = psf.shape[0]
+    psf_t = torch.as_tensor(psf, dtype=torch.float32, device=device)
+    hr, hi = prep_h_space(psf_t, nx, nx, nspace, torch.float32)
+    del psf_t
+    hs = (hr,) if hi is None else (hr, hi)
+    h1 = [h[:, :nx + 1].contiguous() for h in hs]
+    mesh = make_mesh(nband=2, nspace=nspace, devices=[device] * 2 * nspace)
+    f = hessian_psf_space_dist(mesh, method="pallas")
+    g = torch.Generator(device=device).manual_seed(16)
+    x = torch.randn((nb, nx, nx), generator=g, device=device)
+    # the operands laid out once, as the solvers hold them
+    from pfb_tpu_torch.parallel.mesh import shard
+    xs = shard(x, mesh, ("band", "space", None))
+    hss = [shard(h, mesh, ("band", "space", None)) for h in hs]
+    out = f(xs, *hss).gather()
+    ref = psf_convolve_h(x, *h1)
+    err = float((out - ref).abs().max() / ref.abs().max())
+    r = dict(rel_err=err, bitwise=bool(torch.equal(out, ref)),
+             complex_h=hi is not None)
+    if timing:
+        r["space_ms"] = cuda_ms(lambda: f(xs, *hss))
+        r["k1_ms"] = cuda_ms(lambda: psf_convolve_h(x, *h1))
+    return r
+
+
+def dist_path(dds, hessnorm, device, nspace=4, spot=SPOT_PG):
+    """_spotless_dist on a (2, nspace) virtual mesh of ``device`` on
+    copies of the pg path's dds (init and grid reused), the pg path's
+    hessnorm; every kernel's launches counted over the run (counts set
+    to 0 just before and read just after)."""
+    import torch
+
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    from pfb_tpu_torch.workers.spotless import _spotless_dist
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(nband=2, nspace=nspace, devices=[device] * 2 * nspace)
+    stats = {}
+    t0 = time.perf_counter()
+    model, residual = _spotless_dist(
+        mesh=mesh, ddsi=[dict(ds) for ds in dds], write=False, stats=stats,
+        verbose=0, hessnorm=hessnorm, **spot)
+    sync(device)
+    res = dict(t={"spotless_dist": time.perf_counter() - t0},
+               launches={"spotless_dist": {k: fn.launches
+                                           for k, fn in cnt.items()}},
+               stats=stats, model=model, residual=residual, dds=dds)
+    if device.type == "cuda":
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def rowdist_check(rpg, nx, epsilon, device, nshard=4):
+    """make_vis2dirty_rowdist on a (1, nshard) virtual mesh (K4 and K5 per
+    row shard, one sum of the grids) against the pg path's one-device
+    dirty image of dataset 0: (max|diff| / max, seconds, launches)."""
+    import numpy as np
+
+    from pfb_tpu_torch.parallel.dist import make_vis2dirty_rowdist
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    ds, xds0 = rpg["dds"][0], rpg["xds"][0]
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    mesh = make_mesh(nband=1, nspace=nshard, devices=[device] * nshard)
+    c = float(ds["cell_rad"])
+    t0 = time.perf_counter()
+    run, _ = make_vis2dirty_rowdist(mesh, ds["UVW"], ds["FREQ"], nx=nx,
+                                    ny=nx, cellx=c, celly=c,
+                                    epsilon=epsilon)
+    vis = np.asarray(xds0["VIS"])
+    img = run(vis.real, vis.imag, ds["WEIGHT"] * ds["MASK"])
+    sync(device)
+    dt = time.perf_counter() - t0
+    ref = ds["DIRTY"]
+    err = float(np.abs(img.cpu().numpy() - ref).max() / np.abs(ref).max())
+    return err, dt, {k: fn.launches for k, fn in cnt.items()}
+
+
+def blocked_dist_check(rpg, nx, device):
+    """make_hessian_dds_dist(plane_block=4) (K7-K9) against
+    make_hessian_dds_dist with all planes (K4-K6) on a (2, 1) virtual
+    mesh, the klean path's epsilon, on the pg path's model: (max|diff| /
+    max, launches of the blocked and of the all-planes matvec)."""
+    import torch
+
+    from pfb_tpu_torch.parallel.dist import make_hessian_dds_dist
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    dds = rpg["dds"]
+    nband = len(dds)
+    wsum = float(sum(float(ds["WSUM"][0]) for ds in dds))
+    mesh = make_mesh(nband=2, nspace=1, devices=[device] * 2)
+    x = torch.as_tensor(rpg["model"], dtype=torch.float32, device=device)
+    cnt = counters()
+    out, launches = {}, {}
+    for label, pb in (("blocked", KLEAN["plane_block"]), ("all", None)):
+        for fn in cnt.values():
+            fn.launches = 0
+        h = make_hessian_dds_dist(mesh, dds, nband, wsum, nx, nx,
+                                  use_beam=False, backend="pg",
+                                  epsilon=KLEAN["epsilon"], plane_block=pb)
+        out[label] = h(x).gather()
+        sync(device)
+        launches[label] = {k: fn.launches for k, fn in cnt.items()}
+        del h
+        torch.cuda.empty_cache()
+    err = float((out["blocked"] - out["all"]).abs().max()
+                / out["all"].abs().max())
+    return err, launches
+
+
 def report_klean(rkl, truth, nx):
     """Print the klean path's stage time, memory, residuals and
     launches; check its residual and image."""
@@ -1188,10 +1403,14 @@ def main():
             print("[kernel] " + json.dumps(r))
         recs += gs_recs
         # kept for phase 14: the 2048^2 grid phase's PSF cube, its band
-        # weights and the pg path's model
+        # weights and the pg path's model; for phases 15-19 the pg path's
+        # datasets, dataset 0's visibilities, model and hessnorm
         from pfb_tpu_torch.workers.cubes import dds2cubes
         cubes = dds2cubes(rpg["dds"], len(rpg["dds"]))
         k2_in = dict(psf=cubes[3], wsums=cubes[6], model=rpg["model"])
+        dist_in = dict(dds=rpg["dds"], xds=rpg["xds"][:1], psf=cubes[3],
+                       model=rpg["model"], dirty_rms=rpg["dirty_rms"],
+                       hessnorm=rpg["stats"]["hessnorm"])
         del rpg, cubes
         torch.cuda.empty_cache()
 
@@ -1245,6 +1464,79 @@ def main():
         for k in launches:
             launches[k] += l14[k]
 
+        # 15. K10 against plain at the dist path's shapes
+        k10_recs = k10_checks(dist_in["psf"], NX, NSPACE, device)
+        for r in k10_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += k10_recs
+        torch.cuda.empty_cache()
+
+        # 16. the space-sharded matvec (K10 + all-to-alls) against K1
+        sm = space_matvec_check(dist_in["psf"], NX, NSPACE, device)
+        print(f"[space] hessian_psf_space_dist(pallas) on a (2, {NSPACE}) "
+              f"virtual mesh vs K1, (8, {NX}^2), grid PSF: " + json.dumps(sm)
+              + f" (bound {STOL} of max)")
+        torch.cuda.empty_cache()
+
+        # 17. dist path: _spotless_dist on a (2, 4) virtual mesh
+        print("[dist] reuses the pg path's xds and dds (init and grid not "
+              "rerun) and its hessnorm")
+        rd = dist_path(dist_in["dds"], dist_in["hessnorm"], device)
+        rd["dirty_rms"] = dist_in["dirty_rms"]
+        report_path("dist", rd, truth, NX)
+        ld = rd["launches"]["spotless_dist"]
+        for k in launches:
+            launches[k] += ld[k]
+        std = rd["stats"]
+        derr = float(abs(rd["model"] - dist_in["model"]).max()
+                     / abs(dist_in["model"]).max())
+        print(f"[dist] engine {std['engine']}, pd engine "
+              f"{std['pd_engine']}, psi {std['psi_method']}; model vs the "
+              f"pg path's _spotless: max|diff|/max = {derr:.3e} (bound "
+              f"{DTOL})")
+        del rd
+        torch.cuda.empty_cache()
+
+        # 18. row-sharded adjoint against the one-device pg dirty image
+        rerr, rsec, lr = rowdist_check(dist_in, NX, GRID_PG["epsilon"],
+                                       device)
+        print(f"[rowdist] make_vis2dirty_rowdist on a (1, 4) virtual mesh "
+              f"vs the pg dirty image (dataset 0): max|diff|/max = "
+              f"{rerr:.3e} (bound {TOL}), {rsec:.3f} s with plans; "
+              f"launches " + json.dumps(lr))
+        for k in launches:
+            launches[k] += lr[k]
+
+        # 19. band-sharded blocked residual against all planes
+        bderr, lbd = blocked_dist_check(dist_in, NX, device)
+        print(f"[blocked-dist] make_hessian_dds_dist plane_block="
+              f"{KLEAN['plane_block']} vs all planes, (2, 1) virtual mesh, "
+              f"pg model: max|diff|/max = {bderr:.3e} (bound {BTOL}); "
+              "launches " + json.dumps(lbd))
+        for lab in lbd:
+            for k in launches:
+                launches[k] += lbd[lab][k]
+        del dist_in
+
+        # checks of phases 15-19
+        need(sm["rel_err"] <= STOL, f"space matvec vs K1 {sm['rel_err']}")
+        need(std["pd_engine"] == "pallas" and std["psi_method"] == "halo",
+             f"dist path ran pd engine {std['pd_engine']}, psi "
+             f"{std['psi_method']}")
+        for k in ("K10a", "K10b", "K10c", "K1"):
+            need(ld[k] > 0, f"{k} never launched inside _spotless_dist")
+        for k in ("K11", "K2"):
+            need(ld[k] == 0, f"{k} launched inside _spotless_dist")
+        need(ld["K4"] > 0 and ld["K6"] > 0,
+             "the pg residual did not run inside _spotless_dist")
+        need(derr <= DTOL, f"dist model vs pg model {derr} > {DTOL}")
+        need(rerr <= TOL, f"rowdist vs pg dirty {rerr} > {TOL}")
+        need(lr["K4"] > 0 and lr["K5"] > 0, "rowdist launched no K4/K5")
+        need(bderr <= BTOL, f"blocked dist vs all planes {bderr}")
+        for k in ("K7", "K8", "K9"):
+            need(lbd["blocked"][k] > 0, f"{k} never launched in the blocked "
+                 "dist residual")
+
         # checks of phases 9-14 and of every kernel record
         need(l12["spotless"]["K11"] > 0, "K11 never launched inside the "
              "3072^2 _spotless")
@@ -1292,6 +1584,12 @@ def main():
                   "pfb_tpu/ops/pg_stream.py:481"),
                  ("K9", "pg_degrid_gs", "pg_degrid.cu",
                   "pfb_tpu/ops/pg_stream.py:586"),
+                 ("K10a", "psf_stage_cols_fwd", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:1075"),
+                 ("K10b", "psf_stage_rows", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:1110"),
+                 ("K10c", "psf_stage_cols_inv", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:1153"),
                  ("K11", "psf_convolve_full", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:1325")]
         kern = {"kernels": [

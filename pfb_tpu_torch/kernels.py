@@ -32,9 +32,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_F = ctypes.c_float
 _SIGNATURES = {
     "pfbt_cfft": [_P] * 4 + [_I] * 8 + [_P] * 2,
     "pfbt_psf_conv": [_P] * 8 + [_I] * 5 + [_P] * 3,
+    "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 5 + [_P] * 2,
+    "pfbt_psf_stage_rows": [_P] * 6 + [_I] * 3 + [_P] * 2,
+    "pfbt_psf_stage_cols_inv": [_P] * 3 + [_I] * 5 + [_F] + [_P] * 2,
     "pfbt_psf_conv_full": [_P] * 8 + [_I] * 5 + [_P] * 3,
     "pfbt_psf_conv_cg": [_P] * 13 + [_I] * 5 + [_P] * 3,
     "pfbt_twiddles": [_I, _P, _P],

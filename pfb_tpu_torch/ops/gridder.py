@@ -202,6 +202,50 @@ def _ds_beam(ds, use_beam, mask_image, device):
     return beam
 
 
+def stack_dds(dds, nband, use_beam=True, mask_image=None, bands=None,
+              device=None):
+    """The datasets grouped per band for the band-sharded DFT Hessian
+    (counterpart of the JAX package's stack_dds, which pads them into
+    dense arrays for one compiled program; here they stay lists). Every
+    dataset must share the cell size. ``bands`` keeps only those band
+    ids. Returns dict(by_band=[[(tensors, beam or None), ...] per band],
+    cell, x0, y0)."""
+    device = as_device(device)
+    cell = float(dds[0]["cell_rad"])
+    for ds in dds:
+        if float(ds["cell_rad"]) != cell:
+            raise ValueError("stack_dds: mixed cell sizes")
+    by_band = [[] for _ in range(nband)]
+    for ds in dds:
+        b = int(ds["bandid"])
+        if bands is None or b in bands:
+            by_band[b].append((_ds_tensors(ds, device),
+                               _ds_beam(ds, use_beam, mask_image, device)))
+    return dict(by_band=by_band, cell=cell,
+                x0=float(dds[0].get("x0", 0.0)),
+                y0=float(dds[0].get("y0", 0.0)))
+
+
+def _hessian_stacked_local(x, st, *, nx, ny, band0=0):
+    """R.H W R per band of the (nbl, nx, ny) block x holding bands
+    band0.., summed over each band's datasets of :func:`stack_dds` (exact
+    DFT, w term on); not divided by wsum."""
+    cell, x0, y0 = st["cell"], st["x0"], st["y0"]
+    out = []
+    for j in range(x.shape[0]):
+        acc = torch.zeros_like(x[j])
+        for t, beam in st["by_band"][band0 + j]:
+            xin = x[j] * beam if beam is not None else x[j]
+            mvis = dirty2vis_dft(t["UVW"], t["FREQ"], xin, cell, cell,
+                                 x0=x0, y0=y0)
+            c = vis2dirty_dft(t["UVW"], t["FREQ"], mvis * t["MASK"],
+                              wgt=t["WEIGHT"], mask=t["MASK"], nx=nx, ny=ny,
+                              cellx=cell, celly=cell, x0=x0, y0=y0)
+            acc = acc + (c * beam if beam is not None else c)
+        out.append(acc)
+    return torch.stack(out)
+
+
 def _reduce_datasets(per_ds, nband, wsum, sigmainv):
     """x (nband, nx, ny) -> per band sum_d beam H_d(beam x) / wsum (+
     sigmainv^2 x) over (bandid, beam or None, H_d) triples; the matvec

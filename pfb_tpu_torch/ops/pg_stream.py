@@ -31,9 +31,11 @@ hand-written kernel (``csrc/pg_grid.cu``, ``pg_fold.cu``,
 it (``*_plain``), which the CPU tests hold against the JAX package's
 Pallas kernels in interpret mode.
 
-Not ported: the stacked variant (``stack_pg_plans_wblocked``,
-``_hessian_pg_cube_local_wblocked``) and the plan's ``shapes_to`` /
-``NEg`` padding, which serve XLA's compile cache.
+:func:`stack_pg_plans_wblocked` plans every dataset with one shared
+geometry for the band-sharded exact residual (parallel/dist.py), and
+:func:`_hessian_pg_cube_local_wblocked` runs a band shard's datasets.
+Not ported: the plan's ``shapes_to`` / ``NEg`` padding and the stacks'
+row padding, which serve XLA's compile cache.
 """
 
 import numpy as np
@@ -44,10 +46,11 @@ from pfb_tpu_torch.config import as_device, kernel_dtype
 from pfb_tpu_torch.native import pg_gs_plan_native
 from pfb_tpu_torch.ops.dft import LIGHTSPEED
 from pfb_tpu_torch.ops.mmgridder import _pad_tiles, _tile_geometry
-from pfb_tpu_torch.ops.pgridder import (_auto_tiles, _fold_geom, _np,
-                                        _shift_phases, _weights,
-                                        pg_degrid_plain, pg_fold_plain,
-                                        pg_spread_plain, w_geometry)
+from pfb_tpu_torch.ops.pgridder import (_auto_tiles, _ds_beam_image,
+                                        _fold_geom, _np, _shift_phases,
+                                        _weights, pg_degrid_plain,
+                                        pg_fold_plain, pg_spread_plain,
+                                        w_geometry, w_geometry_union)
 from pfb_tpu_torch.ops.wgridder import (_grid_setup, _grid_to_image,
                                         _image_to_grid, gi_consts,
                                         kernel_params)
@@ -654,3 +657,81 @@ def make_hessian_pg_wblocked(bp, wgt=None, mask=None):
 
     matvec.plans = [bp]
     return matvec
+
+
+# ---------------------------------------------------------------------
+# stacked (one shared geometry for the datasets of a band-sharded cube)
+
+
+def stack_pg_plans_wblocked(dds, *, nx, ny, epsilon=1e-7, plane_block=8,
+                            use_beam=True, mask_image=None, capacity=None,
+                            bands=None, device=None, dtype=None):
+    """Per-dataset blocked plans with one shared geometry (counterpart of
+    the JAX package's stack_pg_plans_wblocked): the union w grid, one
+    tile choice from all datasets' rows and one capacity (256 from 2^22
+    visibilities of the row-bucketed largest dataset, else 128).
+    ``bands`` limits the plans to those band ids (a band shard's).
+    Returns dict(items=[(bandid, plan, weights, beam or None)])."""
+    from pfb_tpu_torch.ops.gridder import row_bucket
+
+    device = as_device(device)
+    R = row_bucket(max(ds["UVW"].shape[0] for ds in dds))
+    nchan = max(ds["FREQ"].shape[0] for ds in dds)
+    if capacity is None:
+        capacity = 256 if R * nchan >= (1 << 22) else 128
+    cell = float(dds[0]["cell_rad"])
+    x0 = float(dds[0].get("x0", 0.0))
+    y0 = float(dds[0].get("y0", 0.0))
+    for ds in dds:
+        if float(ds["cell_rad"]) != cell or \
+                float(ds.get("x0", 0.0)) != x0 or \
+                float(ds.get("y0", 0.0)) != y0:
+            raise ValueError("stack_pg_plans_wblocked: mixed cell sizes or "
+                             "phase centres")
+    k, _ = kernel_params(epsilon)
+    wp = w_geometry_union([(ds["UVW"], ds["FREQ"]) for ds in dds], nx, ny,
+                          cell, cell, x0, y0, 2.0, k, True)
+    all_uvw = np.concatenate([_np(ds["UVW"]) for ds in dds])
+    tu = tv = None
+    if all_uvw.shape[0] * nchan >= (1 << 18):
+        Nx_, Ny_ = _grid_setup(nx, ny, cell, cell, 2.0)
+        tu, tv = _auto_tiles(all_uvw, _np(dds[0]["FREQ"]), Nx_, Ny_, cell,
+                             cell, k, capacity)
+    has_beam = use_beam and any("BEAM" in ds for ds in dds)
+    items = []
+    for ds in dds:
+        if bands is not None and int(ds["bandid"]) not in bands:
+            continue
+        bp = pgrid_plan_wblocked(
+            ds["UVW"], ds["FREQ"], nx=nx, ny=ny, cellx=cell, celly=cell,
+            epsilon=epsilon, capacity=capacity, x0=x0, y0=y0,
+            plane_block=plane_block, w_params=wp, tile_u=tu, tile_v=tv,
+            device=device, dtype=dtype)
+        rdt = bp["p0"]["rdtype"]
+        w = _weights(_np(ds["WEIGHT"]) * _np(ds["MASK"]), None, rdt, device)
+        beam = None
+        if has_beam or mask_image is not None:
+            beam = torch.as_tensor(_ds_beam_image(
+                ds, nx, ny, use_beam, mask_image)).to(device=device,
+                                                      dtype=rdt)
+        items.append((int(ds["bandid"]), bp, w, beam))
+    return dict(items=items)
+
+
+def _hessian_pg_cube_local_wblocked(x, items, consts, band0=0):
+    """sum_d beam R.H W R (beam x) per band of the (nbl, nx, ny) block x
+    holding bands band0.., through the blocked plans of
+    :func:`stack_pg_plans_wblocked` (others are skipped), one dataset at
+    a time; not divided by wsum. ``consts`` from one of the plans (the
+    geometry is shared)."""
+    conv = [torch.zeros_like(x[0]) for _ in range(x.shape[0])]
+    for b, bp, w, beam in items:
+        j = b - band0
+        if not 0 <= j < x.shape[0]:
+            continue
+        xin = x[j] * beam if beam is not None else x[j]
+        fr, fi = _forward_wblocked_impl(bp, xin, consts=consts)
+        c = _adjoint_wblocked_impl(bp, fr, fi, w, consts=consts)
+        del fr, fi
+        conv[j] = conv[j] + (c * beam if beam is not None else c)
+    return torch.stack(conv)

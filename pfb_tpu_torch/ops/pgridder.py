@@ -17,7 +17,9 @@ it (``*_plain``), which the CPU tests hold against the JAX package's
 Pallas kernels in interpret mode.
 
 The w-plane-blocked engine (``plane_block``, kernels K7-K9) is
-ops/pg_stream.py. Not ported: the row-distributed adjoint.
+ops/pg_stream.py; the row-distributed adjoint is
+parallel/dist.py:make_vis2dirty_rowdist on :func:`_spread_fold_from_plan`
+and :func:`_grid_to_image_from_plan`.
 """
 
 import numpy as np
@@ -548,19 +550,33 @@ def plan_consts(p):
                      device=p["pos"].device)
 
 
-def _adjoint_from_plan(p, vr, vi, wflat, consts=None, divide_by_n=False):
-    """R.H of a plan: (nrow, nchan) components -> (nx, ny) image."""
-    nw = p["nw"]
-    folded = _spread_fold(
+def _spread_fold_from_plan(p, vr, vi, wflat):
+    """Spread (K4) and fold (K5) of a plan's weighted components into the
+    (2 nw, Nx, Ny) grids: the unit that the row-distributed adjoint sums
+    over its shards (parallel/dist.py:make_vis2dirty_rowdist)."""
+    return _spread_fold(
         vr, vi, wflat, p["tid"], p["pos"], p["idx"], p["pm"], p["uvw_d"],
-        p["freq_d"], beta=p["beta"], k=p["k"], nw=nw, ntx=p["ntx"],
+        p["freq_d"], beta=p["beta"], k=p["k"], nw=p["nw"], ntx=p["ntx"],
         nty=p["nty"], txs=p["txs"], tys=p["tys"], C=p["C"], x0=p["x0"],
         y0=p["y0"], Nx=p["Nx"], Ny=p["Ny"])
+
+
+def _grid_to_image_from_plan(p, folded, divide_by_n=False, consts=None):
+    """The w planes of folded (2 nw, Nx, Ny) grids to the (nx, ny) image
+    in the plan's geometry."""
+    nw = p["nw"]
     return _grid_to_image(folded[:nw], folded[nw:], p["nx"], p["ny"],
                           p["cellx"], p["celly"], p["k"], p["beta"],
                           p["Nx"], p["Ny"], nw > 1, nw, float(p["w0"]),
                           float(p["dw"]), divide_by_n, p["x0"], p["y0"],
                           consts=consts)
+
+
+def _adjoint_from_plan(p, vr, vi, wflat, consts=None, divide_by_n=False):
+    """R.H of a plan: (nrow, nchan) components -> (nx, ny) image."""
+    return _grid_to_image_from_plan(p, _spread_fold_from_plan(p, vr, vi,
+                                                               wflat),
+                                    divide_by_n=divide_by_n, consts=consts)
 
 
 def _forward_from_plan(p, image, consts=None, divide_by_n=False):
@@ -685,14 +701,28 @@ def w_geometry_union(dss, nx, ny, cellx, celly, x0, y0, sigma, k,
                       celly, x0, y0, sigma, k, do_wgridding)
 
 
+def _ds_beam_image(ds, nx, ny, use_beam, mask_image):
+    """The beam times the mask image of one dataset, as numpy (ones where
+    neither is given)."""
+    bm = np.ones((nx, ny))
+    if use_beam and "BEAM" in ds:
+        bm = bm * _np(ds["BEAM"])
+    if mask_image is not None:
+        bm = bm * _np(mask_image)
+    return bm
+
+
 def stack_pg_plans(dds, *, nx, ny, epsilon=1e-7, do_wgridding=True,
                    use_beam=True, mask_image=None, capacity=128,
-                   device=None, dtype=None):
+                   bands=None, device=None, dtype=None):
     """Per-dataset pg plans with one shared geometry: one w-plane grid
     (:func:`w_geometry_union`) and one tile choice from all datasets.
     Unlike the JAX package, rows and entry counts are not padded to a
-    common bucket (that served XLA's compile cache). Returns dict(p0,
-    items=[(bandid, plan, weights, beam or None)])."""
+    common bucket (that served XLA's compile cache). ``bands`` limits the
+    plans to the datasets of those band ids (a band shard's), the
+    geometry still coming from all of them. Returns dict(p0,
+    items=[(bandid, plan, weights, beam or None)]); p0 is None when no
+    dataset is planned."""
     device = as_device(device)
     cell = float(dds[0]["cell_rad"])
     x0 = float(dds[0].get("x0", 0.0))
@@ -715,6 +745,8 @@ def stack_pg_plans(dds, *, nx, ny, epsilon=1e-7, do_wgridding=True,
     items = []
     has_beam = use_beam and any("BEAM" in ds for ds in dds)
     for ds in dds:
+        if bands is not None and int(ds["bandid"]) not in bands:
+            continue
         plan = pgrid_plan(ds["UVW"], ds["FREQ"], nx=nx, ny=ny, cellx=cell,
                           celly=cell, epsilon=epsilon,
                           do_wgridding=do_wgridding, capacity=capacity,
@@ -724,15 +756,29 @@ def stack_pg_plans(dds, *, nx, ny, epsilon=1e-7, do_wgridding=True,
                      plan["rdtype"], device)
         beam = None
         if has_beam or mask_image is not None:
-            bm = np.ones((nx, ny))
-            if use_beam and "BEAM" in ds:
-                bm = bm * _np(ds["BEAM"])
-            if mask_image is not None:
-                bm = bm * _np(mask_image)
-            beam = torch.as_tensor(bm).to(device=device,
-                                          dtype=plan["rdtype"])
+            beam = torch.as_tensor(_ds_beam_image(
+                ds, nx, ny, use_beam, mask_image)).to(
+                    device=device, dtype=plan["rdtype"])
         items.append((int(ds["bandid"]), plan, w, beam))
-    return dict(p0=items[0][1], items=items)
+    return dict(p0=items[0][1] if items else None, items=items)
+
+
+def _hessian_pg_cube_local(x, items, consts, band0=0):
+    """sum_d beam R.H W R (beam x) per band of the (nbl, nx, ny) block x
+    holding bands band0.., over ``items`` (bandid, plan, weights, beam)
+    of :func:`stack_pg_plans` (others are skipped), one dataset at a
+    time; not divided by wsum."""
+    conv = [torch.zeros_like(x[0]) for _ in range(x.shape[0])]
+    for b, plan, w, beam in items:
+        j = b - band0
+        if not 0 <= j < x.shape[0]:
+            continue
+        xin = x[j] * beam if beam is not None else x[j]
+        fr, fi = _forward_from_plan(plan, xin, consts=consts)
+        c = _adjoint_from_plan(plan, fr, fi, w, consts=consts)
+        del fr, fi
+        conv[j] = conv[j] + (c * beam if beam is not None else c)
+    return torch.stack(conv)
 
 
 def make_hessian_pg_stacked(dds, nband, wsum, nx, ny, sigmainv=0.0,
@@ -752,14 +798,7 @@ def make_hessian_pg_stacked(dds, nband, wsum, nx, ny, sigmainv=0.0,
 
     def matvec(x):
         x = x.to(device=p0["pos"].device, dtype=rdtype)
-        conv = [torch.zeros_like(x[0]) for _ in range(nband)]
-        for b, plan, w, beam in st["items"]:
-            xin = x[b] * beam if beam is not None else x[b]
-            fr, fi = _forward_from_plan(plan, xin, consts=consts)
-            c = _adjoint_from_plan(plan, fr, fi, w, consts=consts)
-            del fr, fi
-            conv[b] = conv[b] + (c * beam if beam is not None else c)
-        out = torch.stack(conv) / wsum
+        out = _hessian_pg_cube_local(x, st["items"], consts) / wsum
         if sigmainv:
             out = out + x * sigmainv ** 2
         return out

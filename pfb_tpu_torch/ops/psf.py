@@ -19,6 +19,12 @@ see :func:`prep_h`). :func:`h_from_jax_v3` converts the JAX package's
 scrambled v3 operands into it. K11 takes the full (nb, NX, NY) transfer
 function (:func:`prep_h_full`); :func:`h_from_jax_full` converts the
 JAX package's transposed operands.
+
+K10 is K1's three stages as separate calls (:func:`psf_stage_cols_fwd`,
+:func:`psf_stage_rows`, :func:`psf_stage_cols_inv`, counterparts of
+``psf_v3_stage_k1/k2/k3``) for the space-sharded convolution of
+parallel/dist.py, which puts all-to-all transposes between them. Its H is
+K1's with the rows padded to the shard count (:func:`prep_h_space`).
 """
 
 import numpy as np
@@ -279,6 +285,158 @@ def h_from_jax_full(HrT, HiT):
     def one(a):
         return np.ascontiguousarray(np.swapaxes(np.asarray(a), -1, -2))
     return one(HrT), (None if HiT is None else one(HiT))
+
+
+def v3_space_supported(nx, ny, nspace):
+    """The shapes on which the JAX package runs its space-sharded v3
+    pipeline (pfb_tpu/ops/psf.py:v3_space_supported): v3, ny splittable
+    into nspace 128-column shards and nx into nspace row shards. The
+    port's K10 routes on the same rule."""
+    return v3_supported(nx, ny) and ny % (nspace * 128) == 0 and \
+        nx % nspace == 0
+
+
+def space_rows(nx, nspace):
+    """Rows of the space-sharded half spectrum: nx + 1 (NX/2 + 1 with NX
+    = 2 nx) padded to a multiple of ``nspace``."""
+    return -(-(nx + 1) // nspace) * nspace
+
+
+def prep_h_space(psf, nx, ny, nspace, dtype, real_transfer="auto"):
+    """K10's transfer function: :func:`prep_h`'s (nb, nx+1, 2ny) rows
+    zero-padded to :func:`space_rows` so that the all-to-all between the
+    column and row stages splits them evenly (zero H rows give zero
+    output rows). Shard it ("band", "space", None). Returns (hr, hi or
+    None)."""
+    hr, hi = prep_h(psf, nx, ny, dtype, real_transfer=real_transfer)
+    pad = space_rows(nx, nspace) - (nx + 1)
+
+    def padded(h):
+        return None if h is None else \
+            torch.nn.functional.pad(h, (0, 0, 0, pad))
+    return padded(hr), padded(hi)
+
+
+def h_from_jax_space(Hsr, Hsi, nx, ny, nspace):
+    """The JAX package's ``prep_pallas_hessian_space`` operands (nb, N1y,
+    NXH_pad, N2y), rows padded to nspace * 128, -> the port's K10 H (nb,
+    space_rows(nx, nspace), 2ny). Takes and returns numpy arrays; Hsi may
+    be None."""
+    hr, hi = h_from_jax_v3(Hsr, Hsi, nx, ny)
+    pad = ((0, 0), (0, space_rows(nx, nspace) - (nx + 1)), (0, 0))
+    return np.pad(hr, pad), (None if hi is None else np.pad(hi, pad))
+
+
+# ---------------------------------------------------------------------
+# K10: K1's stages as separate calls on space shards
+
+
+def psf_stage_cols_fwd_plain(x, NX, rows):
+    """Plain version of K10 stage 1: rfft of the zero-padded columns,
+    rows padded with zeros to ``rows``; returns (zr, zi)."""
+    z = torch.fft.rfft(x, n=NX, dim=-2)
+    z = torch.nn.functional.pad(z, (0, 0, 0, rows - z.shape[-2]))
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def psf_stage_cols_fwd(x, NX, rows):
+    """K10 stage 1 (counterpart of psf_v3_stage_k1): x (nb, nx, nyl)
+    column shard -> (zr, zi), each (nb, rows, nyl), the x spectrum of the
+    columns zero-padded to NX with rows NX/2 + 1 .. rows - 1 zero. The
+    CUDA kernel for CUDA tensors, the plain version on the CPU."""
+    nb, nx, L = x.shape
+    if NX % 2 or nx > NX or rows < NX // 2 + 1:
+        raise ValueError(f"psf_stage_cols_fwd: x {tuple(x.shape)}, NX {NX}, "
+                         f"rows {rows}")
+    if not x.is_cuda:
+        return psf_stage_cols_fwd_plain(x, NX, rows)
+    kernels.require_cuda_f32("psf_stage_cols_fwd", x)
+    zr = torch.empty((nb, rows, L), dtype=torch.float32, device=x.device)
+    zi = torch.empty_like(zr)
+    code = kernels.library().pfbt_psf_stage_cols_fwd(
+        x.data_ptr(), zr.data_ptr(), zi.data_ptr(), nb, nx, L, NX, rows,
+        kernels.twiddles(NX, x.device).data_ptr(), kernels.stream_ptr())
+    kernels.check(code, "psf_stage_cols_fwd")
+    psf_stage_cols_fwd.launches += 1
+    return zr, zi
+
+
+psf_stage_cols_fwd.launches = 0
+
+
+def psf_stage_rows_plain(zr, zi, hr, hi):
+    """Plain version of K10 stage 2: fft of the rows zero-padded to NY,
+    product with H, unscaled inverse fft, crop; returns (wr, wi)."""
+    ny, NY = zr.shape[-1], hr.shape[-1]
+    h = hr if hi is None else torch.complex(hr, hi)
+    w = torch.fft.ifft(torch.fft.fft(torch.complex(zr, zi), n=NY, dim=-1) * h,
+                       dim=-1, norm="forward")[..., :ny]
+    return w.real.contiguous(), w.imag.contiguous()
+
+
+def psf_stage_rows(zr, zi, hr, hi=None):
+    """K10 stage 2 (counterpart of psf_v3_stage_k2): the spectrum rows
+    (nb, rl, ny) of a row shard against the matching H rows (nb, rl, NY)
+    -> (wr, wi) (nb, rl, ny), the inverse y transform left unscaled (stage
+    3 scales). The CUDA kernel for CUDA tensors, the plain version on the
+    CPU."""
+    if zi.shape != zr.shape or hr.shape[:-1] != zr.shape[:-1] or \
+            hr.shape[-1] < zr.shape[-1] or \
+            (hi is not None and hi.shape != hr.shape):
+        raise ValueError(f"psf_stage_rows: z {tuple(zr.shape)}, H "
+                         f"{tuple(hr.shape)} do not match")
+    if not zr.is_cuda:
+        return psf_stage_rows_plain(zr, zi, hr, hi)
+    kernels.require_cuda_f32("psf_stage_rows", zr, zi, hr, hi)
+    ny, NY = zr.shape[-1], hr.shape[-1]
+    wr = torch.empty_like(zr)
+    wi = torch.empty_like(zr)
+    code = kernels.library().pfbt_psf_stage_rows(
+        zr.data_ptr(), zi.data_ptr(), hr.data_ptr(),
+        None if hi is None else hi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+        zr.numel() // ny, ny, NY, kernels.twiddles(NY, zr.device).data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, "psf_stage_rows")
+    psf_stage_rows.launches += 1
+    return wr, wi
+
+
+psf_stage_rows.launches = 0
+
+
+def psf_stage_cols_inv_plain(wr, wi, nx, NX, NY):
+    """Plain version of K10 stage 3: irfft of rows 0..NX/2 (rows 0 and
+    NX/2 read as real, as the kernel does), crop to nx, / NY."""
+    w = torch.complex(wr[..., :NX // 2 + 1, :], wi[..., :NX // 2 + 1, :])
+    w[..., 0, :].imag.zero_()
+    w[..., NX // 2, :].imag.zero_()
+    return torch.fft.irfft(w, n=NX, dim=-2)[..., :nx, :] / NY
+
+
+def psf_stage_cols_inv(wr, wi, nx, NX, NY):
+    """K10 stage 3 (counterpart of psf_v3_stage_k3): rows 0..NX/2 of the
+    column shard (nb, rows, nyl) of the half spectrum (read at the padded
+    row stride, no copy) -> (nb, nx, nyl), the real inverse x transform
+    scaled by 1 / (NX NY). The CUDA kernel for CUDA tensors, the plain
+    version on the CPU."""
+    nb, rows, L = wr.shape
+    if wi.shape != wr.shape or NX % 2 or nx > NX or rows < NX // 2 + 1:
+        raise ValueError(f"psf_stage_cols_inv: w {tuple(wr.shape)}, nx {nx}, "
+                         f"NX {NX}")
+    if not wr.is_cuda:
+        return psf_stage_cols_inv_plain(wr, wi, nx, NX, NY)
+    kernels.require_cuda_f32("psf_stage_cols_inv", wr, wi)
+    out = torch.empty((nb, nx, L), dtype=torch.float32, device=wr.device)
+    code = kernels.library().pfbt_psf_stage_cols_inv(
+        wr.data_ptr(), wi.data_ptr(), out.data_ptr(), nb, nx, L, NX, rows,
+        float(np.float32(1.0) / (np.float32(NX) * np.float32(NY))),
+        kernels.twiddles(NX, wr.device).data_ptr(), kernels.stream_ptr())
+    kernels.check(code, "psf_stage_cols_inv")
+    psf_stage_cols_inv.launches += 1
+    return out
+
+
+psf_stage_cols_inv.launches = 0
 
 
 def make_psf_convolve_pallas(psf, nx, ny, beam=None, sigmainv=0.0,

@@ -4,9 +4,15 @@ one image_data_products pass per dataset on ``device``. ``robustness``
 sets Briggs weights from host uv counts (ops/weighting.py), written to
 the dds as COUNTS; ``backend`` is "dft", "wgrid" or "pg".
 
+``row_shards`` > 1 with the pg backend grids each dataset's DIRTY, PSF
+and RESIDUAL through the row-sharded adjoint
+(parallel/dist.py:make_vis2dirty_rowdist) over ``devices`` (None: every
+visible CUDA device, or the CPU); with fewer devices than shards, or
+another backend, it warns and grids on one device, as the JAX package
+does. A list that repeats a device gives virtual shards on it.
+
 Not ported yet (they raise): channel re-binning (``nband`` != the xds
-band count), ``concat_row``, ``row_shards``, ``target`` and
-``transfer_model_from``.
+band count), ``concat_row``, ``target`` and ``transfer_model_from``.
 """
 
 import numpy as np
@@ -19,6 +25,9 @@ from pfb_tpu_torch.ops.gridder import image_data_products
 from pfb_tpu_torch.ops.weighting import (compute_counts_host,
                                          filter_extreme_counts)
 from pfb_tpu_torch.utils import dstore
+from pfb_tpu_torch.utils.logging import get_logger
+
+log = get_logger("GRID")
 
 
 def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
@@ -31,14 +40,14 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
           backend="dft", epsilon=1e-7, do_wgridding=True,
           double_accum=True, transfer_model_from=None,
           use_best_model=False, target=None, x0=0.0, y0=0.0, xds=None,
-          row_shards=0, device=None, **kw):
+          row_shards=0, device=None, devices=None, **kw):
     """Returns the list of dds datasets (and writes
     ``{output_filename}_{PRODUCT}_{suffix}.dds`` unless write=False)."""
     if transfer_model_from is not None or target is not None or \
-            (row_shards and int(row_shards) > 1) or kw.get("concat_row"):
+            kw.get("concat_row"):
         raise NotImplementedError(
-            "transfer_model_from / target / row_shards / concat_row are "
-            "not ported to pfb_tpu_torch yet")
+            "transfer_model_from / target / concat_row are not ported to "
+            "pfb_tpu_torch yet")
     device = as_device(device)
     if xdsi is None:
         path = xds if isinstance(xds, str) and xds else \
@@ -85,6 +94,25 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     def tens(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
+    # row-sharded gridding: each dataset's rows split over a mesh, one sum
+    # of the partial uv grids per image
+    rd_mesh = None
+    if row_shards and int(row_shards) > 1:
+        if backend != "pg":
+            log.warning("row-shards=%s needs the 'pg' backend (got %r); "
+                        "gridding single-device", row_shards, backend)
+        else:
+            from pfb_tpu_torch.parallel.mesh import Mesh, default_devices
+            devs = default_devices() if devices is None else \
+                [torch.device(d) for d in devices]
+            nsh = min(int(row_shards), len(devs))
+            if nsh > 1:
+                rd_mesh = Mesh([devs[:nsh]])
+                log.info("row-sharding gridding over %d shards", nsh)
+            else:
+                log.warning("row-shards=%s but only %d device(s) given; "
+                            "gridding single-device", row_shards, len(devs))
+
     def launch(ds):
         """Launch one dataset's device products (asynchronous on CUDA:
         dataset k+1 is launched before dataset k is copied back)."""
@@ -98,17 +126,33 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
             if filter_extreme_counts_flag:
                 counts = filter_extreme_counts(counts, level=filter_level,
                                                nbox=filter_nbox)
-        out = image_data_products(
-            tens(ds["UVW"]), tens(ds["FREQ"]), tens(ds["VIS"]),
-            tens(ds["WEIGHT"]), tens(ds["MASK"]),
-            None if counts is None else tens(counts.astype(real_type)),
-            nx, ny, nx_psf,
-            ny_psf, cell_rad, cell_rad, robustness=robustness,
-            model=None if model is None else tens(model), x0=x0, y0=y0,
-            l2reweight_dof=l2reweight_dof, do_dirty=dirty, do_psf=psf,
-            do_weight=weight, do_residual=residual, backend=backend,
-            epsilon=epsilon, do_wgridding=do_wgridding,
-            double_accum=double_accum)
+        kwp = dict(robustness=robustness,
+                   model=None if model is None else tens(model), x0=x0,
+                   y0=y0, l2reweight_dof=l2reweight_dof, backend=backend,
+                   epsilon=epsilon, do_wgridding=do_wgridding,
+                   double_accum=double_accum)
+        args = (tens(ds["UVW"]), tens(ds["FREQ"]), tens(ds["VIS"]),
+                tens(ds["WEIGHT"]), tens(ds["MASK"]),
+                None if counts is None else tens(counts.astype(real_type)),
+                nx, ny, nx_psf, ny_psf, cell_rad, cell_rad)
+        if rd_mesh is not None:
+            # weights and wsum through the one-device path, the adjoints
+            # through the row-sharded gridder
+            out = image_data_products(*args, do_dirty=False, do_psf=False,
+                                      do_weight=True, do_residual=False,
+                                      **kwp)
+            out.update(_rowdist_products(
+                rd_mesh, ds["UVW"], ds["FREQ"], ds["VIS"],
+                out["WEIGHT"].cpu().numpy(), ds["MASK"], nx, ny, nx_psf,
+                ny_psf, cell_rad, model, x0, y0, epsilon, do_wgridding,
+                device, do_dirty=dirty, do_psf=psf,
+                do_residual=residual and model is not None))
+            if not weight:
+                out.pop("WEIGHT")
+        else:
+            out = image_data_products(*args, do_dirty=dirty, do_psf=psf,
+                                      do_weight=weight,
+                                      do_residual=residual, **kwp)
         return dict(ds=ds, out=out, model=model, counts=counts,
                     bandid=int(np.where(freqs_out == ds["freq_out"])[0][0]),
                     timeid=int(np.where(times_out == ds["time_out"])[0][0]))
@@ -165,6 +209,59 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
         name = f"{output_filename}_{product.upper()}_{suffix}.dds"
         dstore.write_store(name, dds, overwrite=overwrite)
     return dds
+
+
+def _rowdist_products(mesh, uvw, freq, vis, wgt_eff, mask, nx, ny, nx_psf,
+                      ny_psf, cell_rad, model, x0, y0, epsilon, do_wgridding,
+                      device, do_dirty=True, do_psf=True, do_residual=False):
+    """DIRTY, PSF (+PSFHAT) and RESIDUAL of one dataset through the
+    row-sharded pg adjoint (parallel/dist.py:make_vis2dirty_rowdist):
+    ``wgt_eff`` is the imaging weight (robust and l2 applied), the mask
+    rides in it. The degrids of the model and of the shifted PSF stay on
+    ``device``."""
+    from pfb_tpu_torch.ops.fft import make_psfhat
+    from pfb_tpu_torch.ops.gridder import get_backend, pad_rows, row_bucket
+    from pfb_tpu_torch.parallel.dist import make_vis2dirty_rowdist
+
+    uvw = np.asarray(uvw)
+    freq = np.asarray(freq)
+    visa = np.asarray(vis)
+    we = np.asarray(wgt_eff) * np.asarray(mask)
+    nrow = uvw.shape[0]
+    kwd = dict(cellx=cell_rad, celly=cell_rad, epsilon=epsilon,
+               do_wgridding=do_wgridding, x0=x0, y0=y0)
+    out = {}
+    if do_dirty or do_residual:
+        v2d_img, _ = make_vis2dirty_rowdist(mesh, uvw, freq, nx=nx, ny=ny,
+                                            **kwd)
+    if do_dirty:
+        out["DIRTY"] = v2d_img(visa.real, visa.imag, we)
+    if do_residual or (do_psf and (x0 or y0)):
+        d2v, _ = get_backend("pg", epsilon, do_wgridding)
+        uvw_p, = pad_rows(row_bucket(nrow), torch.as_tensor(uvw).to(device))
+        freq_t = torch.as_tensor(freq).to(device)
+
+        def degrid(img):
+            vr, vi = d2v(uvw_p, freq_t, img, cell_rad, cell_rad, x0=x0,
+                         y0=y0, split=True)
+            return vr[:nrow].cpu().numpy(), vi[:nrow].cpu().numpy()
+    if do_residual:
+        mvr, mvi = degrid(torch.as_tensor(np.asarray(model)).to(device))
+        out["RESIDUAL"] = v2d_img(visa.real - mvr, visa.imag - mvi, we)
+    if do_psf:
+        v2d_psf, _ = make_vis2dirty_rowdist(mesh, uvw, freq, nx=nx_psf,
+                                            ny=ny_psf, **kwd)
+        if x0 or y0:
+            delta = np.zeros((128, 128), we.dtype)
+            delta[64, 64] = 1.0
+            delta = torch.as_tensor(delta).to(device)
+            psf = v2d_psf(*degrid(delta), we)
+        else:
+            ones = np.ones(visa.shape, we.dtype)
+            psf = v2d_psf(ones, np.zeros_like(ones), we)
+        out["PSF"] = psf
+        out["PSFHAT"] = make_psfhat(psf)
+    return out
 
 
 def _eval_ds_beam(ds, nx, ny, cell_rad, x0, y0, real_type):

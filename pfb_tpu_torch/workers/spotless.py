@@ -13,7 +13,10 @@ the kernel K1 with the fused power method and primal-dual solver; on
 every other 128-aligned shape it is the general kernel K11 with the host
 power method and ``primal_dual_hostloop``. Other shapes fall back to the
 fft operator with a logged warning and still take
-``primal_dual_hostloop``. ``_spotless_dist`` is not ported yet.
+``primal_dual_hostloop``.
+
+:func:`_spotless_dist` runs the major cycle on a device mesh
+(parallel/), with band and space sharding.
 """
 
 from functools import partial
@@ -21,7 +24,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from pfb_tpu_torch.config import as_device
+from pfb_tpu_torch.config import as_device, kernel_dtype
 from pfb_tpu_torch.ops.gridder import make_hessian_dds
 from pfb_tpu_torch.ops.psf import make_psf_convolve, make_psf_convolve_pallas
 from pfb_tpu_torch.ops.psi import make_psi, psi_dot, psi_hdot
@@ -267,3 +270,275 @@ def _spotless(ddsi=None, output_filename=None, product="I",
                 break
 
     return model, residual
+
+
+def _spotless_dist(mesh=None, ddsi=None, output_filename=None, product="I",
+                   suffix="main", nband=None, niter=5, tol=5e-4,
+                   rmsfactor=1.0, init_factor=0.5, gamma=1.0,
+                   bases="self,db1,db2", nlevels=3, l1reweight_from=5,
+                   alpha=4.0, hessnorm=None, pm_tol=1e-5, pm_maxit=100,
+                   pd_tol=1e-5, pd_maxit=500, positivity=1, epsilon=1e-7,
+                   do_wgridding=True, backend="dft", engine="fft",
+                   plane_block=0, space_shards=0, write=True, verbose=1,
+                   stats=None, **kw):
+    """Mesh-resident spotless major cycle (counterpart of
+    pfb_tpu/workers/spotless.py:_spotless_dist). Returns (model,
+    residual_cube) as numpy arrays.
+
+    DIRTY, MODEL, DUAL and RESIDUAL stay band-sharded on the mesh
+    (parallel/mesh.py; ``mesh`` None: every visible device, ``nspace =
+    space_shards``) across the major iterations; the data step, the power
+    method, the primal-dual backward step, the coefficient rms and the
+    exact residual run on it (parallel/dist.py), communicating through
+    sums over the shards. ``space_shards`` > 1 (the mesh's space axis)
+    also shards the primal-dual step: image rows and the dual cube's
+    packed rows, the halo-exchange Psi, and a space-distributed PSF
+    convolution. The band-local steps run once per band row and device.
+
+    Routing is the JAX package's. engine="pallas" runs K1 on the
+    band-local steps where the PSF is twice the image and v3_supported
+    holds, else everything falls back to "fft" (the dist path has no K11
+    route). With nspace > 1 the primal-dual gradient runs K10 where
+    v3_space_supported holds, else the distributed rFFT2 convolve.
+    backend "pg" evaluates the exact residual through the pg gridder
+    (plane_block: the w-plane-blocked engine); every other backend runs
+    the exact DFT (test scale). ``stats``, when a dict, receives
+    ``hessnorm``, ``engine`` (band-local steps), ``pd_engine`` (the
+    primal-dual gradient: "pallas" K1 or K10, or "fft"), ``psi_method``
+    and per major iteration ``rms``, ``rmax`` and ``pd_iters``."""
+    from pfb_tpu_torch.ops.psf import (prep_h, prep_h_space, v3_space_supported,
+                                       v3_supported)
+    from pfb_tpu_torch.parallel.dist import (coeff_rms_dist,
+                                             hessian_psf_dist,
+                                             make_hessian_dds_dist,
+                                             power_method_dist,
+                                             prep_psfhat_space,
+                                             primal_dual_dist,
+                                             primal_dual_space_dist)
+    from pfb_tpu_torch.parallel.mesh import Sharded, make_mesh, shard, smap
+
+    dds_name = None
+    if ddsi is None:
+        dds_name = f"{output_filename}_{product.upper()}_{suffix}.dds"
+        dds = dstore.read_store(dds_name)
+    else:
+        dds = ddsi
+        if output_filename is not None:
+            dds_name = f"{output_filename}_{product.upper()}_{suffix}.dds"
+            if not dstore.store_exists(dds_name):
+                dstore.write_store(dds_name, dds)
+
+    freqs_out = np.unique([ds["freq_out"] for ds in dds])
+    nband = freqs_out.size if nband is None else nband
+    nx, ny = dds[0]["DIRTY"].shape
+    nx_psf, ny_psf = dds[0]["PSF"].shape[-2:]
+
+    if mesh is None:
+        mesh = make_mesh(nspace=int(space_shards) or 1)
+    elif space_shards and mesh.shape["space"] != int(space_shards):
+        raise ValueError(
+            f"explicit mesh has space axis {mesh.shape['space']} but "
+            f"space_shards={space_shards} was also given; drop one")
+    nb_mesh = mesh.shape["band"]
+    nspace = mesh.shape["space"]
+    if nband % nb_mesh:
+        raise ValueError(f"nband {nband} not divisible by mesh band axis "
+                         f"{nb_mesh}")
+    if nspace > 1 and nx % nspace:
+        raise ValueError(f"nx {nx} not divisible by mesh space axis "
+                         f"{nspace}")
+    pd_engine = engine
+    if nspace > 1 and engine == "pallas" and \
+            not v3_space_supported(nx, ny, nspace):
+        log.info(f"spotless-dist: space-sharded engine='pallas' "
+                 f"unsupported for image ({nx}, {ny}) on {nspace} space "
+                 f"shards (needs ny divisible by nspace*128); falling back "
+                 f"to engine='fft'")
+        engine = pd_engine = "fft"
+
+    dirty, model, residual, psf, psfhat, beam, wsums, dual = dds2cubes(
+        dds, nband, apparent=False)
+    dtype = torch.float64 if dirty.dtype == np.float64 else torch.float32
+    wsum = wsums.sum()
+    psf_mfs = psf.sum(axis=0)
+    if residual is None:
+        residual = dirty.copy()
+    iter0 = int(dds[0].get("niters", 0))
+    dev0 = mesh.devices[0]
+
+    def tens(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev0,
+                                                           dtype=dt)
+
+    bands = ("band", None, None)
+    dirty_d = shard(tens(dirty), mesh, bands)
+    model_d = shard(tens(model), mesh, bands)
+    resid_d = shard(tens(residual), mesh, bands)
+
+    # the fused v3 engine needs psf_oversize 2 and v3_supported; say so
+    # when it falls back (the dist path has no K11 route)
+    if engine == "pallas" and not (nx_psf == 2 * nx and ny_psf == 2 * ny
+                                   and v3_supported(nx, ny)):
+        log.info(f"spotless-dist: engine='pallas' unsupported for image "
+                 f"({nx}, {ny}) / psf ({nx_psf}, {ny_psf}) (needs "
+                 f"psf_oversize=2 and v3_supported); falling back to "
+                 f"engine='fft'")
+        engine = pd_engine = "fft"
+    kdt = kernel_dtype(dev0, dtype)
+    if engine == "pallas":
+        hr, hi = prep_h(tens(psf), nx, ny, kdt)
+        hargs = (hr,) if hi is None else (hr, hi)
+        hargs = tuple(shard(h, mesh, bands) for h in hargs)
+        del hr, hi
+        ekw = dict(engine="pallas")
+    else:
+        ekw = dict(engine="fft", lastsize=ny_psf)
+        hargs = (shard(tens(psfhat, torch.complex128 if dtype ==
+                            torch.float64 else torch.complex64), mesh,
+                       bands),)
+
+    psf_convolve = hessian_psf_dist(mesh, **ekw)
+    if hessnorm is None:
+        pm = power_method_dist(mesh, tol=pm_tol, maxit=pm_maxit, **ekw)
+        b0 = np.random.default_rng(42).normal(
+            size=(nband, nx, ny)).astype(dirty.dtype)
+        beta, _ = pm(shard(tens(b0), mesh, bands), *hargs)
+        hessnorm = float(beta) * 1.05  # reference spotless.py:193
+    if verbose:
+        log.info(f"spotless-dist: hessnorm = {hessnorm:.3e}")
+
+    bases_t = tuple(bases.split(","))
+    nbasis = len(bases_t)
+    psi = make_psi(nx, ny, bases_t, nlevels)
+    GaussPar = fitcleanbeam(psf_mfs[None], level=0.5, pixsize=1.0)[0]
+    pix_per_beam = GaussPar[0] * GaussPar[1] * np.pi / 4
+
+    fsel = wsums > 0
+    bandw = np.ones(nband, dirty.dtype)  # empty bands pass through
+    bandw[fsel] = wsum / wsums[fsel]
+    bandw_d = shard(tens(bandw), mesh, ("band",))
+    coeff_rms = coeff_rms_dist(mesh, psi, pix_per_beam)
+    rms_comps = coeff_rms(resid_d, bandw_d).cpu().numpy()
+
+    if dual is None or dual.shape[1] != nbasis:
+        dual = np.zeros((nband, nbasis, psi.Nymax, psi.Nxmax), dirty.dtype)
+    dual_d = shard(tens(dual), mesh, ("band", None, None, None))
+    if "L1WEIGHT" in dds[0]:
+        l1weight = np.asarray(dds[0]["L1WEIGHT"], dirty.dtype)
+    else:
+        l1weight = np.ones((nbasis, psi.Nymax, psi.Nxmax), dirty.dtype)
+    l1w_d = tens(l1weight)
+
+    pkw = dict(nu=nbasis, tol=pd_tol, maxit=pd_maxit, positivity=positivity,
+               gamma=gamma, rmsfactor=rmsfactor, alpha=alpha)
+    psi_method = "local"
+    if nspace > 1:
+        # primal-dual over ("band", "space"): K10 with all-to-all stage
+        # transposes for engine "pallas", else the distributed rFFT2
+        if engine == "pallas":
+            hr_s, hi_s = prep_h_space(tens(psf), nx, ny, nspace, kdt)
+            pd_h = tuple(shard(h, mesh, ("band", "space", None))
+                         for h in ((hr_s,) if hi_s is None else
+                                   (hr_s, hi_s)))
+            del hr_s, hi_s
+            pd = primal_dual_space_dist(mesh, psi, engine="pallas", **pkw)
+        else:
+            pd = primal_dual_space_dist(mesh, psi, ny_psf, **pkw)
+            pd_h = shard(prep_psfhat_space(hargs[0].gather(), nspace), mesh,
+                         ("band", None, "space"))
+        psi_method = pd.psi_method
+    else:
+        pd = primal_dual_dist(mesh, psi, **pkw, **ekw)
+        pd_h = hargs
+    hess_exact = make_hessian_dds_dist(mesh, dds, nband, wsum, nx, ny,
+                                       use_beam=False, backend=backend,
+                                       epsilon=epsilon,
+                                       do_wgridding=do_wgridding,
+                                       plane_block=plane_block or None)
+    if stats is not None:
+        stats.update(hessnorm=hessnorm, engine=engine, pd_engine=pd_engine,
+                     psi_method=psi_method, rms=[], rmax=[], pd_iters=[])
+
+    residual_mfs = resid_d.gather().sum(dim=0).cpu().numpy()
+    rms = np.std(residual_mfs)
+    rmax = np.abs(residual_mfs).max()
+    best_rms, best_rmax = rms, rmax
+    best_model = model.copy()
+    n_diverge = 0
+    if verbose:
+        log.info(f"spotless-dist iter {iter0}: peak residual = {rmax:.3e}, "
+                 f"rms = {rms:.3e}")
+
+    for k in range(iter0, iter0 + niter):
+        modelp = model
+        conv = psf_convolve(model_d, *hargs)
+        data = smap(lambda r, c: r + c, resid_d.parts, conv.parts)
+        data = Sharded(mesh, bands, resid_d.shape, data)
+        del conv
+        rf = init_factor * rmsfactor if k == iter0 else rmsfactor
+        do_rw = k + 1 - iter0 >= l1reweight_from
+        rc = tens(rms_comps[:, None, None] *
+                  np.ones((1, psi.Nymax, psi.Nxmax), dirty.dtype)) \
+            if do_rw else None
+        model_d, dual_d, l1w_d, pd_iters = pd(
+            model_d, dual_d, data, pd_h, l1w_d, rf * rms, hessnorm,
+            rms_comps=rc, do_reweight=do_rw)
+        del data
+        conv = hess_exact(model_d)
+        resid_d = Sharded(mesh, bands, dirty_d.shape,
+                          smap(lambda a, c: a - c, dirty_d.parts,
+                               conv.parts))
+        del conv
+        model = model_d.gather().to(dtype).cpu().numpy()
+        residual_mfs = resid_d.gather().sum(dim=0).cpu().numpy()
+
+        rmsp = rms
+        rms = np.std(residual_mfs)
+        rmax = np.abs(residual_mfs).max()
+        eps = np.linalg.norm(model - modelp) / np.linalg.norm(model)
+        if rms < best_rms:
+            best_rms, best_rmax = rms, rmax
+            best_model = model.copy()
+        if stats is not None:
+            stats["rms"].append(float(rms))
+            stats["rmax"].append(float(rmax))
+            stats["pd_iters"].append(int(pd_iters))
+        if verbose:
+            log.info(f"spotless-dist iter {k + 1}: peak residual = "
+                     f"{rmax:.3e}, rms = {rms:.3e}, eps = {eps:.3e} "
+                     f"(pd iters {int(pd_iters)})")
+
+        if do_rw:
+            rms_comps = coeff_rms(resid_d, bandw_d).cpu().numpy()
+
+        if write and dds_name is not None:
+            dual_np = dual_d.gather().cpu().numpy()
+            residual = resid_d.gather().cpu().numpy()
+            l1w_np = l1w_d.gather().cpu().numpy()
+            for i, ds in enumerate(dds):
+                b = ds["bandid"]
+                arrays = {"RESIDUAL": residual[b] * wsum,
+                          "MODEL": model[b],
+                          "DUAL": dual_np[b],
+                          "MODEL_BEST": best_model[b]}
+                if i == 0:
+                    arrays["L1WEIGHT"] = l1w_np
+                attrs = {"niters": k + 1, "best_rms": float(best_rms),
+                         "best_rmax": float(best_rmax),
+                         "parametrisation": "id"}
+                dstore.update_ds(dds_name, i, arrays, attrs)
+                ds.update(arrays)
+                ds.update(attrs)
+
+        if eps < tol:
+            if verbose:
+                log.info(f"spotless-dist: converged after {k + 1} "
+                         "iterations")
+            break
+        if rms > rmsp:
+            n_diverge += 1
+            if n_diverge > 3:
+                log.info("spotless-dist: algorithm diverging, terminating")
+                break
+
+    return model, resid_d.gather().cpu().numpy()

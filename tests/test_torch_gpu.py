@@ -4,7 +4,7 @@ card run ``python -m pytest --noconftest tests/test_torch_gpu.py`` (the
 repo's conftest imports jax, which the card's machine need not have).
 
 Tolerance max|kernel - plain| <= 1e-5 max|plain|: the FFT kernels (K1,
-K2, K3, K11) are float32 FFT pipelines (expected ~1e-6 log2 N); the pg
+K2, K3, K10, K11) are float32 FFT pipelines (expected ~1e-6 log2 N); the pg
 gridder's kernels,
 all planes (K4-K6) or one w block (K7-K9), sum at most a tile's
 visibilities per grid point, or k^3 taps per visibility, in float32
@@ -18,11 +18,16 @@ from pfb_tpu_torch.ops import pg_stream as pgs
 from pfb_tpu_torch.ops import pgridder as pg
 from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
 from pfb_tpu_torch.ops.psf import (make_psf_convolve_pallas, prep_h,
-                                   prep_h_full, psf_convolve_full,
+                                   prep_h_full, prep_h_space,
+                                   psf_convolve_full,
                                    psf_convolve_full_plain, psf_convolve_h,
                                    psf_convolve_h_cg,
                                    psf_convolve_h_cg_plain,
-                                   psf_convolve_h_plain)
+                                   psf_convolve_h_plain, psf_stage_cols_fwd,
+                                   psf_stage_cols_fwd_plain,
+                                   psf_stage_cols_inv,
+                                   psf_stage_cols_inv_plain, psf_stage_rows,
+                                   psf_stage_rows_plain, space_rows)
 from pfb_tpu_torch.opt.pcg import make_pcg_bands_fused, pcg_bands
 from pfb_tpu_torch.utils.simulation import image_size_for, simulate_obs
 
@@ -450,3 +455,91 @@ def test_psf_full_and_cg_wrappers_reject_bad_operands(cuda):
         psf_convolve_h_cg(x, x.double(), beta, hh)
     with pytest.raises(ValueError):
         psf_convolve_h_cg(x, x, beta.double(), hh)
+
+
+# ---------------------------------------------------------------------
+# K10: K1's stages on space shards
+
+
+def _k10_h(cuda, nb, nx, nspace, complex_h):
+    x = torch.arange(2 * nx, device=cuda) - nx
+    r2 = (x[:, None] ** 2 + x[None, :] ** 2).float()
+    psf = torch.stack([0.4 * torch.exp(-0.5 * r2 / (2.0 + b) ** 2)
+                       for b in range(nb)])
+    psf[:, nx, nx] += 0.6
+    psf[:, nx + 3, nx + 1] += 0.02
+    return prep_h_space(psf, nx, nx, nspace, torch.float32,
+                        real_transfer=not complex_h)
+
+
+@pytest.mark.parametrize("nb,nx,nspace", [(2, 128, 1), (2, 256, 2),
+                                          (4, 512, 4), (3, 1024, 4)])
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_k10_stage_kernels_match_plain(cuda, nb, nx, nspace, complex_h):
+    """Each stage on each shard of a space-sharded cube (rows padded to
+    the shard count) against its plain version; pad rows zero."""
+    hr, hi = _k10_h(cuda, nb, nx, nspace, complex_h)
+    assert (hi is None) != complex_h
+    NX = NY = 2 * nx
+    rows = space_rows(nx, nspace)
+    nyl, rl = nx // nspace, rows // nspace
+    g = torch.Generator(device=cuda).manual_seed(nx + nspace)
+    x = torch.randn((nb, nx, nyl), generator=g, device=cuda)
+    n0 = [f.launches for f in (psf_stage_cols_fwd, psf_stage_rows,
+                               psf_stage_cols_inv)]
+    zr, zi = psf_stage_cols_fwd(x, NX, rows)
+    pr, pi = psf_stage_cols_fwd_plain(x, NX, rows)
+    assert _ok(zr, pr) and _ok(zi, pi)
+    assert not zr[:, nx + 1:].any() and not zi[:, nx + 1:].any()
+    h = [a[:, :rl].contiguous() for a in (hr, hi) if a is not None]
+    z = [torch.randn((nb, rl, nx), generator=g, device=cuda)
+         for _ in range(2)]
+    wr, wi = psf_stage_rows(z[0], z[1], *h)
+    qr, qi = psf_stage_rows_plain(z[0], z[1], h[0], h[1] if complex_h
+                                  else None)
+    assert _ok(wr, qr) and _ok(wi, qi)
+    w = [torch.randn((nb, rows, nyl), generator=g, device=cuda)
+         for _ in range(2)]
+    out = psf_stage_cols_inv(w[0], w[1], nx, NX, NY)
+    assert _ok(out, psf_stage_cols_inv_plain(w[0], w[1], nx, NX, NY))
+    torch.cuda.synchronize()
+    assert [f.launches for f in (psf_stage_cols_fwd, psf_stage_rows,
+                                 psf_stage_cols_inv)] == [n + 1 for n in n0]
+
+
+@pytest.mark.parametrize("nspace", [1, 2, 4])
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_space_matvec_matches_k1(cuda, nspace, complex_h):
+    """hessian_psf_space_dist(method="pallas") on a (2, nspace) virtual
+    mesh of the card against K1 on the whole cube: within 1e-6 of max
+    (each line goes through the same FFT code; the all-to-alls are
+    copies), and reruns bitwise equal."""
+    from pfb_tpu_torch.parallel.dist import hessian_psf_space_dist
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    nb, nx = 4, 512
+    hr, hi = _k10_h(cuda, nb, nx, nspace, complex_h)
+    g = torch.Generator(device=cuda).manual_seed(nspace)
+    x = torch.randn((nb, nx, nx), generator=g, device=cuda)
+    mesh = make_mesh(nband=2, nspace=nspace, devices=[cuda] * (2 * nspace))
+    hs = (hr,) if hi is None else (hr, hi)
+    f = hessian_psf_space_dist(mesh, method="pallas")
+    a = f(x, *hs).gather()
+    b = f(x, *hs).gather()
+    assert torch.equal(a, b)
+    ref = psf_convolve_h(x, hr[:, :nx + 1].contiguous(),
+                         None if hi is None else hi[:, :nx + 1].contiguous())
+    assert float((a - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def test_k10_wrappers_reject_bad_operands(cuda):
+    x = torch.zeros((1, 128, 64), device=cuda)
+    with pytest.raises(ValueError):
+        psf_stage_cols_fwd(x, 256, 128)          # rows < NX/2 + 1
+    with pytest.raises(ValueError):
+        psf_stage_cols_fwd(x.double(), 256, 130)  # float64 on the card
+    z = torch.zeros((1, 65, 128), device=cuda)
+    with pytest.raises(ValueError):
+        psf_stage_rows(z, z, torch.zeros((1, 64, 256), device=cuda))
+    w = torch.zeros((1, 130, 64), device=cuda)
+    with pytest.raises(ValueError):
+        psf_stage_cols_inv(w[:, :, :32], w, 128, 256, 256)

@@ -323,16 +323,22 @@ def _public_callables():
 
 
 def test_public_device_parameters_default_to_the_card():
-    """No public function of the port defaults ``device`` to the CPU: a
-    caller who names no device gets the card when there is one."""
-    found, bad = 0, []
+    """No public function of the port defaults ``device`` or ``devices``
+    to the CPU: a caller who names none gets the card (every visible
+    card, for a mesh) when there is one. parallel/ is walked too."""
+    found, bad, parallel = 0, [], []
     for name, fn in _public_callables():
-        par = inspect.signature(fn).parameters.get("device")
-        if par is None:
-            continue
-        found += 1
-        if par.default is not None and par.default is not \
-                inspect.Parameter.empty:
-            bad.append((name, par.default))
-    assert found >= 6
+        for key in ("device", "devices"):
+            par = inspect.signature(fn).parameters.get(key)
+            if par is None:
+                continue
+            found += 1
+            if name.startswith("pfb_tpu_torch.parallel."):
+                parallel.append(name)
+            if par.default is not None and par.default is not \
+                    inspect.Parameter.empty:
+                bad.append((name, key, par.default))
+    assert found >= 8
+    assert "pfb_tpu_torch.parallel.mesh.make_mesh" in parallel
+    assert "pfb_tpu_torch.parallel.runtime.set_client" in parallel
     assert not bad, bad

@@ -284,6 +284,8 @@ def test_import_leaves_jax_out(tmp_path):
     code = f"""
 import sys
 import pfb_tpu_torch.workers.spotless, pfb_tpu_torch.workers.grid
+import pfb_tpu_torch.parallel.dist, pfb_tpu_torch.parallel.dwt_halo
+import pfb_tpu_torch.parallel.runtime
 from pfb_tpu_torch.utils.ms import simulate_ms
 from pfb_tpu_torch.workers.init import _init
 from pfb_tpu_torch.workers.grid import _grid
@@ -302,6 +304,11 @@ _spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
           pd_maxit=2, pm_maxit=3, backend="pg", verbose=0)
 _klean(ddsi=dds, write=False, device="cpu", niter=1, backend="pg",
        plane_block=2, minor_maxit=2, cg_maxit=3, verbose=0)
+from pfb_tpu_torch.parallel.mesh import make_mesh
+from pfb_tpu_torch.workers.spotless import _spotless_dist
+_spotless_dist(mesh=make_mesh(1, 2, ["cpu"] * 2), ddsi=dds, write=False,
+               engine="pallas", niter=1, pd_maxit=2, pm_maxit=3,
+               backend="pg", verbose=0)
 dds = _grid(xdsi=xds, write=False, device="cpu", nx=128, backend="wgrid",
             psf_oversize=3.0, psf=True, residual=False)
 _spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
