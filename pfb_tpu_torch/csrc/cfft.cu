@@ -51,7 +51,7 @@ extern "C" int pfbt_cfft(const float* xr, const float* xi, float* yr,
   if (!pfbt::make_plan(N, T, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = pfbt::launch_lines(
-      xr, xi, yr, yi, B, L, Nin, Nout,
+      xr, xi, yr, yi, B, L, Nin, Nin, Nout, Nout,
       in_rolled ? pfbt::kInRolled : pfbt::kInNatural,
       out_rolled ? pfbt::kOutRolled : pfbt::kOutNatural, inverse, 1.0f, p,
       static_cast<cudaStream_t>(stream));

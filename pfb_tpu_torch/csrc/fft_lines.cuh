@@ -250,11 +250,14 @@ __device__ __forceinline__ void block_fft(float2* sm, int S, LinePlan p,
 enum InMode { kInNatural = 0, kInRolled = 1, kInHermitian = 2 };
 enum OutMode { kOutNatural = 0, kOutRolled = 1 };
 
-// Transform of the lines of a (B, Nin, L) float32 re/im stack along its
-// middle axis into a (B, Nout, L) stack. Lines are (b, j) pairs taken S
-// at a time; when L > 1 the S lines of a block are adjacent columns, so
-// loads and stores are coalesced across the strip, and when L == 1 a
-// line is one contiguous row.
+// Transform of the lines of a (B, in_rows, L) float32 re/im stack along
+// its middle axis, reading rows i < Nin <= in_rows, into a
+// (B, out_rows, L) stack, writing rows r < Nout <= out_rows and zeros in
+// rows Nout..out_rows-1 (the row padding of a space shard's half
+// spectrum; every other caller passes in_rows = Nin, out_rows = Nout).
+// Lines are (b, j) pairs taken S at a time; when L > 1 the S lines of a
+// block are adjacent columns, so loads and stores are coalesced across
+// the strip, and when L == 1 a line is one contiguous row.
 //   in:  kInNatural   element i < Nin sits at n = i, zeros beyond
 //        kInRolled    element i < N/2 sits at n = (i - N/4) mod N
 //        kInHermitian elements i <= N/2 are X[i]; X[N - i] = conj X[i]
@@ -265,13 +268,14 @@ template <int VPT>
 __global__ void __launch_bounds__(kThreads)
 line_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi, int B,
-                int L, int Nin, int Nout, int in_mode, int out_mode,
-                int inv, float scale, int S, LinePlan p) {
+                int L, int Nin, int in_rows, int Nout, int out_rows,
+                int in_mode, int out_mode, int inv, float scale, int S,
+                LinePlan p) {
   extern __shared__ float2 sm[];
   const int N = p.N;
   const int nlines = B * L;
   const int g0 = blockIdx.x * S;
-  const FastDiv fs(S), fl(L), fin(Nin), fout(Nout);
+  const FastDiv fs(S), fl(L), fin(Nin), fout(out_rows);
 
   const bool need_zero =
       in_mode == kInRolled || (in_mode == kInNatural && Nin < N);
@@ -286,7 +290,7 @@ line_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     const int g = g0 + s;
     if (g >= nlines) continue;
     const int b = fl.div(g), j = g - b * L;
-    const long a = ((long)b * Nin + i) * L + j;
+    const long a = ((long)b * in_rows + i) * L + j;
     const float re = xr[a];
     const float im = xi ? xi[a] : 0.f;
     const int n = (in_mode == kInRolled) ? (i - N / 4 + N) % N : i;
@@ -298,15 +302,15 @@ line_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 
   block_fft<VPT>(sm, S, p, inv != 0);
 
-  for (int t = threadIdx.x; t < S * Nout; t += blockDim.x) {
+  for (int t = threadIdx.x; t < S * out_rows; t += blockDim.x) {
     const int s = (L == 1) ? fout.div(t) : fs.mod(t);
     const int r = (L == 1) ? fout.mod(t) : fs.div(t);
     const int g = g0 + s;
     if (g >= nlines) continue;
     const int b = fl.div(g), j = g - b * L;
     const int k = (out_mode == kOutRolled) ? (r - N / 4 + N) % N : r;
-    const float2 v = sm[spad(s * N + k)];
-    const long a = ((long)b * Nout + r) * L + j;
+    const float2 v = r < Nout ? sm[spad(s * N + k)] : make_float2(0.f, 0.f);
+    const long a = ((long)b * out_rows + r) * L + j;
     yr[a] = v.x * scale;
     if (yi) yi[a] = v.y * scale;
   }
@@ -376,7 +380,8 @@ static inline cudaError_t allow_smem(K kernel, size_t bytes) {
 
 static inline cudaError_t launch_lines(const float* xr, const float* xi,
                                        float* yr, float* yi, int B, int L,
-                                       int Nin, int Nout, int in_mode,
+                                       int Nin, int in_rows, int Nout,
+                                       int out_rows, int in_mode,
                                        int out_mode, int inv, float scale,
                                        const LinePlan& p,
                                        cudaStream_t stream) {
@@ -389,14 +394,14 @@ static inline cudaError_t launch_lines(const float* xr, const float* xi,
     e = allow_smem(line_fft_kernel<kVpt>, c.smem);
     if (e != cudaSuccess) return e;
     line_fft_kernel<kVpt><<<grid, c.threads, c.smem, stream>>>(
-        xr, xi, yr, yi, B, L, Nin, Nout, in_mode, out_mode, inv, scale,
-        c.S, p);
+        xr, xi, yr, yi, B, L, Nin, in_rows, Nout, out_rows, in_mode,
+        out_mode, inv, scale, c.S, p);
   } else {
     e = allow_smem(line_fft_kernel<2 * kVpt>, c.smem);
     if (e != cudaSuccess) return e;
     line_fft_kernel<2 * kVpt><<<grid, c.threads, c.smem, stream>>>(
-        xr, xi, yr, yi, B, L, Nin, Nout, in_mode, out_mode, inv, scale,
-        c.S, p);
+        xr, xi, yr, yi, B, L, Nin, in_rows, Nout, out_rows, in_mode,
+        out_mode, inv, scale, c.S, p);
   }
   return cudaGetLastError();
 }

@@ -29,12 +29,13 @@
 // K10 pfbt_psf_stage_cols_fwd / pfbt_psf_stage_rows / pfbt_psf_stage_cols_inv:
 //     K1's three stages as separate calls on the shards of a space-sharded
 //     cube, for the all-to-all transposes between them. Replaces
-//     pallas_fft.py:psf_v3_stage_k1/k2/k3. The column stages take a shard's
-//     (nb, rows, nyl) half spectrum with rows >= NX/2 + 1 (padded to the
-//     shard count; stage 1 writes the pad rows as zeros, stage 3 reads rows
-//     <= NX/2 at the padded row stride); the rows stage takes a row shard
-//     and the matching rows of H. Stage 2 leaves the inverse y-DFT unscaled
-//     and stage 3 scales by 1 / (NX NY), as K1 does.
+//     pallas_fft.py:psf_v3_stage_k1/k2/k3. The column stages are K1's
+//     line_fft_kernel launches on a shard's (nb, rows, nyl) half spectrum
+//     with rows >= NX/2 + 1 (padded to the shard count; stage 1 writes the
+//     pad rows as zeros, stage 3 reads rows <= NX/2 at the padded row
+//     stride); the rows stage takes a row shard and the matching rows of
+//     H. Stage 2 leaves the inverse y-DFT unscaled and stage 3 scales by
+//     1 / (NX NY), as K1 does, so a shard's lines equal K1's bit for bit.
 //
 // The stages (the TPU's three stage boundaries, not its blocking):
 //   1. per column: forward x-DFT of the zero-padded real column, keeping
@@ -303,8 +304,9 @@ static int conv_stages(const float* x, const float* hr, const float* hi,
   const int nxh = NX / 2 + 1;
 
   // 1. x (nb, nx, ny) real -> z (nb, nxh, ny)
-  cudaError_t e = launch_lines(x, nullptr, zr, zi, nb, ny, nx, nxh,
-                               kInNatural, kOutNatural, 0, 1.0f, px, st);
+  cudaError_t e = launch_lines(x, nullptr, zr, zi, nb, ny, nx, nx, nxh,
+                               nxh, kInNatural, kOutNatural, 0, 1.0f, px,
+                               st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   // 2. rows of z -> w (nb, nxh, ny)
@@ -315,96 +317,8 @@ static int conv_stages(const float* x, const float* hr, const float* hi,
 
   // 3. w (nb, nxh, ny) Hermitian half -> out (nb, nx, ny) real
   const float scale = 1.0f / ((float)NX * (float)NY);
-  e = launch_lines(wr, wi, out, nullptr, nb, ny, nxh, nx, kInHermitian,
-                   kOutNatural, 1, scale, px, st);
-  return static_cast<int>(e);
-}
-
-// K10 stages 1 and 3: line_fft_kernel's column path with the band strides
-// of a space shard's padded half spectrum (nb, rows, L), rows >= NX/2 + 1.
-//   forward (inv 0): real columns (nb, Nin = nx, L) zero-padded to N ->
-//     spectrum rows r < Nout = NX/2 + 1 of (nb, out_rows = rows, L), rows
-//     Nout..rows-1 written as zeros;
-//   inverse (inv 1): rows i < Nin = NX/2 + 1 of (nb, in_rows = rows, L)
-//     read as the Hermitian half -> the real part of rows r < Nout = nx,
-//     scaled, into (nb, out_rows = nx, L).
-// Per line the loads, transform and stores are K1's, so a shard's column
-// equals K1's bit for bit.
-template <int VPT>
-__global__ void __launch_bounds__(kThreads)
-space_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                  float* __restrict__ yr, float* __restrict__ yi, int B,
-                  int L, int Nin, int in_rows, int Nout, int out_rows,
-                  int inv, float scale, int S, LinePlan p) {
-  extern __shared__ float2 sm[];
-  const int N = p.N;
-  const int nlines = B * L;
-  const int g0 = blockIdx.x * S;
-  const FastDiv fs(S), fl(L);
-
-  if (!inv && Nin < N) {
-    for (int i = threadIdx.x; i < S * N; i += blockDim.x)
-      sm[spad(i)] = make_float2(0.f, 0.f);
-    __syncthreads();
-  }
-  for (int t = threadIdx.x; t < S * Nin; t += blockDim.x) {
-    const int s = fs.mod(t), i = fs.div(t);
-    const int g = g0 + s;
-    if (g >= nlines) continue;
-    const int b = fl.div(g), j = g - b * L;
-    const long a = ((long)b * in_rows + i) * L + j;
-    const float re = xr[a];
-    const float im = xi ? xi[a] : 0.f;
-    sm[spad(s * N + i)] = make_float2(re, im);
-    if (inv && i > 0 && i < N - i) sm[spad(s * N + N - i)] = make_float2(re, -im);
-  }
-  __syncthreads();
-
-  block_fft<VPT>(sm, S, p, inv != 0);
-
-  for (int t = threadIdx.x; t < S * out_rows; t += blockDim.x) {
-    const int s = fs.mod(t), r = fs.div(t);
-    const int g = g0 + s;
-    if (g >= nlines) continue;
-    const int b = fl.div(g), j = g - b * L;
-    float2 v = make_float2(0.f, 0.f);
-    if (r < Nout) v = sm[spad(s * N + r)];
-    const long a = ((long)b * out_rows + r) * L + j;
-    yr[a] = v.x * scale;
-    if (yi) yi[a] = v.y * scale;
-  }
-}
-
-template <int VPT>
-static cudaError_t launch_space_cols(const float* xr, const float* xi,
-                                     float* yr, float* yi, int B, int L,
-                                     int Nin, int in_rows, int Nout,
-                                     int out_rows, int inv, float scale,
-                                     const LineLaunch& c, const LinePlan& p,
-                                     cudaStream_t st) {
-  cudaError_t e = allow_smem(space_cols_kernel<VPT>, c.smem);
-  if (e != cudaSuccess) return e;
-  const unsigned grid = (unsigned)(((long)B * L + c.S - 1) / c.S);
-  space_cols_kernel<VPT><<<grid, c.threads, c.smem, st>>>(
-      xr, xi, yr, yi, B, L, Nin, in_rows, Nout, out_rows, inv, scale, c.S,
-      p);
-  return cudaGetLastError();
-}
-
-static int space_cols(const float* xr, const float* xi, float* yr,
-                      float* yi, int B, int L, int Nin, int in_rows,
-                      int Nout, int out_rows, int inv, float scale,
-                      const LinePlan& p, cudaStream_t st) {
-  if ((long)B * L > 0x7fffffffL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const LineLaunch c = line_launch(p.N);
-  const cudaError_t e =
-      c.vpt == kVpt
-          ? launch_space_cols<kVpt>(xr, xi, yr, yi, B, L, Nin, in_rows, Nout,
-                                    out_rows, inv, scale, c, p, st)
-          : launch_space_cols<2 * kVpt>(xr, xi, yr, yi, B, L, Nin, in_rows,
-                                        Nout, out_rows, inv, scale, c, p,
-                                        st);
+  e = launch_lines(wr, wi, out, nullptr, nb, ny, nxh, nxh, nx, nx,
+                   kInHermitian, kOutNatural, 1, scale, px, st);
   return static_cast<int>(e);
 }
 
@@ -469,8 +383,9 @@ extern "C" int pfbt_psf_stage_cols_fwd(const float* x, float* zr, float* zi,
   LinePlan px;
   if (NX % 2 || nx > NX || rows < NX / 2 + 1 || !make_plan(NX, TX, &px))
     return static_cast<int>(cudaErrorInvalidValue);
-  return space_cols(x, nullptr, zr, zi, nb, L, nx, nx, NX / 2 + 1, rows, 0,
-                    1.0f, px, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(launch_lines(
+      x, nullptr, zr, zi, nb, L, nx, nx, NX / 2 + 1, rows, kInNatural,
+      kOutNatural, 0, 1.0f, px, static_cast<cudaStream_t>(stream)));
 }
 
 // K10 stage 2: R rows of z (R, ny) against the matching rows of H (R, NY)
@@ -499,8 +414,9 @@ extern "C" int pfbt_psf_stage_cols_inv(const float* wr, const float* wi,
   LinePlan px;
   if (NX % 2 || nx > NX || rows < NX / 2 + 1 || !make_plan(NX, TX, &px))
     return static_cast<int>(cudaErrorInvalidValue);
-  return space_cols(wr, wi, out, nullptr, nb, L, NX / 2 + 1, rows, nx, nx,
-                    1, scale, px, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(launch_lines(
+      wr, wi, out, nullptr, nb, L, NX / 2 + 1, rows, nx, nx, kInHermitian,
+      kOutNatural, 1, scale, px, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int pfbt_psf_conv_cg(const float* pp, const float* rr,

@@ -7,8 +7,7 @@ driven from one process, in lockstep over its shards; entries may
 repeat, so a single card holds several virtual shards.
 """
 
-from pfb_tpu_torch.parallel.mesh import (Sharded, band_sharding, gather,
-                                         make_mesh, shard)
+from pfb_tpu_torch.parallel.mesh import Sharded, gather, make_mesh, shard
 from pfb_tpu_torch.parallel.dist import (hessian_psf_dist, pcg_dist,
                                          power_method_dist,
                                          primal_dual_dist)

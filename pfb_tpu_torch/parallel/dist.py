@@ -356,25 +356,14 @@ def _space_kernel_conv(xs, hargs, devs, sigmainv=0.0):
             for o, x in zip(out, xs)]
 
 
-def _space_fft_conv(xs, psfhat_ps, devs, lastsize, sigmainv=0.0,
-                    nsplit=None):
+def _space_fft_conv(xs, psfhat_ps, devs, lastsize, sigmainv=0.0):
     """Distributed-rFFT2 PSF convolve across the shards of one band row
     (counterpart of _space_fft_conv_local): y transform of the owned
     rows, an all-to-all so the x transform is local, the product with the
     owned PSFHAT columns, the inverse x transform, an all-to-all back and
-    the inverse y transform. ``nsplit`` band chunks (default 2 when the
-    local band count is even) reorder independent work, as in the JAX
-    package, and leave the result unchanged."""
-    nbl = xs[0].shape[0]
-    if nsplit is None:
-        nsplit = 2 if nbl % 2 == 0 and nbl > 1 else 1
-    if nsplit > 1:
-        parts = [_space_fft_conv([x[i::nsplit] for x in xs],
-                                 [p[i::nsplit] for p in psfhat_ps], devs,
-                                 lastsize, sigmainv=sigmainv, nsplit=1)
-                 for i in range(nsplit)]
-        return [torch.stack([pt[r] for pt in parts], dim=1).reshape(x.shape)
-                for r, x in enumerate(xs)]
+    the inverse y transform. The JAX package's band chunks (``nsplit``),
+    which only let XLA overlap the collectives with compute, are left
+    out: the lockstep mesh runs the collectives in turn either way."""
     ps = len(xs)
     nyp = lastsize
     nyw = nyp // 2 + 1

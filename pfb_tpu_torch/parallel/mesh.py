@@ -14,6 +14,8 @@ per dimension, the mesh axis that splits it (``None``: not split), as a
 ``PartitionSpec`` does. Shards that the spec does not tell apart and
 that sit on one device share ONE tensor (and the dist functions compute
 on it once): replicated means one tensor per device, not one per shard.
+A layout is named by its spec tuple alone (parallel/dist.py's ``CUBE``,
+``COEFF`` and the rest), where the JAX package builds NamedShardings.
 """
 
 import torch
@@ -87,22 +89,6 @@ def make_mesh(nband=None, nspace=1, devices=None):
     assert nband * nspace == n, f"{nband} x {nspace} != {n} devices"
     return Mesh([devices[b * nspace:(b + 1) * nspace]
                  for b in range(nband)])
-
-
-def band_sharding(mesh, space_axis=None):
-    """Spec of (nband, nx, ny) cubes: band axis over "band", optionally
-    nx over "space"."""
-    return ("band", space_axis, None)
-
-
-def coeff_sharding(mesh):
-    """Spec of (nband, nbasis, Nymax, Nxmax) dual/coefficient cubes."""
-    return ("band", None, None, None)
-
-
-def replicated(mesh):
-    """Spec of a tensor every shard holds whole."""
-    return ()
 
 
 def _spec(spec, ndim):

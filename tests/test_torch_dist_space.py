@@ -233,25 +233,6 @@ def test_hessian_space_dist_pallas_matches_jax_and_k1():
     assert _rel(got, k1) <= 1e-6
 
 
-def test_space_fft_conv_nsplit_only_reorders():
-    """The fft method's band chunks (nsplit) only reorder independent
-    work: equal to float64 rounding (1e-13; torch's batched FFTs may
-    round differently on strided band slices)."""
-    nband, nx, ny = 4, 32, 32
-    psf, psfhat, lastsize = _psf_small(nband, nx, ny)
-    mt = make_mesh(nband=1, nspace=2, devices=[CPU] * 2)
-    x = shard(_t(np.random.default_rng(1).normal(size=(nband, nx, ny))), mt,
-              ("band", "space", None))
-    php = shard(dist.prep_psfhat_space(_t(psfhat), 2), mt,
-                ("band", None, "space"))
-    outs = [along(mt, "space", lambda xs, ps_, devs, n=n: dist._space_fft_conv(
-        xs, ps_, devs, lastsize, nsplit=n), x.parts, php.parts)
-        for n in (1, 2, 4)]
-    for o in outs[1:]:
-        for a, b in zip(o, outs[0]):
-            assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-13)
-
-
 @pytest.mark.parametrize("which", ["hessian", "primal_dual"])
 def test_fft_engine_needs_lastsize(which):
     """Early check (the JAX package fails later, inside the FFT, when
@@ -341,6 +322,52 @@ def test_primal_dual_space_pallas_tracks_fft():
     assert k == 6
     xf = xf.numpy()
     assert np.abs(xp.numpy() - xf).max() < 1e-4 * np.abs(xf).max() + 1e-5
+
+
+@pytest.mark.parametrize("psi_method", ["halo", "gather"])
+def test_primal_dual_space_pallas_matches_jax(psi_method):
+    """The solver that runs every PD gradient on K10: engine "pallas" on
+    a 2 x 2 mesh at 256^2 through 6 iterations, float32, against the JAX
+    package's primal_dual_space_dist(engine="pallas") with its Pallas
+    stages in interpret mode: x within 1e-5 of its max, v within 1e-4
+    (the dual update subtracts the threshold from sums far larger than
+    the float32 result, so its rounding is the larger)."""
+    nband, nx, ps = 2, 256, 2
+    psf = _psf256(nband, nx)
+    data = np.random.default_rng(1).normal(size=(nband, nx, nx)).astype(
+        np.float32)
+    psi_j = make_psi_j(nx, nx, ("self", "db1"), 2)
+    psi_t = make_psi(nx, nx, ("self", "db1"), 2)
+    v0 = np.zeros((nband, psi_t.nbasis, psi_t.Nymax, psi_t.Nxmax),
+                  np.float32)
+    l1w = np.ones((psi_t.nbasis, psi_t.Nymax, psi_t.Nxmax), np.float32)
+    kw = dict(nu=psi_t.nbasis, tol=0.0, maxit=6, positivity=1, gamma=1.0,
+              psi_method=psi_method)
+
+    mj = make_mesh_j(nband=nband, nspace=ps,
+                     devices=jax.devices()[:nband * ps])
+    cube = NamedSharding(mj, P("band", "space", None))
+    Hsr, Hsi, _ = prep_pallas_hessian_space(jnp.asarray(psf), nx, nx, ps)
+    hsh = NamedSharding(mj, P("band", None, "space", None))
+    hj = tuple(jax.device_put(h, hsh) for h in (Hsr, Hsi))
+    pd_j = dist_j.primal_dual_space_dist(mj, psi_j, engine="pallas", nx=nx,
+                                         ny=nx, nh=2, **kw)
+    xj, vj, _, kj = pd_j(
+        jax.device_put(jnp.zeros((nband, nx, nx), jnp.float32), cube),
+        jax.device_put(jnp.asarray(v0), NamedSharding(
+            mj, P("band", None, "space", None))),
+        jax.device_put(jnp.asarray(data), cube), hj, jnp.asarray(l1w),
+        jnp.float32(1e-3), jnp.float32(2.0))
+
+    mt = make_mesh(nband=nband, nspace=ps, devices=[CPU] * 4)
+    hr, hi = prep_h_space(_t(psf), nx, nx, ps, torch.float32)
+    pd_t = dist.primal_dual_space_dist(mt, psi_t, engine="pallas", **kw)
+    assert pd_t.psi_method == psi_method
+    xt, vt, _, kt = pd_t(torch.zeros(nband, nx, nx), _t(v0), _t(data),
+                         (hr, hi), _t(l1w), 1e-3, 2.0)
+    assert kt == int(kj) == 6
+    assert _rel(xt.numpy(), xj) <= 1e-5
+    assert _rel(vt.numpy(), vj) <= 1e-4
 
 
 # ---------------------------------------------------------------------
