@@ -90,16 +90,29 @@ Phases:
      image of dataset 0 (<= 1e-5 of max);
  19. make_hessian_dds_dist(plane_block=4) (K7-K9) against all planes
      (K4-K6) on a (2, 1) virtual mesh, the pg path's model (<= 1e-5 of
-     max).
+     max);
+ 20. the single-band entry points of ops/pallas_fft.py at one band of
+     4096^2 in 8192^2, counts reset just before and read just after they
+     run: K12 (psf_convolve_pallas_v3) on band 0 of phase 14's bench PSF
+     with complex and real H and on a random PSF from a fixed seed, K13
+     (psf_convolve_pallas_v2) and K14 (psf_convolve_pallas_opt) on the
+     full complex H of both; each against its plain version, and K12,
+     K13 and K14 against each other on each PSF (<= 1e-5 of max);
+ 21. K15, the v3 column transforms (v3_cols_fwd, v3_cols_inv) at (8,
+     4096^2), NX = 8192, NXH = 4224: forward then inverse, counts reset
+     just before and read just after, the round trip against x (<= 1e-5
+     of max); each against its plain version, the inverse also on a
+     random non-Hermitian spectrum, with the library column calls.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
 the bytes the function must move over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, counted for this run's inputs; ``bound_by`` says which)
 and the time of one PyTorch call that computes the same function where
-there is one (``library_ms``: torch.fft for K3 and K10's column stages,
-``index_add_`` for the folds; None otherwise: no single call computes
-K1's, K2's, K10's rows stage's or K11's padded convolution).
+there is one (``library_ms``: torch.fft for K3 and the column stages of
+K10 and K15, ``index_add_`` for the folds; None otherwise: no single
+call computes K1's, K2's, K10's rows stage's or K11-K14's padded
+convolution).
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -180,6 +193,7 @@ def cuda_ms(fn, reps=5):
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
+    from pfb_tpu_torch.ops import pallas_fft as pf
     from pfb_tpu_torch.ops.cfft import fftx_c2c
     from pfb_tpu_torch.ops.pg_stream import (pg_degrid_gs, pg_fold_gs,
                                              pg_spread_gs)
@@ -192,7 +206,10 @@ def counters():
             "K4": pg_spread, "K5": pg_fold, "K6": pg_degrid,
             "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
             "K10a": psf_stage_cols_fwd, "K10b": psf_stage_rows,
-            "K10c": psf_stage_cols_inv, "K11": psf_convolve_full}
+            "K10c": psf_stage_cols_inv, "K11": psf_convolve_full,
+            "K12": pf.psf_convolve_pallas_v3, "K13": pf.psf_convolve_pallas_v2,
+            "K14": pf.psf_convolve_pallas_opt, "K15a": pf.v3_cols_fwd,
+            "K15b": pf.v3_cols_inv}
 
 
 def bound(nbytes, flops):
@@ -1262,6 +1279,124 @@ def blocked_dist_check(rpg, nx, device):
     return err, launches
 
 
+def single_band_checks(device, n=PCG["nx"], timing=True):
+    """Phase 20: K12, K13 and K14 at one band of n^2 in (2n)^2, on band 0
+    of phase 14's bench PSF (a delta 0.5 at the centre) and on a random
+    PSF from a fixed seed, with every kernel's launches counted over the
+    entry points' run alone (counts set to 0 just before it and read
+    just after); then each against its plain version, and K12, K13 and
+    K14 against each other on each PSF. Returns (records, cross errors,
+    launches)."""
+    import torch
+
+    from pfb_tpu_torch.ops import pallas_fft as pf
+    from pfb_tpu_torch.ops.psf import prep_h, prep_h_full
+    NX = 2 * n
+    g = torch.Generator(device=device).manual_seed(20)
+    x = torch.randn((n, n), generator=g, device=device)
+    delta = torch.zeros((1, NX, NX), device=device)
+    delta[0, n, n] = 0.5
+    psfs = {"bench delta PSF": delta,
+            "random PSF": torch.randn((1, NX, NX), generator=g,
+                                      device=device)}
+    calls = []  # (name, entry, plain, H operands, PSF label)
+    for label, psf in psfs.items():
+        for rt in ((False, True) if label == "bench delta PSF" else
+                   (False,)):
+            hr, hi = prep_h(psf, n, n, torch.float32, real_transfer=rt)
+            h = (hr[0], None if hi is None else hi[0])
+            calls.append((f"K12 psf_convolve_pallas_v3 {label}, "
+                          f"{'real' if rt else 'complex'}-H",
+                          pf.psf_convolve_pallas_v3,
+                          pf.psf_convolve_pallas_v3_plain, h, label))
+        Hr, Hi = prep_h_full(psf, torch.float32)
+        for k, fn, plain in (("K13", pf.psf_convolve_pallas_v2,
+                              pf.psf_convolve_pallas_v2_plain),
+                             ("K14", pf.psf_convolve_pallas_opt,
+                              pf.psf_convolve_pallas_opt_plain)):
+            calls.append((f"{k} {fn.__name__} {label}, full complex-H", fn,
+                          plain, (Hr[0], Hi[0]), label))
+    del psfs, delta
+
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    outs = [fn(x, *h, n, n) for _, fn, _, h, _ in calls]
+    sync(device)
+    launches = {k: fn.launches for k, fn in cnt.items()}
+
+    recs = []
+    for (name, fn, plain, h, _), out in zip(calls, outs):
+        recs.append(_record(
+            name, x.shape, out, plain(x, *h), lambda: fn(x, *h, n, n),
+            lambda: plain(x, *h), timing,
+            work=conv_work(1, n, n, NX, NX, h[0].numel(), h[1] is not None)))
+    cross = {}
+    for label in ("bench delta PSF", "random PSF"):
+        got = [(name, out) for (name, *_, lab), out in zip(calls, outs)
+               if lab == label]
+        ref = got[-1][1]  # K14's
+        for name, out in got[:-1]:
+            cross[f"{name} vs K14"] = float(
+                (out - ref).abs().max() / ref.abs().max())
+    cross["K12 vs 0.5 x, bench delta PSF"] = float(
+        (outs[0] - 0.5 * x).abs().max() / (0.5 * x).abs().max())
+    return recs, cross, launches
+
+
+def k15_checks(device, nb=PCG["nband"], n=PCG["nx"], timing=True):
+    """Phase 21: K15's forward then inverse on an (nb, n, n) cube, with
+    every kernel's launches counted over that run alone, the round trip
+    against x; then each against its plain version (the inverse on the
+    forward's spectrum and on a random non-Hermitian one), with the
+    library column calls. Returns (records, round-trip error,
+    launches)."""
+    import torch
+
+    from pfb_tpu_torch.ops import pallas_fft as pf
+    NX = 2 * n
+    NXH = pf.v3_rows(NX)
+    g = torch.Generator(device=device).manual_seed(21)
+    x = torch.randn((nb, n, n), generator=g, device=device)
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    zr, zi = pf.v3_cols_fwd(x, n)
+    back = pf.v3_cols_inv(zr, zi, n)
+    sync(device)
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    rt_err = float((back - x).abs().max() / x.abs().max())
+
+    # x read and NXH spectrum rows written (the inverse the other way); a
+    # real line of length NX for each column
+    fwd_work = (4 * (x.numel() + 2 * nb * NXH * n),
+                nb * fft_flops(NX, n, real=True))
+    recs = [_record(
+        f"K15a v3_cols_fwd ({nb}, {n}, {n}) -> {NXH} rows", x.shape,
+        torch.cat((zr, zi)), torch.cat(pf.v3_cols_fwd_plain(x, n)),
+        lambda: pf.v3_cols_fwd(x, n), lambda: pf.v3_cols_fwd_plain(x, n),
+        timing, work=fwd_work,
+        flib=lambda: torch.fft.fft(x, n=NX, dim=-2)[:, :NXH])]
+    del back
+    for label in ("forward spectrum", "random non-Hermitian spectrum"):
+        if label.startswith("random"):
+            del zr, zi
+            zr, zi = (torch.randn((nb, NXH, n), generator=g, device=device)
+                      for _ in range(2))
+        wc = torch.complex(zr[:, :NX // 2 + 1], zi[:, :NX // 2 + 1])
+        recs.append(_record(
+            f"K15b v3_cols_inv ({nb}, {NXH}, {n}) -> {n} rows, {label}",
+            zr.shape, pf.v3_cols_inv(zr, zi, n),
+            pf.v3_cols_inv_plain(zr, zi, n),
+            lambda: pf.v3_cols_inv(zr, zi, n),
+            lambda: pf.v3_cols_inv_plain(zr, zi, n), timing, work=fwd_work,
+            flib=lambda: torch.fft.irfft(wc, n=NX, dim=-2)[:, :n]))
+        del wc
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return recs, rt_err, launches
+
+
 def report_klean(rkl, truth, nx):
     """Print the klean path's stage time, memory, residuals and
     launches; check its residual and image."""
@@ -1517,9 +1652,43 @@ def main():
             for k in launches:
                 launches[k] += lbd[lab][k]
         del dist_in
+        torch.cuda.empty_cache()
+
+        # 20. K12, K13, K14: one band of 4096^2 in 8192^2
+        sb_recs, cross, l20 = single_band_checks(device)
+        print("[single-band] launches " + json.dumps(l20))
+        print("[single-band] max|diff|/max between the entry points "
+              + json.dumps(cross) + f" (bound {TOL})")
+        for r in sb_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += sb_recs
+        for k in launches:
+            launches[k] += l20[k]
+        torch.cuda.empty_cache()
+
+        # 21. K15 at (8, 4096^2)
+        k15_recs, rt_err, l21 = k15_checks(device)
+        print(f"[k15] v3_cols_inv(v3_cols_fwd(x)) vs x: max|diff|/max = "
+              f"{rt_err:.3e} (bound {TOL}); launches " + json.dumps(l21))
+        for r in k15_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += k15_recs
+        for k in launches:
+            launches[k] += l21[k]
+        torch.cuda.empty_cache()
+
+        # checks of phases 20-21
+        for k in ("K12", "K13", "K14"):
+            need(l20[k] > 0, f"{k} never launched by its entry point")
+        for k in ("K15a", "K15b"):
+            need(l21[k] > 0, f"{k} never launched by its entry point")
+        bad = {k: v for k, v in cross.items() if not v <= TOL}
+        need(not bad, f"single-band entry points disagree: {bad}")
+        need(rt_err <= TOL, f"K15 round trip {rt_err} > {TOL}")
 
         # checks of phases 15-19
         need(sm["rel_err"] <= STOL, f"space matvec vs K1 {sm['rel_err']}")
+        need(sm["bitwise"], "space matvec not bitwise equal to K1")
         need(std["pd_engine"] == "pallas" and std["psi_method"] == "halo",
              f"dist path ran pd engine {std['pd_engine']}, psi "
              f"{std['psi_method']}")
@@ -1591,7 +1760,17 @@ def main():
                  ("K10c", "psf_stage_cols_inv", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:1153"),
                  ("K11", "psf_convolve_full", "psf_conv.cu",
-                  "pfb_tpu/ops/pallas_fft.py:1325")]
+                  "pfb_tpu/ops/pallas_fft.py:1325"),
+                 ("K12", "psf_convolve_pallas_v3", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:799"),
+                 ("K13", "psf_convolve_pallas_v2", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:1185"),
+                 ("K14", "psf_convolve_pallas_opt", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:1255"),
+                 ("K15a", "v3_cols_fwd", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:745"),
+                 ("K15b", "v3_cols_inv", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:759")]
         kern = {"kernels": [
             {"name": name, "route": "cuda",
              "source": f"pfb_tpu_torch/csrc/{src}", "replaces": rep,

@@ -260,7 +260,9 @@ enum OutMode { kOutNatural = 0, kOutRolled = 1 };
 // the strip, and when L == 1 a line is one contiguous row.
 //   in:  kInNatural   element i < Nin sits at n = i, zeros beyond
 //        kInRolled    element i < N/2 sits at n = (i - N/4) mod N
-//        kInHermitian elements i <= N/2 are X[i]; X[N - i] = conj X[i]
+//        kInHermitian element i < Nin (N/2 < Nin <= N) is X[i], and the
+//                     rows past them are the conjugate mirror,
+//                     X[N - i] = conj X[i] for 0 < i <= N - Nin
 //   out: kOutNatural  row r < Nout is X[r]
 //        kOutRolled   row r < N/2 is X[(r - N/4) mod N]
 // xi == nullptr reads a real input; yi == nullptr stores the real part.
@@ -295,7 +297,7 @@ line_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     const float im = xi ? xi[a] : 0.f;
     const int n = (in_mode == kInRolled) ? (i - N / 4 + N) % N : i;
     sm[spad(s * N + n)] = make_float2(re, im);
-    if (in_mode == kInHermitian && i > 0 && i < N - i)
+    if (in_mode == kInHermitian && i > 0 && N - i >= Nin)
       sm[spad(s * N + N - i)] = make_float2(re, -im);
   }
   __syncthreads();

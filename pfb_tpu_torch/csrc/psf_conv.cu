@@ -36,6 +36,12 @@
 //     stride); the rows stage takes a row shard and the matching rows of
 //     H. Stage 2 leaves the inverse y-DFT unscaled and stage 3 scales by
 //     1 / (NX NY), as K1 does, so a shard's lines equal K1's bit for bit.
+// K15 the column stages with `keep` = NXH = NX/2 + N1 (N1 x N2 = NX the
+//     TPU's four-step factors): replaces pallas_fft.py:_k1h_kernel (the
+//     forward keeps spectrum rows k < NXH) and _k3h_kernel (the inverse
+//     reads those rows and mirrors rows 1 .. NX/2 - N1 into NX - i, then
+//     takes the real part scaled by 1 / NX). On a non-Hermitian input
+//     rows NX/2 + 1 .. NXH - 1 are read as given, as the TPU kernel does.
 //
 // The stages (the TPU's three stage boundaries, not its blocking):
 //   1. per column: forward x-DFT of the zero-padded real column, keeping
@@ -373,18 +379,21 @@ extern "C" int pfbt_psf_conv_full(const float* x, const float* hr,
                            static_cast<cudaStream_t>(stream));
 }
 
-// K10 stage 1: x (nb, nx, L) real columns -> z (nb, rows, L) re/im, the
-// forward x-DFT of length NX, rows NX/2 + 1 .. rows - 1 zero.
+// K10 stage 1 and K15's forward: x (nb, nx, L) real columns -> z (nb,
+// rows, L) re/im, spectrum rows 0 .. keep - 1 of the forward x-DFT of
+// length NX and rows keep .. rows - 1 zero (K10: keep = NX/2 + 1; K15:
+// keep = rows = NXH).
 extern "C" int pfbt_psf_stage_cols_fwd(const float* x, float* zr, float* zi,
                                        int nb, int nx, int L, int NX,
-                                       int rows, const void* TX,
+                                       int keep, int rows, const void* TX,
                                        void* stream) {
   using namespace pfbt;
   LinePlan px;
-  if (NX % 2 || nx > NX || rows < NX / 2 + 1 || !make_plan(NX, TX, &px))
+  if (NX % 2 || nx > NX || keep < NX / 2 + 1 || keep > NX || rows < keep ||
+      !make_plan(NX, TX, &px))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_lines(
-      x, nullptr, zr, zi, nb, L, nx, nx, NX / 2 + 1, rows, kInNatural,
+      x, nullptr, zr, zi, nb, L, nx, nx, keep, rows, kInNatural,
       kOutNatural, 0, 1.0f, px, static_cast<cudaStream_t>(stream)));
 }
 
@@ -404,18 +413,23 @@ extern "C" int pfbt_psf_stage_rows(const float* zr, const float* zi,
       static_cast<cudaStream_t>(stream)));
 }
 
-// K10 stage 3: rows 0..NX/2 of w (nb, rows, L) as the Hermitian half ->
-// out (nb, nx, L), the real part of the inverse x-DFT times `scale`.
+// K10 stage 3 and K15's inverse: rows 0 .. keep - 1 of w (nb, rows, L),
+// the rows past them rebuilt as the conjugate mirror of rows
+// 1 .. NX - keep (kInHermitian) -> out (nb, nx, L), the real part of the
+// inverse x-DFT times `scale` (K10: keep = NX/2 + 1, the Hermitian half;
+// K15: keep = NXH).
 extern "C" int pfbt_psf_stage_cols_inv(const float* wr, const float* wi,
                                        float* out, int nb, int nx, int L,
-                                       int NX, int rows, float scale,
-                                       const void* TX, void* stream) {
+                                       int NX, int keep, int rows,
+                                       float scale, const void* TX,
+                                       void* stream) {
   using namespace pfbt;
   LinePlan px;
-  if (NX % 2 || nx > NX || rows < NX / 2 + 1 || !make_plan(NX, TX, &px))
+  if (NX % 2 || nx > NX || keep < NX / 2 + 1 || keep > NX || rows < keep ||
+      !make_plan(NX, TX, &px))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_lines(
-      wr, wi, out, nullptr, nb, L, NX / 2 + 1, rows, nx, nx, kInHermitian,
+      wr, wi, out, nullptr, nb, L, keep, rows, nx, nx, kInHermitian,
       kOutNatural, 1, scale, px, static_cast<cudaStream_t>(stream)));
 }
 

@@ -36,9 +36,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pfbt_cfft": [_P] * 4 + [_I] * 8 + [_P] * 2,
     "pfbt_psf_conv": [_P] * 8 + [_I] * 5 + [_P] * 3,
-    "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 5 + [_P] * 2,
+    "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 6 + [_P] * 2,
     "pfbt_psf_stage_rows": [_P] * 6 + [_I] * 3 + [_P] * 2,
-    "pfbt_psf_stage_cols_inv": [_P] * 3 + [_I] * 5 + [_F] + [_P] * 2,
+    "pfbt_psf_stage_cols_inv": [_P] * 3 + [_I] * 6 + [_F] + [_P] * 2,
     "pfbt_psf_conv_full": [_P] * 8 + [_I] * 5 + [_P] * 3,
     "pfbt_psf_conv_cg": [_P] * 13 + [_I] * 5 + [_P] * 3,
     "pfbt_twiddles": [_I, _P, _P],

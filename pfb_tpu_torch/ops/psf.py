@@ -242,22 +242,37 @@ def prep_h(psf, nx, ny, dtype, real_transfer="auto"):
     return hr, (None if use_real else hi)
 
 
-def h_from_jax_v3(phrT, phiT, nx, ny):
+def unscramble_jax(a):
+    """The JAX package's scrambled transfer function -> natural layout.
+
+    ``scramble_HT`` (pallas_fft.py:528-538) puts H[kx, k1 + N1y*k2] at
+    [k1, kx, k2] of an (N1y, rows, N2y) operand, after any leading band
+    axis; this returns (..., rows, N1y * N2y) as a numpy array."""
+    a = np.asarray(a)
+    *lead, N1y, R, N2y = a.shape
+    nl = len(lead)
+    h = np.transpose(a, tuple(range(nl)) + (nl + 1, nl + 2, nl))
+    return np.ascontiguousarray(h.reshape(*lead, R, N1y * N2y))
+
+
+def h_from_jax_v3(phrT, phiT, nx, ny, rows=None):
     """The JAX package's v3 operands -> the port's H.
 
     Inverts ``scramble_HT``/``prep_H_v3`` (pallas_fft.py:519-538) and the
     swapaxes of ``prep_pallas_hessian`` (ops/psf.py:85-88): the JAX
-    operand (nb, N1y, NXH, N2y) holds H[b, kx, k1 + N1y*k2] at
-    [b, k1, kx, k2], with NXH >= nx+1 kept x-spectrum rows. Takes and
-    returns numpy arrays; phiT may be None."""
+    operand (nb, N1y, NXH, N2y), or (N1y, NXH, N2y) for one band, holds
+    H[b, kx, k1 + N1y*k2] at [b, k1, kx, k2], with NXH >= nx+1 kept
+    x-spectrum rows. Returns the first ``rows`` of them (default nx + 1,
+    K1's H; NXH for the rows stage on K15's layout). Takes and returns
+    numpy arrays; phiT may be None."""
+    rows = nx + 1 if rows is None else rows
+
     def one(a):
-        a = np.asarray(a)
-        nb, N1y, NXH, N2y = a.shape
-        if N1y * N2y != 2 * ny or NXH < nx + 1:
-            raise ValueError(f"h_from_jax_v3: operand {a.shape} does not "
-                             f"match ({nx}, {ny})")
-        h = np.transpose(a, (0, 2, 3, 1)).reshape(nb, NXH, N1y * N2y)
-        return np.ascontiguousarray(h[:, :nx + 1])
+        h = unscramble_jax(a)
+        if h.shape[-1] != 2 * ny or h.shape[-2] < rows:
+            raise ValueError(f"h_from_jax_v3: operand {np.shape(a)} does "
+                             f"not match ({nx}, {ny}), {rows} rows")
+        return np.ascontiguousarray(h[..., :rows, :])
     return one(phrT), (None if phiT is None else one(phiT))
 
 
@@ -331,34 +346,60 @@ def h_from_jax_space(Hsr, Hsi, nx, ny, nspace):
 # K10: K1's stages as separate calls on space shards
 
 
-def psf_stage_cols_fwd_plain(x, NX, rows):
-    """Plain version of K10 stage 1: rfft of the zero-padded columns,
-    rows padded with zeros to ``rows``; returns (zr, zi)."""
-    z = torch.fft.rfft(x, n=NX, dim=-2)
-    z = torch.nn.functional.pad(z, (0, 0, 0, rows - z.shape[-2]))
+def _keep(NX, keep):
+    """The spectrum rows a column stage keeps: NX/2 + 1 (the Hermitian
+    half) unless given; NX/2 + 1 <= keep <= NX."""
+    keep = NX // 2 + 1 if keep is None else int(keep)
+    if NX % 2 or not NX // 2 + 1 <= keep <= NX:
+        raise ValueError(f"column stage: keep {keep} outside "
+                         f"[{NX // 2 + 1}, {NX}] for NX {NX}")
+    return keep
+
+
+def psf_stage_cols_fwd_plain(x, NX, rows, keep=None):
+    """Plain version of K10 stage 1 (and of K15's forward): spectrum rows
+    0 .. keep - 1 of the zero-padded columns' x transform, rows padded
+    with zeros to ``rows``; returns (zr, zi)."""
+    keep = _keep(NX, keep)
+    if keep == NX // 2 + 1:
+        z = torch.fft.rfft(x, n=NX, dim=-2)
+    else:
+        z = torch.fft.fft(x, n=NX, dim=-2)[..., :keep, :]
+    z = torch.nn.functional.pad(z, (0, 0, 0, rows - keep))
     return z.real.contiguous(), z.imag.contiguous()
 
 
-def psf_stage_cols_fwd(x, NX, rows):
-    """K10 stage 1 (counterpart of psf_v3_stage_k1): x (nb, nx, nyl)
-    column shard -> (zr, zi), each (nb, rows, nyl), the x spectrum of the
-    columns zero-padded to NX with rows NX/2 + 1 .. rows - 1 zero. The
-    CUDA kernel for CUDA tensors, the plain version on the CPU."""
+def cols_fwd_launch(name, x, NX, rows, keep):
+    """Launch the forward column stage on validated shapes (no launch
+    count: the calling wrapper keeps its own)."""
     nb, nx, L = x.shape
-    if NX % 2 or nx > NX or rows < NX // 2 + 1:
-        raise ValueError(f"psf_stage_cols_fwd: x {tuple(x.shape)}, NX {NX}, "
-                         f"rows {rows}")
-    if not x.is_cuda:
-        return psf_stage_cols_fwd_plain(x, NX, rows)
-    kernels.require_cuda_f32("psf_stage_cols_fwd", x)
+    kernels.require_cuda_f32(name, x)
     zr = torch.empty((nb, rows, L), dtype=torch.float32, device=x.device)
     zi = torch.empty_like(zr)
     code = kernels.library().pfbt_psf_stage_cols_fwd(
-        x.data_ptr(), zr.data_ptr(), zi.data_ptr(), nb, nx, L, NX, rows,
-        kernels.twiddles(NX, x.device).data_ptr(), kernels.stream_ptr())
-    kernels.check(code, "psf_stage_cols_fwd")
-    psf_stage_cols_fwd.launches += 1
+        x.data_ptr(), zr.data_ptr(), zi.data_ptr(), nb, nx, L, NX, keep,
+        rows, kernels.twiddles(NX, x.device).data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, name)
     return zr, zi
+
+
+def psf_stage_cols_fwd(x, NX, rows, keep=None):
+    """K10 stage 1 (counterpart of psf_v3_stage_k1): x (nb, nx, nyl)
+    column shard -> (zr, zi), each (nb, rows, nyl), the x spectrum of the
+    columns zero-padded to NX, rows keep (default NX/2 + 1) .. rows - 1
+    zero. The CUDA kernel for CUDA tensors, the plain version on the
+    CPU."""
+    nb, nx, L = x.shape
+    keep = _keep(NX, keep)
+    if nx > NX or rows < keep:
+        raise ValueError(f"psf_stage_cols_fwd: x {tuple(x.shape)}, NX {NX}, "
+                         f"rows {rows}, keep {keep}")
+    if not x.is_cuda:
+        return psf_stage_cols_fwd_plain(x, NX, rows, keep)
+    out = cols_fwd_launch("psf_stage_cols_fwd", x, NX, rows, keep)
+    psf_stage_cols_fwd.launches += 1
+    return out
 
 
 psf_stage_cols_fwd.launches = 0
@@ -404,34 +445,54 @@ def psf_stage_rows(zr, zi, hr, hi=None):
 psf_stage_rows.launches = 0
 
 
-def psf_stage_cols_inv_plain(wr, wi, nx, NX, NY):
-    """Plain version of K10 stage 3: irfft of rows 0..NX/2 (rows 0 and
-    NX/2 read as real, as the kernel does), crop to nx, / NY."""
-    w = torch.complex(wr[..., :NX // 2 + 1, :], wi[..., :NX // 2 + 1, :])
-    w[..., 0, :].imag.zero_()
-    w[..., NX // 2, :].imag.zero_()
-    return torch.fft.irfft(w, n=NX, dim=-2)[..., :nx, :] / NY
+def psf_stage_cols_inv_plain(wr, wi, nx, NX, NY, keep=None):
+    """Plain version of K10 stage 3 (and of K15's inverse): rows 0 ..
+    keep - 1, rows keep .. NX - 1 the conjugate mirror of rows 1 .. NX -
+    keep; the real part of the inverse x transform, cropped to nx, / NY.
+    With the default keep = NX/2 + 1 that is the irfft of the Hermitian
+    half (rows 0 and NX/2 read as real, as the kernel does)."""
+    keep = _keep(NX, keep)
+    w = torch.complex(wr[..., :keep, :], wi[..., :keep, :])
+    if keep == NX // 2 + 1:
+        w[..., 0, :].imag.zero_()
+        w[..., NX // 2, :].imag.zero_()
+        y = torch.fft.irfft(w, n=NX, dim=-2)
+    else:
+        mirror = w[..., 1:NX - keep + 1, :].conj().flip(-2)
+        y = torch.fft.ifft(torch.cat([w, mirror], dim=-2), dim=-2).real
+    return y[..., :nx, :] / NY
 
 
-def psf_stage_cols_inv(wr, wi, nx, NX, NY):
-    """K10 stage 3 (counterpart of psf_v3_stage_k3): rows 0..NX/2 of the
-    column shard (nb, rows, nyl) of the half spectrum (read at the padded
-    row stride, no copy) -> (nb, nx, nyl), the real inverse x transform
-    scaled by 1 / (NX NY). The CUDA kernel for CUDA tensors, the plain
-    version on the CPU."""
+def cols_inv_launch(name, wr, wi, nx, NX, keep, scale):
+    """Launch the inverse column stage on validated shapes, output times
+    ``scale`` (no launch count: the calling wrapper keeps its own)."""
     nb, rows, L = wr.shape
-    if wi.shape != wr.shape or NX % 2 or nx > NX or rows < NX // 2 + 1:
-        raise ValueError(f"psf_stage_cols_inv: w {tuple(wr.shape)}, nx {nx}, "
-                         f"NX {NX}")
-    if not wr.is_cuda:
-        return psf_stage_cols_inv_plain(wr, wi, nx, NX, NY)
-    kernels.require_cuda_f32("psf_stage_cols_inv", wr, wi)
+    kernels.require_cuda_f32(name, wr, wi)
     out = torch.empty((nb, nx, L), dtype=torch.float32, device=wr.device)
     code = kernels.library().pfbt_psf_stage_cols_inv(
-        wr.data_ptr(), wi.data_ptr(), out.data_ptr(), nb, nx, L, NX, rows,
-        float(np.float32(1.0) / (np.float32(NX) * np.float32(NY))),
-        kernels.twiddles(NX, wr.device).data_ptr(), kernels.stream_ptr())
-    kernels.check(code, "psf_stage_cols_inv")
+        wr.data_ptr(), wi.data_ptr(), out.data_ptr(), nb, nx, L, NX, keep,
+        rows, scale, kernels.twiddles(NX, wr.device).data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, name)
+    return out
+
+
+def psf_stage_cols_inv(wr, wi, nx, NX, NY, keep=None):
+    """K10 stage 3 (counterpart of psf_v3_stage_k3): rows 0 .. keep - 1
+    (default NX/2 + 1, the Hermitian half) of the column shard (nb, rows,
+    nyl), read at the padded row stride with no copy -> (nb, nx, nyl), the
+    real inverse x transform scaled by 1 / (NX NY). The CUDA kernel for
+    CUDA tensors, the plain version on the CPU."""
+    nb, rows, L = wr.shape
+    keep = _keep(NX, keep)
+    if wi.shape != wr.shape or nx > NX or rows < keep:
+        raise ValueError(f"psf_stage_cols_inv: w {tuple(wr.shape)}, nx {nx}, "
+                         f"NX {NX}, keep {keep}")
+    if not wr.is_cuda:
+        return psf_stage_cols_inv_plain(wr, wi, nx, NX, NY, keep)
+    out = cols_inv_launch(
+        "psf_stage_cols_inv", wr, wi, nx, NX, keep,
+        float(np.float32(1.0) / (np.float32(NX) * np.float32(NY))))
     psf_stage_cols_inv.launches += 1
     return out
 

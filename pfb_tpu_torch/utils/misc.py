@@ -1,6 +1,6 @@
-"""Clean-beam fitting: ``fitcleanbeam`` and ``Gaussian2D``, carried
-over from pfb_tpu/utils/misc.py unchanged (numpy/scipy only), so the
-port imports no JAX.
+"""Clean-beam fitting (``fitcleanbeam``, ``Gaussian2D``) and ``to4d``,
+carried over from pfb_tpu/utils/misc.py unchanged (numpy/scipy only), so
+the port imports no JAX.
 """
 
 import numpy as np
@@ -10,6 +10,19 @@ from scipy.ndimage import label
 # the profile is exp(-K * q) with q the squared coordinate in FWHM
 # units, K = 2*sqrt(2*ln 2).
 _FWHM_EXPONENT = 2.0 * np.sqrt(2.0 * np.log(2.0))
+
+
+def to4d(data):
+    """Broadcast 1-4D arrays to 4D (reference misc.py:96-106)."""
+    if data.ndim == 4:
+        return data
+    if data.ndim == 2:
+        return data[None, None]
+    if data.ndim == 3:
+        return data[None]
+    if data.ndim == 1:
+        return data[None, None, None]
+    raise ValueError("Only arrays with ndim <= 4 can be broadcast to 4D.")
 
 
 def _beam_frame(x, y, pa_deg):

@@ -66,3 +66,21 @@ def dds2cubes(dds, nband, apparent=False, modelname="MODEL"):
         if wsums[b]:
             mean_beam[b] /= wsums[b]
     return dirty, model, residual, psf, psfhat, mean_beam, wsums, dual
+
+
+def write_deconv_fits(dds, output_filename, product, suffix, fits_mfs,
+                      fits_cubes):
+    """The deconvolution workers' FITS products, as the reference's
+    spotless and klean write them: with an ``output_filename``, RESIDUAL
+    (normalised by wsum) and MODEL as an MFS image (``fits_mfs``) and as
+    per-band cubes (``fits_cubes``)."""
+    if not (fits_mfs or fits_cubes) or output_filename is None:
+        return
+    from pfb_tpu_torch.utils.fits import dds2fits, dds2fits_mfs
+    base = f"{output_filename}_{product.upper()}_{suffix}"
+    if fits_mfs:
+        dds2fits_mfs(dds, "RESIDUAL", base, norm_wsum=True)
+        dds2fits_mfs(dds, "MODEL", base, norm_wsum=False)
+    if fits_cubes:
+        dds2fits(dds, "RESIDUAL", base, norm_wsum=True)
+        dds2fits(dds, "MODEL", base, norm_wsum=False)

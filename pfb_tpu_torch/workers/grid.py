@@ -40,9 +40,12 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
           backend="dft", epsilon=1e-7, do_wgridding=True,
           double_accum=True, transfer_model_from=None,
           use_best_model=False, target=None, x0=0.0, y0=0.0, xds=None,
-          row_shards=0, device=None, devices=None, **kw):
+          fits_mfs=False, fits_cubes=False, row_shards=0, device=None,
+          devices=None, **kw):
     """Returns the list of dds datasets (and writes
-    ``{output_filename}_{PRODUCT}_{suffix}.dds`` unless write=False)."""
+    ``{output_filename}_{PRODUCT}_{suffix}.dds`` unless write=False, with
+    the MFS image and the per-band cubes of DIRTY, PSF and RESIDUAL as
+    FITS files for ``fits_mfs`` and ``fits_cubes``)."""
     if transfer_model_from is not None or target is not None or \
             kw.get("concat_row"):
         raise NotImplementedError(
@@ -208,6 +211,17 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     if write and output_filename is not None:
         name = f"{output_filename}_{product.upper()}_{suffix}.dds"
         dstore.write_store(name, dds, overwrite=overwrite)
+        if fits_mfs or fits_cubes:
+            from pfb_tpu_torch.utils.fits import dds2fits, dds2fits_mfs
+            base = f"{output_filename}_{product.upper()}_{suffix}"
+            cols = ["DIRTY"] if dirty else []
+            cols += ["PSF"] if psf else []
+            cols += ["RESIDUAL"] if any("RESIDUAL" in d for d in dds) else []
+            for col in cols:
+                if fits_mfs:
+                    dds2fits_mfs(dds, col, base)
+                if fits_cubes:
+                    dds2fits(dds, col, base)
     return dds
 
 

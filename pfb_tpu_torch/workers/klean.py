@@ -6,9 +6,8 @@ residual of every major iteration through ``make_hessian_dds`` (the
 w-plane-blocked pg engine with ``backend="pg", plane_block=N``), a
 threshold of sigmathreshold * rms or an absolute one, the PCG flux mop
 over the model support, the divergence guard, best-model tracking and
-MODEL/RESIDUAL/MODEL_BEST writeback to the dds store for resume. FITS
-products (``fits_mfs``, ``fits_cubes``) need utils/fits.py, which is not
-carried over yet.
+MODEL/RESIDUAL/MODEL_BEST writeback to the dds store for resume, and the
+FITS products (``fits_mfs``, ``fits_cubes``) with an ``output_filename``.
 """
 
 import numpy as np
@@ -20,7 +19,7 @@ from pfb_tpu_torch.ops.gridder import make_hessian_dds
 from pfb_tpu_torch.opt.pcg import pcg_psf
 from pfb_tpu_torch.utils import dstore
 from pfb_tpu_torch.utils.logging import get_logger
-from pfb_tpu_torch.workers.cubes import dds2cubes
+from pfb_tpu_torch.workers.cubes import dds2cubes, write_deconv_fits
 
 log = get_logger("KLEAN")
 
@@ -38,9 +37,6 @@ def _klean(ddsi=None, output_filename=None, product="I", suffix="main",
     """Returns (model, residual_cube) as numpy arrays and writes back into
     the dds store. ``stats``, when a dict, receives per-major-iteration
     ``rms``, ``rmax`` and Clark ``status``."""
-    if fits_mfs or fits_cubes:
-        raise NotImplementedError("klean FITS products need utils/fits.py, "
-                                  "which is not ported yet")
     device = as_device(device)
     dds_name = None
     if ddsi is None:
@@ -182,4 +178,6 @@ def _klean(ddsi=None, output_filename=None, product="I", suffix="main",
                 log.info("klean: algorithm diverging, terminating")
                 break
 
+    write_deconv_fits(dds, output_filename, product, suffix, fits_mfs,
+                      fits_cubes)
     return model, residual

@@ -37,7 +37,7 @@ from pfb_tpu_torch.opt.primal_dual import (l1reweight_func,
 from pfb_tpu_torch.utils import dstore
 from pfb_tpu_torch.utils.logging import get_logger
 from pfb_tpu_torch.utils.misc import fitcleanbeam
-from pfb_tpu_torch.workers.cubes import dds2cubes
+from pfb_tpu_torch.workers.cubes import dds2cubes, write_deconv_fits
 
 log = get_logger("SPOTLESS")
 
@@ -51,9 +51,12 @@ def _spotless(ddsi=None, output_filename=None, product="I",
               pd_verbose=0, pd_report_freq=50, positivity=1,
               epsilon=1e-7, do_wgridding=True, backend="dft",
               engine="fft", plane_block=0, diverge_count=3, write=True,
-              band_chunk=None, verbose=1, device=None, stats=None, **kw):
+              band_chunk=None, verbose=1, fits_mfs=False, fits_cubes=False,
+              device=None, stats=None, **kw):
     """Returns (model, residual_cube) as numpy arrays and writes back
-    into the dds store. ``stats``, when a dict, receives ``hessnorm``,
+    into the dds store (and, with an ``output_filename``, RESIDUAL and
+    MODEL as FITS files for ``fits_mfs`` and ``fits_cubes``). ``stats``,
+    when a dict, receives ``hessnorm``,
     ``engine`` (the operator that ran: "pallas" for the kernels, "fft"),
     ``pd_solver`` ("fused", "primal_dual_hostloop" or "primal_dual") and
     per-major-iteration ``rms``, ``rmax`` and ``pd_iters``."""
@@ -269,6 +272,8 @@ def _spotless(ddsi=None, output_filename=None, product="I",
                 log.info("spotless: algorithm diverging, terminating")
                 break
 
+    write_deconv_fits(dds, output_filename, product, suffix, fits_mfs,
+                      fits_cubes)
     return model, residual
 
 

@@ -100,16 +100,23 @@ def test_spotless_dist_matches_jax(spot_dds, engine, nspace, tol):
     assert _rel(r_t, r_j) < tol
 
 
-def test_spotless_dist_space_k10_route_matches_band_route(tmp_path):
-    """At 256^2 on a 2 x 2 mesh v3_space_supported holds: the primal-dual
-    gradient runs K10 (plain stages) with the halo Psi. Same run on a
-    2 x 1 mesh (K1): float64, 1e-8 of max."""
-    xds = _xds(tmp_path, 5, 4, 4)
+@pytest.fixture(scope="module")
+def space_dds(tmp_path_factory):
+    """2 bands, Briggs 0, 256^2: v3_space_supported holds on 2 space
+    shards, so engine="pallas" takes K10 in the primal-dual gradient."""
+    xds = _xds(tmp_path_factory.mktemp("sp"), 5, 4, 4)
     dds = grid_j(xdsi=xds, write=False, field_of_view=0.3, robustness=0.0,
                  psf=True, residual=False, nx=256, ny=256)
     nband = len({ds["bandid"] for ds in dds})
-    kw = dict(SPOT, niter=2, pd_maxit=20, hessnorm=_hessnorm(dds, nband,
-                                                             256),
+    return dds, nband, _hessnorm(dds, nband, 256)
+
+
+def test_spotless_dist_space_k10_route_matches_band_route(space_dds):
+    """At 256^2 on a 2 x 2 mesh v3_space_supported holds: the primal-dual
+    gradient runs K10 (plain stages) with the halo Psi. Same run on a
+    2 x 1 mesh (K1): float64, 1e-8 of max."""
+    dds, nband, hessnorm = space_dds
+    kw = dict(SPOT, niter=2, pd_maxit=20, hessnorm=hessnorm,
               engine="pallas")
     out = {}
     for ns in (1, 2):
@@ -123,6 +130,26 @@ def test_spotless_dist_space_k10_route_matches_band_route(tmp_path):
     assert np.abs(out[1][0]).max() > 0
     assert _rel(out[2][0], out[1][0]) < 1e-8
     assert _rel(out[2][1], out[1][1]) < 1e-8
+
+
+def test_spotless_dist_space_k10_route_matches_jax(space_dds):
+    """The K10 route end to end against the JAX package: _spotless_dist
+    (engine="pallas") on 2 x 2 meshes at 256^2, the JAX side running its
+    K10 stages (psf_v3_stage_k1/k2/k3) in interpret mode in float32, the
+    port its plain stages in float64, one hessnorm and a few PD
+    iterations: model and residual within 1e-3 of max (the gate of
+    tests/test_dist_fast.py)."""
+    dds, nband, hessnorm = space_dds
+    kw = dict(SPOT, niter=1, pd_maxit=8, hessnorm=hessnorm, engine="pallas")
+    mj = make_mesh_j(nband=nband, nspace=2, devices=jax.devices()[:2 * nband])
+    m_j, r_j = spotless_dist_j(mesh=mj, ddsi=[dict(d) for d in dds], **kw)
+    st = {}
+    m_t, r_t = _spotless_dist(mesh=make_mesh(nband, 2, [CPU] * (2 * nband)),
+                              ddsi=[dict(d) for d in dds], stats=st, **kw)
+    assert st["pd_engine"] == "pallas" and st["psi_method"] == "halo"
+    assert np.abs(m_j).max() > 0
+    assert _rel(m_t, m_j) < 1e-3
+    assert _rel(r_t, r_j) < 1e-3
 
 
 def test_spotless_dist_non_v3_shape_takes_fft_without_k11(tmp_path,

@@ -4,7 +4,7 @@ card run ``python -m pytest --noconftest tests/test_torch_gpu.py`` (the
 repo's conftest imports jax, which the card's machine need not have).
 
 Tolerance max|kernel - plain| <= 1e-5 max|plain|: the FFT kernels (K1,
-K2, K3, K10, K11) are float32 FFT pipelines (expected ~1e-6 log2 N); the pg
+K2, K3, K10-K15) are float32 FFT pipelines (expected ~1e-6 log2 N); the pg
 gridder's kernels,
 all planes (K4-K6) or one w block (K7-K9), sum at most a tile's
 visibilities per grid point, or k^3 taps per visibility, in float32
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from pfb_tpu_torch.ops import pallas_fft as pft
 from pfb_tpu_torch.ops import pg_stream as pgs
 from pfb_tpu_torch.ops import pgridder as pg
 from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
@@ -543,3 +544,116 @@ def test_k10_wrappers_reject_bad_operands(cuda):
     w = torch.zeros((1, 130, 64), device=cuda)
     with pytest.raises(ValueError):
         psf_stage_cols_inv(w[:, :, :32], w, 128, 256, 256)
+
+
+# ---------------------------------------------------------------------
+# K12-K15: ops/pallas_fft.py's single-band convolutions and v3 column
+# transforms, at the CPU tests' shapes and at NX = 8192
+
+
+@pytest.mark.parametrize("nx", [128, 256, 4096])
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_k12_matches_plain(cuda, nx, complex_h):
+    """psf_convolve_pallas_v3 (one band of K1) against its plain version,
+    H from a random PSF (complex) or its even part (real)."""
+    g = torch.Generator(device=cuda).manual_seed(nx + 12)
+    x = torch.randn((nx, nx), generator=g, device=cuda)
+    psf = torch.randn((1, 2 * nx, 2 * nx), generator=g, device=cuda)
+    hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=not complex_h)
+    hi = None if hi is None else hi[0]
+    n0 = pft.psf_convolve_pallas_v3.launches
+    out = pft.psf_convolve_pallas_v3(x, hr[0], hi, nx, nx)
+    torch.cuda.synchronize()
+    assert pft.psf_convolve_pallas_v3.launches == n0 + 1
+    assert _ok(out, pft.psf_convolve_pallas_v3_plain(x, hr[0], hi))
+
+
+@pytest.mark.parametrize("nx", [64, 128, 4096])
+@pytest.mark.parametrize("entry", ["psf_convolve_pallas_v2",
+                                   "psf_convolve_pallas_opt"])
+def test_k13_k14_match_plain_and_k12(cuda, nx, entry):
+    """K13 / K14 (one band of K11, full complex H) against their plain
+    version, and against K12 on the same PSF (both Re(ifft2(H X)))."""
+    fn = getattr(pft, entry)
+    g = torch.Generator(device=cuda).manual_seed(nx + 13)
+    x = torch.randn((nx, nx), generator=g, device=cuda)
+    psf = torch.randn((1, 2 * nx, 2 * nx), generator=g, device=cuda)
+    Hr, Hi = prep_h_full(psf, torch.float32)
+    n0 = fn.launches
+    out = fn(x, Hr[0], Hi[0], nx, nx)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert _ok(out, pft.psf_convolve_pallas_v2_plain(x, Hr[0], Hi[0]))
+    if pft.v3_supported(nx, nx):
+        hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=False)
+        assert _ok(out, pft.psf_convolve_pallas_v3(x, hr[0], hi[0], nx, nx))
+
+
+@pytest.mark.parametrize("nb,nx,L", [(2, 128, 128), (2, 256, 128),
+                                     (1, 4096, 512)])
+@pytest.mark.parametrize("spectrum", ["forward", "random"])
+def test_k15_matches_plain(cuda, nb, nx, L, spectrum):
+    """v3_cols_fwd / v3_cols_inv against their plain versions; the
+    inverse on the forward's spectrum (the round trip gives x back) and
+    on a random non-Hermitian (NXH, L) spectrum, where the mirror rule
+    decides the answer."""
+    g = torch.Generator(device=cuda).manual_seed(nx + L)
+    NXH = pft.v3_rows(2 * nx)
+    x = torch.randn((nb, nx, L), generator=g, device=cuda)
+    n0 = (pft.v3_cols_fwd.launches, pft.v3_cols_inv.launches)
+    zr, zi = pft.v3_cols_fwd(x, nx)
+    pr, pi = pft.v3_cols_fwd_plain(x, nx)
+    assert zr.shape == (nb, NXH, L)
+    assert _ok(zr, pr) and _ok(zi, pi)
+    if spectrum == "random":
+        zr, zi = (torch.randn((nb, NXH, L), generator=g, device=cuda)
+                  for _ in range(2))
+    out = pft.v3_cols_inv(zr, zi, nx)
+    torch.cuda.synchronize()
+    assert (pft.v3_cols_fwd.launches, pft.v3_cols_inv.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    ref = pft.v3_cols_inv_plain(zr, zi, nx)
+    assert _ok(out, ref)
+    if spectrum == "forward":
+        assert _ok(out, x)
+    else:
+        half = psf_stage_cols_inv_plain(zr, zi, nx, 2 * nx, 1)
+        assert not _ok(half, ref)
+
+
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_column_stages_default_keep_bitwise_k1(cuda, complex_h):
+    """The column stages with the default keep, with keep = NX/2 + 1
+    given, and chained through the rows stage, against K1: bitwise equal
+    (the mirror rule writes the same rows at keep = NX/2 + 1), and K11
+    reruns bitwise equal."""
+    nb, nx = 2, 512
+    NX = NY = 2 * nx
+    hr, hi = _k10_h(cuda, nb, nx, 1, complex_h)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((nb, nx, nx), generator=g, device=cuda)
+    z = psf_stage_cols_fwd(x, NX, nx + 1)
+    assert all(torch.equal(a, b) for a, b in zip(
+        z, psf_stage_cols_fwd(x, NX, nx + 1, keep=nx + 1)))
+    w = psf_stage_rows(*z, hr, hi)
+    out = psf_stage_cols_inv(*w, nx, NX, NY)
+    assert torch.equal(out, psf_stage_cols_inv(*w, nx, NX, NY, keep=nx + 1))
+    assert torch.equal(out, psf_convolve_h(x, hr, hi))
+    Hr, Hi = prep_h_full(torch.randn((nb, NX, NY), generator=g,
+                                     device=cuda), torch.float32)
+    assert torch.equal(psf_convolve_full(x, Hr, Hi),
+                       psf_convolve_full(x, Hr, Hi))
+
+
+def test_k12_k15_wrappers_reject_bad_operands(cuda):
+    x = torch.zeros((128, 128), device=cuda)
+    h = torch.zeros((129, 256), device=cuda)
+    with pytest.raises(ValueError):   # float64 on the card
+        pft.psf_convolve_pallas_v3(x.double(), h.double(), None, 128, 128)
+    H = torch.zeros((256, 256), device=cuda)
+    with pytest.raises(ValueError):
+        pft.psf_convolve_pallas_v2(x, H[:, :200], None, 128, 128)
+    with pytest.raises(ValueError):   # rows other than NXH = 144
+        pft.v3_cols_inv(h[None], h[None], 128)
+    with pytest.raises(ValueError):   # keep above NX
+        psf_stage_cols_fwd(x[None], 256, 300, keep=257)

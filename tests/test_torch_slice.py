@@ -286,6 +286,7 @@ import sys
 import pfb_tpu_torch.workers.spotless, pfb_tpu_torch.workers.grid
 import pfb_tpu_torch.parallel.dist, pfb_tpu_torch.parallel.dwt_halo
 import pfb_tpu_torch.parallel.runtime
+import pfb_tpu_torch.ops.pallas_fft, pfb_tpu_torch.utils.fits
 from pfb_tpu_torch.utils.ms import simulate_ms
 from pfb_tpu_torch.workers.init import _init
 from pfb_tpu_torch.workers.grid import _grid
