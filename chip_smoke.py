@@ -102,17 +102,35 @@ Phases:
      4096^2), NX = 8192, NXH = 4224: forward then inverse, counts reset
      just before and read just after, the round trip against x (<= 1e-5
      of max); each against its plain version, the inverse also on a
-     random non-Hermitian spectrum, with the library column calls.
+     random non-Hermitian spectrum, with the library column calls;
+ 22. L2, the x-pass lab's kernels (scripts/torch_g2i_lab.py) at (4,
+     8192^2), counts reset just before and read just after they run: the
+     copy probes (L2a, ops/memlab.py: strip, rows, relayout, batched, and
+     the strip skeleton of re and im), the split-precision x pass (L2b,
+     fftx_c2c_split) and K3 with lab launch parameters (L2c, fftx_c2c_lab:
+     S = 2, and the first radix pass alone); then each against its plain
+     version: copies exact, L2c at S = 2 against K3 <= 1e-6 of max, the
+     split pass <= 1e-5 of max (its error against a float64 transform is
+     printed, not gated);
+ 23. L3, the capacity lab (scripts/torch_capacity_lab.py) on the TPU
+     lab's observation (125,000 rows x 8 channels, 1024^2, epsilon 1e-5),
+     counts reset just before and read just after: _spread_fold (K4 + K5)
+     at capacity 128, 256 and 512, whose grids must agree (<= 1e-5 of
+     max), and K4 through pack_entries at pair width 1 and 2; the paired
+     spreads against the plain spread (<= 1e-5 of max) and the sweep's
+     times.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
 the bytes the function must move over 3.35 TB/s and its FP32 operations
-over 67 TFLOP/s, counted for this run's inputs; ``bound_by`` says which)
+over 67 TFLOP/s, or its bf16 tensor-core operations over 989 TFLOP/s for
+the split pass, counted for this run's inputs; ``bound_by`` says which)
 and the time of one PyTorch call that computes the same function where
 there is one (``library_ms``: torch.fft for K3 and the column stages of
-K10 and K15, ``index_add_`` for the folds; None otherwise: no single
-call computes K1's, K2's, K10's rows stage's or K11-K14's padded
-convolution).
+K10 and K15 and the x-pass labs L2b and L2c, ``index_add_`` for the
+folds, a slice's ``clone`` for the copy probes L2a; None otherwise: no
+single call computes K1's, K2's, K10's rows stage's, K11-K14's padded
+convolution or L3's paired spread).
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -132,6 +150,7 @@ XTOL = 1e-4  # pg against wgrid dirty image
 BTOL = 1e-5  # blocked against unblocked residual operator
 HBM_BPS = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM FP32 rate outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 NX = 2048
 SIM = dict(nant=64, ntime=128, nchan=8, nsource=20, extent=4000.0,
            seed=7, gains=False)
@@ -193,8 +212,9 @@ def cuda_ms(fn, reps=5):
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
+    from pfb_tpu_torch.ops import memlab
     from pfb_tpu_torch.ops import pallas_fft as pf
-    from pfb_tpu_torch.ops.cfft import fftx_c2c
+    from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_lab, fftx_c2c_split
     from pfb_tpu_torch.ops.pg_stream import (pg_degrid_gs, pg_fold_gs,
                                              pg_spread_gs)
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
@@ -209,13 +229,16 @@ def counters():
             "K10c": psf_stage_cols_inv, "K11": psf_convolve_full,
             "K12": pf.psf_convolve_pallas_v3, "K13": pf.psf_convolve_pallas_v2,
             "K14": pf.psf_convolve_pallas_opt, "K15a": pf.v3_cols_fwd,
-            "K15b": pf.v3_cols_inv}
+            "K15b": pf.v3_cols_inv, "L2a": memlab.lab_copy,
+            "L2b": fftx_c2c_split, "L2c": fftx_c2c_lab}
 
 
-def bound(nbytes, flops):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the FP32 operations over the FP32 rate."""
-    tb, tf = nbytes / HBM_BPS, flops / FP32_FLOPS
+def bound(nbytes, flops, tc_flops=0.0):
+    """(bound_ms, bound_by): the largest of the bytes over the memory
+    rate, the FP32 operations over the FP32 rate and the bf16 tensor-core
+    operations over the tensor-core rate."""
+    tb = nbytes / HBM_BPS
+    tf = max(flops / FP32_FLOPS, tc_flops / BF16_TC_FLOPS)
     return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
@@ -342,15 +365,16 @@ def _fft2_pruned_plain(xr, xi, Nx, Ny, inverse, pruned_in, pruned_out):
 
 
 def _record(name, shape, out, ref, fk, fp, timing, work=None, flib=None,
-            reps=5):
-    """One kernel-against-plain comparison, with CUDA-event times of the
-    kernel, its plain version and the library call ``flib`` (when
-    given), and the bound of ``work`` = (bytes, operations)."""
+            reps=5, tol=TOL):
+    """One kernel-against-plain comparison (max|out - ref| <= tol
+    max|ref|), with CUDA-event times of the kernel, its plain version and
+    the library call ``flib`` (when given), and the bound of ``work`` =
+    (bytes, FP32 operations[, bf16 tensor-core operations])."""
     import numpy as np
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
     r = dict(name=name, shape=list(shape), max_abs_err=err,
-             rel_err=err / scale, tol=TOL, ok=bool(err <= TOL * scale))
+             rel_err=err / scale, tol=tol, ok=bool(err <= tol * scale))
     if work is not None:
         r["bound_ms"], r["bound_by"] = bound(*work)
     if timing:
@@ -1397,6 +1421,178 @@ def k15_checks(device, nb=PCG["nband"], n=PCG["nx"], timing=True):
     return recs, rt_err, launches
 
 
+def l2_checks(device, P=4, N=8192, timing=True):
+    """Phase 22: the x-pass lab's kernels on a (P, N^2) re/im stack, with
+    every kernel's launches counted over their run alone (counts set to 0
+    just before and read just after), then each against its plain
+    version. Returns (records, split error against float64, launches)."""
+    import torch
+
+    from pfb_tpu_torch.ops import memlab
+    from pfb_tpu_torch.ops.cfft import (_factor, _rolled_index, fftx_c2c,
+                                        fftx_c2c_first_pass_plain,
+                                        fftx_c2c_lab, fftx_c2c_plain,
+                                        fftx_c2c_split, fftx_c2c_split_plain)
+    g = torch.Generator(device=device).manual_seed(22)
+    xr = torch.randn((P, N, N), generator=g, device=device)
+    xi = torch.randn((P, N, N), generator=g, device=device)
+    kw = dict(N=N, inverse=True, out_rolled=True)
+    copies = [("strip", None, False), ("strip", None, True),
+              ("rows", 64, False), ("relayout", 128, False),
+              ("batched", None, False)]
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    outs = [memlab.lab_copy(m, xr, xi if two else None, S=S)
+            for m, S, two in copies]
+    split = fftx_c2c_split(xr, xi, **kw)
+    lab = fftx_c2c_lab(xr, xi, S=2, **kw)
+    first = fftx_c2c_lab(xr, xi, npass=1, **kw)
+    sync(device)
+    launches = {k: fn.launches for k, fn in cnt.items()}
+
+    recs = []
+    H = N // 2
+    copy_work = (4.0 * P * N * N * 1.5, 0.0)
+    for (mode, S, two), out in zip(copies, outs):
+        ref = memlab.lab_copy_plain(mode, xr, xi if two else None)
+        got = torch.cat([o for o in out if o is not None])
+        want = torch.cat([o for o in ref if o is not None])
+        sl = (slice(None), slice(0, H)) if mode in ("strip", "batched") \
+            else (slice(None), slice(None), slice(0, H))
+        r = _record(
+            f"L2a lab_copy {mode} S={S or memlab.default_S(mode, N)}"
+            f"{' re+im (k_skel)' if two else ''}", xr.shape, got, want,
+            lambda m=mode, S=S, t=two: memlab.lab_copy(m, xr,
+                                                       xi if t else None,
+                                                       S=S),
+            lambda m=mode, t=two: memlab.lab_copy_plain(m, xr,
+                                                        xi if t else None),
+            timing, work=tuple(w * (2 if two else 1) for w in copy_work),
+            flib=lambda sl=sl: xr[sl].clone(), tol=0.0)
+        r["ok"] = r["ok"] and bool(torch.equal(got, want))
+        recs.append(r)
+        del got, want, ref
+    del outs
+
+    N1, N2 = _factor(N)
+    tc = 9 * 2.0 * P * (N2 * N1 * N1 * N + (N2 // 2) * N2 * N1 * N)
+    xbytes = 8.0 * P * N * (N + H)
+    z = torch.complex(xr, xi)
+    recs.append(_record(
+        f"L2b fftx_c2c_split ({P}, {N}^2) inverse out_rolled",
+        xr.shape, torch.cat(split), torch.cat(fftx_c2c_split_plain(xr, xi,
+                                                                   **kw)),
+        lambda: fftx_c2c_split(xr, xi, **kw),
+        lambda: fftx_c2c_split_plain(xr, xi, **kw), timing,
+        work=(xbytes, 0.0, tc), flib=lambda: torch.fft.ifft(z, dim=-2)))
+    # the split pass against a float64 transform, one plane at a time
+    rows = _rolled_index(N, device)
+    num = den = 0.0
+    for p in range(P):
+        ref = (torch.fft.ifft(torch.complex(xr[p].double(), xi[p].double()),
+                              dim=0) * N)[rows]
+        num = max(num, float((split[0][p] - ref.real).abs().max()),
+                  float((split[1][p] - ref.imag).abs().max()))
+        den = max(den, float(ref.abs().max()))
+        del ref
+    del split
+    xw = (xbytes, P * fft_flops(N, N))
+    k3 = torch.cat(fftx_c2c(xr, xi, **kw))
+    recs.append(_record(
+        f"L2c fftx_c2c_lab S=2 ({P}, {N}^2) against K3", xr.shape,
+        torch.cat(lab), k3, lambda: fftx_c2c_lab(xr, xi, S=2, **kw),
+        lambda: fftx_c2c_plain(xr, xi, **kw), timing, work=xw,
+        flib=lambda: torch.fft.ifft(z, dim=-2), tol=STOL))
+    recs[-1]["bitwise_k3"] = bool(torch.equal(torch.cat(lab), k3))
+    del lab, k3
+    recs.append(_record(
+        f"L2c fftx_c2c_lab npass=1 ({P}, {N}^2)", xr.shape, torch.cat(first),
+        torch.cat(fftx_c2c_first_pass_plain(xr, xi, **kw)),
+        lambda: fftx_c2c_lab(xr, xi, npass=1, **kw),
+        lambda: fftx_c2c_first_pass_plain(xr, xi, **kw), timing,
+        work=(xbytes, 0.0)))
+    del first, z, xr, xi
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return recs, num / den, launches
+
+
+def l3_checks(device, nrow=125_000, nchan=8, nx=1024, timing=True, reps=3):
+    """Phase 23: the capacity lab's path on its observation, with every
+    kernel's launches counted over it alone: _spread_fold at capacity
+    128, 256 and 512 (their grids against capacity 128's), K4 through
+    pack_entries at pair width 1 and 2; then the paired spreads against
+    the plain spread. Returns (records, sweep, launches)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    from torch_capacity_lab import observation, packed_vis, plan
+
+    from pfb_tpu_torch.ops import pgridder as pg
+    obs = observation(nrow, nchan)
+    rng = obs[3]
+    vr, vi = (torch.as_tensor(rng.normal(size=(nrow, nchan)).astype(
+        "float32"), device=device) for _ in range(2))
+    plans = {cap: plan(obs, nx, cap, device) for cap in (128, 256, 512)}
+    p = plans[128]
+    k = p["k"]
+    geo = dict(ntx=p["ntx"], nty=p["nty"], txs=p["txs"], tys=p["tys"], k=k)
+    skw = dict(beta=p["beta"], k=k, nw=p["nw"], Thx=p["txs"] + k,
+               Thy=p["tys"] + k)
+
+    def spread_fold(q):
+        return pg._spread_fold(
+            vr, vi, None, q["tid"], q["pos"], q["idx"], q["pm"], q["uvw_d"],
+            q["freq_d"], beta=q["beta"], k=q["k"], nw=q["nw"], ntx=q["ntx"],
+            nty=q["nty"], txs=q["txs"], tys=q["tys"], C=q["C"], x0=q["x0"],
+            y0=q["y0"], Nx=q["Nx"], Ny=q["Ny"])
+
+    vis = packed_vis(p, vr, vi)
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    grids = {cap: spread_fold(q) for cap, q in plans.items()}
+    packs = {P: pg.pack_entries(p["pos"], vis, p["tid"], p["pm"], P, **geo)
+             for P in (1, 2)}
+    outs = {P: pg.pg_spread(q["pos"], q["vis"], q["slots"], **skw)
+            for P, q in packs.items()}
+    sync(device)
+    launches = {key: fn.launches for key, fn in cnt.items()}
+
+    g0 = grids[128]
+    sweep = {"capacity_rel_diff": {
+        cap: float((g - g0).abs().max() / g0.abs().max())
+        for cap, g in grids.items() if cap != 128}}
+    del grids, g0
+    for cap, q in plans.items():
+        nvis = int((q["pm"] != 0).sum())
+        ms = cuda_ms(lambda q=q: spread_fold(q), reps) if timing else None
+        sweep[cap] = dict(entries=q["nentries"], C=q["C"], ms=ms,
+                          us_per_entry=None if ms is None else
+                          1e3 * ms / q["nentries"],
+                          us_per_vis=None if ms is None else 1e3 * ms / nvis)
+    recs = []
+    for P, q in packs.items():
+        live = q["slots"]["live"]
+        ref = pg.pg_spread_plain(q["pos"], q["vis"], q["slots"], **skw)
+        recs.append(_record(
+            f"L3 pg_spread on pack_entries P={P} (capacity {P * p['C']}, "
+            f"{q['pos'].shape[0]} steps)", q["pos"].shape,
+            outs[P][:, :, live], ref[:, :, live],
+            lambda q=q: pg.pg_spread(q["pos"], q["vis"], q["slots"], **skw),
+            lambda q=q: pg.pg_spread_plain(q["pos"], q["vis"], q["slots"],
+                                           **skw),
+            timing, reps=reps,
+            work=spread_work(q["pos"][:, 2], q["pm"] != 0, k, p["nw"],
+                             int(live.sum()), skw["Thx"], skw["Thy"])))
+        del ref
+    del outs, packs, plans, vis
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return recs, sweep, launches
+
+
 def report_klean(rkl, truth, nx):
     """Print the klean path's stage time, memory, residuals and
     launches; check its residual and image."""
@@ -1677,6 +1873,37 @@ def main():
             launches[k] += l21[k]
         torch.cuda.empty_cache()
 
+        # 22. L2: the x-pass lab's kernels at (4, 8192^2)
+        l2_recs, split64, l22 = l2_checks(device)
+        print("[l2] launches " + json.dumps(l22))
+        print(f"[l2] split x pass vs float64 transform: max|diff|/max = "
+              f"{split64:.3e} (printed, not gated)")
+        for r in l2_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += l2_recs
+        for k in launches:
+            launches[k] += l22[k]
+
+        # 23. L3: the capacity lab on its observation
+        l3_recs, sweep, l23 = l3_checks(device)
+        print("[l3] launches " + json.dumps(l23))
+        print("[l3] _spread_fold by capacity " + json.dumps(sweep))
+        for r in l3_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += l3_recs
+        for k in launches:
+            launches[k] += l23[k]
+        launches["L3"] = l23["K4"]
+
+        # checks of phases 22-23
+        for k in ("L2a", "L2b", "L2c"):
+            need(l22[k] > 0, f"{k} never launched in the L2 lab's run")
+        need(l23["K4"] > 0 and l23["K5"] > 0,
+             "K4/K5 never launched in the L3 lab's run")
+        bad = {c: v for c, v in sweep["capacity_rel_diff"].items()
+               if not v <= TOL}
+        need(not bad, f"_spread_fold grids differ across capacities: {bad}")
+
         # checks of phases 20-21
         for k in ("K12", "K13", "K14"):
             need(l20[k] > 0, f"{k} never launched by its entry point")
@@ -1770,7 +1997,15 @@ def main():
                  ("K15a", "v3_cols_fwd", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:745"),
                  ("K15b", "v3_cols_inv", "psf_conv.cu",
-                  "pfb_tpu/ops/pallas_fft.py:759")]
+                  "pfb_tpu/ops/pallas_fft.py:759"),
+                 ("L2a", "lab_copy", "lab_copy.cu",
+                  "scripts/wl_g2i_lab.py:300"),
+                 ("L2b", "fftx_c2c_split", "cfft_split.cu",
+                  "scripts/wl_g2i_lab.py:170"),
+                 ("L2c", "fftx_c2c_lab", "cfft.cu",
+                  "scripts/wl_g2i_lab.py:170"),
+                 ("L3", "pg_spread (pack_entries)", "pg_grid.cu",
+                  "scripts/wl_capacity_ab.py:121")]
         kern = {"kernels": [
             {"name": name, "route": "cuda",
              "source": f"pfb_tpu_torch/csrc/{src}", "replaces": rep,

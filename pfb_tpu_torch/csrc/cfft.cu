@@ -58,6 +58,28 @@ extern "C" int pfbt_cfft(const float* xr, const float* xi, float* yr,
   return static_cast<int>(e);
 }
 
+// K3 with lab launch parameters (scripts/torch_g2i_lab.py, the counterpart
+// of scripts/wl_g2i_lab.py's lane-block sweep and k_stage1): S lines per
+// block (0: line_launch's choice; S * N <= 2 kLineElems) and the plan cut
+// to its first npass radix passes (0: all; a cut plan's output is not a
+// DFT, it times the passes). With S = npass = 0 this is pfbt_cfft.
+extern "C" int pfbt_cfft_lab(const float* xr, const float* xi, float* yr,
+                             float* yi, int B, int L, int N, int Nin,
+                             int Nout, int in_rolled, int out_rolled,
+                             int inverse, int S, int npass, const void* T,
+                             void* stream) {
+  pfbt::LinePlan p;
+  if (!pfbt::make_plan(N, T, &p) || npass < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (npass > 0 && npass < p.npass) p.npass = npass;
+  cudaError_t e = pfbt::launch_lines(
+      xr, xi, yr, yi, B, L, Nin, Nin, Nout, Nout,
+      in_rolled ? pfbt::kInRolled : pfbt::kInNatural,
+      out_rolled ? pfbt::kOutRolled : pfbt::kOutNatural, inverse, 1.0f, p,
+      static_cast<cudaStream_t>(stream), S);
+  return static_cast<int>(e);
+}
+
 // The twiddle table of a length-N plan (N - 1 float2 entries) into T;
 // both kernels take it as their T/TX/TY operand.
 extern "C" int pfbt_twiddles(int N, void* T, void* stream) {

@@ -354,18 +354,22 @@ static inline bool make_plan(int N, const void* T, LinePlan* p) {
   return m == 1;
 }
 
-// Lines per block (a power of two with S * N <= kLineElems), values per
-// thread (kVpt, or 2 kVpt for a line longer than kLineElems), threads
+// Lines per block (by default the largest power of two with S * N <=
+// kLineElems; a caller may ask for any S with S * N <= 2 kLineElems),
+// values per thread (kVpt, or 2 kVpt where S * N > kLineElems), threads
 // per block (a multiple of 32, at most kThreads).
 struct LineLaunch {
   int S, threads, vpt;
   size_t smem;
 };
 
-static inline LineLaunch line_launch(int N) {
+static inline LineLaunch line_launch(int N, int S = 0) {
   LineLaunch c;
   c.S = 1;
-  while (2 * c.S * N <= kLineElems) c.S *= 2;
+  if (S > 0)
+    c.S = S;
+  else
+    while (2 * c.S * N <= kLineElems) c.S *= 2;
   c.vpt = (c.S * N <= kLineElems) ? kVpt : 2 * kVpt;
   const int t = (c.S * N + c.vpt - 1) / c.vpt;
   c.threads = ((t + 31) / 32) * 32;
@@ -386,8 +390,9 @@ static inline cudaError_t launch_lines(const float* xr, const float* xi,
                                        int out_rows, int in_mode,
                                        int out_mode, int inv, float scale,
                                        const LinePlan& p,
-                                       cudaStream_t stream) {
-  const LineLaunch c = line_launch(p.N);
+                                       cudaStream_t stream, int S = 0) {
+  if (S < 0 || (long)S * p.N > 2L * kLineElems) return cudaErrorInvalidValue;
+  const LineLaunch c = line_launch(p.N, S);
   const long nlines = (long)B * L;
   if (nlines > 0x7fffffffL) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)((nlines + c.S - 1) / c.S);

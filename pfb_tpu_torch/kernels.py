@@ -22,7 +22,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
-            "pg_degrid.cu")
+            "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu")
 _HEADERS = ("fft_lines.cuh", "pg_es.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / \
     "pfb_tpu_torch"
@@ -35,6 +35,9 @@ _D = ctypes.c_double
 _F = ctypes.c_float
 _SIGNATURES = {
     "pfbt_cfft": [_P] * 4 + [_I] * 8 + [_P] * 2,
+    "pfbt_cfft_lab": [_P] * 4 + [_I] * 10 + [_P] * 2,
+    "pfbt_cfft_split": [_P] * 8 + [_I] * 6 + [_P],
+    "pfbt_lab_copy": [_P] * 4 + [_I] * 4 + [_P],
     "pfbt_psf_conv": [_P] * 8 + [_I] * 5 + [_P] * 3,
     "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 6 + [_P] * 2,
     "pfbt_psf_stage_rows": [_P] * 6 + [_I] * 3 + [_P] * 2,

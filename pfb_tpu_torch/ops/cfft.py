@@ -14,14 +14,32 @@ CPU stack runs the plain version :func:`fftx_c2c_plain` (``torch.fft``
 with the roll/crop written out). The y pass of :func:`fft2_c2c_pruned`
 runs the same transform on contiguous rows, viewing (P, nrow, Ny) as
 (P*nrow, Ny, 1), so no transpose pass is needed.
+
+Two lab entries sit beside it (scripts/torch_g2i_lab.py), and no imaging
+path calls them:
+
+- :func:`fftx_c2c_lab`: K3 with launch parameters, lines per block ``S``
+  and the plan cut to its first radix pass (``npass=1``, timing only);
+- :func:`fftx_c2c_split`: the x pass of the JAX package's
+  ``fftx_c2c(precision="split")``, a four-step transform whose real
+  products are three bf16 products each, on the tensor cores
+  (``csrc/cfft_split.cu``), with its plain version
+  :func:`fftx_c2c_split_plain` (the same split products as torch
+  matmuls). pg_stream's blocked engine keeps the float32 K3.
 """
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from pfb_tpu_torch import kernels
 
 __all__ = ["fftx_c2c", "fftx_c2c_plain", "fft2_c2c_pruned",
-           "cfft_supported"]
+           "cfft_supported", "fftx_c2c_lab", "fftx_c2c_first_pass_plain",
+           "fftx_c2c_split", "fftx_c2c_split_plain"]
+
+_LINE_ELEMS = 8192  # csrc/fft_lines.cuh: kLineElems
 
 
 def _factor(N):
@@ -115,3 +133,231 @@ def fft2_c2c_pruned(xr, xi, *, Nx, Ny, inverse, pruned_in=False,
                       inverse=inverse, in_rolled=pruned_in,
                       out_rolled=pruned_out)
     return yr.reshape(P, nrow, -1), yi.reshape(P, nrow, -1)
+
+
+# ---------------------------------------------------------------------
+# lab entries: K3's launch parameters
+
+
+def lines_per_block(N):
+    """Lines per block of K3's default launch (csrc/fft_lines.cuh:
+    line_launch): the largest power of two S with S * N <= 8192."""
+    S = 1
+    while 2 * S * N <= _LINE_ELEMS:
+        S *= 2
+    return S
+
+
+def _first_radix(N):
+    """The radix of the first pass of the kernels' plan (make_plan)."""
+    for r in (16, 8, 4, 2, 3, 5):
+        if N % r == 0:
+            return r
+    raise ValueError(f"N={N} has no factor 2, 3 or 5")
+
+
+def fftx_c2c_first_pass_plain(xr, xi, *, N, inverse=False,
+                              out_rolled=False):
+    """Plain version of K3's plan cut to its first radix pass R (the
+    Stockham pass with no twiddles): y[j R + m] = sum_q x[j + q N/R]
+    e^(-+2 pi i q m / R), rows selected as ``out_rolled`` selects them."""
+    R = _first_radix(N)
+    z = torch.complex(xr, xi)
+    P, _, L = z.shape
+    zz = z.reshape(P, R, N // R, L)
+    y = torch.fft.ifft(zz, dim=1) * R if inverse else \
+        torch.fft.fft(zz, dim=1)
+    y = y.transpose(1, 2).reshape(P, N, L)
+    if out_rolled:
+        y = y[:, _rolled_index(N, y.device)]
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def fftx_c2c_lab(xr, xi, *, N, inverse=False, out_rolled=False, S=None,
+                 npass=None):
+    """K3 on a (P, N, L) stack with lab launch parameters: ``S`` lines per
+    block (None: K3's own choice; S * N <= 16384) and ``npass=1`` to run
+    only the plan's first radix pass (timing; the output is then
+    :func:`fftx_c2c_first_pass_plain`'s). With both None it launches what
+    :func:`fftx_c2c` launches. A CPU stack runs the plain version."""
+    P, Nin, L = xr.shape
+    if Nin != N or xi is None or xi.shape != xr.shape:
+        raise ValueError(f"fftx_c2c_lab: (P, N, L) re and im stacks for "
+                         f"N={N}, got {tuple(xr.shape)}")
+    if npass not in (None, 1):
+        raise ValueError(f"fftx_c2c_lab: npass={npass} (None or 1)")
+    if S is not None and not 1 <= S * N <= 2 * _LINE_ELEMS:
+        raise ValueError(f"fftx_c2c_lab: S={S} at N={N} (S * N <= "
+                         f"{2 * _LINE_ELEMS})")
+    if out_rolled and N % 4:
+        raise ValueError("fftx_c2c_lab: out_rolled needs N % 4 == 0")
+    kw = dict(N=N, inverse=inverse, out_rolled=out_rolled)
+    if not xr.is_cuda:
+        if npass == 1:
+            return fftx_c2c_first_pass_plain(xr, xi, **kw)
+        return fftx_c2c_plain(xr, xi, **kw)
+    kernels.require_cuda_f32("fftx_c2c_lab", xr, xi)
+    Nout = N // 2 if out_rolled else N
+    yr = torch.empty((P, Nout, L), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    W = kernels.twiddles(N, xr.device)
+    code = kernels.library().pfbt_cfft_lab(
+        xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), P, L, N,
+        N, Nout, 0, int(out_rolled), int(inverse), S or 0, npass or 0,
+        W.data_ptr(), kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_lab")
+    fftx_c2c_lab.launches += 1
+    return yr, yi
+
+
+fftx_c2c_lab.launches = 0
+
+
+# ---------------------------------------------------------------------
+# the split-precision x pass
+
+
+@lru_cache(maxsize=None)
+def _cfft_consts_np(N, sign, in_rolled, out_rolled):
+    """The four-step stage matrices of the x pass (a copy of
+    pfb_tpu/ops/pallas_cfft.py:_cfft_consts_np): W1tw (N2, N1, n1_in)
+    with the twiddles absorbed, W2 (K2, N2), re and im, made in float64
+    and rounded once to float32; ``in_rolled`` keeps the n1 blocks of
+    the N/2 image rows, ``out_rolled`` the k2 rows of the rolled crop."""
+    N1, N2 = _factor(N)
+    n1 = np.arange(N1)
+    n2 = np.arange(N2)
+    W1 = np.exp(sign * 2j * np.pi * np.outer(n1, n1) / N1)
+    tw = np.exp(sign * 2j * np.pi * np.outer(n1, n2) / N)
+    W2 = np.exp(sign * 2j * np.pi * np.outer(n2, n2) / N2)
+    W1tw = W1[None, :, :] * tw.T[:, :, None]
+    if in_rolled:
+        n1_sel = np.concatenate([np.arange(3 * N1 // 4, N1),
+                                 np.arange(0, N1 // 4)])
+        W1tw = W1tw[:, :, n1_sel]
+    if out_rolled:
+        k2_sel = np.concatenate([np.arange(3 * N2 // 4, N2),
+                                 np.arange(0, N2 // 4)])
+        W2 = W2[k2_sel]
+    f32 = np.float32
+    return (W1tw.real.astype(f32), W1tw.imag.astype(f32),
+            W2.real.astype(f32), W2.imag.astype(f32))
+
+
+def _cfft_consts(N, inverse, in_rolled, out_rolled, device):
+    return tuple(torch.as_tensor(a, device=device) for a in
+                 _cfft_consts_np(N, 1 if inverse else -1, in_rolled,
+                                 out_rolled))
+
+
+def _split_bf16(a):
+    """a ~= hi + lo, hi = bf16(a), lo = bf16(a - hi), both rounded to
+    nearest even (pfb_tpu/ops/pallas_cfft.py:_split_bf16)."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.float()).to(torch.bfloat16)
+
+
+def _dot3(A, B):
+    """A @ B ~= A1 B1 + A1 B2 + A2 B1 (pallas_cfft.py:_dot_split3), the
+    bf16 components as float32 so each product is exact."""
+    A1, A2 = (t.float() for t in _split_bf16(A))
+    B1, B2 = (t.float() for t in _split_bf16(B))
+    return A1 @ B1 + A1 @ B2 + A2 @ B1
+
+
+def _cmm_split(wr, wi, xr, xi):
+    """(wr + i wi)(xr + i xi) by Karatsuba's three real products
+    (pfb_tpu/ops/pallas_fft.py:_cmm), each split three ways."""
+    t1 = _dot3(wr, xr)
+    t2 = _dot3(wi, xi)
+    t3 = _dot3(wr + wi, xr + xi)
+    return t1 - t2, t3 - t1 - t2
+
+
+def _check_split(xr, xi, N, in_rolled):
+    if not cfft_supported(N):
+        raise ValueError(f"fftx_c2c_split: N={N} is not cfft_supported")
+    if xr.dim() != 3 or xi is None or xi.shape != xr.shape or \
+            xr.shape[1] != (N // 2 if in_rolled else N):
+        raise ValueError(f"fftx_c2c_split: (P, Nin, L) re and im stacks "
+                         f"for N={N}, in_rolled={in_rolled}, got "
+                         f"{tuple(xr.shape)}")
+
+
+def fftx_c2c_split_plain(xr, xi, *, N, inverse=False, in_rolled=False,
+                         out_rolled=False):
+    """Plain version of the split x pass: the four-step stages of
+    ``_kx_kernel(prec="split")`` as torch matmuls on bf16-rounded float32
+    operands. Same shapes and conventions as :func:`fftx_c2c`."""
+    _check_split(xr, xi, N, in_rolled)
+    w1r, w1i, w2r, w2i = _cfft_consts(N, inverse, in_rolled, out_rolled,
+                                      xr.device)
+    N2, N1, n1_in = w1r.shape
+    P, _, L = xr.shape
+    x3r = xr.reshape(P, n1_in, N2, L).transpose(1, 2)
+    x3i = xi.reshape(P, n1_in, N2, L).transpose(1, 2)
+    cr, ci = _cmm_split(w1r, w1i, x3r, x3i)  # (P, N2, N1, L)
+    yr, yi = _cmm_split(w2r, w2i, cr.reshape(P, N2, N1 * L),
+                        ci.reshape(P, N2, N1 * L))
+    K2 = w2r.shape[0]
+    return yr.reshape(P, K2 * N1, L), yi.reshape(P, K2 * N1, L)
+
+
+_SPLIT_CONSTS = {}
+
+
+def _split_planes(wr, wi):
+    """(..., 6, Mp, Kp) bf16 planes (Wr hi, lo, Wi hi, lo, Ws hi, lo) of a
+    complex matrix stack, Ws = Wr + Wi in float32, zero-padded to
+    multiples of 16 in both matrix axes."""
+    M, K = wr.shape[-2:]
+    pad = (0, -K % 16, 0, -M % 16)
+    planes = []
+    for a in (wr, wi, wr + wi):
+        planes += list(_split_bf16(torch.nn.functional.pad(a, pad)))
+    return torch.stack(planes, dim=-3).contiguous()
+
+
+def _split_consts(N, inverse, in_rolled, out_rolled, device):
+    key = (N, inverse, in_rolled, out_rolled, str(device))
+    if key not in _SPLIT_CONSTS:
+        w1r, w1i, w2r, w2i = _cfft_consts(N, inverse, in_rolled, out_rolled,
+                                          device)
+        _SPLIT_CONSTS[key] = (_split_planes(w1r, w1i),
+                              _split_planes(w2r, w2i))
+    return _SPLIT_CONSTS[key]
+
+
+def fftx_c2c_split(xr, xi, *, N, inverse=False, in_rolled=False,
+                   out_rolled=False):
+    """The split-precision x pass of a (P, Nin, L) stack (the JAX
+    package's ``fftx_c2c(precision="split")``): same shapes and
+    conventions as :func:`fftx_c2c`, every real product three bf16
+    products with float32 sums (about 1e-5 relative). CUDA float32
+    stacks launch ``csrc/cfft_split.cu`` (two launches through a (P, N2,
+    N1, L) intermediate); CPU stacks run :func:`fftx_c2c_split_plain`."""
+    _check_split(xr, xi, N, in_rolled)
+    if not xr.is_cuda:
+        return fftx_c2c_split_plain(xr, xi, N=N, inverse=inverse,
+                                    in_rolled=in_rolled,
+                                    out_rolled=out_rolled)
+    kernels.require_cuda_f32("fftx_c2c_split", xr, xi)
+    N1, N2 = _factor(N)
+    n1_in = N1 // 2 if in_rolled else N1
+    K2 = N2 // 2 if out_rolled else N2
+    P, _, L = xr.shape
+    A1, A2 = _split_consts(N, inverse, in_rolled, out_rolled, xr.device)
+    cr = torch.empty((P, N2, N1, L), dtype=torch.float32, device=xr.device)
+    ci = torch.empty_like(cr)
+    yr = torch.empty((P, K2 * N1, L), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    code = kernels.library().pfbt_cfft_split(
+        xr.data_ptr(), xi.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), A1.data_ptr(), A2.data_ptr(), P, L, N1,
+        N2, n1_in, K2, kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_split")
+    fftx_c2c_split.launches += 1
+    return yr, yi
+
+
+fftx_c2c_split.launches = 0

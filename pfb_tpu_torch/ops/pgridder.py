@@ -387,6 +387,33 @@ def pg_spread(pos, vis, slots, *, beta, k, nw, Thx, Thy):
 pg_spread.launches = 0
 
 
+def pack_entries(pos, vis, tid, pm, P, *, ntx, nty, txs, tys, k):
+    """The paired-entry probe's operands (scripts/wl_g2i_lab.py:
+    pair_ilp_probe, scripts/wl_capacity_ab.py:probe): the first E - E mod
+    P entries, each run of P consecutive entries concatenated along the
+    visibility axis, (E/P, 8, P C) positions and (E/P, 2, P C)
+    visibilities, the run's first tile id and the compact slots of those
+    ids. :func:`pg_spread` on them runs K4 unchanged at capacity P C, and
+    every packed step lands on its first entry's tile, as on the TPU: a
+    run that straddles two tiles gives a wrong grid (the probe times the
+    kernel; P = 1 is the plan itself). Returns dict(pos, vis, tid, pm,
+    slots)."""
+    NE, _, C = pos.shape
+    E = NE - NE % P
+    if E == 0:
+        raise ValueError(f"pack_entries: {NE} entries for P={P}")
+
+    def cat(a):
+        rows = a.shape[1]
+        return a[:E].reshape(E // P, P, rows, C).transpose(1, 2).reshape(
+            E // P, rows, P * C).contiguous()
+
+    tidp = tid[:E:P].contiguous()
+    pmp = pm[:E].reshape(E // P, P * C)
+    return dict(pos=cat(pos), vis=cat(vis), tid=tidp, pm=pmp,
+                slots=_compact_slots(tidp, pmp, ntx, nty, txs, tys, k))
+
+
 # ---------------------------------------------------------------------
 # K5: fold
 

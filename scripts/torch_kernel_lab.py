@@ -23,14 +23,16 @@ times, each as the CUDA-event median of ``reps`` calls after a warm-up:
 
 It checks the three stages chained against K1 whole (<= 1e-5 of max)
 and reports the sum of the stage times against K1's. It prints one JSON
-line per stage, each with the card's name and power limit, then a
+line per stage, each with its bound (``chip_smoke.py:bound``: each input
+read once and each output written once over 3.35 TB/s, or the FP32
+operations over 67 TFLOP/s) and the card's name and power limit, then a
 summary line (also written to ``--out``). It adds no lever: at NX = 8192
 the line kernel already runs one line per block (``line_launch`` in
 csrc/fft_lines.cuh), so no larger lines-per-block value fits without a
 redesign of the kernel.
 
-``--digest`` prints the sha256 of K1's, K10's and K11's outputs on fixed
-seeded inputs, with the pfb_tpu_torch found under ``--root`` (default:
+``--digest`` prints the sha256 of K1's, K3's, K10's and K11's outputs on
+fixed seeded inputs, with the pfb_tpu_torch found under ``--root`` (default:
 this repo), so two trees can be compared bit for bit on one card.
 ``--device cpu`` rehearses the timing at a small ``--nx`` with the plain
 versions.
@@ -81,10 +83,12 @@ def card(dev):
 
 
 def digest(dev):
-    """sha256 of K1 (complex and real H), K10's three stages and K11 on
-    fixed seeded inputs."""
+    """sha256 of K1 (complex and real H), K3 (full, in_rolled and
+    out_rolled, strided and contiguous lines, each length's default lines
+    per block), K10's three stages and K11 on fixed seeded inputs."""
     import torch
 
+    from pfb_tpu_torch.ops.cfft import fftx_c2c
     from pfb_tpu_torch.ops.psf import (prep_h, psf_convolve_full,
                                        psf_convolve_h, psf_stage_cols_fwd,
                                        psf_stage_cols_inv, psf_stage_rows)
@@ -111,6 +115,15 @@ def digest(dev):
     Hr, Hi = (torch.randn((nb, N15, N15), generator=g, device=dev)
               for _ in range(2))
     out["K11"] = psf_convolve_full(x, Hr, Hi)
+    for N, L in ((2048, 128), (8192, 16), (960, 1), (16384, 2)):
+        for mode in ("full", "in_rolled", "out_rolled"):
+            nin = N // 2 if mode == "in_rolled" else N
+            zr, zi = (torch.randn((2, nin, L), generator=g, device=dev)
+                      for _ in range(2))
+            y = fftx_c2c(zr, zi, N=N, inverse=mode == "out_rolled",
+                         in_rolled=mode == "in_rolled",
+                         out_rolled=mode == "out_rolled")
+            out[f"K3 {N} L={L} {mode}"] = torch.cat(y)
     return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
             for k, v in out.items()}
 
@@ -167,32 +180,55 @@ def main():
     del chained, whole
     wc = torch.complex(zr0[:, :NX // 2 + 1], zi0[:, :NX // 2 + 1])
 
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, fft_flops
+
+    def cols(rows):
+        """(bytes, operations) of a column stage between the (nb, nx, ny)
+        image and ``rows`` spectrum rows: a real line of NX a column."""
+        return (4.0 * nb * ny * (nx + 2 * rows),
+                nb * fft_flops(NX, ny, real=True))
+
+    def rows_stage(rows):
+        """A rows stage on ``rows`` complex rows with a complex H of NY
+        columns: z read and written (4 floats), H read (2 NY a row); a
+        forward and inverse line of NY and the product with H a row."""
+        return (4.0 * nb * rows * (4 * ny + 2 * NY),
+                fft_flops(NY, 2 * nb * rows) + 6.0 * nb * rows * NY)
+
+    k1 = (4.0 * (2 * x.numel() + hr.numel() + hi.numel()),
+          nb * (fft_flops(NX, 2 * nx, real=True) + fft_flops(NY, 2 * (nx + 1))
+                + 6.0 * (nx + 1) * NY))
     stages = [
         ("K15 forward v3_cols_fwd", (nb, nx, ny),
-         lambda: v3_cols_fwd(x, nx)),
+         lambda: v3_cols_fwd(x, nx), cols(NXH)),
         ("rows stage psf_stage_rows on NXH rows, complex H", (nb, NXH, ny),
-         lambda: psf_stage_rows(zr0, zi0, hxr, hxi)),
+         lambda: psf_stage_rows(zr0, zi0, hxr, hxi), rows_stage(NXH)),
         ("K15 inverse v3_cols_inv", (nb, NXH, ny),
-         lambda: v3_cols_inv(zr0, zi0, nx)),
+         lambda: v3_cols_inv(zr0, zi0, nx), cols(NXH)),
         ("K1 stage 1 psf_stage_cols_fwd", (nb, nx, ny),
-         lambda: psf_stage_cols_fwd(x, NX, nx + 1)),
+         lambda: psf_stage_cols_fwd(x, NX, nx + 1), cols(nx + 1)),
         ("K1 stage 2 psf_stage_rows, complex H", (nb, nx + 1, ny),
-         lambda: psf_stage_rows(*z1, hr, hi)),
+         lambda: psf_stage_rows(*z1, hr, hi), rows_stage(nx + 1)),
         ("K1 stage 3 psf_stage_cols_inv", (nb, nx + 1, ny),
-         lambda: psf_stage_cols_inv(*w1, nx, NX, NY)),
+         lambda: psf_stage_cols_inv(*w1, nx, NX, NY), cols(nx + 1)),
         ("K1 whole psf_convolve_h, complex H", (nb, nx, ny),
-         lambda: psf_convolve_h(x, hr, hi)),
+         lambda: psf_convolve_h(x, hr, hi), k1),
         ("library stage 1 torch.fft.fft(x, n=NX, dim=-2)[:, :NXH]",
-         (nb, nx, ny), lambda: torch.fft.fft(x, n=NX, dim=-2)[:, :NXH]),
+         (nb, nx, ny), lambda: torch.fft.fft(x, n=NX, dim=-2)[:, :NXH],
+         cols(NXH)),
         ("library stage 3 torch.fft.irfft(w[:, :NX/2+1], n=NX, "
          "dim=-2)[:, :nx]", (nb, NX // 2 + 1, ny),
-         lambda: torch.fft.irfft(wc, n=NX, dim=-2)[:, :nx]),
+         lambda: torch.fft.irfft(wc, n=NX, dim=-2)[:, :nx],
+         cols(NX // 2 + 1)),
     ]
     ms = {}
-    for name, shape, fn in stages:
+    for name, shape, fn, work in stages:
         ms[name] = cuda_ms(fn, args.reps, dev)
+        bms, bby = bound(*work)
         print(json.dumps({"stage": name, "shape": list(shape),
-                          "ms": ms[name], "reps": args.reps, "card": smi}),
+                          "ms": ms[name], "reps": args.reps,
+                          "bound_ms": bms, "bound_by": bby, "card": smi}),
               flush=True)
     k1 = ms["K1 whole psf_convolve_h, complex H"]
     split = sum(v for k, v in ms.items() if k.startswith("K1 stage"))

@@ -8,12 +8,19 @@ K2, K3, K10-K15) are float32 FFT pipelines (expected ~1e-6 log2 N); the pg
 gridder's kernels,
 all planes (K4-K6) or one w block (K7-K9), sum at most a tile's
 visibilities per grid point, or k^3 taps per visibility, in float32
-(expected ~1e-7 to 1e-6)."""
+(expected ~1e-7 to 1e-6). The lab kernels (scripts/torch_g2i_lab.py,
+scripts/torch_capacity_lab.py): the copy probes equal slicing exactly;
+K3 with an explicit lines-per-block is K3 bit for bit; the split x pass
+is held to 1e-5 of max against its plain version (the same split
+products summed in another order; a one-ulp change of an intermediate
+can move a product's bf16 low part, about 2^-17 of the product)."""
 
 import numpy as np
 import pytest
 import torch
 
+from pfb_tpu_torch.ops import cfft as cf
+from pfb_tpu_torch.ops import memlab
 from pfb_tpu_torch.ops import pallas_fft as pft
 from pfb_tpu_torch.ops import pg_stream as pgs
 from pfb_tpu_torch.ops import pgridder as pg
@@ -657,3 +664,115 @@ def test_k12_k15_wrappers_reject_bad_operands(cuda):
         pft.v3_cols_inv(h[None], h[None], 128)
     with pytest.raises(ValueError):   # keep above NX
         psf_stage_cols_fwd(x[None], 256, 300, keep=257)
+
+
+# ---------------------------------------------------------------------
+# the lab kernels (L2, L3)
+
+
+@pytest.mark.parametrize("N,L,S", [(2048, 128, 1), (2048, 128, 2),
+                                   (2048, 128, 8), (8192, 64, 2),
+                                   (256, 3, 64), (960, 5, 16)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cfft_lab_launch_parameters(cuda, N, L, S, inverse):
+    """fftx_c2c_lab with an explicit S gives K3's bits; cut to its first
+    pass it gives the plain first radix pass."""
+    g = torch.Generator(device=cuda).manual_seed(N + S)
+    xr = torch.randn((2, N, L), generator=g, device=cuda)
+    xi = torch.randn((2, N, L), generator=g, device=cuda)
+    kw = dict(N=N, inverse=inverse, out_rolled=True)
+    n0 = cf.fftx_c2c_lab.launches
+    yr, yi = cf.fftx_c2c_lab(xr, xi, S=S, **kw)
+    fr, fi = cf.fftx_c2c_lab(xr, xi, S=S, npass=1, **kw)
+    torch.cuda.synchronize()
+    assert cf.fftx_c2c_lab.launches == n0 + 2
+    kr, ki = fftx_c2c(xr, xi, **kw)
+    assert torch.equal(yr, kr) and torch.equal(yi, ki)
+    pr, pi = cf.fftx_c2c_first_pass_plain(xr, xi, **kw)
+    assert _ok(fr, pr) and _ok(fi, pi)
+
+
+@pytest.mark.parametrize("N,P,L,inverse,in_rolled,out_rolled", [
+    (1024, 2, 128, True, False, True), (1024, 1, 96, False, False, False),
+    (2048, 2, 128, True, False, True), (2048, 1, 64, False, True, False),
+    (8192, 1, 128, True, False, True)])
+def test_split_kernel_matches_plain(cuda, N, P, L, inverse, in_rolled,
+                                    out_rolled):
+    g = torch.Generator(device=cuda).manual_seed(N + L)
+    nin = N // 2 if in_rolled else N
+    xr = torch.randn((P, nin, L), generator=g, device=cuda)
+    xi = torch.randn((P, nin, L), generator=g, device=cuda)
+    kw = dict(N=N, inverse=inverse, in_rolled=in_rolled,
+              out_rolled=out_rolled)
+    n0 = cf.fftx_c2c_split.launches
+    yr, yi = cf.fftx_c2c_split(xr, xi, **kw)
+    torch.cuda.synchronize()
+    assert cf.fftx_c2c_split.launches == n0 + 1
+    pr, pi = cf.fftx_c2c_split_plain(xr, xi, **kw)
+    assert _ok(yr, pr) and _ok(yi, pi)
+    # about 1e-5 of max from the float64 transform (the split's own error)
+    dr, di = fftx_c2c_plain(xr.double(), xi.double(), **kw)
+    assert float((yr.double() - dr).abs().max()) <= \
+        5e-5 * float(dr.abs().max())
+
+
+@pytest.mark.parametrize("mode", memlab.MODES)
+@pytest.mark.parametrize("N,P,two", [(512, 2, True), (2048, 3, False),
+                                     (8192, 1, True)])
+def test_lab_copy_matches_slicing(cuda, mode, N, P, two):
+    g = torch.Generator(device=cuda).manual_seed(N)
+    x = torch.randn((P, N, N), generator=g, device=cuda)
+    x2 = torch.randn((P, N, N), generator=g, device=cuda) if two else None
+    Ss = (64, 128, 256) if mode == "rows" else (None,)
+    for S in Ss:
+        n0 = memlab.lab_copy.launches
+        y, y2 = memlab.lab_copy(mode, x, x2, S=S)
+        torch.cuda.synchronize()
+        assert memlab.lab_copy.launches == n0 + 1
+        ref, ref2 = memlab.lab_copy_plain(mode, x, x2)
+        assert torch.equal(y, ref)
+        assert (y2 is None) == (not two)
+        if two:
+            assert torch.equal(y2, ref2)
+
+
+@pytest.mark.parametrize("P", [1, 2])
+def test_paired_entries_spread_matches_plain(cuda, P):
+    """K4 through pack_entries (capacity P C) against the plain spread on
+    the same packed operands."""
+    p = _pg_plan(cuda, 1024, 1e-5, True, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(P)
+    vis = (torch.randn((p["nentries"], 2, p["C"]), generator=g,
+                       device=cuda) * p["pm"][:, None]).contiguous()
+    k = p["k"]
+    pk = pg.pack_entries(p["pos"], vis, p["tid"], p["pm"], P, ntx=p["ntx"],
+                         nty=p["nty"], txs=p["txs"], tys=p["tys"], k=k)
+    assert pk["pos"].shape[-1] == P * p["C"]
+    kw = dict(beta=p["beta"], k=k, nw=p["nw"], Thx=p["txs"] + k,
+              Thy=p["tys"] + k)
+    n0 = pg.pg_spread.launches
+    out = pg.pg_spread(pk["pos"], pk["vis"], pk["slots"], **kw)
+    torch.cuda.synchronize()
+    assert pg.pg_spread.launches == n0 + 1
+    ref = pg.pg_spread_plain(pk["pos"], pk["vis"], pk["slots"], **kw)
+    live = pk["slots"]["live"]
+    assert _ok(out[:, :, live], ref[:, :, live])
+
+
+def test_lab_wrappers_reject_bad_operands(cuda):
+    x = torch.zeros((1, 512, 512), device=cuda)
+    with pytest.raises(ValueError):   # float64 on the card
+        memlab.lab_copy("strip", x.double())
+    with pytest.raises(ValueError):   # relayout rows not a multiple of 32
+        memlab.lab_copy("relayout", x, S=16)
+    with pytest.raises(ValueError):   # S * N above 16384
+        cf.fftx_c2c_lab(x, x, N=512, S=64)
+    y = torch.zeros((8, 8192, 8192), device=cuda)
+    with pytest.raises(RuntimeError):  # two stacks' strips of 8 planes
+        memlab.lab_copy("batched", y, y)  # exceed a block's shared memory
+    with pytest.raises(ValueError):
+        cf.fftx_c2c_lab(x, x, N=512, npass=2)
+    with pytest.raises(ValueError):   # 512 rows for N = 1024
+        cf.fftx_c2c_split(x, x, N=1024)
+    with pytest.raises(ValueError):
+        cf.fftx_c2c_split(x.double(), x.double(), N=512)

@@ -279,14 +279,18 @@ def test_spotless_pallas_unaligned_falls_back_with_host_loop(run, caplog):
 
 
 def test_import_leaves_jax_out(tmp_path):
-    """Importing pfb_tpu_torch and running its CPU path imports neither
-    jax nor pfb_tpu."""
+    """Importing pfb_tpu_torch (and the port's lab scripts) and running
+    its CPU path imports neither jax nor pfb_tpu."""
+    scripts = Path(__file__).resolve().parents[1] / "scripts"
     code = f"""
 import sys
 import pfb_tpu_torch.workers.spotless, pfb_tpu_torch.workers.grid
 import pfb_tpu_torch.parallel.dist, pfb_tpu_torch.parallel.dwt_halo
 import pfb_tpu_torch.parallel.runtime
 import pfb_tpu_torch.ops.pallas_fft, pfb_tpu_torch.utils.fits
+import pfb_tpu_torch.ops.memlab
+sys.path.insert(0, {str(scripts)!r})
+import torch_kernel_lab, torch_g2i_lab, torch_capacity_lab, chip_smoke
 from pfb_tpu_torch.utils.ms import simulate_ms
 from pfb_tpu_torch.workers.init import _init
 from pfb_tpu_torch.workers.grid import _grid
