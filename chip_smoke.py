@@ -15,8 +15,12 @@ Phases:
      every kernel's launch count reset just before and read just after;
   4. kernel vs plain for that path: the PSF-convolution kernel (K1) with
      the transfer function of the grid phase's PSF, complex and its real
-     even part; the c2c kernel (K3) on the image and PSF w-plane stacks;
-  5. checks of the wgrid path: launches > 0 inside grid and spotless,
+     even part; the c2c kernel (K3) on the image and PSF w-plane stacks
+     and on the blocked residual's forward block (4, 4096^2 -> 8192^2),
+     each 2-D transform, its x pass alone on the cluster column kernel
+     (K3c, fftx_c2c_cluster) and its y pass alone on the line kernel;
+  5. checks of the wgrid path: launches > 0 inside grid and spotless
+     (K1, K3 on its y passes and K3c on its x passes),
      kernel errors within tolerance, the MFS residual rms after the last
      major iteration below the dirty rms, the brightest simulated sources
      recovered at their pixels;
@@ -29,12 +33,12 @@ Phases:
      the w-plane grids of the pg path's model; and the pg dirty image
      against the wgrid dirty image of the same dataset and weights
      (max|diff| <= 1e-4 max|wgrid|);
-  8. checks of the pg path, as in 5, with K4 and K5 launched in grid and
-     spotless and K6 in spotless;
+  8. checks of the pg path, as in 5, with K3c, K4 and K5 launched in
+     grid and spotless and K6 in spotless;
   9. klean path, same observation, reusing the pg path's xds and copies
      of its dds: klean(backend="pg", plane_block=4, epsilon=1e-5, 3 major
      iterations, sub_peak_factor 0.9, see KLEAN), counts reset just
-     before and read just after; K7-K9
+     before and read just after; K7-K9 and K3c
      must launch inside klean and K4-K6 must not (its residual takes the
      w-plane-blocked engine), the MFS residual rms must end below the
      dirty rms and the brightest sources must sit at their pixels;
@@ -107,11 +111,11 @@ Phases:
      8192^2), counts reset just before and read just after they run: the
      copy probes (L2a, ops/memlab.py: strip, rows, relayout, batched, and
      the strip skeleton of re and im), the split-precision x pass (L2b,
-     fftx_c2c_split) and K3 with lab launch parameters (L2c, fftx_c2c_lab:
-     S = 2, and the first radix pass alone); then each against its plain
-     version: copies exact, L2c at S = 2 against K3 <= 1e-6 of max, the
-     split pass <= 1e-5 of max (its error against a float64 transform is
-     printed, not gated);
+     fftx_c2c_split) and the line kernel with lab launch parameters (L2c,
+     fftx_c2c_lab: S = 2, and the first radix pass alone, the x pass
+     before the cluster kernel); then each against its plain version:
+     copies exact, L2c and the split pass <= 1e-5 of max (the split
+     pass's error against a float64 transform is printed, not gated);
  23. L3, the capacity lab (scripts/torch_capacity_lab.py) on the TPU
      lab's observation (125,000 rows x 8 channels, 1024^2, epsilon 1e-5),
      counts reset just before and read just after: _spread_fold (K4 + K5)
@@ -126,11 +130,16 @@ the bytes the function must move over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, or its bf16 tensor-core operations over 989 TFLOP/s for
 the split pass, counted for this run's inputs; ``bound_by`` says which)
 and the time of one PyTorch call that computes the same function where
-there is one (``library_ms``: torch.fft for K3 and the column stages of
-K10 and K15 and the x-pass labs L2b and L2c, ``index_add_`` for the
-folds, a slice's ``clone`` for the copy probes L2a; None otherwise: no
+there is one (``library_ms``: torch.fft for K3, its x pass K3c, the
+column stages of K10 and K15 and the x-pass labs L2b and L2c, a zero
+fill and ``index_add_`` for the folds, a slice's ``clone`` for the copy
+probes L2a; None otherwise: no
 single call computes K1's, K2's, K10's rows stage's, K11-K14's padded
-convolution or L3's paired spread).
+convolution or L3's paired spread). A kernel's entry in the kernels
+line takes its times from its first record: K3's from its y pass (what
+``line_fft_kernel`` runs on the main path), K3c's from its x pass. Each
+counts the launches of its own kernel, so K3 + K3c is the number of
+launches of both routes of ``fftx_c2c``.
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -214,7 +223,8 @@ def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
     from pfb_tpu_torch.ops import memlab
     from pfb_tpu_torch.ops import pallas_fft as pf
-    from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_lab, fftx_c2c_split
+    from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_cluster,
+                                        fftx_c2c_lab, fftx_c2c_split)
     from pfb_tpu_torch.ops.pg_stream import (pg_degrid_gs, pg_fold_gs,
                                              pg_spread_gs)
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
@@ -223,6 +233,7 @@ def counters():
     from pfb_tpu_torch.ops.psf import (psf_stage_cols_fwd,
                                        psf_stage_cols_inv, psf_stage_rows)
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
+            "K3c": fftx_c2c_cluster,
             "K4": pg_spread, "K5": pg_fold, "K6": pg_degrid,
             "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
             "K10a": psf_stage_cols_fwd, "K10b": psf_stage_rows,
@@ -387,9 +398,65 @@ def _record(name, shape, out, ref, fk, fp, timing, work=None, flib=None,
     return r
 
 
+def _xpass_record(name, xr, xi, N, inv, pin, pout, timing):
+    """K3's x pass on the cluster column kernel (fftx_c2c_cluster) of a
+    (P, nin, L) stack against its plain version, with torch.fft along
+    dim -2 of the zero-padded (P, N, L) stack as the library call."""
+    import torch
+
+    from pfb_tpu_torch.ops.cfft import (cluster_shape, fftx_c2c_cluster,
+                                        fftx_c2c_cluster_plain)
+    kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+    P, nin, L = xr.shape
+    out = torch.cat(fftx_c2c_cluster(xr, xi, **kw))
+    C = cluster_shape(N)[0]
+    ref = torch.cat(fftx_c2c_cluster_plain(xr, xi, C=C, **kw))
+    z = torch.zeros((P, N, L), dtype=torch.complex64, device=xr.device)
+    z[:, :nin] = torch.complex(xr, xi)
+    lib = torch.fft.ifft if inv else torch.fft.fft
+    r = _record(f"{name} C={C}", xr.shape, out, ref,
+                lambda: fftx_c2c_cluster(xr, xi, **kw),
+                lambda: fftx_c2c_cluster_plain(xr, xi, C=C, **kw), timing,
+                work=(8 * P * L * (nin + out.shape[1]),
+                      P * fft_flops(N, L)),
+                flib=lambda: lib(z, dim=-2))
+    del out, ref, z
+    return r
+
+
+def _ypass_record(name, P, N, inv, pin, pout, g, timing):
+    """K3's y pass (line_fft_kernel on contiguous rows: fftx_c2c at L =
+    1) of a 2-D transform of P (N, N) planes, on the (P * nrow, nin, 1)
+    row stack the x pass leaves, against its plain version, with
+    torch.fft along dim -2 of the zero-padded (P * nrow, N, 1) stack as
+    the library call."""
+    import torch
+
+    from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
+    kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+    rows = P * (N if pin else N // 2)
+    nin = N // 2 if pin else N
+    dev = g.device
+    xr = torch.randn((rows, nin, 1), generator=g, device=dev)
+    xi = torch.randn((rows, nin, 1), generator=g, device=dev)
+    out = torch.cat(fftx_c2c(xr, xi, **kw))
+    ref = torch.cat(fftx_c2c_plain(xr, xi, **kw))
+    z = torch.zeros((rows, N, 1), dtype=torch.complex64, device=dev)
+    z[:, :nin] = torch.complex(xr, xi)
+    lib = torch.fft.ifft if inv else torch.fft.fft
+    r = _record(name, xr.shape, out, ref, lambda: fftx_c2c(xr, xi, **kw),
+                lambda: fftx_c2c_plain(xr, xi, **kw), timing,
+                work=(8 * rows * (nin + out.shape[1]), fft_flops(N, rows)),
+                flib=lambda: lib(z, dim=-2))
+    del out, ref, z, xr, xi
+    return r
+
+
 def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
-    """K1 and K3 against their plain versions on the same inputs; returns
-    one record per comparison."""
+    """K1 and K3 against their plain versions on the same inputs (K3 as
+    the 2-D transform, its x pass alone on the cluster column kernel and
+    its y pass alone on the line kernel); returns one record per
+    comparison."""
     import torch
 
     from pfb_tpu_torch.ops.cfft import fft2_c2c_pruned
@@ -431,11 +498,17 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
              ("K3 fft2 pruned_in forward (image grids)", nw_img, N, False,
               True, False),
              ("K3 fft2 pruned_out inverse (PSF grids, 4 planes)",
-              min(4, nw_psf), 2 * N, True, False, True)]
+              min(4, nw_psf), 2 * N, True, False, True),
+             ("K3 fft2 pruned_in forward (blocked residual, 4 planes)", 4,
+              2 * N, False, True, False)]
     for name, P, Ng, inv, pin, pout in cases:
         nin = Ng // 2 if pin else Ng
         xr = torch.randn((P, nin, nin), generator=g, device=device)
         xi = torch.randn((P, nin, nin), generator=g, device=device)
+        recs.append(_xpass_record(name.replace("K3 fft2", "K3c x pass"),
+                                  xr, xi, Ng, inv, pin, pout, timing))
+        recs.append(_ypass_record(name.replace("fft2", "y pass"), P, Ng, inv,
+                                  pin, pout, g, timing))
         kw = dict(Nx=Ng, Ny=Ng, inverse=inv)
         yr, yi = fft2_c2c_pruned(xr, xi, pruned_in=pin, pruned_out=pout,
                                  **kw)
@@ -503,9 +576,10 @@ def fold_work(nq, nslots, Thx, Thy, ntiles, Nx, Ny):
 
 
 def fold_library(Y, tile, live, nty, txs, tys, k, Nx, Ny):
-    """One ``index_add_`` that folds the live slots of Y (nq, NS, Thx,
-    Thy) into (nq, Nx * Ny) grids: the indices and the source are made
-    here, outside the timed call."""
+    """The fold from scratch in PyTorch calls: a zero fill of the (nq,
+    Nx * Ny) grids, then one ``index_add_`` of the live slots of Y (nq,
+    NS, Thx, Thy). The indices and the source are made here, outside
+    the timed call."""
     import torch
     nq, _, Thx, Thy = Y.shape
     dev = Y.device
@@ -516,8 +590,8 @@ def fold_library(Y, tile, live, nty, txs, tys, k, Nx, Ny):
                          + torch.arange(Thy, device=dev), Ny)
     flat = (X[:, :, None] * Ny + Yi[:, None, :]).reshape(-1)
     src = Y[:, live].reshape(nq, -1).contiguous()
-    out = torch.zeros((nq, Nx * Ny), dtype=Y.dtype, device=dev)
-    return lambda: out.index_add_(1, flat, src)
+    out = torch.empty((nq, Nx * Ny), dtype=Y.dtype, device=dev)
+    return lambda: out.zero_().index_add_(1, flat, src)
 
 
 def pg_plans(ds, nx, epsilon, device):
@@ -1429,7 +1503,7 @@ def l2_checks(device, P=4, N=8192, timing=True):
     import torch
 
     from pfb_tpu_torch.ops import memlab
-    from pfb_tpu_torch.ops.cfft import (_factor, _rolled_index, fftx_c2c,
+    from pfb_tpu_torch.ops.cfft import (_factor, _rolled_index,
                                         fftx_c2c_first_pass_plain,
                                         fftx_c2c_lab, fftx_c2c_plain,
                                         fftx_c2c_split, fftx_c2c_split_plain)
@@ -1498,14 +1572,13 @@ def l2_checks(device, P=4, N=8192, timing=True):
         del ref
     del split
     xw = (xbytes, P * fft_flops(N, N))
-    k3 = torch.cat(fftx_c2c(xr, xi, **kw))
     recs.append(_record(
-        f"L2c fftx_c2c_lab S=2 ({P}, {N}^2) against K3", xr.shape,
-        torch.cat(lab), k3, lambda: fftx_c2c_lab(xr, xi, S=2, **kw),
+        f"L2c fftx_c2c_lab S=2 ({P}, {N}^2)", xr.shape, torch.cat(lab),
+        torch.cat(fftx_c2c_plain(xr, xi, **kw)),
+        lambda: fftx_c2c_lab(xr, xi, S=2, **kw),
         lambda: fftx_c2c_plain(xr, xi, **kw), timing, work=xw,
-        flib=lambda: torch.fft.ifft(z, dim=-2), tol=STOL))
-    recs[-1]["bitwise_k3"] = bool(torch.equal(torch.cat(lab), k3))
-    del lab, k3
+        flib=lambda: torch.fft.ifft(z, dim=-2)))
+    del lab
     recs.append(_record(
         f"L2c fftx_c2c_lab npass=1 ({P}, {N}^2)", xr.shape, torch.cat(first),
         torch.cat(fftx_c2c_first_pass_plain(xr, xi, **kw)),
@@ -1680,8 +1753,10 @@ def main():
         # 5. checks of the wgrid path
         lw = res["launches"]
         need(lw["spotless"]["K1"] > 0, "K1 never launched on the main path")
-        need(lw["grid"]["K3"] > 0, "K3 never launched inside _grid")
-        need(lw["spotless"]["K3"] > 0, "K3 never launched inside _spotless")
+        for k in ("K3", "K3c"):
+            need(lw["grid"][k] > 0, f"{k} never launched inside _grid")
+            need(lw["spotless"][k] > 0, f"{k} never launched inside "
+                 "_spotless")
         del res, srcs
         torch.cuda.empty_cache()
 
@@ -1707,7 +1782,7 @@ def main():
               f"max|diff|/max|wgrid| = {xerr:.3e} (bound {XTOL})")
 
         # 8. checks
-        for k in ("K4", "K5"):
+        for k in ("K3c", "K4", "K5"):
             need(lp["grid"][k] > 0, f"{k} never launched inside pg _grid")
             need(lp["spotless"][k] > 0,
                  f"{k} never launched inside pg _spotless")
@@ -1943,7 +2018,7 @@ def main():
              f"3072^2 spotless ran {st12['pd_solver']}")
         need(l14["K2"] > 0, "K2 never launched in the CG-fused PCG")
         need(cerr <= CTOL, f"CG-fused vs pcg_bands {cerr} > {CTOL}")
-        for k in ("K7", "K8", "K9"):
+        for k in ("K3c", "K7", "K8", "K9"):
             need(lk[k] > 0, f"{k} never launched inside _klean")
         for k in ("K4", "K5", "K6"):
             need(lk[k] == 0, f"{k} launched inside _klean: its residual "
@@ -1967,6 +2042,8 @@ def main():
                  ("K2", "psf_convolve_h_cg", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:963"),
                  ("K3", "fftx_c2c", "cfft.cu",
+                  "pfb_tpu/ops/pallas_cfft.py:132"),
+                 ("K3c", "fftx_c2c_cluster", "cfft_cols.cu",
                   "pfb_tpu/ops/pallas_cfft.py:132"),
                  ("K4", "pg_spread", "pg_grid.cu",
                   "pfb_tpu/ops/pgridder.py:330"),

@@ -9,11 +9,16 @@
 - ``out_rolled``: only rows (r - N/4) mod N, r < N/2 are emitted (no
   roll or crop pass).
 
-A CUDA float32 stack runs the hand-written kernel ``csrc/cfft.cu``; a
-CPU stack runs the plain version :func:`fftx_c2c_plain` (``torch.fft``
-with the roll/crop written out). The y pass of :func:`fft2_c2c_pruned`
-runs the same transform on contiguous rows, viewing (P, nrow, Ny) as
-(P*nrow, Ny, 1), so no transpose pass is needed.
+A CUDA float32 stack runs a hand-written kernel, chosen by
+:func:`cluster_route`: the strided x pass (L > 1) at N >= 4096 runs the
+cluster column FFT :func:`fftx_c2c_cluster` (``csrc/cfft_cols.cu``: a
+cluster of C blocks shares a tile of W columns through distributed
+shared memory), everything else ``line_fft_kernel`` (``csrc/cfft.cu``,
+whole lines in one block). A CPU stack runs the plain version
+:func:`fftx_c2c_plain` (``torch.fft`` with the roll/crop written out).
+The y pass of :func:`fft2_c2c_pruned` runs the same transform on
+contiguous rows, viewing (P, nrow, Ny) as (P*nrow, Ny, 1), so no
+transpose pass is needed.
 
 Two lab entries sit beside it (scripts/torch_g2i_lab.py), and no imaging
 path calls them:
@@ -36,10 +41,14 @@ import torch
 from pfb_tpu_torch import kernels
 
 __all__ = ["fftx_c2c", "fftx_c2c_plain", "fft2_c2c_pruned",
-           "cfft_supported", "fftx_c2c_lab", "fftx_c2c_first_pass_plain",
-           "fftx_c2c_split", "fftx_c2c_split_plain"]
+           "cfft_supported", "cluster_route", "cluster_shape",
+           "fftx_c2c_cluster", "fftx_c2c_cluster_plain",
+           "fftx_c2c_cluster_skeleton_plain", "fftx_c2c_lab",
+           "fftx_c2c_first_pass_plain", "fftx_c2c_split",
+           "fftx_c2c_split_plain"]
 
 _LINE_ELEMS = 8192  # csrc/fft_lines.cuh: kLineElems
+_CLUSTER_MIN_N = 4096
 
 
 def _factor(N):
@@ -63,20 +72,73 @@ def _rolled_index(N, device):
     return (torch.arange(N // 2, device=device) - N // 4) % N
 
 
-def fftx_c2c_plain(xr, xi, *, N, inverse=False, in_rolled=False,
-                   out_rolled=False):
-    """Plain version of the kernel: torch.fft along dim -2."""
-    z = torch.complex(xr, xi)
-    if in_rolled:
-        full = torch.zeros(z.shape[:-2] + (N, z.shape[-1]), dtype=z.dtype,
-                           device=z.device)
-        full[..., _rolled_index(N, z.device), :] = z
-        z = full
-    y = torch.fft.ifft(z, dim=-2) * N if inverse else \
-        torch.fft.fft(z, dim=-2)
+def _full_rows(z, N, in_rolled):
+    """z with its N/2 image rows placed at (i - N/4) mod N when
+    ``in_rolled`` (zeros elsewhere), else z."""
+    if not in_rolled:
+        return z
+    full = torch.zeros(z.shape[:-2] + (N, z.shape[-1]), dtype=z.dtype,
+                       device=z.device)
+    full[..., _rolled_index(N, z.device), :] = z
+    return full
+
+
+def _out_rows(y, N, out_rolled):
+    """(re, im) of y, only the rows (r - N/4) mod N, r < N/2 when
+    ``out_rolled``."""
     if out_rolled:
         y = y[..., _rolled_index(N, y.device), :]
     return y.real.contiguous(), y.imag.contiguous()
+
+
+def fftx_c2c_plain(xr, xi, *, N, inverse=False, in_rolled=False,
+                   out_rolled=False):
+    """Plain version of the kernels: torch.fft along dim -2."""
+    z = _full_rows(torch.complex(xr, xi), N, in_rolled)
+    y = torch.fft.ifft(z, dim=-2) * N if inverse else \
+        torch.fft.fft(z, dim=-2)
+    return _out_rows(y, N, out_rolled)
+
+
+def _check_stack(name, xr, xi, N, in_rolled, out_rolled):
+    """(P, Nin, L) of an x-pass operand; raises on the wrong row count,
+    rolled modes at N % 4 != 0, or re and im of different shapes."""
+    P, Nin, L = xr.shape
+    if Nin != (N // 2 if in_rolled else N):
+        raise ValueError(f"{name}: {Nin} input rows for N={N}, "
+                         f"in_rolled={in_rolled}")
+    if (in_rolled or out_rolled) and N % 4:
+        raise ValueError(f"{name}: rolled modes need N % 4 == 0, N={N}")
+    if xi is not None and xi.shape != xr.shape:
+        raise ValueError(f"{name}: shapes {xr.shape} != {xi.shape}")
+    return P, Nin, L
+
+
+def cluster_route(N, L):
+    """Whether :func:`fftx_c2c` on a CUDA stack launches the cluster
+    column kernel (``csrc/cfft_cols.cu``): the strided x pass (L > 1) at
+    N >= 4096, where ``line_fft_kernel`` fits one or two columns in a
+    block and its warps use 4-8 bytes of each 32-byte sector, on the
+    shapes the kernel takes (N % 4 == 0 and a tile of :func:`cluster_
+    shape` within a block's 8192 values: N <= 16384, or <= 8192 where 8
+    does not divide N). The y pass (L = 1, contiguous rows), N < 4096
+    (four or more columns a block) and the other N keep
+    ``line_fft_kernel``."""
+    if L < 2 or N < _CLUSTER_MIN_N or N % 4:
+        return False
+    C, W = cluster_shape(N)
+    return (N // C) * W <= _LINE_ELEMS
+
+
+def cluster_shape(N):
+    """(C, W) of the cluster kernel at N: C blocks a cluster (8 above
+    4096 where 8 divides N, else 4) and tiles of W columns, 8 (a full
+    32-byte sector of re and of im a row) where the block's W lines of
+    M = N / C fit 8192 complex values, else 4 (N = 12288, 16384)."""
+    if N % 4:
+        raise ValueError(f"fftx_c2c_cluster: N={N} is not a multiple of 4")
+    C = 8 if N > _CLUSTER_MIN_N and N % 8 == 0 else 4
+    return C, (8 if (N // C) * 8 <= _LINE_ELEMS else 4)
 
 
 def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
@@ -84,20 +146,20 @@ def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
     """Unnormalised c2c DFT along axis -2 of a (P, Nin, L) stack
     (Nin = N, or N/2 when ``in_rolled``); output (P, Nout, L) with
     Nout = N or N/2 (``out_rolled``). Forward e^-, inverse e^+, no 1/N.
-    ``xi`` may be None for a real input."""
-    P, Nin, L = xr.shape
-    if Nin != (N // 2 if in_rolled else N):
-        raise ValueError(f"fftx_c2c: {Nin} input rows for N={N}, "
-                         f"in_rolled={in_rolled}")
-    if (in_rolled or out_rolled) and N % 4:
-        raise ValueError(f"fftx_c2c: rolled modes need N % 4 == 0, N={N}")
+    ``xi`` may be None for a real input. A CUDA stack launches the
+    cluster column kernel where :func:`cluster_route` says so, else
+    ``line_fft_kernel``. ``fftx_c2c.launches`` counts the launches of
+    ``line_fft_kernel``, ``fftx_c2c_cluster.launches`` those of the
+    cluster kernel."""
+    P, Nin, L = _check_stack("fftx_c2c", xr, xi, N, in_rolled, out_rolled)
     if not xr.is_cuda:
         xi_ = torch.zeros_like(xr) if xi is None else xi
         return fftx_c2c_plain(xr, xi_, N=N, inverse=inverse,
                               in_rolled=in_rolled, out_rolled=out_rolled)
     kernels.require_cuda_f32("fftx_c2c", xr, xi)
-    if xi is not None and xi.shape != xr.shape:
-        raise ValueError(f"fftx_c2c: shapes {xr.shape} != {xi.shape}")
+    if cluster_route(N, L):
+        return fftx_c2c_cluster(xr, xi, N=N, inverse=inverse,
+                                in_rolled=in_rolled, out_rolled=out_rolled)
     Nout = N // 2 if out_rolled else N
     yr = torch.empty((P, Nout, L), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
@@ -113,6 +175,88 @@ def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
 
 
 fftx_c2c.launches = 0
+
+
+# ---------------------------------------------------------------------
+# the cluster column kernel (K3's x pass at N >= 4096)
+
+
+def fftx_c2c_cluster_plain(xr, xi, *, N, C, inverse=False, in_rolled=False,
+                           out_rolled=False):
+    """Plain version of the cluster kernel's steps as torch operations:
+    decimate n = c + C m, the M-point DFTs Y_c[k1] (M = N / C), the
+    twiddles W_N^{c k1} (float64, rounded once to the working type), the
+    C-point DFTs X[k1 + M k2] = sum_c W_C^{c k2} Z_c[k1], and the rolled
+    row selection. Same shapes and conventions as :func:`fftx_c2c`."""
+    if N % C:
+        raise ValueError(f"fftx_c2c_cluster_plain: C={C} does not divide "
+                         f"N={N}")
+    M = N // C
+    z = _full_rows(torch.complex(xr, xi), N, in_rolled)
+    P, _, L = z.shape
+    zz = z.reshape(P, M, C, L)  # [m, c] = x[c + C m]
+    Y = torch.fft.ifft(zz, dim=1) * M if inverse else torch.fft.fft(zz,
+                                                                   dim=1)
+    sign = 1.0 if inverse else -1.0
+    e = torch.outer(torch.arange(M, dtype=torch.float64),
+                    torch.arange(C, dtype=torch.float64))
+    tw = torch.polar(torch.ones_like(e), sign * 2.0 * np.pi * e / N)
+    Z = Y * tw.to(Y.dtype).to(Y.device)[None, :, :, None]
+    X = torch.fft.ifft(Z, dim=2) * C if inverse else torch.fft.fft(Z, dim=2)
+    return _out_rows(X.transpose(1, 2).reshape(P, N, L), N, out_rolled)
+
+
+def fftx_c2c_cluster_skeleton_plain(xr, xi, *, N, C, in_rolled=False,
+                                    out_rolled=False):
+    """Plain version of the cluster kernel's skeleton (its loads,
+    exchange and stores with the FFT passes compiled out): X[k1 + M c] =
+    x[c + C k1], rows selected as :func:`fftx_c2c` selects them."""
+    M = N // C
+    z = _full_rows(torch.complex(xr, xi), N, in_rolled)
+    P, _, L = z.shape
+    return _out_rows(z.reshape(P, M, C, L).transpose(1, 2).reshape(P, N, L),
+                     N, out_rolled)
+
+
+def fftx_c2c_cluster(xr, xi, *, N, inverse=False, in_rolled=False,
+                     out_rolled=False, skeleton=False):
+    """K3's x pass on the cluster column kernel (``csrc/cfft_cols.cu``):
+    same shapes and conventions as :func:`fftx_c2c`, one HBM read of
+    the input and one write of the output, on clusters of C blocks and
+    tiles of W columns from :func:`cluster_shape`; raises where (N / C)
+    W exceeds a block's 8192 values (N > 16384). ``skeleton=True``
+    launches the lab's load/exchange/store skeleton
+    (:func:`fftx_c2c_cluster_skeleton_plain`). A CPU stack runs the
+    plain versions."""
+    P, Nin, L = _check_stack("fftx_c2c_cluster", xr, xi, N, in_rolled,
+                             out_rolled)
+    C, W = cluster_shape(N)
+    if (N // C) * W > _LINE_ELEMS:
+        raise ValueError(f"fftx_c2c_cluster: N={N} exceeds a block's "
+                         f"{_LINE_ELEMS} values at C={C}, W={W}")
+    kw = dict(N=N, C=C, in_rolled=in_rolled, out_rolled=out_rolled)
+    if not xr.is_cuda:
+        xi_ = torch.zeros_like(xr) if xi is None else xi
+        if skeleton:
+            return fftx_c2c_cluster_skeleton_plain(xr, xi_, **kw)
+        return fftx_c2c_cluster_plain(xr, xi_, inverse=inverse, **kw)
+    kernels.require_cuda_f32("fftx_c2c_cluster", xr, xi)
+    Nout = N // 2 if out_rolled else N
+    yr = torch.empty((P, Nout, L), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    code = kernels.library().pfbt_cfft_cols(
+        xr.data_ptr(), None if xi is None else xi.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), P, L, N, Nin, Nout, int(in_rolled),
+        int(out_rolled), int(inverse), C, W, int(skeleton),
+        kernels.twiddles(N // C, xr.device).data_ptr(),
+        kernels.twiddles(N, xr.device, kind="cols").data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_cluster")
+    fftx_c2c_cluster.launches += 1
+    return yr, yi
+
+
+fftx_c2c_cluster.launches = 0
 
 
 def fft2_c2c_pruned(xr, xi, *, Nx, Ny, inverse, pruned_in=False,

@@ -14,7 +14,15 @@ summary line ends each run (also written to ``--out``).
 
 main (wl_g2i_lab.py:main and pass1_variants), at (9, 2048^2) and (4,
 8192^2), inverse transforms of random grids:
-- K3's x pass (fftx_c2c, out_rolled), the transpose pair of the half
+- K3's x pass (fftx_c2c, out_rolled: the cluster column kernel at N >=
+  4096, ops/cfft.py:cluster_route), the x pass before it
+  (line_fft_kernel, fftx_c2c_lab at its own S), the cluster kernel
+  (fftx_c2c_cluster, also at 2048 where the route does not take it) and
+  its load/exchange/store skeleton with the FFT passes compiled out (the
+  pattern's floor, as the first-pass cut is the line kernel's); the
+  cluster pass's error against the plain transform is gated at 1e-5 of
+  max;
+- the transpose pair of the half
   planes (``transpose(-1, -2).contiguous()``, plain torch as XLA's was),
   fft2_c2c_pruned whole, the phasor-screen accumulation alone (the loop of
   ops/wgridder.py:309-312) and _grid_to_image whole;
@@ -42,7 +50,8 @@ main (wl_g2i_lab.py:main and pass1_variants), at (9, 2048^2) and (4,
   plain spread.
 
 ``--device cpu`` rehearses either section with the plain versions at
-N = 256 (main) and 256 (copies), 3,000 rows x 4 channels at 128^2 (probe).
+N = 256 (main) and 256 (copies), 3,000 rows x 4 channels at 128^2
+(probe).
 """
 
 import argparse
@@ -55,7 +64,7 @@ sys.path.insert(0, str(ROOT))
 
 from torch_kernel_lab import card, cuda_ms  # noqa: E402
 
-SPLIT_TOL = 1e-5  # the split pass against its plain version
+SPLIT_TOL = 1e-5  # the split and cluster passes against their plain versions
 
 
 class Lab:
@@ -94,8 +103,37 @@ def screen(ir, ii, c, s, cd, sd):
     return img
 
 
+def cluster_passes(lab, gr, gi, N, tag):
+    """The cluster column kernel's x pass (inverse, out_rolled), the
+    line kernel's beside it in the same run, and the cluster kernel's
+    skeleton; returns the error of the cluster pass against the plain
+    transform (max over re and im / max)."""
+    from pfb_tpu_torch.ops.cfft import (cluster_shape, fftx_c2c_cluster,
+                                        fftx_c2c_lab, fftx_c2c_plain)
+    kw = dict(N=N, inverse=True, out_rolled=True)
+    xw = xpass_work(gr.shape[0], N, N // 2)
+    C, W = cluster_shape(N)
+    pr, pi = fftx_c2c_plain(gr, gi, **kw)
+    scale = float(max(pr.abs().max(), pi.abs().max()))
+    lab.time(f"{tag} x pass line kernel (fftx_c2c_lab, K3 before the "
+             "cluster kernel)", gr.shape,
+             lambda: fftx_c2c_lab(gr, gi, **kw), xw)
+    yr, yi = fftx_c2c_cluster(gr, gi, **kw)
+    err = float(max((yr - pr).abs().max(), (yi - pi).abs().max())) / scale
+    del yr, yi, pr, pi
+    lab.time(f"{tag} x pass cluster C={C} W={W}", gr.shape,
+             lambda: fftx_c2c_cluster(gr, gi, **kw), xw,
+             rel_err_vs_plain=err)
+    lab.time(f"{tag} x pass cluster skeleton C={C} W={W} (no FFT passes)",
+             gr.shape,
+             lambda: fftx_c2c_cluster(gr, gi, skeleton=True, **kw),
+             (xw[0], 0.0))
+    return err
+
+
 def main_case(lab, P, N, sweep):
-    """wl_g2i_lab.py:case at (P, N^2) planes (nx = N/2)."""
+    """wl_g2i_lab.py:case at (P, N^2) planes (nx = N/2); returns the
+    cluster pass's error against the plain transform."""
     import torch
 
     from chip_smoke import fft_flops
@@ -111,6 +149,7 @@ def main_case(lab, P, N, sweep):
     lab.time(f"{tag} x pass K3 fftx_c2c (out_rolled)", gr.shape,
              lambda: fftx_c2c(gr, gi, N=N, inverse=True, out_rolled=True),
              xw)
+    err = cluster_passes(lab, gr, gi, N, tag)
     half_r = torch.randn((P, nx, N), generator=g, device=dev)
     half_i = torch.randn((P, nx, N), generator=g, device=dev)
     lab.time(f"{tag} transpose pair (half planes)", half_r.shape,
@@ -152,6 +191,7 @@ def main_case(lab, P, N, sweep):
     lab.time(f"{tag} library torch.fft.ifft2", z.shape,
              lambda: torch.fft.ifft2(z), (16.0 * z.numel(),
                                           P * fft_flops(N, 2 * N)))
+    return err
 
 
 def split_errors(yr, yi, kr, ki, xr, xi, N):
@@ -296,13 +336,16 @@ def main():
     else:
         cases = [(2, 256, (1, 2, 8))] if cpu else \
             [(9, 2048, (1, 2, 4, 8)), (4, 8192, (1, 2))]
+        cerr = 0.0
         for P, N, sweep in cases:
-            main_case(lab, P, N, sweep)
+            cerr = max(cerr, main_case(lab, P, N, sweep))
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         summary = pass1_variants(lab, 2 if cpu else 4, 256 if cpu else 8192)
         summary.update(section="main", tol=SPLIT_TOL,
-                       ok=summary["split_rel_err_vs_plain"] <= SPLIT_TOL)
+                       cluster_rel_err_vs_plain=cerr,
+                       ok=summary["split_rel_err_vs_plain"] <= SPLIT_TOL
+                       and cerr <= SPLIT_TOL)
     summary.update(lab="g2i", card=lab.smi, ms=lab.ms)
     line = json.dumps(summary)
     print(line)

@@ -10,10 +10,14 @@ all planes (K4-K6) or one w block (K7-K9), sum at most a tile's
 visibilities per grid point, or k^3 taps per visibility, in float32
 (expected ~1e-7 to 1e-6). The lab kernels (scripts/torch_g2i_lab.py,
 scripts/torch_capacity_lab.py): the copy probes equal slicing exactly;
-K3 with an explicit lines-per-block is K3 bit for bit; the split x pass
+the cluster kernel's skeleton equals its plain permutation exactly; the
+line kernel with an explicit lines-per-block is held to 1e-5 of max
+against the plain transform; the split x pass
 is held to 1e-5 of max against its plain version (the same split
 products summed in another order; a one-ulp change of an intermediate
 can move a product's bf16 low part, about 2^-17 of the product)."""
+
+import itertools
 
 import numpy as np
 import pytest
@@ -55,22 +59,76 @@ def _ok(out, ref):
 
 
 @pytest.mark.parametrize("N,L", [(256, 128), (512, 1), (640, 8),
-                                 (2304, 128), (8192, 64), (16384, 4)])
+                                 (2304, 128), (8192, 64), (16384, 4),
+                                 (4096, 8), (6144, 24), (8192, 16),
+                                 (8192, 20), (12288, 8), (8192, 1)])
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cfft_kernel_matches_plain(cuda, N, L, mode, inverse):
+    """K3 on both routes; the cluster column kernel launches exactly
+    where cluster_route says (L > 1 and N >= 4096)."""
     g = torch.Generator(device=cuda).manual_seed(N + L)
     kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
               out_rolled=mode == "out_rolled")
     nin = N // 2 if kw["in_rolled"] else N
     xr = torch.randn((2, nin, L), generator=g, device=cuda)
     xi = torch.randn((2, nin, L), generator=g, device=cuda)
-    n0 = fftx_c2c.launches
+    n0, c0 = fftx_c2c.launches, cf.fftx_c2c_cluster.launches
     yr, yi = fftx_c2c(xr, xi, **kw)
     torch.cuda.synchronize()
-    assert fftx_c2c.launches == n0 + 1
+    cluster = L > 1 and N >= 4096
+    assert cf.cluster_route(N, L) == cluster
+    assert fftx_c2c.launches == n0 + (not cluster)
+    assert cf.fftx_c2c_cluster.launches == c0 + cluster
     pr, pi = fftx_c2c_plain(xr, xi, **kw)
     assert _ok(yr, pr) and _ok(yi, pi)
+
+
+@pytest.mark.parametrize("N,L", [(4096, 20), (8192, 48), (6144, 13),
+                                 (2048, 24), (12288, 12), (16384, 6)])
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+def test_cluster_kernel_launch_parameters(cuda, N, L, mode):
+    """fftx_c2c_cluster at cluster_shape's (C, W) against the plain
+    transform, with a real input (xi None), a view at a 4-byte offset
+    (the scalar load/store path) and ragged tiles; the skeleton equals
+    its plain permutation bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(N + L)
+    kw = dict(N=N, in_rolled=mode == "in_rolled",
+              out_rolled=mode == "out_rolled")
+    nin = N // 2 if kw["in_rolled"] else N
+    buf = torch.randn((2 * 2 * nin * L + 1,), generator=g, device=cuda)
+    xr = buf[:2 * nin * L].view(2, nin, L)
+    xi = buf[2 * nin * L:-1].view(2, nin, L)
+    xo = buf[1:2 * nin * L + 1].view(2, nin, L)
+    for (a, b), inverse in itertools.product(((xr, xi), (xr, None),
+                                              (xo, xi)), (False, True)):
+        c0 = cf.fftx_c2c_cluster.launches
+        yr, yi = cf.fftx_c2c_cluster(a, b, inverse=inverse, **kw)
+        torch.cuda.synchronize()
+        assert cf.fftx_c2c_cluster.launches == c0 + 1
+        pr, pi = fftx_c2c_plain(a, torch.zeros_like(a) if b is None else b,
+                                inverse=inverse, **kw)
+        assert _ok(yr, pr) and _ok(yi, pi)
+    pr, pi = cf.fftx_c2c_cluster_skeleton_plain(
+        xr, xi, C=cf.cluster_shape(N)[0], **kw)
+    sr, si = cf.fftx_c2c_cluster(xr, xi, skeleton=True, **kw)
+    assert torch.equal(sr, pr) and torch.equal(si, pi)
+
+
+@pytest.mark.parametrize("N", [6561, 8748])
+def test_cfft_other_lengths_keep_the_line_kernel(cuda, N):
+    """N = 3^8 (no cluster of 4 divides it) and 4 * 3^7 (a tile of 4
+    columns of N / 4 exceeds a block) take line_fft_kernel, as
+    cluster_route says."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    xr = torch.randn((2, N, 16), generator=g, device=cuda)
+    xi = torch.randn((2, N, 16), generator=g, device=cuda)
+    n0, c0 = fftx_c2c.launches, cf.fftx_c2c_cluster.launches
+    for inverse in (False, True):
+        yr, yi = fftx_c2c(xr, xi, N=N, inverse=inverse)
+        pr, pi = fftx_c2c_plain(xr, xi, N=N, inverse=inverse)
+        assert _ok(yr, pr) and _ok(yi, pi)
+    assert (fftx_c2c.launches, cf.fftx_c2c_cluster.launches) == (n0 + 2, c0)
 
 
 @pytest.mark.parametrize("nb,nx", [(2, 128), (1, 1152), (2, 1024)])
@@ -675,8 +733,9 @@ def test_k12_k15_wrappers_reject_bad_operands(cuda):
                                    (256, 3, 64), (960, 5, 16)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cfft_lab_launch_parameters(cuda, N, L, S, inverse):
-    """fftx_c2c_lab with an explicit S gives K3's bits; cut to its first
-    pass it gives the plain first radix pass."""
+    """fftx_c2c_lab (line_fft_kernel with an explicit S, the x pass
+    before the cluster kernel) against the plain transform; cut to its
+    first pass it gives the plain first radix pass."""
     g = torch.Generator(device=cuda).manual_seed(N + S)
     xr = torch.randn((2, N, L), generator=g, device=cuda)
     xi = torch.randn((2, N, L), generator=g, device=cuda)
@@ -686,8 +745,8 @@ def test_cfft_lab_launch_parameters(cuda, N, L, S, inverse):
     fr, fi = cf.fftx_c2c_lab(xr, xi, S=S, npass=1, **kw)
     torch.cuda.synchronize()
     assert cf.fftx_c2c_lab.launches == n0 + 2
-    kr, ki = fftx_c2c(xr, xi, **kw)
-    assert torch.equal(yr, kr) and torch.equal(yi, ki)
+    pr, pi = fftx_c2c_plain(xr, xi, **kw)
+    assert _ok(yr, pr) and _ok(yi, pi)
     pr, pi = cf.fftx_c2c_first_pass_plain(xr, xi, **kw)
     assert _ok(fr, pr) and _ok(fi, pi)
 
@@ -772,6 +831,11 @@ def test_lab_wrappers_reject_bad_operands(cuda):
         memlab.lab_copy("batched", y, y)  # exceed a block's shared memory
     with pytest.raises(ValueError):
         cf.fftx_c2c_lab(x, x, N=512, npass=2)
+    z = torch.zeros((1, 32768, 16), device=cuda)
+    with pytest.raises(ValueError):   # no cluster of 4 or 8 divides N
+        cf.fftx_c2c_cluster(z[:, :6561], z[:, :6561], N=6561)
+    with pytest.raises(ValueError):   # 4 lines of 4096 exceed a block
+        cf.fftx_c2c_cluster(z, z, N=32768)
     with pytest.raises(ValueError):   # 512 rows for N = 1024
         cf.fftx_c2c_split(x, x, N=1024)
     with pytest.raises(ValueError):
