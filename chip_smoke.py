@@ -15,12 +15,16 @@ Phases:
      every kernel's launch count reset just before and read just after;
   4. kernel vs plain for that path: the PSF-convolution kernel (K1) with
      the transfer function of the grid phase's PSF, complex and its real
-     even part; the c2c kernel (K3) on the image and PSF w-plane stacks
-     and on the blocked residual's forward block (4, 4096^2 -> 8192^2),
-     each 2-D transform, its x pass alone on the cluster column kernel
-     (K3c, fftx_c2c_cluster) and its y pass alone on the line kernel;
+     even part; the c2c transform (fftx_c2c) on the image and PSF w-plane
+     stacks and on the blocked residual's forward block (4, 4096^2 ->
+     8192^2), each 2-D transform, its x pass alone on the cluster column
+     kernel (K3c, fftx_c2c_cluster) and its y pass alone on the row
+     kernel (K3r, fftx_c2c_rows), with K3r also at the K11 path's
+     lengths (8, 6144^2) and (2, 12288^2); the line kernel (K3,
+     line_fft_kernel) on the x pass of (9, 2048^2), a shape its route
+     still takes (no imaging path here runs a length below 4096);
   5. checks of the wgrid path: launches > 0 inside grid and spotless
-     (K1, K3 on its y passes and K3c on its x passes),
+     (K1, K3r on its y passes and K3c on its x passes),
      kernel errors within tolerance, the MFS residual rms after the last
      major iteration below the dirty rms, the brightest simulated sources
      recovered at their pixels;
@@ -33,12 +37,12 @@ Phases:
      the w-plane grids of the pg path's model; and the pg dirty image
      against the wgrid dirty image of the same dataset and weights
      (max|diff| <= 1e-4 max|wgrid|);
-  8. checks of the pg path, as in 5, with K3c, K4 and K5 launched in
-     grid and spotless and K6 in spotless;
+  8. checks of the pg path, as in 5, with K3c, K3r, K4 and K5 launched
+     in grid and spotless and K6 in spotless;
   9. klean path, same observation, reusing the pg path's xds and copies
      of its dds: klean(backend="pg", plane_block=4, epsilon=1e-5, 3 major
      iterations, sub_peak_factor 0.9, see KLEAN), counts reset just
-     before and read just after; K7-K9 and K3c
+     before and read just after; K7-K9, K3c and K3r
      must launch inside klean and K4-K6 must not (its residual takes the
      w-plane-blocked engine), the MFS residual rms must end below the
      dirty rms and the brightest sources must sit at their pixels;
@@ -53,16 +57,18 @@ Phases:
      epsilon 1e-5, plane_block 4 (nw 20, 5 blocks, 8192^2 grids): host
      plan seconds, adjoint and Hessian seconds (median of 3 after a
      warm-up) and Mvis/s, peak device memory, for plane_block=4 and for
-     all planes at once; blocked against unblocked (<= 1e-5 max); K7-K9
-     against plain on the largest block;
+     all planes at once, counts reset just before each and read just
+     after (K3c, K3r and K7-K9 must launch in the blocked one); blocked
+     against unblocked (<= 1e-5 max); K7-K9 against plain on the largest
+     block;
  12. K11 path: the same observation re-simulated at 3072^2 with the cell
      at 2/3 of the 2048^2 paths' (same 0.93 deg field, same w planes),
      then init -> grid(backend="pg", robustness=0, 3072^2, PSF 6144^2) ->
      spotless(engine="pallas", backend="pg", 3 major iterations): NX =
      6144 fails v3's factor rule, so spotless takes the general PSF
      kernel (K11) with the host power method and primal_dual_hostloop;
-     K11 must launch inside spotless and K1 and K2 must not; residual
-     and sources checked as in 5;
+     K11 must launch inside spotless and K1 and K2 must not, K3c and K3r
+     inside grid and spotless; residual and sources checked as in 5;
  13. K11 against plain: at (8, 3072^2) in 6144^2 with the phase-12 PSF's
      full transfer function, and at psf_oversize 1.5 (3072^2 in 4608^2)
      with a random non-Hermitian H;
@@ -108,7 +114,9 @@ Phases:
      of max); each against its plain version, the inverse also on a
      random non-Hermitian spectrum, with the library column calls;
  22. L2, the x-pass lab's kernels (scripts/torch_g2i_lab.py) at (4,
-     8192^2), counts reset just before and read just after they run: the
+     8192^2) and its x pass of (9, 2048^2) through fftx_c2c (the line
+     kernel K3, which no imaging path here launches any more), counts
+     reset just before and read just after they run: the
      copy probes (L2a, ops/memlab.py: strip, rows, relayout, batched, and
      the strip skeleton of re and im), the split-precision x pass (L2b,
      fftx_c2c_split) and the line kernel with lab launch parameters (L2c,
@@ -130,16 +138,16 @@ the bytes the function must move over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, or its bf16 tensor-core operations over 989 TFLOP/s for
 the split pass, counted for this run's inputs; ``bound_by`` says which)
 and the time of one PyTorch call that computes the same function where
-there is one (``library_ms``: torch.fft for K3, its x pass K3c, the
+there is one (``library_ms``: torch.fft for K3, K3c and K3r, the
 column stages of K10 and K15 and the x-pass labs L2b and L2c, a zero
 fill and ``index_add_`` for the folds, a slice's ``clone`` for the copy
 probes L2a; None otherwise: no
 single call computes K1's, K2's, K10's rows stage's, K11-K14's padded
 convolution or L3's paired spread). A kernel's entry in the kernels
-line takes its times from its first record: K3's from its y pass (what
-``line_fft_kernel`` runs on the main path), K3c's from its x pass. Each
-counts the launches of its own kernel, so K3 + K3c is the number of
-launches of both routes of ``fftx_c2c``.
+line takes its times from its first record: K3's from the line
+kernel's x pass at 2048, K3c's from its x pass, K3r's from its y pass.
+Each counts the launches of its own kernel, so K3 + K3c + K3r is the
+number of launches of the three routes of ``fftx_c2c``.
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -224,7 +232,8 @@ def counters():
     from pfb_tpu_torch.ops import memlab
     from pfb_tpu_torch.ops import pallas_fft as pf
     from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_cluster,
-                                        fftx_c2c_lab, fftx_c2c_split)
+                                        fftx_c2c_lab, fftx_c2c_rows,
+                                        fftx_c2c_split)
     from pfb_tpu_torch.ops.pg_stream import (pg_degrid_gs, pg_fold_gs,
                                              pg_spread_gs)
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
@@ -233,7 +242,7 @@ def counters():
     from pfb_tpu_torch.ops.psf import (psf_stage_cols_fwd,
                                        psf_stage_cols_inv, psf_stage_rows)
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
-            "K3c": fftx_c2c_cluster,
+            "K3c": fftx_c2c_cluster, "K3r": fftx_c2c_rows,
             "K4": pg_spread, "K5": pg_fold, "K6": pg_degrid,
             "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
             "K10a": psf_stage_cols_fwd, "K10b": psf_stage_rows,
@@ -425,27 +434,32 @@ def _xpass_record(name, xr, xi, N, inv, pin, pout, timing):
 
 
 def _ypass_record(name, P, N, inv, pin, pout, g, timing):
-    """K3's y pass (line_fft_kernel on contiguous rows: fftx_c2c at L =
-    1) of a 2-D transform of P (N, N) planes, on the (P * nrow, nin, 1)
-    row stack the x pass leaves, against its plain version, with
-    torch.fft along dim -2 of the zero-padded (P * nrow, N, 1) stack as
-    the library call."""
+    """K3's y pass on the row kernel (fftx_c2c_rows, K3r) of a 2-D
+    transform of P (N, N) planes, on the (P * nrow, nin, 1) row stack the
+    x pass leaves, against its plain version, with torch.fft along dim
+    -2 of the zero-padded (P * nrow, N, 1) stack as the library call."""
     import torch
 
-    from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
+    from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_rows,
+                                        fftx_c2c_rows_plain)
     kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
     rows = P * (N if pin else N // 2)
     nin = N // 2 if pin else N
     dev = g.device
     xr = torch.randn((rows, nin, 1), generator=g, device=dev)
     xi = torch.randn((rows, nin, 1), generator=g, device=dev)
+    # through fftx_c2c's route (the CPU rehearsal's lengths take the
+    # plain transform there)
+    r0 = fftx_c2c_rows.launches
     out = torch.cat(fftx_c2c(xr, xi, **kw))
-    ref = torch.cat(fftx_c2c_plain(xr, xi, **kw))
+    need(dev.type != "cuda" or fftx_c2c_rows.launches == r0 + 1,
+         f"the y pass at N={N} did not take the row kernel")
+    ref = torch.cat(fftx_c2c_rows_plain(xr, xi, **kw))
     z = torch.zeros((rows, N, 1), dtype=torch.complex64, device=dev)
     z[:, :nin] = torch.complex(xr, xi)
     lib = torch.fft.ifft if inv else torch.fft.fft
     r = _record(name, xr.shape, out, ref, lambda: fftx_c2c(xr, xi, **kw),
-                lambda: fftx_c2c_plain(xr, xi, **kw), timing,
+                lambda: fftx_c2c_rows_plain(xr, xi, **kw), timing,
                 work=(8 * rows * (nin + out.shape[1]), fft_flops(N, rows)),
                 flib=lambda: lib(z, dim=-2))
     del out, ref, z, xr, xi
@@ -454,12 +468,14 @@ def _ypass_record(name, P, N, inv, pin, pout, g, timing):
 
 def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
     """K1 and K3 against their plain versions on the same inputs (K3 as
-    the 2-D transform, its x pass alone on the cluster column kernel and
-    its y pass alone on the line kernel); returns one record per
-    comparison."""
+    the 2-D transform, its x pass alone on the cluster column kernel
+    K3c, its y pass alone on the row kernel K3r, and the line kernel on
+    the x pass of (9, (nx)^2), where its route still runs); returns one
+    record per comparison."""
     import torch
 
-    from pfb_tpu_torch.ops.cfft import fft2_c2c_pruned
+    from pfb_tpu_torch.ops.cfft import (fft2_c2c_pruned, fftx_c2c,
+                                        fftx_c2c_plain)
     from pfb_tpu_torch.ops.psf import (prep_h, psf_convolve_h,
                                        psf_convolve_h_plain)
     from pfb_tpu_torch.workers.cubes import dds2cubes
@@ -492,6 +508,26 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
         del hr, hi, out, ref
     del psf_t
 
+    # the line kernel (K3) where its route still runs: the x pass of nine
+    # (nx, nx) planes (N = nx < 4096 takes neither the cluster nor the
+    # row kernel)
+    xr = torch.randn((9, nx, nx), generator=g, device=device)
+    xi = torch.randn((9, nx, nx), generator=g, device=device)
+    kw = dict(N=nx, inverse=True, out_rolled=True)
+    n0 = fftx_c2c.launches
+    out = torch.cat(fftx_c2c(xr, xi, **kw))
+    need(device.type != "cuda" or fftx_c2c.launches == n0 + 1,
+         f"the x pass at N={nx} did not take line_fft_kernel")
+    ref = torch.cat(fftx_c2c_plain(xr, xi, **kw))
+    z = torch.complex(xr, xi)
+    recs.append(_record(
+        f"K3 x pass inverse out_rolled (9, {nx}^2) (line_fft_kernel)",
+        xr.shape, out, ref, lambda: fftx_c2c(xr, xi, **kw),
+        lambda: fftx_c2c_plain(xr, xi, **kw), timing,
+        work=(8 * 9 * nx * (nx + nx // 2), 9 * fft_flops(nx, nx)),
+        flib=lambda: torch.fft.ifft(z, dim=-2)))
+    del xr, xi, out, ref, z
+
     N = 2 * nx
     cases = [("K3 fft2 pruned_out inverse (image grids)", nw_img, N, True,
               False, True),
@@ -507,8 +543,8 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
         xi = torch.randn((P, nin, nin), generator=g, device=device)
         recs.append(_xpass_record(name.replace("K3 fft2", "K3c x pass"),
                                   xr, xi, Ng, inv, pin, pout, timing))
-        recs.append(_ypass_record(name.replace("fft2", "y pass"), P, Ng, inv,
-                                  pin, pout, g, timing))
+        recs.append(_ypass_record(name.replace("K3 fft2", "K3r y pass"), P,
+                                  Ng, inv, pin, pout, g, timing))
         kw = dict(Nx=Ng, Ny=Ng, inverse=inv)
         yr, yi = fft2_c2c_pruned(xr, xi, pruned_in=pin, pruned_out=pout,
                                  **kw)
@@ -531,6 +567,14 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
                           P * fft_flops(Ng, nin + nout)),
             flib=lambda: flib(zpad)))
         del out, ref, xr, xi, zpad
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    # K3r at the K11 path's lengths: its image grids (3 nx)^2 and PSF
+    # grids (6 nx)^2
+    for P, Ng in ((8, 3 * nx), (2, 6 * nx)):
+        recs.append(_ypass_record(
+            f"K3r y pass inverse pruned_out ({P}, {Ng}^2)", P, Ng, True,
+            False, True, g, timing))
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return recs
@@ -943,8 +987,10 @@ def flagship(device, cfg=FLAGSHIP, timing=True, reps=3):
     """bench.py's flagship operator through the blocked engine and
     through all planes at once: host plan seconds, adjoint and Hessian
     seconds (median of ``reps`` after a warm-up, host clock ending in a
-    synchronise), Mvis/s and peak device memory of each, their relative
-    difference, and K7-K9 against plain on the largest block."""
+    synchronise), Mvis/s, peak device memory and every kernel's launches
+    (counts set to 0 just before each and read just after) of each,
+    their relative difference, and K7-K9 against plain on the largest
+    block."""
     import numpy as np
     import torch
 
@@ -979,10 +1025,13 @@ def flagship(device, cfg=FLAGSHIP, timing=True, reps=3):
         return out, sorted(ts)[len(ts) // 2]
 
     out, imgs = {}, {}
+    cnt = counters()
     for label, pb in (("blocked", cfg["plane_block"]), ("all planes", None)):
         if device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+        for fn in cnt.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         hess = make_hessian_dds([ds], 1, 1.0, nx, nx, backend="pg",
                                 epsilon=cfg["epsilon"], plane_block=pb,
@@ -1008,6 +1057,7 @@ def flagship(device, cfg=FLAGSHIP, timing=True, reps=3):
                              tiles=[p["txs"], p["tys"]])
         if device.type == "cuda":
             r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        r["launches"] = {k: fn.launches for k, fn in cnt.items()}
         out[label] = r
         imgs[label] = (img, himg[0])
         if pb:
@@ -1496,14 +1546,16 @@ def k15_checks(device, nb=PCG["nband"], n=PCG["nx"], timing=True):
 
 
 def l2_checks(device, P=4, N=8192, timing=True):
-    """Phase 22: the x-pass lab's kernels on a (P, N^2) re/im stack, with
-    every kernel's launches counted over their run alone (counts set to 0
-    just before and read just after), then each against its plain
-    version. Returns (records, split error against float64, launches)."""
+    """Phase 22: the x-pass lab's kernels on a (P, N^2) re/im stack, and
+    the lab's other case, K3's x pass of (9, (N/4)^2) through fftx_c2c
+    (the line kernel's route), with every kernel's launches counted over
+    their run alone (counts set to 0 just before and read just after),
+    then each against its plain version. Returns (records, split error
+    against float64, launches)."""
     import torch
 
     from pfb_tpu_torch.ops import memlab
-    from pfb_tpu_torch.ops.cfft import (_factor, _rolled_index,
+    from pfb_tpu_torch.ops.cfft import (_factor, _rolled_index, fftx_c2c,
                                         fftx_c2c_first_pass_plain,
                                         fftx_c2c_lab, fftx_c2c_plain,
                                         fftx_c2c_split, fftx_c2c_split_plain)
@@ -1511,6 +1563,10 @@ def l2_checks(device, P=4, N=8192, timing=True):
     xr = torch.randn((P, N, N), generator=g, device=device)
     xi = torch.randn((P, N, N), generator=g, device=device)
     kw = dict(N=N, inverse=True, out_rolled=True)
+    n9 = N // 4
+    x9r = torch.randn((9, n9, n9), generator=g, device=device)
+    x9i = torch.randn((9, n9, n9), generator=g, device=device)
+    kw9 = dict(N=n9, inverse=True, out_rolled=True)
     copies = [("strip", None, False), ("strip", None, True),
               ("rows", 64, False), ("relayout", 128, False),
               ("batched", None, False)]
@@ -1522,10 +1578,14 @@ def l2_checks(device, P=4, N=8192, timing=True):
     split = fftx_c2c_split(xr, xi, **kw)
     lab = fftx_c2c_lab(xr, xi, S=2, **kw)
     first = fftx_c2c_lab(xr, xi, npass=1, **kw)
+    x9 = torch.cat(fftx_c2c(x9r, x9i, **kw9))
     sync(device)
     launches = {k: fn.launches for k, fn in cnt.items()}
 
-    recs = []
+    recs = [_record(f"K3 x pass inverse out_rolled (9, {n9}^2) (L2 lab)",
+                    x9r.shape, x9, torch.cat(fftx_c2c_plain(x9r, x9i, **kw9)),
+                    None, None, False)]
+    del x9, x9r, x9i
     H = N // 2
     copy_work = (4.0 * P * N * N * 1.5, 0.0)
     for (mode, S, two), out in zip(copies, outs):
@@ -1753,7 +1813,7 @@ def main():
         # 5. checks of the wgrid path
         lw = res["launches"]
         need(lw["spotless"]["K1"] > 0, "K1 never launched on the main path")
-        for k in ("K3", "K3c"):
+        for k in ("K3r", "K3c"):
             need(lw["grid"][k] > 0, f"{k} never launched inside _grid")
             need(lw["spotless"][k] > 0, f"{k} never launched inside "
                  "_spotless")
@@ -1782,7 +1842,7 @@ def main():
               f"max|diff|/max|wgrid| = {xerr:.3e} (bound {XTOL})")
 
         # 8. checks
-        for k in ("K3c", "K4", "K5"):
+        for k in ("K3c", "K3r", "K4", "K5"):
             need(lp["grid"][k] > 0, f"{k} never launched inside pg _grid")
             need(lp["spotless"][k] > 0,
                  f"{k} never launched inside pg _spotless")
@@ -1830,6 +1890,12 @@ def main():
         for r in fl_recs:
             print("[kernel] " + json.dumps(r))
         recs += fl_recs
+        for label in ("blocked", "all planes"):
+            for k in launches:
+                launches[k] += fl[label]["launches"][k]
+        for k in ("K3c", "K3r", "K7", "K8", "K9"):
+            need(fl["blocked"]["launches"][k] > 0,
+                 f"{k} never launched in the flagship blocked operator")
         torch.cuda.empty_cache()
 
         # 12. K11 path: 3072^2, the general PSF kernel in spotless
@@ -1971,7 +2037,7 @@ def main():
         launches["L3"] = l23["K4"]
 
         # checks of phases 22-23
-        for k in ("L2a", "L2b", "L2c"):
+        for k in ("L2a", "L2b", "L2c", "K3"):
             need(l22[k] > 0, f"{k} never launched in the L2 lab's run")
         need(l23["K4"] > 0 and l23["K5"] > 0,
              "K4/K5 never launched in the L3 lab's run")
@@ -2014,11 +2080,15 @@ def main():
         for k in ("K1", "K2"):
             need(l12["spotless"][k] == 0, f"{k} launched inside the 3072^2 "
                  "_spotless: it did not take the general PSF kernel")
+        for k in ("K3c", "K3r"):
+            for stage in ("grid", "spotless"):
+                need(l12[stage][k] > 0, f"{k} never launched inside the "
+                     f"3072^2 _{stage}")
         need(st12["pd_solver"] == "primal_dual_hostloop",
              f"3072^2 spotless ran {st12['pd_solver']}")
         need(l14["K2"] > 0, "K2 never launched in the CG-fused PCG")
         need(cerr <= CTOL, f"CG-fused vs pcg_bands {cerr} > {CTOL}")
-        for k in ("K3c", "K7", "K8", "K9"):
+        for k in ("K3c", "K3r", "K7", "K8", "K9"):
             need(lk[k] > 0, f"{k} never launched inside _klean")
         for k in ("K4", "K5", "K6"):
             need(lk[k] == 0, f"{k} launched inside _klean: its residual "
@@ -2044,6 +2114,8 @@ def main():
                  ("K3", "fftx_c2c", "cfft.cu",
                   "pfb_tpu/ops/pallas_cfft.py:132"),
                  ("K3c", "fftx_c2c_cluster", "cfft_cols.cu",
+                  "pfb_tpu/ops/pallas_cfft.py:132"),
+                 ("K3r", "fftx_c2c_rows", "cfft_rows.cu",
                   "pfb_tpu/ops/pallas_cfft.py:132"),
                  ("K4", "pg_spread", "pg_grid.cu",
                   "pfb_tpu/ops/pgridder.py:330"),

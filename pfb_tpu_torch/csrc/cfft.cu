@@ -14,9 +14,12 @@
 // 2-D transform); a block takes a strip of adjacent columns so its loads
 // and stores are coalesced across the strip, and the strip's width
 // shrinks as N grows (line_launch). The y pass of a 2-D transform runs
-// the same kernel with L = 1 on contiguous rows, so no transpose pass is
-// needed. What bounds it: shared-memory traffic (every pass reads and
-// writes the whole line) and the narrow strips of the strided pass.
+// on contiguous rows (L = 1), so no transpose pass is needed. What
+// bounds it: shared-memory traffic (every pass reads and writes the
+// whole line) and the narrow strips of the strided pass. The
+// strided pass at N >= 4096 runs cfft_cols.cu and the rows at N = 4096,
+// 6144, 8192 and 12288 run cfft_rows.cu (ops/cfft.py's routes); this
+// kernel takes every other length.
 #include "fft_lines.cuh"
 
 namespace pfbt {

@@ -1,0 +1,381 @@
+// K3r: K3's y pass, the c2c DFT along contiguous rows, as a row FFT
+// whose line lives in registers.
+//
+// Replaces pfb_tpu/ops/pallas_cfft.py:fftx_c2c (Pallas _kx_kernel) where
+// the JAX package runs it on the transposed view of a plane stack, the
+// y-axis pass of fft2_c2c_pruned (pallas_cfft.py:191, 201, 210): here
+// the unnormalised DFT of each of R contiguous rows of a (R, Nin)
+// float32 re/im stack, with in_rolled / out_rolled as cfft.cu absorbs
+// them (forward e^-, inverse e^+, no 1/N; xi == nullptr reads a real
+// input). N = 4096, 6144, 8192 or 12288 (ops/cfft.py:row_route).
+//
+// What bounds it on the H100: bytes, 8 R (Nin + Nout), each input read
+// once and each output written once. line_fft_kernel (fft_lines.cuh)
+// keeps a line of 8192 in one block of 512 threads with 64 registers
+// (two lines an SM), sweeps shared memory twice per radix pass (ten
+// sweeps at 8192 = 16 16 16 2), issues no HBM traffic while the line is
+// transformed and transforms the known zeros of a rolled input. Here N =
+// 16 R2 16 (R2 = 16, 24, 32, 48) in three Stockham stages of 256
+// threads, one line a block:
+//   1. radix 16 from HBM to registers: butterfly j takes n = j + q N/16,
+//      so each warp's loads are whole 128-byte segments of re and of im;
+//      in_rolled reads input chunk [N/4, N/2) at n < N/4 (q < 4) and
+//      chunk [0, N/4) at n >= 3N/4 (q >= 12) by offset, and the zeros at
+//      q = 4..11 are never loaded, stored or multiplied (dft16<true>);
+//   2. radix R2 in registers (16 x 16 or a pair R2 = RA RB of register
+//      DFTs), between two transposes through shared memory;
+//   3. radix 16 from shared memory to HBM: output k = j + q N/16, so the
+//      stores are whole segments too; out_rolled computes and stores the
+//      kept rows only (q < 4 and q >= 12, dft16<..., true>).
+// Two transposes through one shared buffer (N + N/16 float2, one float2
+// of padding every 16 so that every access is free of bank conflicts),
+// against ten sweeps. The stage twiddles W_{Ns R}^{q k} are a float64
+// table rounded once to float32 (rows_twiddle_kernel), conjugated for the
+// inverse. Latency is hidden by resident lines: the launch bounds ask for
+// registers for four blocks an SM at 4096, two at 6144 and 8192 and one
+// at 12288 (no spills), so one block's stages run while another's loads
+// are in flight. A persistent block that prefetched its next line with
+// 1-D bulk copies (cp.async.bulk, an mbarrier) measured slower at every
+// shape of the paths on the H100 (PERF.md) and was not kept. The
+// skeleton instance (kFFT = false, the lab's) keeps the loads, the
+// transposes and the stores and compiles the radix arithmetic and the
+// twiddles out.
+#include "fft_lines.cuh"
+
+namespace pfbt {
+
+constexpr int kRowThreads = 256;
+
+// shared-memory slot of element i of the line: one float2 of padding
+// every 16, so a half-warp's stride-16 stores of stage 1 hit 16 banks
+__device__ __forceinline__ int rpad(int i) { return i + (i >> 4); }
+
+// exp(-2 pi i m / 96), conjugated for the inverse (m < 96 a constant
+// after unrolling: every radix here divides 96)
+__device__ __forceinline__ float2 w96(int m, bool inv) {
+  constexpr float c[96] = {
+      1.000000000f, 0.997858923f, 0.991444861f, 0.980785280f,
+      0.965925826f, 0.946930129f, 0.923879533f, 0.896872742f,
+      0.866025404f, 0.831469612f, 0.793353340f, 0.751839807f,
+      0.707106781f, 0.659345815f, 0.608761429f, 0.555570233f,
+      0.500000000f, 0.442288690f, 0.382683432f, 0.321439465f,
+      0.258819045f, 0.195090322f, 0.130526192f, 0.065403129f,
+      0.f, -0.065403129f, -0.130526192f, -0.195090322f,
+      -0.258819045f, -0.321439465f, -0.382683432f, -0.442288690f,
+      -0.500000000f, -0.555570233f, -0.608761429f, -0.659345815f,
+      -0.707106781f, -0.751839807f, -0.793353340f, -0.831469612f,
+      -0.866025404f, -0.896872742f, -0.923879533f, -0.946930129f,
+      -0.965925826f, -0.980785280f, -0.991444861f, -0.997858923f,
+      -1.000000000f, -0.997858923f, -0.991444861f, -0.980785280f,
+      -0.965925826f, -0.946930129f, -0.923879533f, -0.896872742f,
+      -0.866025404f, -0.831469612f, -0.793353340f, -0.751839807f,
+      -0.707106781f, -0.659345815f, -0.608761429f, -0.555570233f,
+      -0.500000000f, -0.442288690f, -0.382683432f, -0.321439465f,
+      -0.258819045f, -0.195090322f, -0.130526192f, -0.065403129f,
+      0.f, 0.065403129f, 0.130526192f, 0.195090322f,
+      0.258819045f, 0.321439465f, 0.382683432f, 0.442288690f,
+      0.500000000f, 0.555570233f, 0.608761429f, 0.659345815f,
+      0.707106781f, 0.751839807f, 0.793353340f, 0.831469612f,
+      0.866025404f, 0.896872742f, 0.923879533f, 0.946930129f,
+      0.965925826f, 0.980785280f, 0.991444861f, 0.997858923f,
+  };
+  const float sn = c[(m + 72) % 96];  // sin(2 pi m / 96)
+  return make_float2(c[m % 96], inv ? sn : -sn);
+}
+
+// DFT of R = RA RB values in registers: n = RB n1 + n2, k = k1 + RA k2,
+// RB DFTs of RA, the twiddles W_R^{n2 k1}, RA DFTs of RB
+template <int RA, int RB>
+__device__ __forceinline__ void dft_pair(float2* v, bool inv) {
+  constexpr int R = RA * RB;
+  float2 a[RB][RA];
+#pragma unroll
+  for (int n2 = 0; n2 < RB; ++n2) {
+#pragma unroll
+    for (int n1 = 0; n1 < RA; ++n1) a[n2][n1] = v[RB * n1 + n2];
+    small_dft<RA>(a[n2], inv);
+#pragma unroll
+    for (int k1 = 1; k1 < RA; ++k1)
+      if (n2 > 0) a[n2][k1] = cmul(a[n2][k1], w96((n2 * k1 * (96 / R)) % 96,
+                                                  inv));
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < RA; ++k1) {
+    float2 b[RB];
+#pragma unroll
+    for (int n2 = 0; n2 < RB; ++n2) b[n2] = a[n2][k1];
+    small_dft<RB>(b, inv);
+#pragma unroll
+    for (int k2 = 0; k2 < RB; ++k2) v[k1 + RA * k2] = b[k2];
+  }
+}
+
+// the middle stage's radix
+template <int R>
+__device__ __forceinline__ void row_dft(float2* v, bool inv) {
+  if constexpr (R == 16) small_dft<16>(v, inv);
+  else if constexpr (R == 24) dft_pair<8, 3>(v, inv);
+  else if constexpr (R == 32) dft_pair<8, 4>(v, inv);
+  else dft_pair<16, 3>(v, inv);
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+// i a forward, -i a inverse (W_4^3 = i forward)
+__device__ __forceinline__ float2 iw(float2 a, bool inv) {
+  return inv ? make_float2(a.y, -a.x) : make_float2(-a.y, a.x);
+}
+
+// 16-point DFT as 4 x 4 (n = 4 n1 + n2, k = k1 + 4 k2). kIn: only the
+// inputs n1 = 0 and 3 (q < 4, q >= 12) are non-zero, the rest are not
+// read. kOut: only the outputs k2 = 0 and 3 (q < 4, q >= 12) are made.
+template <bool kIn, bool kOut>
+__device__ __forceinline__ void dft16(float2* v, bool inv) {
+  float2 a[4][4];
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+    if (kIn) {
+      // sum over n1 in {0, 3} of x W_4^{n1 k1}
+      const float2 x0 = v[n2], x3 = v[12 + n2];
+      a[n2][0] = cadd(x0, x3);
+      a[n2][1] = cadd(x0, iw(x3, inv));
+      a[n2][2] = csub(x0, x3);
+      a[n2][3] = csub(x0, iw(x3, inv));
+    } else {
+#pragma unroll
+      for (int n1 = 0; n1 < 4; ++n1) a[n2][n1] = v[4 * n1 + n2];
+      small_dft<4>(a[n2], inv);
+    }
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1)
+      if (n2 > 0) a[n2][k1] = cmul(a[n2][k1], w16(n2 * k1, inv));
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    float2 b[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
+    if (kOut) {
+      // k2 = 0 and 3: W_4^{3 n2} = 1, i, -1, -i forward
+      v[k1] = cadd(cadd(b[0], b[1]), cadd(b[2], b[3]));
+      v[k1 + 12] = cadd(csub(b[0], b[2]), iw(csub(b[1], b[3]), inv));
+    } else {
+      small_dft<4>(b, inv);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) v[k1 + 4 * k2] = b[k2];
+    }
+  }
+}
+
+// One block per line of N = 16 R2 16; stage 1 and 3 have N/16
+// butterflies (B a thread), stage 2 has 256 (one a thread). The table
+// TW holds (R - 1) Ns entries per stage, [q - 1][k] (stage 1's are 1).
+template <int N, int R2, int MINB, bool kFFT>
+__global__ void __launch_bounds__(kRowThreads, MINB)
+rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                float* __restrict__ yr, float* __restrict__ yi,
+                int in_rolled, int out_rolled, int inv,
+                const float2* __restrict__ TW) {
+  constexpr int NB = N / 16;
+  constexpr int B = (NB + kRowThreads - 1) / kRowThreads;
+  static_assert(16 * R2 * 16 == N, "N = 16 R2 16");
+  static_assert(N / R2 == kRowThreads, "stage 2: one butterfly a thread");
+  extern __shared__ float2 sm[];
+  const int t = threadIdx.x;
+  const bool iv = inv != 0;
+  const float sg = iv ? -1.f : 1.f;
+  const long Nin = in_rolled ? N / 2 : N, Nout = out_rolled ? N / 2 : N;
+  const float* xrl = xr + blockIdx.x * Nin;
+  const float* xil = xi ? xi + blockIdx.x * Nin : nullptr;
+  float* yrl = yr + blockIdx.x * Nout;
+  float* yil = yi + blockIdx.x * Nout;
+
+  // 1. radix 16 from HBM: every load of the thread issued first
+  float2 v[B][16];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int j = t + b * kRowThreads;
+    if (NB % kRowThreads && j >= NB) continue;
+    if (in_rolled) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ia = j + (q + 4) * NB, ib = j + q * NB;
+        v[b][q] = make_float2(xrl[ia], xil ? xil[ia] : 0.f);
+        v[b][12 + q] = make_float2(xrl[ib], xil ? xil[ib] : 0.f);
+      }
+#pragma unroll
+      for (int q = 4; q < 12; ++q) v[b][q] = make_float2(0.f, 0.f);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int i = j + q * NB;
+        v[b][q] = make_float2(xrl[i], xil ? xil[i] : 0.f);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int j = t + b * kRowThreads;
+    if (NB % kRowThreads && j >= NB) continue;
+    if (kFFT) {
+      if (in_rolled)
+        dft16<true, false>(v[b], iv);
+      else
+        small_dft<16>(v[b], iv);
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q) sm[rpad(16 * j + q)] = v[b][q];
+  }
+  __syncthreads();
+
+  // 2. radix R2, Ns = 16: butterfly t reads n = t + 256 q, writes
+  // (t / 16) 16 R2 + 16 q + t % 16
+  {
+    float2 u[R2];
+#pragma unroll
+    for (int q = 0; q < R2; ++q) u[q] = sm[rpad(t + kRowThreads * q)];
+    __syncthreads();  // every read done before the in-place writes
+    if (kFFT) {
+      const float2* T2 = TW + 15 + (t & 15);
+#pragma unroll
+      for (int q = 1; q < R2; ++q) {
+        const float2 w = __ldg(&T2[(q - 1) * 16]);
+        u[q] = cmul(u[q], make_float2(w.x, sg * w.y));
+      }
+      row_dft<R2>(u, iv);
+    }
+    const int o = (t >> 4) * 16 * R2 + (t & 15);
+#pragma unroll
+    for (int q = 0; q < R2; ++q) sm[rpad(o + 16 * q)] = u[q];
+  }
+  __syncthreads();
+
+  // 3. radix 16 to HBM, Ns = N / 16: butterfly j reads n = j + NB q,
+  // twiddles W_N^{q j}, writes X[j + NB q]
+  const float2* T3 = TW + 15 + (R2 - 1) * 16;
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int j = t + b * kRowThreads;
+    if (NB % kRowThreads && j >= NB) continue;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[b][q] = sm[rpad(j + NB * q)];
+    if (kFFT) {
+#pragma unroll
+      for (int q = 1; q < 16; ++q) {
+        const float2 w = __ldg(&T3[(q - 1) * NB + j]);
+        v[b][q] = cmul(v[b][q], make_float2(w.x, sg * w.y));
+      }
+      if (out_rolled)
+        dft16<false, true>(v[b], iv);
+      else
+        small_dft<16>(v[b], iv);
+    }
+    if (out_rolled) {
+      // row r holds X[(r - N/4) mod N]: X[j + q NB] (q < 4) at row
+      // j + (q + 4) NB, X[j + (q + 12) NB] at row j + q NB
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ra = j + (q + 4) * NB, rb = j + q * NB;
+        yrl[ra] = v[b][q].x;
+        yil[ra] = v[b][q].y;
+        yrl[rb] = v[b][12 + q].x;
+        yil[rb] = v[b][12 + q].y;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int r = j + q * NB;
+        yrl[r] = v[b][q].x;
+        yil[r] = v[b][q].y;
+      }
+    }
+  }
+}
+
+// The rows plan's stage twiddles exp(-2 pi i q k / (Ns R)), [q - 1][k]
+// per stage (16 at Ns = 1, R2 at 16, 16 at N / 16: N - 1 entries), in
+// float64, rounded once.
+__global__ void rows_twiddle_kernel(float2* __restrict__ T, int N, int R2) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N - 1) return;
+  int Ns = 1, R = 16, off = 0;
+  if (e >= 15 + (R2 - 1) * 16) {
+    Ns = 16 * R2;
+    off = 15 + (R2 - 1) * 16;
+  } else if (e >= 15) {
+    Ns = 16;
+    R = R2;
+    off = 15;
+  }
+  const int q = (e - off) / Ns + 1, k = (e - off) % Ns;
+  double sn, cs;
+  sincospi(-2.0 * q * k / ((double)Ns * R), &sn, &cs);
+  T[e] = make_float2((float)cs, (float)sn);
+}
+
+template <int N, int R2, int MINB>
+static cudaError_t launch_rows(const float* xr, const float* xi, float* yr,
+                               float* yi, int rows, int in_rolled,
+                               int out_rolled, int inv, int skeleton,
+                               const float2* TW, cudaStream_t stream) {
+  void (*kernel)(const float*, const float*, float*, float*, int, int, int,
+                 const float2*) =
+      skeleton ? rows_fft_kernel<N, R2, MINB, false>
+               : rows_fft_kernel<N, R2, MINB, true>;
+  const size_t smem = (size_t)(N + N / 16) * sizeof(float2);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(unsigned)rows, kRowThreads, smem, stream>>>(
+      xr, xi, yr, yi, in_rolled, out_rolled, inv, TW);
+  return cudaGetLastError();
+}
+
+}  // namespace pfbt
+
+// The y pass of a (rows, Nin) stack at N = 4096, 6144, 8192 or 12288;
+// TW is the rows plan's table (pfbt_rows_twiddles). skeleton = 1 launches
+// the lab's load/transpose/store skeleton.
+extern "C" int pfbt_cfft_rows(const float* xr, const float* xi, float* yr,
+                              float* yi, int rows, int N, int in_rolled,
+                              int out_rolled, int inverse, int skeleton,
+                              const void* TW, void* stream) {
+  if (rows < 1 || !yi) return static_cast<int>(cudaErrorInvalidValue);
+  const float2* T = static_cast<const float2*>(TW);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (N) {
+    case 4096:
+      e = pfbt::launch_rows<4096, 16, 4>(xr, xi, yr, yi, rows, in_rolled,
+                                         out_rolled, inverse, skeleton, T, s);
+      break;
+    case 6144:
+      e = pfbt::launch_rows<6144, 24, 2>(xr, xi, yr, yi, rows, in_rolled,
+                                         out_rolled, inverse, skeleton, T, s);
+      break;
+    case 8192:
+      e = pfbt::launch_rows<8192, 32, 2>(xr, xi, yr, yi, rows, in_rolled,
+                                         out_rolled, inverse, skeleton, T, s);
+      break;
+    case 12288:
+      e = pfbt::launch_rows<12288, 48, 1>(xr, xi, yr, yi, rows, in_rolled,
+                                          out_rolled, inverse, skeleton, T,
+                                          s);
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
+
+// The rows plan's twiddle table (N - 1 float2 entries) into T.
+extern "C" int pfbt_rows_twiddles(int N, void* T, void* stream) {
+  if (N % 256 || N < 4096 || N > 12288)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n = N - 1, threads = 256;
+  pfbt::rows_twiddle_kernel<<<(n + threads - 1) / threads, threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float2*>(T), N, N / 256);
+  return static_cast<int>(cudaGetLastError());
+}

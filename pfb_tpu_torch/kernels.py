@@ -22,7 +22,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
-            "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu", "cfft_cols.cu")
+            "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu", "cfft_cols.cu",
+            "cfft_rows.cu")
 _HEADERS = ("fft_lines.cuh", "pg_es.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / \
     "pfb_tpu_torch"
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "pfbt_cfft_split": [_P] * 8 + [_I] * 6 + [_P],
     "pfbt_cfft_cols": [_P] * 4 + [_I] * 11 + [_P] * 3,
     "pfbt_cols_twiddles": [_I, _P, _P],
+    "pfbt_cfft_rows": [_P] * 4 + [_I] * 6 + [_P] * 2,
+    "pfbt_rows_twiddles": [_I, _P, _P],
     "pfbt_lab_copy": [_P] * 4 + [_I] * 4 + [_P],
     "pfbt_psf_conv": [_P] * 8 + [_I] * 5 + [_P] * 3,
     "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 6 + [_P] * 2,
@@ -189,10 +192,12 @@ def twiddles(N, device, kind="plan"):
     per (kind, N, device). ``kind="plan"``: the kernels' length-N FFT
     plan (each pass's exp(-2 pi i q k / (Ns R))); ``kind="cols"``: W_N^e
     = exp(-2 pi i e / N) for e < N, the cluster column kernel's
-    (``csrc/cfft_cols.cu``)."""
+    (``csrc/cfft_cols.cu``); ``kind="rows"``: the row kernel's three
+    stages (``csrc/cfft_rows.cu``), N - 1 entries."""
     key = (kind, N, str(device))
     if key not in _TWIDDLES:
-        make = {"plan": "pfbt_twiddles", "cols": "pfbt_cols_twiddles"}[kind]
+        make = {"plan": "pfbt_twiddles", "cols": "pfbt_cols_twiddles",
+                "rows": "pfbt_rows_twiddles"}[kind]
         t = torch.empty((N, 2), dtype=torch.float32, device=device)
         check(getattr(library(), make)(N, t.data_ptr(), stream_ptr()),
               f"twiddles({kind}, {N})")

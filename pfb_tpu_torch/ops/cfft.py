@@ -10,10 +10,13 @@
   roll or crop pass).
 
 A CUDA float32 stack runs a hand-written kernel, chosen by
-:func:`cluster_route`: the strided x pass (L > 1) at N >= 4096 runs the
-cluster column FFT :func:`fftx_c2c_cluster` (``csrc/cfft_cols.cu``: a
-cluster of C blocks shares a tile of W columns through distributed
-shared memory), everything else ``line_fft_kernel`` (``csrc/cfft.cu``,
+:func:`cluster_route`, then :func:`row_route`: the strided x pass (L >
+1) at N >= 4096 runs the cluster column FFT :func:`fftx_c2c_cluster`
+(``csrc/cfft_cols.cu``: a cluster of C blocks shares a tile of W columns
+through distributed shared memory); contiguous rows (L = 1) at N = 4096,
+6144, 8192 and 12288 run the row FFT :func:`fftx_c2c_rows`
+(``csrc/cfft_rows.cu``: three register stages, two transposes through
+shared memory); everything else ``line_fft_kernel`` (``csrc/cfft.cu``,
 whole lines in one block). A CPU stack runs the plain version
 :func:`fftx_c2c_plain` (``torch.fft`` with the roll/crop written out).
 The y pass of :func:`fft2_c2c_pruned` runs the same transform on
@@ -33,6 +36,7 @@ path calls them:
   matmuls). pg_stream's blocked engine keeps the float32 K3.
 """
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -43,12 +47,15 @@ from pfb_tpu_torch import kernels
 __all__ = ["fftx_c2c", "fftx_c2c_plain", "fft2_c2c_pruned",
            "cfft_supported", "cluster_route", "cluster_shape",
            "fftx_c2c_cluster", "fftx_c2c_cluster_plain",
-           "fftx_c2c_cluster_skeleton_plain", "fftx_c2c_lab",
+           "fftx_c2c_cluster_skeleton_plain", "row_route", "row_radices",
+           "fftx_c2c_rows", "fftx_c2c_rows_plain",
+           "fftx_c2c_rows_skeleton_plain", "fftx_c2c_lab",
            "fftx_c2c_first_pass_plain", "fftx_c2c_split",
            "fftx_c2c_split_plain"]
 
 _LINE_ELEMS = 8192  # csrc/fft_lines.cuh: kLineElems
 _CLUSTER_MIN_N = 4096
+_ROW_LENGTHS = (4096, 6144, 8192, 12288)  # csrc/cfft_rows.cu instances
 
 
 def _factor(N):
@@ -141,25 +148,39 @@ def cluster_shape(N):
     return C, (8 if (N // C) * 8 <= _LINE_ELEMS else 4)
 
 
+def row_route(N, L):
+    """Whether :func:`fftx_c2c` on a CUDA stack launches the row kernel
+    (``csrc/cfft_rows.cu``, K3r): contiguous rows (L = 1, the y pass) at
+    the lengths it is built for, N = 16 R2 16 with R2 = 16, 24, 32, 48
+    (4096, 6144, 8192, 12288: every y pass of the imaging paths). Other
+    N keep ``line_fft_kernel``. :func:`cluster_route` is asked first;
+    the two never both hold (it needs L > 1)."""
+    return L == 1 and N in _ROW_LENGTHS
+
+
 def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
              out_rolled=False):
     """Unnormalised c2c DFT along axis -2 of a (P, Nin, L) stack
     (Nin = N, or N/2 when ``in_rolled``); output (P, Nout, L) with
     Nout = N or N/2 (``out_rolled``). Forward e^-, inverse e^+, no 1/N.
     ``xi`` may be None for a real input. A CUDA stack launches the
-    cluster column kernel where :func:`cluster_route` says so, else
+    cluster column kernel where :func:`cluster_route` says so, else the
+    row kernel where :func:`row_route` says so, else
     ``line_fft_kernel``. ``fftx_c2c.launches`` counts the launches of
-    ``line_fft_kernel``, ``fftx_c2c_cluster.launches`` those of the
-    cluster kernel."""
+    ``line_fft_kernel``, ``fftx_c2c_cluster.launches`` and
+    ``fftx_c2c_rows.launches`` those of the other two."""
     P, Nin, L = _check_stack("fftx_c2c", xr, xi, N, in_rolled, out_rolled)
     if not xr.is_cuda:
         xi_ = torch.zeros_like(xr) if xi is None else xi
         return fftx_c2c_plain(xr, xi_, N=N, inverse=inverse,
                               in_rolled=in_rolled, out_rolled=out_rolled)
     kernels.require_cuda_f32("fftx_c2c", xr, xi)
+    kw = dict(N=N, inverse=inverse, in_rolled=in_rolled,
+              out_rolled=out_rolled)
     if cluster_route(N, L):
-        return fftx_c2c_cluster(xr, xi, N=N, inverse=inverse,
-                                in_rolled=in_rolled, out_rolled=out_rolled)
+        return fftx_c2c_cluster(xr, xi, **kw)
+    if row_route(N, L):
+        return fftx_c2c_rows(xr, xi, **kw)
     Nout = N // 2 if out_rolled else N
     yr = torch.empty((P, Nout, L), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
@@ -259,6 +280,125 @@ def fftx_c2c_cluster(xr, xi, *, N, inverse=False, in_rolled=False,
 fftx_c2c_cluster.launches = 0
 
 
+# ---------------------------------------------------------------------
+# the row kernel (K3's y pass on contiguous rows)
+
+
+def row_radices(N):
+    """The three stage radices (R1, R2, R3) of the row kernel's plan:
+    R1 = gcd(N, 16), R3 = gcd(N / R1, 16), R2 the rest; (16, N/256, 16)
+    wherever 256 divides N, which the kernel's lengths do."""
+    r1 = math.gcd(N, 16)
+    r3 = math.gcd(N // r1, 16)
+    return r1, N // (r1 * r3), r3
+
+
+def _row_line(xr, xi, N, in_rolled):
+    """The (P, N) complex lines of a (P, Nin, 1) row stack; ``in_rolled``
+    places input chunk [N/4, N/2) at [0, N/4) and chunk [0, N/4) at
+    [3N/4, N), with zeros between (the kernel's chunk offsets)."""
+    z = torch.complex(xr, xi)[..., 0]
+    if in_rolled:
+        q = N // 4
+        z = torch.cat([z[:, q:2 * q], z.new_zeros((z.shape[0], N // 2)),
+                       z[:, :q]], dim=1)
+    return z
+
+
+def _row_out(X, N, out_rolled):
+    """(re, im) (P, Nout, 1) of the (P, N) spectra; ``out_rolled`` keeps
+    X[3N/4:] then X[:N/4] (row r holds X[(r - N/4) mod N])."""
+    if out_rolled:
+        q = N // 4
+        X = torch.cat([X[:, 3 * q:], X[:, :q]], dim=1)
+    return X.real.contiguous()[..., None], X.imag.contiguous()[..., None]
+
+
+def _row_stages(z, N, inverse, fft=True):
+    """The row kernel's Stockham stages on (P, N) lines: stage (R, Ns)
+    reads n = j + q N/R (j = jq Ns + k), multiplies by W_{Ns R}^{q k}
+    (float64, rounded once to the working type), takes the R-point DFT
+    over q and writes jq Ns R + q Ns + k. ``fft=False`` keeps the index
+    algebra alone (the skeleton)."""
+    P = z.shape[0]
+    sign = 1.0 if inverse else -1.0
+    Ns = 1
+    for R in row_radices(N):
+        x = z.reshape(P, R, N // (R * Ns), Ns)  # [q, jq, k]
+        if fft:
+            if Ns > 1:
+                e = torch.outer(torch.arange(R, dtype=torch.float64),
+                                torch.arange(Ns, dtype=torch.float64))
+                tw = torch.polar(torch.ones_like(e),
+                                 sign * 2.0 * np.pi * e / (Ns * R))
+                x = x * tw.to(z.dtype).to(z.device)[:, None, :]
+            x = torch.fft.ifft(x, dim=1) * R if inverse else \
+                torch.fft.fft(x, dim=1)
+        z = x.transpose(1, 2).reshape(P, N)  # [jq, q, k]
+        Ns *= R
+    return z
+
+
+def fftx_c2c_rows_plain(xr, xi, *, N, inverse=False, in_rolled=False,
+                        out_rolled=False):
+    """Plain version of the row kernel's steps as torch operations on a
+    (P, Nin, 1) stack: the rolled chunk offsets, the three stages of
+    :func:`row_radices` with their twiddles, and the kept half. Same
+    conventions as :func:`fftx_c2c`; any N (the tests run lengths with
+    factors 3 and 5 that the kernel is not built for)."""
+    z = _row_stages(_row_line(xr, xi, N, in_rolled), N, inverse)
+    return _row_out(z, N, out_rolled)
+
+
+def fftx_c2c_rows_skeleton_plain(xr, xi, *, N, in_rolled=False,
+                                 out_rolled=False):
+    """Plain version of the row kernel's skeleton (its loads, two
+    transposes and stores with the radix arithmetic and twiddles
+    compiled out): the stages' index permutation alone."""
+    z = _row_stages(_row_line(xr, xi, N, in_rolled), N, False, fft=False)
+    return _row_out(z, N, out_rolled)
+
+
+def fftx_c2c_rows(xr, xi, *, N, inverse=False, in_rolled=False,
+                  out_rolled=False, skeleton=False):
+    """K3's y pass on the row kernel (``csrc/cfft_rows.cu``): the DFT of
+    each contiguous row of a (P, Nin, 1) stack, same conventions as
+    :func:`fftx_c2c`, one HBM read of the input and one write of the
+    output; raises where :func:`row_route` does not hold (L > 1 or N
+    not 4096, 6144, 8192, 12288). ``skeleton=True`` launches the lab's
+    load/transpose/store skeleton (:func:`fftx_c2c_rows_skeleton_plain`).
+    A CPU stack runs the plain versions."""
+    P, Nin, L = _check_stack("fftx_c2c_rows", xr, xi, N, in_rolled,
+                             out_rolled)
+    if not row_route(N, L):
+        raise ValueError(f"fftx_c2c_rows: N={N}, L={L}; the row kernel "
+                         f"takes L = 1 and N in {_ROW_LENGTHS}")
+    kw = dict(N=N, in_rolled=in_rolled, out_rolled=out_rolled)
+    if not xr.is_cuda:
+        xi_ = torch.zeros_like(xr) if xi is None else xi
+        if skeleton:
+            return fftx_c2c_rows_skeleton_plain(xr, xi_, **kw)
+        return fftx_c2c_rows_plain(xr, xi_, inverse=inverse, **kw)
+    kernels.require_cuda_f32("fftx_c2c_rows", xr, xi)
+    if P > 0x7fffffff:
+        raise ValueError(f"fftx_c2c_rows: {P} rows exceed one launch")
+    Nout = N // 2 if out_rolled else N
+    yr = torch.empty((P, Nout, 1), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    code = kernels.library().pfbt_cfft_rows(
+        xr.data_ptr(), None if xi is None else xi.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), P, N, int(in_rolled), int(out_rolled),
+        int(inverse), int(skeleton),
+        kernels.twiddles(N, xr.device, kind="rows").data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_rows")
+    fftx_c2c_rows.launches += 1
+    return yr, yi
+
+
+fftx_c2c_rows.launches = 0
+
+
 def fft2_c2c_pruned(xr, xi, *, Nx, Ny, inverse, pruned_in=False,
                     pruned_out=False):
     """2D c2c transform of a (P, ., .) plane stack with the sigma=2
@@ -317,29 +457,33 @@ def fftx_c2c_first_pass_plain(xr, xi, *, N, inverse=False,
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def fftx_c2c_lab(xr, xi, *, N, inverse=False, out_rolled=False, S=None,
-                 npass=None):
-    """K3 on a (P, N, L) stack with lab launch parameters: ``S`` lines per
+def fftx_c2c_lab(xr, xi, *, N, inverse=False, in_rolled=False,
+                 out_rolled=False, S=None, npass=None):
+    """``line_fft_kernel`` (K3) on a (P, Nin, L) stack with lab launch
+    parameters, whatever :func:`fftx_c2c`'s routes say: ``S`` lines per
     block (None: K3's own choice; S * N <= 16384) and ``npass=1`` to run
     only the plan's first radix pass (timing; the output is then
-    :func:`fftx_c2c_first_pass_plain`'s). With both None it launches what
-    :func:`fftx_c2c` launches. A CPU stack runs the plain version."""
+    :func:`fftx_c2c_first_pass_plain`'s; not with ``in_rolled``). A CPU
+    stack runs the plain version."""
     P, Nin, L = xr.shape
-    if Nin != N or xi is None or xi.shape != xr.shape:
-        raise ValueError(f"fftx_c2c_lab: (P, N, L) re and im stacks for "
-                         f"N={N}, got {tuple(xr.shape)}")
-    if npass not in (None, 1):
-        raise ValueError(f"fftx_c2c_lab: npass={npass} (None or 1)")
+    if Nin != (N // 2 if in_rolled else N) or xi is None or \
+            xi.shape != xr.shape:
+        raise ValueError(f"fftx_c2c_lab: (P, Nin, L) re and im stacks for "
+                         f"N={N}, in_rolled={in_rolled}, got "
+                         f"{tuple(xr.shape)}")
+    if npass not in (None, 1) or (npass and in_rolled):
+        raise ValueError(f"fftx_c2c_lab: npass={npass} (None, or 1 "
+                         "without in_rolled)")
     if S is not None and not 1 <= S * N <= 2 * _LINE_ELEMS:
         raise ValueError(f"fftx_c2c_lab: S={S} at N={N} (S * N <= "
                          f"{2 * _LINE_ELEMS})")
-    if out_rolled and N % 4:
-        raise ValueError("fftx_c2c_lab: out_rolled needs N % 4 == 0")
+    if (in_rolled or out_rolled) and N % 4:
+        raise ValueError("fftx_c2c_lab: rolled modes need N % 4 == 0")
     kw = dict(N=N, inverse=inverse, out_rolled=out_rolled)
     if not xr.is_cuda:
         if npass == 1:
             return fftx_c2c_first_pass_plain(xr, xi, **kw)
-        return fftx_c2c_plain(xr, xi, **kw)
+        return fftx_c2c_plain(xr, xi, in_rolled=in_rolled, **kw)
     kernels.require_cuda_f32("fftx_c2c_lab", xr, xi)
     Nout = N // 2 if out_rolled else N
     yr = torch.empty((P, Nout, L), dtype=torch.float32, device=xr.device)
@@ -347,8 +491,8 @@ def fftx_c2c_lab(xr, xi, *, N, inverse=False, out_rolled=False, S=None,
     W = kernels.twiddles(N, xr.device)
     code = kernels.library().pfbt_cfft_lab(
         xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), P, L, N,
-        N, Nout, 0, int(out_rolled), int(inverse), S or 0, npass or 0,
-        W.data_ptr(), kernels.stream_ptr())
+        Nin, Nout, int(in_rolled), int(out_rolled), int(inverse), S or 0,
+        npass or 0, W.data_ptr(), kernels.stream_ptr())
     kernels.check(code, "fftx_c2c_lab")
     fftx_c2c_lab.launches += 1
     return yr, yi

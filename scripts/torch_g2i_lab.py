@@ -30,6 +30,12 @@ main (wl_g2i_lab.py:main and pass1_variants), at (9, 2048^2) and (4,
   8} at 2048 and {1, 2} at 8192: the lane-block sweep's counterpart);
 - the library calls torch.fft.ifft(dim=-2) (the x pass) and
   torch.fft.ifft2;
+- K3's y pass (the contiguous rows a 2-D transform's x pass leaves) of
+  (4, 8192^2) inverse out_rolled and of (4, 4096^2 -> 8192^2) forward
+  in_rolled: the row kernel K3r (fftx_c2c_rows), its load/transpose/store
+  skeleton with the radix arithmetic compiled out, the line kernel
+  before it (fftx_c2c_lab), and torch.fft along the zero-padded rows;
+  K3r's error against its plain version is gated at 1e-5 of max;
 - the x-pass variants at (4, 8192^2) (wl_g2i_lab.py:170, the pallas_call
   of ``run``): K3 whole (k_full); the plan cut to its first radix pass
   (k_stage1's counterpart: a Stockham pass, not the four-step stage 1);
@@ -50,8 +56,8 @@ main (wl_g2i_lab.py:main and pass1_variants), at (9, 2048^2) and (4,
   plain spread.
 
 ``--device cpu`` rehearses either section with the plain versions at
-N = 256 (main) and 256 (copies), 3,000 rows x 4 channels at 128^2
-(probe).
+N = 256 (main; the y pass at 4096 on 8 rows) and 256 (copies), 3,000
+rows x 4 channels at 128^2 (probe).
 """
 
 import argparse
@@ -64,7 +70,7 @@ sys.path.insert(0, str(ROOT))
 
 from torch_kernel_lab import card, cuda_ms  # noqa: E402
 
-SPLIT_TOL = 1e-5  # the split and cluster passes against their plain versions
+SPLIT_TOL = 1e-5  # split, cluster and row passes against their plain versions
 
 
 class Lab:
@@ -191,6 +197,49 @@ def main_case(lab, P, N, sweep):
     lab.time(f"{tag} library torch.fft.ifft2", z.shape,
              lambda: torch.fft.ifft2(z), (16.0 * z.numel(),
                                           P * fft_flops(N, 2 * N)))
+    return err
+
+
+def ypass_case(lab, N, inverse, rows):
+    """K3's y pass on ``rows`` contiguous rows of length N (inverse:
+    out_rolled from N; forward: in_rolled from N/2): K3r, its skeleton,
+    the line kernel and torch.fft; returns K3r's error against its plain
+    version (max over re and im / max)."""
+    import torch
+
+    from chip_smoke import fft_flops
+    from pfb_tpu_torch.ops.cfft import (fftx_c2c_lab, fftx_c2c_rows,
+                                        fftx_c2c_rows_plain)
+    dev = lab.dev
+    kw = dict(N=N, inverse=inverse, in_rolled=not inverse,
+              out_rolled=inverse)
+    nin = N if inverse else N // 2
+    nout = N // 2 if inverse else N
+    g = torch.Generator(device=dev).manual_seed(N + inverse)
+    xr = torch.randn((rows, nin, 1), generator=g, device=dev)
+    xi = torch.randn((rows, nin, 1), generator=g, device=dev)
+    tag = f"y pass {rows} rows of {N} {'inverse' if inverse else 'forward'}"
+    work = (8.0 * rows * (nin + nout), fft_flops(N, rows))
+    yr, yi = fftx_c2c_rows(xr, xi, **kw)
+    pr, pi = fftx_c2c_rows_plain(xr, xi, **kw)
+    err = float(max((yr - pr).abs().max(), (yi - pi).abs().max())) / \
+        float(max(pr.abs().max(), pi.abs().max()))
+    del yr, yi, pr, pi
+    lab.time(f"{tag} K3r fftx_c2c_rows", xr.shape,
+             lambda: fftx_c2c_rows(xr, xi, **kw), work,
+             rel_err_vs_plain=err)
+    lab.time(f"{tag} K3r skeleton (no radix arithmetic)", xr.shape,
+             lambda: fftx_c2c_rows(xr, xi, skeleton=True, **kw),
+             (work[0], 0.0))
+    lab.time(f"{tag} line kernel (fftx_c2c_lab, K3 before K3r)", xr.shape,
+             lambda: fftx_c2c_lab(xr, xi, **kw), work)
+    z = torch.zeros((rows, N), dtype=torch.complex64, device=dev)
+    z[:, :nin] = torch.complex(xr[..., 0], xi[..., 0])
+    lib = torch.fft.ifft if inverse else torch.fft.fft
+    lab.time(f"{tag} library torch.fft.{'i' * inverse}fft(dim=-1)", z.shape,
+             lambda: lib(z, dim=-1), work)
+    lab.time(f"{tag} K3r fftx_c2c_rows (again)", xr.shape,
+             lambda: fftx_c2c_rows(xr, xi, **kw), work)
     return err
 
 
@@ -341,11 +390,21 @@ def main():
             cerr = max(cerr, main_case(lab, P, N, sweep))
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+        # the y passes of (4, 8192^2) inverse and (4, 4096^2 -> 8192^2)
+        # forward: 4 x 4096 and 4 x 8192 rows
+        rerr = 0.0
+        for inverse in (True, False):
+            rows = 8 if cpu else 4 * (8192 // 2 if inverse else 8192)
+            rerr = max(rerr, ypass_case(lab, 4096 if cpu else 8192, inverse,
+                                        rows))
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
         summary = pass1_variants(lab, 2 if cpu else 4, 256 if cpu else 8192)
         summary.update(section="main", tol=SPLIT_TOL,
                        cluster_rel_err_vs_plain=cerr,
+                       rows_rel_err_vs_plain=rerr,
                        ok=summary["split_rel_err_vs_plain"] <= SPLIT_TOL
-                       and cerr <= SPLIT_TOL)
+                       and cerr <= SPLIT_TOL and rerr <= SPLIT_TOL)
     summary.update(lab="g2i", card=lab.smi, ms=lab.ms)
     line = json.dumps(summary)
     print(line)

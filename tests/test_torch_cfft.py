@@ -1,8 +1,11 @@
 """pfb_tpu_torch w-plane c2c transforms (ops/cfft.py, the plain versions
-of the CUDA kernels on the CPU: the line kernel's and the cluster column
-kernel's steps at C = 2, 4, 8 and 16) against pfb_tpu/ops/pallas_cfft.py
-in interpret mode. Both run float32; tolerance 1e-5 of max|ref| (f32
-four-step DFTs, ~1e-6 log2 N)."""
+of the CUDA kernels on the CPU: the line kernel's, the cluster column
+kernel's steps at C = 2, 4, 8 and 16, and the row kernel's three stages)
+against pfb_tpu/ops/pallas_cfft.py in interpret mode. Float32 on both
+sides, or float64 in the port; tolerance 1e-5 of max|ref| (f32 four-step
+DFTs, ~1e-6 log2 N)."""
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,9 +14,13 @@ import torch
 
 from pfb_tpu.ops.pallas_cfft import fft2_c2c_pruned as fft2_j
 from pfb_tpu.ops.pallas_cfft import fftx_c2c as fftx_j
+from pfb_tpu_torch.ops import cfft as cf
 from pfb_tpu_torch.ops.cfft import (_factor, cfft_supported, cluster_route,
                                     cluster_shape, fft2_c2c_pruned, fftx_c2c,
-                                    fftx_c2c_cluster, fftx_c2c_cluster_plain)
+                                    fftx_c2c_cluster, fftx_c2c_cluster_plain,
+                                    fftx_c2c_rows, fftx_c2c_rows_plain,
+                                    fftx_c2c_rows_skeleton_plain, row_radices,
+                                    row_route)
 
 torch.set_num_threads(1)
 N = 256
@@ -45,13 +52,13 @@ def test_fftx_matches_jax(mode, inverse):
     _close(yi.numpy(), yi_j)
 
 
-@pytest.mark.parametrize("pruned", ["in", "out"])
+@pytest.mark.parametrize("pruned", ["in", "out", "none"])
 def test_fft2_pruned_matches_jax(pruned):
     pin = pruned == "in"
     n = N // 2 if pin else N
     xr, xi = _rand((2, n, n), seed=8)
     kw = dict(Nx=N, Ny=N, inverse=not pin, pruned_in=pin,
-              pruned_out=not pin)
+              pruned_out=pruned == "out")
     yr_j, yi_j = fft2_j(jnp.asarray(xr), jnp.asarray(xi),
                         interpret=True, **kw)
     yr, yi = fft2_c2c_pruned(torch.as_tensor(xr), torch.as_tensor(xi), **kw)
@@ -183,3 +190,162 @@ def test_cluster_skeleton_plain_is_the_exchange_permutation(mode):
                               out_rolled=out_rolled)
     assert np.array_equal(yr.numpy(), want.real.astype(np.float32))
     assert np.array_equal(yi.numpy(), want.imag.astype(np.float32))
+
+
+# ---------------------------------------------------------------------
+# the row kernel's plain version (csrc/cfft_rows.cu's steps), against the
+# JAX y pass: fftx_c2c on the transposed view, as pallas_cfft.py:
+# fft2_c2c_pruned runs it
+
+_JAX_ROWS = {}
+
+
+def _jax_rows(N, mode, inverse, R):
+    """R seeded rows of a y pass and the JAX fftx_c2c(interpret=True) of
+    their transposed (1, Nin, R) view, transposed back to (R, Nout)."""
+    key = (N, mode, inverse, R)
+    if key not in _JAX_ROWS:
+        in_rolled, out_rolled = mode == "in_rolled", mode == "out_rolled"
+        xr, xi = _rand((R, N // 2 if in_rolled else N), seed=N + R)
+        ref = fftx_j(jnp.asarray(xr.T[None]), jnp.asarray(xi.T[None]), N=N,
+                     inverse=inverse, in_rolled=in_rolled,
+                     out_rolled=out_rolled, lane_block=R, interpret=True)
+        _JAX_ROWS[key] = (xr, xi, np.asarray(ref[0])[0].T,
+                          np.asarray(ref[1])[0].T)
+    return _JAX_ROWS[key]
+
+
+@pytest.mark.parametrize("N", [512, 640, 2304, 3072])
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rows_plain_matches_jax(N, mode, inverse):
+    """The row kernel's stages (16, N/256, 16 where 256 divides N; 16, 5,
+    8 at 640), rolled chunk offsets and kept half, in float64, against the
+    JAX y pass in float32."""
+    xr, xi, rr, ri = _jax_rows(N, mode, inverse, 8)
+    yr, yi = fftx_c2c_rows_plain(
+        torch.as_tensor(xr[..., None], dtype=torch.float64),
+        torch.as_tensor(xi[..., None], dtype=torch.float64), N=N,
+        inverse=inverse, in_rolled=mode == "in_rolled",
+        out_rolled=mode == "out_rolled")
+    assert yr.dtype == torch.float64 and yr.shape == rr.shape + (1,)
+    _close(yr.numpy()[..., 0], rr)
+    _close(yi.numpy()[..., 0], ri)
+
+
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rows_wrapper_ragged_rows_matches_jax(mode, inverse):
+    """5 rows at N = 4096, a length the kernel is built for: the CPU
+    wrapper (the plain version) against the JAX y pass with lane_block=5,
+    and fftx_c2c's CPU route beside it."""
+    N = 4096
+    xr, xi, rr, ri = _jax_rows(N, mode, inverse, 5)
+    kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
+              out_rolled=mode == "out_rolled")
+    a, b = torch.as_tensor(xr[..., None]), torch.as_tensor(xi[..., None])
+    for fn in (fftx_c2c_rows, fftx_c2c):
+        yr, yi = fn(a, b, **kw)
+        _close(yr.numpy()[..., 0], rr)
+        _close(yi.numpy()[..., 0], ri)
+
+
+def _stage_permutation(N, radices):
+    """The Stockham stages' index map with no arithmetic, element by
+    element: stage (R, Ns) moves n = j + q N/R (j = jq Ns + k) to
+    jq Ns R + q Ns + k; returns src with out[m] = in[src[m]]."""
+    src = list(range(N))
+    Ns = 1
+    for R in radices:
+        nxt = [0] * N
+        for j in range(N // R):
+            jq, k = divmod(j, Ns)
+            for q in range(R):
+                nxt[jq * Ns * R + q * Ns + k] = src[j + q * (N // R)]
+        src = nxt
+        Ns *= R
+    return np.array(src)
+
+
+@pytest.mark.parametrize("N", [640, 3072, 4096])
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+def test_rows_skeleton_plain_is_the_stage_permutation(N, mode):
+    """The skeleton (loads, two transposes, stores; no radix arithmetic)
+    is the stages' permutation of the rolled line, kept rows selected as
+    fftx_c2c selects them; the CPU wrapper's skeleton route gives it."""
+    in_rolled, out_rolled = mode == "in_rolled", mode == "out_rolled"
+    xr, xi = _rand((3, N // 2 if in_rolled else N), seed=12)
+    full = xr + 1j * xi
+    if in_rolled:
+        full = np.zeros((3, N), complex)
+        full[:, (np.arange(N // 2) - N // 4) % N] = xr + 1j * xi
+    want = full[:, _stage_permutation(N, row_radices(N))]
+    if out_rolled:
+        want = want[:, (np.arange(N // 2) - N // 4) % N]
+    kw = dict(N=N, in_rolled=in_rolled, out_rolled=out_rolled)
+    a, b = torch.as_tensor(xr[..., None]), torch.as_tensor(xi[..., None])
+    outs = [fftx_c2c_rows_skeleton_plain(a, b, **kw)]
+    if row_route(N, 1):
+        outs.append(fftx_c2c_rows(a, b, skeleton=True, **kw))
+    for yr, yi in outs:
+        assert np.array_equal(yr.numpy()[..., 0], want.real.astype(np.float32))
+        assert np.array_equal(yi.numpy()[..., 0], want.imag.astype(np.float32))
+
+
+def test_row_route_and_radices():
+    """The dispatch rule, written once in ops/cfft.py: contiguous rows (L
+    = 1) at the kernel's four lengths take the row kernel; L > 1 never
+    does (the cluster route's), nor other N; no shape takes both routes.
+    The plan is 16 x R2 x 16 at those lengths."""
+    for n in (4096, 6144, 8192, 12288):
+        assert row_route(n, 1) and not cluster_route(n, 1)
+        assert not row_route(n, 8) and cluster_route(n, 8)
+        assert row_radices(n) == (16, n // 256, 16)
+    for n in (256, 2048, 3072, 4100, 16384, 6561):
+        assert not row_route(n, 1)
+    for n, L in itertools.product((512, 2048, 4096, 6144, 8192, 12288,
+                                   16384), (1, 2, 8, 64)):
+        assert not (row_route(n, L) and cluster_route(n, L))
+    assert row_radices(640) == (16, 5, 8) and row_radices(960) == (16, 15, 4)
+    t = torch.zeros((2, 4096, 2))
+    with pytest.raises(ValueError):   # L = 2: not contiguous rows
+        fftx_c2c_rows(t, t, N=4096)
+    with pytest.raises(ValueError):   # N = 2048: no instance
+        fftx_c2c_rows(t[:, :2048, :1], None, N=2048)
+
+
+class _CardStack:
+    """A stand-in for a CUDA stack: a shape and ``is_cuda``, so that
+    fftx_c2c's routing can be followed on the CPU."""
+    is_cuda = True
+    device = torch.device("cpu")
+
+    def __init__(self, *shape):
+        self.shape = shape
+
+
+@pytest.mark.parametrize("N,L,route", [(8192, 8, "cluster"),
+                                       (8192, 1, "rows"), (4096, 1, "rows"),
+                                       (2048, 1, "line"), (2048, 8, "line"),
+                                       (16384, 1, "line")])
+def test_fftx_c2c_route_order(monkeypatch, N, L, route):
+    """A CUDA stack asks cluster_route first, then row_route, then takes
+    line_fft_kernel: each route's wrapper is called exactly where its
+    rule says."""
+    called = []
+    monkeypatch.setattr(cf.kernels, "require_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(cf, "fftx_c2c_cluster",
+                        lambda *a, **k: called.append("cluster") or "c")
+    monkeypatch.setattr(cf, "fftx_c2c_rows",
+                        lambda *a, **k: called.append("rows") or "r")
+
+    def line(*a, **k):
+        called.append("line")
+        raise RuntimeError("no card")
+    monkeypatch.setattr(cf.kernels, "library", line)
+    x = _CardStack(2, N, L)
+    try:
+        cf.fftx_c2c(x, None, N=N)
+    except RuntimeError:
+        pass
+    assert called == [route]

@@ -8,9 +8,11 @@ K2, K3, K10-K15) are float32 FFT pipelines (expected ~1e-6 log2 N); the pg
 gridder's kernels,
 all planes (K4-K6) or one w block (K7-K9), sum at most a tile's
 visibilities per grid point, or k^3 taps per visibility, in float32
-(expected ~1e-7 to 1e-6). The lab kernels (scripts/torch_g2i_lab.py,
-scripts/torch_capacity_lab.py): the copy probes equal slicing exactly;
-the cluster kernel's skeleton equals its plain permutation exactly; the
+(expected ~1e-7 to 1e-6). K3's three routes (line, cluster, row
+kernel) each count their own launches. The lab kernels
+(scripts/torch_g2i_lab.py, scripts/torch_capacity_lab.py): the copy
+probes equal slicing exactly; the cluster and row kernels' skeletons
+equal their plain permutations exactly; the
 line kernel with an explicit lines-per-block is held to 1e-5 of max
 against the plain transform; the split x pass
 is held to 1e-5 of max against its plain version (the same split
@@ -58,6 +60,15 @@ def _ok(out, ref):
     return float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
 
 
+def _launches():
+    """(line kernel, cluster kernel, row kernel) launch counts."""
+    return (fftx_c2c.launches, cf.fftx_c2c_cluster.launches,
+            cf.fftx_c2c_rows.launches)
+
+
+ROW_LENGTHS = (4096, 6144, 8192, 12288)
+
+
 @pytest.mark.parametrize("N,L", [(256, 128), (512, 1), (640, 8),
                                  (2304, 128), (8192, 64), (16384, 4),
                                  (4096, 8), (6144, 24), (8192, 16),
@@ -65,23 +76,86 @@ def _ok(out, ref):
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cfft_kernel_matches_plain(cuda, N, L, mode, inverse):
-    """K3 on both routes; the cluster column kernel launches exactly
-    where cluster_route says (L > 1 and N >= 4096)."""
+    """K3 on its three routes; the cluster column kernel launches exactly
+    where cluster_route says (L > 1 and N >= 4096), the row kernel where
+    row_route says (L = 1 at its four lengths), the line kernel
+    elsewhere, and each launch counts on its own route only."""
     g = torch.Generator(device=cuda).manual_seed(N + L)
     kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
               out_rolled=mode == "out_rolled")
     nin = N // 2 if kw["in_rolled"] else N
     xr = torch.randn((2, nin, L), generator=g, device=cuda)
     xi = torch.randn((2, nin, L), generator=g, device=cuda)
-    n0, c0 = fftx_c2c.launches, cf.fftx_c2c_cluster.launches
+    n0, c0, r0 = _launches()
     yr, yi = fftx_c2c(xr, xi, **kw)
     torch.cuda.synchronize()
     cluster = L > 1 and N >= 4096
+    rows = L == 1 and N in ROW_LENGTHS
     assert cf.cluster_route(N, L) == cluster
-    assert fftx_c2c.launches == n0 + (not cluster)
-    assert cf.fftx_c2c_cluster.launches == c0 + cluster
+    assert cf.row_route(N, L) == rows
+    assert _launches() == (n0 + (not cluster and not rows), c0 + cluster,
+                           r0 + rows)
     pr, pi = fftx_c2c_plain(xr, xi, **kw)
     assert _ok(yr, pr) and _ok(yi, pi)
+
+
+@pytest.mark.parametrize("N", ROW_LENGTHS)
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rows_kernel_matches_plain(cuda, N, mode, inverse):
+    """K3r (fftx_c2c_rows) on 37 rows (no multiple of anything the
+    launch takes) against its plain version, with xi and with a real
+    input (xi None); the skeleton equals its plain permutation bit for
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(N + 37)
+    kw = dict(N=N, in_rolled=mode == "in_rolled",
+              out_rolled=mode == "out_rolled")
+    nin = N // 2 if kw["in_rolled"] else N
+    xr = torch.randn((37, nin, 1), generator=g, device=cuda)
+    xi = torch.randn((37, nin, 1), generator=g, device=cuda)
+    for b in (xi, None):
+        n0, c0, r0 = _launches()
+        yr, yi = cf.fftx_c2c_rows(xr, b, inverse=inverse, **kw)
+        torch.cuda.synchronize()
+        assert _launches() == (n0, c0, r0 + 1)
+        pr, pi = cf.fftx_c2c_rows_plain(
+            xr, torch.zeros_like(xr) if b is None else b, inverse=inverse,
+            **kw)
+        assert _ok(yr, pr) and _ok(yi, pi)
+    sr, si = cf.fftx_c2c_rows(xr, xi, skeleton=True, **kw)
+    pr, pi = cf.fftx_c2c_rows_skeleton_plain(xr, xi, **kw)
+    assert torch.equal(sr, pr) and torch.equal(si, pi)
+
+
+@pytest.mark.parametrize("N,pruned", [(4096, "out"), (8192, "in"),
+                                      (6144, "out"), (2048, "out"),
+                                      (2048, "in")])
+def test_fft2_launches_by_route(cuda, N, pruned):
+    """fft2_c2c_pruned: at N >= 4096 the x pass launches the cluster
+    kernel and the y pass K3r, never line_fft_kernel; at N = 2048 both
+    passes keep the line kernel. Against the plain 2-D transform."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    pin = pruned == "in"
+    n = N // 2 if pin else N
+    xr = torch.randn((2, n, n), generator=g, device=cuda)
+    xi = torch.randn((2, n, n), generator=g, device=cuda)
+    kw = dict(Nx=N, Ny=N, inverse=not pin, pruned_in=pin,
+              pruned_out=not pin)
+    n0, c0, r0 = _launches()
+    yr, yi = cf.fft2_c2c_pruned(xr, xi, **kw)
+    torch.cuda.synchronize()
+    big = N >= 4096
+    assert _launches() == (n0 + 2 * (not big), c0 + big, r0 + big)
+    ref = torch.fft.ifft2 if not pin else torch.fft.fft2
+    z = torch.zeros((2, N, N), dtype=torch.complex64, device=cuda)
+    rows = (torch.arange(n, device=cuda) - N // 4) % N if pin else \
+        torch.arange(N, device=cuda)
+    z[:, rows[:, None], rows[None, :]] = torch.complex(xr, xi)
+    full = ref(z) * (N * N if not pin else 1)
+    if not pin:
+        keep = (torch.arange(N // 2, device=cuda) - N // 4) % N
+        full = full[:, keep[:, None], keep[None, :]]
+    assert _ok(yr, full.real) and _ok(yi, full.imag)
 
 
 @pytest.mark.parametrize("N,L", [(4096, 20), (8192, 48), (6144, 13),
@@ -115,20 +189,24 @@ def test_cluster_kernel_launch_parameters(cuda, N, L, mode):
     assert torch.equal(sr, pr) and torch.equal(si, pi)
 
 
-@pytest.mark.parametrize("N", [6561, 8748])
+@pytest.mark.parametrize("N", [6561, 8748, 2048, 16384])
 def test_cfft_other_lengths_keep_the_line_kernel(cuda, N):
     """N = 3^8 (no cluster of 4 divides it) and 4 * 3^7 (a tile of 4
-    columns of N / 4 exceeds a block) take line_fft_kernel, as
-    cluster_route says."""
+    columns of N / 4 exceeds a block) take line_fft_kernel on strided
+    columns, as cluster_route says; on contiguous rows (L = 1) those and
+    2048 and 16384 (no row kernel instance) take it too, as row_route
+    says. The other two routes launch nothing."""
     g = torch.Generator(device=cuda).manual_seed(N)
-    xr = torch.randn((2, N, 16), generator=g, device=cuda)
-    xi = torch.randn((2, N, 16), generator=g, device=cuda)
-    n0, c0 = fftx_c2c.launches, cf.fftx_c2c_cluster.launches
-    for inverse in (False, True):
-        yr, yi = fftx_c2c(xr, xi, N=N, inverse=inverse)
-        pr, pi = fftx_c2c_plain(xr, xi, N=N, inverse=inverse)
-        assert _ok(yr, pr) and _ok(yi, pi)
-    assert (fftx_c2c.launches, cf.fftx_c2c_cluster.launches) == (n0 + 2, c0)
+    n0, c0, r0 = _launches()
+    Ls = (1,) if N in (2048, 16384) else (16, 1)
+    for L in Ls:
+        xr = torch.randn((2, N, L), generator=g, device=cuda)
+        xi = torch.randn((2, N, L), generator=g, device=cuda)
+        for inverse in (False, True):
+            yr, yi = fftx_c2c(xr, xi, N=N, inverse=inverse)
+            pr, pi = fftx_c2c_plain(xr, xi, N=N, inverse=inverse)
+            assert _ok(yr, pr) and _ok(yi, pi)
+    assert _launches() == (n0 + 2 * len(Ls), c0, r0)
 
 
 @pytest.mark.parametrize("nb,nx", [(2, 128), (1, 1152), (2, 1024)])
@@ -836,6 +914,13 @@ def test_lab_wrappers_reject_bad_operands(cuda):
         cf.fftx_c2c_cluster(z[:, :6561], z[:, :6561], N=6561)
     with pytest.raises(ValueError):   # 4 lines of 4096 exceed a block
         cf.fftx_c2c_cluster(z, z, N=32768)
+    r = torch.zeros((4, 8192, 1), device=cuda)
+    with pytest.raises(ValueError):   # no row kernel instance at 2048
+        cf.fftx_c2c_rows(r[:, :2048], r[:, :2048], N=2048)
+    with pytest.raises(ValueError):   # strided columns
+        cf.fftx_c2c_rows(z[:, :8192, :2], z[:, :8192, :2], N=8192)
+    with pytest.raises(ValueError):   # float64 on the card
+        cf.fftx_c2c_rows(r.double(), r.double(), N=8192)
     with pytest.raises(ValueError):   # 512 rows for N = 1024
         cf.fftx_c2c_split(x, x, N=1024)
     with pytest.raises(ValueError):
