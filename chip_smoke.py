@@ -130,7 +130,18 @@ Phases:
      at capacity 128, 256 and 512, whose grids must agree (<= 1e-5 of
      max), and K4 through pack_entries at pair width 1 and 2; the paired
      spreads against the plain spread (<= 1e-5 of max) and the sweep's
-     times.
+     times;
+ 24. the PSF column stages' cluster kernels (csrc/psf_cols.cu: K10ac,
+     psf_cols_fwd, and K10cc, psf_cols_inv), which every PSF entry with
+     a column stage launches at NX >= 4096, at the shapes the paths give
+     them: K1 on the main paths (8, 2048 -> 4096, 2048), K1 and K12 at
+     (8, 4096 -> 8192, 4096), one shard of the dist path's K10 (4, 2048,
+     512) -> 2052 rows and back, K11 (8, 3072 -> 6144, 3072), K15's NXH
+     = 4224 rows at 8192 (its inverse on a random non-Hermitian
+     spectrum); each against the functions' plain versions (rfft /
+     irfft). Both must have launched inside the wgrid
+     and pg _spotless (K1), _spotless_dist (K10) and the 3072^2 _spotless
+     (K11).
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -139,7 +150,8 @@ over 67 TFLOP/s, or its bf16 tensor-core operations over 989 TFLOP/s for
 the split pass, counted for this run's inputs; ``bound_by`` says which)
 and the time of one PyTorch call that computes the same function where
 there is one (``library_ms``: torch.fft for K3, K3c and K3r, the
-column stages of K10 and K15 and the x-pass labs L2b and L2c, a zero
+column stages of K10 and K15, their cluster kernels K10ac and K10cc and
+the x-pass labs L2b and L2c, a zero
 fill and ``index_add_`` for the folds, a slice's ``clone`` for the copy
 probes L2a; None otherwise: no
 single call computes K1's, K2's, K10's rows stage's, K11-K14's padded
@@ -147,7 +159,10 @@ convolution or L3's paired spread). A kernel's entry in the kernels
 line takes its times from its first record: K3's from the line
 kernel's x pass at 2048, K3c's from its x pass, K3r's from its y pass.
 Each counts the launches of its own kernel, so K3 + K3c + K3r is the
-number of launches of the three routes of ``fftx_c2c``.
+number of launches of the three routes of ``fftx_c2c``; K10ac and K10cc
+count the cluster column kernels' launches from every entry that runs a
+PSF column stage on their route (K1, K10, K11-K15), whose own counters
+count their calls.
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -239,14 +254,16 @@ def counters():
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
     from pfb_tpu_torch.ops.psf import (psf_convolve_full, psf_convolve_h,
                                        psf_convolve_h_cg)
-    from pfb_tpu_torch.ops.psf import (psf_stage_cols_fwd,
+    from pfb_tpu_torch.ops.psf import (psf_cols_fwd, psf_cols_inv,
+                                       psf_stage_cols_fwd,
                                        psf_stage_cols_inv, psf_stage_rows)
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
             "K3c": fftx_c2c_cluster, "K3r": fftx_c2c_rows,
             "K4": pg_spread, "K5": pg_fold, "K6": pg_degrid,
             "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
             "K10a": psf_stage_cols_fwd, "K10b": psf_stage_rows,
-            "K10c": psf_stage_cols_inv, "K11": psf_convolve_full,
+            "K10c": psf_stage_cols_inv, "K10ac": psf_cols_fwd,
+            "K10cc": psf_cols_inv, "K11": psf_convolve_full,
             "K12": pf.psf_convolve_pallas_v3, "K13": pf.psf_convolve_pallas_v2,
             "K14": pf.psf_convolve_pallas_opt, "K15a": pf.v3_cols_fwd,
             "K15b": pf.v3_cols_inv, "L2a": memlab.lab_copy,
@@ -1545,6 +1562,73 @@ def k15_checks(device, nb=PCG["nband"], n=PCG["nx"], timing=True):
     return recs, rt_err, launches
 
 
+# (label, nb, nx, NX, L, rows, keep) of phase 24: the shapes the paths give
+# the cluster column kernels (keep None: NX/2 + 1)
+COLS_SHAPES = [("K1, 2048^2", 8, 2048, 4096, 2048, 2049, None),
+               ("K1 and K12, 4096^2", 8, 4096, 8192, 4096, 4097, None),
+               ("K10 shard of the (2, 4) mesh", 4, 2048, 4096, 512, 2052,
+                None),
+               ("K11, 3072^2 in 6144^2", 8, 3072, 6144, 3072, 3073, None),
+               ("K15, NXH rows", 8, 4096, 8192, 4096, 4224, 4224)]
+
+
+def cols_checks(device, shapes=COLS_SHAPES, timing=True):
+    """Phase 24: the cluster column kernels (psf_cols_fwd, psf_cols_inv)
+    against the functions' plain versions (psf_stage_cols_fwd_plain /
+    _inv_plain: rfft / irfft, or fft / ifft with the mirror at keep =
+    NXH) on seeded random inputs at each shape, with the library column
+    calls. Returns the records."""
+    import torch
+
+    from pfb_tpu_torch.ops.psf import (psf_cols_fwd, psf_cols_inv,
+                                       psf_stage_cols_fwd_plain,
+                                       psf_stage_cols_inv_plain)
+    g = torch.Generator(device=device).manual_seed(24)
+    recs = []
+    for label, nb, nx, NX, L, rows, keep in shapes:
+        k = keep or NX // 2 + 1
+        x = torch.randn((nb, nx, L), generator=g, device=device)
+        # x read, rows written (re and im); a real line of NX a column
+        work = (4 * (x.numel() + 2 * nb * rows * L),
+                nb * fft_flops(NX, L, real=True))
+        if keep is None:
+            def flib():
+                return torch.fft.rfft(x, n=NX, dim=-2)
+        else:
+            def flib():
+                return torch.fft.fft(x, n=NX, dim=-2)[:, :k]
+        recs.append(_record(
+            f"K10ac psf_cols_fwd ({nb}, {nx}, {L}) -> {rows} rows of {NX} "
+            f"({label})", x.shape,
+            torch.cat(psf_cols_fwd(x, NX, rows, keep)),
+            torch.cat(psf_stage_cols_fwd_plain(x, NX, rows, keep)),
+            lambda: psf_cols_fwd(x, NX, rows, keep),
+            lambda: psf_stage_cols_fwd_plain(x, NX, rows, keep), timing,
+            work=work, flib=flib))
+        del x
+        wr, wi = (torch.randn((nb, rows, L), generator=g, device=device)
+                  for _ in range(2))
+        wc = torch.complex(wr[:, :NX // 2 + 1], wi[:, :NX // 2 + 1])
+        if keep is None:
+            wc[:, 0].imag.zero_()
+            wc[:, NX // 2].imag.zero_()
+        s = 1.0 / NX
+        recs.append(_record(
+            f"K10cc psf_cols_inv ({nb}, {rows}, {L}) -> {nx} rows of {NX}"
+            f" ({label}{', non-Hermitian' if keep else ''})", wr.shape,
+            psf_cols_inv(wr, wi, nx, NX, keep, scale=s),
+            psf_stage_cols_inv_plain(wr, wi, nx, NX, 1, keep),
+            lambda: psf_cols_inv(wr, wi, nx, NX, keep, scale=s),
+            lambda: psf_stage_cols_inv_plain(wr, wi, nx, NX, 1, keep),
+            timing, work=(4 * (2 * nb * k * L + nb * nx * L),
+                          nb * fft_flops(NX, L, real=True)),
+            flib=lambda: torch.fft.irfft(wc, n=NX, dim=-2)[:, :nx]))
+        del wr, wi, wc
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return recs
+
+
 def l2_checks(device, P=4, N=8192, timing=True):
     """Phase 22: the x-pass lab's kernels on a (P, N^2) re/im stack, and
     the lab's other case, K3's x pass of (9, (N/4)^2) through fftx_c2c
@@ -2036,6 +2120,20 @@ def main():
             launches[k] += l23[k]
         launches["L3"] = l23["K4"]
 
+        # 24. the cluster column kernels at the paths' shapes
+        cols_recs = cols_checks(device)
+        for r in cols_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += cols_recs
+
+        # the cluster column kernels ran inside the PSF paths
+        for tag, lc in (("wgrid _spotless", lw["spotless"]),
+                        ("pg _spotless", lp["spotless"]),
+                        ("_spotless_dist", ld),
+                        ("3072^2 _spotless", l12["spotless"])):
+            for k in ("K10ac", "K10cc"):
+                need(lc[k] > 0, f"{k} never launched inside {tag}")
+
         # checks of phases 22-23
         for k in ("L2a", "L2b", "L2c", "K3"):
             need(l22[k] > 0, f"{k} never launched in the L2 lab's run")
@@ -2134,6 +2232,10 @@ def main():
                  ("K10b", "psf_stage_rows", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:1110"),
                  ("K10c", "psf_stage_cols_inv", "psf_conv.cu",
+                  "pfb_tpu/ops/pallas_fft.py:1153"),
+                 ("K10ac", "psf_cols_fwd", "psf_cols.cu",
+                  "pfb_tpu/ops/pallas_fft.py:1075"),
+                 ("K10cc", "psf_cols_inv", "psf_cols.cu",
                   "pfb_tpu/ops/pallas_fft.py:1153"),
                  ("K11", "psf_convolve_full", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:1325"),

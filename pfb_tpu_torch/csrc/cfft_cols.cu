@@ -200,26 +200,9 @@ static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
                  int, int, int, int, int, LinePlan, const float2*) =
       skeleton ? cols_fft_kernel<C, VPT, MINB, false>
                : cols_fft_kernel<C, VPT, MINB, true>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const long blocks = (long)B * ((L + W - 1) / W) * C;
-  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, xr, xi, yr, yi, L, Nin, Nout,
-                         in_rolled, out_rolled, inv, W, vec, p, TN);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_cluster(kernel, C, (long)B * ((L + W - 1) / W) * C,
+                        threads, smem, stream, xr, xi, yr, yi, L, Nin, Nout,
+                        in_rolled, out_rolled, inv, W, vec, p, TN);
 }
 
 // Two blocks an SM (2 kVpt values a thread, half the threads, registers
@@ -272,11 +255,9 @@ extern "C" int pfbt_cfft_cols(const float* xr, const float* xi, float* yr,
       Nin != (in_rolled ? N / 2 : N) || Nout != (out_rolled ? N / 2 : N) ||
       (long)(N / C) * W > pfbt::kLineElems || !pfbt::make_plan(N / C, TM, &p))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto al = [](const void* a) {
-    return (reinterpret_cast<unsigned long long>(a) & 15ull) == 0;
-  };
-  const int vec =
-      L % pfbt::kChunk == 0 && al(xr) && al(xi) && al(yr) && al(yi);
+  const int vec = L % pfbt::kChunk == 0 && pfbt::aligned16(xr) &&
+                  pfbt::aligned16(xi) && pfbt::aligned16(yr) &&
+                  pfbt::aligned16(yi);
   const float2* T = static_cast<const float2*>(TN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =

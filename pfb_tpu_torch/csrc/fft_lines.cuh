@@ -384,6 +384,37 @@ static inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+static inline bool aligned16(const void* a) {
+  return (reinterpret_cast<unsigned long long>(a) & 15ull) == 0;
+}
+
+// Launch `kernel` on `blocks` blocks of `threads` in clusters of C along
+// x, with `smem` bytes of dynamic shared memory (cfft_cols.cu,
+// psf_cols.cu).
+template <typename... KArgs, typename... Args>
+static cudaError_t launch_cluster(void (*kernel)(KArgs...), int C,
+                                  long blocks, unsigned threads, size_t smem,
+                                  cudaStream_t stream, Args... args) {
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 static inline cudaError_t launch_lines(const float* xr, const float* xi,
                                        float* yr, float* yi, int B, int L,
                                        int Nin, int in_rows, int Nout,

@@ -30,12 +30,12 @@
 //     K1's three stages as separate calls on the shards of a space-sharded
 //     cube, for the all-to-all transposes between them. Replaces
 //     pallas_fft.py:psf_v3_stage_k1/k2/k3. The column stages are K1's
-//     line_fft_kernel launches on a shard's (nb, rows, nyl) half spectrum
-//     with rows >= NX/2 + 1 (padded to the shard count; stage 1 writes the
-//     pad rows as zeros, stage 3 reads rows <= NX/2 at the padded row
-//     stride); the rows stage takes a row shard and the matching rows of
-//     H. Stage 2 leaves the inverse y-DFT unscaled and stage 3 scales by
-//     1 / (NX NY), as K1 does, so a shard's lines equal K1's bit for bit.
+//     column kernels on a shard's (nb, rows, nyl) half spectrum with rows
+//     >= NX/2 + 1 (padded to the shard count; stage 1 writes the pad rows
+//     as zeros, stage 3 reads rows <= NX/2 at the padded row stride); the
+//     rows stage takes a row shard and the matching rows of H. Stage 2
+//     leaves the inverse y-DFT unscaled and stage 3 scales by 1 / (NX NY),
+//     as K1 does, so a shard's lines equal K1's bit for bit.
 // K15 the column stages with `keep` = NXH = NX/2 + N1 (N1 x N2 = NX the
 //     TPU's four-step factors): replaces pallas_fft.py:_k1h_kernel (the
 //     forward keeps spectrum rows k < NXH) and _k3h_kernel (the inverse
@@ -45,25 +45,33 @@
 //
 // The stages (the TPU's three stage boundaries, not its blocking):
 //   1. per column: forward x-DFT of the zero-padded real column, keeping
-//      rows 0..NX/2 (Hermitian half);              line_fft_kernel
+//      rows 0..NX/2 (Hermitian half);              column kernel
 //   2. per kept row: forward y-DFT of the zero-padded row, multiply by H,
 //      inverse y-DFT, crop to ny;                   psf_rows_kernel
 //   3. per column: inverse x-DFT with the conjugate mirror rebuilt, real
-//      part, crop to nx, scale 1/(NX NY).           line_fft_kernel
+//      part, crop to nx, scale 1/(NX NY).           column kernel
+// The column kernel of a stage is the cluster column FFT of psf_cols.cu
+// where psf_cols_clusters(NX, ny) holds (NX >= 4096 and its tile fits),
+// else line_fft_kernel (fft_lines.cuh). Every entry here asks the same
+// predicate, so K1, K10, K11 and K15 take one route at one NX; the caller
+// passes the C it expects (0 for the line kernel) and the tables of that
+// route, and an entry refuses a C that is not the predicate's. K2's
+// fused column kernels keep the line kernel's layout.
 // Row i of a column is written only for i < nx and read for i <= NX/2, so
 // nx may exceed NX/2 (psf_oversize < 2).
 //
 // What bounds them on the H100: each stage reads and writes the half
 // spectrum once (8 bytes per complex element in, 8 out, plus 4 or 8 of H
 // in stage 2; 16 for K11's two rows of the full H), and the FFT passes run
-// in shared memory, so the kernels are bound by shared-memory traffic and
-// by the narrow column strips of the strided x passes (stages 1 and 3),
-// not by FLOPs. The design keeps every line resident in shared memory
-// across all passes of its transform, and stage 2 runs both y transforms
-// and the H multiply on one residency of the row, so the spectrum never
-// goes to HBM between them. K2's extra vector work rides the columns that
-// stages 1 and 3 already hold.
+// in shared memory, so the kernels are bound by shared-memory traffic and,
+// on the line route, by the narrow column strips of the strided x passes
+// (stages 1 and 3), not by FLOPs. The design keeps every line resident in
+// shared memory across all passes of its transform, and stage 2 runs both
+// y transforms and the H multiply on one residency of the row, so the
+// spectrum never goes to HBM between them. K2's extra vector work rides
+// the columns that stages 1 and 3 already hold.
 #include "fft_lines.cuh"
+#include "psf_cols.cuh"
 
 namespace pfbt {
 
@@ -297,22 +305,59 @@ static inline bool cg_launch(int N, LineLaunch* c) {
          (size_t)16 * c->threads <= c->smem;
 }
 
+// The column stages' route: C = psf_cols_clusters(NX, L) blocks a
+// cluster and the tables TM, TN (psf_cols.cuh), or C = 0 and the length-NX
+// plan of TX into px for line_fft_kernel; false where the caller's C is
+// not the predicate's or a table is missing.
+static bool cols_route(int NX, int L, int C, const void* TX, const void* TM,
+                       const void* TN, LinePlan* px) {
+  if (C != psf_cols_clusters(NX, L)) return false;
+  return C ? TM && TN : make_plan(NX, TX, px);
+}
+
+// Stage 1 on either route: x (nb, nx, L) real -> z (nb, rows, L), rows
+// k < keep of the spectrum, the rest zero.
+static cudaError_t cols_fwd(const float* x, float* zr, float* zi, int nb,
+                            int nx, int L, int NX, int keep, int rows,
+                            int C, const LinePlan& px, const void* TM,
+                            const void* TN, cudaStream_t st) {
+  if (C)
+    return psf_cols_fwd(x, zr, zi, nb, nx, L, NX, keep, rows, C, 0, TM, TN,
+                        st);
+  return launch_lines(x, nullptr, zr, zi, nb, L, nx, nx, keep, rows,
+                      kInNatural, kOutNatural, 0, 1.0f, px, st);
+}
+
+// Stage 3 on either route: rows k < keep of w (nb, rows, L) and their
+// conjugate mirror -> out (nb, nx, L), the real inverse times scale.
+static cudaError_t cols_inv(const float* wr, const float* wi, float* out,
+                            int nb, int nx, int L, int NX, int keep,
+                            int rows, float scale, int C,
+                            const LinePlan& px, const void* TM,
+                            const void* TN, cudaStream_t st) {
+  if (C)
+    return psf_cols_inv(wr, wi, out, nb, nx, L, NX, keep, rows, scale, C,
+                        0, TM, TN, st);
+  return launch_lines(wr, wi, out, nullptr, nb, L, keep, rows, nx, nx,
+                      kInHermitian, kOutNatural, 1, scale, px, st);
+}
+
 // Stages 1-3 of K1 (full = false) and K11 (full = true).
 static int conv_stages(const float* x, const float* hr, const float* hi,
                        float* zr, float* zi, float* wr, float* wi,
                        float* out, int nb, int nx, int ny, int NX, int NY,
-                       const void* TX, const void* TY, bool full,
+                       int C, const void* TX, const void* TY,
+                       const void* TM, const void* TN, bool full,
                        cudaStream_t st) {
   LinePlan px, py;
-  if (NX % 2 || nx > NX || ny > NY || !make_plan(NX, TX, &px) ||
-      !make_plan(NY, TY, &py))
+  if (NX % 2 || nx > NX || ny > NY || !make_plan(NY, TY, &py) ||
+      !cols_route(NX, ny, C, TX, TM, TN, &px))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nxh = NX / 2 + 1;
 
   // 1. x (nb, nx, ny) real -> z (nb, nxh, ny)
-  cudaError_t e = launch_lines(x, nullptr, zr, zi, nb, ny, nx, nx, nxh,
-                               nxh, kInNatural, kOutNatural, 0, 1.0f, px,
-                               st);
+  cudaError_t e = cols_fwd(x, zr, zi, nb, nx, ny, NX, nxh, nxh, C, px, TM,
+                           TN, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   // 2. rows of z -> w (nb, nxh, ny)
@@ -323,8 +368,8 @@ static int conv_stages(const float* x, const float* hr, const float* hi,
 
   // 3. w (nb, nxh, ny) Hermitian half -> out (nb, nx, ny) real
   const float scale = 1.0f / ((float)NX * (float)NY);
-  e = launch_lines(wr, wi, out, nullptr, nb, ny, nxh, nxh, nx, nx,
-                   kInHermitian, kOutNatural, 1, scale, px, st);
+  e = cols_inv(wr, wi, out, nb, nx, ny, NX, nxh, nxh, scale, C, px, TM, TN,
+               st);
   return static_cast<int>(e);
 }
 
@@ -358,43 +403,48 @@ static cudaError_t cg_stage3(const float* wr, const float* wi,
 
 }  // namespace pfbt
 
+// K1 and K11: C of the column route (pfbt_psf_cols_route(NX, ny)), TX the
+// length-NX plan's table (line route), TM, TN the cluster route's.
 extern "C" int pfbt_psf_conv(const float* x, const float* hr,
                              const float* hi, float* zr, float* zi,
                              float* wr, float* wi, float* out, int nb,
-                             int nx, int ny, int NX, int NY, const void* TX,
-                             const void* TY, void* stream) {
+                             int nx, int ny, int NX, int NY, int C,
+                             const void* TX, const void* TY, const void* TM,
+                             const void* TN, void* stream) {
   return pfbt::conv_stages(x, hr, hi, zr, zi, wr, wi, out, nb, nx, ny, NX,
-                           NY, TX, TY, false,
+                           NY, C, TX, TY, TM, TN, false,
                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pfbt_psf_conv_full(const float* x, const float* hr,
                                   const float* hi, float* zr, float* zi,
                                   float* wr, float* wi, float* out, int nb,
-                                  int nx, int ny, int NX, int NY,
+                                  int nx, int ny, int NX, int NY, int C,
                                   const void* TX, const void* TY,
+                                  const void* TM, const void* TN,
                                   void* stream) {
   return pfbt::conv_stages(x, hr, hi, zr, zi, wr, wi, out, nb, nx, ny, NX,
-                           NY, TX, TY, true,
+                           NY, C, TX, TY, TM, TN, true,
                            static_cast<cudaStream_t>(stream));
 }
 
 // K10 stage 1 and K15's forward: x (nb, nx, L) real columns -> z (nb,
 // rows, L) re/im, spectrum rows 0 .. keep - 1 of the forward x-DFT of
 // length NX and rows keep .. rows - 1 zero (K10: keep = NX/2 + 1; K15:
-// keep = rows = NXH).
+// keep = rows = NXH). C, TX, TM, TN as pfbt_psf_conv's, at (NX, L).
 extern "C" int pfbt_psf_stage_cols_fwd(const float* x, float* zr, float* zi,
                                        int nb, int nx, int L, int NX,
-                                       int keep, int rows, const void* TX,
-                                       void* stream) {
+                                       int keep, int rows, int C,
+                                       const void* TX, const void* TM,
+                                       const void* TN, void* stream) {
   using namespace pfbt;
   LinePlan px;
   if (NX % 2 || nx > NX || keep < NX / 2 + 1 || keep > NX || rows < keep ||
-      !make_plan(NX, TX, &px))
+      !cols_route(NX, L, C, TX, TM, TN, &px))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_lines(
-      x, nullptr, zr, zi, nb, L, nx, nx, keep, rows, kInNatural,
-      kOutNatural, 0, 1.0f, px, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(cols_fwd(x, zr, zi, nb, nx, L, NX, keep, rows, C,
+                                   px, TM, TN,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 // K10 stage 2: R rows of z (R, ny) against the matching rows of H (R, NY)
@@ -417,20 +467,21 @@ extern "C" int pfbt_psf_stage_rows(const float* zr, const float* zi,
 // the rows past them rebuilt as the conjugate mirror of rows
 // 1 .. NX - keep (kInHermitian) -> out (nb, nx, L), the real part of the
 // inverse x-DFT times `scale` (K10: keep = NX/2 + 1, the Hermitian half;
-// K15: keep = NXH).
+// K15: keep = NXH). C, TX, TM, TN as pfbt_psf_conv's, at (NX, L).
 extern "C" int pfbt_psf_stage_cols_inv(const float* wr, const float* wi,
                                        float* out, int nb, int nx, int L,
                                        int NX, int keep, int rows,
-                                       float scale, const void* TX,
+                                       float scale, int C, const void* TX,
+                                       const void* TM, const void* TN,
                                        void* stream) {
   using namespace pfbt;
   LinePlan px;
   if (NX % 2 || nx > NX || keep < NX / 2 + 1 || keep > NX || rows < keep ||
-      !make_plan(NX, TX, &px))
+      !cols_route(NX, L, C, TX, TM, TN, &px))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_lines(
-      wr, wi, out, nullptr, nb, L, keep, rows, nx, nx, kInHermitian,
-      kOutNatural, 1, scale, px, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(cols_inv(wr, wi, out, nb, nx, L, NX, keep, rows,
+                                   scale, C, px, TM, TN,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int pfbt_psf_conv_cg(const float* pp, const float* rr,

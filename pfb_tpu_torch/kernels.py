@@ -23,8 +23,8 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
             "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu", "cfft_cols.cu",
-            "cfft_rows.cu")
-_HEADERS = ("fft_lines.cuh", "pg_es.cuh")
+            "cfft_rows.cu", "psf_cols.cu")
+_HEADERS = ("fft_lines.cuh", "pg_es.cuh", "psf_cols.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / \
     "pfb_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,11 +43,14 @@ _SIGNATURES = {
     "pfbt_cfft_rows": [_P] * 4 + [_I] * 6 + [_P] * 2,
     "pfbt_rows_twiddles": [_I, _P, _P],
     "pfbt_lab_copy": [_P] * 4 + [_I] * 4 + [_P],
-    "pfbt_psf_conv": [_P] * 8 + [_I] * 5 + [_P] * 3,
-    "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 6 + [_P] * 2,
+    "pfbt_psf_conv": [_P] * 8 + [_I] * 6 + [_P] * 5,
+    "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 7 + [_P] * 4,
     "pfbt_psf_stage_rows": [_P] * 6 + [_I] * 3 + [_P] * 2,
-    "pfbt_psf_stage_cols_inv": [_P] * 3 + [_I] * 6 + [_F] + [_P] * 2,
-    "pfbt_psf_conv_full": [_P] * 8 + [_I] * 5 + [_P] * 3,
+    "pfbt_psf_stage_cols_inv": [_P] * 3 + [_I] * 6 + [_F, _I] + [_P] * 4,
+    "pfbt_psf_conv_full": [_P] * 8 + [_I] * 6 + [_P] * 5,
+    "pfbt_psf_cols_route": [_I, _I],
+    "pfbt_psf_cols_fwd": [_P] * 3 + [_I] * 8 + [_P] * 3,
+    "pfbt_psf_cols_inv": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 3,
     "pfbt_psf_conv_cg": [_P] * 13 + [_I] * 5 + [_P] * 3,
     "pfbt_twiddles": [_I, _P, _P],
     "pfbt_pg_spread": [_P] * 5 + [_I] * 6 + [_D, _P],
@@ -191,9 +194,9 @@ def twiddles(N, device, kind="plan"):
     float32, as an (N, 2) float32 tensor on the CUDA ``device``, made once
     per (kind, N, device). ``kind="plan"``: the kernels' length-N FFT
     plan (each pass's exp(-2 pi i q k / (Ns R))); ``kind="cols"``: W_N^e
-    = exp(-2 pi i e / N) for e < N, the cluster column kernel's
-    (``csrc/cfft_cols.cu``); ``kind="rows"``: the row kernel's three
-    stages (``csrc/cfft_rows.cu``), N - 1 entries."""
+    = exp(-2 pi i e / N) for e < N, the cluster column kernels'
+    (``csrc/cfft_cols.cu``, ``csrc/psf_cols.cu``); ``kind="rows"``: the
+    row kernel's three stages (``csrc/cfft_rows.cu``), N - 1 entries."""
     key = (kind, N, str(device))
     if key not in _TWIDDLES:
         make = {"plan": "pfbt_twiddles", "cols": "pfbt_cols_twiddles",

@@ -25,6 +25,17 @@ K10 is K1's three stages as separate calls (:func:`psf_stage_cols_fwd`,
 ``psf_v3_stage_k1/k2/k3``) for the space-sharded convolution of
 parallel/dist.py, which puts all-to-all transposes between them. Its H is
 K1's with the rows padded to the shard count (:func:`prep_h_space`).
+
+The column stages of every entry (K1, K10, K11, and through them K12-K15)
+run on one of two kernels, by :func:`cols_route` at (NX, columns): at NX
+>= 4096 where the tile fits, the cluster column FFT of
+``csrc/psf_cols.cu`` (:func:`psf_cols_fwd` / :func:`psf_cols_inv` count
+its launches, from whichever entry); elsewhere ``line_fft_kernel``. The
+C++ predicate ``psf_cols_clusters`` decides and an entry refuses a route
+it does not hold, so the mirror here and the kernels cannot disagree
+silently. :func:`psf_cols_fwd_plain` / :func:`psf_cols_inv_plain` are the
+cluster kernels' own decomposition as torch operations, for the CPU
+tests.
 """
 
 import numpy as np
@@ -32,8 +43,9 @@ import torch
 
 from pfb_tpu_torch import kernels
 from pfb_tpu_torch.config import kernel_dtype
-from pfb_tpu_torch.ops.cfft import _factor
-from pfb_tpu_torch.ops.fft import psf_convolve_cube
+from pfb_tpu_torch.ops.cfft import (_CLUSTER_MIN_N, _LINE_ELEMS, _factor,
+                                    cluster_shape)
+from pfb_tpu_torch.ops.fft import good_size, psf_convolve_cube
 from pfb_tpu_torch.ops.mmfft import make_full_psfhat
 
 
@@ -92,6 +104,202 @@ def psf_convolve_h_plain(x, hr, hi):
     return torch.fft.irfft(z, n=NX, dim=-2)[..., :nx, :]
 
 
+# ---------------------------------------------------------------------
+# the column route: the cluster column kernels (csrc/psf_cols.cu)
+
+def cols_route(NX, L):
+    """Whether the column stages of length NX on L columns take the
+    cluster column kernels (``csrc/psf_cols.cu:psf_cols_clusters``, which
+    decides; this is its mirror): L >= 2, NX >= 4096, NX % 4 == 0 and, at
+    ops/cfft.py:cluster_shape's (C, W), M = NX / C even (two columns
+    pair, and k1 pairs with M - k1), a tile of W lines of M within 8192
+    values and M a product of 2, 3 and 5. Every other shape keeps
+    ``line_fft_kernel``."""
+    if L < 2 or NX < _CLUSTER_MIN_N or NX % 4:
+        return False
+    C, W = cluster_shape(NX)
+    M = NX // C
+    return M % 2 == 0 and M * W <= _LINE_ELEMS and good_size(M) == M
+
+
+def _cols_tables(NX, L, device):
+    """(C, TX, TM, TN) for an entry with a column stage at (NX, L): the
+    cluster route's C and table pointers (the plan of NX / C and W_N^e),
+    or C = 0 and the length-NX plan of line_fft_kernel."""
+    if cols_route(NX, L):
+        C = cluster_shape(NX)[0]
+        return (C, None, kernels.twiddles(NX // C, device).data_ptr(),
+                kernels.twiddles(NX, device, kind="cols").data_ptr())
+    return 0, kernels.twiddles(NX, device).data_ptr(), None, None
+
+
+def _count_cols(C, fwd=1, inv=1):
+    """Count the cluster column kernels' launches of an entry that ran on
+    route C (none on the line route)."""
+    if C:
+        psf_cols_fwd.launches += fwd
+        psf_cols_inv.launches += inv
+
+
+def _decimated(z, C, inverse, fft=True):
+    """The cluster kernels' transform of (nb, NX, L') complex lines along
+    dim 1: decimate n = c + C m, the M-point DFTs Y_c[k1] (M = NX / C),
+    the twiddles W_N^{-+c k1} (float64, rounded once to the working type)
+    and the C-point DFTs Z[k1 + M k2] = sum_c W_C^{c k2} W_N^{c k1}
+    Y_c[k1]; unnormalised, forward e^- and inverse e^+. ``fft=False``
+    keeps the index algebra alone (the skeleton): Z[k1 + M c] =
+    z[c + C k1]."""
+    nb, NX, Lz = z.shape
+    M = NX // C
+    y = z.reshape(nb, M, C, Lz)  # [m, c] = z[c + C m]
+    if fft:
+        y = torch.fft.ifft(y, dim=1) * M if inverse else \
+            torch.fft.fft(y, dim=1)
+        e = torch.outer(torch.arange(M, dtype=torch.float64),
+                        torch.arange(C, dtype=torch.float64))
+        tw = torch.polar(torch.ones_like(e),
+                         (1.0 if inverse else -1.0) * 2.0 * np.pi * e / NX)
+        y = y * tw.to(y.dtype).to(y.device)[None, :, :, None]
+        y = torch.fft.ifft(y, dim=2) * C if inverse else \
+            torch.fft.fft(y, dim=2)
+    return y.transpose(1, 2).reshape(nb, NX, Lz)  # row k1 + M k2
+
+
+def _pair_lines(a):
+    """(..., L) real columns -> (..., ceil(L / 2)) lines a_{2q} + i
+    a_{2q+1}, an odd L's last column paired with zeros."""
+    if a.shape[-1] % 2:
+        a = torch.nn.functional.pad(a, (0, 1))
+    return torch.complex(a[..., 0::2], a[..., 1::2])
+
+
+def _unpair(zr, zi, L):
+    """The columns of a pair stack back in order: (..., Lz) -> (..., L)
+    with column 2q from zr and 2q + 1 from zi."""
+    return torch.stack([zr, zi], dim=-1).flatten(-2)[..., :L]
+
+
+def psf_cols_fwd_plain(x, NX, rows, keep=None, *, C, fft=True):
+    """The forward cluster column kernel's steps as torch operations, in
+    x's type: the zero-padded columns, two adjacent columns as one line Z
+    = x_j + i x_{j+1}, :func:`_decimated`, the separation X_j[k] = (Z[k] +
+    conj Z[N - k]) / 2, X_{j+1}[k] = (Z[k] - conj Z[N - k]) / (2i), the
+    kept rows k < keep (default NX/2 + 1) and zero rows to ``rows``.
+    ``fft=False`` gives the skeleton's output. Returns (zr, zi)."""
+    keep = _keep(NX, keep)
+    nb, nx, L = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 0, NX - nx))
+    Z = _decimated(_pair_lines(xp), C, False, fft)
+    Zm = Z[:, (-torch.arange(NX, device=x.device)) % NX]
+    a, m = (Z.real, Z.imag), (Zm.real, Zm.imag)
+    Z = torch.complex(
+        _unpair(0.5 * (a[0] + m[0]), 0.5 * (a[1] + m[1]), L),
+        _unpair(0.5 * (a[1] - m[1]), 0.5 * (m[0] - a[0]), L))
+    Z = torch.nn.functional.pad(Z[:, :keep], (0, 0, 0, rows - keep))
+    return Z.real.contiguous(), Z.imag.contiguous()
+
+
+def _hermitian_part(w, NX, keep):
+    """H[k] = (G[k] + conj G[N - k]) / 2 of the spectra G[k] = w[k] for k
+    < keep, conj w[N - k] above, (nb, keep, L) -> (nb, NX, L): w[k] for 0
+    < k <= N - keep, conj w[N - k] for k >= keep, the mean where both rows
+    are given (the real parts of rows 0 and, at keep = NX/2 + 1, NX/2)."""
+    k = torch.arange(NX, device=w.device)
+    mk = (-k) % NX
+    da, db = k < keep, mk < keep
+    a = w[:, k.clamp(max=keep - 1)]
+    b = w[:, mk.clamp(max=keep - 1)].conj()
+    both = (da & db)[None, :, None]
+    return torch.where(both, 0.5 * (a + b),
+                       torch.where(da[None, :, None], a, b))
+
+
+def psf_cols_inv_plain(wr, wi, nx, NX, keep=None, *, C, scale=1.0,
+                       fft=True):
+    """The inverse cluster column kernel's steps as torch operations, in
+    wr's type: rows 0 .. keep - 1 (default NX/2 + 1) of the (nb, rows, L)
+    spectra, their Hermitian part (:func:`_hermitian_part`), two adjacent
+    columns as one line Z = H_j + i H_{j+1}, the inverse
+    :func:`_decimated`, x_j the real part and x_{j+1} the imaginary part,
+    rows n < nx times ``scale``. ``fft=False`` gives the skeleton's
+    output."""
+    keep = _keep(NX, keep)
+    L = wr.shape[-1]
+    H = _hermitian_part(torch.complex(wr[:, :keep], wi[:, :keep]), NX, keep)
+    hr, hi = H.real, H.imag
+    if L % 2:
+        hr, hi = (torch.nn.functional.pad(t, (0, 1)) for t in (hr, hi))
+    Z = torch.complex(hr[..., 0::2] - hi[..., 1::2],
+                      hi[..., 0::2] + hr[..., 1::2])
+    z = _decimated(Z, C, True, fft)[:, :nx]
+    return _unpair(z.real, z.imag, L) * scale
+
+
+def psf_cols_fwd(x, NX, rows, keep=None, *, skeleton=False):
+    """The forward column stage on the cluster column kernel
+    (``csrc/psf_cols.cu``): x (nb, nx, L) real -> (zr, zi), each (nb,
+    rows, L), :func:`psf_stage_cols_fwd`'s function, at (C, W) =
+    ops/cfft.py:cluster_shape; raises where :func:`cols_route` does not hold.
+    ``skeleton=True`` runs the lab's skeleton: the loads, exchange,
+    separation and stores with the FFT compiled out. A CPU tensor runs
+    :func:`psf_cols_fwd_plain`. ``psf_cols_fwd.launches`` counts the
+    kernel's launches here and from every entry that takes the route."""
+    nb, nx, L = x.shape
+    keep = _keep(NX, keep)
+    if not cols_route(NX, L) or nx > NX or rows < keep:
+        raise ValueError(f"psf_cols_fwd: x {tuple(x.shape)}, NX {NX}, rows "
+                         f"{rows}, keep {keep}")
+    C = cluster_shape(NX)[0]
+    if not x.is_cuda:
+        return psf_cols_fwd_plain(x, NX, rows, keep, C=C, fft=not skeleton)
+    kernels.require_cuda_f32("psf_cols_fwd", x)
+    zr = torch.empty((nb, rows, L), dtype=torch.float32, device=x.device)
+    zi = torch.empty_like(zr)
+    _, _, TM, TN = _cols_tables(NX, L, x.device)
+    code = kernels.library().pfbt_psf_cols_fwd(
+        x.data_ptr(), zr.data_ptr(), zi.data_ptr(), nb, nx, L, NX, keep,
+        rows, C, int(skeleton), TM, TN, kernels.stream_ptr())
+    kernels.check(code, "psf_cols_fwd")
+    _count_cols(C, inv=0)
+    return zr, zi
+
+
+psf_cols_fwd.launches = 0
+
+
+def psf_cols_inv(wr, wi, nx, NX, keep=None, *, scale=1.0, skeleton=False):
+    """The inverse column stage on the cluster column kernel
+    (``csrc/psf_cols.cu``): rows 0 .. keep - 1 (default NX/2 + 1) of wr,
+    wi (nb, rows, L), the rows past them the conjugate mirror of rows 1
+    .. NX - keep -> (nb, nx, L), the real inverse transform times
+    ``scale``; raises where :func:`cols_route` does not hold.
+    ``skeleton=True`` runs the lab's skeleton. A CPU tensor runs
+    :func:`psf_cols_inv_plain`. ``psf_cols_inv.launches`` counts the
+    kernel's launches here and from every entry that takes the route."""
+    nb, rows, L = wr.shape
+    keep = _keep(NX, keep)
+    if not cols_route(NX, L) or wi.shape != wr.shape or nx > NX or \
+            rows < keep:
+        raise ValueError(f"psf_cols_inv: w {tuple(wr.shape)}, nx {nx}, NX "
+                         f"{NX}, keep {keep}")
+    C = cluster_shape(NX)[0]
+    if not wr.is_cuda:
+        return psf_cols_inv_plain(wr, wi, nx, NX, keep, C=C, scale=scale,
+                                  fft=not skeleton)
+    kernels.require_cuda_f32("psf_cols_inv", wr, wi)
+    out = torch.empty((nb, nx, L), dtype=torch.float32, device=wr.device)
+    _, _, TM, TN = _cols_tables(NX, L, wr.device)
+    code = kernels.library().pfbt_psf_cols_inv(
+        wr.data_ptr(), wi.data_ptr(), out.data_ptr(), nb, nx, L, NX, keep,
+        rows, float(scale), C, int(skeleton), TM, TN, kernels.stream_ptr())
+    kernels.check(code, "psf_cols_inv")
+    _count_cols(C, fwd=0)
+    return out
+
+
+psf_cols_inv.launches = 0
+
+
 def psf_convolve_h(x, hr, hi=None):
     """PSF convolution of an (nb, nx, ny) cube with the port's H:
     the CUDA kernel for CUDA tensors, the plain version on the CPU."""
@@ -113,20 +321,22 @@ psf_convolve_h.launches = 0
 
 def _conv_stages(entry, x, hr, hi, NX, NY):
     """Launch K1 or K11 (``entry``) on validated CUDA operands: the
-    scratch spectra (nb, NX/2+1, ny) and the output are allocated here."""
+    scratch spectra (nb, NX/2+1, ny) and the output are allocated here;
+    the column stages take :func:`cols_route`'s kernels (counted)."""
     nb, nx, ny = x.shape
     dev = x.device
     zr = torch.empty((nb, NX // 2 + 1, ny), dtype=torch.float32, device=dev)
     zi, wr, wi = (torch.empty_like(zr) for _ in range(3))
     out = torch.empty_like(x)
-    WX = kernels.twiddles(NX, dev)
+    C, TX, TM, TN = _cols_tables(NX, ny, dev)
     WY = kernels.twiddles(NY, dev)
     code = getattr(kernels.library(), entry)(
         x.data_ptr(), hr.data_ptr(), None if hi is None else hi.data_ptr(),
         zr.data_ptr(), zi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-        out.data_ptr(), nb, nx, ny, NX, NY,
-        WX.data_ptr(), WY.data_ptr(), kernels.stream_ptr())
+        out.data_ptr(), nb, nx, ny, NX, NY, C, TX, WY.data_ptr(), TM, TN,
+        kernels.stream_ptr())
     kernels.check(code, entry)
+    _count_cols(C)
     return out
 
 
@@ -370,17 +580,19 @@ def psf_stage_cols_fwd_plain(x, NX, rows, keep=None):
 
 
 def cols_fwd_launch(name, x, NX, rows, keep):
-    """Launch the forward column stage on validated shapes (no launch
-    count: the calling wrapper keeps its own)."""
+    """Launch the forward column stage on validated shapes, on
+    :func:`cols_route`'s kernel (the calling wrapper counts its own
+    launch; the cluster kernel's is counted here)."""
     nb, nx, L = x.shape
     kernels.require_cuda_f32(name, x)
     zr = torch.empty((nb, rows, L), dtype=torch.float32, device=x.device)
     zi = torch.empty_like(zr)
+    C, TX, TM, TN = _cols_tables(NX, L, x.device)
     code = kernels.library().pfbt_psf_stage_cols_fwd(
         x.data_ptr(), zr.data_ptr(), zi.data_ptr(), nb, nx, L, NX, keep,
-        rows, kernels.twiddles(NX, x.device).data_ptr(),
-        kernels.stream_ptr())
+        rows, C, TX, TM, TN, kernels.stream_ptr())
     kernels.check(code, name)
+    _count_cols(C, inv=0)
     return zr, zi
 
 
@@ -465,15 +677,17 @@ def psf_stage_cols_inv_plain(wr, wi, nx, NX, NY, keep=None):
 
 def cols_inv_launch(name, wr, wi, nx, NX, keep, scale):
     """Launch the inverse column stage on validated shapes, output times
-    ``scale`` (no launch count: the calling wrapper keeps its own)."""
+    ``scale``, on :func:`cols_route`'s kernel (the calling wrapper counts
+    its own launch; the cluster kernel's is counted here)."""
     nb, rows, L = wr.shape
     kernels.require_cuda_f32(name, wr, wi)
     out = torch.empty((nb, nx, L), dtype=torch.float32, device=wr.device)
+    C, TX, TM, TN = _cols_tables(NX, L, wr.device)
     code = kernels.library().pfbt_psf_stage_cols_inv(
         wr.data_ptr(), wi.data_ptr(), out.data_ptr(), nb, nx, L, NX, keep,
-        rows, scale, kernels.twiddles(NX, wr.device).data_ptr(),
-        kernels.stream_ptr())
+        rows, scale, C, TX, TM, TN, kernels.stream_ptr())
     kernels.check(code, name)
+    _count_cols(C, fwd=0)
     return out
 
 

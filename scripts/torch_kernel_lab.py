@@ -2,45 +2,72 @@
 """Per-stage timing lab for pfb_tpu_torch's PSF-convolution kernels on
 the card (counterpart of scripts/wl_kernel_lab.py's k1 / k2 / k3).
 
-    python3 scripts/torch_kernel_lab.py [--nband 8] [--nx 4096]
+    python3 scripts/torch_kernel_lab.py [--nband 8] [--nx 2048,4096]
         [--reps 10] [--device cuda] [--out FILE]
     python3 scripts/torch_kernel_lab.py --digest [--root DIR]
+    python3 scripts/torch_kernel_lab.py --minblocks 1,2,3,4 [--out FILE]
 
-At (8, 4096^2) with an 8192^2 PSF (a delta 1.0 at the centre and 0.05
-at +5, +3, as wl_kernel_lab.py builds it; complex transfer function) it
-times, each as the CUDA-event median of ``reps`` calls after a warm-up:
+At (8, nx^2) with a (2nx)^2 PSF for each nx of ``--nx`` (a delta 1.0 at
+the centre and 0.05 at +5, +3, as wl_kernel_lab.py builds it; complex
+transfer function) it times, each as the CUDA-event median of ``reps``
+calls after a warm-up:
 
 - K15's two column transforms on the v3 row layout (NXH = NX/2 + N1x
   rows): v3_cols_fwd and v3_cols_inv;
 - the rows stage on those NXH rows against the NXH-row H
   (psf_stage_rows), wl_kernel_lab.py's ``_k2v_kernel`` case;
 - K1's three stages as K10's entries at one space shard
-  (psf_stage_cols_fwd, psf_stage_rows, psf_stage_cols_inv) and K1 whole
-  (psf_convolve_h);
-- one library call per column stage: torch.fft.fft(x, n=NX,
-  dim=-2)[:, :NXH] and torch.fft.irfft(w[:, :NX/2 + 1], n=NX,
-  dim=-2)[:, :nx].
+  (psf_stage_cols_fwd, psf_stage_rows, psf_stage_cols_inv), K1 whole
+  (psf_convolve_h) and K1's plain version (psf_convolve_h_plain, cuFFT);
+- where the column route holds (ops/psf.py:cols_route, NX >= 4096), the
+  cluster column kernels themselves (csrc/psf_cols.cu): the forward (two
+  real columns as one complex line), the inverse, and both skeletons
+  (loads, exchange, separation or Hermitian part, stores; the FFT
+  compiled out);
+- the library calls of the column stages: torch.fft.rfft(x, n=NX,
+  dim=-2), torch.fft.fft(x, n=NX, dim=-2)[:, :NXH] and
+  torch.fft.irfft(w[:, :NX/2 + 1], n=NX, dim=-2)[:, :nx].
 
 It checks the three stages chained against K1 whole (<= 1e-5 of max)
 and reports the sum of the stage times against K1's. It prints one JSON
 line per stage, each with its bound (``chip_smoke.py:bound``: each input
 read once and each output written once over 3.35 TB/s, or the FP32
-operations over 67 TFLOP/s) and the card's name and power limit, then a
-summary line (also written to ``--out``). It adds no lever: at NX = 8192
-the line kernel already runs one line per block (``line_launch`` in
-csrc/fft_lines.cuh), so no larger lines-per-block value fits without a
-redesign of the kernel.
+operations over 67 TFLOP/s) and the card's name and power limit, a
+summary line per size, then a last summary line (also written to
+``--out``).
 
-``--digest`` prints the sha256 of K1's, K3's, K10's and K11's outputs on
-fixed seeded inputs, with the pfb_tpu_torch found under ``--root`` (default:
-this repo), so two trees can be compared bit for bit on one card.
+``--digest`` prints the sha256 of K1's, K3's, K10's, K11's, K12's and
+K15's outputs on fixed seeded inputs, with the pfb_tpu_torch found under
+``--root`` (default: this repo), so two trees can be compared bit for bit
+on one card: the lengths below 4096 (K1, K10 and K11 on
+``line_fft_kernel``), and K1 and K10 at NX = 4096, K11 at 6144, K12 and
+K15 at 8192 (the column stages' cluster route since it exists).
+``--root`` also times another tree's kernels (one from before the cluster
+column kernels times the rest), so two trees compare in one call.
 ``--device cpu`` rehearses the timing at a small ``--nx`` with the plain
 versions.
+
+``--minblocks 1,2,3,4`` probes the cluster column kernels' register
+budget: for each value, a copy of pfb_tpu_torch under
+``build/lab_minblocks/<value>/`` with ``csrc/psf_cols.cu``'s
+``kColsMinBlocks`` (blocks an SM the registers are budgeted for) set to
+it, all built at once; then this tree, each copy and this tree again, one
+child process each (``--cols-times --root DIR``), time psf_cols_fwd and
+psf_cols_inv at K1's (8, 2048^2) and (8, 4096^2) and at one K10 shard
+of the (2, 4) mesh, (4, 2048, 512) -> 2052 rows, beside rfft / irfft and
+(at the shard) K10's own entries. Each is timed two ways: as
+``chip_smoke.py`` times it (the median of single calls, each between two
+CUDA events; on an idle stream the wrapper's host time before the launch
+falls between them) and back to back (``reps`` calls between two events,
+divided by ``reps``: the host runs ahead and the card's time alone is
+left where a call takes longer on the card than on the host).
 """
 
 import argparse
 import hashlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -73,6 +100,30 @@ def cuda_ms(fn, reps, dev):
     return sorted(ts)[len(ts) // 2]
 
 
+def back_to_back_ms(fn, reps, dev):
+    """Milliseconds a call of fn() when ``reps`` calls run back to back
+    between two CUDA events (after one warm-up); the host clock on the
+    CPU."""
+    import time
+
+    import torch
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def card(dev):
     if dev.type != "cuda":
         return "cpu"
@@ -85,9 +136,12 @@ def card(dev):
 def digest(dev):
     """sha256 of K1 (complex and real H), K3 (full, in_rolled and
     out_rolled, strided and contiguous lines, each length's default lines
-    per block), K10's three stages and K11 on fixed seeded inputs."""
+    per block), K10's three stages and K11 on fixed seeded inputs at
+    lengths below 4096; then K1 and K10's column stages at NX = 4096, K11
+    at 6144, K12 and K15 at 8192."""
     import torch
 
+    from pfb_tpu_torch.ops import pallas_fft as pf
     from pfb_tpu_torch.ops.cfft import fftx_c2c
     from pfb_tpu_torch.ops.psf import (prep_h, psf_convolve_full,
                                        psf_convolve_h, psf_stage_cols_fwd,
@@ -124,40 +178,53 @@ def digest(dev):
                          in_rolled=mode == "in_rolled",
                          out_rolled=mode == "out_rolled")
             out[f"K3 {N} L={L} {mode}"] = torch.cat(y)
+    # the column stages' cluster route: NX >= 4096
+    del x, psf, Hr, Hi, w, zr, zi
+    nx = 2048
+    NX = 2 * nx
+    x = torch.randn((nb, nx, 512), generator=g, device=dev)
+    psf = torch.randn((nb, NX, 1024), generator=g, device=dev)
+    hr, hi = prep_h(psf, nx, 512, torch.float32, real_transfer=False)
+    out["K1 complex-H NX=4096"] = psf_convolve_h(x, hr, hi)
+    rows = nx + 4  # nx + 1 padded to four space shards
+    out["K10a NX=4096"] = torch.cat(psf_stage_cols_fwd(
+        x[..., :128].contiguous(), NX, rows))
+    w = [torch.randn((nb, rows, 128), generator=g, device=dev)
+         for _ in range(2)]
+    out["K10c NX=4096"] = psf_stage_cols_inv(*w, nx, NX, 1024)
+    Hr, Hi = (torch.randn((1, 6144, 256), generator=g, device=dev)
+              for _ in range(2))
+    out["K11 NX=6144"] = psf_convolve_full(
+        torch.randn((1, 3072, 128), generator=g, device=dev), Hr, Hi)
+    del x, psf, hr, hi, Hr, Hi, w
+    n = 4096
+    x1 = torch.randn((n, 256), generator=g, device=dev)
+    p1 = torch.randn((1, 2 * n, 512), generator=g, device=dev)
+    hr, hi = prep_h(p1, n, 256, torch.float32, real_transfer=False)
+    out["K12 NX=8192"] = pf.psf_convolve_pallas_v3(x1, hr[0], hi[0], n, 256)
+    z15 = pf.v3_cols_fwd(x1[None], n)
+    out["K15a NX=8192"] = torch.cat(z15)
+    w15 = [torch.randn(z15[0].shape, generator=g, device=dev)
+           for _ in range(2)]
+    out["K15b NX=8192"] = pf.v3_cols_inv(*w15, n)
     return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
             for k, v in out.items()}
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--nband", type=int, default=8)
-    ap.add_argument("--nx", type=int, default=4096)
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--device", default="cuda",
-                    help="cpu rehearses the script with the plain versions")
-    ap.add_argument("--digest", action="store_true")
-    ap.add_argument("--root", default=str(ROOT),
-                    help="directory holding the pfb_tpu_torch to import")
-    ap.add_argument("--out")
-    args = ap.parse_args()
+def lab_size(nb, nx, reps, dev, smi):
+    """The stages at (nb, nx^2) in (2nx)^2: one JSON line each, then the
+    size's summary (returned)."""
     import torch
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(Path(args.root).resolve()))
-    smi = card(dev)
-    if args.digest:
-        print(json.dumps({"card": smi, "root": args.root,
-                          "digest": digest(dev)}))
-        return 0
 
+    from pfb_tpu_torch.ops import psf as ops
     from pfb_tpu_torch.ops.pallas_fft import (v3_cols_fwd, v3_cols_inv,
                                               v3_rows)
     from pfb_tpu_torch.ops.psf import (prep_h, prep_h_full, psf_convolve_h,
+                                       psf_convolve_h_plain,
                                        psf_stage_cols_fwd,
                                        psf_stage_cols_inv, psf_stage_rows)
-    nb, nx = args.nband, args.nx
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, fft_flops
     ny = nx
     NX = NY = 2 * nx
     NXH = v3_rows(NX)
@@ -179,9 +246,6 @@ def main():
     err = float((chained - whole).abs().max() / whole.abs().max())
     del chained, whole
     wc = torch.complex(zr0[:, :NX // 2 + 1], zi0[:, :NX // 2 + 1])
-
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import bound, fft_flops
 
     def cols(rows):
         """(bytes, operations) of a column stage between the (nb, nx, ny)
@@ -214,6 +278,26 @@ def main():
          lambda: psf_stage_cols_inv(*w1, nx, NX, NY), cols(nx + 1)),
         ("K1 whole psf_convolve_h, complex H", (nb, nx, ny),
          lambda: psf_convolve_h(x, hr, hi), k1),
+        ("K1 plain psf_convolve_h_plain, complex H", (nb, nx, ny),
+         lambda: psf_convolve_h_plain(x, hr, hi), k1),
+    ]
+    # the cluster column kernels, in a tree that has them (``--root`` may
+    # name one from before them)
+    if hasattr(ops, "cols_route") and ops.cols_route(NX, ny):
+        stages += [
+            ("cluster forward psf_cols_fwd", (nb, nx, ny),
+             lambda: ops.psf_cols_fwd(x, NX, nx + 1), cols(nx + 1)),
+            ("cluster forward skeleton", (nb, nx, ny),
+             lambda: ops.psf_cols_fwd(x, NX, nx + 1, skeleton=True),
+             cols(nx + 1)),
+            ("cluster inverse psf_cols_inv", (nb, nx + 1, ny),
+             lambda: ops.psf_cols_inv(*w1, nx, NX), cols(nx + 1)),
+            ("cluster inverse skeleton", (nb, nx + 1, ny),
+             lambda: ops.psf_cols_inv(*w1, nx, NX, skeleton=True),
+             cols(nx + 1))]
+    stages += [
+        ("library stage 1 torch.fft.rfft(x, n=NX, dim=-2)", (nb, nx, ny),
+         lambda: torch.fft.rfft(x, n=NX, dim=-2), cols(nx + 1)),
         ("library stage 1 torch.fft.fft(x, n=NX, dim=-2)[:, :NXH]",
          (nb, nx, ny), lambda: torch.fft.fft(x, n=NX, dim=-2)[:, :NXH],
          cols(NXH)),
@@ -224,18 +308,147 @@ def main():
     ]
     ms = {}
     for name, shape, fn, work in stages:
-        ms[name] = cuda_ms(fn, args.reps, dev)
+        ms[name] = cuda_ms(fn, reps, dev)
         bms, bby = bound(*work)
-        print(json.dumps({"stage": name, "shape": list(shape),
-                          "ms": ms[name], "reps": args.reps,
-                          "bound_ms": bms, "bound_by": bby, "card": smi}),
-              flush=True)
+        print(json.dumps({"stage": name, "nx": nx, "shape": list(shape),
+                          "ms": ms[name], "reps": reps, "bound_ms": bms,
+                          "bound_by": bby, "card": smi}), flush=True)
     k1 = ms["K1 whole psf_convolve_h, complex H"]
     split = sum(v for k, v in ms.items() if k.startswith("K1 stage"))
-    summary = {"nband": nb, "nx": nx, "NX": NX, "NXH": NXH, "card": smi,
-               "chained_vs_k1_rel_err": err, "tol": TOL,
-               "k1_ms": k1, "k1_stage_sum_ms": split,
-               "stage_sum_over_k1": split / k1, "ok": err <= TOL}
+    return {"nband": nb, "nx": nx, "NX": NX, "NXH": NXH, "card": smi,
+            "package": str(Path(ops.__file__).parents[1]),
+            "chained_vs_k1_rel_err": err, "tol": TOL, "k1_ms": k1,
+            "k1_plain_ms": ms["K1 plain psf_convolve_h_plain, complex H"],
+            "k1_stage_sum_ms": split, "stage_sum_over_k1": split / k1,
+            "ok": err <= TOL}
+
+
+MINB_RE = re.compile(r"constexpr int kColsMinBlocks = (\d+);")
+
+
+COLS_SHAPES = ((8, 2048, 2048, 2049), (8, 4096, 4096, 4097),
+               (4, 2048, 512, 2052))
+
+
+def cols_times(reps, dev, smi, root, shapes=COLS_SHAPES):
+    """--cols-times: the cluster column kernels of the tree at ``root``
+    at (nb, nx, L, rows) of ``shapes``, both timers, one JSON line a
+    case."""
+    import torch
+
+    from pfb_tpu_torch.ops import psf as ops
+    src = Path(ops.__file__).parents[1] / "csrc" / "psf_cols.cu"
+    minb = int(MINB_RE.search(src.read_text()).group(1))
+    g = torch.Generator(device=dev).manual_seed(0)
+    for nb, nx, L, rows in shapes:
+        NX = 2 * nx
+        x = torch.randn((nb, nx, L), generator=g, device=dev)
+        w = [torch.randn((nb, rows, L), generator=g, device=dev)
+             for _ in range(2)]
+        wc = torch.complex(w[0][:, :nx + 1], w[1][:, :nx + 1])
+        cases = [("psf_cols_fwd", lambda: ops.psf_cols_fwd(x, NX, rows)),
+                 ("psf_cols_inv", lambda: ops.psf_cols_inv(*w, nx, NX)),
+                 ("rfft", lambda: torch.fft.rfft(x, n=NX, dim=-2)),
+                 ("irfft", lambda: torch.fft.irfft(wc, n=NX, dim=-2))]
+        if rows > nx + 1:  # the shard: K10's entries on the same kernels
+            cases += [("psf_stage_cols_fwd",
+                       lambda: ops.psf_stage_cols_fwd(x, NX, rows)),
+                      ("psf_stage_cols_inv",
+                       lambda: ops.psf_stage_cols_inv(*w, nx, NX, NX))]
+        for name, fn in cases:
+            print(json.dumps({
+                "probe": "cols", "root": str(root), "minblocks": minb,
+                "shape": [nb, nx, L, rows], "case": name,
+                "ms_one_call": cuda_ms(fn, reps, dev),
+                "ms_back_to_back": back_to_back_ms(fn, 2 * reps, dev),
+                "card": smi}), flush=True)
+        del x, w, wc
+        torch.cuda.empty_cache()
+
+
+def minblocks(values, reps, smi, out):
+    """--minblocks: copies of pfb_tpu_torch at each kColsMinBlocks, built
+    at once, then this tree, each copy and this tree again timed by
+    --cols-times in child processes. Returns the lines' records."""
+    base = ROOT / "build" / "lab_minblocks"
+    roots = []
+    for v in values:
+        d = base / str(v)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(ROOT / "pfb_tpu_torch", d / "pfb_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        f = d / "pfb_tpu_torch" / "csrc" / "psf_cols.cu"
+        text, n = MINB_RE.subn(f"constexpr int kColsMinBlocks = {v};",
+                               f.read_text())
+        if n != 1:
+            raise RuntimeError(f"kColsMinBlocks not found once in {f}")
+        f.write_text(text)
+        roots.append(d)
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from pfb_tpu_torch import kernels; kernels.build()", str(d)])
+        for d in [ROOT] + roots]
+    if any(b.wait() for b in builds):
+        raise RuntimeError("a build of the probe's trees failed")
+    recs = []
+    for d in [ROOT] + roots + [ROOT]:
+        res = subprocess.run(
+            [sys.executable, __file__, "--cols-times", "--reps", str(reps),
+             "--root", str(d)], capture_output=True, text=True, check=True)
+        print(res.stdout, end="", flush=True)
+        recs += [json.loads(v) for v in res.stdout.splitlines()]
+    if out:
+        Path(out).write_text("".join(json.dumps(r) + "\n" for r in recs))
+    return recs
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--nband", type=int, default=8)
+    ap.add_argument("--nx", default="2048,4096",
+                    help="image sizes, comma-separated")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--device", default="cuda",
+                    help="cpu rehearses the script with the plain versions")
+    ap.add_argument("--digest", action="store_true")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="directory holding the pfb_tpu_torch to import")
+    ap.add_argument("--minblocks",
+                    help="kColsMinBlocks values to probe, comma-separated")
+    ap.add_argument("--cols-times", action="store_true",
+                    help="time the column kernels of --root (a child of "
+                    "--minblocks)")
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    import torch
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    smi = card(dev)
+    if args.digest:
+        print(json.dumps({"card": smi, "root": args.root,
+                          "digest": digest(dev)}))
+        return 0
+    if args.cols_times:
+        cols_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.minblocks:
+        if dev.type != "cuda":
+            print("--minblocks needs a CUDA device", file=sys.stderr)
+            return 1
+        minblocks([int(v) for v in args.minblocks.split(",")], args.reps,
+                  smi, args.out)
+        return 0
+    sizes = []
+    for nx in (int(v) for v in str(args.nx).split(",")):
+        sizes.append(lab_size(args.nband, nx, args.reps, dev, smi))
+        print(json.dumps(sizes[-1]), flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    summary = {"card": smi, "root": args.root, "sizes": sizes,
+               "ok": all(z["ok"] for z in sizes)}
     line = json.dumps(summary)
     print(line)
     if args.out:

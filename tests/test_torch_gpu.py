@@ -9,7 +9,10 @@ gridder's kernels,
 all planes (K4-K6) or one w block (K7-K9), sum at most a tile's
 visibilities per grid point, or k^3 taps per visibility, in float32
 (expected ~1e-7 to 1e-6). K3's three routes (line, cluster, row
-kernel) each count their own launches. The lab kernels
+kernel) each count their own launches, and so do the PSF column stages'
+cluster kernels (psf_cols_fwd / psf_cols_inv), from every entry that
+takes their route; on that route K10's space shards stay bit for bit
+K1. The lab kernels
 (scripts/torch_g2i_lab.py, scripts/torch_capacity_lab.py): the copy
 probes equal slicing exactly; the cluster and row kernels' skeletons
 equal their plain permutations exactly; the
@@ -30,6 +33,7 @@ from pfb_tpu_torch.ops import memlab
 from pfb_tpu_torch.ops import pallas_fft as pft
 from pfb_tpu_torch.ops import pg_stream as pgs
 from pfb_tpu_torch.ops import pgridder as pg
+from pfb_tpu_torch.ops import psf as psf_mod
 from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
 from pfb_tpu_torch.ops.psf import (make_psf_convolve_pallas, prep_h,
                                    prep_h_full, prep_h_space,
@@ -800,6 +804,179 @@ def test_k12_k15_wrappers_reject_bad_operands(cuda):
         pft.v3_cols_inv(h[None], h[None], 128)
     with pytest.raises(ValueError):   # keep above NX
         psf_stage_cols_fwd(x[None], 256, 300, keep=257)
+
+
+# ---------------------------------------------------------------------
+# the PSF column stages on the cluster route (csrc/psf_cols.cu)
+
+# (nb, nx, NX, L, rows, keep) at every shape chip_smoke.py gives them: K1
+# at (8, 2048^2), K1 and K12 at 4096^2, one K10 shard of the (2, 4) mesh,
+# K11 at 3072^2 in 6144^2 and in 4608^2, K15's NXH rows at 8192
+COLS_CASES = [(8, 2048, 4096, 2048, 2049, None),
+              (8, 4096, 8192, 4096, 4097, None),
+              (4, 2048, 4096, 512, 2052, None),
+              (8, 3072, 6144, 3072, 3073, None),
+              (2, 3072, 4608, 3072, 2305, None),
+              (8, 4096, 8192, 4096, 4224, 4224)]
+
+
+def test_cols_route_matches_its_mirror(cuda):
+    """The C++ predicate that decides (pfbt_psf_cols_route) against
+    ops/psf.py:cols_route and ops/cfft.py:cluster_shape, on every NX that
+    is a multiple of 4 from 2048 to 16400 and L = 1, 2, 8."""
+    from pfb_tpu_torch import kernels
+    lib = kernels.library()
+    bad = []
+    for NX in range(2048, 16404, 4):
+        for L in (1, 2, 8):
+            want = cf.cluster_shape(NX)[0] if psf_mod.cols_route(NX, L) \
+                else 0
+            if lib.pfbt_psf_cols_route(NX, L) != want:
+                bad.append((NX, L))
+    assert not bad
+
+
+@pytest.mark.parametrize("nb,nx,NX,L,rows,keep", COLS_CASES)
+def test_cols_kernels_match_plain(cuda, nb, nx, NX, L, rows, keep):
+    """The forward and the inverse kernel against the functions' plain
+    versions (rfft / irfft, or fft / ifft with the mirror at keep = NXH,
+    on a random non-Hermitian spectrum), each counting one launch; the
+    pad rows zero."""
+    g = torch.Generator(device=cuda).manual_seed(nx + L + rows)
+    x = torch.randn((nb, nx, L), generator=g, device=cuda)
+    k = keep or NX // 2 + 1
+    pr, pi = psf_stage_cols_fwd_plain(x, NX, rows, keep)
+    n0 = psf_mod.psf_cols_fwd.launches
+    zr, zi = psf_mod.psf_cols_fwd(x, NX, rows, keep)
+    torch.cuda.synchronize()
+    assert psf_mod.psf_cols_fwd.launches == n0 + 1
+    assert _ok(zr, pr) and _ok(zi, pi)
+    assert not zr[:, k:].any() and not zi[:, k:].any()
+    del pr, pi, zr, zi
+    w = [torch.randn((nb, rows, L), generator=g, device=cuda)
+         for _ in range(2)]
+    n0 = psf_mod.psf_cols_inv.launches
+    out = psf_mod.psf_cols_inv(w[0], w[1], nx, NX, keep, scale=1.0 / NX)
+    torch.cuda.synchronize()
+    assert psf_mod.psf_cols_inv.launches == n0 + 1
+    assert _ok(out, psf_stage_cols_inv_plain(w[0], w[1], nx, NX, 1, keep))
+
+
+@pytest.mark.parametrize("NX,L", [(4096, 13), (8192, 6), (6144, 3)])
+def test_cols_kernels_unaligned_and_ragged(cuda, NX, L):
+    """Column counts that are not a multiple of the tile or of 4, an odd
+    last pair, and operands 4 bytes past a 16-byte boundary (the scalar
+    loads and stores) against the plain versions."""
+    nx = NX // 2
+    g = torch.Generator(device=cuda).manual_seed(NX + L)
+
+    def shifted(*shape):
+        n = int(np.prod(shape))
+        t = torch.randn(n + 1, generator=g, device=cuda)[1:].view(shape)
+        assert t.is_contiguous() and t.data_ptr() % 16
+        return t
+    x = shifted(2, nx, L)
+    zr, zi = psf_mod.psf_cols_fwd(x, NX, nx + 3)
+    pr, pi = psf_stage_cols_fwd_plain(x, NX, nx + 3)
+    assert _ok(zr, pr) and _ok(zi, pi)
+    wr, wi = shifted(2, nx + 3, L), shifted(2, nx + 3, L)
+    out = psf_mod.psf_cols_inv(wr, wi, nx, NX)
+    assert _ok(out, psf_stage_cols_inv_plain(wr, wi, nx, NX, 1) * NX)
+
+
+@pytest.mark.parametrize("NX,L,keep", [(4096, 512, None), (8192, 16, 4224)])
+def test_cols_skeletons_equal_their_plain_permutations(cuda, NX, L, keep):
+    """The lab's skeletons (loads, exchange, separation or Hermitian part,
+    stores; no FFT) equal the plain versions' index algebra run on the
+    card in float32, bit for bit."""
+    nx = NX // 2
+    k = keep or NX // 2 + 1
+    g = torch.Generator(device=cuda).manual_seed(NX)
+    x = torch.randn((2, nx, L), generator=g, device=cuda)
+    C = cf.cluster_shape(NX)[0]
+    got = psf_mod.psf_cols_fwd(x, NX, k + 2, keep, skeleton=True)
+    ref = psf_mod.psf_cols_fwd_plain(x, NX, k + 2, keep, C=C, fft=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    w = [torch.randn((2, k + 2, L), generator=g, device=cuda)
+         for _ in range(2)]
+    got = psf_mod.psf_cols_inv(*w, nx, NX, keep, scale=0.5, skeleton=True)
+    ref = psf_mod.psf_cols_inv_plain(*w, nx, NX, keep, C=C, scale=0.5,
+                                     fft=False)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_cluster_column_stages_bitwise_k1(cuda, complex_h):
+    """At nx = 2048 (NX = 4096, the cluster route): K10's stages chained
+    on the whole cube and on four column shards of 512 (the padded row
+    stride of four space shards) equal K1 bit for bit, and K1 launches
+    each cluster kernel once, a cube below the route none."""
+    nb, nx = 2, 2048
+    NX = NY = 2 * nx
+    hr, hi = _k10_h(cuda, nb, nx, 4, complex_h)
+    h1 = [a[:, :nx + 1].contiguous() for a in (hr, hi) if a is not None]
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((nb, nx, nx), generator=g, device=cuda)
+    n0 = (psf_mod.psf_cols_fwd.launches, psf_mod.psf_cols_inv.launches)
+    ref = psf_convolve_h(x, *h1)
+    torch.cuda.synchronize()
+    assert (psf_mod.psf_cols_fwd.launches, psf_mod.psf_cols_inv.launches) \
+        == (n0[0] + 1, n0[1] + 1)
+    assert _ok(ref, psf_convolve_h_plain(x, h1[0], h1[1] if complex_h
+                                         else None))
+    rows = space_rows(nx, 4)
+    z = [psf_stage_cols_fwd(x[..., q * 512:(q + 1) * 512].contiguous(), NX,
+                            rows) for q in range(4)]
+    zr, zi = (torch.cat([a[i] for a in z], dim=-1) for i in (0, 1))
+    wr, wi = psf_stage_rows(zr, zi, *[a.contiguous() for a in
+                                      (hr, hi) if a is not None])
+    out = torch.cat([psf_stage_cols_inv(wr[..., q * 512:(q + 1) * 512]
+                                        .contiguous(),
+                                        wi[..., q * 512:(q + 1) * 512]
+                                        .contiguous(), nx, NX, NY)
+                     for q in range(4)], dim=-1)
+    assert torch.equal(out, ref)
+    small = torch.randn((nb, 512, 512), generator=g, device=cuda)
+    n1 = (psf_mod.psf_cols_fwd.launches, psf_mod.psf_cols_inv.launches)
+    hs = _k10_h(cuda, nb, 512, 1, True)
+    psf_convolve_h(small, hs[0][:, :513].contiguous(),
+                   hs[1][:, :513].contiguous())
+    assert (psf_mod.psf_cols_fwd.launches,
+            psf_mod.psf_cols_inv.launches) == n1
+
+
+@pytest.mark.parametrize("nspace", [2, 4])
+def test_space_matvec_bitwise_k1_on_the_cluster_route(cuda, nspace):
+    """hessian_psf_space_dist(method="pallas") on a (2, nspace) virtual
+    mesh at (4, 2048^2), where K10's and K1's column stages take the
+    cluster kernels: bit for bit K1 (chip_smoke.py's gate)."""
+    from pfb_tpu_torch.parallel.dist import hessian_psf_space_dist
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    nb, nx = 4, 2048
+    hr, hi = _k10_h(cuda, nb, nx, nspace, True)
+    g = torch.Generator(device=cuda).manual_seed(nspace + 20)
+    x = torch.randn((nb, nx, nx), generator=g, device=cuda)
+    mesh = make_mesh(nband=2, nspace=nspace, devices=[cuda] * (2 * nspace))
+    f = hessian_psf_space_dist(mesh, method="pallas")
+    n0 = psf_mod.psf_cols_fwd.launches
+    a = f(x, hr, hi).gather()
+    assert psf_mod.psf_cols_fwd.launches > n0
+    ref = psf_convolve_h(x, hr[:, :nx + 1].contiguous(),
+                         hi[:, :nx + 1].contiguous())
+    assert torch.equal(a, ref)
+
+
+def test_cols_wrappers_reject_bad_operands(cuda):
+    x = torch.zeros((1, 2048, 8), device=cuda)
+    with pytest.raises(ValueError):   # NX below the route
+        psf_mod.psf_cols_fwd(x[:, :1024], 2048, 1025)
+    with pytest.raises(ValueError):   # float64 on the card
+        psf_mod.psf_cols_fwd(x.double(), 4096, 2049)
+    with pytest.raises(ValueError):   # rows below keep
+        psf_mod.psf_cols_fwd(x, 4096, 2048)
+    w = torch.zeros((1, 2049, 8), device=cuda)
+    with pytest.raises(ValueError):
+        psf_mod.psf_cols_inv(w, w[..., :4], 2048, 4096)
 
 
 # ---------------------------------------------------------------------
