@@ -141,7 +141,22 @@ Phases:
      spectrum); each against the functions' plain versions (rfft /
      irfft). Both must have launched inside the wgrid
      and pg _spotless (K1), _spotless_dist (K10) and the 3072^2 _spotless
-     (K11).
+     (K11);
+ 25. the PSF rows stage's register kernel (csrc/psf_rows.cu: K10br,
+     psf_rows), which every PSF entry's rows stage launches at NY = 4096,
+     6144, 8192 and 12288, at the shapes the paths give it: K1 on the main
+     paths (8, 2049 rows, 2048) of 4096 with complex and real H, K1, K2
+     and K12 (8, 4097, 4096) of 8192, one shard of the dist path's K10
+     (4, 513, 2048), K11 (8, 3073, 3072) of 6144 and K13 / K14 (1, 4097,
+     4096) of 8192 with the full H; each against the plain stage
+     (psf_stage_rows_plain), with the stage as three torch.fft calls
+     printed beside it for context; then the L1 lab's rows stage on K15's
+     NXH = 4224 rows (psf_stage_rows at (8, 4224, 4096) of 8192), counts
+     reset just before and read just after. K10br must have launched
+     inside the wgrid and pg _spotless (K1), _spotless_dist (K1, K10), the
+     3072^2 _spotless (K11), the PCG phase (K1, K2), the single-band phase
+     (K12-K14) and L1's run, once for each rows stage those entries ran
+     (so psf_rows_kernel, the shared-memory line kernel, never did).
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -154,15 +169,17 @@ column stages of K10 and K15, their cluster kernels K10ac and K10cc and
 the x-pass labs L2b and L2c, a zero
 fill and ``index_add_`` for the folds, a slice's ``clone`` for the copy
 probes L2a; None otherwise: no
-single call computes K1's, K2's, K10's rows stage's, K11-K14's padded
-convolution or L3's paired spread). A kernel's entry in the kernels
+single call computes K1's, K2's, K10's rows stage's (K10br's, L1's),
+K11-K14's padded convolution or L3's paired spread). A kernel's entry in
+the kernels
 line takes its times from its first record: K3's from the line
 kernel's x pass at 2048, K3c's from its x pass, K3r's from its y pass.
 Each counts the launches of its own kernel, so K3 + K3c + K3r is the
 number of launches of the three routes of ``fftx_c2c``; K10ac and K10cc
 count the cluster column kernels' launches from every entry that runs a
-PSF column stage on their route (K1, K10, K11-K15), whose own counters
-count their calls.
+PSF column stage on their route (K1, K10, K11-K15), and K10br the
+register rows kernel's from every entry that runs a rows stage on its
+route (K1, K2, K10, K11-K14), whose own counters count their calls.
 
 Exits non-zero (and prints no result line) when there is no CUDA device,
 when the package is not beside this script, or when any phase fails.
@@ -255,7 +272,7 @@ def counters():
     from pfb_tpu_torch.ops.psf import (psf_convolve_full, psf_convolve_h,
                                        psf_convolve_h_cg)
     from pfb_tpu_torch.ops.psf import (psf_cols_fwd, psf_cols_inv,
-                                       psf_stage_cols_fwd,
+                                       psf_rows, psf_stage_cols_fwd,
                                        psf_stage_cols_inv, psf_stage_rows)
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
             "K3c": fftx_c2c_cluster, "K3r": fftx_c2c_rows,
@@ -263,7 +280,8 @@ def counters():
             "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
             "K10a": psf_stage_cols_fwd, "K10b": psf_stage_rows,
             "K10c": psf_stage_cols_inv, "K10ac": psf_cols_fwd,
-            "K10cc": psf_cols_inv, "K11": psf_convolve_full,
+            "K10cc": psf_cols_inv, "K10br": psf_rows,
+            "K11": psf_convolve_full,
             "K12": pf.psf_convolve_pallas_v3, "K13": pf.psf_convolve_pallas_v2,
             "K14": pf.psf_convolve_pallas_opt, "K15a": pf.v3_cols_fwd,
             "K15b": pf.v3_cols_inv, "L2a": memlab.lab_copy,
@@ -1629,6 +1647,103 @@ def cols_checks(device, shapes=COLS_SHAPES, timing=True):
     return recs
 
 
+# (label, nb, rows, ny, NY, H) of phase 25: the shapes the paths give the
+# rows stage's register kernel (H "real", "complex", or "full": the full
+# (nb, NY, NY) transfer function, K11's, with rows = NY/2 + 1)
+ROWS_SHAPES = [("K1, 2048^2", 8, 2049, 2048, 4096, "complex"),
+               ("K1, 2048^2", 8, 2049, 2048, 4096, "real"),
+               ("K1, K2 and K12, 4096^2", 8, 4097, 4096, 8192, "complex"),
+               ("K10 shard of the (2, 4) mesh", 4, 513, 2048, 4096,
+                "complex"),
+               ("K11, 3072^2 in 6144^2", 8, 3073, 3072, 6144, "full"),
+               ("K13 and K14, one band of 4096^2", 1, 4097, 4096, 8192,
+                "full")]
+
+
+def rows_work(nb, rows, ny, NY, h):
+    """(bytes, operations) of a rows stage: z read and w written (re and
+    im), H read once (a row of NY, re and im for a complex H, two rows
+    for the full H); a forward and an inverse line of NY and the product
+    with H a row."""
+    R = nb * rows
+    nh = {"real": 1, "complex": 2, "full": 4}[h]
+    return (4.0 * R * (4 * ny + nh * NY),
+            fft_flops(NY, 2 * R) + R * NY * (2 if h == "real" else 6))
+
+
+def rows_checks(device, shapes=ROWS_SHAPES, l1=(8, 4224, 4096, 8192),
+                timing=True):
+    """Phase 25: the rows stage's register kernel K10br (psf_rows) at the
+    shapes the paths give it, on seeded random rows and H, against the
+    plain stage (psf_stage_rows_plain; the full H through its Hermitian
+    part), printing beside each the rows stage as three torch.fft calls
+    (fft, the product, ifft; for context, not a one-call library); then
+    the L1 lab's rows stage on K15's NXH rows through K10's entry
+    (psf_stage_rows at (8, 4224, 4096) in 8192^2), its launches counted
+    over its run alone. Returns (records, three-call times, L1's
+    launches)."""
+    import torch
+
+    from pfb_tpu_torch.ops.psf import (full_h_rows, psf_rows,
+                                       psf_stage_rows, psf_stage_rows_plain)
+    g = torch.Generator(device=device).manual_seed(25)
+    recs, three = [], {}
+    for label, nb, rows, ny, NY, h in shapes:
+        zr, zi = (torch.randn((nb, rows, ny), generator=g, device=device)
+                  for _ in range(2))
+        hshape = (nb, NY, NY) if h == "full" else (nb, rows, NY)
+        hr = torch.randn(hshape, generator=g, device=device)
+        hi = None if h == "real" else torch.randn(hshape, generator=g,
+                                                  device=device)
+        NX = NY if h == "full" else None
+        hh = full_h_rows(hr, hi) if h == "full" else (hr, hi)
+        name = (f"K10br psf_rows ({nb}, {rows}, {ny}) of {NY}, {h} H "
+                f"({label})")
+        recs.append(_record(
+            name, zr.shape, torch.cat(psf_rows(zr, zi, hr, hi, NX)),
+            torch.cat(psf_stage_rows_plain(zr, zi, *hh)),
+            lambda: psf_rows(zr, zi, hr, hi, NX),
+            lambda: psf_stage_rows_plain(zr, zi, *hh), timing,
+            work=rows_work(nb, rows, ny, NY, h)))
+        if timing:
+            zc = torch.complex(zr, zi)
+            hc = hh[0] if hh[1] is None else torch.complex(*hh)
+            three[name] = cuda_ms(lambda: torch.fft.ifft(
+                torch.fft.fft(zc, n=NY, dim=-1) * hc, dim=-1)[..., :ny])
+            del zc, hc
+        del zr, zi, hr, hi, hh
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # L1: wl_kernel_lab.py's rows stage on K15's NXH = 4224 rows
+    nb, rows, ny, NY = l1
+    zr, zi = (torch.randn((nb, rows, ny), generator=g, device=device)
+              for _ in range(2))
+    hr, hi = (torch.randn((nb, rows, NY), generator=g, device=device)
+              for _ in range(2))
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    out = torch.cat(psf_stage_rows(zr, zi, hr, hi))
+    sync(device)
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    recs.append(_record(
+        f"L1 psf_stage_rows ({nb}, {rows}, {ny}) of {NY}, complex H "
+        "(NXH rows)", zr.shape, out,
+        torch.cat(psf_stage_rows_plain(zr, zi, hr, hi)),
+        lambda: psf_stage_rows(zr, zi, hr, hi),
+        lambda: psf_stage_rows_plain(zr, zi, hr, hi), timing,
+        work=rows_work(nb, rows, ny, NY, "complex")))
+    return recs, three, launches
+
+
+def rows_stages(lc):
+    """Rows stages launched in a run with launches ``lc``: one for each
+    call of an entry that has one (K1, K2, K10 stage 2, K11-K14)."""
+    return sum(lc[k] for k in ("K1", "K2", "K10b", "K11", "K12", "K13",
+                               "K14"))
+
+
 def l2_checks(device, P=4, N=8192, timing=True):
     """Phase 22: the x-pass lab's kernels on a (P, N^2) re/im stack, and
     the lab's other case, K3's x pass of (9, (N/4)^2) through fftx_c2c
@@ -2126,6 +2241,30 @@ def main():
             print("[kernel] " + json.dumps(r))
         recs += cols_recs
 
+        # 25. the rows stage's register kernel at the paths' shapes, L1
+        rows_recs, three, l25 = rows_checks(device)
+        for name, ms in three.items():
+            print(f"[rows] {name}: as three torch.fft calls (fft, product, "
+                  f"ifft; context, not a one-call library) {ms:.4f} ms")
+        print("[rows] L1 launches " + json.dumps(l25))
+        for r in rows_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += rows_recs
+        launches["L1"] = l25["K10br"]
+
+        # every rows stage of the PSF paths at NY = 4096, 6144 and 8192
+        # took the register kernel (none took psf_rows_kernel)
+        for tag, lc in (("wgrid _spotless", lw["spotless"]),
+                        ("pg _spotless", lp["spotless"]),
+                        ("_spotless_dist", ld),
+                        ("3072^2 _spotless", l12["spotless"]),
+                        ("the PCG phase", l14), ("the single-band phase", l20),
+                        ("the L1 lab's run", l25)):
+            need(lc["K10br"] > 0, f"K10br never launched inside {tag}")
+            need(lc["K10br"] == rows_stages(lc),
+                 f"{tag}: {rows_stages(lc)} rows stages, {lc['K10br']} on "
+                 "K10br: psf_rows_kernel launched")
+
         # the cluster column kernels ran inside the PSF paths
         for tag, lc in (("wgrid _spotless", lw["spotless"]),
                         ("pg _spotless", lp["spotless"]),
@@ -2237,6 +2376,8 @@ def main():
                   "pfb_tpu/ops/pallas_fft.py:1075"),
                  ("K10cc", "psf_cols_inv", "psf_cols.cu",
                   "pfb_tpu/ops/pallas_fft.py:1153"),
+                 ("K10br", "psf_rows", "psf_rows.cu",
+                  "pfb_tpu/ops/pallas_fft.py:680"),
                  ("K11", "psf_convolve_full", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:1325"),
                  ("K12", "psf_convolve_pallas_v3", "psf_conv.cu",
@@ -2249,6 +2390,8 @@ def main():
                   "pfb_tpu/ops/pallas_fft.py:745"),
                  ("K15b", "v3_cols_inv", "psf_conv.cu",
                   "pfb_tpu/ops/pallas_fft.py:759"),
+                 ("L1", "psf_stage_rows (NXH rows)", "psf_rows.cu",
+                  "scripts/wl_kernel_lab.py:108"),
                  ("L2a", "lab_copy", "lab_copy.cu",
                   "scripts/wl_g2i_lab.py:300"),
                  ("L2b", "fftx_c2c_split", "cfft_split.cu",

@@ -47,7 +47,7 @@
 //   1. per column: forward x-DFT of the zero-padded real column, keeping
 //      rows 0..NX/2 (Hermitian half);              column kernel
 //   2. per kept row: forward y-DFT of the zero-padded row, multiply by H,
-//      inverse y-DFT, crop to ny;                   psf_rows_kernel
+//      inverse y-DFT, crop to ny;                   rows kernel
 //   3. per column: inverse x-DFT with the conjugate mirror rebuilt, real
 //      part, crop to nx, scale 1/(NX NY).           column kernel
 // The column kernel of a stage is the cluster column FFT of psf_cols.cu
@@ -57,21 +57,30 @@
 // passes the C it expects (0 for the line kernel) and the tables of that
 // route, and an entry refuses a C that is not the predicate's. K2's
 // fused column kernels keep the line kernel's layout.
+// The rows kernel of every entry (K1, K2, K10, K11) is the fused register
+// row FFT K10br of psf_rows.cu where psf_rows_fused(NY) holds (NY = 4096,
+// 6144, 8192, 12288), else psf_rows_kernel below. The caller passes that
+// route's table as TY (pfbt_rows_twiddles, or the length-NY plan's
+// pfbt_twiddles) and the route it is for (`fused`, 1 or 0), and an entry
+// refuses a route that is not the predicate's; *nfused (may be null)
+// gains the number of K10br launches the entry made.
 // Row i of a column is written only for i < nx and read for i <= NX/2, so
 // nx may exceed NX/2 (psf_oversize < 2).
 //
 // What bounds them on the H100: each stage reads and writes the half
 // spectrum once (8 bytes per complex element in, 8 out, plus 4 or 8 of H
 // in stage 2; 16 for K11's two rows of the full H), and the FFT passes run
-// in shared memory, so the kernels are bound by shared-memory traffic and,
-// on the line route, by the narrow column strips of the strided x passes
-// (stages 1 and 3), not by FLOPs. The design keeps every line resident in
-// shared memory across all passes of its transform, and stage 2 runs both
-// y transforms and the H multiply on one residency of the row, so the
-// spectrum never goes to HBM between them. K2's extra vector work rides
-// the columns that stages 1 and 3 already hold.
+// in shared memory, so the line kernels are bound by shared-memory traffic
+// and, on the line route, by the narrow column strips of the strided x
+// passes (stages 1 and 3), not by FLOPs. The design keeps every line
+// resident in shared memory across all passes of its transform, and stage
+// 2 runs both y transforms and the H multiply on one residency of the row
+// (in registers on K10br), so the spectrum never goes to HBM between them.
+// K2's extra vector work rides the columns that stages 1 and 3 already
+// hold.
 #include "fft_lines.cuh"
 #include "psf_cols.cuh"
+#include "psf_rows.cuh"
 
 namespace pfbt {
 
@@ -148,11 +157,27 @@ static cudaError_t launch_rows(const float* zr, const float* zi,
   return cudaGetLastError();
 }
 
+// The rows stage of length NY on either route: K10br (psf_rows.cu) where
+// psf_rows_fused(NY) holds, TY then the rows plan's table
+// (pfbt_rows_twiddles) and fused 1; else psf_rows_kernel, TY the length-NY
+// plan's (pfbt_twiddles) and fused 0.
+static bool rows_ok(int NY, const void* TY, int fused) {
+  LinePlan py;
+  if (fused != (psf_rows_fused(NY) ? 1 : 0)) return false;
+  return fused ? TY != nullptr : make_plan(NY, TY, &py);
+}
+
 template <bool kFull>
 static cudaError_t rows_stage(const float* zr, const float* zi,
                               const float* hr, const float* hi, float* wr,
-                              float* wi, int R, int ny, int NX,
-                              const LinePlan& py, cudaStream_t st) {
+                              float* wi, int R, int ny, int NX, int NY,
+                              const void* TY, int* nfused,
+                              cudaStream_t st) {
+  if (psf_rows_fused(NY))
+    return psf_rows_fused_stage(zr, zi, hr, hi, wr, wi, R, ny, NY,
+                                kFull ? NX : 0, TY, nfused, st);
+  LinePlan py;
+  if (!make_plan(NY, TY, &py)) return cudaErrorInvalidValue;
   const LineLaunch c = line_launch(py.N);
   return c.vpt == kVpt
              ? launch_rows<kVpt, kFull>(zr, zi, hr, hi, wr, wi, R, ny, NX, c,
@@ -347,10 +372,10 @@ static int conv_stages(const float* x, const float* hr, const float* hi,
                        float* zr, float* zi, float* wr, float* wi,
                        float* out, int nb, int nx, int ny, int NX, int NY,
                        int C, const void* TX, const void* TY,
-                       const void* TM, const void* TN, bool full,
-                       cudaStream_t st) {
-  LinePlan px, py;
-  if (NX % 2 || nx > NX || ny > NY || !make_plan(NY, TY, &py) ||
+                       const void* TM, const void* TN, int fused,
+                       int* nfused, bool full, cudaStream_t st) {
+  LinePlan px;
+  if (NX % 2 || nx > NX || ny > NY || !rows_ok(NY, TY, fused) ||
       !cols_route(NX, ny, C, TX, TM, TN, &px))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nxh = NX / 2 + 1;
@@ -362,8 +387,10 @@ static int conv_stages(const float* x, const float* hr, const float* hi,
 
   // 2. rows of z -> w (nb, nxh, ny)
   const int R = nb * nxh;
-  e = full ? rows_stage<true>(zr, zi, hr, hi, wr, wi, R, ny, NX, py, st)
-           : rows_stage<false>(zr, zi, hr, hi, wr, wi, R, ny, NX, py, st);
+  e = full ? rows_stage<true>(zr, zi, hr, hi, wr, wi, R, ny, NX, NY, TY,
+                              nfused, st)
+           : rows_stage<false>(zr, zi, hr, hi, wr, wi, R, ny, NX, NY, TY,
+                               nfused, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   // 3. w (nb, nxh, ny) Hermitian half -> out (nb, nx, ny) real
@@ -404,15 +431,18 @@ static cudaError_t cg_stage3(const float* wr, const float* wi,
 }  // namespace pfbt
 
 // K1 and K11: C of the column route (pfbt_psf_cols_route(NX, ny)), TX the
-// length-NX plan's table (line route), TM, TN the cluster route's.
+// length-NX plan's table (line route), TM, TN the cluster route's; TY the
+// rows stage's table at NY and fused its route (pfbt_psf_rows_route(NY)),
+// *nfused (may be null) the K10br launches made (rows_ok).
 extern "C" int pfbt_psf_conv(const float* x, const float* hr,
                              const float* hi, float* zr, float* zi,
                              float* wr, float* wi, float* out, int nb,
                              int nx, int ny, int NX, int NY, int C,
                              const void* TX, const void* TY, const void* TM,
-                             const void* TN, void* stream) {
+                             const void* TN, int fused, int* nfused,
+                             void* stream) {
   return pfbt::conv_stages(x, hr, hi, zr, zi, wr, wi, out, nb, nx, ny, NX,
-                           NY, C, TX, TY, TM, TN, false,
+                           NY, C, TX, TY, TM, TN, fused, nfused, false,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -421,10 +451,10 @@ extern "C" int pfbt_psf_conv_full(const float* x, const float* hr,
                                   float* wr, float* wi, float* out, int nb,
                                   int nx, int ny, int NX, int NY, int C,
                                   const void* TX, const void* TY,
-                                  const void* TM, const void* TN,
-                                  void* stream) {
+                                  const void* TM, const void* TN, int fused,
+                                  int* nfused, void* stream) {
   return pfbt::conv_stages(x, hr, hi, zr, zi, wr, wi, out, nb, nx, ny, NX,
-                           NY, C, TX, TY, TM, TN, true,
+                           NY, C, TX, TY, TM, TN, fused, nfused, true,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -449,17 +479,17 @@ extern "C" int pfbt_psf_stage_cols_fwd(const float* x, float* zr, float* zi,
 
 // K10 stage 2: R rows of z (R, ny) against the matching rows of H (R, NY)
 // -> w (R, ny), K1's rows stage (y-DFT of the zero-padded row, product,
-// unscaled inverse y-DFT, crop).
+// unscaled inverse y-DFT, crop), TY, fused and nfused as pfbt_psf_conv's.
 extern "C" int pfbt_psf_stage_rows(const float* zr, const float* zi,
                                    const float* hr, const float* hi,
                                    float* wr, float* wi, int R, int ny,
-                                   int NY, const void* TY, void* stream) {
+                                   int NY, const void* TY, int fused,
+                                   int* nfused, void* stream) {
   using namespace pfbt;
-  LinePlan py;
-  if (ny > NY || !make_plan(NY, TY, &py))
+  if (ny > NY || !rows_ok(NY, TY, fused))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(rows_stage<false>(
-      zr, zi, hr, hi, wr, wi, R, ny, 0, py,
+      zr, zi, hr, hi, wr, wi, R, ny, 0, NY, TY, nfused,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -484,19 +514,22 @@ extern "C" int pfbt_psf_stage_cols_inv(const float* wr, const float* wi,
                                    static_cast<cudaStream_t>(stream)));
 }
 
+// K2: TX the length-NX plan's table; TY, fused and nfused as
+// pfbt_psf_conv's.
 extern "C" int pfbt_psf_conv_cg(const float* pp, const float* rr,
                                 const float* beta, const float* hr,
                                 const float* hi, float* pn, float* zr,
                                 float* zi, float* wr, float* wi, float* out,
                                 double* colsum, float* pap, int nb, int nx,
                                 int ny, int NX, int NY, const void* TX,
-                                const void* TY, void* stream) {
+                                const void* TY, int fused, int* nfused,
+                                void* stream) {
   using namespace pfbt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  LinePlan px, py;
+  LinePlan px;
   LineLaunch c;
   if (NX % 2 || nx > NX || ny > NY || !make_plan(NX, TX, &px) ||
-      !make_plan(NY, TY, &py) || !cg_launch(NX, &c))
+      !rows_ok(NY, TY, fused) || !cg_launch(NX, &c))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nxh = NX / 2 + 1;
 
@@ -510,7 +543,8 @@ extern "C" int pfbt_psf_conv_cg(const float* pp, const float* rr,
   if (e != cudaSuccess) return static_cast<int>(e);
 
   // 2. rows, as K1
-  e = rows_stage<false>(zr, zi, hr, hi, wr, wi, nb * nxh, ny, NX, py, st);
+  e = rows_stage<false>(zr, zi, hr, hi, wr, wi, nb * nxh, ny, NX, NY, TY,
+                        nfused, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   // 3. conv(p) -> out, column sums of p.conv(p) and p.p -> colsum

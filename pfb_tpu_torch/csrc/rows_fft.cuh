@@ -1,0 +1,229 @@
+// Device code of the register row FFTs, N = 16 R2 16 in three Stockham
+// stages of kRowThreads threads, one line a block: K3r's y pass
+// (cfft_rows.cu) and the PSF rows stage K10br (psf_rows.cu). Stage 1 is
+// radix 16 between HBM and registers (butterfly j holds n = j + q N/16),
+// stage 2 radix R2 in registers between two transposes through one
+// padded shared buffer (rows_mid), stage 3 radix 16 from shared memory
+// (rows_last_load) with output k = j + q N/16 in registers. The stage
+// twiddles W_{Ns R}^{q k} come from cfft_rows.cu's float64 table
+// (pfbt_rows_twiddles), [q - 1][k] per stage, conjugated for the inverse.
+#pragma once
+
+#include "fft_lines.cuh"
+
+namespace pfbt {
+
+constexpr int kRowThreads = 256;
+
+// shared-memory slot of element i of the line: one float2 of padding
+// every 16, so a half-warp's stride-16 stores of stage 1 hit 16 banks
+__device__ __forceinline__ int rpad(int i) { return i + (i >> 4); }
+
+// exp(-2 pi i m / 96), conjugated for the inverse (m < 96 a constant
+// after unrolling: every radix here divides 96)
+__device__ __forceinline__ float2 w96(int m, bool inv) {
+  constexpr float c[96] = {
+      1.000000000f, 0.997858923f, 0.991444861f, 0.980785280f,
+      0.965925826f, 0.946930129f, 0.923879533f, 0.896872742f,
+      0.866025404f, 0.831469612f, 0.793353340f, 0.751839807f,
+      0.707106781f, 0.659345815f, 0.608761429f, 0.555570233f,
+      0.500000000f, 0.442288690f, 0.382683432f, 0.321439465f,
+      0.258819045f, 0.195090322f, 0.130526192f, 0.065403129f,
+      0.f, -0.065403129f, -0.130526192f, -0.195090322f,
+      -0.258819045f, -0.321439465f, -0.382683432f, -0.442288690f,
+      -0.500000000f, -0.555570233f, -0.608761429f, -0.659345815f,
+      -0.707106781f, -0.751839807f, -0.793353340f, -0.831469612f,
+      -0.866025404f, -0.896872742f, -0.923879533f, -0.946930129f,
+      -0.965925826f, -0.980785280f, -0.991444861f, -0.997858923f,
+      -1.000000000f, -0.997858923f, -0.991444861f, -0.980785280f,
+      -0.965925826f, -0.946930129f, -0.923879533f, -0.896872742f,
+      -0.866025404f, -0.831469612f, -0.793353340f, -0.751839807f,
+      -0.707106781f, -0.659345815f, -0.608761429f, -0.555570233f,
+      -0.500000000f, -0.442288690f, -0.382683432f, -0.321439465f,
+      -0.258819045f, -0.195090322f, -0.130526192f, -0.065403129f,
+      0.f, 0.065403129f, 0.130526192f, 0.195090322f,
+      0.258819045f, 0.321439465f, 0.382683432f, 0.442288690f,
+      0.500000000f, 0.555570233f, 0.608761429f, 0.659345815f,
+      0.707106781f, 0.751839807f, 0.793353340f, 0.831469612f,
+      0.866025404f, 0.896872742f, 0.923879533f, 0.946930129f,
+      0.965925826f, 0.980785280f, 0.991444861f, 0.997858923f,
+  };
+  const float sn = c[(m + 72) % 96];  // sin(2 pi m / 96)
+  return make_float2(c[m % 96], inv ? sn : -sn);
+}
+
+// DFT of R = RA RB values in registers: n = RB n1 + n2, k = k1 + RA k2,
+// RB DFTs of RA, the twiddles W_R^{n2 k1}, RA DFTs of RB
+template <int RA, int RB>
+__device__ __forceinline__ void dft_pair(float2* v, bool inv) {
+  constexpr int R = RA * RB;
+  float2 a[RB][RA];
+#pragma unroll
+  for (int n2 = 0; n2 < RB; ++n2) {
+#pragma unroll
+    for (int n1 = 0; n1 < RA; ++n1) a[n2][n1] = v[RB * n1 + n2];
+    small_dft<RA>(a[n2], inv);
+#pragma unroll
+    for (int k1 = 1; k1 < RA; ++k1)
+      if (n2 > 0) a[n2][k1] = cmul(a[n2][k1], w96((n2 * k1 * (96 / R)) % 96,
+                                                  inv));
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < RA; ++k1) {
+    float2 b[RB];
+#pragma unroll
+    for (int n2 = 0; n2 < RB; ++n2) b[n2] = a[n2][k1];
+    small_dft<RB>(b, inv);
+#pragma unroll
+    for (int k2 = 0; k2 < RB; ++k2) v[k1 + RA * k2] = b[k2];
+  }
+}
+
+// the middle stage's radix
+template <int R>
+__device__ __forceinline__ void row_dft(float2* v, bool inv) {
+  if constexpr (R == 16) small_dft<16>(v, inv);
+  else if constexpr (R == 24) dft_pair<8, 3>(v, inv);
+  else if constexpr (R == 32) dft_pair<8, 4>(v, inv);
+  else dft_pair<16, 3>(v, inv);
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+// i a forward, -i a inverse (W_4^3 = i forward)
+__device__ __forceinline__ float2 iw(float2 a, bool inv) {
+  return inv ? make_float2(a.y, -a.x) : make_float2(-a.y, a.x);
+}
+
+// 16-point DFT as 4 x 4 (n = 4 n1 + n2, k = k1 + 4 k2). kIn: only the
+// inputs n1 = 0 and 3 (q < 4, q >= 12) are non-zero, the rest are not
+// read. kOut: only the outputs k2 = 0 and 3 (q < 4, q >= 12) are made.
+template <bool kIn, bool kOut>
+__device__ __forceinline__ void dft16(float2* v, bool inv) {
+  float2 a[4][4];
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+    if (kIn) {
+      // sum over n1 in {0, 3} of x W_4^{n1 k1}
+      const float2 x0 = v[n2], x3 = v[12 + n2];
+      a[n2][0] = cadd(x0, x3);
+      a[n2][1] = cadd(x0, iw(x3, inv));
+      a[n2][2] = csub(x0, x3);
+      a[n2][3] = csub(x0, iw(x3, inv));
+    } else {
+#pragma unroll
+      for (int n1 = 0; n1 < 4; ++n1) a[n2][n1] = v[4 * n1 + n2];
+      small_dft<4>(a[n2], inv);
+    }
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1)
+      if (n2 > 0) a[n2][k1] = cmul(a[n2][k1], w16(n2 * k1, inv));
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    float2 b[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
+    if (kOut) {
+      // k2 = 0 and 3: W_4^{3 n2} = 1, i, -1, -i forward
+      v[k1] = cadd(cadd(b[0], b[1]), cadd(b[2], b[3]));
+      v[k1 + 12] = cadd(csub(b[0], b[2]), iw(csub(b[1], b[3]), inv));
+    } else {
+      small_dft<4>(b, inv);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) v[k1 + 4 * k2] = b[k2];
+    }
+  }
+}
+
+// 16-point DFT as 4 x 4 where kIn: only the inputs n1 = 0 and 1 (q < 8)
+// are non-zero, the rest are not read; kOut: only the outputs k2 = 0 and
+// 1 (q < 8) are made. A row zero-padded to twice its length, and its
+// crop back.
+template <bool kIn, bool kOut>
+__device__ __forceinline__ void dft16_low(float2* v, bool inv) {
+  float2 a[4][4];
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+    if (kIn) {
+      // sum over n1 in {0, 1} of x W_4^{n1 k1}; W_4 = -iw
+      const float2 x0 = v[n2], x1 = v[4 + n2];
+      a[n2][0] = cadd(x0, x1);
+      a[n2][1] = csub(x0, iw(x1, inv));
+      a[n2][2] = csub(x0, x1);
+      a[n2][3] = cadd(x0, iw(x1, inv));
+    } else {
+#pragma unroll
+      for (int n1 = 0; n1 < 4; ++n1) a[n2][n1] = v[4 * n1 + n2];
+      small_dft<4>(a[n2], inv);
+    }
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1)
+      if (n2 > 0) a[n2][k1] = cmul(a[n2][k1], w16(n2 * k1, inv));
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    float2 b[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
+    if (kOut) {
+      // k2 = 0 and 1: W_4^{n2} = 1, -i, -1, i forward
+      v[k1] = cadd(cadd(b[0], b[1]), cadd(b[2], b[3]));
+      v[k1 + 4] = csub(csub(b[0], b[2]), iw(csub(b[1], b[3]), inv));
+    } else {
+      small_dft<4>(b, inv);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) v[k1 + 4 * k2] = b[k2];
+    }
+  }
+}
+
+// Stage 2, radix R2 at Ns = 16, on the line in shared memory: butterfly t
+// reads n = t + 256 q, writes (t / 16) 16 R2 + 16 q + t % 16. The caller
+// synchronises before (stage 1's stores) and after (stage 3's loads).
+// kFFT = false (the lab's skeleton) keeps the two transposes alone.
+template <int R2, bool kFFT>
+__device__ __forceinline__ void rows_mid(float2* sm, const float2* TW,
+                                         bool inv) {
+  const int t = threadIdx.x;
+  const float sg = inv ? -1.f : 1.f;
+  float2 u[R2];
+#pragma unroll
+  for (int q = 0; q < R2; ++q) u[q] = sm[rpad(t + kRowThreads * q)];
+  __syncthreads();  // every read done before the in-place writes
+  if (kFFT) {
+    const float2* T2 = TW + 15 + (t & 15);
+#pragma unroll
+    for (int q = 1; q < R2; ++q) {
+      const float2 w = __ldg(&T2[(q - 1) * 16]);
+      u[q] = cmul(u[q], make_float2(w.x, sg * w.y));
+    }
+    row_dft<R2>(u, inv);
+  }
+  const int o = (t >> 4) * 16 * R2 + (t & 15);
+#pragma unroll
+  for (int q = 0; q < R2; ++q) sm[rpad(o + 16 * q)] = u[q];
+}
+
+// Stage 3's input, Ns = N / 16: butterfly j reads n = j + NB q into v and
+// multiplies by the twiddles W_N^{q j} (kFFT); the caller takes the
+// radix-16 DFT, which leaves X[j + NB q] in v[q].
+template <int N, int R2, bool kFFT>
+__device__ __forceinline__ void rows_last_load(const float2* sm,
+                                               const float2* TW, int j,
+                                               bool inv, float2* v) {
+  constexpr int NB = N / 16;
+  const float sg = inv ? -1.f : 1.f;
+  const float2* T3 = TW + 15 + (R2 - 1) * 16;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) v[q] = sm[rpad(j + NB * q)];
+  if (kFFT) {
+#pragma unroll
+    for (int q = 1; q < 16; ++q) {
+      const float2 w = __ldg(&T3[(q - 1) * NB + j]);
+      v[q] = cmul(v[q], make_float2(w.x, sg * w.y));
+    }
+  }
+}
+
+}  // namespace pfbt

@@ -314,17 +314,25 @@ def _row_out(X, N, out_rolled):
     return X.real.contiguous()[..., None], X.imag.contiguous()[..., None]
 
 
-def _row_stages(z, N, inverse, fft=True):
+def _row_stages(z, N, inverse, fft=True, nin=None):
     """The row kernel's Stockham stages on (P, N) lines: stage (R, Ns)
     reads n = j + q N/R (j = jq Ns + k), multiplies by W_{Ns R}^{q k}
     (float64, rounded once to the working type), takes the R-point DFT
     over q and writes jq Ns R + q Ns + k. ``fft=False`` keeps the index
-    algebra alone (the skeleton)."""
+    algebra alone (the skeleton). With ``nin``, z is (P, nin), the first
+    nin values of lines zero-padded to N, and stage 1 reads only the rows
+    q that hold them (n < nin), as the PSF rows kernel does."""
     P = z.shape[0]
     sign = 1.0 if inverse else -1.0
     Ns = 1
     for R in row_radices(N):
-        x = z.reshape(P, R, N // (R * Ns), Ns)  # [q, jq, k]
+        nb = N // (R * Ns)
+        if nin is not None and Ns == 1:
+            Q = -(-nin // nb)
+            x = torch.nn.functional.pad(z, (0, Q * nb - nin))
+            x = x.reshape(P, Q, nb, 1)
+        else:
+            x = z.reshape(P, R, nb, Ns)  # [q, jq, k]
         if fft:
             if Ns > 1:
                 e = torch.outer(torch.arange(R, dtype=torch.float64),
@@ -332,8 +340,8 @@ def _row_stages(z, N, inverse, fft=True):
                 tw = torch.polar(torch.ones_like(e),
                                  sign * 2.0 * np.pi * e / (Ns * R))
                 x = x * tw.to(z.dtype).to(z.device)[:, None, :]
-            x = torch.fft.ifft(x, dim=1) * R if inverse else \
-                torch.fft.fft(x, dim=1)
+            x = torch.fft.ifft(x, n=R, dim=1) * R if inverse else \
+                torch.fft.fft(x, n=R, dim=1)
         z = x.transpose(1, 2).reshape(P, N)  # [jq, q, k]
         Ns *= R
     return z

@@ -439,6 +439,47 @@ def pg_fold_plain(Yc, slots, *, nty, txs, tys, k, Nx, Ny):
     return out.reshape(nq, Nx, Ny)
 
 
+def fold_covers(N, ntile, ts, Th, h, device=None):
+    """The four (tile, offset) candidates of every grid coordinate X along
+    one axis in K5's gather (``csrc/pg_fold.cu:fold_covers``): with u = (X
+    + h) mod N and e = u + m N (m = 0, 1), tiles floor(e / ts) and
+    floor(e / ts) - 1, in that order, offset e - t ts; valid where the
+    tile exists (ntile of step ts) and its block of Th holds e. Returns
+    (t, i, ok), each (4, N)."""
+    u = (torch.arange(N, device=device) + h) % N
+    cand = []
+    for m in (0, 1):
+        e = u + m * N
+        for t in (e // ts, e // ts - 1):
+            i = e - t * ts
+            cand.append((t, i, (t >= 0) & (t < ntile) & (i < Th)))
+    return tuple(torch.stack(c) for c in zip(*cand))
+
+
+def pg_fold_gather_plain(Yc, tslot, *, ntx, nty, txs, tys, k, Nx, Ny):
+    """K5's gather as torch operations, in Yc's type: every grid point
+    adds the live blocks' elements of its candidate pairs
+    (:func:`fold_covers` along x, then along y, in the kernel's order)
+    onto zeros; ``tslot`` (ntx * nty,) maps a tile to its slot, -1 when
+    it is not live. (nq, NS, Thx, Thy) -> (nq, Nx, Ny)."""
+    nq, _, Thx, Thy = Yc.shape
+    dev = Yc.device
+    tx, ox, vx = fold_covers(Nx, ntx, txs, Thx, k // 2, dev)
+    ty, oy, vy = fold_covers(Ny, nty, tys, Thy, k // 2, dev)
+    ts = tslot.to(device=dev, dtype=torch.long)
+    out = Yc.new_zeros((nq, Nx, Ny))
+    for a in range(4):
+        xa = tx[a].clamp(0, ntx - 1)[:, None] * nty
+        for b in range(4):
+            s = ts[xa + ty[b].clamp(0, nty - 1)[None, :]]
+            ok = vx[a][:, None] & vy[b][None, :] & (s >= 0)
+            if ok.any():
+                g = Yc[:, s.clamp(min=0), ox[a].clamp(0, Thx - 1)[:, None],
+                       oy[b].clamp(0, Thy - 1)[None, :]]
+                out = torch.where(ok, out + g, out)
+    return out
+
+
 def pg_fold(Yc, slots, *, ntx, nty, txs, tys, k, Nx, Ny):
     """K5: overlap-add the live slots' halo'd blocks (nq, NS, Thx, Thy)
     into the periodic (nq, Nx, Ny) grids. CUDA float32 operands launch

@@ -36,14 +36,27 @@ it does not hold, so the mirror here and the kernels cannot disagree
 silently. :func:`psf_cols_fwd_plain` / :func:`psf_cols_inv_plain` are the
 cluster kernels' own decomposition as torch operations, for the CPU
 tests.
+
+The rows stage of every entry (K1, K2, K10 stage 2, K11, and through them
+K12-K14) runs on one of two kernels, by :func:`rows_route` at NY: at NY =
+4096, 6144, 8192 and 12288 the fused register row FFT K10br of
+``csrc/psf_rows.cu`` (:func:`psf_rows` counts its launches, from whichever
+entry, as the entry reports them), elsewhere ``psf_rows_kernel``. The C++
+predicate ``psf_rows_fused`` decides, on NY alone; the entries take the
+route's twiddle table with the route it is for and refuse a route that is
+not the predicate's. :func:`psf_rows_plain` is K10br's decomposition as
+torch operations.
 """
+
+import ctypes
 
 import numpy as np
 import torch
 
 from pfb_tpu_torch import kernels
 from pfb_tpu_torch.config import kernel_dtype
-from pfb_tpu_torch.ops.cfft import (_CLUSTER_MIN_N, _LINE_ELEMS, _factor,
+from pfb_tpu_torch.ops.cfft import (_CLUSTER_MIN_N, _LINE_ELEMS,
+                                    _ROW_LENGTHS, _factor, _row_stages,
                                     cluster_shape)
 from pfb_tpu_torch.ops.fft import good_size, psf_convolve_cube
 from pfb_tpu_torch.ops.mmfft import make_full_psfhat
@@ -300,6 +313,109 @@ def psf_cols_inv(wr, wi, nx, NX, keep=None, *, scale=1.0, skeleton=False):
 psf_cols_inv.launches = 0
 
 
+# ---------------------------------------------------------------------
+# the rows route: the fused register row FFT (csrc/psf_rows.cu)
+
+
+def rows_route(NY):
+    """Whether the rows stage of length NY takes K10br, the fused register
+    row FFT (``csrc/psf_rows.cu:psf_rows_fused``, which decides; this is
+    its mirror): NY = 16 R2 16 with R2 = 16, 24, 32, 48 (4096, 6144, 8192,
+    12288), K3r's lengths (ops/cfft.py:row_route). Every other NY keeps
+    ``psf_rows_kernel``."""
+    return NY in _ROW_LENGTHS
+
+
+def _rows_args(NY, device):
+    """The rows-stage arguments of an entry at NY: the twiddle table's
+    pointer (K10br's three-stage table, or the length-NY plan of
+    ``psf_rows_kernel``), the route it is for (1 or 0; the entry refuses
+    the other), and a pointer to the int in which the entry reports its
+    K10br launches (:func:`_count_rows`)."""
+    fused = rows_route(NY)
+    table = kernels.twiddles(NY, device, kind="rows" if fused else "plan")
+    return table.data_ptr(), int(fused), ctypes.pointer(ctypes.c_int(0))
+
+
+def _count_rows(nfused):
+    """Count the K10br launches an entry reported through ``nfused``."""
+    psf_rows.launches += nfused.contents.value
+
+
+def full_h_rows(hr, hi, rows=None):
+    """K11's Hermitian part of the full (nb, NX, NY) transfer function on
+    the kept spectrum rows kx < rows (default NX/2 + 1): H_h(kx, k) = (H(kx,
+    k) + conj H(-kx, -k)) / 2, as (hr_h, hi_h or None), each (nb, rows,
+    NY)."""
+    nb, NX, NY = hr.shape
+    rows = NX // 2 + 1 if rows is None else rows
+    kx = torch.arange(rows, device=hr.device)
+    mx, ky = (-kx) % NX, (-torch.arange(NY, device=hr.device)) % NY
+    hr_h = 0.5 * (hr[:, kx] + hr[:, mx][:, :, ky])
+    hi_h = None if hi is None else 0.5 * (hi[:, kx] - hi[:, mx][:, :, ky])
+    return hr_h, hi_h
+
+
+def psf_rows_plain(zr, zi, hr, hi=None, NX=None):
+    """K10br's decomposition as torch operations, in zr's type: each row of
+    z (..., ny) zero-padded to NY, the forward stages of K3r's plan
+    (ops/cfft.py:_row_stages, stage 1 reading only the rows q that hold
+    values), the product with its row of H in the registers' layout k = j
+    + q NY/16, the unscaled inverse stages and the crop to ny; returns
+    (wr, wi). H (..., NY) rows match z's (K1, K2, K10); with ``NX``, H is
+    the full (nb, NX, NY) transfer function and z (nb, NX/2 + 1, ny) takes
+    its Hermitian part (K11, :func:`full_h_rows`)."""
+    if NX is not None:
+        hr, hi = full_h_rows(hr, hi, zr.shape[-2])
+    shape, ny, N = zr.shape, zr.shape[-1], hr.shape[-1]
+    z = torch.complex(zr, zi).reshape(-1, ny)
+    h = hr if hi is None else torch.complex(hr, hi)
+    X = _row_stages(z, N, False, nin=ny).reshape(-1, 16, N // 16)  # [q, j]
+    X = X * h.reshape(-1, 16, N // 16)
+    w = _row_stages(X.reshape(-1, N), N, True)[:, :ny].reshape(shape)
+    return w.real.contiguous(), w.imag.contiguous()
+
+
+def psf_rows(zr, zi, hr, hi=None, NX=None):
+    """K10br, the rows stage on the fused register row FFT
+    (``csrc/psf_rows.cu``): :func:`psf_rows_plain`'s function of (R, ny)
+    or (nb, rows, ny) rows z and H (same rows, NY) or, with ``NX``, the
+    full (nb, NX, NY) transfer function (K11; z (nb, NX/2 + 1, ny)); raises
+    where :func:`rows_route` does not hold. A CPU tensor runs
+    :func:`psf_rows_plain`. ``psf_rows.launches`` counts the kernel's
+    launches, here and from every entry that takes the route, as the C
+    entries report them (a stage whose z or H holds 2^31 elements or more
+    runs as several launches)."""
+    ny, NY = zr.shape[-1], hr.shape[-1]
+    R = zr.numel() // ny
+    ok = rows_route(NY) and zi.shape == zr.shape and ny <= NY and \
+        (hi is None or hi.shape == hr.shape)
+    if NX is None:
+        ok = ok and hr.shape[:-1] == zr.shape[:-1]
+    else:
+        ok = ok and hr.dim() == 3 and hr.shape[1] == NX and NX % 2 == 0 \
+            and R == hr.shape[0] * (NX // 2 + 1)
+    if not ok:
+        raise ValueError(f"psf_rows: z {tuple(zr.shape)}, H "
+                         f"{tuple(hr.shape)}, NX {NX}")
+    if not zr.is_cuda:
+        return psf_rows_plain(zr, zi, hr, hi, NX)
+    kernels.require_cuda_f32("psf_rows", zr, zi, hr, hi)
+    wr = torch.empty_like(zr)
+    wi = torch.empty_like(zr)
+    TY, _, nfused = _rows_args(NY, zr.device)
+    code = kernels.library().pfbt_psf_rows(
+        zr.data_ptr(), zi.data_ptr(), hr.data_ptr(),
+        None if hi is None else hi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+        R, ny, NY, NX or 0, TY, nfused, kernels.stream_ptr())
+    kernels.check(code, "psf_rows")
+    _count_rows(nfused)
+    return wr, wi
+
+
+psf_rows.launches = 0
+
+
 def psf_convolve_h(x, hr, hi=None):
     """PSF convolution of an (nb, nx, ny) cube with the port's H:
     the CUDA kernel for CUDA tensors, the plain version on the CPU."""
@@ -322,21 +438,23 @@ psf_convolve_h.launches = 0
 def _conv_stages(entry, x, hr, hi, NX, NY):
     """Launch K1 or K11 (``entry``) on validated CUDA operands: the
     scratch spectra (nb, NX/2+1, ny) and the output are allocated here;
-    the column stages take :func:`cols_route`'s kernels (counted)."""
+    the column stages take :func:`cols_route`'s kernels and the rows stage
+    :func:`rows_route`'s (counted)."""
     nb, nx, ny = x.shape
     dev = x.device
     zr = torch.empty((nb, NX // 2 + 1, ny), dtype=torch.float32, device=dev)
     zi, wr, wi = (torch.empty_like(zr) for _ in range(3))
     out = torch.empty_like(x)
     C, TX, TM, TN = _cols_tables(NX, ny, dev)
-    WY = kernels.twiddles(NY, dev)
+    TY, fused, nfused = _rows_args(NY, dev)
     code = getattr(kernels.library(), entry)(
         x.data_ptr(), hr.data_ptr(), None if hi is None else hi.data_ptr(),
         zr.data_ptr(), zi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-        out.data_ptr(), nb, nx, ny, NX, NY, C, TX, WY.data_ptr(), TM, TN,
+        out.data_ptr(), nb, nx, ny, NX, NY, C, TX, TY, TM, TN, fused, nfused,
         kernels.stream_ptr())
     kernels.check(code, entry)
     _count_cols(C)
+    _count_rows(nfused)
     return out
 
 
@@ -409,14 +527,15 @@ def psf_convolve_h_cg(p_prev, r, beta, hr, hi=None):
     colsum = torch.empty((nb, ny, 2), dtype=torch.float64, device=dev)
     pap = torch.empty((nb, 1, 2), dtype=torch.float32, device=dev)
     WX = kernels.twiddles(NX, dev)
-    WY = kernels.twiddles(NY, dev)
+    TY, fused, nfused = _rows_args(NY, dev)
     code = kernels.library().pfbt_psf_conv_cg(
         p_prev.data_ptr(), r.data_ptr(), beta.data_ptr(), hr.data_ptr(),
         None if hi is None else hi.data_ptr(), pn.data_ptr(), zr.data_ptr(),
         zi.data_ptr(), wr.data_ptr(), wi.data_ptr(), out.data_ptr(),
         colsum.data_ptr(), pap.data_ptr(), nb, nx, ny, NX, NY,
-        WX.data_ptr(), WY.data_ptr(), kernels.stream_ptr())
+        WX.data_ptr(), TY, fused, nfused, kernels.stream_ptr())
     kernels.check(code, "psf_convolve_h_cg")
+    _count_rows(nfused)
     psf_convolve_h_cg.launches += 1
     return pn, out, pap
 
@@ -631,8 +750,8 @@ def psf_stage_rows(zr, zi, hr, hi=None):
     """K10 stage 2 (counterpart of psf_v3_stage_k2): the spectrum rows
     (nb, rl, ny) of a row shard against the matching H rows (nb, rl, NY)
     -> (wr, wi) (nb, rl, ny), the inverse y transform left unscaled (stage
-    3 scales). The CUDA kernel for CUDA tensors, the plain version on the
-    CPU."""
+    3 scales). The CUDA kernel for CUDA tensors (:func:`rows_route`'s),
+    the plain version on the CPU."""
     if zi.shape != zr.shape or hr.shape[:-1] != zr.shape[:-1] or \
             hr.shape[-1] < zr.shape[-1] or \
             (hi is not None and hi.shape != hr.shape):
@@ -644,12 +763,13 @@ def psf_stage_rows(zr, zi, hr, hi=None):
     ny, NY = zr.shape[-1], hr.shape[-1]
     wr = torch.empty_like(zr)
     wi = torch.empty_like(zr)
+    TY, fused, nfused = _rows_args(NY, zr.device)
     code = kernels.library().pfbt_psf_stage_rows(
         zr.data_ptr(), zi.data_ptr(), hr.data_ptr(),
         None if hi is None else hi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-        zr.numel() // ny, ny, NY, kernels.twiddles(NY, zr.device).data_ptr(),
-        kernels.stream_ptr())
+        zr.numel() // ny, ny, NY, TY, fused, nfused, kernels.stream_ptr())
     kernels.check(code, "psf_stage_rows")
+    _count_rows(nfused)
     psf_stage_rows.launches += 1
     return wr, wi
 

@@ -6,6 +6,7 @@ the card (counterpart of scripts/wl_kernel_lab.py's k1 / k2 / k3).
         [--reps 10] [--device cuda] [--out FILE]
     python3 scripts/torch_kernel_lab.py --digest [--root DIR]
     python3 scripts/torch_kernel_lab.py --minblocks 1,2,3,4 [--out FILE]
+    python3 scripts/torch_kernel_lab.py --fold [--root DIR]
 
 At (8, nx^2) with a (2nx)^2 PSF for each nx of ``--nx`` (a delta 1.0 at
 the centre and 0.05 at +5, +3, as wl_kernel_lab.py builds it; complex
@@ -24,6 +25,8 @@ calls after a warm-up:
   real columns as one complex line), the inverse, and both skeletons
   (loads, exchange, separation or Hermitian part, stores; the FFT
   compiled out);
+- for context, the rows stage on K1's rows as three torch.fft calls
+  (fft, the product with H, ifft, crop; no one call computes it);
 - the library calls of the column stages: torch.fft.rfft(x, n=NX,
   dim=-2), torch.fft.fft(x, n=NX, dim=-2)[:, :NXH] and
   torch.fft.irfft(w[:, :NX/2 + 1], n=NX, dim=-2)[:, :nx].
@@ -36,16 +39,25 @@ operations over 67 TFLOP/s) and the card's name and power limit, a
 summary line per size, then a last summary line (also written to
 ``--out``).
 
-``--digest`` prints the sha256 of K1's, K3's, K10's, K11's, K12's and
-K15's outputs on fixed seeded inputs, with the pfb_tpu_torch found under
-``--root`` (default: this repo), so two trees can be compared bit for bit
-on one card: the lengths below 4096 (K1, K10 and K11 on
-``line_fft_kernel``), and K1 and K10 at NX = 4096, K11 at 6144, K12 and
-K15 at 8192 (the column stages' cluster route since it exists).
+``--digest`` prints the sha256 of K1's, K3's, K10's, K11's, K12's, K15's
+and the fold's (K8's entry) outputs on fixed seeded inputs, with the
+pfb_tpu_torch found under ``--root`` (default: this repo), so two trees
+can be compared bit for bit on one card: the lengths below 4096 (K1, K10
+and K11 on ``line_fft_kernel``), K1 and K10 at NX = 4096, K11 at 6144,
+K12 and K15 at 8192 (the column stages' cluster route since it exists),
+K1 and K10's rows stage at NY = 4096 and K11 at 6144 (the rows stage's
+register route since it exists), and the fold on three tile geometries.
 ``--root`` also times another tree's kernels (one from before the cluster
 column kernels times the rest), so two trees compare in one call.
 ``--device cpu`` rehearses the timing at a small ``--nx`` with the plain
 versions.
+
+``--fold`` times the folds K5 (pg_fold) and K8 (pg_fold_gs) of the tree
+at ``--root`` at the shapes chip_smoke.py gives them (FOLD_SHAPES: their
+plans' tiles and live-slot counts, the live tiles drawn from a seed),
+beside chip_smoke.py's fold_library (a zero fill, then index_add_), one
+JSON line a shape; run it with and without ``--root`` in one call to
+compare two trees.
 
 ``--minblocks 1,2,3,4`` probes the cluster column kernels' register
 budget: for each value, a copy of pfb_tpu_torch under
@@ -136,9 +148,12 @@ def card(dev):
 def digest(dev):
     """sha256 of K1 (complex and real H), K3 (full, in_rolled and
     out_rolled, strided and contiguous lines, each length's default lines
-    per block), K10's three stages and K11 on fixed seeded inputs at
-    lengths below 4096; then K1 and K10's column stages at NX = 4096, K11
-    at 6144, K12 and K15 at 8192."""
+    per block; the contiguous lines at 4096 and 12288 take K3r), K10's
+    three stages and K11 on fixed seeded inputs at lengths below 4096;
+    then K1 and K10's column stages at NX = 4096, K11 at 6144, K12 and K15
+    at 8192; then K1 and K10's rows stage at NY = 4096 and K11 at 6144
+    (the rows stage's register route since it exists); then the fold (K5
+    and K8's kernel) on three tile geometries."""
     import torch
 
     from pfb_tpu_torch.ops import pallas_fft as pf
@@ -169,7 +184,8 @@ def digest(dev):
     Hr, Hi = (torch.randn((nb, N15, N15), generator=g, device=dev)
               for _ in range(2))
     out["K11"] = psf_convolve_full(x, Hr, Hi)
-    for N, L in ((2048, 128), (8192, 16), (960, 1), (16384, 2)):
+    for N, L in ((2048, 128), (8192, 16), (960, 1), (16384, 2), (4096, 1),
+                 (12288, 1)):
         for mode in ("full", "in_rolled", "out_rolled"):
             nin = N // 2 if mode == "in_rolled" else N
             zr, zi = (torch.randn((2, nin, L), generator=g, device=dev)
@@ -197,6 +213,19 @@ def digest(dev):
     out["K11 NX=6144"] = psf_convolve_full(
         torch.randn((1, 3072, 128), generator=g, device=dev), Hr, Hi)
     del x, psf, hr, hi, Hr, Hi, w
+    # the rows stage's register route: NY >= 4096
+    x = torch.randn((nb, 64, 2048), generator=g, device=dev)
+    psf = torch.randn((nb, 128, 4096), generator=g, device=dev)
+    hr, hi = prep_h(psf, 64, 2048, torch.float32, real_transfer=False)
+    out["K1 complex-H NY=4096"] = psf_convolve_h(x, hr, hi)
+    zr, zi = (torch.randn((nb, 65, 2048), generator=g, device=dev)
+              for _ in range(2))
+    out["K10b NY=4096"] = torch.cat(psf_stage_rows(zr, zi, hr, hi))
+    Hr, Hi = (torch.randn((1, 64, 6144), generator=g, device=dev)
+              for _ in range(2))
+    out["K11 NY=6144"] = psf_convolve_full(
+        torch.randn((1, 32, 3072), generator=g, device=dev), Hr, Hi)
+    del x, psf, hr, hi, Hr, Hi, zr, zi
     n = 4096
     x1 = torch.randn((n, 256), generator=g, device=dev)
     p1 = torch.randn((1, 2 * n, 512), generator=g, device=dev)
@@ -207,6 +236,21 @@ def digest(dev):
     w15 = [torch.randn(z15[0].shape, generator=g, device=dev)
            for _ in range(2)]
     out["K15b NX=8192"] = pf.v3_cols_inv(*w15, n)
+    # the fold (K5 / K8's kernel): the paths' tiles, even k and tiles (N %
+    # 4 == 0) and an N off both, a third of the tiles live
+    from pfb_tpu_torch.ops.pg_stream import pg_fold_gs
+    for N, txs, tys, k in ((4096, 25, 121, 7), (1000, 24, 124, 8),
+                           (998, 25, 121, 7)):
+        ntx, nty = -(-N // txs), -(-N // tys)
+        tile = torch.randperm(ntx * nty, generator=g, device=dev)
+        tile = tile[:ntx * nty // 3]
+        tslot = torch.full((ntx * nty,), -1, dtype=torch.int32, device=dev)
+        tslot[tile] = torch.arange(tile.numel(), dtype=torch.int32,
+                                   device=dev)
+        Y = torch.randn((4, tile.numel(), txs + k, tys + k), generator=g,
+                        device=dev)
+        out[f"K8 fold N={N} tiles {txs}x{tys} k={k}"] = pg_fold_gs(
+            Y, tslot, ntx=ntx, nty=nty, txs=txs, tys=tys, k=k, Nx=N, Ny=N)
     return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
             for k, v in out.items()}
 
@@ -295,7 +339,14 @@ def lab_size(nb, nx, reps, dev, smi):
             ("cluster inverse skeleton", (nb, nx + 1, ny),
              lambda: ops.psf_cols_inv(*w1, nx, NX, skeleton=True),
              cols(nx + 1))]
+    # for context, not a one-call library: the rows stage as three calls
+    zc1 = torch.complex(*z1)
+    hc1 = torch.complex(hr, hi)
     stages += [
+        ("rows stage as three calls ifft(fft(z, n=NY) * H)[..., :ny]",
+         (nb, nx + 1, ny),
+         lambda: torch.fft.ifft(torch.fft.fft(zc1, n=NY, dim=-1) * hc1,
+                                dim=-1)[..., :ny], rows_stage(nx + 1)),
         ("library stage 1 torch.fft.rfft(x, n=NX, dim=-2)", (nb, nx, ny),
          lambda: torch.fft.rfft(x, n=NX, dim=-2), cols(nx + 1)),
         ("library stage 1 torch.fft.fft(x, n=NX, dim=-2)[:, :NXH]",
@@ -321,6 +372,65 @@ def lab_size(nb, nx, reps, dev, smi):
             "k1_plain_ms": ms["K1 plain psf_convolve_h_plain, complex H"],
             "k1_stage_sum_ms": split, "stage_sum_over_k1": split / k1,
             "ok": err <= TOL}
+
+
+# (label, nq, N, txs, tys, k, live tiles): the folds chip_smoke.py times
+# (K5 on the pg path's image and PSF plans, K8 on the klean path's and
+# the flagship's blocks), with their plans' tiles and live-slot counts
+FOLD_SHAPES = (("K5 pg_fold image plan", 20, 4096, 25, 121, 7, 442),
+               ("K5 pg_fold PSF plan", 26, 8192, 25, 249, 7, 781),
+               ("K8 pg_fold_gs klean block", 8, 4096, 25, 121, 7, 552),
+               ("K8 pg_fold_gs flagship block", 8, 8192, 25, 121, 7, 3327))
+
+
+def fold_times(reps, dev, smi, root, shapes=FOLD_SHAPES):
+    """--fold: K5 and K8 of the tree at ``root`` at ``shapes``, the live
+    tiles drawn from a seed, beside chip_smoke.py's fold_library (a zero
+    fill, then index_add_) and the zero fill of the grids alone (the
+    writes' floor), with the bound and the kernel's error against the
+    library; one JSON line a case."""
+    import torch
+
+    from pfb_tpu_torch.ops.pg_stream import pg_fold_gs
+    from pfb_tpu_torch.ops.pgridder import pg_fold
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, fold_library, fold_work
+    for label, nq, N, txs, tys, k, nlive in shapes:
+        ntx, nty = -(-N // txs), -(-N // tys)
+        Thx, Thy = txs + k, tys + k
+        g = torch.Generator().manual_seed(nq + N)
+        tile = torch.randperm(ntx * nty, generator=g)[:nlive]
+        tslot = torch.full((ntx * nty,), -1, dtype=torch.int32)
+        tslot[tile] = torch.arange(nlive, dtype=torch.int32)
+        tslot, tile = tslot.to(dev), tile.to(dev)
+        Y = torch.randn((nq, nlive, Thx, Thy), generator=g).to(dev)
+        kw = dict(ntx=ntx, nty=nty, txs=txs, tys=tys, k=k, Nx=N, Ny=N)
+        live = torch.ones(nlive, dtype=torch.bool, device=dev)
+        if label.startswith("K5"):
+            slots = dict(tslot=tslot, NS=nlive, tile=tile, live=live)
+
+            def fn():
+                return pg_fold(Y, slots, **kw)
+        else:
+            def fn():
+                return pg_fold_gs(Y, tslot, **kw)
+        flib = fold_library(Y, tile, live, nty, txs, tys, k, N, N)
+        ref = flib().reshape(nq, N, N)
+        err = float((fn() - ref).abs().max() / ref.abs().max())
+        del ref
+        bms, bby = bound(*fold_work(nq, nlive, Thx, Thy, ntx * nty, N, N))
+        grid = torch.empty((nq, N, N), device=dev)
+        print(json.dumps({
+            "probe": "fold", "root": str(root), "case": label,
+            "shape": [nq, N, N], "tiles": [txs, tys], "k": k,
+            "live": nlive, "ms": cuda_ms(fn, reps, dev),
+            "library_ms": cuda_ms(flib, reps, dev),
+            "zero_fill_ms": cuda_ms(grid.zero_, reps, dev), "bound_ms": bms,
+            "bound_by": bby, "rel_err_vs_library": err, "card": smi}),
+            flush=True)
+        del Y, flib, grid
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 MINB_RE = re.compile(r"constexpr int kColsMinBlocks = (\d+);")
@@ -418,6 +528,8 @@ def main():
     ap.add_argument("--cols-times", action="store_true",
                     help="time the column kernels of --root (a child of "
                     "--minblocks)")
+    ap.add_argument("--fold", action="store_true",
+                    help="time the folds K5 and K8 of --root")
     ap.add_argument("--out")
     args = ap.parse_args()
     import torch
@@ -430,6 +542,9 @@ def main():
     if args.digest:
         print(json.dumps({"card": smi, "root": args.root,
                           "digest": digest(dev)}))
+        return 0
+    if args.fold:
+        fold_times(args.reps, dev, smi, args.root)
         return 0
     if args.cols_times:
         cols_times(args.reps, dev, smi, args.root)

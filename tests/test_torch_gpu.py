@@ -12,7 +12,12 @@ visibilities per grid point, or k^3 taps per visibility, in float32
 kernel) each count their own launches, and so do the PSF column stages'
 cluster kernels (psf_cols_fwd / psf_cols_inv), from every entry that
 takes their route; on that route K10's space shards stay bit for bit
-K1. The lab kernels
+K1. The rows stage's register kernel (K10br, psf_rows) is held against
+the plain stage and its own staged decomposition at every length it is
+built for, counts its launches from every entry with a rows stage, and
+keeps K10's row shards bit for bit K1; the fold (K5, K8) equals its
+gather model (the same sources summed in the same order) bit for bit,
+and the plain index_add_ fold within the tolerance. The lab kernels
 (scripts/torch_g2i_lab.py, scripts/torch_capacity_lab.py): the copy
 probes equal slicing exactly; the cluster and row kernels' skeletons
 equal their plain permutations exactly; the
@@ -977,6 +982,244 @@ def test_cols_wrappers_reject_bad_operands(cuda):
     w = torch.zeros((1, 2049, 8), device=cuda)
     with pytest.raises(ValueError):
         psf_mod.psf_cols_inv(w, w[..., :4], 2048, 4096)
+
+
+# ---------------------------------------------------------------------
+# the rows stage's register route (K10br, csrc/psf_rows.cu)
+
+
+def test_rows_route_matches_its_mirror(cuda):
+    """The C++ predicate that decides (pfbt_psf_rows_route) against
+    ops/psf.py:rows_route on every even NY up to 16400."""
+    from pfb_tpu_torch import kernels
+    lib = kernels.library()
+    bad = [NY for NY in range(2, 16402, 2)
+           if lib.pfbt_psf_rows_route(NY) != int(psf_mod.rows_route(NY))]
+    assert not bad
+
+
+def _rows_case(cuda, NY, ny, mode, R=37):
+    """R rows of z and their H from a seed: (zr, zi, hr, hi, NX) with NX
+    None, or (mode "full") the full (1, NX, NY) H with NX / 2 + 1 = R."""
+    g = torch.Generator(device=cuda).manual_seed(NY + ny)
+    z = [torch.randn((R, ny), generator=g, device=cuda) for _ in range(2)]
+    if mode == "full":
+        NX = 2 * (R - 1)
+        h = [torch.randn((1, NX, NY), generator=g, device=cuda)
+             for _ in range(2)]
+        return z[0][None], z[1][None], h[0], h[1], NX
+    h = [torch.randn((R, NY), generator=g, device=cuda) for _ in range(2)]
+    return z[0], z[1], h[0], h[1] if mode == "complex" else None, None
+
+
+@pytest.mark.parametrize("NY", ROW_LENGTHS)
+@pytest.mark.parametrize("mode", ["real", "complex", "full"])
+@pytest.mark.parametrize("half", ["<", "=", ">"])
+def test_rows_kernel_matches_plain(cuda, NY, mode, half):
+    """K10br on 37 rows at each length it is built for, real, complex and
+    full (K11's Hermitian part) H, ny below, at and above NY / 2, against
+    the plain stage (torch.fft) and its own staged decomposition; one
+    launch counted."""
+    ny = NY // 2 + {"<": -40, "=": 0, ">": 300}[half]
+    zr, zi, hr, hi, NX = _rows_case(cuda, NY, ny, mode)
+    n0 = psf_mod.psf_rows.launches
+    wr, wi = psf_mod.psf_rows(zr, zi, hr, hi, NX)
+    torch.cuda.synchronize()
+    assert psf_mod.psf_rows.launches == n0 + 1
+    h = (hr, hi) if NX is None else psf_mod.full_h_rows(hr, hi)
+    qr, qi = psf_stage_rows_plain(zr, zi, *h)
+    assert _ok(wr, qr) and _ok(wi, qi)
+    mr, mi = psf_mod.psf_rows_plain(zr, zi, hr, hi, NX)
+    assert _ok(wr, mr) and _ok(wi, mi)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_rows_kernel_launches_in_chunks_past_2_31(cuda, full):
+    """A rows stage whose H holds 2^31 elements or more runs as two
+    launches (the kernel's offsets are 32-bit): 524,325 rows against H
+    (R, 4096), or K11's 262,148 bands of a full (nb, 2, 4096) H, cut at
+    whole bands; the rows on each side of the cut and the last ones match
+    the plain stage."""
+    NY, ny = 4096, 16
+    per = 0x7FFFFFFF // NY             # H rows a launch can address
+    g = torch.Generator(device=cuda).manual_seed(31)
+    if full:
+        NX, nb = 2, per // 2 + 5
+        hr = torch.randn((nb, NX, NY), generator=g, device=cuda)
+        zr, zi = (torch.randn((nb, 2, ny), generator=g, device=cuda)
+                  for _ in range(2))
+        idx = torch.tensor([0, per // 2 - 2, per // 2 - 1, per // 2,
+                            per // 2 + 1, nb - 1], device=cuda)
+    else:
+        NX, R = None, per + 38
+        hr = torch.randn((R, NY), generator=g, device=cuda)
+        zr, zi = (torch.randn((R, ny), generator=g, device=cuda)
+                  for _ in range(2))
+        idx = torch.tensor([0, per - 2, per - 1, per, per + 1, R - 1],
+                           device=cuda)
+    n0 = psf_mod.psf_rows.launches
+    wr, wi = psf_mod.psf_rows(zr, zi, hr, None, NX)
+    torch.cuda.synchronize()
+    assert psf_mod.psf_rows.launches == n0 + 2
+    h = hr[idx]
+    h = psf_mod.full_h_rows(h, None) if full else (h, None)
+    qr, qi = psf_stage_rows_plain(zr[idx], zi[idx], *h)
+    assert _ok(wr[idx], qr) and _ok(wi[idx], qi)
+
+
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_rows_stage_shards_bitwise_k1(cuda, complex_h):
+    """At NY = 4096 (the register route): K10 stage 2 on four row shards
+    of K1's padded spectrum equals the stage on all rows, and K10's
+    stages chained equal K1, bit for bit; K1 and each K10b call count one
+    K10br launch, and the line kernel's rows stage (NY = 1024) none."""
+    nb, nx = 2, 2048
+    NX = NY = 2 * nx
+    hr, hi = _k10_h(cuda, nb, nx, 4, complex_h)
+    hs = [a for a in (hr, hi) if a is not None]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((nb, nx, nx), generator=g, device=cuda)
+    n0 = psf_mod.psf_rows.launches
+    ref = psf_convolve_h(x, *[a[:, :nx + 1].contiguous() for a in hs])
+    rows = space_rows(nx, 4)
+    zr, zi = psf_stage_cols_fwd(x, NX, rows)
+    wr, wi = psf_stage_rows(zr, zi, *hs)
+    rl = rows // 4
+    parts = [psf_stage_rows(zr[:, q * rl:(q + 1) * rl].contiguous(),
+                            zi[:, q * rl:(q + 1) * rl].contiguous(),
+                            *[a[:, q * rl:(q + 1) * rl].contiguous()
+                              for a in hs]) for q in range(4)]
+    torch.cuda.synchronize()
+    assert psf_mod.psf_rows.launches == n0 + 6
+    assert torch.equal(torch.cat([p[0] for p in parts], dim=1), wr)
+    assert torch.equal(torch.cat([p[1] for p in parts], dim=1), wi)
+    assert torch.equal(psf_stage_cols_inv(wr, wi, nx, NX, NY), ref)
+    small = _k10_h(cuda, nb, 512, 1, True)
+    n1 = psf_mod.psf_rows.launches
+    psf_convolve_h(x[:, :512, :512].contiguous(),
+                   *[a[:, :513].contiguous() for a in small])
+    assert psf_mod.psf_rows.launches == n1
+
+
+def test_rows_route_counts_from_every_entry(cuda):
+    """K1, K2, K10b, K11 and K12-K14 at NY = 4096 each add one K10br
+    launch, and match their plain versions."""
+    nx = 2048
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((1, nx, nx), generator=g, device=cuda)
+    psf = torch.randn((1, 2 * nx, 2 * nx), generator=g, device=cuda)
+    hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=False)
+    Hr, Hi = prep_h_full(psf, torch.float32)
+    beta = torch.full((1, 1, 1), 0.5, device=cuda)
+    zr, zi = (torch.randn((1, nx + 1, nx), generator=g, device=cuda)
+              for _ in range(2))
+    calls = [
+        (lambda: psf_convolve_h(x, hr, hi),
+         lambda: psf_convolve_h_plain(x, hr, hi)),
+        (lambda: psf_convolve_h_cg(x, x, beta, hr, hi)[1],
+         lambda: psf_convolve_h_cg_plain(x, x, beta, hr, hi)[1]),
+        (lambda: psf_stage_rows(zr, zi, hr, hi)[0],
+         lambda: psf_stage_rows_plain(zr, zi, hr, hi)[0]),
+        (lambda: psf_convolve_full(x, Hr, Hi),
+         lambda: psf_convolve_full_plain(x, Hr, Hi)),
+        (lambda: pft.psf_convolve_pallas_v3(x[0], hr[0], hi[0], nx, nx),
+         lambda: pft.psf_convolve_pallas_v3_plain(x[0], hr[0], hi[0])),
+        (lambda: pft.psf_convolve_pallas_v2(x[0], Hr[0], Hi[0], nx, nx),
+         lambda: pft.psf_convolve_pallas_v2_plain(x[0], Hr[0], Hi[0])),
+        (lambda: pft.psf_convolve_pallas_opt(x[0], Hr[0], Hi[0], nx, nx),
+         lambda: pft.psf_convolve_pallas_opt_plain(x[0], Hr[0], Hi[0]))]
+    for fn, plain in calls:
+        n0 = psf_mod.psf_rows.launches
+        out = fn()
+        torch.cuda.synchronize()
+        assert psf_mod.psf_rows.launches == n0 + 1
+        assert _ok(out, plain())
+
+
+def test_rows_wrapper_rejects_bad_operands(cuda):
+    z = torch.zeros((3, 1024), device=cuda)
+    with pytest.raises(ValueError):   # NY off the route
+        psf_mod.psf_rows(z, z, torch.zeros((3, 2048), device=cuda))
+    with pytest.raises(ValueError):   # float64 on the card
+        psf_mod.psf_rows(z.double(), z.double(),
+                         torch.zeros((3, 4096), device=cuda).double())
+    with pytest.raises(ValueError):   # rows of z and H differ
+        psf_mod.psf_rows(z, z, torch.zeros((2, 4096), device=cuda))
+    with pytest.raises(ValueError):   # full H: R != nb (NX/2 + 1)
+        psf_mod.psf_rows(z, z, torch.zeros((1, 8, 4096), device=cuda),
+                         NX=8)
+
+
+# ---------------------------------------------------------------------
+# the fold's tile-wise gather (K5, K8)
+
+
+def _fold_case(cuda, Nx, Ny, txs, tys, k, nq, dead, seed):
+    """Random slots Y (nq, NS, txs + k, tys + k) and a tile -> slot table
+    with a share ``dead`` of the tiles dead, from a seed."""
+    rng = np.random.default_rng(seed)
+    ntx, nty = -(-Nx // txs), -(-Ny // tys)
+    live = rng.random(ntx * nty) >= dead
+    NS = int(live.sum()) + 2
+    tslot = np.full(ntx * nty, -1, np.int32)
+    tslot[live] = rng.permutation(NS)[:int(live.sum())]
+    Y = torch.as_tensor(rng.normal(size=(nq, NS, txs + k, tys + k)),
+                        dtype=torch.float32, device=cuda)
+    return Y, torch.as_tensor(tslot, device=cuda), dict(
+        ntx=ntx, nty=nty, txs=txs, tys=tys, k=k, Nx=Nx, Ny=Ny)
+
+
+# (Nx, Ny, txs, tys, k, nq, dead share): the periodic wrap with ragged last
+# tiles, Nx == Thx, odd and even k (k/2, tys and Ny multiples of 4 or 2,
+# or not), dead tiles, an empty block, and the paths' tiles at 4096^2
+FOLD_CASES = [(64, 64, 13, 13, 7, 5, 0.3), (64, 64, 12, 12, 8, 6, 0.5),
+              (64, 60, 10, 10, 4, 5, 0.3), (16, 16, 10, 10, 6, 8, 0.0),
+              (20, 48, 10, 12, 8, 1, 0.3), (48, 40, 9, 11, 5, 7, 0.5),
+              (64, 64, 25, 25, 7, 8, 1.0), (4096, 4096, 25, 121, 7, 20, 0.92),
+              (4096, 4096, 24, 124, 8, 8, 0.9)]
+
+
+@pytest.mark.parametrize("Nx,Ny,txs,tys,k,nq,dead", FOLD_CASES)
+def test_fold_kernel_matches_its_gather_model(cuda, Nx, Ny, txs, tys, k,
+                                              nq, dead):
+    """K8 (and K5 through its own entry) against the gather model
+    (ops/pgridder.py:pg_fold_gather_plain: the same pieces summed in the
+    same order, bit for bit) and the plain index_add_ fold (1e-5 of max);
+    reruns bitwise equal; one launch counted each."""
+    Y, tslot, kw = _fold_case(cuda, Nx, Ny, txs, tys, k, nq, dead,
+                              seed=Nx + txs + k)
+    n0 = (pg.pg_fold.launches, pgs.pg_fold_gs.launches)
+    a = pgs.pg_fold_gs(Y, tslot, **kw)
+    b = pgs.pg_fold_gs(Y, tslot, **kw)
+    NS = Y.shape[1]
+    live = torch.zeros(NS, dtype=torch.bool, device=cuda)
+    tile = torch.zeros(NS, dtype=torch.long, device=cuda)
+    inb = tslot >= 0
+    live[tslot[inb].long()] = True
+    tile[tslot[inb].long()] = torch.arange(tslot.numel(),
+                                           device=cuda)[inb]
+    c = pg.pg_fold(Y, dict(tslot=tslot, NS=NS, tile=tile, live=live), **kw)
+    torch.cuda.synchronize()
+    assert (pg.pg_fold.launches, pgs.pg_fold_gs.launches) == \
+        (n0[0] + 1, n0[1] + 2)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(a, pg.pg_fold_gather_plain(Y, tslot, **kw))
+    ref = pgs.pg_fold_gs_plain(Y, tslot, **{
+        key: kw[key] for key in ("nty", "txs", "tys", "k", "Nx", "Ny")})
+    if dead < 1.0:
+        assert _ok(a, ref)
+    else:
+        assert not a.any() and not ref.any()
+
+
+def test_fold_refuses_tiles_that_miss_the_grid(cuda):
+    """ntx txs < Nx leaves grid points that no footprint covers: the
+    entry refuses (CUDA error 1), as it does a block larger than the
+    grid."""
+    Y, tslot, kw = _fold_case(cuda, 64, 64, 13, 13, 7, 2, 0.3, seed=1)
+    with pytest.raises(RuntimeError):
+        pgs.pg_fold_gs(Y, tslot[:4 * 5].contiguous(),
+                       **dict(kw, ntx=4, nty=5))
 
 
 # ---------------------------------------------------------------------

@@ -1,0 +1,364 @@
+"""The PSF rows stage's register route (csrc/psf_rows.cu, K10br) on the
+CPU: the kernel's own decomposition as torch operations
+(ops/psf.py:psf_rows_plain: the three stages of ops/cfft.py:row_radices
+with stage 1 reading only the rows that hold values, the product with H
+in the registers' layout k = j + q NY/16, the unscaled inverse and the
+crop to ny) against the plain stage (psf_stage_rows_plain, torch.fft) in
+float64, at lengths of the kernel's form (16 R2 16 and the like) with ny
+below, at and above NY / 2, for a real, a complex and a full (K11) H;
+against the JAX package's rows stages in Pallas interpret mode
+(psf_v3_stage_k2 for K1's and K10's rows; K11's through its whole
+pipeline, psf_convolve_pallas(_cube)); the route rule; and, on a stand-in
+CUDA stack, which entries take the route, which table they pass and
+which launches they count.
+
+Tolerance: 1e-12 of max where both sides are float64; 1e-5 of max
+against the JAX package in float32 (tests/test_torch_dist_space.py's K10
+gate: a float32 FFT is ~1e-6 log2 N from exact)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pfb_tpu.ops.pallas_fft as pf
+from pfb_tpu.ops.mmfft import make_full_psfhat as make_full_psfhat_j
+from pfb_tpu.ops.psf import prep_pallas_hessian_space
+from pfb_tpu_torch import kernels
+from pfb_tpu_torch.ops import pallas_fft as pt
+from pfb_tpu_torch.ops import psf
+from pfb_tpu_torch.ops.psf import (full_h_rows, h_from_jax_full,
+                                   h_from_jax_space, psf_rows,
+                                   psf_rows_plain, psf_stage_cols_fwd_plain,
+                                   psf_stage_cols_inv_plain,
+                                   psf_stage_rows_plain, rows_route,
+                                   space_rows)
+
+torch.set_num_threads(1)
+TOL = 1e-5
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, np.float64))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def _rows(N, ny, mode, R=5, seed=0):
+    """(zr, zi, hr, hi, NX) in float64 from a seed: R rows against H rows
+    (hi None for a real H), or (mode "full") a full (1, NX, N) H with
+    NX / 2 + 1 = R spectrum rows."""
+    rng = np.random.default_rng(seed + N + ny)
+    z = [_t(rng.normal(size=(R, ny))) for _ in range(2)]
+    if mode == "full":
+        NX = 2 * (R - 1)
+        h = [_t(rng.normal(size=(1, NX, N))) for _ in range(2)]
+        return z[0][None], z[1][None], h[0], h[1], NX
+    h = [_t(rng.normal(size=(R, N))) for _ in range(2)]
+    return z[0], z[1], h[0], h[1] if mode == "complex" else None, None
+
+
+# ---------------------------------------------------------------------
+# the staged model against the plain stage
+
+
+@pytest.mark.parametrize("N", [512, 640, 2304, 3072])
+@pytest.mark.parametrize("mode", ["real", "complex", "full"])
+@pytest.mark.parametrize("half", ["<", "=", ">"])
+def test_rows_plain_matches_stage_plain_f64(N, mode, half):
+    """The decomposition (16 x R2 x 16 where 256 divides N; 16, 5, 8 at
+    640) with ny below, at and above N / 2 against the plain stage in
+    float64; the full H through its Hermitian part."""
+    ny = N // 2 + {"<": -19, "=": 0, ">": 77}[half]
+    zr, zi, hr, hi, NX = _rows(N, ny, mode)
+    wr, wi = psf_rows_plain(zr, zi, hr, hi, NX)
+    assert wr.dtype == torch.float64 and wr.shape == zr.shape
+    h = (hr, hi) if NX is None else full_h_rows(hr, hi)
+    qr, qi = psf_stage_rows_plain(zr, zi, *h)
+    assert _rel(wr, qr) <= 1e-12 and _rel(wi, qi) <= 1e-12
+
+
+def test_full_h_rows_is_the_hermitian_part():
+    """full_h_rows: H_h(kx, k) = (H(kx, k) + conj H(-kx, -k)) / 2 on rows
+    kx <= NX / 2, element by element."""
+    rng = np.random.default_rng(3)
+    H = rng.normal(size=(2, 6, 10)) + 1j * rng.normal(size=(2, 6, 10))
+    hr, hi = full_h_rows(_t(H.real), _t(H.imag))
+    assert hr.shape == (2, 4, 10)
+    for b in range(2):
+        for kx in range(4):
+            for k in range(10):
+                want = 0.5 * (H[b, kx, k] + np.conj(H[b, -kx % 6, -k % 10]))
+                assert abs(hr[b, kx, k] - want.real) < 1e-15
+                assert abs(hi[b, kx, k] - want.imag) < 1e-15
+    assert full_h_rows(_t(H.real), None)[1] is None
+
+
+@pytest.mark.parametrize("ny", [1, 31, 32, 33, 256, 257])
+def test_rows_plain_reads_only_the_loaded_rows(ny):
+    """Stage 1 reads the rows q < ceil(ny / (N/16)): a row's values past
+    ny never enter (z holds ny values), at ny that do and do not fill a
+    stage-1 row of N/16 = 32."""
+    N = 512
+    zr, zi, hr, hi, _ = _rows(N, ny, "complex", R=2, seed=ny)
+    wr, wi = psf_rows_plain(zr, zi, hr, hi)
+    qr, qi = psf_stage_rows_plain(zr, zi, hr, hi)
+    assert _rel(wr, qr) <= 1e-12 and _rel(wi, qi) <= 1e-12
+
+
+# ---------------------------------------------------------------------
+# against the JAX package
+
+
+def _psf(nb, n, even=False):
+    xg = np.arange(n) - n // 2
+    xx, yy = np.meshgrid(xg, xg, indexing="ij")
+    p = np.zeros((nb, n, n), np.float32)
+    for b in range(nb):
+        p[b] = 0.4 * np.exp(-0.5 * (xx**2 + yy**2) / (2.0 + b) ** 2)
+        p[b, n // 2, n // 2] += 0.6
+        if not even:
+            p[b, n // 2 + 3, n // 2 + 1] += 0.02
+    return p
+
+
+@pytest.mark.parametrize("h_type", ["complex", "real"])
+def test_rows_plain_matches_jax_stage_k2(h_type):
+    """nx = 256, NY = 512 (16 x 2 x 16): the JAX stage 2
+    (psf_v3_stage_k2, interpret mode) on the JAX stage-1 spectrum against
+    the decomposition on the port's H (K10's layout, two space shards),
+    times NY (the port leaves the inverse unscaled); 1e-5 of max."""
+    nb, nx, ps = 2, 256, 2
+    p = _psf(nb, 2 * nx, even=h_type == "real")
+    Hsr, Hsi, NXH = prep_pallas_hessian_space(jnp.asarray(p), nx, nx, ps)
+    assert (Hsi is None) == (h_type == "real")
+    x = np.random.default_rng(0).normal(size=(nb, nx, nx)).astype(
+        np.float32)
+    zr, zi = pf.psf_v3_stage_k1(jnp.asarray(x), nx, interpret=True)
+    pad = [(0, 0), (0, Hsr.shape[2] - NXH), (0, 0)]
+    wr_j, wi_j = (np.asarray(a) for a in pf.psf_v3_stage_k2(
+        jnp.pad(zr, pad), jnp.pad(zi, pad), Hsr, Hsi, interpret=True))
+    hr, hi = h_from_jax_space(Hsr, Hsi, nx, nx, ps)
+    rows = space_rows(nx, ps)
+    z = [_t(np.pad(np.asarray(a)[:, :nx + 1], pad[:1] + [(0, rows - nx - 1)]
+                   + pad[2:])) for a in (zr, zi)]
+    wr, wi = psf_rows_plain(*z, _t(hr), None if hi is None else _t(hi))
+    scale = np.abs(wr_j).max()
+    for got, ref in ((wr, wr_j), (wi, wi_j)):
+        assert np.abs(got[:, :nx + 1].numpy() / (2 * nx)
+                      - ref[:, :nx + 1]).max() <= TOL * scale
+
+
+def _k11_chain(x, hr, hi, NX):
+    """K11 through the decomposition: the forward column stage (rows NX/2
+    + 1 kept), K10br's rows on the full H, the inverse column stage
+    cropped to nx and scaled by 1 / (NX NY)."""
+    nb, nx, ny = x.shape
+    NY = hr.shape[-1]
+    zr, zi = psf_stage_cols_fwd_plain(x, NX, NX // 2 + 1)
+    wr, wi = psf_rows_plain(zr, zi, hr, hi, NX)
+    return psf_stage_cols_inv_plain(wr, wi, nx, NX, NY)
+
+
+def test_full_h_rows_through_k11_match_jax_pallas_cube():
+    """nx = 64 in NX = NY = 192 (16 x 3 x 4, ny < NY / 2): K11's pipeline
+    with the decomposition's rows stage on the full H against the JAX
+    band loop psf_convolve_pallas_cube in interpret mode; 1e-5 of max."""
+    nx, NX = 64, 192
+    p = _psf(2, NX)
+    x = np.random.default_rng(3).normal(size=(2, nx, nx)).astype(np.float32)
+    hr_j, hi_j = make_full_psfhat_j(jnp.asarray(p))
+    HrT, HiT = jnp.swapaxes(hr_j, -1, -2), jnp.swapaxes(hi_j, -1, -2)
+    ref = np.asarray(pf.psf_convolve_pallas_cube(
+        jnp.asarray(x), HrT, HiT, nx, nx, lane_block=64, row_block=64,
+        interpret=True))
+    hr, hi = (_t(a) for a in h_from_jax_full(HrT, HiT))
+    assert _rel(_k11_chain(_t(x), hr, hi, NX), ref) <= TOL
+
+
+@pytest.mark.parametrize("nx,ny,NX,NY", [(64, 96, 128, 192),
+                                         (96, 112, 128, 192)])
+def test_full_h_rows_through_k11_match_jax_random_h(nx, ny, NX, NY):
+    """A random H, one band through the JAX single-band pipeline
+    psf_convolve_pallas, ny = NY / 2 and ny > NY / 2 (nx > NX / 2 in the
+    second); 1e-5 of max."""
+    rng = np.random.default_rng(nx + ny)
+    x = rng.normal(size=(nx, ny)).astype(np.float32)
+    Hr, Hi = (rng.normal(size=(NX, NY)).astype(np.float32)
+              for _ in range(2))
+    ref = np.asarray(pf.psf_convolve_pallas(
+        jnp.asarray(x), jnp.asarray(Hr.T), jnp.asarray(Hi.T), nx, ny,
+        lane_block=64, row_block=64, interpret=True))
+    got = _k11_chain(_t(x)[None], _t(Hr)[None], _t(Hi)[None], NX)[0]
+    assert _rel(got, ref) <= TOL
+
+
+# ---------------------------------------------------------------------
+# the route
+
+
+def test_rows_route_on_every_paths_length():
+    """The rule on the NY of every path: K1 and K10 at 4096 (2048^2
+    images), K1, K2, K12-K14 and L1 at 8192, K11 at 6144, and 12288;
+    K11's psf_oversize 1.5 (4608), lengths below 4096 and the lengths
+    the kernel is not built for keep psf_rows_kernel."""
+    for NY in (4096, 6144, 8192, 12288):
+        assert rows_route(NY)
+    assert [NY for NY in range(2, 16402, 2) if rows_route(NY)] == \
+        [4096, 6144, 8192, 12288]
+
+
+def test_cpu_wrapper_runs_the_staged_plain_version():
+    """psf_rows on CPU tensors: the decomposition (no launch counted); it
+    raises off the route and on operands that do not match."""
+    zr, zi, hr, hi, _ = _rows(4096, 2048, "complex", R=2)
+    n0 = psf_rows.launches
+    wr, wi = psf_rows(zr, zi, hr, hi)
+    mr, mi = psf_rows_plain(zr, zi, hr, hi)
+    assert torch.equal(wr, mr) and torch.equal(wi, mi)
+    zf, zfi, Hr, Hi, NX = _rows(4096, 2048, "full", R=3)
+    wr, wi = psf_rows(zf, zfi, Hr, Hi, NX)
+    assert _rel(wr, psf_rows_plain(zf, zfi, Hr, Hi, NX)[0]) == 0.0
+    assert psf_rows.launches == n0
+    with pytest.raises(ValueError):
+        psf_rows(zr[:, :1024], zi[:, :1024], hr[:, :2048])  # NY = 2048
+    with pytest.raises(ValueError):
+        psf_rows(zr, zi, hr[:1])                            # rows differ
+    with pytest.raises(ValueError):
+        psf_rows(zf, zfi, Hr, Hi, NX + 2)                   # R != NX/2 + 1
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, so that the wrappers'
+    routing can be followed here."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+# the positions of TY (the rows stage's table), of the route it is for
+# (None: pfbt_psf_rows takes K10br's only) and of the int in which the
+# entry reports its K10br launches, in each entry's arguments
+_TY = {"pfbt_psf_conv": (15, 18, 19), "pfbt_psf_conv_full": (15, 18, 19),
+       "pfbt_psf_conv_cg": (19, 20, 21),
+       "pfbt_psf_stage_rows": (9, 10, 11), "pfbt_psf_rows": (10, None, 11)}
+
+
+class _Lib:
+    """A stand-in kernel library: records each entry that has a rows
+    stage, with the kind of the table it was given and the route it
+    declared, and reports ``launches`` K10br launches where the table is
+    K10br's."""
+
+    def __init__(self):
+        self.calls = []
+        self.kinds = {}
+        self.launches = 1
+
+    def __getattr__(self, name):
+        def entry(*args):
+            if name in _TY:
+                ty, fused, out = _TY[name]
+                kind = self.kinds[args[ty]]
+                self.calls.append((name, kind, 1 if fused is None
+                                   else args[fused]))
+                out = args[out].contents
+                out.value += self.launches if kind == "rows" else 0
+            return 0
+        return entry
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    lib = _Lib()
+    tables = {}
+
+    def twiddles(N, dev, kind="plan"):
+        if (kind, N) not in tables:
+            tables[kind, N] = torch.zeros((N, 2))
+            lib.kinds[tables[kind, N].data_ptr()] = kind
+        return tables[kind, N]
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "require_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(kernels, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(kernels, "twiddles", twiddles)
+    return lib
+
+
+def _card(*shape):
+    return torch.zeros(shape).as_subclass(_OnCard)
+
+
+@pytest.mark.parametrize("entry", ["K1", "K2", "K10b", "K11", "K12", "K13",
+                                   "K14", "direct"])
+@pytest.mark.parametrize("NY", [4096, 8192, 2048])
+def test_entries_take_the_route_and_count(stand_in, entry, NY):
+    """On a CUDA stack every entry with a rows stage passes the rows
+    table (pfbt_rows_twiddles) at a route length and the line plan's
+    (pfbt_twiddles) elsewhere, and psf_rows.launches counts one K10br
+    launch per rows stage on the route, whichever entry ran it; the
+    entries' own counters count as before."""
+    ny = NY // 2
+    nx = 16
+    n0 = psf_rows.launches
+    own = {"K1": psf.psf_convolve_h, "K2": psf.psf_convolve_h_cg,
+           "K10b": psf.psf_stage_rows, "K11": psf.psf_convolve_full,
+           "K12": pt.psf_convolve_pallas_v3,
+           "K13": pt.psf_convolve_pallas_v2,
+           "K14": pt.psf_convolve_pallas_opt, "direct": psf_rows}[entry]
+    k0 = own.launches
+    if entry == "K1":
+        psf.psf_convolve_h(_card(1, nx, ny), _card(1, nx + 1, NY))
+        name = "pfbt_psf_conv"
+    elif entry == "K2":
+        psf.psf_convolve_h_cg(_card(1, nx, ny), _card(1, nx, ny),
+                              _card(1, 1, 1), _card(1, nx + 1, NY))
+        name = "pfbt_psf_conv_cg"
+    elif entry == "K10b":
+        psf.psf_stage_rows(_card(2, 9, ny), _card(2, 9, ny), _card(2, 9, NY))
+        name = "pfbt_psf_stage_rows"
+    elif entry == "K11":
+        psf.psf_convolve_full(_card(1, nx, ny), _card(1, 2 * nx, NY),
+                              _card(1, 2 * nx, NY))
+        name = "pfbt_psf_conv_full"
+    elif entry == "K12":
+        pt.psf_convolve_pallas_v3(_card(nx, ny), _card(nx + 1, NY), None, nx,
+                                  ny)
+        name = "pfbt_psf_conv"
+    elif entry in ("K13", "K14"):
+        own(_card(nx, ny), _card(2 * nx, NY), _card(2 * nx, NY), nx, ny)
+        name = "pfbt_psf_conv_full"
+    else:
+        if not rows_route(NY):
+            with pytest.raises(ValueError):
+                psf_rows(_card(3, ny), _card(3, ny), _card(3, NY))
+            assert stand_in.calls == [] and psf_rows.launches == n0
+            return
+        psf_rows(_card(3, ny), _card(3, ny), _card(3, NY))
+        name = "pfbt_psf_rows"
+    on = rows_route(NY)
+    assert stand_in.calls == [(name, "rows" if on else "plan", int(on))]
+    assert psf_rows.launches - n0 == int(on)
+    if own is not psf_rows:
+        assert own.launches == k0 + 1
+
+
+@pytest.mark.parametrize("entry", ["K1", "K10b", "direct"])
+def test_entries_count_the_launches_the_library_reports(stand_in, entry):
+    """psf_rows.launches adds what the C entry reports (here two launches,
+    as a stage whose z or H holds 2^31 elements or more makes), not one
+    per call that the route predicts."""
+    stand_in.launches = 2
+    n0 = psf_rows.launches
+    if entry == "K1":
+        psf.psf_convolve_h(_card(1, 16, 2048), _card(1, 17, 4096))
+    elif entry == "K10b":
+        psf.psf_stage_rows(_card(2, 9, 2048), _card(2, 9, 2048),
+                           _card(2, 9, 4096))
+    else:
+        psf_rows(_card(3, 2048), _card(3, 2048), _card(3, 4096))
+    assert psf_rows.launches - n0 == 2
