@@ -36,7 +36,9 @@ Phases:
      dataset's image plan and PSF plan, degrid (K6) on the image plan with
      the w-plane grids of the pg path's model; and the pg dirty image
      against the wgrid dirty image of the same dataset and weights
-     (max|diff| <= 1e-4 max|wgrid|);
+     (max|diff| <= 1e-4 max|wgrid|); K4's parts on each plan (the slots'
+     chains, the skeletons' split and the longest slot alone,
+     spread_parts);
   8. checks of the pg path, as in 5, with K3c, K3r, K4 and K5 launched
      in grid and spotless and K6 in spotless;
   9. klean path, same observation, reusing the pg path's xds and copies
@@ -51,7 +53,7 @@ Phases:
      pg path's model (max|diff| <= 1e-5 max), and the blocked spread (K7)
      and fold (K8) on the block with the most entries, the blocked degrid
      (K9) on that block with its model grids, against their plain
-     versions;
+     versions, with K7's parts on that block as in 7;
  11. the blocked engine at its own scale, the flagship operator of
      bench.py: 1,000,000 rows x 8 channels from default_rng(0), 4096^2,
      epsilon 1e-5, plane_block 4 (nw 20, 5 blocks, 8192^2 grids): host
@@ -60,7 +62,7 @@ Phases:
      all planes at once, counts reset just before each and read just
      after (K3c, K3r and K7-K9 must launch in the blocked one); blocked
      against unblocked (<= 1e-5 max); K7-K9 against plain on the largest
-     block;
+     block, with K7's parts there as in 7;
  12. K11 path: the same observation re-simulated at 3072^2 with the cell
      at 2/3 of the 2048^2 paths' (same 0.93 deg field, same w planes),
      then init -> grid(backend="pg", robustness=0, 3072^2, PSF 6144^2) ->
@@ -80,7 +82,11 @@ Phases:
      iterations, no backtracking): K2 and K1 against plain, and PCG it/s
      of the CG-fused solver, of pcg_bands on K1 and of
      pcg_bands_hostloop on K1, counts reset just before and read just
-     after;
+     after. K2 takes K1's column route (the cluster kernels K10ac /
+     K10cc at both sizes, whose counters count K2's launches: K10ac =
+     K10cc = K1 + K2 over the solves); printed for each K2 case: its
+     routes, its conv bitwise K1 of its own p, its reruns bitwise, and
+     at bench.py's case the time of each stage alone (psf_cg_stages);
  15. K10 against plain at the dist path's shapes (a (2, 4) mesh: 4-band
      rows, 512 columns or 513 of the 2052 padded spectrum rows per shard)
      with the grid phase's PSF, per stage;
@@ -177,7 +183,7 @@ kernel's x pass at 2048, K3c's from its x pass, K3r's from its y pass.
 Each counts the launches of its own kernel, so K3 + K3c + K3r is the
 number of launches of the three routes of ``fftx_c2c``; K10ac and K10cc
 count the cluster column kernels' launches from every entry that runs a
-PSF column stage on their route (K1, K10, K11-K15), and K10br the
+PSF column stage on their route (K1, K2, K10, K11-K15), and K10br the
 register rows kernel's from every entry that runs a rows stage on its
 route (K1, K2, K10, K11-K14), whose own counters count their calls.
 
@@ -635,6 +641,41 @@ def spread_work(w, live, k, P, nslots, Thx, Thy):
     return nbytes, gridding_flops(k, _wtaps(w, live, k, P))
 
 
+def spread_parts(kw, design="lists", reps=5):
+    """The spread's time by parts: CUDA-event medians of the kernel and of
+    its skeletons (``pg_stream.pg_spread_lab`` on the operands ``kw``,
+    one of its designs) and the differences of consecutive ones: the
+    accumulation (fma), the warps' scan of their candidates, the factor
+    evaluation, the loads, and the barriers with the launch; and the
+    kernel on the slot with the most entries alone, the others empty (the
+    time its chain takes, which no other slot's work can hide)."""
+    import torch
+
+    from pfb_tpu_torch.ops import pg_stream as pgs
+    t = {m: cuda_ms(lambda m=m: pgs.pg_spread_lab(design=design, mode=m,
+                                                  **kw), reps)
+         for m in pgs.SPREAD_MODES}
+    # the imbalance: the longest slot's chain alone (the others empty)
+    cnt = kw["count"]
+    alone = torch.where(torch.arange(cnt.numel(), device=cnt.device)
+                        == cnt.argmax(), cnt, torch.zeros_like(cnt))
+    t["longest slot alone"] = cuda_ms(lambda: pgs.pg_spread_lab(
+        design=design, **dict(kw, count=alone)), reps)
+    return dict(design=design, ms=t, split={
+        "fma": t["kernel"] - t["no FMA"], "scan": t["no FMA"] - t["no scan"],
+        "factors": t["no scan"] - t["no factors"],
+        "loads": t["no factors"] - t["barriers"], "barriers": t["barriers"]})
+
+
+def chains(count):
+    """A spread's slot chains: live slots, entries, the longest chain and
+    the mean (entries a live slot); the blocks of the longest slot run
+    its chain one entry after another."""
+    c = count[count > 0].double()
+    return dict(live_slots=int(c.numel()), entries=int(c.sum()),
+                longest=int(c.max()), mean=float(c.mean()))
+
+
 def degrid_work(w, live, k, P, ntiles, Thx, Thy, Nx, Ny, accumulate=False):
     """(bytes, operations) of a degrid: positions and tile ids read once,
     the grid points under the ``ntiles`` live tiles' windows (both
@@ -750,6 +791,11 @@ def pg_kernel_checks(res, nx, epsilon, device, timing=True):
         recs.append(_record(f"K4 pg_spread ({label} plan)", shape,
                             Yk[:, live], Yp[:, live], spread_k, spread_p,
                             timing, work=work))
+        if timing and k == 7:
+            print(f"[spread] K4 {label} plan: " + json.dumps(dict(
+                chains(slots["count"]), **spread_parts(dict(
+                    pos=p["pos"], vis=vis, start=slots["start"],
+                    count=slots["count"], **skw)))), flush=True)
         del Yk
         Gk, Gp = fold_k(Yp), fold_p(Yp)
         recs.append(_record(
@@ -939,6 +985,12 @@ def gs_kernel_checks(bp, vr, vi, w, image, label, timing=True, reps=5):
                         Yp[:, :, sl], spread_k, spread_p, timing,
                         work=spread_work(wrel, live, k, B, nslots, Thx,
                                          Thy), reps=reps))
+    if timing and k == 7:
+        print(f"[spread] K7 {tag}: " + json.dumps(dict(
+            chains(ct), **spread_parts(dict(
+                pos=bp["pos"], vis=vis, start=st, count=ct, gmap=gmap,
+                woff=woff, beta=p0["beta"], k=k, nw=B, Thx=Thx, Thy=Thy),
+                reps=reps))), flush=True)
     del Yk
     Y = Yp.reshape(2 * B, NT, Thx, Thy).contiguous()
     del Yp
@@ -1180,14 +1232,18 @@ def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
     sigmainv 1e-2 (25 iterations), K2 against plain there; then bench.py's
     PCG case: K1 and K2 against plain, and the PCG rates of the fused
     solve, pcg_bands and pcg_bands_hostloop, with every kernel's launches
-    counted over those solves alone. Returns (relative error, records,
-    rates, launches)."""
+    counted over those solves alone. For each K2 case, its column and
+    rows routes, whether its conv is K1's of its own p and its reruns are
+    bit for bit, and (bench case) its stages' times. Returns (relative
+    error, records, rates, launches, K2's cases)."""
     import torch
 
-    from pfb_tpu_torch.ops.psf import (make_psf_convolve_pallas,
-                                       psf_convolve_h, psf_convolve_h_cg,
+    from pfb_tpu_torch.ops.cfft import cluster_shape
+    from pfb_tpu_torch.ops.psf import (cols_route, make_psf_convolve_pallas,
+                                       psf_cg_stages, psf_convolve_h,
+                                       psf_convolve_h_cg,
                                        psf_convolve_h_cg_plain,
-                                       psf_convolve_h_plain)
+                                       psf_convolve_h_plain, rows_route)
     from pfb_tpu_torch.opt.pcg import (make_pcg_bands_fused, pcg_bands,
                                        pcg_bands_hostloop)
     nb, nx = psf.shape[0], psf.shape[-1] // 2
@@ -1207,6 +1263,7 @@ def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
 
     g = torch.Generator(device=device).manual_seed(14)
     recs = []
+    k2_info = {}
 
     def cg_records(tag, hr, hi, nb, nx, timing):
         pp, r = (torch.randn((nb, nx, nx), generator=g, device=device)
@@ -1224,6 +1281,27 @@ def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
                 ref[i], lambda: psf_convolve_h_cg(pp, r, beta, hr, hi),
                 lambda: psf_convolve_h_cg_plain(pp, r, beta, hr, hi),
                 timing and i == 1, work=work))
+        # the column route K1 takes at this NX (K2 asks the same), and on
+        # the card K2's conv bitwise K1 of K2's own p, reruns bitwise and
+        # the stages alone
+        NX = 2 * nx
+        info = dict(columns=(f"cluster C={cluster_shape(NX)[0]}"
+                             if cols_route(NX, nx) else "line"),
+                    rows="K10br" if rows_route(NX) else "psf_rows_kernel")
+        if device.type == "cuda":
+            info["conv_bitwise_k1_of_p"] = bool(torch.equal(
+                got[1], psf_convolve_h(got[0], hr, hi)))
+            again = psf_convolve_h_cg(pp, r, beta, hr, hi)
+            info["reruns_bitwise"] = all(torch.equal(a, b)
+                                         for a, b in zip(got, again))
+            if timing:
+                bufs = psf_cg_stages(pp, r, beta, hr, hi)
+                info["stage_ms"] = {
+                    name: cuda_ms(lambda s=s: psf_cg_stages(
+                        pp, r, beta, hr, hi, s, bufs))
+                    for name, s in (("1 columns", 1), ("2 rows", 2),
+                                    ("3 columns and sums", 4))}
+        k2_info[tag] = info
 
     # bench.py's case first: its records carry the path's times
     n, nbp = pcg["nx"], pcg["nband"]
@@ -1270,7 +1348,7 @@ def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
                                        tol=0.0, maxit=niter, minit=niter),
             niter, device)}
     launches = {k: fn.launches for k, fn in cnt.items()}
-    return err, recs, rates, launches
+    return err, recs, rates, launches, k2_info
 
 
 def k10_checks(psf, nx, nspace, device, timing=True):
@@ -2122,10 +2200,13 @@ def main():
         torch.cuda.empty_cache()
 
         # 14. K2 path: CG-fused PCG
-        cerr, k2_recs, rates, l14 = k2_checks(device=device, **k2_in)
+        cerr, k2_recs, rates, l14, k2_info = k2_checks(device=device,
+                                                       **k2_in)
         del k2_in
         print(f"[pcg] CG-fused (K2) vs pcg_bands (K1), 2048^2 grid PSF, 25 "
               f"iterations: max|diff|/max = {cerr:.3e} (bound {CTOL})")
+        for tag, info in k2_info.items():
+            print(f"[pcg] K2 {tag}: " + json.dumps(info))
         print(f"[pcg] {PCG['nx']}^2 x {PCG['nband']}, {PCG['niter']} "
               "iterations, it/s " + json.dumps(rates))
         print("[pcg] launches " + json.dumps(l14))
@@ -2324,6 +2405,17 @@ def main():
         need(st12["pd_solver"] == "primal_dual_hostloop",
              f"3072^2 spotless ran {st12['pd_solver']}")
         need(l14["K2"] > 0, "K2 never launched in the CG-fused PCG")
+        for tag, info in k2_info.items():
+            need(info["columns"].startswith("cluster"), f"K2 {tag} took "
+                 "the line kernels where K1's cluster route holds")
+            need(info["conv_bitwise_k1_of_p"], f"K2 {tag}: conv is not "
+                 "K1's of its own p bit for bit")
+            need(info["reruns_bitwise"], f"K2 {tag}: reruns differ")
+        # every K1 and K2 of the PCG phase ran its column stages on the
+        # cluster kernels, which count K2's launches too
+        for k in ("K10ac", "K10cc"):
+            need(l14[k] == l14["K1"] + l14["K2"], f"the PCG phase: {k} "
+                 f"{l14[k]}, K1 {l14['K1']} + K2 {l14['K2']}")
         need(cerr <= CTOL, f"CG-fused vs pcg_bands {cerr} > {CTOL}")
         for k in ("K3c", "K3r", "K7", "K8", "K9"):
             need(lk[k] > 0, f"{k} never launched inside _klean")

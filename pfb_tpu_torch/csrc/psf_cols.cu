@@ -6,7 +6,11 @@
 // the column stages of K1 (psf_convolve_pallas_v3_cube), K11
 // (psf_convolve_pallas), K12 (psf_convolve_pallas_v3) and K15
 // (_k1h_kernel / _k3h_kernel): every entry of psf_conv.cu that runs a
-// column stage launches these kernels where psf_cols_clusters holds.
+// column stage launches these kernels where psf_cols_clusters holds. K2
+// (psf_convolve_pallas_v3_cube_cg's _k1t_cg_kernel / _k3t_cg_kernel)
+// launches them with its prologue and epilogue (CgIn, CgOut below): the
+// forward kernel takes its input quads from an `In` functor and the
+// inverse hands its output quads to an `Out` functor.
 //
 // What bounds them on the H100: bytes, each input read once and each
 // output written once. line_fft_kernel keeps whole lines of NX in one
@@ -120,6 +124,109 @@ __device__ __forceinline__ void store_quad(float* p, int j, int L, int vec,
   }
 }
 
+// The forward stage's input quads. ColsIn (K10ac): four columns of x
+// as given. CgIn (K2's stage 1): the direction p = beta_b p_prev - r,
+// formed in registers from 16-byte loads of p_prev and r and stored to pn
+// with one 16-byte store; the FFT then sees the same values as K10ac
+// loading pn, so K2's spectrum is K10ac's of its own p bit for bit.
+struct ColsIn {
+  const float* x;
+  __device__ __forceinline__ void load(int, long a, int j, int L, int vec,
+                                       float* v) const {
+    load_quad(x + a, j, L, vec, v);
+  }
+};
+
+struct CgIn {
+  const float* pp;
+  const float* rr;
+  const float* beta;
+  float* pn;
+  __device__ __forceinline__ void load(int b, long a, int j, int L, int vec,
+                                       float* v) const {
+    float q[kQuad], r[kQuad];
+    load_quad(pp + a, j, L, vec, q);
+    load_quad(rr + a, j, L, vec, r);
+    const float bb = __ldg(beta + b);
+#pragma unroll
+    for (int t = 0; t < kQuad; ++t) v[t] = bb * q[t] - r[t];
+    store_quad(pn + a, j, L, vec, v[0], v[1], v[2], v[3]);
+  }
+};
+
+// The inverse stage's output quads. ColsOut (K10cc): stored. CgOut (K2's
+// stage 3): stored, and the quad of p (pn) at the same rows and columns
+// read, p . out and p . p added per column in float64 (kSums columns a
+// thread). The block then adds its threads' sums per column in a fixed
+// order (cg_block_sums), so K2 stays deterministic with no atomics.
+struct ColsOut {
+  static constexpr int kSums = 0;
+  float* out;
+  __device__ __forceinline__ void put(long a, int j, int L, int vec,
+                                      const float (&v)[kQuad],
+                                      double (&)[1][2]) const {
+    store_quad(out + a, j, L, vec, v[0], v[1], v[2], v[3]);
+  }
+};
+
+struct CgOut {
+  static constexpr int kSums = kQuad;
+  float* out;
+  const float* pn;
+  double* part;  // (nb, L, C, 2): each block's column sums
+  __device__ __forceinline__ void put(long a, int j, int L, int vec,
+                                      const float (&v)[kQuad],
+                                      double (&s)[kQuad][2]) const {
+    store_quad(out + a, j, L, vec, v[0], v[1], v[2], v[3]);
+    float q[kQuad];
+    load_quad(pn + a, j, L, vec, q);
+#pragma unroll
+    for (int t = 0; t < kQuad; ++t) {
+      const double d = q[t];
+      s[t][0] += d * (double)v[t];
+      s[t][1] += d * d;
+    }
+  }
+};
+
+// K2's per-block column sums: every thread holds the sums of the four
+// columns of its quad g = (threadIdx.x / 16) mod (W / 4) (the same quad
+// in every pass of the stores' loop); the lanes of a warp with one quad
+// are added by a fixed butterfly, the warps in order into red (after the
+// stage's last cluster.sync, when no peer reads sm any more), and thread
+// t < W then holds column j0 + t's block sums in (*s0, *s1).
+__device__ __forceinline__ bool cg_block_sums(double (&s)[kQuad][2],
+                                              double* red, int W,
+                                              double* s0, double* s1) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarp = blockDim.x / 32, nq = W / kQuad;
+#pragma unroll
+  for (int t = 0; t < kQuad; ++t)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      for (int o = nq == 1 ? 16 : 8; o > 0; o >>= 1)
+        s[t][u] += __shfl_xor_sync(0xffffffffu, s[t][u], o);
+  // lane 0 holds quad 0's sums, lane 16 quad 1's (nq = 2)
+  if (lane % 16 == 0 && lane / 16 < nq)
+#pragma unroll
+    for (int t = 0; t < kQuad; ++t) {
+      const int col = (lane / 16) * kQuad + t;
+      red[2 * (warp * W + col)] = s[t][0];
+      red[2 * (warp * W + col) + 1] = s[t][1];
+    }
+  __syncthreads();
+  const int col = threadIdx.x;
+  if (col >= W) return false;
+  double a0 = 0.0, a1 = 0.0;
+  for (int w = 0; w < nwarp; ++w) {
+    a0 += red[2 * (w * W + col)];
+    a1 += red[2 * (w * W + col) + 1];
+  }
+  *s0 = a0;
+  *s1 = a1;
+  return true;
+}
+
 // Z[k1 + M k2] for k2 < C of lines `line` and line + 1: Y_r[k1] of every
 // block r of the cluster times W_N^{r k1} (sg = -1 conjugates it), then
 // the C-point DFT; without kFFT, Y_r[k1] alone.
@@ -179,12 +286,11 @@ __device__ __forceinline__ void store_pairs(float* zrb, float* zib, int L,
 // The forward stage: one cluster of C blocks per tile of W columns (W a
 // multiple of 4) of one band, W/2 pair lines of M = NX / C (p its plan);
 // VPT values a thread, registers for kColsMinBlocks blocks an SM.
-template <int C, int VPT, bool kFFT>
+template <int C, int VPT, bool kFFT, class In>
 __global__ void __launch_bounds__(kColsThreads, kColsMinBlocks)
-psf_cols_fwd_kernel(const float* __restrict__ x, float* __restrict__ zr,
-                    float* __restrict__ zi, int L, int nx, int keep,
-                    int rows, int W, int vec, LinePlan p,
-                    const float2* __restrict__ TN) {
+psf_cols_fwd_kernel(In in, float* __restrict__ zr, float* __restrict__ zi,
+                    int L, int nx, int keep, int rows, int W, int vec,
+                    LinePlan p, const float2* __restrict__ TN) {
   extern __shared__ float2 sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.block_rank();
@@ -194,7 +300,7 @@ psf_cols_fwd_kernel(const float* __restrict__ x, float* __restrict__ zr,
   const int tile = blockIdx.x / C;
   const int b = tile / ntile;
   const int j0 = (tile - b * ntile) * W;
-  const float* xb = x + (long)b * nx * L;
+  const long xb = (long)b * nx * L;
   float* zrb = zr + (long)b * rows * L;
   float* zib = zi + (long)b * rows * L;
 
@@ -217,7 +323,7 @@ psf_cols_fwd_kernel(const float* __restrict__ x, float* __restrict__ zr,
 #pragma unroll
       for (int t = 0; t < kQuad; ++t) v[h][t] = 0.f;
       if (slot[h] >= 0 && n < nx && j < L)
-        load_quad(xb + (long)n * L + j, j, L, vec, v[h]);
+        in.load(b, xb + (long)n * L + j, j, L, vec, v[h]);
     }
 #pragma unroll
     for (int h = 0; h < kU; ++h) {
@@ -273,12 +379,12 @@ psf_cols_fwd_kernel(const float* __restrict__ x, float* __restrict__ zr,
 // The inverse stage: one cluster of C blocks per tile of W columns of one
 // band, W/2 pair lines of M = NX / C; VPT values a thread, registers for
 // kColsMinBlocks blocks an SM.
-template <int C, int VPT, bool kFFT>
+template <int C, int VPT, bool kFFT, class Out>
 __global__ void __launch_bounds__(kColsThreads, kColsMinBlocks)
 psf_cols_inv_kernel(const float* __restrict__ wr,
-                    const float* __restrict__ wi, float* __restrict__ out,
-                    int L, int nx, int keep, int rows, float scale, int W,
-                    int vec, LinePlan p, const float2* __restrict__ TN) {
+                    const float* __restrict__ wi, Out o, int L, int nx,
+                    int keep, int rows, float scale, int W, int vec,
+                    LinePlan p, const float2* __restrict__ TN) {
   extern __shared__ float2 sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.block_rank();
@@ -290,7 +396,7 @@ psf_cols_inv_kernel(const float* __restrict__ wr,
   const int j0 = (tile - b * ntile) * W;
   const float* wrb = wr + (long)b * rows * L;
   const float* wib = wi + (long)b * rows * L;
-  float* ob = out + (long)b * nx * L;
+  const long ob = (long)b * nx * L;
 
   // 1. spectrum rows k = c + C m of the tile: the Hermitian part of each
   // column, the pairs packed as Z = H_j + i H_{j+1}
@@ -355,6 +461,7 @@ psf_cols_inv_kernel(const float* __restrict__ wr,
   for (int r = 0; r < C; ++r) src[r] = cluster.map_shared_rank(sm, r);
   const int Mc = (M + C - 1) / C;
   const int work = ((Mc + 15) >> 4) * fg.d * 16;
+  double acc[Out::kSums ? Out::kSums : 1][2] = {};
   for (int u = threadIdx.x; u < work; u += blockDim.x) {
     const int q = u >> 4;
     const int g = fg.mod(q), nl = fg.div(q) * 16 + (u & 15);
@@ -366,14 +473,27 @@ psf_cols_inv_kernel(const float* __restrict__ wr,
 #pragma unroll
     for (int n2 = 0; n2 < C; ++n2) {
       const int n = n1 + M * n2;
-      if (n < nx)
-        store_quad(ob + (long)n * L + j, j, L, vec, v[0][n2].x * scale,
-                   v[0][n2].y * scale, v[1][n2].x * scale,
-                   v[1][n2].y * scale);
+      const float s[kQuad] = {v[0][n2].x * scale, v[0][n2].y * scale,
+                              v[1][n2].x * scale, v[1][n2].y * scale};
+      if (n < nx) o.put(ob + (long)n * L + j, j, L, vec, s, acc);
     }
   }
   // 4. no block leaves while a peer may still read its shared memory
   cluster.sync();
+  if constexpr (Out::kSums > 0) {
+    // K2: this block's column sums of the tile, (nb, L, C, 2); band_sums
+    // adds a column's C partials in block order (adding them through DSMEM
+    // on block 0 instead costs a third cluster.sync and measured 0.02-0.04
+    // ms slower on the H100: PERF.md)
+    double s0, s1;
+    const int j = j0 + (int)threadIdx.x;
+    if (cg_block_sums(acc, reinterpret_cast<double*>(sm), W, &s0, &s1) &&
+        j < L) {
+      const long a = (((long)b * L + j) * C + c) * 2;
+      o.part[a] = s0;
+      o.part[a + 1] = s1;
+    }
+  }
 }
 
 // Threads of a block of S lines of M at VPT values a thread (a multiple of
@@ -382,36 +502,35 @@ static inline unsigned cols_threads(int S, int M, int VPT) {
   return (unsigned)((((S * M + VPT - 1) / VPT) + 31) / 32 * 32);
 }
 
-template <int C>
-static cudaError_t fwd_c(const float* x, float* zr, float* zi, int nb,
-                         int nx, int L, int keep, int rows, int W, int vec,
-                         int skeleton, const LinePlan& p, const float2* TN,
-                         cudaStream_t st) {
-  const long blocks = (long)nb * ((L + W - 1) / W) * C;
-  const int M = p.N;
-  void (*k)(const float*, float*, float*, int, int, int, int, int, int,
-            LinePlan, const float2*) =
-      skeleton ? psf_cols_fwd_kernel<C, kVpt, false>
-               : psf_cols_fwd_kernel<C, kVpt, true>;
-  return launch_cluster(k, C, blocks, cols_threads(W / 2, M, kVpt),
-                        smem_bytes(W / 2 * M), st, x, zr, zi, L, nx, keep,
-                        rows, W, vec, p, TN);
-}
-
-template <int C>
-static cudaError_t inv_c(const float* wr, const float* wi, float* out,
-                         int nb, int nx, int L, int keep, int rows,
-                         float scale, int W, int vec, int skeleton,
+template <int C, class In>
+static cudaError_t fwd_c(In in, float* zr, float* zi, int nb, int nx, int L,
+                         int keep, int rows, int W, int vec, int skeleton,
                          const LinePlan& p, const float2* TN,
                          cudaStream_t st) {
   const long blocks = (long)nb * ((L + W - 1) / W) * C;
   const int M = p.N;
-  void (*k)(const float*, const float*, float*, int, int, int, int, float,
-            int, int, LinePlan, const float2*) =
-      skeleton ? psf_cols_inv_kernel<C, kVpt, false>
-               : psf_cols_inv_kernel<C, kVpt, true>;
+  void (*k)(In, float*, float*, int, int, int, int, int, int, LinePlan,
+            const float2*) =
+      skeleton ? psf_cols_fwd_kernel<C, kVpt, false, In>
+               : psf_cols_fwd_kernel<C, kVpt, true, In>;
   return launch_cluster(k, C, blocks, cols_threads(W / 2, M, kVpt),
-                        smem_bytes(W / 2 * M), st, wr, wi, out, L, nx, keep,
+                        smem_bytes(W / 2 * M), st, in, zr, zi, L, nx, keep,
+                        rows, W, vec, p, TN);
+}
+
+template <int C, class Out>
+static cudaError_t inv_c(const float* wr, const float* wi, Out o, int nb,
+                         int nx, int L, int keep, int rows, float scale,
+                         int W, int vec, int skeleton, const LinePlan& p,
+                         const float2* TN, cudaStream_t st) {
+  const long blocks = (long)nb * ((L + W - 1) / W) * C;
+  const int M = p.N;
+  void (*k)(const float*, const float*, Out, int, int, int, int, float, int,
+            int, LinePlan, const float2*) =
+      skeleton ? psf_cols_inv_kernel<C, kVpt, false, Out>
+               : psf_cols_inv_kernel<C, kVpt, true, Out>;
+  return launch_cluster(k, C, blocks, cols_threads(W / 2, M, kVpt),
+                        smem_bytes(W / 2 * M), st, wr, wi, o, L, nx, keep,
                         rows, scale, W, vec, p, TN);
 }
 
@@ -423,38 +542,79 @@ static bool cols_args(int nb, int nx, int L, int NX, int keep, int rows,
          rows >= keep && make_plan(NX / C, TM, p);
 }
 
-cudaError_t psf_cols_fwd(const float* x, float* zr, float* zi, int nb,
-                         int nx, int L, int NX, int keep, int rows, int C,
-                         int skeleton, const void* TM, const void* TN,
-                         cudaStream_t stream) {
+template <class In>
+static cudaError_t cols_fwd(In in, bool aligned, float* zr, float* zi,
+                            int nb, int nx, int L, int NX, int keep,
+                            int rows, int C, int skeleton, const void* TM,
+                            const void* TN, cudaStream_t stream) {
   LinePlan p;
   if (!cols_args(nb, nx, L, NX, keep, rows, C, TM, TN, &p))
     return cudaErrorInvalidValue;
   const int W = psf_cols_width(NX, C);
-  const int vec = L % kQuad == 0 && aligned16(x) && aligned16(zr) &&
+  const int vec = L % kQuad == 0 && aligned && aligned16(zr) &&
                   aligned16(zi);
   const float2* T = static_cast<const float2*>(TN);
-  return C == 4 ? fwd_c<4>(x, zr, zi, nb, nx, L, keep, rows, W, vec,
+  return C == 4 ? fwd_c<4>(in, zr, zi, nb, nx, L, keep, rows, W, vec,
                            skeleton, p, T, stream)
-                : fwd_c<8>(x, zr, zi, nb, nx, L, keep, rows, W, vec,
+                : fwd_c<8>(in, zr, zi, nb, nx, L, keep, rows, W, vec,
                            skeleton, p, T, stream);
+}
+
+template <class Out>
+static cudaError_t cols_inv(const float* wr, const float* wi, Out o,
+                            bool aligned, int nb, int nx, int L, int NX,
+                            int keep, int rows, float scale, int C,
+                            int skeleton, const void* TM, const void* TN,
+                            cudaStream_t stream) {
+  LinePlan p;
+  if (!cols_args(nb, nx, L, NX, keep, rows, C, TM, TN, &p))
+    return cudaErrorInvalidValue;
+  const int W = psf_cols_width(NX, C);
+  const int vec = L % kQuad == 0 && aligned && aligned16(wr) &&
+                  aligned16(wi);
+  const float2* T = static_cast<const float2*>(TN);
+  return C == 4 ? inv_c<4>(wr, wi, o, nb, nx, L, keep, rows, scale, W, vec,
+                           skeleton, p, T, stream)
+                : inv_c<8>(wr, wi, o, nb, nx, L, keep, rows, scale, W, vec,
+                           skeleton, p, T, stream);
+}
+
+cudaError_t psf_cols_fwd(const float* x, float* zr, float* zi, int nb,
+                         int nx, int L, int NX, int keep, int rows, int C,
+                         int skeleton, const void* TM, const void* TN,
+                         cudaStream_t stream) {
+  return cols_fwd(ColsIn{x}, aligned16(x), zr, zi, nb, nx, L, NX, keep,
+                  rows, C, skeleton, TM, TN, stream);
 }
 
 cudaError_t psf_cols_inv(const float* wr, const float* wi, float* out,
                          int nb, int nx, int L, int NX, int keep, int rows,
                          float scale, int C, int skeleton, const void* TM,
                          const void* TN, cudaStream_t stream) {
-  LinePlan p;
-  if (!cols_args(nb, nx, L, NX, keep, rows, C, TM, TN, &p))
-    return cudaErrorInvalidValue;
-  const int W = psf_cols_width(NX, C);
-  const int vec = L % kQuad == 0 && aligned16(wr) && aligned16(wi) &&
-                  aligned16(out);
-  const float2* T = static_cast<const float2*>(TN);
-  return C == 4 ? inv_c<4>(wr, wi, out, nb, nx, L, keep, rows, scale, W,
-                           vec, skeleton, p, T, stream)
-                : inv_c<8>(wr, wi, out, nb, nx, L, keep, rows, scale, W,
-                           vec, skeleton, p, T, stream);
+  return cols_inv(wr, wi, ColsOut{out}, aligned16(out), nb, nx, L, NX, keep,
+                  rows, scale, C, skeleton, TM, TN, stream);
+}
+
+cudaError_t psf_cols_fwd_cg(const float* pp, const float* rr,
+                            const float* beta, float* pn, float* zr,
+                            float* zi, int nb, int nx, int L, int NX, int C,
+                            const void* TM, const void* TN,
+                            cudaStream_t stream) {
+  const int nxh = NX / 2 + 1;
+  return cols_fwd(CgIn{pp, rr, beta, pn},
+                  aligned16(pp) && aligned16(rr) && aligned16(pn), zr, zi,
+                  nb, nx, L, NX, nxh, nxh, C, 0, TM, TN, stream);
+}
+
+cudaError_t psf_cols_inv_cg(const float* wr, const float* wi,
+                            const float* pn, float* out, double* part,
+                            int nb, int nx, int L, int NX, float scale,
+                            int C, const void* TM, const void* TN,
+                            cudaStream_t stream) {
+  const int nxh = NX / 2 + 1;
+  return cols_inv(wr, wi, CgOut{out, pn, part},
+                  aligned16(pn) && aligned16(out), nb, nx, L, NX, nxh, nxh,
+                  scale, C, 0, TM, TN, stream);
 }
 
 }  // namespace pfbt

@@ -31,4 +31,23 @@ cudaError_t psf_cols_inv(const float* wr, const float* wi, float* out,
                          float scale, int C, int skeleton, const void* TM,
                          const void* TN, cudaStream_t stream);
 
+// K2's stage 1 on the forward kernel: p = beta_b p_prev - r (beta (nb,))
+// of pp, rr (nb, nx, L) written to pn, its spectrum rows k <= NX/2 ->
+// zr, zi (nb, NX/2 + 1, L).
+cudaError_t psf_cols_fwd_cg(const float* pp, const float* rr,
+                            const float* beta, float* pn, float* zr,
+                            float* zi, int nb, int nx, int L, int NX, int C,
+                            const void* TM, const void* TN,
+                            cudaStream_t stream);
+
+// K2's stage 3 on the inverse kernel: the Hermitian half wr, wi (nb, NX/2
+// + 1, L) -> out (nb, nx, L) times `scale`, and per column the float64
+// sums of p . out and p . p (p = pn), each block's into part (nb, L, C,
+// 2).
+cudaError_t psf_cols_inv_cg(const float* wr, const float* wi,
+                            const float* pn, float* out, double* part,
+                            int nb, int nx, int L, int NX, float scale,
+                            int C, const void* TM, const void* TN,
+                            cudaStream_t stream);
+
 }  // namespace pfbt

@@ -12,9 +12,10 @@
 //     pallas_fft.py:psf_convolve_pallas_v3_cube_cg (_k1t_cg_kernel,
 //     _k2t/_k2tr, _k3t_cg_kernel): stage 1 forms the direction
 //     p = beta_b p_prev - r as it loads the columns and writes p; stage 3
-//     sums p . conv(p) and p . p per column (float64, fixed order), and a
-//     last small pass adds the columns of each band in a fixed order, so
-//     reruns are bitwise equal (no atomics).
+//     sums p . conv(p) and p . p per column (float64, fixed order: on the
+//     cluster route per block, psf_cols.cu's CgIn / CgOut), and a last
+//     small pass adds each column's partials and then the columns of each
+//     band in a fixed order, so reruns are bitwise equal (no atomics).
 // K11 pfbt_psf_conv_full: Re(ifft2(H fft2(pad(x))))[:nx, :ny] with the
 //     FULL complex transfer function (nb, NX, NY) and any 5-smooth even
 //     NX >= nx, NY >= ny (the image need not be half the PSF). Replaces
@@ -53,10 +54,12 @@
 // The column kernel of a stage is the cluster column FFT of psf_cols.cu
 // where psf_cols_clusters(NX, ny) holds (NX >= 4096 and its tile fits),
 // else line_fft_kernel (fft_lines.cuh). Every entry here asks the same
-// predicate, so K1, K10, K11 and K15 take one route at one NX; the caller
-// passes the C it expects (0 for the line kernel) and the tables of that
-// route, and an entry refuses a C that is not the predicate's. K2's
-// fused column kernels keep the line kernel's layout.
+// predicate, so K1, K2, K10, K11 and K15 take one route at one NX; the
+// caller passes the C it expects (0 for the line kernel) and the tables
+// of that route, and an entry refuses a C that is not the predicate's.
+// On the cluster route K2's stages are the cluster kernels with its
+// prologue and epilogue, so its conv(p) is K1's of its own p bit for bit;
+// on the line route, the fused line kernels below.
 // The rows kernel of every entry (K1, K2, K10, K11) is the fused register
 // row FFT K10br of psf_rows.cu where psf_rows_fused(NY) holds (NY = 4096,
 // 6144, 8192, 12288), else psf_rows_kernel below. The caller passes that
@@ -77,7 +80,7 @@
 // 2 runs both y transforms and the H multiply on one residency of the row
 // (in registers on K10br), so the spectrum never goes to HBM between them.
 // K2's extra vector work rides the columns that stages 1 and 3 already
-// hold.
+// hold (16-byte quads on the cluster route).
 #include "fft_lines.cuh"
 #include "psf_cols.cuh"
 #include "psf_rows.cuh"
@@ -295,16 +298,23 @@ constexpr int kSumThreads = 256;
 
 // K2's last pass: per band, the ny column sums added in a fixed order
 // (strided per thread, then a tree), rounded once to float32:
-// pap[b] = [p . conv(p), p . p].
+// pap[b] = [p . conv(p), p . p]. A column's sum is the sum of its `parts`
+// partials (the cluster route's blocks, in block order) taken first.
 __global__ void __launch_bounds__(kSumThreads)
 band_sums_kernel(const double* __restrict__ colsum, float* __restrict__ pap,
-                 int ny) {
+                 int ny, int parts) {
   __shared__ double s0[kSumThreads], s1[kSumThreads];
   const long b = blockIdx.x;
   double a0 = 0.0, a1 = 0.0;
   for (int j = threadIdx.x; j < ny; j += kSumThreads) {
-    a0 += colsum[2 * (b * ny + j)];
-    a1 += colsum[2 * (b * ny + j) + 1];
+    const double* cs = colsum + 2 * (b * ny + j) * parts;
+    double c0 = cs[0], c1 = cs[1];
+    for (int c = 1; c < parts; ++c) {
+      c0 += cs[2 * c];
+      c1 += cs[2 * c + 1];
+    }
+    a0 += c0;
+    a1 += c1;
   }
   s0[threadIdx.x] = a0;
   s1[threadIdx.x] = a1;
@@ -514,49 +524,66 @@ extern "C" int pfbt_psf_stage_cols_inv(const float* wr, const float* wi,
                                    static_cast<cudaStream_t>(stream)));
 }
 
-// K2: TX the length-NX plan's table; TY, fused and nfused as
-// pfbt_psf_conv's.
+// K2: C, TX, TM, TN as pfbt_psf_conv's (the column route, asked as K1
+// asks it at (NX, ny)); TY, fused and nfused as pfbt_psf_conv's. colsum
+// holds the column sums: (nb, ny, 2) on the line route, (nb, ny, C, 2) on
+// the cluster route (its blocks' partials). stages: the stages launched
+// (bit 1: stage 1, 2: rows, 4: stage 3 and the band sums; 7 is K2), so
+// the lab can time one on the scratch a full call left.
 extern "C" int pfbt_psf_conv_cg(const float* pp, const float* rr,
                                 const float* beta, const float* hr,
                                 const float* hi, float* pn, float* zr,
                                 float* zi, float* wr, float* wi, float* out,
                                 double* colsum, float* pap, int nb, int nx,
-                                int ny, int NX, int NY, const void* TX,
-                                const void* TY, int fused, int* nfused,
-                                void* stream) {
+                                int ny, int NX, int NY, int C,
+                                const void* TX, const void* TY,
+                                const void* TM, const void* TN, int fused,
+                                int* nfused, int stages, void* stream) {
   using namespace pfbt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   LinePlan px;
   LineLaunch c;
-  if (NX % 2 || nx > NX || ny > NY || !make_plan(NX, TX, &px) ||
-      !rows_ok(NY, TY, fused) || !cg_launch(NX, &c))
+  if (NX % 2 || nx > NX || ny > NY || !rows_ok(NY, TY, fused) ||
+      !cols_route(NX, ny, C, TX, TM, TN, &px) ||
+      (!C && !cg_launch(NX, &c)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nxh = NX / 2 + 1;
+  const float scale = 1.0f / ((float)NX * (float)NY);
 
   // 1. p = beta p_prev - r -> pn; its x spectrum -> z (nb, nxh, ny)
-  cudaError_t e =
-      c.vpt == kVpt
-          ? cg_stage1<kVpt>(pp, rr, beta, pn, zr, zi, nb, nx, ny, nxh, c,
-                            px, st)
-          : cg_stage1<2 * kVpt>(pp, rr, beta, pn, zr, zi, nb, nx, ny, nxh,
-                                c, px, st);
+  cudaError_t e = cudaSuccess;
+  if ((stages & 1) && C)
+    e = psf_cols_fwd_cg(pp, rr, beta, pn, zr, zi, nb, nx, ny, NX, C, TM, TN,
+                        st);
+  else if (stages & 1)
+    e = c.vpt == kVpt
+            ? cg_stage1<kVpt>(pp, rr, beta, pn, zr, zi, nb, nx, ny, nxh, c,
+                              px, st)
+            : cg_stage1<2 * kVpt>(pp, rr, beta, pn, zr, zi, nb, nx, ny,
+                                  nxh, c, px, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   // 2. rows, as K1
-  e = rows_stage<false>(zr, zi, hr, hi, wr, wi, nb * nxh, ny, NX, NY, TY,
-                        nfused, st);
+  if (stages & 2)
+    e = rows_stage<false>(zr, zi, hr, hi, wr, wi, nb * nxh, ny, NX, NY, TY,
+                          nfused, st);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (!(stages & 4)) return 0;
 
   // 3. conv(p) -> out, column sums of p.conv(p) and p.p -> colsum
-  const float scale = 1.0f / ((float)NX * (float)NY);
-  e = c.vpt == kVpt
-          ? cg_stage3<kVpt>(wr, wi, pn, out, colsum, nb, nx, ny, nxh, scale,
-                            c, px, st)
-          : cg_stage3<2 * kVpt>(wr, wi, pn, out, colsum, nb, nx, ny, nxh,
-                                scale, c, px, st);
+  if (C)
+    e = psf_cols_inv_cg(wr, wi, pn, out, colsum, nb, nx, ny, NX, scale, C,
+                        TM, TN, st);
+  else
+    e = c.vpt == kVpt
+            ? cg_stage3<kVpt>(wr, wi, pn, out, colsum, nb, nx, ny, nxh,
+                              scale, c, px, st)
+            : cg_stage3<2 * kVpt>(wr, wi, pn, out, colsum, nb, nx, ny, nxh,
+                                  scale, c, px, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   // 4. per band: pap (nb, 1, 2)
-  band_sums_kernel<<<nb, kSumThreads, 0, st>>>(colsum, pap, ny);
+  band_sums_kernel<<<nb, kSumThreads, 0, st>>>(colsum, pap, ny,
+                                               C ? C : 1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,9 +23,9 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
             "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu", "cfft_cols.cu",
-            "cfft_rows.cu", "psf_cols.cu", "psf_rows.cu")
-_HEADERS = ("fft_lines.cuh", "pg_es.cuh", "psf_cols.cuh", "psf_rows.cuh",
-            "rows_fft.cuh")
+            "cfft_rows.cu", "psf_cols.cu", "psf_rows.cu", "lab_spread.cu")
+_HEADERS = ("fft_lines.cuh", "pg_es.cuh", "pg_spread.cuh", "psf_cols.cuh",
+            "psf_rows.cuh", "rows_fft.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / \
     "pfb_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,7 +52,7 @@ _SIGNATURES = {
     "pfbt_psf_cols_route": [_I, _I],
     "pfbt_psf_cols_fwd": [_P] * 3 + [_I] * 8 + [_P] * 3,
     "pfbt_psf_cols_inv": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 3,
-    "pfbt_psf_conv_cg": [_P] * 13 + [_I] * 5 + [_P] * 2 + [_I, _P, _P],
+    "pfbt_psf_conv_cg": [_P] * 13 + [_I] * 6 + [_P] * 4 + [_I, _P, _I, _P],
     "pfbt_psf_rows_route": [_I],
     "pfbt_psf_rows": [_P] * 6 + [_I] * 4 + [_P] * 3,
     "pfbt_twiddles": [_I, _P, _P],
@@ -60,6 +60,7 @@ _SIGNATURES = {
     "pfbt_pg_fold": [_P] * 3 + [_I] * 11 + [_P],
     "pfbt_pg_degrid": [_P] * 5 + [_I] * 11 + [_D, _P],
     "pfbt_pg_spread_gs": [_P] * 6 + [_I] * 7 + [_D, _P],
+    "pfbt_pg_spread_lab": [_P] * 6 + [_I] * 7 + [_D, _I, _I, _P],
     "pfbt_pg_fold_gs": [_P] * 3 + [_I] * 11 + [_P],
     "pfbt_pg_degrid_gs": [_P] * 6 + [_I] * 12 + [_D, _P],
 }

@@ -423,6 +423,60 @@ def pg_spread_gs(pos, vis, gmap, start, count, *, woff, beta, k, B, Thx,
 pg_spread_gs.launches = 0
 
 
+# the lab's designs of the spread (``csrc/lab_spread.cu``)
+SPREAD_DESIGNS = {"scan": 0, "lists": 1}
+SPREAD_MODES = ("kernel", "no FMA", "no scan", "no factors", "barriers")
+
+
+def pg_spread_lab(pos, vis, start, count, *, beta, k, nw, Thx, Thy,
+                  gmap=None, woff=0, design="lists", mode="kernel"):
+    """The spread lab's entry (``csrc/lab_spread.cu``, for
+    scripts/torch_kernel_lab.py --spread and the card tests): ``design``
+    "lists" is K4 / K7's kernel (``csrc/pg_grid.cu``), "scan" the
+    earlier design kept as their reference, whose grids are bit for bit
+    the same; ``mode`` one of :data:`SPREAD_MODES`, the kernel or a
+    skeleton that drops parts from the end (its output is not a grid).
+    K7's operands where ``gmap`` is given (``woff`` its block's first
+    plane, :func:`pg_spread_gs`'s), else K4's (``pgridder.pg_spread``'s,
+    ``start`` / ``count`` the slots'). CUDA float32 operands launch the
+    kernel; CPU operands run the plain spread (the kernel mode only). ->
+    (2, nw, NS, Thx, Thy), slots with no entries unwritten."""
+    NS = start.numel()
+    NE1, _, C = pos.shape
+    if design not in SPREAD_DESIGNS or mode not in SPREAD_MODES or \
+            vis.shape != (NE1, 2, C) or count.shape != start.shape:
+        raise ValueError(f"pg_spread_lab: design {design!r}, mode {mode!r},"
+                         f" pos {tuple(pos.shape)}, vis {tuple(vis.shape)}")
+    if not pos.is_cuda:
+        if mode != "kernel":
+            raise ValueError("pg_spread_lab: a skeleton needs the card")
+        if gmap is None:
+            ent = torch.full((NE1,), NS, dtype=torch.long,
+                             device=pos.device)
+            ent[:int(count.sum())] = _slot_of_positions(start, count)
+            return pg_spread_plain(pos, vis, dict(NS=NS, ent_slot=ent),
+                                   beta=beta, k=k, nw=nw, Thx=Thx, Thy=Thy)
+        return pg_spread_gs_plain(pos, vis, gmap, start, count, woff=woff,
+                                  beta=beta, k=k, B=nw, Thx=Thx, Thy=Thy)
+    kernels.require_cuda_f32("pg_spread_lab", pos, vis)
+    kernels.require_cuda_i32("pg_spread_lab", start, count,
+                             *(() if gmap is None else (gmap,)))
+    out = torch.empty((2, nw, NS, Thx, Thy), dtype=torch.float32,
+                      device=pos.device)
+    code = kernels.library().pfbt_pg_spread_lab(
+        pos.data_ptr(), vis.data_ptr(),
+        None if gmap is None else gmap.data_ptr(), start.data_ptr(),
+        count.data_ptr(), out.data_ptr(), C, NS, nw, Thx, Thy, k, int(woff),
+        float(beta), SPREAD_DESIGNS[design], SPREAD_MODES.index(mode),
+        kernels.stream_ptr())
+    kernels.check(code, "pg_spread_lab")
+    pg_spread_lab.launches += 1
+    return out
+
+
+pg_spread_lab.launches = 0
+
+
 # ---------------------------------------------------------------------
 # K8: fold of one block
 

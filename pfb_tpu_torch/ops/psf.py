@@ -26,16 +26,17 @@ K10 is K1's three stages as separate calls (:func:`psf_stage_cols_fwd`,
 parallel/dist.py, which puts all-to-all transposes between them. Its H is
 K1's with the rows padded to the shard count (:func:`prep_h_space`).
 
-The column stages of every entry (K1, K10, K11, and through them K12-K15)
-run on one of two kernels, by :func:`cols_route` at (NX, columns): at NX
->= 4096 where the tile fits, the cluster column FFT of
+The column stages of every entry (K1, K2, K10, K11, and through them
+K12-K15) run on one of two kernels, by :func:`cols_route` at (NX,
+columns): at NX >= 4096 where the tile fits, the cluster column FFT of
 ``csrc/psf_cols.cu`` (:func:`psf_cols_fwd` / :func:`psf_cols_inv` count
-its launches, from whichever entry); elsewhere ``line_fft_kernel``. The
-C++ predicate ``psf_cols_clusters`` decides and an entry refuses a route
-it does not hold, so the mirror here and the kernels cannot disagree
-silently. :func:`psf_cols_fwd_plain` / :func:`psf_cols_inv_plain` are the
-cluster kernels' own decomposition as torch operations, for the CPU
-tests.
+its launches, from whichever entry; K2's with its prologue and epilogue,
+:func:`psf_convolve_h_cg_cols_plain` its decomposition); elsewhere
+``line_fft_kernel`` (K2: its fused line kernels). The C++ predicate
+``psf_cols_clusters`` decides and an entry refuses a route it does not
+hold, so the mirror here and the kernels cannot disagree silently.
+:func:`psf_cols_fwd_plain` / :func:`psf_cols_inv_plain` are the cluster
+kernels' own decomposition as torch operations, for the CPU tests.
 
 The rows stage of every entry (K1, K2, K10 stage 2, K11, and through them
 K12-K14) runs on one of two kernels, by :func:`rows_route` at NY: at NY =
@@ -502,6 +503,32 @@ def psf_convolve_h_cg_plain(p_prev, r, beta, hr, hi):
     return p, conv, pap[:, None, :]
 
 
+def psf_convolve_h_cg_cols_plain(p_prev, r, beta, hr, hi=None, *, C):
+    """K2's cluster route as torch operations, in p_prev's type: p = beta
+    p_prev - r, the forward cluster column stage
+    (:func:`psf_cols_fwd_plain`), the rows stage
+    (:func:`psf_stage_rows_plain`), the inverse (:func:`psf_cols_inv_plain`
+    times 1 / (NX NY)), then the sums in the kernel's order: block c of a
+    tile's cluster stores the rows n = n1 + M n2 with n1 // ceil(M / C) =
+    c (M = NX / C) and adds p . conv and p . p over them per column; a
+    column's C block partials are added in block order, then the band's
+    columns. Returns (p, conv, pap) as :func:`psf_convolve_h_cg_plain`."""
+    nb, nx, ny = p_prev.shape
+    NX, NY = 2 * nx, 2 * ny
+    p = beta * p_prev - r
+    zr, zi = psf_cols_fwd_plain(p, NX, NX // 2 + 1, C=C)
+    wr, wi = psf_stage_rows_plain(zr, zi, hr, hi)
+    conv = psf_cols_inv_plain(wr, wi, nx, NX, C=C, scale=1.0 / (NX * NY))
+    M = NX // C
+    block = (torch.arange(nx, device=p.device) % M) // -(-M // C)
+    prod = torch.stack([p * conv, p * p], dim=-1)  # (nb, nx, ny, 2)
+    part = prod.new_zeros((nb, C, ny, 2)).index_add_(1, block, prod)
+    col = part[:, 0]
+    for c in range(1, C):
+        col = col + part[:, c]
+    return p, conv, col.sum(dim=1)[:, None, :]
+
+
 def psf_convolve_h_cg(p_prev, r, beta, hr, hi=None):
     """K2, the CG-fused K1 (counterpart of
     psf_convolve_pallas_v3_cube_cg): from p_prev, r (nb, nx, ny) and beta
@@ -517,27 +544,46 @@ def psf_convolve_h_cg(p_prev, r, beta, hr, hi=None):
                          f"{tuple(hr.shape)} do not match")
     if not p_prev.is_cuda:
         return psf_convolve_h_cg_plain(p_prev, r, beta, hr, hi)
+    bufs = psf_cg_stages(p_prev, r, beta, hr, hi)
+    return bufs["pn"], bufs["out"], bufs["pap"]
+
+
+def psf_cg_stages(p_prev, r, beta, hr, hi=None, stages=7, bufs=None):
+    """K2's stages on validated-shape CUDA operands (psf_convolve_h_cg's):
+    bit 1 stage 1 (p and its column spectra), bit 2 the rows stage, bit 4
+    stage 3 (conv(p) and the column sums) and the band sums; ``stages=7``
+    is K2. ``bufs``, the dict a previous call returned, keeps the scratch,
+    so a stage alone reads its predecessor's output (the lab's per-stage
+    times). Returns the dict: pn (p), out (conv(p)), pap and the scratch.
+    The column stages take :func:`cols_route`'s kernels at (2 nx, ny),
+    as K1's do, and the rows stage :func:`rows_route`'s (counted)."""
     kernels.require_cuda_f32("psf_convolve_h_cg", p_prev, r, beta, hr, hi)
+    nb, nx, ny = p_prev.shape
     NX, NY = 2 * nx, 2 * ny
     dev = p_prev.device
-    pn = torch.empty_like(p_prev)
-    out = torch.empty_like(p_prev)
-    zr = torch.empty((nb, nx + 1, ny), dtype=torch.float32, device=dev)
-    zi, wr, wi = (torch.empty_like(zr) for _ in range(3))
-    colsum = torch.empty((nb, ny, 2), dtype=torch.float64, device=dev)
-    pap = torch.empty((nb, 1, 2), dtype=torch.float32, device=dev)
-    WX = kernels.twiddles(NX, dev)
+    C, TX, TM, TN = _cols_tables(NX, ny, dev)
+    if bufs is None:
+        zr = torch.empty((nb, nx + 1, ny), dtype=torch.float32, device=dev)
+        bufs = dict(pn=torch.empty_like(p_prev), out=torch.empty_like(p_prev),
+                    zr=zr, zi=torch.empty_like(zr), wr=torch.empty_like(zr),
+                    wi=torch.empty_like(zr),
+                    colsum=torch.empty((nb, ny, max(C, 1), 2),
+                                       dtype=torch.float64, device=dev),
+                    pap=torch.empty((nb, 1, 2), dtype=torch.float32,
+                                    device=dev))
     TY, fused, nfused = _rows_args(NY, dev)
     code = kernels.library().pfbt_psf_conv_cg(
         p_prev.data_ptr(), r.data_ptr(), beta.data_ptr(), hr.data_ptr(),
-        None if hi is None else hi.data_ptr(), pn.data_ptr(), zr.data_ptr(),
-        zi.data_ptr(), wr.data_ptr(), wi.data_ptr(), out.data_ptr(),
-        colsum.data_ptr(), pap.data_ptr(), nb, nx, ny, NX, NY,
-        WX.data_ptr(), TY, fused, nfused, kernels.stream_ptr())
+        None if hi is None else hi.data_ptr(),
+        *(bufs[k].data_ptr() for k in ("pn", "zr", "zi", "wr", "wi", "out",
+                                       "colsum", "pap")),
+        nb, nx, ny, NX, NY, C, TX, TY, TM, TN, fused, nfused, int(stages),
+        kernels.stream_ptr())
     kernels.check(code, "psf_convolve_h_cg")
+    _count_cols(C, fwd=stages & 1, inv=(stages >> 2) & 1)
     _count_rows(nfused)
     psf_convolve_h_cg.launches += 1
-    return pn, out, pap
+    return bufs
 
 
 psf_convolve_h_cg.launches = 0

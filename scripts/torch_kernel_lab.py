@@ -7,6 +7,7 @@ the card (counterpart of scripts/wl_kernel_lab.py's k1 / k2 / k3).
     python3 scripts/torch_kernel_lab.py --digest [--root DIR]
     python3 scripts/torch_kernel_lab.py --minblocks 1,2,3,4 [--out FILE]
     python3 scripts/torch_kernel_lab.py --fold [--root DIR]
+    python3 scripts/torch_kernel_lab.py --spread [--root DIR]
 
 At (8, nx^2) with a (2nx)^2 PSF for each nx of ``--nx`` (a delta 1.0 at
 the centre and 0.05 at +5, +3, as wl_kernel_lab.py builds it; complex
@@ -39,14 +40,17 @@ operations over 67 TFLOP/s) and the card's name and power limit, a
 summary line per size, then a last summary line (also written to
 ``--out``).
 
-``--digest`` prints the sha256 of K1's, K3's, K10's, K11's, K12's, K15's
-and the fold's (K8's entry) outputs on fixed seeded inputs, with the
+``--digest`` prints the sha256 of K1's, K2's, K3's, K10's, K11's,
+K12's, K15's, the fold's (K8's entry) and the spreads' (K4, K7) outputs
+on fixed seeded inputs, with the
 pfb_tpu_torch found under ``--root`` (default: this repo), so two trees
 can be compared bit for bit on one card: the lengths below 4096 (K1, K10
 and K11 on ``line_fft_kernel``), K1 and K10 at NX = 4096, K11 at 6144,
 K12 and K15 at 8192 (the column stages' cluster route since it exists),
 K1 and K10's rows stage at NY = 4096 and K11 at 6144 (the rows stage's
-register route since it exists), and the fold on three tile geometries.
+register route since it exists), the fold on three tile geometries, K2
+on the column stages' cluster route (NX = 4096) and on the line kernels
+(2048), and the spreads K4 (k = 7 and 9) and K7 on seeded plans.
 ``--root`` also times another tree's kernels (one from before the cluster
 column kernels times the rest), so two trees compare in one call.
 ``--device cpu`` rehearses the timing at a small ``--nx`` with the plain
@@ -58,6 +62,17 @@ plans' tiles and live-slot counts, the live tiles drawn from a seed),
 beside chip_smoke.py's fold_library (a zero fill, then index_add_), one
 JSON line a shape; run it with and without ``--root`` in one call to
 compare two trees.
+
+``--spread`` times the spreads K4 (pg_spread) and K7 (pg_spread_gs) of
+the tree at ``--root`` at the shapes chip_smoke.py gives them
+(:func:`spread_cases`: the pg path's image and PSF plans, the klean
+path's and the flagship's largest w block), with the slots' chains
+(entries a slot: longest and mean) and the bound; where the tree has the
+spread lab (``pg_stream.pg_spread_lab``, ``csrc/lab_spread.cu``), both
+designs (the lists of ``csrc/pg_grid.cu`` and the earlier scan) with
+each one's skeletons and the split of its time into FMAs, scan, factors,
+loads and barriers (:func:`spread_times`), and whether each design's
+grids equal the shipped spread's bit for bit.
 
 ``--minblocks 1,2,3,4`` probes the cluster column kernels' register
 budget: for each value, a copy of pfb_tpu_torch under
@@ -251,6 +266,50 @@ def digest(dev):
                         device=dev)
         out[f"K8 fold N={N} tiles {txs}x{tys} k={k}"] = pg_fold_gs(
             Y, tslot, ntx=ntx, nty=nty, txs=txs, tys=tys, k=k, Nx=N, Ny=N)
+    # K2 on the cluster route (NX = 4096) and on the line kernels (2048)
+    from pfb_tpu_torch.ops.psf import psf_convolve_h_cg
+    for nx in (2048, 1024):
+        x, r = (torch.randn((nb, nx, 256), generator=g, device=dev)
+                for _ in range(2))
+        beta = torch.rand((nb, 1, 1), generator=g, device=dev)
+        psf = torch.randn((nb, 2 * nx, 512), generator=g, device=dev)
+        hr, hi = prep_h(psf, nx, 256, torch.float32, real_transfer=False)
+        out[f"K2 NX={2 * nx}"] = torch.cat([
+            v.reshape(-1) for v in psf_convolve_h_cg(x, r, beta, hr, hi)])
+        del x, r, psf, hr, hi
+    # the spreads K4 (k = 7, the compiled rows, and k = 9) and K7 on
+    # seeded plans: the slots with entries (the kernels write no other)
+    from pfb_tpu_torch.ops import pg_stream as pgs
+    from pfb_tpu_torch.ops import pgridder as pg
+    from pfb_tpu_torch.utils.simulation import image_size_for, simulate_obs
+    obs = simulate_obs(nant=16, ntime=24, nchan=4, seed=0)
+    _, cell = image_size_for(obs, fov_deg=1.0)
+    kw = dict(nx=512, ny=512, cellx=cell, celly=cell, dtype=torch.float32,
+              device=dev)
+    for eps in (1e-5, 1e-7):
+        p = pg.pgrid_plan(obs.uvw, obs.freq, epsilon=eps, **kw)
+        k, txs, tys = p["k"], p["txs"], p["tys"]
+        slots = pg._compact_slots(p["tid"], p["pm"], p["ntx"], p["nty"],
+                                  txs, tys, k)
+        vis = (torch.randn((p["nentries"], 2, p["C"]), generator=g,
+                           device=dev) * p["pm"][:, None]).contiguous()
+        Y = pg.pg_spread(p["pos"], vis, slots, beta=p["beta"], k=k,
+                         nw=p["nw"], Thx=txs + k, Thy=tys + k)
+        out[f"K4 spread k={k}"] = Y[:, :, slots["live"]]
+    bp = pgs.pgrid_plan_wblocked(obs.uvw, obs.freq, epsilon=1e-5,
+                                 plane_block=2, **kw)
+    p0 = bp["p0"]
+    vis = (torch.randn((bp["NEg"] + 1, 2, p0["C"]), generator=g,
+                       device=dev) * bp["gpm"][:, None]).contiguous()
+    ys = []
+    for b in range(bp["nblocks"]):
+        ct = bp["count"][b]
+        Y = pgs.pg_spread_gs(bp["pos"], vis, bp["gmap"][b, :int(
+            bp["nelive"][b])], bp["start"][b], ct, woff=int(bp["woff"][b, 0]),
+            beta=p0["beta"], k=p0["k"], B=bp["B"], Thx=p0["txs"] + p0["k"],
+            Thy=p0["tys"] + p0["k"])
+        ys.append(Y[:, :, ct > 0].reshape(-1))
+    out["K7 spread"] = torch.cat(ys)
     return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
             for k, v in out.items()}
 
@@ -339,6 +398,31 @@ def lab_size(nb, nx, reps, dev, smi):
             ("cluster inverse skeleton", (nb, nx + 1, ny),
              lambda: ops.psf_cols_inv(*w1, nx, NX, skeleton=True),
              cols(nx + 1))]
+    # K2, the CG-fused K1, on p_prev = x, r and beta from the seed; its
+    # stages alone where the tree has them (psf_cg_stages)
+    r2 = torch.randn((nb, nx, ny), generator=g, device=dev)
+    beta = torch.rand((nb, 1, 1), generator=g, device=dev)
+    k2 = (k1[0] + 4.0 * 2 * x.numel(), k1[1] + 6.0 * x.numel())
+    stages += [
+        ("K2 whole psf_convolve_h_cg, complex H", (nb, nx, ny),
+         lambda: ops.psf_convolve_h_cg(x, r2, beta, hr, hi), k2),
+        ("K2 plain psf_convolve_h_cg_plain, complex H", (nb, nx, ny),
+         lambda: ops.psf_convolve_h_cg_plain(x, r2, beta, hr, hi), k2)]
+    if hasattr(ops, "psf_cg_stages") and dev.type == "cuda":
+        p2, c2, _ = ops.psf_convolve_h_cg(x, r2, beta, hr, hi)
+        k2_vs_k1 = bool(torch.equal(c2, psf_convolve_h(p2, hr, hi)))
+        del p2, c2
+        bufs = ops.psf_cg_stages(x, r2, beta, hr, hi)
+        stages += [(f"K2 stage {i + 1}", (nb, nx, ny),
+                    lambda s=1 << i: ops.psf_cg_stages(x, r2, beta, hr, hi,
+                                                       s, bufs), w)
+                   for i, w in enumerate(((cols(nx + 1)[0] + 8.0 * x.numel(),
+                                           cols(nx + 1)[1]),
+                                          rows_stage(nx + 1),
+                                          (cols(nx + 1)[0] + 4.0 * x.numel(),
+                                           cols(nx + 1)[1])))]
+    else:
+        k2_vs_k1 = None
     # for context, not a one-call library: the rows stage as three calls
     zc1 = torch.complex(*z1)
     hc1 = torch.complex(hr, hi)
@@ -371,7 +455,9 @@ def lab_size(nb, nx, reps, dev, smi):
             "chained_vs_k1_rel_err": err, "tol": TOL, "k1_ms": k1,
             "k1_plain_ms": ms["K1 plain psf_convolve_h_plain, complex H"],
             "k1_stage_sum_ms": split, "stage_sum_over_k1": split / k1,
-            "ok": err <= TOL}
+            "k2_ms": ms["K2 whole psf_convolve_h_cg, complex H"],
+            "k2_conv_bitwise_k1_of_p": k2_vs_k1,
+            "ok": err <= TOL and k2_vs_k1 is not False}
 
 
 # (label, nq, N, txs, tys, k, live tiles): the folds chip_smoke.py times
@@ -429,6 +515,135 @@ def fold_times(reps, dev, smi, root, shapes=FOLD_SHAPES):
             "bound_by": bby, "rel_err_vs_library": err, "card": smi}),
             flush=True)
         del Y, flib, grid
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def spread_cases(dev):
+    """The spreads chip_smoke.py times, built as it builds them: K4 on the
+    pg path's image and PSF plans of dataset 0 (its 2.06 M-visibility
+    observation, channel 0, 2048^2), K7 on the largest w block of the
+    klean path's plan of that dataset (plane_block 4) and of the flagship
+    operator's (bench.py's 1 M rows x 8 channels, 4096^2). Values are
+    seeded normals (the time does not depend on them). Yields (label, kw,
+    work, slots): the spread's keyword operands (``pg_spread_lab``'s), its
+    (bytes, operations) and K4's compact slots (None for K7)."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.ops.gridder import make_hessian_dds
+    from pfb_tpu_torch.ops.pgridder import _compact_slots
+    from pfb_tpu_torch.utils.simulation import image_size_for, simulate_obs
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import FLAGSHIP, NX, SIM, pg_plans, spread_work
+    obs = simulate_obs(nant=SIM["nant"], ntime=SIM["ntime"],
+                       nchan=SIM["nchan"], seed=SIM["seed"],
+                       extent=SIM["extent"])
+    _, cell = image_size_for(obs, fov_deg=1.0, srf=2.0)
+    _, cell = image_size_for(obs, fov_deg=(NX + 0.5) * np.rad2deg(cell),
+                             srf=2.0)
+    nrow = obs.uvw.shape[0]
+    one = np.ones((nrow, 1), np.float32)
+    ds = dict(UVW=obs.uvw, FREQ=obs.freq[:1], WEIGHT=one, MASK=one,
+              bandid=0, cell_rad=cell)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, p in zip(("K4 image plan", "K4 PSF plan"),
+                        pg_plans(ds, NX, 1e-5, dev)):
+        k, nw, txs, tys = p["k"], p["nw"], p["txs"], p["tys"]
+        slots = _compact_slots(p["tid"], p["pm"], p["ntx"], p["nty"], txs,
+                               tys, k)
+        vis = (torch.randn((p["nentries"], 2, p["C"]), generator=g,
+                           device=dev) * p["pm"][:, None]).contiguous()
+        kw = dict(pos=p["pos"], vis=vis, start=slots["start"],
+                  count=slots["count"], beta=p["beta"], k=k, nw=nw,
+                  Thx=txs + k, Thy=tys + k)
+        work = spread_work(p["pos"][:, 2] if nw > 1 else None,
+                           p["pm"] != 0, k, nw, int(slots["live"].sum()),
+                           txs + k, tys + k)
+        yield label, kw, work, slots
+        del kw, vis, slots, p
+    rng = np.random.default_rng(FLAGSHIP["seed"])
+    uvw = rng.normal(scale=1000.0, size=(FLAGSHIP["nrow"], 3))
+    uvw[:, 2] *= 0.1
+    freq = np.linspace(0.9e9, 1.1e9, FLAGSHIP["nchan"])
+    umax = np.abs(uvw[:, :2]).max() * freq[-1] / 299792458.0
+    ones = np.ones((FLAGSHIP["nrow"], FLAGSHIP["nchan"]), np.float32)
+    fds = dict(UVW=uvw, FREQ=freq, WEIGHT=ones, MASK=ones, bandid=0,
+               cell_rad=1.0 / (2.0 * umax * 2.0))
+    for label, d, nx in (("K7 klean block", ds, NX),
+                         ("K7 flagship block", fds, FLAGSHIP["nx"])):
+        bp = make_hessian_dds([d], 1, 1.0, nx, nx, backend="pg",
+                              epsilon=1e-5, plane_block=4, use_beam=False,
+                              device=dev).plans[0]
+        p0, B = bp["p0"], bp["B"]
+        k, txs, tys = p0["k"], p0["txs"], p0["tys"]
+        b = int(bp["nelive"].argmax())
+        ne = int(bp["nelive"][b])
+        gmap = bp["gmap"][b, :ne].contiguous()
+        woff = int(bp["woff"][b, 0])
+        st, ct = bp["start"][b].contiguous(), bp["count"][b].contiguous()
+        vis = (torch.randn((bp["NEg"] + 1, 2, p0["C"]), generator=g,
+                           device=dev) * bp["gpm"][:, None]).contiguous()
+        kw = dict(pos=bp["pos"], vis=vis, start=st, count=ct,
+                  beta=p0["beta"], k=k, nw=B, Thx=txs + k, Thy=tys + k,
+                  gmap=gmap, woff=woff)
+        gl = gmap.long()
+        work = spread_work(bp["pos"][gl, 2] - woff, bp["gpm"][gl] != 0, k,
+                           B, int((ct > 0).sum()), txs + k, tys + k)
+        yield f"{label} ({b} of {bp['nblocks']})", kw, work, None
+        del bp, kw, vis
+
+
+def spread_times(reps, dev, smi, root):
+    """--spread: at each of :func:`spread_cases`, the spread of the tree
+    at ``root`` as the paths call it (pg_spread / pg_spread_gs), then,
+    with the chains of its slots (chip_smoke.py:chains) and, where the
+    tree has the lab entry (pg_spread_lab), both designs with each one's
+    split (chip_smoke.py:spread_parts): one JSON line a case. The split
+    takes the differences of consecutive skeletons: the FMAs, the scan
+    (the earlier design's per-warp walk of all C visibilities; the
+    lists' ballots over the list and the hits' loop), the factors, the
+    loads (for the lists, with the compaction) and the barriers with the
+    launch."""
+    import torch
+
+    from pfb_tpu_torch.ops import pg_stream as pgs
+    from pfb_tpu_torch.ops import pgridder as pg
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, chains, spread_parts
+    lab = getattr(pgs, "pg_spread_lab", None)
+    for label, kw, work, slots in spread_cases(dev):
+        if slots is None:
+            def shipped():
+                return pgs.pg_spread_gs(
+                    kw["pos"], kw["vis"], kw["gmap"], kw["start"],
+                    kw["count"], woff=kw["woff"], beta=kw["beta"],
+                    k=kw["k"], B=kw["nw"], Thx=kw["Thx"], Thy=kw["Thy"])
+        else:
+            def shipped():
+                return pg.pg_spread(kw["pos"], kw["vis"], slots,
+                                    beta=kw["beta"], k=kw["k"],
+                                    nw=kw["nw"], Thx=kw["Thx"],
+                                    Thy=kw["Thy"])
+        bms, bby = bound(*work)
+        rec = {"probe": "spread", "root": str(root), "case": label,
+               "k": kw["k"], "planes": kw["nw"], "C": kw["pos"].shape[-1],
+               "tile": [kw["Thx"], kw["Thy"]], **chains(kw["count"]),
+               "ms": cuda_ms(shipped, reps, dev), "bound_ms": bms,
+               "bound_by": bby, "card": smi}
+        if lab is not None and dev.type == "cuda":
+            ref = shipped()
+            live = kw["count"] > 0
+            for design in pgs.SPREAD_DESIGNS:
+                got = lab(design=design, **kw)
+                rec[design] = dict(
+                    spread_parts(kw, design, reps),
+                    bitwise_shipped=bool(torch.equal(got[:, :, live],
+                                                     ref[:, :, live])))
+                del got
+            del ref
+        print(json.dumps(rec), flush=True)
+        del kw, slots
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -530,6 +745,9 @@ def main():
                     "--minblocks)")
     ap.add_argument("--fold", action="store_true",
                     help="time the folds K5 and K8 of --root")
+    ap.add_argument("--spread", action="store_true",
+                    help="time the spreads K4 and K7 of --root, with the "
+                    "lab's designs and skeletons where it has them")
     ap.add_argument("--out")
     args = ap.parse_args()
     import torch
@@ -545,6 +763,9 @@ def main():
         return 0
     if args.fold:
         fold_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.spread:
+        spread_times(args.reps, dev, smi, args.root)
         return 0
     if args.cols_times:
         cols_times(args.reps, dev, smi, args.root)

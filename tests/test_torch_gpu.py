@@ -1345,3 +1345,131 @@ def test_lab_wrappers_reject_bad_operands(cuda):
         cf.fftx_c2c_split(x, x, N=1024)
     with pytest.raises(ValueError):
         cf.fftx_c2c_split(x.double(), x.double(), N=512)
+
+
+@pytest.mark.parametrize("nx,C", [(2048, 4), (4096, 8)])
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_k2_cluster_route_matches_plain_and_k1(cuda, nx, C, complex_h):
+    """K2 where cols_route holds, (2, 2048^2) of 4096 and (2, 4096^2) of
+    8192: its stages launch the cluster column kernels (their counters
+    gain one launch each); p, conv(p) and pap against the plain version;
+    conv bitwise K1 of K2's own p (the same FFT on the same values);
+    reruns bitwise (block partials added in a fixed order)."""
+    nb = 2
+    assert psf_mod.cols_route(2 * nx, nx) and \
+        cf.cluster_shape(2 * nx)[0] == C
+    g = torch.Generator(device=cuda).manual_seed(nx + complex_h)
+    psf = torch.randn((nb, 2 * nx, 2 * nx), generator=g, device=cuda)
+    hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=not complex_h)
+    del psf
+    pp, r = (torch.randn((nb, nx, nx), generator=g, device=cuda)
+             for _ in range(2))
+    beta = torch.rand((nb, 1, 1), generator=g, device=cuda)
+    n0 = (psf_mod.psf_cols_fwd.launches, psf_mod.psf_cols_inv.launches,
+          psf_convolve_h_cg.launches)
+    got = psf_convolve_h_cg(pp, r, beta, hr, hi)
+    torch.cuda.synchronize()
+    assert (psf_mod.psf_cols_fwd.launches, psf_mod.psf_cols_inv.launches,
+            psf_convolve_h_cg.launches) == tuple(n + 1 for n in n0)
+    ref = psf_convolve_h_cg_plain(pp, r, beta, hr, hi)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert _ok(a, b)
+    assert torch.equal(got[1], psf_convolve_h(got[0], hr, hi))
+    for a, b in zip(got, psf_convolve_h_cg(pp, r, beta, hr, hi)):
+        assert torch.equal(a, b)
+
+
+def test_k2_stages_alone_chain_to_k2(cuda):
+    """psf_cg_stages: the three stages launched one at a time on one
+    scratch give K2's outputs bit for bit."""
+    nb, nx = 2, 2048
+    g = torch.Generator(device=cuda).manual_seed(12)
+    psf = torch.randn((nb, 2 * nx, 2 * nx), generator=g, device=cuda)
+    hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=False)
+    pp, r = (torch.randn((nb, nx, nx), generator=g, device=cuda)
+             for _ in range(2))
+    beta = torch.rand((nb, 1, 1), generator=g, device=cuda)
+    want = psf_convolve_h_cg(pp, r, beta, hr, hi)
+    bufs = None
+    for s in (1, 2, 4):
+        bufs = psf_mod.psf_cg_stages(pp, r, beta, hr, hi, s, bufs)
+    for a, k in zip(want, ("pn", "out", "pap")):
+        assert torch.equal(a, bufs[k])
+
+
+SPREAD_CASES = [(512, 1e-5, True), (512, 1e-7, True), (512, 1e-5, False),
+                (1024, 1e-5, True)]
+
+
+@pytest.mark.parametrize("nx,eps,do_w", SPREAD_CASES)
+def test_spread_k4_bitwise_the_scan_design(cuda, nx, eps, do_w):
+    """K4 (the lists) against the earlier design kept in the lab
+    (csrc/lab_spread.cu, "scan") on seeded plans, k = 7 (the compiled
+    rows) and 9, one and many planes: the live slots bit for bit; reruns
+    bit for bit."""
+    p = _pg_plan(cuda, nx, eps, do_w, seed=nx + 1)
+    k, nw, txs, tys = p["k"], p["nw"], p["txs"], p["tys"]
+    slots = pg._compact_slots(p["tid"], p["pm"], p["ntx"], p["nty"], txs,
+                              tys, k)
+    g = torch.Generator(device=cuda).manual_seed(nx)
+    vis = (torch.randn((p["nentries"], 2, p["C"]), generator=g,
+                       device=cuda) * p["pm"][:, None]).contiguous()
+    kw = dict(beta=p["beta"], k=k, nw=nw, Thx=txs + k, Thy=tys + k)
+    live = slots["live"]
+    got = pg.pg_spread(p["pos"], vis, slots, **kw)[:, :, live]
+    ref = pgs.pg_spread_lab(p["pos"], vis, slots["start"], slots["count"],
+                            design="scan", **kw)[:, :, live]
+    assert torch.equal(got, ref)
+    again = pg.pg_spread(p["pos"], vis, slots, **kw)[:, :, live]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("nx,eps", [(512, 1e-5), (512, 1e-7), (1024, 1e-5)])
+def test_spread_k7_bitwise_the_scan_design(cuda, nx, eps):
+    """K7 on every live block of a seeded w-blocked plan against the
+    earlier design: the slots with entries bit for bit; reruns bit for
+    bit."""
+    bp = _gs_plan(cuda, nx, eps, seed=nx + 2)
+    p0, B = bp["p0"], bp["B"]
+    k = p0["k"]
+    g = torch.Generator(device=cuda).manual_seed(nx)
+    vis = (torch.randn((bp["NEg"] + 1, 2, p0["C"]), generator=g,
+                       device=cuda) * bp["gpm"][:, None]).contiguous()
+    for b in range(bp["nblocks"]):
+        if not bp["blive"][b]:
+            continue
+        gmap = bp["gmap"][b, :int(bp["nelive"][b])]
+        st, ct = bp["start"][b], bp["count"][b]
+        kw = dict(woff=int(bp["woff"][b, 0]), beta=p0["beta"], k=k,
+                  Thx=p0["txs"] + k, Thy=p0["tys"] + k)
+        sl = ct > 0
+        got = pgs.pg_spread_gs(bp["pos"], vis, gmap, st, ct, B=B, **kw)
+        ref = pgs.pg_spread_lab(bp["pos"], vis, st, ct, gmap=gmap, nw=B,
+                                design="scan", **kw)
+        assert torch.equal(got[:, :, sl], ref[:, :, sl])
+        again = pgs.pg_spread_gs(bp["pos"], vis, gmap, st, ct, B=B, **kw)
+        assert torch.equal(got[:, :, sl], again[:, :, sl])
+
+
+def test_spread_lab_skeletons_launch(cuda):
+    """Each skeleton of both designs launches on a k = 7 plan and counts
+    its launch; a skeleton at another k is refused (only the paths' k is
+    compiled with them)."""
+    p = _pg_plan(cuda, 512, 1e-5, True, seed=5)
+    k, txs, tys = p["k"], p["txs"], p["tys"]
+    assert k == 7
+    slots = pg._compact_slots(p["tid"], p["pm"], p["ntx"], p["nty"], txs,
+                              tys, k)
+    vis = torch.zeros((p["nentries"], 2, p["C"]), device=cuda)
+    kw = dict(beta=p["beta"], k=k, nw=p["nw"], Thx=txs + k, Thy=tys + k)
+    for design in pgs.SPREAD_DESIGNS:
+        for mode in pgs.SPREAD_MODES:
+            n0 = pgs.pg_spread_lab.launches
+            pgs.pg_spread_lab(p["pos"], vis, slots["start"], slots["count"],
+                              design=design, mode=mode, **kw)
+            assert pgs.pg_spread_lab.launches == n0 + 1
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        pgs.pg_spread_lab(p["pos"], vis, slots["start"], slots["count"],
+                          design="lists", mode="no FMA", **dict(kw, k=9))

@@ -244,7 +244,7 @@ class _OnCard(torch.Tensor):
 # (None: pfbt_psf_rows takes K10br's only) and of the int in which the
 # entry reports its K10br launches, in each entry's arguments
 _TY = {"pfbt_psf_conv": (15, 18, 19), "pfbt_psf_conv_full": (15, 18, 19),
-       "pfbt_psf_conv_cg": (19, 20, 21),
+       "pfbt_psf_conv_cg": (20, 23, 24),
        "pfbt_psf_stage_rows": (9, 10, 11), "pfbt_psf_rows": (10, None, 11)}
 
 
