@@ -38,7 +38,8 @@ Phases:
      against the wgrid dirty image of the same dataset and weights
      (max|diff| <= 1e-4 max|wgrid|); K4's parts on each plan (the slots'
      chains, the skeletons' split and the longest slot alone,
-     spread_parts);
+     spread_parts); K6's parts on the image plan (the skeletons of its
+     window design and of the earlier thread design, degrid_parts);
   8. checks of the pg path, as in 5, with K3c, K3r, K4 and K5 launched
      in grid and spotless and K6 in spotless;
   9. klean path, same observation, reusing the pg path's xds and copies
@@ -53,7 +54,7 @@ Phases:
      pg path's model (max|diff| <= 1e-5 max), and the blocked spread (K7)
      and fold (K8) on the block with the most entries, the blocked degrid
      (K9) on that block with its model grids, against their plain
-     versions, with K7's parts on that block as in 7;
+     versions, with K7's and K9's parts on that block as in 7;
  11. the blocked engine at its own scale, the flagship operator of
      bench.py: 1,000,000 rows x 8 channels from default_rng(0), 4096^2,
      epsilon 1e-5, plane_block 4 (nw 20, 5 blocks, 8192^2 grids): host
@@ -62,7 +63,7 @@ Phases:
      all planes at once, counts reset just before each and read just
      after (K3c, K3r and K7-K9 must launch in the blocked one); blocked
      against unblocked (<= 1e-5 max); K7-K9 against plain on the largest
-     block, with K7's parts there as in 7;
+     block, with K7's and K9's parts there as in 7;
  12. K11 path: the same observation re-simulated at 3072^2 with the cell
      at 2/3 of the 2048^2 paths' (same 0.93 deg field, same w planes),
      then init -> grid(backend="pg", robustness=0, 3072^2, PSF 6144^2) ->
@@ -667,6 +668,22 @@ def spread_parts(kw, design="lists", reps=5):
         "loads": t["no factors"] - t["barriers"], "barriers": t["barriers"]})
 
 
+def degrid_parts(kw, design="window", reps=5):
+    """The degrid's time by parts: CUDA-event medians of the kernel and of
+    its skeletons (``pg_stream.pg_degrid_lab`` on the operands ``kw``,
+    one of its designs): the tap factors alone, the grid loads alone, and
+    the sums on register data (with the design's exchange of the taps
+    between lanes). K9's skeletons add to a copy of ``kw``'s
+    accumulator."""
+    from pfb_tpu_torch.ops import pg_stream as pgs
+    if kw.get("acc") is not None:
+        kw = dict(kw, acc=kw["acc"].clone())
+    return dict(design=design, ms={
+        m: cuda_ms(lambda m=m: pgs.pg_degrid_lab(design=design, mode=m,
+                                                 **kw), reps)
+        for m in pgs.DEGRID_MODES})
+
+
 def chains(count):
     """A spread's slot chains: live slots, entries, the longest chain and
     the mean (entries a live slot); the blocks of the longest slot run
@@ -837,6 +854,11 @@ def pg_kernel_checks(res, nx, epsilon, device, timing=True):
     recs.append(_record("K6 pg_degrid (image plan, model grids)",
                         (p["nentries"], 2, p["C"]), degrid_k(), degrid_p(),
                         degrid_k, degrid_p, timing, work=work))
+    if timing and p["k"] == 7:
+        lkw = dict(gr=gr, gi=gi, pos=p["pos"], tid=p["tid"], **dkw)
+        print("[degrid] K6 image plan: " + json.dumps(
+            {d: degrid_parts(lkw, d) for d in ("window", "thread")}),
+            flush=True)
     return recs, plans
 
 
@@ -1039,6 +1061,13 @@ def gs_kernel_checks(bp, vr, vi, w, image, label, timing=True, reps=5):
         lambda: degrid(pgs.pg_degrid_gs_plain, acc_t), timing,
         work=degrid_work(wrel, live, k, B, nslots, Thx, Thy, p0["Nx"],
                          p0["Ny"], accumulate=True), reps=reps))
+    if timing and k == 7:
+        lkw = dict(gr=gr, gi=gi, pos=bp["pos"], tid=bp["utid"], gmap=gmap,
+                   acc=acc_t, woff=woff, beta=p0["beta"], k=k, nw=B, txs=txs,
+                   tys=tys, nty=p0["nty"])
+        print(f"[degrid] K9 {tag}: " + json.dumps(
+            {d: degrid_parts(lkw, d, reps) for d in ("window", "thread")}),
+            flush=True)
     return recs
 
 

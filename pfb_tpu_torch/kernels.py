@@ -23,9 +23,10 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
             "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu", "cfft_cols.cu",
-            "cfft_rows.cu", "psf_cols.cu", "psf_rows.cu", "lab_spread.cu")
-_HEADERS = ("fft_lines.cuh", "pg_es.cuh", "pg_spread.cuh", "psf_cols.cuh",
-            "psf_rows.cuh", "rows_fft.cuh")
+            "cfft_rows.cu", "psf_cols.cu", "psf_rows.cu", "lab_spread.cu",
+            "lab_degrid.cu")
+_HEADERS = ("fft_lines.cuh", "pg_degrid.cuh", "pg_es.cuh", "pg_spread.cuh",
+            "psf_cols.cuh", "psf_rows.cuh", "rows_fft.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / \
     "pfb_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "pfbt_pg_spread_lab": [_P] * 6 + [_I] * 7 + [_D, _I, _I, _P],
     "pfbt_pg_fold_gs": [_P] * 3 + [_I] * 11 + [_P],
     "pfbt_pg_degrid_gs": [_P] * 6 + [_I] * 12 + [_D, _P],
+    "pfbt_pg_degrid_lab": [_P] * 6 + [_I] * 12 + [_D, _I, _I, _P],
 }
 
 

@@ -578,6 +578,66 @@ def pg_degrid_gs(gr, gi, pos, utid, gmap, acc, *, woff, beta, k, B, txs,
 pg_degrid_gs.launches = 0
 
 
+# the lab's designs of the degrid (``csrc/lab_degrid.cu``)
+DEGRID_DESIGNS = {"thread": 0, "taps": 1, "window": 2}
+DEGRID_MODES = ("kernel", "factors", "loads", "sums")
+
+
+def pg_degrid_lab(gr, gi, pos, tid, *, beta, k, nw, txs, tys, nty,
+                  gmap=None, acc=None, woff=0, design="window",
+                  mode="kernel"):
+    """The degrid lab's entry (``csrc/lab_degrid.cu``, for
+    scripts/torch_kernel_lab.py --degrid and the card tests): ``design``
+    one of K6 / K9's three kernels (``csrc/pg_degrid.cu``): "window"
+    where three of its blocks fit an SM, else "taps" at k = 7 (the only k
+    it takes) and "thread", the earlier design and the others'
+    reference, at other k; all three give the same bits. ``mode`` one
+    of :data:`DEGRID_MODES`, the kernel or a skeleton that keeps one
+    part (the factors, the grid loads, or the sums on register data; its
+    output is not a degrid; the taps and the window take them at k = 7
+    only). K9's operands
+    where ``gmap`` is given (``tid`` the stream's entry tiles, ``woff``
+    the block's first plane, ``acc`` the accumulator it adds to, in
+    place: :func:`pg_degrid_gs`'s), else K6's (``pgridder.pg_degrid``'s,
+    w factors when nw > 1). CUDA float32 operands launch the kernel; CPU
+    operands run the plain degrid (the kernel mode only)."""
+    NE1, _, C = pos.shape
+    Nx, Ny = gr.shape[-2:]
+    if design not in DEGRID_DESIGNS or mode not in DEGRID_MODES or \
+            gr.shape != (nw, Nx, Ny) or gi.shape != gr.shape or \
+            (gmap is None) != (acc is None) or \
+            (acc is not None and acc.shape != (NE1, 2, C)):
+        raise ValueError(f"pg_degrid_lab: design {design!r}, mode {mode!r},"
+                         f" grids {tuple(gr.shape)}, {tuple(gi.shape)}, pos "
+                         f"{tuple(pos.shape)}, nw={nw}")
+    kw = dict(beta=beta, k=k, txs=txs, tys=tys, nty=nty)
+    if not gr.is_cuda:
+        if mode != "kernel":
+            raise ValueError("pg_degrid_lab: a skeleton needs the card")
+        if gmap is None:
+            return pg_degrid_plain(gr, gi, pos, tid, nw=nw, **kw)
+        return pg_degrid_gs_plain(gr, gi, pos, tid, gmap, acc, woff=woff,
+                                  B=nw, **kw)
+    kernels.require_cuda_f32("pg_degrid_lab", gr, gi, pos, acc)
+    kernels.require_cuda_i32("pg_degrid_lab", tid,
+                             *(() if gmap is None else (gmap,)))
+    if gmap is None:
+        acc = torch.empty((NE1, 2, C), dtype=torch.float32,
+                          device=gr.device)
+    code = kernels.library().pfbt_pg_degrid_lab(
+        gr.data_ptr(), gi.data_ptr(), pos.data_ptr(), tid.data_ptr(),
+        None if gmap is None else gmap.data_ptr(), acc.data_ptr(),
+        NE1 if gmap is None else gmap.numel(), C, nw, txs + k, tys + k, txs,
+        tys, nty, Nx, Ny, k, int(woff), float(beta), DEGRID_DESIGNS[design],
+        DEGRID_MODES.index(mode), kernels.stream_ptr())
+    kernels.check(code, "pg_degrid_lab")
+    pg_degrid_lab.launches += 1
+    return acc
+
+
+pg_degrid_lab.launches = 0
+
+
 # ---------------------------------------------------------------------
 # operators
 

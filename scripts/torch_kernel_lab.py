@@ -8,6 +8,9 @@ the card (counterpart of scripts/wl_kernel_lab.py's k1 / k2 / k3).
     python3 scripts/torch_kernel_lab.py --minblocks 1,2,3,4 [--out FILE]
     python3 scripts/torch_kernel_lab.py --fold [--root DIR]
     python3 scripts/torch_kernel_lab.py --spread [--root DIR]
+    python3 scripts/torch_kernel_lab.py --degrid [--root DIR]
+    python3 scripts/torch_kernel_lab.py --degrid-rungs
+    python3 scripts/torch_kernel_lab.py --degrid-const NAME=V1,V2
 
 At (8, nx^2) with a (2nx)^2 PSF for each nx of ``--nx`` (a delta 1.0 at
 the centre and 0.05 at +5, +3, as wl_kernel_lab.py builds it; complex
@@ -41,7 +44,8 @@ summary line per size, then a last summary line (also written to
 ``--out``).
 
 ``--digest`` prints the sha256 of K1's, K2's, K3's, K10's, K11's,
-K12's, K15's, the fold's (K8's entry) and the spreads' (K4, K7) outputs
+K12's, K15's, the fold's (K8's entry), the spreads' (K4, K7) and the
+degrids' (K6, K9) outputs
 on fixed seeded inputs, with the
 pfb_tpu_torch found under ``--root`` (default: this repo), so two trees
 can be compared bit for bit on one card: the lengths below 4096 (K1, K10
@@ -50,7 +54,8 @@ K12 and K15 at 8192 (the column stages' cluster route since it exists),
 K1 and K10's rows stage at NY = 4096 and K11 at 6144 (the rows stage's
 register route since it exists), the fold on three tile geometries, K2
 on the column stages' cluster route (NX = 4096) and on the line kernels
-(2048), and the spreads K4 (k = 7 and 9) and K7 on seeded plans.
+(2048), the spreads K4 (k = 7 and 9) and K7 on seeded plans, and the
+degrids K6 (k = 7 and 9) and K9 on seeded plans and grids.
 ``--root`` also times another tree's kernels (one from before the cluster
 column kernels times the rest), so two trees compare in one call.
 ``--device cpu`` rehearses the timing at a small ``--nx`` with the plain
@@ -74,6 +79,29 @@ each one's skeletons and the split of its time into FMAs, scan, factors,
 loads and barriers (:func:`spread_times`), and whether each design's
 grids equal the shipped spread's bit for bit.
 
+``--degrid`` times the degrids K6 (pg_degrid) and K9 (pg_degrid_gs) of
+the tree at ``--root`` at the shapes chip_smoke.py gives them
+(:func:`degrid_cases`: the pg path's image plan, the klean path's and
+the flagship's largest w block) with the bound; where the tree has the
+degrid lab (``pg_stream.pg_degrid_lab``, ``csrc/lab_degrid.cu``), every
+design of ``csrc/pg_degrid.cu`` (the staged window, the lanes along the
+taps and the earlier thread a visibility) with each one's skeletons (the
+factors alone, the grid loads alone, the sums on register data), and
+whether each design's output equals the shipped degrid's bit for bit.
+
+``--degrid-rungs`` times every design of the degrid lab and the degrid
+as the paths call it on plans forced to the tile ladder's rungs with
+the longer tiles (:func:`rung_cases`), where the window design's shared
+memory lets three, two or one of its blocks on an SM: the times that set
+K6 / K9's choice between the window and the taps or the thread design.
+
+``--degrid-const NAME=V1,V2`` probes a constant of the degrid: copies of
+pfb_tpu_torch under ``build/lab_degrid/<NAME>/<value>/`` with
+``csrc/pg_degrid.cu``'s ``constexpr int NAME`` set to each value (for
+example the block sizes ``kTapsThreads`` and ``kWinThreads``), built at
+once, then this tree, each copy and this tree again timed by
+``--degrid`` in child processes.
+
 ``--minblocks 1,2,3,4`` probes the cluster column kernels' register
 budget: for each value, a copy of pfb_tpu_torch under
 ``build/lab_minblocks/<value>/`` with ``csrc/psf_cols.cu``'s
@@ -92,6 +120,7 @@ left where a call takes longer on the card than on the host).
 
 import argparse
 import hashlib
+import itertools
 import json
 import re
 import shutil
@@ -310,6 +339,31 @@ def digest(dev):
             Thy=p0["tys"] + p0["k"])
         ys.append(Y[:, :, ct > 0].reshape(-1))
     out["K7 spread"] = torch.cat(ys)
+    # the degrids K6 (k = 7, the compiled taps, and k = 9) and K9 (every
+    # live block added into one seeded accumulator) on seeded grids, with
+    # a generator of their own (the keys above stay those of trees before
+    # these)
+    gd = torch.Generator(device=dev).manual_seed(13)
+    for eps in (1e-5, 1e-7):
+        p = pg.pgrid_plan(obs.uvw, obs.freq, epsilon=eps, **kw)
+        gr, gi = (torch.randn((p["nw"], p["Nx"], p["Ny"]), generator=gd,
+                              device=dev) for _ in range(2))
+        out[f"K6 degrid k={p['k']}"] = pg.pg_degrid(
+            gr, gi, p["pos"], p["tid"], beta=p["beta"], k=p["k"],
+            nw=p["nw"], txs=p["txs"], tys=p["tys"], nty=p["nty"])
+    acc = torch.randn((bp["NEg"] + 1, 2, p0["C"]), generator=gd,
+                      device=dev)
+    for b in range(bp["nblocks"]):
+        ne = int(bp["nelive"][b])
+        if not ne:
+            continue
+        gr, gi = (torch.randn((bp["B"], p0["Nx"], p0["Ny"]), generator=gd,
+                              device=dev) for _ in range(2))
+        pgs.pg_degrid_gs(gr, gi, bp["pos"], bp["utid"], bp["gmap"][b, :ne],
+                         acc, woff=int(bp["woff"][b, 0]), beta=p0["beta"],
+                         k=p0["k"], B=bp["B"], txs=p0["txs"], tys=p0["tys"],
+                         nty=p0["nty"])
+    out["K9 degrid"] = acc
     return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
             for k, v in out.items()}
 
@@ -519,23 +573,20 @@ def fold_times(reps, dev, smi, root, shapes=FOLD_SHAPES):
             torch.cuda.empty_cache()
 
 
-def spread_cases(dev):
-    """The spreads chip_smoke.py times, built as it builds them: K4 on the
-    pg path's image and PSF plans of dataset 0 (its 2.06 M-visibility
-    observation, channel 0, 2048^2), K7 on the largest w block of the
-    klean path's plan of that dataset (plane_block 4) and of the flagship
-    operator's (bench.py's 1 M rows x 8 channels, 4096^2). Values are
-    seeded normals (the time does not depend on them). Yields (label, kw,
-    work, slots): the spread's keyword operands (``pg_spread_lab``'s), its
-    (bytes, operations) and K4's compact slots (None for K7)."""
+def lab_plans(dev):
+    """The pg plans chip_smoke.py times its spreads and degrids on, built
+    as it builds them: the pg path's image and PSF plans of dataset 0 (its
+    2.06 M-visibility observation, channel 0, 2048^2), then the w-blocked
+    plans (plane_block 4) of the klean path's dataset and of the flagship
+    operator (bench.py's 1 M rows x 8 channels, 4096^2), each with its
+    largest w block. Yields (label, plan, block): block None for the pg
+    plans."""
     import numpy as np
-    import torch
 
     from pfb_tpu_torch.ops.gridder import make_hessian_dds
-    from pfb_tpu_torch.ops.pgridder import _compact_slots
     from pfb_tpu_torch.utils.simulation import image_size_for, simulate_obs
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import FLAGSHIP, NX, SIM, pg_plans, spread_work
+    from chip_smoke import FLAGSHIP, NX, SIM, pg_plans
     obs = simulate_obs(nant=SIM["nant"], ntime=SIM["ntime"],
                        nchan=SIM["nchan"], seed=SIM["seed"],
                        extent=SIM["extent"])
@@ -546,22 +597,10 @@ def spread_cases(dev):
     one = np.ones((nrow, 1), np.float32)
     ds = dict(UVW=obs.uvw, FREQ=obs.freq[:1], WEIGHT=one, MASK=one,
               bandid=0, cell_rad=cell)
-    g = torch.Generator(device=dev).manual_seed(0)
-    for label, p in zip(("K4 image plan", "K4 PSF plan"),
+    for label, p in zip(("image plan", "PSF plan"),
                         pg_plans(ds, NX, 1e-5, dev)):
-        k, nw, txs, tys = p["k"], p["nw"], p["txs"], p["tys"]
-        slots = _compact_slots(p["tid"], p["pm"], p["ntx"], p["nty"], txs,
-                               tys, k)
-        vis = (torch.randn((p["nentries"], 2, p["C"]), generator=g,
-                           device=dev) * p["pm"][:, None]).contiguous()
-        kw = dict(pos=p["pos"], vis=vis, start=slots["start"],
-                  count=slots["count"], beta=p["beta"], k=k, nw=nw,
-                  Thx=txs + k, Thy=tys + k)
-        work = spread_work(p["pos"][:, 2] if nw > 1 else None,
-                           p["pm"] != 0, k, nw, int(slots["live"].sum()),
-                           txs + k, tys + k)
-        yield label, kw, work, slots
-        del kw, vis, slots, p
+        yield label, p, None
+        del p
     rng = np.random.default_rng(FLAGSHIP["seed"])
     uvw = rng.normal(scale=1000.0, size=(FLAGSHIP["nrow"], 3))
     uvw[:, 2] *= 0.1
@@ -570,28 +609,113 @@ def spread_cases(dev):
     ones = np.ones((FLAGSHIP["nrow"], FLAGSHIP["nchan"]), np.float32)
     fds = dict(UVW=uvw, FREQ=freq, WEIGHT=ones, MASK=ones, bandid=0,
                cell_rad=1.0 / (2.0 * umax * 2.0))
-    for label, d, nx in (("K7 klean block", ds, NX),
-                         ("K7 flagship block", fds, FLAGSHIP["nx"])):
+    for label, d, nx in (("klean block", ds, NX),
+                         ("flagship block", fds, FLAGSHIP["nx"])):
         bp = make_hessian_dds([d], 1, 1.0, nx, nx, backend="pg",
                               epsilon=1e-5, plane_block=4, use_beam=False,
                               device=dev).plans[0]
-        p0, B = bp["p0"], bp["B"]
-        k, txs, tys = p0["k"], p0["txs"], p0["tys"]
         b = int(bp["nelive"].argmax())
-        ne = int(bp["nelive"][b])
-        gmap = bp["gmap"][b, :ne].contiguous()
-        woff = int(bp["woff"][b, 0])
-        st, ct = bp["start"][b].contiguous(), bp["count"][b].contiguous()
-        vis = (torch.randn((bp["NEg"] + 1, 2, p0["C"]), generator=g,
-                           device=dev) * bp["gpm"][:, None]).contiguous()
-        kw = dict(pos=bp["pos"], vis=vis, start=st, count=ct,
+        yield f"{label} ({b} of {bp['nblocks']})", bp, b
+        del bp
+
+
+def spread_cases(dev):
+    """The spreads chip_smoke.py times (:func:`lab_plans`): K4 on the pg
+    path's image and PSF plans, K7 on the largest w block of the klean
+    path's plan and of the flagship operator's. Values are seeded normals
+    (the time does not depend on them). Yields (label, kw, work, slots):
+    the spread's keyword operands (``pg_spread_lab``'s), its (bytes,
+    operations) and K4's compact slots (None for K7)."""
+    import torch
+
+    from pfb_tpu_torch.ops.pgridder import _compact_slots
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import spread_work
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, p, b in lab_plans(dev):
+        if b is None:
+            k, nw, txs, tys = p["k"], p["nw"], p["txs"], p["tys"]
+            slots = _compact_slots(p["tid"], p["pm"], p["ntx"], p["nty"],
+                                   txs, tys, k)
+            vis = (torch.randn((p["nentries"], 2, p["C"]), generator=g,
+                               device=dev) * p["pm"][:, None]).contiguous()
+            kw = dict(pos=p["pos"], vis=vis, start=slots["start"],
+                      count=slots["count"], beta=p["beta"], k=k, nw=nw,
+                      Thx=txs + k, Thy=tys + k)
+            work = spread_work(p["pos"][:, 2] if nw > 1 else None,
+                               p["pm"] != 0, k, nw,
+                               int(slots["live"].sum()), txs + k, tys + k)
+            yield f"K4 {label}", kw, work, slots
+            del kw, vis, slots
+            continue
+        p0, B = p["p0"], p["B"]
+        k, txs, tys = p0["k"], p0["txs"], p0["tys"]
+        ne = int(p["nelive"][b])
+        gmap = p["gmap"][b, :ne].contiguous()
+        woff = int(p["woff"][b, 0])
+        st, ct = p["start"][b].contiguous(), p["count"][b].contiguous()
+        vis = (torch.randn((p["NEg"] + 1, 2, p0["C"]), generator=g,
+                           device=dev) * p["gpm"][:, None]).contiguous()
+        kw = dict(pos=p["pos"], vis=vis, start=st, count=ct,
                   beta=p0["beta"], k=k, nw=B, Thx=txs + k, Thy=tys + k,
                   gmap=gmap, woff=woff)
         gl = gmap.long()
-        work = spread_work(bp["pos"][gl, 2] - woff, bp["gpm"][gl] != 0, k,
-                           B, int((ct > 0).sum()), txs + k, tys + k)
-        yield f"{label} ({b} of {bp['nblocks']})", kw, work, None
-        del bp, kw, vis
+        work = spread_work(p["pos"][gl, 2] - woff, p["gpm"][gl] != 0, k, B,
+                           int((ct > 0).sum()), txs + k, tys + k)
+        yield f"K7 {label}", kw, work, None
+        del kw, vis
+
+
+def degrid_cases(dev):
+    """The degrids chip_smoke.py times (:func:`lab_plans`): K6 on the pg
+    path's image plan, K9 on the largest w block of the klean path's plan
+    and of the flagship operator's, each on seeded normal grids (the time
+    does not depend on them). Yields (label, kw, work): the degrid's
+    keyword operands (``pg_degrid_lab``'s; K9's with a zero accumulator)
+    and its (bytes, operations)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import degrid_work
+    g = torch.Generator(device=dev).manual_seed(1)
+    for label, p, b in lab_plans(dev):
+        if label == "PSF plan":
+            continue
+        if b is None:
+            k, nw, txs, tys = p["k"], p["nw"], p["txs"], p["tys"]
+            gr = torch.randn((nw, p["Nx"], p["Ny"]), generator=g,
+                             device=dev, dtype=p["pos"].dtype)
+            gi = torch.randn(gr.shape, generator=g, device=dev,
+                             dtype=gr.dtype)
+            kw = dict(gr=gr, gi=gi, pos=p["pos"], tid=p["tid"],
+                      beta=p["beta"], k=k, nw=nw, txs=txs, tys=tys,
+                      nty=p["nty"])
+            live = p["pm"] != 0
+            ntiles = int(torch.unique(p["tid"][live.any(dim=1)]).numel())
+            work = degrid_work(p["pos"][:, 2] if nw > 1 else None, live, k,
+                               nw, ntiles, txs + k, tys + k, p["Nx"],
+                               p["Ny"])
+            yield f"K6 {label}", kw, work
+            del kw, gr, gi
+            continue
+        p0, B = p["p0"], p["B"]
+        k, txs, tys = p0["k"], p0["txs"], p0["tys"]
+        gmap = p["gmap"][b, :int(p["nelive"][b])].contiguous()
+        woff = int(p["woff"][b, 0])
+        gr = torch.randn((B, p0["Nx"], p0["Ny"]), generator=g, device=dev,
+                         dtype=p["pos"].dtype)
+        gi = torch.randn(gr.shape, generator=g, device=dev, dtype=gr.dtype)
+        kw = dict(gr=gr, gi=gi, pos=p["pos"], tid=p["utid"], gmap=gmap,
+                  acc=torch.zeros((p["NEg"] + 1, 2, p0["C"]), device=dev,
+                                  dtype=gr.dtype),
+                  woff=woff, beta=p0["beta"], k=k, nw=B, txs=txs, tys=tys,
+                  nty=p0["nty"])
+        gl = gmap.long()
+        work = degrid_work(p["pos"][gl, 2] - woff, p["gpm"][gl] != 0, k, B,
+                           int((p["count"][b] > 0).sum()), txs + k, tys + k,
+                           p0["Nx"], p0["Ny"], accumulate=True)
+        yield f"K9 {label}", kw, work
+        del kw, gr, gi
 
 
 def spread_times(reps, dev, smi, root):
@@ -648,6 +772,182 @@ def spread_times(reps, dev, smi, root):
             torch.cuda.empty_cache()
 
 
+def degrid_times(reps, dev, smi, root):
+    """--degrid: at each of :func:`degrid_cases`, the degrid of the tree
+    at ``root`` as the paths call it (pg_degrid / pg_degrid_gs) with its
+    bound, then, where the tree has the lab entry (pg_degrid_lab), each
+    design's kernel and skeletons (chip_smoke.py:degrid_parts: the
+    factors alone, the grid loads alone, the sums on register data) and
+    whether its output equals the shipped degrid's bit for bit: one JSON
+    line a case."""
+    import torch
+
+    from pfb_tpu_torch.ops import pg_stream as pgs
+    from pfb_tpu_torch.ops import pgridder as pg
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound
+    lab = getattr(pgs, "pg_degrid_lab", None)
+    for label, kw, work in degrid_cases(dev):
+        dkw = dict(beta=kw["beta"], k=kw["k"], txs=kw["txs"],
+                   tys=kw["tys"], nty=kw["nty"])
+        if "gmap" in kw:
+            def shipped(acc):
+                return pgs.pg_degrid_gs(
+                    kw["gr"], kw["gi"], kw["pos"], kw["tid"], kw["gmap"],
+                    acc, woff=kw["woff"], B=kw["nw"], **dkw)
+            ref = shipped(torch.zeros_like(kw["acc"]))
+        else:
+            def shipped(acc=None):
+                return pg.pg_degrid(kw["gr"], kw["gi"], kw["pos"],
+                                    kw["tid"], nw=kw["nw"], **dkw)
+            ref = shipped()
+        acc = kw.get("acc")
+        bms, bby = bound(*work)
+        rec = {"probe": "degrid", "root": str(root), "case": label,
+               "k": kw["k"], "planes": kw["nw"], "C": kw["pos"].shape[-1],
+               "entries": (kw["gmap"] if "gmap" in kw
+                           else kw["tid"]).numel(),
+               "tile": [kw["txs"] + kw["k"], kw["tys"] + kw["k"]],
+               "ms": cuda_ms(lambda: shipped(acc), reps, dev),
+               "bound_ms": bms, "bound_by": bby, "card": smi}
+        if lab is not None and dev.type == "cuda":
+            from chip_smoke import degrid_parts
+            for design in pgs.DEGRID_DESIGNS:
+                got = lab(design=design, **dict(
+                    kw, **({} if acc is None else
+                           {"acc": torch.zeros_like(acc)})))
+                rec[design] = dict(degrid_parts(kw, design, reps),
+                                   bitwise_shipped=bool(torch.equal(got,
+                                                                    ref)))
+                del got
+        print(json.dumps(rec), flush=True)
+        del kw, ref, acc
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+
+
+# The tile ladder's rungs over the default tiles (ops/pgridder.py:
+# _auto_tiles) with the longer tile_v, which its cost model gives sparse
+# uv coverage.
+LADDER_RUNGS = ((16, 128), (48, 128))
+SPARSE = dict(nant=32, ntime=64, nchan=1)
+
+
+def rung_cases(dev):
+    """The degrids at the tile ladder's rungs of :data:`LADDER_RUNGS`,
+    where a tile window is (32, 256) and (64, 256) at k = 7, (40, 256)
+    and (72, 256) at k = 9: K6 on a sparse observation (:data:`SPARSE`,
+    31,744 visibilities at 2048^2, which the cost model puts on the
+    largest rung at k = 7, though the plans apply the ladder only from
+    2^18 visibilities) and on the pg path's image plan (dataset 0, channel 0),
+    and K9 on the largest w block (plane_block 4) of both observations'
+    w-blocked plans, all with their tiles forced there; each at k = 7 and
+    9 (epsilon 1e-5 and 1e-7), on seeded normal grids. Yields (label, kw)
+    as :func:`degrid_cases` does."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.ops import pg_stream as pgs
+    from pfb_tpu_torch.ops.mmgridder import _tile_geometry
+    from pfb_tpu_torch.ops.pgridder import _grid_setup, pgrid_plan
+    from pfb_tpu_torch.utils.simulation import image_size_for, simulate_obs
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import NX, SIM
+    g = torch.Generator(device=dev).manual_seed(2)
+    for name, sim in (("sparse", SPARSE), ("dense", SIM)):
+        obs = simulate_obs(nant=sim["nant"], ntime=sim["ntime"],
+                           nchan=sim["nchan"], seed=SIM["seed"],
+                           extent=SIM["extent"])
+        _, cell = image_size_for(obs, fov_deg=1.0, srf=2.0)
+        _, cell = image_size_for(obs, fov_deg=(NX + 0.5) * np.rad2deg(cell),
+                                 srf=2.0)
+        uvw, freq = np.asarray(obs.uvw, np.float64), obs.freq[:1]
+        geo = dict(nx=NX, ny=NX, cellx=cell, celly=cell, device=dev)
+        Nx, Ny = _grid_setup(NX, NX, cell, cell, 2.0)
+        for (eps, k), (du, dv) in itertools.product(
+                ((1e-5, 7), (1e-7, 9)), LADDER_RUNGS):
+            txs, tys = _tile_geometry(Nx, Ny, k)
+            tu, tv = txs + du, tys + dv
+            p = pgrid_plan(uvw, freq, epsilon=eps, tile_u=tu, tile_v=tv,
+                           **geo)
+            assert (p["k"], p["txs"], p["tys"]) == (k, tu, tv), \
+                (name, p["k"], p["txs"], p["tys"])
+            gr = torch.randn((p["nw"], Nx, Ny), generator=g, device=dev)
+            yield f"K6 {name} k={k} +{du}", dict(
+                gr=gr, gi=torch.randn_like(gr), pos=p["pos"],
+                tid=p["tid"], beta=p["beta"], k=k, nw=p["nw"], txs=tu,
+                tys=tv, nty=p["nty"])
+            del p, gr
+            bp = pgs.pgrid_plan_wblocked(uvw, freq, epsilon=eps,
+                                         plane_block=4, tile_u=tu,
+                                         tile_v=tv, **geo)
+            p0, B = bp["p0"], bp["B"]
+            b = int(bp["nelive"].argmax())
+            gr = torch.randn((B, Nx, Ny), generator=g, device=dev)
+            yield f"K9 {name} k={k} +{du} ({b} of {bp['nblocks']})", dict(
+                gr=gr, gi=torch.randn_like(gr), pos=bp["pos"],
+                tid=bp["utid"],
+                gmap=bp["gmap"][b, :int(bp["nelive"][b])].contiguous(),
+                acc=torch.zeros((bp["NEg"] + 1, 2, p0["C"]), device=dev),
+                woff=int(bp["woff"][b, 0]), beta=p0["beta"], k=k, nw=B,
+                txs=tu, tys=tv, nty=p0["nty"])
+            del bp, gr
+
+
+def degrid_rungs(reps, dev, smi):
+    """--degrid-rungs: at each of :func:`rung_cases`, every design of the
+    degrid lab (the kernel alone) and the degrid as the paths call it
+    (pg_degrid / pg_degrid_gs: "shipped"), with the entries, the live
+    visibilities and whether each one's output equals the thread design's
+    bit for bit: one JSON line a case."""
+    import torch
+
+    from pfb_tpu_torch.ops import pg_stream as pgs
+    from pfb_tpu_torch.ops import pgridder as pg
+
+    def shipped(gr, gi, pos, tid, *, nw, gmap=None, acc=None, woff=0,
+                **dkw):
+        if gmap is None:
+            return pg.pg_degrid(gr, gi, pos, tid, nw=nw, **dkw)
+        return pgs.pg_degrid_gs(gr, gi, pos, tid, gmap, acc, woff=woff,
+                                B=nw, **dkw)
+
+    for label, kw in rung_cases(dev):
+        acc = kw.get("acc")
+        fresh = {} if acc is None else {"acc": torch.zeros_like(acc)}
+        ref = pgs.pg_degrid_lab(design="thread", **dict(kw, **fresh))
+        live = kw["pos"][(kw["gmap"].long() if "gmap" in kw else
+                          slice(None)), 0] > -kw["k"]
+        rec = {"probe": "degrid rungs", "case": label, "k": kw["k"],
+               "planes": kw["nw"], "C": kw["pos"].shape[-1],
+               "entries": (kw["gmap"] if "gmap" in kw
+                           else kw["tid"]).numel(),
+               "visibilities": int(live.sum()),
+               "tile": [kw["txs"] + kw["k"], kw["tys"] + kw["k"]],
+               "card": smi}
+        for design in pgs.DEGRID_DESIGNS:
+            try:
+                got = pgs.pg_degrid_lab(design=design, **dict(kw, **fresh))
+            except RuntimeError as err:  # a window past the card's room
+                torch.cuda.synchronize()
+                rec[design] = str(err)
+                continue
+            rec[design] = dict(
+                ms=cuda_ms(lambda d=design: pgs.pg_degrid_lab(
+                    design=d, **kw), reps, dev),
+                bitwise_thread=bool(torch.equal(got, ref)))
+            del got
+        rec["shipped"] = dict(
+            ms=cuda_ms(lambda: shipped(**kw), reps, dev),
+            bitwise_thread=bool(torch.equal(shipped(**dict(kw, **fresh)),
+                                            ref)))
+        print(json.dumps(rec), flush=True)
+        del kw, ref, acc
+        torch.cuda.empty_cache()
+
+
 MINB_RE = re.compile(r"constexpr int kColsMinBlocks = (\d+);")
 
 
@@ -691,22 +991,23 @@ def cols_times(reps, dev, smi, root, shapes=COLS_SHAPES):
         torch.cuda.empty_cache()
 
 
-def minblocks(values, reps, smi, out):
-    """--minblocks: copies of pfb_tpu_torch at each kColsMinBlocks, built
-    at once, then this tree, each copy and this tree again timed by
-    --cols-times in child processes. Returns the lines' records."""
-    base = ROOT / "build" / "lab_minblocks"
+def const_probe(source, name, values, base, flag, reps):
+    """Copies of pfb_tpu_torch under ``base/<value>/`` with the constant
+    ``constexpr int name`` of ``csrc/<source>`` set to each value, built
+    at once, then this tree, each copy and this tree again timed by the
+    lab's ``flag`` (--cols-times, --degrid) in child processes. Returns
+    the lines' records."""
+    pat = re.compile(rf"constexpr int {name} = (\d+);")
     roots = []
     for v in values:
         d = base / str(v)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(ROOT / "pfb_tpu_torch", d / "pfb_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
-        f = d / "pfb_tpu_torch" / "csrc" / "psf_cols.cu"
-        text, n = MINB_RE.subn(f"constexpr int kColsMinBlocks = {v};",
-                               f.read_text())
+        f = d / "pfb_tpu_torch" / "csrc" / source
+        text, n = pat.subn(f"constexpr int {name} = {v};", f.read_text())
         if n != 1:
-            raise RuntimeError(f"kColsMinBlocks not found once in {f}")
+            raise RuntimeError(f"{name} not found once in {f}")
         f.write_text(text)
         roots.append(d)
     builds = [subprocess.Popen(
@@ -718,10 +1019,19 @@ def minblocks(values, reps, smi, out):
     recs = []
     for d in [ROOT] + roots + [ROOT]:
         res = subprocess.run(
-            [sys.executable, __file__, "--cols-times", "--reps", str(reps),
-             "--root", str(d)], capture_output=True, text=True, check=True)
+            [sys.executable, __file__, flag, "--reps", str(reps), "--root",
+             str(d)], capture_output=True, text=True, check=True)
         print(res.stdout, end="", flush=True)
         recs += [json.loads(v) for v in res.stdout.splitlines()]
+    return recs
+
+
+def minblocks(values, reps, out):
+    """--minblocks: :func:`const_probe` of kColsMinBlocks (psf_cols.cu)
+    by --cols-times. Returns the lines' records."""
+    recs = const_probe("psf_cols.cu", "kColsMinBlocks", values,
+                       ROOT / "build" / "lab_minblocks", "--cols-times",
+                       reps)
     if out:
         Path(out).write_text("".join(json.dumps(r) + "\n" for r in recs))
     return recs
@@ -748,6 +1058,15 @@ def main():
     ap.add_argument("--spread", action="store_true",
                     help="time the spreads K4 and K7 of --root, with the "
                     "lab's designs and skeletons where it has them")
+    ap.add_argument("--degrid", action="store_true",
+                    help="time the degrids K6 and K9 of --root, with the "
+                    "lab's designs and skeletons where it has them")
+    ap.add_argument("--degrid-rungs", action="store_true",
+                    help="time every degrid design at the tile ladder's "
+                    "largest rung")
+    ap.add_argument("--degrid-const",
+                    help="NAME=V1,V2: a constant of csrc/pg_degrid.cu and "
+                    "the values to probe")
     ap.add_argument("--out")
     args = ap.parse_args()
     import torch
@@ -767,6 +1086,18 @@ def main():
     if args.spread:
         spread_times(args.reps, dev, smi, args.root)
         return 0
+    if args.degrid:
+        degrid_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.degrid_rungs:
+        degrid_rungs(args.reps, dev, smi)
+        return 0
+    if args.degrid_const:
+        name, values = args.degrid_const.split("=")
+        const_probe("pg_degrid.cu", name, [int(v) for v in values.split(",")],
+                    ROOT / "build" / "lab_degrid" / name, "--degrid",
+                    args.reps)
+        return 0
     if args.cols_times:
         cols_times(args.reps, dev, smi, args.root)
         return 0
@@ -775,7 +1106,7 @@ def main():
             print("--minblocks needs a CUDA device", file=sys.stderr)
             return 1
         minblocks([int(v) for v in args.minblocks.split(",")], args.reps,
-                  smi, args.out)
+                  args.out)
         return 0
     sizes = []
     for nx in (int(v) for v in str(args.nx).split(",")):

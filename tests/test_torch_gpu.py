@@ -252,15 +252,16 @@ def test_wrappers_reject_bad_operands(cuda):
         psf_convolve_h(y, h.double())
 
 
-def _pg_plan(cuda, nx, eps, do_w, tiles=(None, None), seed=0):
+def _pg_plan(cuda, nx, eps, do_w, tiles=(None, None), seed=0,
+             capacity=128):
     """A float32 pg plan on the card from a simulated observation whose uv
     coverage reaches both signs of u and v (so tiles wrap)."""
     obs = simulate_obs(nant=16, ntime=24, nchan=4, seed=seed)
     _, cell = image_size_for(obs, fov_deg=1.0)
     return pg.pgrid_plan(obs.uvw, obs.freq, nx=nx, ny=nx, cellx=cell,
                          celly=cell, epsilon=eps, do_wgridding=do_w,
-                         tile_u=tiles[0], tile_v=tiles[1],
-                         dtype=torch.float32, device=cuda)
+                         capacity=capacity, tile_u=tiles[0],
+                         tile_v=tiles[1], dtype=torch.float32, device=cuda)
 
 
 def _spread_fold(p, vis, kernel):
@@ -1473,3 +1474,197 @@ def test_spread_lab_skeletons_launch(cuda):
     with pytest.raises(RuntimeError):
         pgs.pg_spread_lab(p["pos"], vis, slots["start"], slots["count"],
                           design="lists", mode="no FMA", **dict(kw, k=9))
+
+
+# (nx, epsilon -> k, w gridding, capacity): k = 7 (the compiled taps), 5
+# and 9 (the window's guard on k; the taps take only k = 7), one plane,
+# and a capacity of 16, which puts a hot tile's visibilities in many
+# entries, one block each
+DEGRID_CASES = [(512, 1e-5, True, 128), (512, 1e-3, True, 128),
+                (512, 1e-7, True, 128), (512, 1e-5, False, 128),
+                (1024, 1e-5, True, 16)]
+
+
+@pytest.mark.parametrize("nx,eps,do_w,cap", DEGRID_CASES)
+def test_degrid_k6_bitwise_the_thread_design(cuda, nx, eps, do_w, cap):
+    """K6 and the lab's window design (and the taps at k = 7) against the
+    earlier design (csrc/pg_degrid.cu, the lab's "thread") on seeded
+    plans and grids: bit for bit; reruns bit for bit."""
+    p = _pg_plan(cuda, nx, eps, do_w, seed=nx + 3, capacity=cap)
+    if cap == 16:
+        _, runs = torch.unique_consecutive(p["tid"], return_counts=True)
+        assert int(runs.max()) >= 8
+    g = torch.Generator(device=cuda).manual_seed(nx)
+    gr = torch.randn((p["nw"], p["Nx"], p["Ny"]), generator=g, device=cuda)
+    gi = torch.randn_like(gr)
+    kw = dict(beta=p["beta"], k=p["k"], nw=p["nw"], txs=p["txs"],
+              tys=p["tys"], nty=p["nty"])
+    got = pg.pg_degrid(gr, gi, p["pos"], p["tid"], **kw)
+    ref = pgs.pg_degrid_lab(gr, gi, p["pos"], p["tid"], design="thread",
+                            **kw)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, pg.pg_degrid(gr, gi, p["pos"], p["tid"], **kw))
+    for design in ("taps", "window") if p["k"] == 7 else ("window",):
+        assert torch.equal(pgs.pg_degrid_lab(gr, gi, p["pos"], p["tid"],
+                                             design=design, **kw), ref)
+
+
+def test_degrid_window_on_a_grid_of_2_mod_4(cuda):
+    """A 90-point grid (Ny % 4 == 2): the window stages its rows one float
+    at a time, not in 16-byte chunks; K6 and K9 bit for bit the earlier
+    design."""
+    p = _pg_plan(cuda, 45, 1e-5, True, tiles=(None, 40), seed=12)
+    assert p["Ny"] % 4 == 2
+    g = torch.Generator(device=cuda).manual_seed(12)
+    gr = torch.randn((p["nw"], p["Nx"], p["Ny"]), generator=g, device=cuda)
+    gi = torch.randn_like(gr)
+    kw = dict(beta=p["beta"], k=p["k"], nw=p["nw"], txs=p["txs"],
+              tys=p["tys"], nty=p["nty"])
+    got = pg.pg_degrid(gr, gi, p["pos"], p["tid"], **kw)
+    assert torch.equal(got, pgs.pg_degrid_lab(gr, gi, p["pos"], p["tid"],
+                                              design="thread", **kw))
+    bp = _gs_plan(cuda, 45, 1e-5, tiles=(None, 40), seed=12)
+    p0, B = bp["p0"], bp["B"]
+    b = int(bp["nelive"].argmax())
+    gmap = bp["gmap"][b, :int(bp["nelive"][b])]
+    gr = torch.randn((B, p0["Nx"], p0["Ny"]), generator=g, device=cuda)
+    gi = torch.randn_like(gr)
+    acc = torch.randn((bp["NEg"] + 1, 2, p0["C"]), generator=g, device=cuda)
+    kw = dict(woff=int(bp["woff"][b, 0]), beta=p0["beta"], k=p0["k"],
+              txs=p0["txs"], tys=p0["tys"], nty=p0["nty"])
+    ref = pgs.pg_degrid_lab(gr, gi, bp["pos"], bp["utid"], gmap=gmap,
+                            acc=acc.clone(), nw=B, design="thread", **kw)
+    got = pgs.pg_degrid_gs(gr, gi, bp["pos"], bp["utid"], gmap, acc, B=B,
+                           **kw)
+    assert torch.equal(got, ref)
+
+
+def test_degrid_window_too_large_takes_the_taps(cuda):
+    """Tile windows whose shared memory leaves one block an SM (tile_v
+    900 on a 1024-point grid, 116 KiB) or passes a block's limit (tile_v
+    1900 on 2048 points, 241 KiB) at k = 7: K6 takes the taps design, bit
+    for bit the earlier one; the window design runs the first and refuses
+    the second."""
+    for nx, tile_v in ((512, 900), (1024, 1900)):
+        p = _pg_plan(cuda, nx, 1e-5, True, tiles=(None, tile_v), seed=11)
+        assert p["k"] == 7
+        g = torch.Generator(device=cuda).manual_seed(11)
+        gr = torch.randn((p["nw"], p["Nx"], p["Ny"]), generator=g,
+                         device=cuda)
+        gi = torch.randn_like(gr)
+        kw = dict(beta=p["beta"], k=p["k"], nw=p["nw"], txs=p["txs"],
+                  tys=p["tys"], nty=p["nty"])
+        got = pg.pg_degrid(gr, gi, p["pos"], p["tid"], **kw)
+        ref = pgs.pg_degrid_lab(gr, gi, p["pos"], p["tid"], design="thread",
+                                **kw)
+        assert torch.equal(got, ref)
+        assert torch.equal(got, pgs.pg_degrid_lab(gr, gi, p["pos"],
+                                                  p["tid"], design="taps",
+                                                  **kw))
+        if tile_v == 900:
+            assert torch.equal(got, pgs.pg_degrid_lab(
+                gr, gi, p["pos"], p["tid"], design="window", **kw))
+        else:
+            with pytest.raises(RuntimeError):
+                pgs.pg_degrid_lab(gr, gi, p["pos"], p["tid"],
+                                  design="window", **kw)
+            torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("eps", [1e-3, 1e-7])
+def test_degrid_one_block_an_sm_takes_the_thread_at_other_k(cuda, eps):
+    """A tile window that leaves one block an SM (tile_v 900) at k = 5 and
+    9: K6 and K9 take the earlier design (the taps refuse these k), bit
+    for bit the window's."""
+    p = _pg_plan(cuda, 512, eps, True, tiles=(None, 900), seed=13)
+    assert p["k"] != 7
+    g = torch.Generator(device=cuda).manual_seed(13)
+    gr = torch.randn((p["nw"], p["Nx"], p["Ny"]), generator=g, device=cuda)
+    gi = torch.randn_like(gr)
+    kw = dict(beta=p["beta"], k=p["k"], nw=p["nw"], txs=p["txs"],
+              tys=p["tys"], nty=p["nty"])
+    got = pg.pg_degrid(gr, gi, p["pos"], p["tid"], **kw)
+    assert torch.equal(got, pgs.pg_degrid_lab(gr, gi, p["pos"], p["tid"],
+                                              design="window", **kw))
+    with pytest.raises(RuntimeError):
+        pgs.pg_degrid_lab(gr, gi, p["pos"], p["tid"], design="taps", **kw)
+    torch.cuda.synchronize()
+    bp = _gs_plan(cuda, 512, eps, tiles=(None, 900), seed=13)
+    p0, B = bp["p0"], bp["B"]
+    b = int(bp["nelive"].argmax())
+    gmap = bp["gmap"][b, :int(bp["nelive"][b])]
+    gr = torch.randn((B, p0["Nx"], p0["Ny"]), generator=g, device=cuda)
+    gi = torch.randn_like(gr)
+    acc = torch.randn((bp["NEg"] + 1, 2, p0["C"]), generator=g, device=cuda)
+    kw = dict(woff=int(bp["woff"][b, 0]), beta=p0["beta"], k=p0["k"],
+              txs=p0["txs"], tys=p0["tys"], nty=p0["nty"])
+    ref = pgs.pg_degrid_lab(gr, gi, bp["pos"], bp["utid"], gmap=gmap,
+                            acc=acc.clone(), nw=B, design="window", **kw)
+    got = pgs.pg_degrid_gs(gr, gi, bp["pos"], bp["utid"], gmap, acc, B=B,
+                           **kw)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("nx,eps", [(512, 1e-5), (512, 1e-3), (512, 1e-7),
+                                    (1024, 1e-5)])
+def test_degrid_k9_bitwise_the_thread_design(cuda, nx, eps):
+    """K9 and the lab's window design (and the taps at k = 7) on every
+    live block of a seeded w-blocked plan, added in block order into one
+    nonzero accumulator, against the earlier design: bit for bit; reruns
+    bit for bit."""
+    bp = _gs_plan(cuda, nx, eps, seed=nx + 4)
+    p0, B = bp["p0"], bp["B"]
+    g = torch.Generator(device=cuda).manual_seed(nx)
+    acc0 = torch.randn((bp["NEg"] + 1, 2, p0["C"]), generator=g,
+                       device=cuda)
+    got, ref, again = acc0.clone(), acc0.clone(), acc0.clone()
+    labs = {d: acc0.clone()
+            for d in (("taps", "window") if p0["k"] == 7 else ("window",))}
+    kw = dict(beta=p0["beta"], k=p0["k"], txs=p0["txs"], tys=p0["tys"],
+              nty=p0["nty"])
+    for b in range(bp["nblocks"]):
+        if not bp["blive"][b]:
+            continue
+        gmap = bp["gmap"][b, :int(bp["nelive"][b])]
+        woff = int(bp["woff"][b, 0])
+        gr = torch.randn((B, p0["Nx"], p0["Ny"]), generator=g, device=cuda)
+        gi = torch.randn_like(gr)
+        for acc in (got, again):
+            pgs.pg_degrid_gs(gr, gi, bp["pos"], bp["utid"], gmap, acc,
+                             woff=woff, B=B, **kw)
+        for design, acc in dict(labs, thread=ref).items():
+            pgs.pg_degrid_lab(gr, gi, bp["pos"], bp["utid"], gmap=gmap,
+                              acc=acc, woff=woff, nw=B, design=design, **kw)
+    assert not torch.equal(got, acc0)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, again)
+    for acc in labs.values():
+        assert torch.equal(acc, ref)
+
+
+def test_degrid_lab_skeletons_launch(cuda):
+    """Each skeleton of every design launches on a k = 7 plan, K6's and
+    K9's operands, and counts its launch; a skeleton of the taps or the
+    window at another k is refused (only the paths' k is compiled with
+    them), and the taps kernel too."""
+    p = _pg_plan(cuda, 512, 1e-5, True, seed=5)
+    assert p["k"] == 7
+    gr = torch.zeros((p["nw"], p["Nx"], p["Ny"]), device=cuda)
+    kw = dict(beta=p["beta"], k=7, nw=p["nw"], txs=p["txs"], tys=p["tys"],
+              nty=p["nty"])
+    gmap = torch.arange(p["nentries"], dtype=torch.int32, device=cuda)
+    acc = torch.zeros((p["nentries"], 2, p["C"]), device=cuda)
+    for design in pgs.DEGRID_DESIGNS:
+        for mode in pgs.DEGRID_MODES:
+            for k9 in ({}, dict(gmap=gmap, acc=acc)):
+                n0 = pgs.pg_degrid_lab.launches
+                pgs.pg_degrid_lab(gr, gr, p["pos"], p["tid"], design=design,
+                                  mode=mode, **k9, **kw)
+                assert pgs.pg_degrid_lab.launches == n0 + 1
+    torch.cuda.synchronize()
+    for design, mode in (("taps", "loads"), ("window", "loads"),
+                         ("taps", "kernel")):
+        with pytest.raises(RuntimeError):
+            pgs.pg_degrid_lab(gr, gr, p["pos"], p["tid"], design=design,
+                              mode=mode, **dict(kw, k=9))
+        torch.cuda.synchronize()
