@@ -21,8 +21,9 @@ Phases:
      kernel (K3c, fftx_c2c_cluster) and its y pass alone on the row
      kernel (K3r, fftx_c2c_rows), with K3r also at the K11 path's
      lengths (8, 6144^2) and (2, 12288^2); the line kernel (K3,
-     line_fft_kernel) on the x pass of (9, 2048^2), a shape its route
-     still takes (no imaging path here runs a length below 4096);
+     line_fft_kernel) on the y pass of (9, 3000^2) (the pg grid of a
+     1500^2 image), a shape its route still takes (3000 is no multiple
+     of 256; no imaging path here runs it);
   5. checks of the wgrid path: launches > 0 inside grid and spotless
      (K1, K3r on its y passes and K3c on its x passes),
      kernel errors within tolerance, the MFS residual rms after the last
@@ -121,9 +122,10 @@ Phases:
      of max); each against its plain version, the inverse also on a
      random non-Hermitian spectrum, with the library column calls;
  22. L2, the x-pass lab's kernels (scripts/torch_g2i_lab.py) at (4,
-     8192^2) and its x pass of (9, 2048^2) through fftx_c2c (the line
-     kernel K3, which no imaging path here launches any more), counts
-     reset just before and read just after they run: the
+     8192^2) and its x pass of (9, 2048^2) through fftx_c2c (the cluster
+     kernel K3c since the route reaches 2048), and the line kernel K3
+     (which no imaging path here launches) on the y pass of (9, 3000^2),
+     counts reset just before and read just after they run: the
      copy probes (L2a, ops/memlab.py: strip, rows, relayout, batched, and
      the strip skeleton of re and im), the split-precision x pass (L2b,
      fftx_c2c_split) and the line kernel with lab launch parameters (L2c,
@@ -140,30 +142,51 @@ Phases:
      times;
  24. the PSF column stages' cluster kernels (csrc/psf_cols.cu: K10ac,
      psf_cols_fwd, and K10cc, psf_cols_inv), which every PSF entry with
-     a column stage launches at NX >= 4096, at the shapes the paths give
+     a column stage launches at NX >= 2048, at the shapes the paths give
      them: K1 on the main paths (8, 2048 -> 4096, 2048), K1 and K12 at
      (8, 4096 -> 8192, 4096), one shard of the dist path's K10 (4, 2048,
      512) -> 2052 rows and back, K11 (8, 3072 -> 6144, 3072), K15's NXH
      = 4224 rows at 8192 (its inverse on a random non-Hermitian
-     spectrum); each against the functions' plain versions (rfft /
-     irfft). Both must have launched inside the wgrid
-     and pg _spotless (K1), _spotless_dist (K10) and the 3072^2 _spotless
-     (K11);
+     spectrum), K1 and K2 at 1024^2 (NX = 2048), K11 at 1280^2 in
+     2560^2 and 1536^2 in 3072^2; each against the functions' plain
+     versions (rfft / irfft). Both must have launched inside the wgrid
+     and pg _spotless (K1), _spotless_dist (K10), the 3072^2 _spotless
+     (K11) and the 1024^2 _spotless (K1), and the PSF column stages'
+     line kernels inside none of them;
  25. the PSF rows stage's register kernel (csrc/psf_rows.cu: K10br,
-     psf_rows), which every PSF entry's rows stage launches at NY = 4096,
-     6144, 8192 and 12288, at the shapes the paths give it: K1 on the main
-     paths (8, 2049 rows, 2048) of 4096 with complex and real H, K1, K2
-     and K12 (8, 4097, 4096) of 8192, one shard of the dist path's K10
-     (4, 513, 2048), K11 (8, 3073, 3072) of 6144 and K13 / K14 (1, 4097,
-     4096) of 8192 with the full H; each against the plain stage
+     psf_rows), which every PSF entry's rows stage launches at NY = 2048,
+     2560, 3072, 4096, 4608, 5120, 6144, 8192 and 12288, at the shapes
+     the paths give it: K1 on the main paths (8, 2049 rows, 2048) of 4096
+     with complex and real H, K1, K2 and K12 (8, 4097, 4096) of 8192, one
+     shard of the dist path's K10 (4, 513, 2048), K11 (8, 3073, 3072) of
+     6144 and K13 / K14 (1, 4097, 4096) of 8192 with the full H, K1 and
+     K2 (8, 1025, 1024) of 2048, K11 with the full H at (8, 1281, 1280)
+     of 2560, (8, 1537, 1536) of 3072, (2, 2305, 3072) of 4608 (phase
+     13's psf_oversize 1.5) and (2, 2561, 2560) of 5120; each against
+     the plain stage
      (psf_stage_rows_plain), with the stage as three torch.fft calls
      printed beside it for context; then the L1 lab's rows stage on K15's
      NXH = 4224 rows (psf_stage_rows at (8, 4224, 4096) of 8192), counts
      reset just before and read just after. K10br must have launched
      inside the wgrid and pg _spotless (K1), _spotless_dist (K1, K10), the
      3072^2 _spotless (K11), the PCG phase (K1, K2), the single-band phase
-     (K12-K14) and L1's run, once for each rows stage those entries ran
-     (so psf_rows_kernel, the shared-memory line kernel, never did).
+     (K12-K14), L1's run and the 1024^2 _spotless (K1), once for each rows
+     stage those entries ran, and psf_rows_kernel, the shared-memory line
+     kernel, never;
+ 26. the 1024^2 pg path: the observation of phase 3 re-simulated at
+     1024^2 (the same cell, half the field), init -> grid(backend="pg",
+     robustness=0, 1024^2, PSF 2048^2) -> spotless(engine="pallas",
+     backend="pg", 3 major iterations), counts reset just before and read
+     just after: the image grids' 2048^2 transforms and the PSF's K1 at
+     NX = NY = 2048 take the cluster column kernels (K3c, K10ac, K10cc)
+     and the register row kernels (K3r, K10br), and neither
+     line_fft_kernel (K3) nor the PSF stages' line kernels launch inside
+     grid or spotless; residual and sources checked as in 5. Then K1
+     against plain with this path's PSF, K3c and K3r at (9, 2048^2), (10,
+     2560^2) and (9, 3072^2) in both directions, and the CG-fused solver
+     (K2 at NX = 2048, on the cluster column kernels) against pcg_bands
+     on K1 with this path's PSF cube (<= 1e-4 of max), K2 against plain
+     there.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -180,7 +203,7 @@ single call computes K1's, K2's, K10's rows stage's (K10br's, L1's),
 K11-K14's padded convolution or L3's paired spread). A kernel's entry in
 the kernels
 line takes its times from its first record: K3's from the line
-kernel's x pass at 2048, K3c's from its x pass, K3r's from its y pass.
+kernel's y pass at 3000, K3c's from its x pass, K3r's from its y pass.
 Each counts the launches of its own kernel, so K3 + K3c + K3r is the
 number of launches of the three routes of ``fftx_c2c``; K10ac and K10cc
 count the cluster column kernels' launches from every entry that runs a
@@ -233,6 +256,11 @@ PCG = dict(nx=4096, nband=8, niter=50)  # bench.py's PCG case
 NSPACE = 4  # virtual space shards of the dist path: a (2, 4) mesh
 STOL = 1e-6  # space-sharded matvec against K1
 DTOL = 1e-3  # dist model against the one-device model (JAX package's gate)
+# the quick-look path: 1024^2, PSF 2048^2, pg grids 2048^2 and 4096^2
+NX_SMALL = 1024
+GRID_SMALL = dict(GRID_PG, nx=NX_SMALL, ny=NX_SMALL)
+# (planes, N) of phase 26's pass records: the lengths below 4096
+SMALL_PASSES = ((9, 2048), (10, 2560), (9, 3072))
 
 
 class SmokeFailure(Exception):
@@ -279,8 +307,11 @@ def counters():
     from pfb_tpu_torch.ops.psf import (psf_convolve_full, psf_convolve_h,
                                        psf_convolve_h_cg)
     from pfb_tpu_torch.ops.psf import (psf_cols_fwd, psf_cols_inv,
-                                       psf_rows, psf_stage_cols_fwd,
+                                       psf_cols_line, psf_rows,
+                                       psf_rows_line, psf_stage_cols_fwd,
                                        psf_stage_cols_inv, psf_stage_rows)
+    # cols_line / rows_line: the PSF stages' shared-memory line kernels
+    # (line_fft_kernel and K2's, psf_rows_kernel), off the routes
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
             "K3c": fftx_c2c_cluster, "K3r": fftx_c2c_rows,
             "K4": pg_spread, "K5": pg_fold, "K6": pg_degrid,
@@ -292,7 +323,8 @@ def counters():
             "K12": pf.psf_convolve_pallas_v3, "K13": pf.psf_convolve_pallas_v2,
             "K14": pf.psf_convolve_pallas_opt, "K15a": pf.v3_cols_fwd,
             "K15b": pf.v3_cols_inv, "L2a": memlab.lab_copy,
-            "L2b": fftx_c2c_split, "L2c": fftx_c2c_lab}
+            "L2b": fftx_c2c_split, "L2c": fftx_c2c_lab,
+            "cols_line": psf_cols_line, "rows_line": psf_rows_line}
 
 
 def bound(nbytes, flops, tc_flops=0.0):
@@ -508,27 +540,18 @@ def _ypass_record(name, P, N, inv, pin, pout, g, timing):
     return r
 
 
-def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
-    """K1 and K3 against their plain versions on the same inputs (K3 as
-    the 2-D transform, its x pass alone on the cluster column kernel
-    K3c, its y pass alone on the row kernel K3r, and the line kernel on
-    the x pass of (9, (nx)^2), where its route still runs); returns one
-    record per comparison."""
+def k1_records(psf, nx, device, g, timing=True):
+    """K1 against its plain version on x (nband, nx, nx) from ``g`` with
+    the transfer function of the PSF cube ``psf`` (nband, 2nx, 2nx),
+    complex and its real even part; returns the two records."""
     import torch
 
-    from pfb_tpu_torch.ops.cfft import (fft2_c2c_pruned, fftx_c2c,
-                                        fftx_c2c_plain)
     from pfb_tpu_torch.ops.psf import (prep_h, psf_convolve_h,
                                        psf_convolve_h_plain)
-    from pfb_tpu_torch.workers.cubes import dds2cubes
-
     recs = []
-    nband = max(ds["bandid"] for ds in dds) + 1
-    psf = dds2cubes(dds, nband)[3]
+    nband = psf.shape[0]
     psf_t = torch.as_tensor(psf, dtype=torch.float32, device=device)
-    g = torch.Generator(device=device).manual_seed(1)
     x = torch.randn((nband, nx, nx), generator=g, device=device)
-    # complex H, then the even part (real H) of the same PSF
     NX = NY = 2 * nx
     for mode in (False, True):
         hr, hi = prep_h(psf_t, nx, nx, torch.float32, real_transfer=mode)
@@ -543,32 +566,61 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
                          + fft_flops(NY, 2 * (nx + 1))
                          + (nx + 1) * NY * (2 if hi is None else 6))
         recs.append(_record(
-            f"K1 psf_convolve_h {'real' if hi is None else 'complex'}-H",
-            x.shape, out, ref, lambda: psf_convolve_h(x, hr, hi),
+            f"K1 psf_convolve_h {'real' if hi is None else 'complex'}-H "
+            f"({nband}, {nx}^2)", x.shape, out, ref,
+            lambda: psf_convolve_h(x, hr, hi),
             lambda: psf_convolve_h_plain(x, hr, hi), timing,
             work=(nbytes, flops)))
         del hr, hi, out, ref
-    del psf_t
+    return recs
 
-    # the line kernel (K3) where its route still runs: the x pass of nine
-    # (nx, nx) planes (N = nx < 4096 takes neither the cluster nor the
-    # row kernel)
-    xr = torch.randn((9, nx, nx), generator=g, device=device)
-    xi = torch.randn((9, nx, nx), generator=g, device=device)
-    kw = dict(N=nx, inverse=True, out_rolled=True)
+
+def line_record(g, device, timing=True, P=9, N=3000):
+    """The line kernel (K3) where its route still runs: the y pass of P
+    (N, N) pg grids (an image of 1500^2), inverse out_rolled, whose rows
+    are not a multiple of 256 (no row kernel instance), on the (P N/2, N,
+    1) row stack the x pass leaves, against its plain version and
+    torch.fft."""
+    import torch
+
+    from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
+    rows = P * N // 2
+    xr = torch.randn((rows, N, 1), generator=g, device=device)
+    xi = torch.randn((rows, N, 1), generator=g, device=device)
+    kw = dict(N=N, inverse=True, out_rolled=True)
     n0 = fftx_c2c.launches
     out = torch.cat(fftx_c2c(xr, xi, **kw))
     need(device.type != "cuda" or fftx_c2c.launches == n0 + 1,
-         f"the x pass at N={nx} did not take line_fft_kernel")
+         f"the y pass at N={N} did not take line_fft_kernel")
     ref = torch.cat(fftx_c2c_plain(xr, xi, **kw))
     z = torch.complex(xr, xi)
-    recs.append(_record(
-        f"K3 x pass inverse out_rolled (9, {nx}^2) (line_fft_kernel)",
+    r = _record(
+        f"K3 y pass inverse out_rolled ({P}, {N}^2) (line_fft_kernel)",
         xr.shape, out, ref, lambda: fftx_c2c(xr, xi, **kw),
         lambda: fftx_c2c_plain(xr, xi, **kw), timing,
-        work=(8 * 9 * nx * (nx + nx // 2), 9 * fft_flops(nx, nx)),
-        flib=lambda: torch.fft.ifft(z, dim=-2)))
+        work=(8 * rows * (N + N // 2), fft_flops(N, rows)),
+        flib=lambda: torch.fft.ifft(z, dim=-2))
     del xr, xi, out, ref, z
+    return r
+
+
+def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
+    """K1 and K3 against their plain versions on the same inputs (K3 as
+    the 2-D transform, its x pass alone on the cluster column kernel
+    K3c, its y pass alone on the row kernel K3r, and the line kernel on
+    the y pass of (9, 3000^2), where its route still runs); returns one
+    record per comparison."""
+    import torch
+
+    from pfb_tpu_torch.ops.cfft import fft2_c2c_pruned
+    from pfb_tpu_torch.workers.cubes import dds2cubes
+
+    nband = max(ds["bandid"] for ds in dds) + 1
+    g = torch.Generator(device=device).manual_seed(1)
+    recs = k1_records(dds2cubes(dds, nband)[3], nx, device, g, timing)
+    recs.append(line_record(g, device, timing))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
     N = 2 * nx
     cases = [("K3 fft2 pruned_out inverse (image grids)", nw_img, N, True,
@@ -1259,12 +1311,13 @@ def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
     """Phase 14: the CG-fused solve on K2 against pcg_bands on K1 with the
     grid-phase PSF cube ``psf`` (nband, 2nx, 2nx), wsum shares and
     sigmainv 1e-2 (25 iterations), K2 against plain there; then bench.py's
-    PCG case: K1 and K2 against plain, and the PCG rates of the fused
-    solve, pcg_bands and pcg_bands_hostloop, with every kernel's launches
-    counted over those solves alone. For each K2 case, its column and
-    rows routes, whether its conv is K1's of its own p and its reruns are
-    bit for bit, and (bench case) its stages' times. Returns (relative
-    error, records, rates, launches, K2's cases)."""
+    PCG case (``pcg``; None: not run, phase 26): K1 and K2 against plain,
+    and the PCG rates of the fused solve, pcg_bands and
+    pcg_bands_hostloop, with every kernel's launches counted over those
+    solves alone. For each K2 case, its column and rows routes, whether
+    its conv is K1's of its own p and its reruns are bit for bit, and its
+    stages' times (bench case, or the grid PSF's without one). Returns
+    (relative error, records, rates, launches, K2's cases)."""
     import torch
 
     from pfb_tpu_torch.ops.cfft import cluster_shape
@@ -1332,6 +1385,10 @@ def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
                                     ("3 columns and sums", 4))}
         k2_info[tag] = info
 
+    if pcg is None:
+        cg_records(f"({nb}, {nx}^2) grid PSF", conv.consts["hr"],
+                   conv.consts["hi"], nb, nx, timing)
+        return err, recs, None, None, k2_info
     # bench.py's case first: its records carry the path's times
     n, nbp = pcg["nx"], pcg["nband"]
     psf_b = torch.zeros((nbp, 2 * n, 2 * n), device=device)
@@ -1694,7 +1751,10 @@ COLS_SHAPES = [("K1, 2048^2", 8, 2048, 4096, 2048, 2049, None),
                ("K10 shard of the (2, 4) mesh", 4, 2048, 4096, 512, 2052,
                 None),
                ("K11, 3072^2 in 6144^2", 8, 3072, 6144, 3072, 3073, None),
-               ("K15, NXH rows", 8, 4096, 8192, 4096, 4224, 4224)]
+               ("K15, NXH rows", 8, 4096, 8192, 4096, 4224, 4224),
+               ("K1 and K2, 1024^2", 8, 1024, 2048, 1024, 1025, None),
+               ("K11, 1280^2 in 2560^2", 8, 1280, 2560, 1280, 1281, None),
+               ("K11, 1536^2 in 3072^2", 8, 1536, 3072, 1536, 1537, None)]
 
 
 def cols_checks(device, shapes=COLS_SHAPES, timing=True):
@@ -1764,7 +1824,12 @@ ROWS_SHAPES = [("K1, 2048^2", 8, 2049, 2048, 4096, "complex"),
                 "complex"),
                ("K11, 3072^2 in 6144^2", 8, 3073, 3072, 6144, "full"),
                ("K13 and K14, one band of 4096^2", 1, 4097, 4096, 8192,
-                "full")]
+                "full"),
+               ("K1 and K2, 1024^2", 8, 1025, 1024, 2048, "complex"),
+               ("K11, 1280^2 in 2560^2", 8, 1281, 1280, 2560, "full"),
+               ("K11, 1536^2 in 3072^2", 8, 1537, 1536, 3072, "full"),
+               ("K11, 3072^2 in 4608^2", 2, 2305, 3072, 4608, "full"),
+               ("K11, 2560^2 in 5120^2", 2, 2561, 2560, 5120, "full")]
 
 
 def rows_work(nb, rows, ny, NY, h):
@@ -1852,12 +1917,13 @@ def rows_stages(lc):
 
 
 def l2_checks(device, P=4, N=8192, timing=True):
-    """Phase 22: the x-pass lab's kernels on a (P, N^2) re/im stack, and
-    the lab's other case, K3's x pass of (9, (N/4)^2) through fftx_c2c
-    (the line kernel's route), with every kernel's launches counted over
-    their run alone (counts set to 0 just before and read just after),
-    then each against its plain version. Returns (records, split error
-    against float64, launches)."""
+    """Phase 22: the x-pass lab's kernels on a (P, N^2) re/im stack, the
+    lab's other case, K3's x pass of (9, (N/4)^2) through fftx_c2c (the
+    cluster route, K3c, at N/4 = 2048), and the line kernel (K3) on the y
+    pass of (9, 3000^2) through fftx_c2c, where its route still runs, with
+    every kernel's launches counted over their run alone (counts set to
+    0 just before and read just after), then each against its plain
+    version. Returns (records, split error against float64, launches)."""
     import torch
 
     from pfb_tpu_torch.ops import memlab
@@ -1873,6 +1939,10 @@ def l2_checks(device, P=4, N=8192, timing=True):
     x9r = torch.randn((9, n9, n9), generator=g, device=device)
     x9i = torch.randn((9, n9, n9), generator=g, device=device)
     kw9 = dict(N=n9, inverse=True, out_rolled=True)
+    n3 = 3000
+    y3r = torch.randn((9 * n3 // 2, n3, 1), generator=g, device=device)
+    y3i = torch.randn((9 * n3 // 2, n3, 1), generator=g, device=device)
+    kw3 = dict(N=n3, inverse=True, out_rolled=True)
     copies = [("strip", None, False), ("strip", None, True),
               ("rows", 64, False), ("relayout", 128, False),
               ("batched", None, False)]
@@ -1885,13 +1955,19 @@ def l2_checks(device, P=4, N=8192, timing=True):
     lab = fftx_c2c_lab(xr, xi, S=2, **kw)
     first = fftx_c2c_lab(xr, xi, npass=1, **kw)
     x9 = torch.cat(fftx_c2c(x9r, x9i, **kw9))
+    y3 = torch.cat(fftx_c2c(y3r, y3i, **kw3))
     sync(device)
     launches = {k: fn.launches for k, fn in cnt.items()}
 
-    recs = [_record(f"K3 x pass inverse out_rolled (9, {n9}^2) (L2 lab)",
-                    x9r.shape, x9, torch.cat(fftx_c2c_plain(x9r, x9i, **kw9)),
-                    None, None, False)]
-    del x9, x9r, x9i
+    recs = [_record(f"K3c x pass inverse out_rolled (9, {n9}^2) (L2 lab, "
+                    "through fftx_c2c)", x9r.shape, x9,
+                    torch.cat(fftx_c2c_plain(x9r, x9i, **kw9)), None, None,
+                    False),
+            _record(f"K3 y pass inverse out_rolled (9, {n3}^2) (L2 lab, "
+                    "line_fft_kernel)", y3r.shape, y3,
+                    torch.cat(fftx_c2c_plain(y3r, y3i, **kw3)), None, None,
+                    False)]
+    del x9, x9r, x9i, y3, y3r, y3i
     H = N // 2
     copy_work = (4.0 * P * N * N * 1.5, 0.0)
     for (mode, S, two), out in zip(copies, outs):
@@ -2030,6 +2106,31 @@ def l3_checks(device, nrow=125_000, nchan=8, nx=1024, timing=True, reps=3):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return recs, sweep, launches
+
+
+def small_kernel_checks(psf, nx, device, timing=True):
+    """Phase 26's records: K1 with the 1024^2 path's PSF cube (complex
+    and real H), and K3's x pass on the cluster column kernel (K3c) and
+    y pass on the row kernel (K3r) at the lengths below 4096 (SMALL_PASSES),
+    inverse out_rolled and forward in_rolled, each against its plain
+    version."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(26)
+    recs = k1_records(psf, nx, device, g, timing)
+    for P, N in SMALL_PASSES:
+        for inv, pin, pout, tag in ((True, False, True, "out_rolled inverse"),
+                                    (False, True, False, "in_rolled forward")):
+            nin = N // 2 if pin else N
+            xr = torch.randn((P, nin, nin), generator=g, device=device)
+            xi = torch.randn((P, nin, nin), generator=g, device=device)
+            recs.append(_xpass_record(f"K3c x pass {tag} ({P}, {N}^2)", xr,
+                                      xi, N, inv, pin, pout, timing))
+            del xr, xi
+            recs.append(_ypass_record(f"K3r y pass {tag} ({P}, {N}^2)", P, N,
+                                      inv, pin, pout, g, timing))
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return recs
 
 
 def report_klean(rkl, truth, nx):
@@ -2362,6 +2463,35 @@ def main():
         recs += rows_recs
         launches["L1"] = l25["K10br"]
 
+        # 26. the 1024^2 pg path: its 2048^2 and 4096^2 grids and its
+        # 2048^2 PSF on the cluster column and register row kernels
+        truth26 = simulate(workdir, nx=NX_SMALL)
+        print(f"[1024] simulate {truth26['t_simulate']:.3f} s (host), cell "
+              f"{truth26['cell_rad']:.6e} rad, {truth26['nvis']} "
+              "visibilities")
+        r26 = main_path(truth26, device, grid=GRID_SMALL, spot=SPOT_PG)
+        report_path("1024", r26, truth26, NX_SMALL)
+        l26 = r26["launches"]
+        for k in l26["grid"]:
+            launches[k] += l26["grid"][k] + l26["spotless"][k]
+        cubes26 = dds2cubes(r26["dds"], len(r26["dds"]))
+        k2_in26 = dict(psf=cubes26[3], wsums=cubes26[6], model=r26["model"])
+        del r26, truth26, cubes26
+        torch.cuda.empty_cache()
+        small_recs = small_kernel_checks(k2_in26["psf"], NX_SMALL, device)
+        cerr26, k2_recs26, _, _, k2_info26 = k2_checks(device=device,
+                                                       pcg=None, **k2_in26)
+        del k2_in26
+        print(f"[1024] CG-fused (K2) vs pcg_bands (K1), {2 * NX_SMALL}^2 "
+              f"grid PSF, 25 iterations: max|diff|/max = {cerr26:.3e} "
+              f"(bound {CTOL})")
+        for tag, info in k2_info26.items():
+            print(f"[1024] K2 {tag}: " + json.dumps(info))
+        for r in small_recs + k2_recs26:
+            print("[kernel] " + json.dumps(r))
+        recs += small_recs + k2_recs26
+        torch.cuda.empty_cache()
+
         # every rows stage of the PSF paths at NY = 4096, 6144 and 8192
         # took the register kernel (none took psf_rows_kernel)
         for tag, lc in (("wgrid _spotless", lw["spotless"]),
@@ -2369,22 +2499,51 @@ def main():
                         ("_spotless_dist", ld),
                         ("3072^2 _spotless", l12["spotless"]),
                         ("the PCG phase", l14), ("the single-band phase", l20),
-                        ("the L1 lab's run", l25)):
+                        ("the L1 lab's run", l25),
+                        ("1024^2 _spotless", l26["spotless"])):
             need(lc["K10br"] > 0, f"K10br never launched inside {tag}")
-            need(lc["K10br"] == rows_stages(lc),
+            need(lc["K10br"] == rows_stages(lc) and lc["rows_line"] == 0,
                  f"{tag}: {rows_stages(lc)} rows stages, {lc['K10br']} on "
-                 "K10br: psf_rows_kernel launched")
+                 f"K10br, {lc['rows_line']} on psf_rows_kernel")
 
-        # the cluster column kernels ran inside the PSF paths
+        # the cluster column kernels ran inside the PSF paths, the PSF
+        # column stages' line kernels never
         for tag, lc in (("wgrid _spotless", lw["spotless"]),
                         ("pg _spotless", lp["spotless"]),
                         ("_spotless_dist", ld),
-                        ("3072^2 _spotless", l12["spotless"])):
+                        ("3072^2 _spotless", l12["spotless"]),
+                        ("1024^2 _spotless", l26["spotless"])):
             for k in ("K10ac", "K10cc"):
                 need(lc[k] > 0, f"{k} never launched inside {tag}")
+            need(lc["cols_line"] == 0, f"a PSF column stage inside {tag} "
+                 "launched a line kernel")
+
+        # checks of phase 26: every transform of the 1024^2 path on the
+        # cluster and register routes, none on the line kernels
+        for stage in ("grid", "spotless"):
+            for k in ("K3c", "K3r"):
+                need(l26[stage][k] > 0,
+                     f"{k} never launched inside the 1024^2 _{stage}")
+            for k in ("K3", "cols_line", "rows_line"):
+                need(l26[stage][k] == 0,
+                     f"{k} launched inside the 1024^2 _{stage}")
+        for k in ("K1", "K10ac", "K10cc", "K10br"):
+            need(l26["spotless"][k] > 0,
+                 f"{k} never launched inside the 1024^2 _spotless")
+        need(l26["spotless"]["K11"] == 0, "K11 launched inside the 1024^2 "
+             "_spotless: v3 holds there")
+        need(cerr26 <= CTOL, f"1024^2 CG-fused vs pcg_bands {cerr26} > "
+             f"{CTOL}")
+        for tag, info in k2_info26.items():
+            need(info["columns"].startswith("cluster") and
+                 info["rows"] == "K10br", f"K2 {tag} is off the routes: "
+                 f"{info}")
+            need(info["conv_bitwise_k1_of_p"], f"K2 {tag}: conv is not "
+                 "K1's of its own p bit for bit")
+            need(info["reruns_bitwise"], f"K2 {tag}: reruns differ")
 
         # checks of phases 22-23
-        for k in ("L2a", "L2b", "L2c", "K3"):
+        for k in ("L2a", "L2b", "L2c", "K3", "K3c"):
             need(l22[k] > 0, f"{k} never launched in the L2 lab's run")
         need(l23["K4"] > 0 and l23["K5"] > 0,
              "K4/K5 never launched in the L3 lab's run")

@@ -1,8 +1,8 @@
-// K3's strided x pass at N >= 4096: a column FFT over a thread-block
+// K3's strided x pass at N >= 2048: a column FFT over a thread-block
 // cluster.
 //
 // Replaces pfb_tpu/ops/pallas_cfft.py:fftx_c2c (Pallas _kx_kernel) along
-// axis -2 of a (P, Nin, L) float32 re/im stack where L > 1 and N >= 4096
+// axis -2 of a (P, Nin, L) float32 re/im stack where L > 1 and N >= 2048
 // (ops/cfft.py:cluster_route), with in_rolled / out_rolled as cfft.cu
 // absorbs them: forward e^-, inverse e^+, no 1/N.
 //
@@ -36,10 +36,14 @@
 // No HBM intermediate and no transpose pass. The skeleton instance
 // (kFFT = false, the lab's) keeps the loads, the exchange and the stores
 // and compiles the FFT passes, the twiddles and the C-point DFT out: it
-// writes X[k1 + M c] = x[c + C k1].
+// writes X[k1 + M c] = x[c + C k1]. At 2048 <= N < 4096 (four or more
+// columns a block of the line kernel, 16-byte row segments, half of each
+// sector) the same design takes clusters of kShortClusters blocks
+// (psf_cols.cuh), M = 512-768 at C = 4.
 #include <cooperative_groups.h>
 
 #include "fft_lines.cuh"
+#include "psf_cols.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -238,10 +242,11 @@ static cudaError_t launch_cols_c(const float* xr, const float* xi,
 
 }  // namespace pfbt
 
-// The x pass of a (B, Nin, L) stack on clusters of C blocks (4 or 8)
-// and tiles of W columns (4 or 8; (N / C) W <= kLineElems), as
-// ops/cfft.py:cluster_shape picks them. TM is the length-(N / C) plan's
-// table (pfbt_twiddles), TN W_N^e for e < N (pfbt_cols_twiddles).
+// The x pass of a (B, Nin, L) stack on clusters of C blocks (4, 8 or
+// kShortClusters) and tiles of W columns (4 or 8; (N / C) W <=
+// kLineElems), as ops/cfft.py:cluster_shape picks them. TM is the
+// length-(N / C) plan's table (pfbt_twiddles), TN W_N^e for e < N
+// (pfbt_cols_twiddles).
 // skeleton = 1 launches the lab's copy skeleton.
 extern "C" int pfbt_cfft_cols(const float* xr, const float* xi, float* yr,
                               float* yi, int B, int L, int N, int Nin,
@@ -250,7 +255,7 @@ extern "C" int pfbt_cfft_cols(const float* xr, const float* xi, float* yr,
                               const void* TM, const void* TN, void* stream) {
   pfbt::LinePlan p;
   const bool rolled = in_rolled || out_rolled;
-  if ((C != 4 && C != 8) || N % C != 0 || (rolled && N % 4) ||
+  if ((C != 4 && C != 8 && C != pfbt::kShortClusters) || N % C != 0 || (rolled && N % 4) ||
       (W != 4 && W != 8) || L < 1 || B < 1 || !yi ||
       Nin != (in_rolled ? N / 2 : N) || Nout != (out_rolled ? N / 2 : N) ||
       (long)(N / C) * W > pfbt::kLineElems || !pfbt::make_plan(N / C, TM, &p))
@@ -260,14 +265,12 @@ extern "C" int pfbt_cfft_cols(const float* xr, const float* xi, float* yr,
                   pfbt::aligned16(yi);
   const float2* T = static_cast<const float2*>(TN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      C == 4 ? pfbt::launch_cols_c<4>(xr, xi, yr, yi, B, L, Nin, Nout,
-                                      in_rolled, out_rolled, inverse, W, vec,
-                                      skeleton, p, T, s)
-             : pfbt::launch_cols_c<8>(xr, xi, yr, yi, B, L, Nin, Nout,
-                                      in_rolled, out_rolled, inverse, W, vec,
-                                      skeleton, p, T, s);
-  return static_cast<int>(e);
+  const auto launch = C == 8   ? pfbt::launch_cols_c<8>
+                      : C == 4 ? pfbt::launch_cols_c<4>
+                               : pfbt::launch_cols_c<pfbt::kShortClusters>;
+  return static_cast<int>(launch(xr, xi, yr, yi, B, L, Nin, Nout, in_rolled,
+                                 out_rolled, inverse, W, vec, skeleton, p, T,
+                                 s));
 }
 
 // The table W_N^e = exp(-2 pi i e / N), e < N (N float2 entries), into T.

@@ -7,7 +7,8 @@
 // the unnormalised DFT of each of R contiguous rows of a (R, Nin)
 // float32 re/im stack, with in_rolled / out_rolled as cfft.cu absorbs
 // them (forward e^-, inverse e^+, no 1/N; xi == nullptr reads a real
-// input). N = 4096, 6144, 8192 or 12288 (ops/cfft.py:row_route).
+// input). N = 2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192 or 12288
+// (ops/cfft.py:row_route).
 //
 // What bounds it on the H100: bytes, 8 R (Nin + Nout), each input read
 // once and each output written once. line_fft_kernel (fft_lines.cuh)
@@ -15,15 +16,15 @@
 // (two lines an SM), sweeps shared memory twice per radix pass (ten
 // sweeps at 8192 = 16 16 16 2), issues no HBM traffic while the line is
 // transformed and transforms the known zeros of a rolled input. Here N =
-// 16 R2 16 (R2 = 16, 24, 32, 48) in three Stockham stages of 256
-// threads, one line a block:
+// 16 R2 16 (R2 = 8, 10, 12, 16, 18, 20, 24, 32, 48) in three Stockham
+// stages, one line a block (rows_fft.cuh):
 //   1. radix 16 from HBM to registers: butterfly j takes n = j + q N/16,
 //      so each warp's loads are whole 128-byte segments of re and of im;
 //      in_rolled reads input chunk [N/4, N/2) at n < N/4 (q < 4) and
 //      chunk [0, N/4) at n >= 3N/4 (q >= 12) by offset, and the zeros at
 //      q = 4..11 are never loaded, stored or multiplied (dft16<true>);
-//   2. radix R2 in registers (16 x 16 or a pair R2 = RA RB of register
-//      DFTs), between two transposes through shared memory;
+//   2. radix R2 in registers (one register DFT or a pair R2 = RA RB of
+//      them), between two transposes through shared memory;
 //   3. radix 16 from shared memory to HBM: output k = j + q N/16, so the
 //      stores are whole segments too; out_rolled computes and stores the
 //      kept rows only (q < 4 and q >= 12, dft16<..., true>).
@@ -32,11 +33,12 @@
 // against ten sweeps. The stage twiddles W_{Ns R}^{q k} are a float64
 // table rounded once to float32 (rows_twiddle_kernel), conjugated for the
 // inverse. Latency is hidden by resident lines: the launch bounds ask for
-// registers for four blocks an SM at 4096, two at 6144 and 8192 and one
-// at 12288 (no spills), so one block's stages run while another's loads
-// are in flight. A persistent block that prefetched its next line with
-// 1-D bulk copies (cp.async.bulk, an mbarrier) measured slower at every
-// shape of the paths on the H100 (PERF.md) and was not kept. The
+// registers for four blocks an SM at 2048-4096 (a butterfly a thread in
+// stages 1 and 3), two at 4608-8192 and one at 12288 (no spills), so one
+// block's stages run while another's loads are in flight. A persistent
+// block that prefetched its next line with 1-D bulk copies
+// (cp.async.bulk, an mbarrier) measured slower at every shape of the
+// paths on the H100 (PERF.md) and was not kept. The
 // skeleton instance (kFFT = false, the lab's) keeps the loads, the
 // transposes and the stores and compiles the radix arithmetic and the
 // twiddles out.
@@ -44,19 +46,20 @@
 
 namespace pfbt {
 
-// One block per line of N = 16 R2 16; stage 1 and 3 have N/16
-// butterflies (B a thread), stage 2 has 256 (one a thread). The table
-// TW holds (R - 1) Ns entries per stage, [q - 1][k] (stage 1's are 1).
+// One block of T = row_threads(R2) threads per line of N = 16 R2 16;
+// stage 1 and 3 have N/16 butterflies (B a thread), stage 2 has 256. The
+// table TW holds (R - 1) Ns entries per stage, [q - 1][k] (stage 1's are
+// 1).
 template <int N, int R2, int MINB, bool kFFT>
-__global__ void __launch_bounds__(kRowThreads, MINB)
+__global__ void __launch_bounds__(row_threads(R2), MINB)
 rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi,
                 int in_rolled, int out_rolled, int inv,
                 const float2* __restrict__ TW) {
+  constexpr int T = row_threads(R2);
   constexpr int NB = N / 16;
-  constexpr int B = (NB + kRowThreads - 1) / kRowThreads;
+  constexpr int B = (NB + T - 1) / T;
   static_assert(16 * R2 * 16 == N, "N = 16 R2 16");
-  static_assert(N / R2 == kRowThreads, "stage 2: one butterfly a thread");
   extern __shared__ float2 sm[];
   const int t = threadIdx.x;
   const bool iv = inv != 0;
@@ -70,8 +73,8 @@ rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float2 v[B][16];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * kRowThreads;
-    if (NB % kRowThreads && j >= NB) continue;
+    const int j = t + b * T;
+    if (NB % T && j >= NB) continue;
     if (in_rolled) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -91,8 +94,8 @@ rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * kRowThreads;
-    if (NB % kRowThreads && j >= NB) continue;
+    const int j = t + b * T;
+    if (NB % T && j >= NB) continue;
     if (kFFT) {
       if (in_rolled)
         dft16<true, false>(v[b], iv);
@@ -105,15 +108,15 @@ rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   __syncthreads();
 
   // 2. radix R2, Ns = 16
-  rows_mid<R2, kFFT>(sm, TW, iv);
+  rows_mid<R2, T, kFFT>(sm, TW, iv);
   __syncthreads();
 
   // 3. radix 16 to HBM, Ns = N / 16: butterfly j reads n = j + NB q,
   // twiddles W_N^{q j}, writes X[j + NB q]
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * kRowThreads;
-    if (NB % kRowThreads && j >= NB) continue;
+    const int j = t + b * T;
+    if (NB % T && j >= NB) continue;
     rows_last_load<N, R2, kFFT>(sm, TW, j, iv, v[b]);
     if (kFFT) {
       if (out_rolled)
@@ -176,16 +179,17 @@ static cudaError_t launch_rows(const float* xr, const float* xi, float* yr,
   const size_t smem = (size_t)(N + N / 16) * sizeof(float2);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)rows, kRowThreads, smem, stream>>>(
+  kernel<<<(unsigned)rows, row_threads(R2), smem, stream>>>(
       xr, xi, yr, yi, in_rolled, out_rolled, inv, TW);
   return cudaGetLastError();
 }
 
 }  // namespace pfbt
 
-// The y pass of a (rows, Nin) stack at N = 4096, 6144, 8192 or 12288;
-// TW is the rows plan's table (pfbt_rows_twiddles). skeleton = 1 launches
-// the lab's load/transpose/store skeleton.
+// The y pass of a (rows, Nin) stack at N = 2048, 2560, 3072, 4096, 4608,
+// 5120, 6144, 8192 or 12288; TW is the rows plan's table
+// (pfbt_rows_twiddles). skeleton = 1 launches the lab's
+// load/transpose/store skeleton.
 extern "C" int pfbt_cfft_rows(const float* xr, const float* xi, float* yr,
                               float* yi, int rows, int N, int in_rolled,
                               int out_rolled, int inverse, int skeleton,
@@ -193,34 +197,30 @@ extern "C" int pfbt_cfft_rows(const float* xr, const float* xi, float* yr,
   if (rows < 1 || !yi) return static_cast<int>(cudaErrorInvalidValue);
   const float2* T = static_cast<const float2*>(TW);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
+#define PFBT_ROWS(n, r2, minb)                                              \
+  case n:                                                                   \
+    return static_cast<int>(pfbt::launch_rows<n, r2, minb>(                 \
+        xr, xi, yr, yi, rows, in_rolled, out_rolled, inverse, skeleton, T, \
+        s));
   switch (N) {
-    case 4096:
-      e = pfbt::launch_rows<4096, 16, 4>(xr, xi, yr, yi, rows, in_rolled,
-                                         out_rolled, inverse, skeleton, T, s);
-      break;
-    case 6144:
-      e = pfbt::launch_rows<6144, 24, 2>(xr, xi, yr, yi, rows, in_rolled,
-                                         out_rolled, inverse, skeleton, T, s);
-      break;
-    case 8192:
-      e = pfbt::launch_rows<8192, 32, 2>(xr, xi, yr, yi, rows, in_rolled,
-                                         out_rolled, inverse, skeleton, T, s);
-      break;
-    case 12288:
-      e = pfbt::launch_rows<12288, 48, 1>(xr, xi, yr, yi, rows, in_rolled,
-                                          out_rolled, inverse, skeleton, T,
-                                          s);
-      break;
+    PFBT_ROWS(2048, 8, 4)
+    PFBT_ROWS(2560, 10, 4)
+    PFBT_ROWS(3072, 12, 4)
+    PFBT_ROWS(4096, 16, 4)
+    PFBT_ROWS(4608, 18, 2)
+    PFBT_ROWS(5120, 20, 2)
+    PFBT_ROWS(6144, 24, 2)
+    PFBT_ROWS(8192, 32, 2)
+    PFBT_ROWS(12288, 48, 1)
     default:
-      e = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(e);
+#undef PFBT_ROWS
 }
 
 // The rows plan's twiddle table (N - 1 float2 entries) into T.
 extern "C" int pfbt_rows_twiddles(int N, void* T, void* stream) {
-  if (N % 256 || N < 4096 || N > 12288)
+  if (N % 256 || N < 2048 || N > 12288)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = N - 1, threads = 256;
   pfbt::rows_twiddle_kernel<<<(n + threads - 1) / threads, threads, 0,

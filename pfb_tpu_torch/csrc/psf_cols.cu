@@ -1,4 +1,4 @@
-// The PSF-Hessian's column stages at NX >= 4096: column FFTs over a
+// The PSF-Hessian's column stages at NX >= 2048: column FFTs over a
 // thread-block cluster.
 //
 // Replaces the column stages of pfb_tpu/ops/pallas_fft.py:psf_v3_stage_k1
@@ -14,8 +14,9 @@
 //
 // What bounds them on the H100: bytes, each input read once and each
 // output written once. line_fft_kernel keeps whole lines of NX in one
-// block, so at NX = 4096 a block holds two columns and at 8192 one, and a
-// warp's loads and stores use 4-8 bytes of each 32-byte sector. Here, as
+// block, so at NX = 2048 a block holds four columns, at 4096 two and at
+// 8192 one, and a warp's loads and stores use 4-16 bytes of each 32-byte
+// sector. Here, as
 // in K3's cluster column kernel (cfft_cols.cu), NX = C M and a cluster of
 // C blocks takes a tile of W adjacent columns of one band, so every row
 // segment it moves is W floats (a full sector at W = 8).
@@ -85,11 +86,12 @@ int psf_cols_width(int NX, int C) {
 }
 
 int psf_cols_clusters(int NX, int L) {
-  if (L < 2 || NX < 4096 || NX % 4) return 0;
-  const int C = (NX > 4096 && NX % 8 == 0) ? 8 : 4;
+  if (L < 2 || NX < kColsMinNX || NX % 4) return 0;
+  const int C = NX < 4096 ? kShortClusters
+                          : (NX > 4096 && NX % 8 == 0) ? 8 : 4;
   const int M = NX / C;
   LinePlan p;
-  if (M % 2 || M * psf_cols_width(NX, C) > kLineElems ||
+  if (NX % C || M % 2 || M * psf_cols_width(NX, C) > kLineElems ||
       !make_plan(M, nullptr, &p))
     return 0;
   return C;
@@ -554,10 +556,11 @@ static cudaError_t cols_fwd(In in, bool aligned, float* zr, float* zi,
   const int vec = L % kQuad == 0 && aligned && aligned16(zr) &&
                   aligned16(zi);
   const float2* T = static_cast<const float2*>(TN);
-  return C == 4 ? fwd_c<4>(in, zr, zi, nb, nx, L, keep, rows, W, vec,
-                           skeleton, p, T, stream)
-                : fwd_c<8>(in, zr, zi, nb, nx, L, keep, rows, W, vec,
-                           skeleton, p, T, stream);
+  const auto launch = C == 8   ? fwd_c<8, In>
+                      : C == 4 ? fwd_c<4, In>
+                               : fwd_c<kShortClusters, In>;
+  return launch(in, zr, zi, nb, nx, L, keep, rows, W, vec, skeleton, p, T,
+                stream);
 }
 
 template <class Out>
@@ -573,10 +576,11 @@ static cudaError_t cols_inv(const float* wr, const float* wi, Out o,
   const int vec = L % kQuad == 0 && aligned && aligned16(wr) &&
                   aligned16(wi);
   const float2* T = static_cast<const float2*>(TN);
-  return C == 4 ? inv_c<4>(wr, wi, o, nb, nx, L, keep, rows, scale, W, vec,
-                           skeleton, p, T, stream)
-                : inv_c<8>(wr, wi, o, nb, nx, L, keep, rows, scale, W, vec,
-                           skeleton, p, T, stream);
+  const auto launch = C == 8   ? inv_c<8, Out>
+                      : C == 4 ? inv_c<4, Out>
+                               : inv_c<kShortClusters, Out>;
+  return launch(wr, wi, o, nb, nx, L, keep, rows, scale, W, vec, skeleton, p,
+                T, stream);
 }
 
 cudaError_t psf_cols_fwd(const float* x, float* zr, float* zi, int nb,

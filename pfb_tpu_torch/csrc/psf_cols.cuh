@@ -6,6 +6,14 @@
 
 namespace pfbt {
 
+// The cluster route's floor, and its clusters below NX = 4096 (M = 512-768
+// at C = 4), for K3's x pass (cfft_cols.cu) and the column stages alike:
+// ops/cfft.py:_CLUSTER_MIN_N and _SHORT_C mirror them. C = 4 was chosen
+// on the H100 against C = 2 (scripts/torch_kernel_lab.py --cols-const
+// kShortClusters=2,4, PERF.md).
+constexpr int kColsMinNX = 2048;
+constexpr int kShortClusters = 4;
+
 // C, the blocks of a cluster, where the column stages of length NX on L
 // columns take the cluster kernels; 0 where they keep line_fft_kernel.
 int psf_cols_clusters(int NX, int L);

@@ -52,7 +52,7 @@
 //   3. per column: inverse x-DFT with the conjugate mirror rebuilt, real
 //      part, crop to nx, scale 1/(NX NY).           column kernel
 // The column kernel of a stage is the cluster column FFT of psf_cols.cu
-// where psf_cols_clusters(NX, ny) holds (NX >= 4096 and its tile fits),
+// where psf_cols_clusters(NX, ny) holds (NX >= 2048 and its tile fits),
 // else line_fft_kernel (fft_lines.cuh). Every entry here asks the same
 // predicate, so K1, K2, K10, K11 and K15 take one route at one NX; the
 // caller passes the C it expects (0 for the line kernel) and the tables
@@ -61,12 +61,13 @@
 // prologue and epilogue, so its conv(p) is K1's of its own p bit for bit;
 // on the line route, the fused line kernels below.
 // The rows kernel of every entry (K1, K2, K10, K11) is the fused register
-// row FFT K10br of psf_rows.cu where psf_rows_fused(NY) holds (NY = 4096,
-// 6144, 8192, 12288), else psf_rows_kernel below. The caller passes that
-// route's table as TY (pfbt_rows_twiddles, or the length-NY plan's
-// pfbt_twiddles) and the route it is for (`fused`, 1 or 0), and an entry
-// refuses a route that is not the predicate's; *nfused (may be null)
-// gains the number of K10br launches the entry made.
+// row FFT K10br of psf_rows.cu where psf_rows_fused(NY) holds (NY = 2048,
+// 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288), else psf_rows_kernel
+// below. The caller passes that route's table as TY (pfbt_rows_twiddles,
+// or the length-NY plan's pfbt_twiddles) and the route it is for
+// (`fused`, 1 or 0), and an entry refuses a route that is not the
+// predicate's; *nfused (may be null) gains the number of K10br launches
+// the entry made.
 // Row i of a column is written only for i < nx and read for i <= NX/2, so
 // nx may exceed NX/2 (psf_oversize < 2).
 //

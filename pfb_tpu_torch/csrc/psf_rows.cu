@@ -7,10 +7,10 @@
 // of the row zero-padded from ny to N = NY, the product with its row of
 // the transfer function H, the inverse DFT left unscaled (the column
 // stage scales by 1 / (NX NY)), cropped to ny. psf_conv.cu's rows_stage
-// sends every entry's rows stage here at N = 4096, 6144, 8192 and 12288
-// (psf_rows_fused), so K1, K2, K10 stage 2, K11 and K12-K14 take it at
-// one N, and a row's arithmetic depends only on that row and N: K10's row
-// shards stay bitwise K1.
+// sends every entry's rows stage here at N = 2048, 2560, 3072, 4096,
+// 4608, 5120, 6144, 8192 and 12288 (psf_rows_fused), so K1, K2, K10 stage
+// 2, K11 and K12-K14 take it at one N, and a row's arithmetic depends
+// only on that row and N: K10's row shards stay bitwise K1.
 //
 // What bounds it on the H100: bytes, each row of z read once, of w
 // written once and of H read once (4 or 8 bytes a spectrum value, 16 for
@@ -20,7 +20,7 @@
 // each at 8192 = 16 16 16 2), transforms the known zeros and computes
 // all N outputs of the inverse: shared memory sets its pace. Here the row
 // lives in registers through both transforms, K3r's plan (rows_fft.cuh:
-// N = 16 R2 16, 256 threads, one row a block):
+// N = 16 R2 16, row_threads(R2) threads, one row a block):
 //   1. forward radix 16 from HBM: butterfly j loads n = j + q N/16 for
 //      n < ny only; where ny <= N/2 (every PSF at twice the image) the
 //      zeros at q >= 8 are never loaded or multiplied (dft16_low<true>);
@@ -37,8 +37,8 @@
 // HBM traffic but z, H and w. H's lines are hinted into L2 when the block
 // starts (prefetch.global.L2), so their loads after the forward transform
 // wait on L2, not on HBM. The launch bounds ask for registers for three
-// blocks an SM at 4096 (K3r's four spilled here; three measured level or
-// faster, PERF.md), two at 6144 and 8192 and one at 12288, as K3r's.
+// blocks an SM at 2048-4096 (K3r's four spilled here; three measured level
+// or faster, PERF.md), two at 4608-8192 and one at 12288, as K3r's.
 #include <algorithm>
 
 #include "psf_rows.cuh"
@@ -50,22 +50,22 @@ __device__ __forceinline__ void prefetch_l2(const float* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
-// One block per row g of z; stages 1 and 3 have N/16 butterflies (B a
-// thread), stage 2 has 256 (one a thread). kHalf: ny <= N/2. kFull: H is
-// the full (nb, NX, N) transfer function (K11), else (R, N).
+// One block of T = row_threads(R2) threads per row g of z; stages 1 and
+// 3 have N/16 butterflies (B a thread), stage 2 has 256. kHalf: ny <= N/2.
+// kFull: H is the full (nb, NX, N) transfer function (K11), else (R, N).
 template <int N, int R2, int MINB, bool kHalf, bool kFull>
-__global__ void __launch_bounds__(kRowThreads, MINB)
+__global__ void __launch_bounds__(row_threads(R2), MINB)
 psf_rows_fused_kernel(const float* __restrict__ zr,
                       const float* __restrict__ zi,
                       const float* __restrict__ hr,
                       const float* __restrict__ hi, float* __restrict__ wr,
                       float* __restrict__ wi, int ny, int NX,
                       const float2* __restrict__ TW) {
+  constexpr int T = row_threads(R2);
   constexpr int NB = N / 16;
-  constexpr int B = (NB + kRowThreads - 1) / kRowThreads;
+  constexpr int B = (NB + T - 1) / T;
   constexpr int Q = kHalf ? 8 : 16;  // stage-1 inputs and last outputs
   static_assert(16 * R2 * 16 == N, "N = 16 R2 16");
-  static_assert(N / R2 == kRowThreads, "stage 2: one butterfly a thread");
   extern __shared__ float2 sm[];
   const int t = threadIdx.x;
   // offsets, not pointers, of the block's rows (32-bit: the launches
@@ -79,7 +79,7 @@ psf_rows_fused_kernel(const float* __restrict__ zr,
     ha = (b * NX + kx) * N;
     hm = (b * NX + (NX - kx) % NX) * N;
   }
-  for (int l = t; l < N / 32; l += kRowThreads) {
+  for (int l = t; l < N / 32; l += T) {
     prefetch_l2(hr + ha + 32 * l);
     if (hi) prefetch_l2(hi + ha + 32 * l);
     if (kFull) {
@@ -92,8 +92,8 @@ psf_rows_fused_kernel(const float* __restrict__ zr,
   float2 v[B][16];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * kRowThreads;
-    if (NB % kRowThreads && j >= NB) continue;
+    const int j = t + b * T;
+    if (NB % T && j >= NB) continue;
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int n = j + q * NB;
@@ -103,8 +103,8 @@ psf_rows_fused_kernel(const float* __restrict__ zr,
   }
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * kRowThreads;
-    if (NB % kRowThreads && j >= NB) continue;
+    const int j = t + b * T;
+    if (NB % T && j >= NB) continue;
     if (kHalf)
       dft16_low<true, false>(v[b], false);
     else
@@ -115,15 +115,15 @@ psf_rows_fused_kernel(const float* __restrict__ zr,
   __syncthreads();
 
   // 2. forward radix R2
-  rows_mid<R2, true>(sm, TW, false);
+  rows_mid<R2, T, true>(sm, TW, false);
   __syncthreads();
 
   // 3. forward radix 16: X[k], k = j + NB q, in v[b][q]; 4. the product
   // with H at the same k; 5. the inverse's radix 16 on n = j + NB q
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * kRowThreads;
-    if (NB % kRowThreads && j >= NB) continue;
+    const int j = t + b * T;
+    if (NB % T && j >= NB) continue;
     rows_last_load<N, R2, true>(sm, TW, j, false, v[b]);
     small_dft<16>(v[b], false);
 #pragma unroll
@@ -148,22 +148,22 @@ psf_rows_fused_kernel(const float* __restrict__ zr,
   __syncthreads();  // every stage-3 read done before the stores
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * kRowThreads;
-    if (NB % kRowThreads && j >= NB) continue;
+    const int j = t + b * T;
+    if (NB % T && j >= NB) continue;
 #pragma unroll
     for (int q = 0; q < 16; ++q) sm[rpad(16 * j + q)] = v[b][q];
   }
   __syncthreads();
 
   // 6. inverse radix R2
-  rows_mid<R2, true>(sm, TW, true);
+  rows_mid<R2, T, true>(sm, TW, true);
   __syncthreads();
 
   // 7. inverse radix 16 to HBM, outputs k = j + NB q < ny only
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * kRowThreads;
-    if (NB % kRowThreads && j >= NB) continue;
+    const int j = t + b * T;
+    if (NB % T && j >= NB) continue;
     rows_last_load<N, R2, true>(sm, TW, j, true, v[b]);
     if (kHalf)
       dft16_low<false, true>(v[b], true);
@@ -197,7 +197,7 @@ static cudaError_t launch_fused(const float* zr, const float* zi,
   const size_t smem = (size_t)(N + N / 16) * sizeof(float2);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)R, kRowThreads, smem, st>>>(zr, zi, hr, hi, wr, wi, ny,
+  kernel<<<(unsigned)R, row_threads(R2), smem, st>>>(zr, zi, hr, hi, wr, wi, ny,
                                                  NX, TW);
   return cudaGetLastError();
 }
@@ -207,22 +207,24 @@ static cudaError_t launch_length(const float* zr, const float* zi,
                                  const float* hr, const float* hi, float* wr,
                                  float* wi, int R, int ny, int NY, int NX,
                                  const float2* T, cudaStream_t st) {
+#define PFBT_FUSED(n, r2, minb)                                             \
+  case n:                                                                   \
+    return launch_fused<n, r2, minb>(zr, zi, hr, hi, wr, wi, R, ny, NX, T, \
+                                     st);
   switch (NY) {
-    case 4096:
-      return launch_fused<4096, 16, 3>(zr, zi, hr, hi, wr, wi, R, ny, NX, T,
-                                       st);
-    case 6144:
-      return launch_fused<6144, 24, 2>(zr, zi, hr, hi, wr, wi, R, ny, NX, T,
-                                       st);
-    case 8192:
-      return launch_fused<8192, 32, 2>(zr, zi, hr, hi, wr, wi, R, ny, NX, T,
-                                       st);
-    case 12288:
-      return launch_fused<12288, 48, 1>(zr, zi, hr, hi, wr, wi, R, ny, NX,
-                                        T, st);
+    PFBT_FUSED(2048, 8, 3)
+    PFBT_FUSED(2560, 10, 3)
+    PFBT_FUSED(3072, 12, 3)
+    PFBT_FUSED(4096, 16, 3)
+    PFBT_FUSED(4608, 18, 2)
+    PFBT_FUSED(5120, 20, 2)
+    PFBT_FUSED(6144, 24, 2)
+    PFBT_FUSED(8192, 32, 2)
+    PFBT_FUSED(12288, 48, 1)
     default:
       return cudaErrorInvalidValue;
   }
+#undef PFBT_FUSED
 }
 
 cudaError_t psf_rows_fused_stage(const float* zr, const float* zi,

@@ -7,10 +7,17 @@
 namespace pfbt {
 
 // Whether the rows stage of length NY takes the fused register row FFT
-// (K10br): NY = 16 R2 16 with R2 = 16, 24, 32, 48. Every other NY keeps
+// (K10br): NY = 16 R2 16 with R2 = 8, 10, 12, 16, 18, 20, 24, 32, 48 (the
+// instances of psf_rows.cu and cfft_rows.cu). Every other NY keeps
 // psf_rows_kernel (psf_conv.cu). ops/psf.py:rows_route is its mirror.
 inline bool psf_rows_fused(int NY) {
-  return NY == 4096 || NY == 6144 || NY == 8192 || NY == 12288;
+  switch (NY) {
+    case 2048: case 2560: case 3072: case 4096: case 4608: case 5120:
+    case 6144: case 8192: case 12288:
+      return true;
+    default:
+      return false;
+  }
 }
 
 // R rows of z (R, ny) -> w (R, ny): the forward DFT of each row

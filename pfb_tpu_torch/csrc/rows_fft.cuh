@@ -1,10 +1,13 @@
 // Device code of the register row FFTs, N = 16 R2 16 in three Stockham
-// stages of kRowThreads threads, one line a block: K3r's y pass
-// (cfft_rows.cu) and the PSF rows stage K10br (psf_rows.cu). Stage 1 is
-// radix 16 between HBM and registers (butterfly j holds n = j + q N/16),
-// stage 2 radix R2 in registers between two transposes through one
-// padded shared buffer (rows_mid), stage 3 radix 16 from shared memory
-// (rows_last_load) with output k = j + q N/16 in registers. The stage
+// stages, one line a block: K3r's y pass (cfft_rows.cu) and the PSF rows
+// stage K10br (psf_rows.cu). Stage 1 is radix 16 between HBM and
+// registers (butterfly j holds n = j + q N/16), stage 2 radix R2 in
+// registers between two transposes through one padded shared buffer
+// (rows_mid), stage 3 radix 16 from shared memory (rows_last_load) with
+// output k = j + q N/16 in registers. Stage 2 has kRowBflies = 256
+// butterflies (N = 256 R2); stages 1 and 3 have N/16 = 16 R2. R2 = 8-48
+// (N = 2048-12288): divisors of 96, 20 or 18, each a DFT in registers
+// (reg_dft). A block has row_threads(R2) threads. The stage
 // twiddles W_{Ns R}^{q k} come from cfft_rows.cu's float64 table
 // (pfbt_rows_twiddles), [q - 1][k] per stage, conjugated for the inverse.
 #pragma once
@@ -13,14 +16,26 @@
 
 namespace pfbt {
 
-constexpr int kRowThreads = 256;
+constexpr int kRowBflies = 256;  // stage 2's butterflies, N / R2
+// Threads a block at R2 = 8 (N = 2048), where stages 1 and 3 have 128
+// butterflies: 256 threads leave half of them idle there, 128 give each a
+// butterfly in stages 1 and 3 and two in stage 2. On the H100
+// (scripts/torch_kernel_lab.py --rows-const kShortRowThreads, PERF.md) 128
+// took 10-16% less time at 2048 and 3-18% more at R2 = 10 and 12 (160 and
+// 192 butterflies: a second one for a quarter or half of 128 threads), so
+// every other R2 keeps 256.
+constexpr int kShortRowThreads = 128;
+
+__host__ __device__ constexpr int row_threads(int R2) {
+  return R2 == 8 ? kShortRowThreads : kRowBflies;
+}
 
 // shared-memory slot of element i of the line: one float2 of padding
 // every 16, so a half-warp's stride-16 stores of stage 1 hit 16 banks
 __device__ __forceinline__ int rpad(int i) { return i + (i >> 4); }
 
 // exp(-2 pi i m / 96), conjugated for the inverse (m < 96 a constant
-// after unrolling: every radix here divides 96)
+// after unrolling)
 __device__ __forceinline__ float2 w96(int m, bool inv) {
   constexpr float c[96] = {
       1.000000000f, 0.997858923f, 0.991444861f, 0.980785280f,
@@ -52,6 +67,47 @@ __device__ __forceinline__ float2 w96(int m, bool inv) {
   return make_float2(c[m % 96], inv ? sn : -sn);
 }
 
+// exp(-2 pi i m / 20) and exp(-2 pi i m / 18), conjugated for the
+// inverse (m a constant after unrolling): the roots of radices 5, 10, 20
+// and 9, 18
+__device__ __forceinline__ float2 w20(int m, bool inv) {
+  constexpr float c[20] = {
+      1.000000000f, 0.951056516f, 0.809016994f, 0.587785252f, 0.309016994f,
+      0.f, -0.309016994f, -0.587785252f, -0.809016994f, -0.951056516f,
+      -1.000000000f, -0.951056516f, -0.809016994f, -0.587785252f,
+      -0.309016994f, 0.f, 0.309016994f, 0.587785252f, 0.809016994f,
+      0.951056516f};
+  const float sn = c[(m + 15) % 20];  // sin(2 pi m / 20)
+  return make_float2(c[m % 20], inv ? sn : -sn);
+}
+
+__device__ __forceinline__ float2 w18(int m, bool inv) {
+  constexpr float c[18] = {
+      1.000000000f, 0.939692621f, 0.766044443f, 0.500000000f, 0.173648178f,
+      -0.173648178f, -0.500000000f, -0.766044443f, -0.939692621f,
+      -1.000000000f, -0.939692621f, -0.766044443f, -0.500000000f,
+      -0.173648178f, 0.173648178f, 0.500000000f, 0.766044443f,
+      0.939692621f};
+  constexpr float s[18] = {
+      0.f, 0.342020143f, 0.642787610f, 0.866025404f, 0.984807753f,
+      0.984807753f, 0.866025404f, 0.642787610f, 0.342020143f, 0.f,
+      -0.342020143f, -0.642787610f, -0.866025404f, -0.984807753f,
+      -0.984807753f, -0.866025404f, -0.642787610f, -0.342020143f};
+  return make_float2(c[m % 18], inv ? s[m % 18] : -s[m % 18]);
+}
+
+// W_R^m = exp(-2 pi i m / R) from the table whose length R divides
+template <int R>
+__device__ __forceinline__ float2 wroot(int m, bool inv) {
+  static_assert(96 % R == 0 || 20 % R == 0 || 18 % R == 0, "no table");
+  if constexpr (96 % R == 0) return w96((m % R) * (96 / R), inv);
+  else if constexpr (20 % R == 0) return w20((m % R) * (20 / R), inv);
+  else return w18((m % R) * (18 / R), inv);
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dft(float2* v, bool inv);
+
 // DFT of R = RA RB values in registers: n = RB n1 + n2, k = k1 + RA k2,
 // RB DFTs of RA, the twiddles W_R^{n2 k1}, RA DFTs of RB
 template <int RA, int RB>
@@ -62,30 +118,36 @@ __device__ __forceinline__ void dft_pair(float2* v, bool inv) {
   for (int n2 = 0; n2 < RB; ++n2) {
 #pragma unroll
     for (int n1 = 0; n1 < RA; ++n1) a[n2][n1] = v[RB * n1 + n2];
-    small_dft<RA>(a[n2], inv);
+    reg_dft<RA>(a[n2], inv);
 #pragma unroll
     for (int k1 = 1; k1 < RA; ++k1)
-      if (n2 > 0) a[n2][k1] = cmul(a[n2][k1], w96((n2 * k1 * (96 / R)) % 96,
-                                                  inv));
+      if (n2 > 0) a[n2][k1] = cmul(a[n2][k1], wroot<R>(n2 * k1, inv));
   }
 #pragma unroll
   for (int k1 = 0; k1 < RA; ++k1) {
     float2 b[RB];
 #pragma unroll
     for (int n2 = 0; n2 < RB; ++n2) b[n2] = a[n2][k1];
-    small_dft<RB>(b, inv);
+    reg_dft<RB>(b, inv);
 #pragma unroll
     for (int k2 = 0; k2 < RB; ++k2) v[k1 + RA * k2] = b[k2];
   }
 }
 
-// the middle stage's radix
+// An R-point DFT in registers: fft_lines.cuh's radices, or a pair
 template <int R>
-__device__ __forceinline__ void row_dft(float2* v, bool inv) {
-  if constexpr (R == 16) small_dft<16>(v, inv);
+__device__ __forceinline__ void reg_dft(float2* v, bool inv) {
+  if constexpr (R == 2 || R == 3 || R == 4 || R == 5 || R == 8 || R == 16)
+    small_dft<R>(v, inv);
+  else if constexpr (R == 9) dft_pair<3, 3>(v, inv);
+  else if constexpr (R == 10) dft_pair<5, 2>(v, inv);
+  else if constexpr (R == 12) dft_pair<4, 3>(v, inv);
+  else if constexpr (R == 18) dft_pair<9, 2>(v, inv);
+  else if constexpr (R == 20) dft_pair<5, 4>(v, inv);
   else if constexpr (R == 24) dft_pair<8, 3>(v, inv);
   else if constexpr (R == 32) dft_pair<8, 4>(v, inv);
-  else dft_pair<16, 3>(v, inv);
+  else if constexpr (R == 48) dft_pair<16, 3>(v, inv);
+  else static_assert(R == 2, "no register DFT of this radix");
 }
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -178,31 +240,40 @@ __device__ __forceinline__ void dft16_low(float2* v, bool inv) {
   }
 }
 
-// Stage 2, radix R2 at Ns = 16, on the line in shared memory: butterfly t
-// reads n = t + 256 q, writes (t / 16) 16 R2 + 16 q + t % 16. The caller
-// synchronises before (stage 1's stores) and after (stage 3's loads).
-// kFFT = false (the lab's skeleton) keeps the two transposes alone.
-template <int R2, bool kFFT>
+// Stage 2, radix R2 at Ns = 16, on the line in shared memory with T
+// threads: butterfly t (t < 256, 256 / T a thread) reads n = t + 256 q,
+// writes (t / 16) 16 R2 + 16 q + t % 16. The caller synchronises before
+// (stage 1's stores) and after (stage 3's loads). kFFT = false (the lab's
+// skeleton) keeps the two transposes alone.
+template <int R2, int T, bool kFFT>
 __device__ __forceinline__ void rows_mid(float2* sm, const float2* TW,
                                          bool inv) {
-  const int t = threadIdx.x;
+  constexpr int B2 = kRowBflies / T;
+  static_assert(B2 * T == kRowBflies, "T divides 256");
   const float sg = inv ? -1.f : 1.f;
-  float2 u[R2];
+  float2 u[B2][R2];
 #pragma unroll
-  for (int q = 0; q < R2; ++q) u[q] = sm[rpad(t + kRowThreads * q)];
+  for (int b = 0; b < B2; ++b)
+#pragma unroll
+    for (int q = 0; q < R2; ++q)
+      u[b][q] = sm[rpad(threadIdx.x + T * b + kRowBflies * q)];
   __syncthreads();  // every read done before the in-place writes
-  if (kFFT) {
-    const float2* T2 = TW + 15 + (t & 15);
 #pragma unroll
-    for (int q = 1; q < R2; ++q) {
-      const float2 w = __ldg(&T2[(q - 1) * 16]);
-      u[q] = cmul(u[q], make_float2(w.x, sg * w.y));
+  for (int b = 0; b < B2; ++b) {
+    const int t = threadIdx.x + T * b;
+    if (kFFT) {
+      const float2* T2 = TW + 15 + (t & 15);
+#pragma unroll
+      for (int q = 1; q < R2; ++q) {
+        const float2 w = __ldg(&T2[(q - 1) * 16]);
+        u[b][q] = cmul(u[b][q], make_float2(w.x, sg * w.y));
+      }
+      reg_dft<R2>(u[b], inv);
     }
-    row_dft<R2>(u, inv);
-  }
-  const int o = (t >> 4) * 16 * R2 + (t & 15);
+    const int o = (t >> 4) * 16 * R2 + (t & 15);
 #pragma unroll
-  for (int q = 0; q < R2; ++q) sm[rpad(o + 16 * q)] = u[q];
+    for (int q = 0; q < R2; ++q) sm[rpad(o + 16 * q)] = u[b][q];
+  }
 }
 
 // Stage 3's input, Ns = N / 16: butterfly j reads n = j + NB q into v and

@@ -11,14 +11,15 @@
 
 A CUDA float32 stack runs a hand-written kernel, chosen by
 :func:`cluster_route`, then :func:`row_route`: the strided x pass (L >
-1) at N >= 4096 runs the cluster column FFT :func:`fftx_c2c_cluster`
+1) at N >= 2048 runs the cluster column FFT :func:`fftx_c2c_cluster`
 (``csrc/cfft_cols.cu``: a cluster of C blocks shares a tile of W columns
-through distributed shared memory); contiguous rows (L = 1) at N = 4096,
-6144, 8192 and 12288 run the row FFT :func:`fftx_c2c_rows`
-(``csrc/cfft_rows.cu``: three register stages, two transposes through
-shared memory); everything else ``line_fft_kernel`` (``csrc/cfft.cu``,
-whole lines in one block). A CPU stack runs the plain version
-:func:`fftx_c2c_plain` (``torch.fft`` with the roll/crop written out).
+through distributed shared memory); contiguous rows (L = 1) at N = 2048,
+2560, 3072, 4096, 4608, 5120, 6144, 8192 and 12288 run the row FFT
+:func:`fftx_c2c_rows` (``csrc/cfft_rows.cu``: three register stages, two
+transposes through shared memory); everything else ``line_fft_kernel``
+(``csrc/cfft.cu``, whole lines in one block). A CPU stack runs the plain
+version :func:`fftx_c2c_plain` (``torch.fft`` with the roll/crop written
+out).
 The y pass of :func:`fft2_c2c_pruned` runs the same transform on
 contiguous rows, viewing (P, nrow, Ny) as (P*nrow, Ny, 1), so no
 transpose pass is needed.
@@ -54,8 +55,11 @@ __all__ = ["fftx_c2c", "fftx_c2c_plain", "fft2_c2c_pruned",
            "fftx_c2c_split_plain"]
 
 _LINE_ELEMS = 8192  # csrc/fft_lines.cuh: kLineElems
-_CLUSTER_MIN_N = 4096
-_ROW_LENGTHS = (4096, 6144, 8192, 12288)  # csrc/cfft_rows.cu instances
+_CLUSTER_MIN_N = 2048  # csrc/psf_cols.cuh: kColsMinNX
+_SHORT_C = 4  # clusters below 4096, csrc/psf_cols.cuh: kShortClusters
+# csrc/cfft_rows.cu and csrc/psf_rows.cu instances: 256 R2, R2 = 8, 10,
+# 12, 16, 18, 20, 24, 32, 48
+_ROW_LENGTHS = (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288)
 
 
 def _factor(N):
@@ -124,12 +128,12 @@ def _check_stack(name, xr, xi, N, in_rolled, out_rolled):
 def cluster_route(N, L):
     """Whether :func:`fftx_c2c` on a CUDA stack launches the cluster
     column kernel (``csrc/cfft_cols.cu``): the strided x pass (L > 1) at
-    N >= 4096, where ``line_fft_kernel`` fits one or two columns in a
-    block and its warps use 4-8 bytes of each 32-byte sector, on the
+    N >= 2048, where ``line_fft_kernel`` fits one to four columns in a
+    block and its warps use 4-16 bytes of each 32-byte sector, on the
     shapes the kernel takes (N % 4 == 0 and a tile of :func:`cluster_
     shape` within a block's 8192 values: N <= 16384, or <= 8192 where 8
-    does not divide N). The y pass (L = 1, contiguous rows), N < 4096
-    (four or more columns a block) and the other N keep
+    does not divide N). The y pass (L = 1, contiguous rows), N < 2048
+    (eight or more columns a block) and the other N keep
     ``line_fft_kernel``."""
     if L < 2 or N < _CLUSTER_MIN_N or N % 4:
         return False
@@ -139,22 +143,25 @@ def cluster_route(N, L):
 
 def cluster_shape(N):
     """(C, W) of the cluster kernel at N: C blocks a cluster (8 above
-    4096 where 8 divides N, else 4) and tiles of W columns, 8 (a full
-    32-byte sector of re and of im a row) where the block's W lines of
-    M = N / C fit 8192 complex values, else 4 (N = 12288, 16384)."""
+    4096 where 8 divides N, 4 at 4096 and the others, ``_SHORT_C`` below
+    4096) and tiles of W columns, 8 (a full 32-byte sector of re and of im
+    a row) where the block's W lines of M = N / C fit 8192 complex values,
+    else 4 (N = 12288, 16384)."""
     if N % 4:
         raise ValueError(f"fftx_c2c_cluster: N={N} is not a multiple of 4")
-    C = 8 if N > _CLUSTER_MIN_N and N % 8 == 0 else 4
+    C = _SHORT_C if N < 4096 else 8 if N > 4096 and N % 8 == 0 else 4
     return C, (8 if (N // C) * 8 <= _LINE_ELEMS else 4)
 
 
 def row_route(N, L):
     """Whether :func:`fftx_c2c` on a CUDA stack launches the row kernel
     (``csrc/cfft_rows.cu``, K3r): contiguous rows (L = 1, the y pass) at
-    the lengths it is built for, N = 16 R2 16 with R2 = 16, 24, 32, 48
-    (4096, 6144, 8192, 12288: every y pass of the imaging paths). Other
-    N keep ``line_fft_kernel``. :func:`cluster_route` is asked first;
-    the two never both hold (it needs L > 1)."""
+    the lengths it is built for, N = 16 R2 16 with R2 = 8, 10, 12, 16,
+    18, 20, 24, 32, 48 (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192,
+    12288: every y pass of the imaging paths at 128-aligned images up to
+    3072^2). Other N (not a multiple of 256, or no instance) keep
+    ``line_fft_kernel``. :func:`cluster_route` is asked first; the two
+    never both hold (it needs L > 1)."""
     return L == 1 and N in _ROW_LENGTHS
 
 
@@ -199,7 +206,7 @@ fftx_c2c.launches = 0
 
 
 # ---------------------------------------------------------------------
-# the cluster column kernel (K3's x pass at N >= 4096)
+# the cluster column kernel (K3's x pass at N >= 2048)
 
 
 def fftx_c2c_cluster_plain(xr, xi, *, N, C, inverse=False, in_rolled=False,
@@ -244,8 +251,8 @@ def fftx_c2c_cluster(xr, xi, *, N, inverse=False, in_rolled=False,
     """K3's x pass on the cluster column kernel (``csrc/cfft_cols.cu``):
     same shapes and conventions as :func:`fftx_c2c`, one HBM read of
     the input and one write of the output, on clusters of C blocks and
-    tiles of W columns from :func:`cluster_shape`; raises where (N / C)
-    W exceeds a block's 8192 values (N > 16384). ``skeleton=True``
+    tiles of W columns from :func:`cluster_shape`; raises where (N / C) W
+    exceeds a block's 8192 values (N > 16384). ``skeleton=True``
     launches the lab's load/exchange/store skeleton
     (:func:`fftx_c2c_cluster_skeleton_plain`). A CPU stack runs the
     plain versions."""
@@ -373,7 +380,7 @@ def fftx_c2c_rows(xr, xi, *, N, inverse=False, in_rolled=False,
     each contiguous row of a (P, Nin, 1) stack, same conventions as
     :func:`fftx_c2c`, one HBM read of the input and one write of the
     output; raises where :func:`row_route` does not hold (L > 1 or N
-    not 4096, 6144, 8192, 12288). ``skeleton=True`` launches the lab's
+    without an instance). ``skeleton=True`` launches the lab's
     load/transpose/store skeleton (:func:`fftx_c2c_rows_skeleton_plain`).
     A CPU stack runs the plain versions."""
     P, Nin, L = _check_stack("fftx_c2c_rows", xr, xi, N, in_rolled,

@@ -28,11 +28,12 @@ K1's with the rows padded to the shard count (:func:`prep_h_space`).
 
 The column stages of every entry (K1, K2, K10, K11, and through them
 K12-K15) run on one of two kernels, by :func:`cols_route` at (NX,
-columns): at NX >= 4096 where the tile fits, the cluster column FFT of
+columns): at NX >= 2048 where the tile fits, the cluster column FFT of
 ``csrc/psf_cols.cu`` (:func:`psf_cols_fwd` / :func:`psf_cols_inv` count
 its launches, from whichever entry; K2's with its prologue and epilogue,
 :func:`psf_convolve_h_cg_cols_plain` its decomposition); elsewhere
-``line_fft_kernel`` (K2: its fused line kernels). The C++ predicate
+``line_fft_kernel`` (K2: its fused line kernels), whose launches from
+every entry :data:`psf_cols_line` counts. The C++ predicate
 ``psf_cols_clusters`` decides and an entry refuses a route it does not
 hold, so the mirror here and the kernels cannot disagree silently.
 :func:`psf_cols_fwd_plain` / :func:`psf_cols_inv_plain` are the cluster
@@ -40,9 +41,10 @@ kernels' own decomposition as torch operations, for the CPU tests.
 
 The rows stage of every entry (K1, K2, K10 stage 2, K11, and through them
 K12-K14) runs on one of two kernels, by :func:`rows_route` at NY: at NY =
-4096, 6144, 8192 and 12288 the fused register row FFT K10br of
-``csrc/psf_rows.cu`` (:func:`psf_rows` counts its launches, from whichever
-entry, as the entry reports them), elsewhere ``psf_rows_kernel``. The C++
+2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192 and 12288 the fused
+register row FFT K10br of ``csrc/psf_rows.cu`` (:func:`psf_rows` counts
+its launches, from whichever entry, as the entry reports them), elsewhere
+``psf_rows_kernel`` (:data:`psf_rows_line` counts its launches). The C++
 predicate ``psf_rows_fused`` decides, on NY alone; the entries take the
 route's twiddle table with the route it is for and refuse a route that is
 not the predicate's. :func:`psf_rows_plain` is K10br's decomposition as
@@ -124,16 +126,17 @@ def psf_convolve_h_plain(x, hr, hi):
 def cols_route(NX, L):
     """Whether the column stages of length NX on L columns take the
     cluster column kernels (``csrc/psf_cols.cu:psf_cols_clusters``, which
-    decides; this is its mirror): L >= 2, NX >= 4096, NX % 4 == 0 and, at
-    ops/cfft.py:cluster_shape's (C, W), M = NX / C even (two columns
-    pair, and k1 pairs with M - k1), a tile of W lines of M within 8192
-    values and M a product of 2, 3 and 5. Every other shape keeps
-    ``line_fft_kernel``."""
+    decides; this is its mirror): L >= 2, NX >= 2048, NX % 4 == 0 and, at
+    ops/cfft.py:cluster_shape's (C, W), C dividing NX, M = NX / C even
+    (two columns pair, and k1 pairs with M - k1), a tile of W lines of M
+    within 8192 values and M a product of 2, 3 and 5. Every other shape
+    keeps ``line_fft_kernel``."""
     if L < 2 or NX < _CLUSTER_MIN_N or NX % 4:
         return False
     C, W = cluster_shape(NX)
     M = NX // C
-    return M % 2 == 0 and M * W <= _LINE_ELEMS and good_size(M) == M
+    return NX % C == 0 and M % 2 == 0 and M * W <= _LINE_ELEMS and \
+        good_size(M) == M
 
 
 def _cols_tables(NX, L, device):
@@ -147,12 +150,33 @@ def _cols_tables(NX, L, device):
     return 0, kernels.twiddles(NX, device).data_ptr(), None, None
 
 
+class _Launches:
+    """A launch counter (``.launches``) of a kernel that no wrapper of
+    its own launches."""
+
+    def __init__(self, doc):
+        self.__doc__ = doc
+        self.launches = 0
+
+
+psf_cols_line = _Launches(
+    "Launches of the PSF column stages' shared-memory line kernels "
+    "(line_fft_kernel; K2's cg_cols_fwd / _inv_kernel), from every entry "
+    "whose column stage is off cols_route.")
+psf_rows_line = _Launches(
+    "Launches of psf_rows_kernel, the rows stage's shared-memory line "
+    "kernel, from every entry whose rows stage is off rows_route.")
+
+
 def _count_cols(C, fwd=1, inv=1):
-    """Count the cluster column kernels' launches of an entry that ran on
-    route C (none on the line route)."""
+    """Count the column kernels' launches of an entry that ran on route
+    C: the cluster kernels', or on the line route (C = 0)
+    :data:`psf_cols_line`'s."""
     if C:
         psf_cols_fwd.launches += fwd
         psf_cols_inv.launches += inv
+    else:
+        psf_cols_line.launches += fwd + inv
 
 
 def _decimated(z, C, inverse, fft=True):
@@ -253,8 +277,8 @@ def psf_cols_fwd(x, NX, rows, keep=None, *, skeleton=False):
     """The forward column stage on the cluster column kernel
     (``csrc/psf_cols.cu``): x (nb, nx, L) real -> (zr, zi), each (nb,
     rows, L), :func:`psf_stage_cols_fwd`'s function, at (C, W) =
-    ops/cfft.py:cluster_shape; raises where :func:`cols_route` does not hold.
-    ``skeleton=True`` runs the lab's skeleton: the loads, exchange,
+    ops/cfft.py:cluster_shape; raises where :func:`cols_route` does not
+    hold. ``skeleton=True`` runs the lab's skeleton: the loads, exchange,
     separation and stores with the FFT compiled out. A CPU tensor runs
     :func:`psf_cols_fwd_plain`. ``psf_cols_fwd.launches`` counts the
     kernel's launches here and from every entry that takes the route."""
@@ -321,9 +345,9 @@ psf_cols_inv.launches = 0
 def rows_route(NY):
     """Whether the rows stage of length NY takes K10br, the fused register
     row FFT (``csrc/psf_rows.cu:psf_rows_fused``, which decides; this is
-    its mirror): NY = 16 R2 16 with R2 = 16, 24, 32, 48 (4096, 6144, 8192,
-    12288), K3r's lengths (ops/cfft.py:row_route). Every other NY keeps
-    ``psf_rows_kernel``."""
+    its mirror): NY = 16 R2 16 with R2 = 8, 10, 12, 16, 18, 20, 24, 32, 48
+    (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288), K3r's lengths
+    (ops/cfft.py:row_route). Every other NY keeps ``psf_rows_kernel``."""
     return NY in _ROW_LENGTHS
 
 
@@ -338,9 +362,14 @@ def _rows_args(NY, device):
     return table.data_ptr(), int(fused), ctypes.pointer(ctypes.c_int(0))
 
 
-def _count_rows(nfused):
-    """Count the K10br launches an entry reported through ``nfused``."""
+def _count_rows(fused, nfused):
+    """Count the rows-stage launches of an entry that ran one rows stage
+    on route ``fused``: the K10br launches it reported through
+    ``nfused``, or the launch of ``psf_rows_kernel``
+    (:data:`psf_rows_line`)."""
     psf_rows.launches += nfused.contents.value
+    if not fused:
+        psf_rows_line.launches += 1
 
 
 def full_h_rows(hr, hi, rows=None):
@@ -410,7 +439,7 @@ def psf_rows(zr, zi, hr, hi=None, NX=None):
         None if hi is None else hi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
         R, ny, NY, NX or 0, TY, nfused, kernels.stream_ptr())
     kernels.check(code, "psf_rows")
-    _count_rows(nfused)
+    _count_rows(1, nfused)
     return wr, wi
 
 
@@ -455,7 +484,7 @@ def _conv_stages(entry, x, hr, hi, NX, NY):
         kernels.stream_ptr())
     kernels.check(code, entry)
     _count_cols(C)
-    _count_rows(nfused)
+    _count_rows(fused, nfused)
     return out
 
 
@@ -581,7 +610,8 @@ def psf_cg_stages(p_prev, r, beta, hr, hi=None, stages=7, bufs=None):
         kernels.stream_ptr())
     kernels.check(code, "psf_convolve_h_cg")
     _count_cols(C, fwd=stages & 1, inv=(stages >> 2) & 1)
-    _count_rows(nfused)
+    if stages & 2:
+        _count_rows(fused, nfused)
     psf_convolve_h_cg.launches += 1
     return bufs
 
@@ -815,7 +845,7 @@ def psf_stage_rows(zr, zi, hr, hi=None):
         None if hi is None else hi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
         zr.numel() // ny, ny, NY, TY, fused, nfused, kernels.stream_ptr())
     kernels.check(code, "psf_stage_rows")
-    _count_rows(nfused)
+    _count_rows(fused, nfused)
     psf_stage_rows.launches += 1
     return wr, wi
 

@@ -11,6 +11,11 @@ the card (counterpart of scripts/wl_kernel_lab.py's k1 / k2 / k3).
     python3 scripts/torch_kernel_lab.py --degrid [--root DIR]
     python3 scripts/torch_kernel_lab.py --degrid-rungs
     python3 scripts/torch_kernel_lab.py --degrid-const NAME=V1,V2
+    python3 scripts/torch_kernel_lab.py --offroute [--root DIR]
+    python3 scripts/torch_kernel_lab.py --cols-short [--root DIR]
+    python3 scripts/torch_kernel_lab.py --cols-const NAME=V1,V2
+    python3 scripts/torch_kernel_lab.py --rows-times [--root DIR]
+    python3 scripts/torch_kernel_lab.py --rows-const NAME=V1,V2
 
 At (8, nx^2) with a (2nx)^2 PSF for each nx of ``--nx`` (a delta 1.0 at
 the centre and 0.05 at +5, +3, as wl_kernel_lab.py builds it; complex
@@ -24,7 +29,7 @@ calls after a warm-up:
 - K1's three stages as K10's entries at one space shard
   (psf_stage_cols_fwd, psf_stage_rows, psf_stage_cols_inv), K1 whole
   (psf_convolve_h) and K1's plain version (psf_convolve_h_plain, cuFFT);
-- where the column route holds (ops/psf.py:cols_route, NX >= 4096), the
+- where the column route holds (ops/psf.py:cols_route, NX >= 2048), the
   cluster column kernels themselves (csrc/psf_cols.cu): the forward (two
   real columns as one complex line), the inverse, and both skeletons
   (loads, exchange, separation or Hermitian part, stores; the FFT
@@ -102,6 +107,32 @@ example the block sizes ``kTapsThreads`` and ``kWinThreads``), built at
 once, then this tree, each copy and this tree again timed by
 ``--degrid`` in child processes.
 
+``--offroute`` times the kernels of the tree at ``--root`` at the
+lengths 2048-5120 (:func:`offroute_times`: K3's x and y passes, the PSF
+column stages and rows stage, K11 where v3 does not hold), each with the
+route its call took (the launch counters it moved), the bound and the
+library call or plain version: run it with and without ``--root`` in one
+call to compare two trees.
+
+``--cols-short`` times the cluster column kernels of the tree at
+``--root`` at the lengths below 4096, on the route's clusters
+(:func:`cols_short_times`: K3c's x pass of the 2-D transforms at (9,
+2048^2), (10, 2560^2) and (9, 3072^2), both directions, and the PSF
+column stages psf_cols_fwd / _inv at (8, NX/2, NX/2)), beside torch.fft;
+``--cols-const kShortClusters=2,4`` builds copies of the package with
+``csrc/psf_cols.cuh``'s ``constexpr int NAME`` set to each value (and,
+for ``kShortClusters``, its mirror ops/cfft.py:_SHORT_C with it) under
+``build/lab_cols/<NAME>/<value>/`` and times them by ``--cols-short``, as
+``--degrid-const`` does: the readings that set the route's C below 4096.
+
+``--rows-times`` times the register row kernels of the tree at ``--root``
+at the lengths 2048-5120 (:func:`rows_times`: K3r's y pass and K10br's
+rows stage, K1's shapes); ``--rows-const NAME=V1,V2`` builds copies of
+the package with ``csrc/rows_fft.cuh``'s ``constexpr int NAME`` set to
+each value (``kShortRowThreads``: the threads of a block at N = 2048)
+under ``build/lab_rows/<NAME>/<value>/`` and times them by
+``--rows-times``, as ``--degrid-const`` does.
+
 ``--minblocks 1,2,3,4`` probes the cluster column kernels' register
 budget: for each value, a copy of pfb_tpu_torch under
 ``build/lab_minblocks/<value>/`` with ``csrc/psf_cols.cu``'s
@@ -109,8 +140,9 @@ budget: for each value, a copy of pfb_tpu_torch under
 it, all built at once; then this tree, each copy and this tree again, one
 child process each (``--cols-times --root DIR``), time psf_cols_fwd and
 psf_cols_inv at K1's (8, 2048^2) and (8, 4096^2) and at one K10 shard
-of the (2, 4) mesh, (4, 2048, 512) -> 2052 rows, beside rfft / irfft and
-(at the shard) K10's own entries. Each is timed two ways: as
+of the (2, 4) mesh, (4, 2048, 512) -> 2052 rows, and at the short
+lengths' (8, 1024^2), (8, 1280^2) and (8, 1536^2), beside rfft / irfft
+and (at the shard) K10's own entries. Each is timed two ways: as
 ``chip_smoke.py`` times it (the median of single calls, each between two
 CUDA events; on an idle stream the wrapper's host time before the launch
 falls between them) and back to back (``reps`` calls between two events,
@@ -420,13 +452,17 @@ def lab_size(nb, nx, reps, dev, smi):
     k1 = (4.0 * (2 * x.numel() + hr.numel() + hi.numel()),
           nb * (fft_flops(NX, 2 * nx, real=True) + fft_flops(NY, 2 * (nx + 1))
                 + 6.0 * (nx + 1) * NY))
+    # K15's column transforms where the v3 factor rule holds (not at
+    # 1280^2 or 1536^2)
     stages = [
         ("K15 forward v3_cols_fwd", (nb, nx, ny),
          lambda: v3_cols_fwd(x, nx), cols(NXH)),
         ("rows stage psf_stage_rows on NXH rows, complex H", (nb, NXH, ny),
          lambda: psf_stage_rows(zr0, zi0, hxr, hxi), rows_stage(NXH)),
         ("K15 inverse v3_cols_inv", (nb, NXH, ny),
-         lambda: v3_cols_inv(zr0, zi0, nx), cols(NXH)),
+         lambda: v3_cols_inv(zr0, zi0, nx), cols(NXH))
+    ] if ops.v3_supported(nx, ny) else []
+    stages += [
         ("K1 stage 1 psf_stage_cols_fwd", (nb, nx, ny),
          lambda: psf_stage_cols_fwd(x, NX, nx + 1), cols(nx + 1)),
         ("K1 stage 2 psf_stage_rows, complex H", (nb, nx + 1, ny),
@@ -948,11 +984,244 @@ def degrid_rungs(reps, dev, smi):
         torch.cuda.empty_cache()
 
 
+def _route(fn):
+    """The launch counters that one call of fn() moved (the kernels it
+    ran), read from the wrappers of the tree imported."""
+    from pfb_tpu_torch.ops import cfft, psf
+    cnt = {"K3": cfft.fftx_c2c, "K3c": cfft.fftx_c2c_cluster,
+           "K3r": cfft.fftx_c2c_rows, "K10ac": psf.psf_cols_fwd,
+           "K10cc": psf.psf_cols_inv, "K10br": psf.psf_rows,
+           "K1": psf.psf_convolve_h, "K2": psf.psf_convolve_h_cg,
+           "K11": psf.psf_convolve_full}
+    # the PSF line kernels' counters (a tree before them has none: its
+    # line route shows only as the absence of the others)
+    for name in ("psf_cols_line", "psf_rows_line"):
+        if hasattr(psf, name):
+            cnt[name] = getattr(psf, name)
+    before = {k: f.launches for k, f in cnt.items()}
+    fn()
+    return {k: f.launches - before[k] for k, f in cnt.items()
+            if f.launches != before[k]}
+
+
+# the lengths below the cluster and row routes' first floors (2048-5120):
+# K3's x and y passes of (P, N^2) planes, the PSF column stages and rows
+# stage at NX = NY, K11 where v3 does not hold (1280^2 in 2560^2, 1536^2
+# in 3072^2, 3072^2 in 4608^2)
+OFFROUTE_PASSES = ((9, 2048), (10, 2560), (9, 3072))
+OFFROUTE_STAGES = (2048, 2560, 3072, 4608, 5120)
+OFFROUTE_K11 = ((8, 1280, 2560), (8, 1536, 3072), (2, 3072, 4608))
+
+
+def offroute_times(reps, dev, smi, root):
+    """--offroute: the kernels of the tree at ``root`` at the lengths
+    2048-5120, each call's route (the launch counters it moved), the bound
+    (chip_smoke.py:bound) and the library call, one JSON line a case:
+    K3's x pass (fftx_c2c on a (P, nin, N) stack) and y pass (on the
+    (P nrow, nin, 1) row stack) of the pruned 2-D transforms, inverse
+    out_rolled and forward in_rolled, beside torch.fft on the zero-padded
+    stack; the PSF column stages (psf_stage_cols_fwd / _inv at (8, NX/2,
+    NX/2)) beside rfft / irfft; the rows stage (psf_stage_rows on (8, NY/2
+    + 1, NY/2) rows, complex H) beside its plain version; K11
+    (psf_convolve_full, random complex H) beside its plain version."""
+    import torch
+
+    from pfb_tpu_torch.ops.cfft import fftx_c2c
+    from pfb_tpu_torch.ops.psf import (psf_convolve_full,
+                                       psf_convolve_full_plain,
+                                       psf_stage_cols_fwd,
+                                       psf_stage_cols_inv, psf_stage_rows,
+                                       psf_stage_rows_plain)
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, conv_work, fft_flops, rows_work
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def line(case, shape, fn, work, **extra):
+        bms, bby = bound(*work)
+        rec = {"probe": "offroute", "root": str(root), "case": case,
+               "shape": list(shape), "route": _route(fn),
+               "ms": cuda_ms(fn, reps, dev), "bound_ms": bms,
+               "bound_by": bby, "card": smi}
+        rec.update({k: cuda_ms(f, reps, dev) for k, f in extra.items()})
+        print(json.dumps(rec), flush=True)
+
+    for P, N in OFFROUTE_PASSES:
+        for inv, pin, pout in ((True, False, True), (False, True, False)):
+            nin = N // 2 if pin else N
+            nout = N // 2 if pout else N
+            kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+            lib = torch.fft.ifft if inv else torch.fft.fft
+            tag = "inverse out_rolled" if inv else "forward in_rolled"
+            for axis, shape in (("x", (P, nin, nin)),
+                                ("y", (P * nin, nin, 1))):
+                xr, xi = (torch.randn(shape, generator=g, device=dev)
+                          for _ in range(2))
+                z = torch.zeros((shape[0], N, shape[2]),
+                                dtype=torch.complex64, device=dev)
+                z[:, :nin] = torch.complex(xr, xi)
+                lines = shape[0] * shape[2]
+                line(f"K3 {axis} pass {tag} ({P}, {N}^2)", shape,
+                     lambda: fftx_c2c(xr, xi, **kw),
+                     (8.0 * lines * (nin + nout), fft_flops(N, lines)),
+                     library_ms=lambda: lib(z, dim=-2))
+                del xr, xi, z
+    nb = 8
+    for NX in OFFROUTE_STAGES:
+        nx = NX // 2
+        x = torch.randn((nb, nx, nx), generator=g, device=dev)
+        w = [torch.randn((nb, nx + 1, nx), generator=g, device=dev)
+             for _ in range(2)]
+        wc = torch.complex(*w)
+        cols = (4.0 * nb * nx * (nx + 2 * (nx + 1)),
+                nb * fft_flops(NX, nx, real=True))
+        line(f"column stage 1 psf_stage_cols_fwd (8, {nx}^2) of {NX}",
+             x.shape, lambda: psf_stage_cols_fwd(x, NX, nx + 1), cols,
+             library_ms=lambda: torch.fft.rfft(x, n=NX, dim=-2))
+        line(f"column stage 3 psf_stage_cols_inv (8, {nx + 1}, {nx}) of "
+             f"{NX}", w[0].shape, lambda: psf_stage_cols_inv(*w, nx, NX, NX),
+             cols, library_ms=lambda: torch.fft.irfft(wc, n=NX, dim=-2))
+        hr, hi = (torch.randn((nb, nx + 1, NX), generator=g, device=dev)
+                  for _ in range(2))
+        line(f"rows stage psf_stage_rows (8, {nx + 1}, {nx}) of {NX}, "
+             "complex H", w[0].shape, lambda: psf_stage_rows(*w, hr, hi),
+             rows_work(nb, nx + 1, nx, NX, "complex"),
+             plain_ms=lambda: psf_stage_rows_plain(*w, hr, hi))
+        del x, w, wc, hr, hi
+        torch.cuda.empty_cache()
+    for nb, nx, NX in OFFROUTE_K11:
+        x = torch.randn((nb, nx, nx), generator=g, device=dev)
+        hr, hi = (torch.randn((nb, NX, NX), generator=g, device=dev)
+                  for _ in range(2))
+        line(f"K11 psf_convolve_full ({nb}, {nx}^2) in {NX}^2, random H",
+             x.shape, lambda: psf_convolve_full(x, hr, hi),
+             conv_work(nb, nx, nx, NX, NX, hr.numel(), True),
+             plain_ms=lambda: psf_convolve_full_plain(x, hr, hi))
+        del x, hr, hi
+        torch.cuda.empty_cache()
+
+
+def cols_short_times(reps, dev, smi, root):
+    """--cols-short: the cluster column kernels of the tree at ``root``
+    at the lengths below 4096, on that tree's clusters
+    (ops/cfft.py:cluster_shape), beside torch.fft; one JSON line a
+    case."""
+    import torch
+
+    from pfb_tpu_torch.ops.cfft import cluster_shape, fftx_c2c_cluster
+    from pfb_tpu_torch.ops.psf import psf_cols_fwd, psf_cols_inv
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, fft_flops
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def line(case, shape, N, fn, work, lib):
+        bms, bby = bound(*work)
+        C, W = cluster_shape(N)
+        rec = {"probe": "cols-short", "root": str(root), "case": case,
+               "shape": list(shape), "C": C, "W": W,
+               "route": _route(fn), "ms": cuda_ms(fn, reps, dev),
+               "library_ms": cuda_ms(lib, reps, dev), "bound_ms": bms,
+               "bound_by": bby, "card": smi}
+        print(json.dumps(rec), flush=True)
+
+    for P, N in OFFROUTE_PASSES:
+        for inv, pin, pout in ((True, False, True), (False, True, False)):
+            nin = N // 2 if pin else N
+            nout = N // 2 if pout else N
+            kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+            xr, xi = (torch.randn((P, nin, nin), generator=g, device=dev)
+                      for _ in range(2))
+            z = torch.zeros((P, N, nin), dtype=torch.complex64, device=dev)
+            z[:, :nin] = torch.complex(xr, xi)
+            lib = torch.fft.ifft if inv else torch.fft.fft
+            line(f"K3c x pass {'inverse out_rolled' if inv else 'forward '
+                              'in_rolled'} ({P}, {N}^2)", xr.shape, N,
+                 lambda: fftx_c2c_cluster(xr, xi, **kw),
+                 (8.0 * P * nin * (nin + nout), P * fft_flops(N, nin)),
+                 lambda: lib(z, dim=-2))
+            del xr, xi, z
+    nb = 8
+    for NX in OFFROUTE_STAGES[:3]:
+        nx = NX // 2
+        x = torch.randn((nb, nx, nx), generator=g, device=dev)
+        w = [torch.randn((nb, nx + 1, nx), generator=g, device=dev)
+             for _ in range(2)]
+        wc = torch.complex(*w)
+        cols = (4.0 * nb * nx * (nx + 2 * (nx + 1)),
+                nb * fft_flops(NX, nx, real=True))
+        line(f"K10ac psf_cols_fwd (8, {nx}^2) of {NX}", x.shape, NX,
+             lambda: psf_cols_fwd(x, NX, nx + 1), cols,
+             lambda: torch.fft.rfft(x, n=NX, dim=-2))
+        line(f"K10cc psf_cols_inv (8, {nx + 1}, {nx}) of {NX}", w[0].shape,
+             NX, lambda: psf_cols_inv(*w, nx, NX), cols,
+             lambda: torch.fft.irfft(wc, n=NX, dim=-2))
+        del x, w, wc
+        torch.cuda.empty_cache()
+
+
+def rows_times(reps, dev, smi, root):
+    """--rows-times: K3r (the y pass of (P, N^2) planes, inverse out_rolled
+    and forward in_rolled) and K10br (psf_rows at K1's (8, NY/2 + 1, NY/2)
+    rows, complex H) of the tree at ``root`` at the lengths 2048-5120,
+    beside torch.fft (for K10br three calls, for context: no one call
+    computes it); one JSON line a case."""
+    import torch
+
+    from pfb_tpu_torch.ops.cfft import fftx_c2c_rows
+    from pfb_tpu_torch.ops.psf import psf_rows
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, fft_flops, rows_work
+    src = Path(root) / "pfb_tpu_torch" / "csrc" / "rows_fft.cuh"
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);",
+                             src.read_text()))
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def line(case, shape, fn, work, lib, key="library_ms"):
+        bms, bby = bound(*work)
+        print(json.dumps({
+            "probe": "rows", "root": str(root), "consts": consts,
+            "case": case, "shape": list(shape), "ms": cuda_ms(fn, reps, dev),
+            key: cuda_ms(lib, reps, dev), "bound_ms": bms, "bound_by": bby,
+            "card": smi}), flush=True)
+
+    for N in OFFROUTE_STAGES:
+        P = 9
+        for inv, pin, pout in ((True, False, True), (False, True, False)):
+            nin = N // 2 if pin else N
+            nout = N // 2 if pout else N
+            rows = P * nin
+            xr, xi = (torch.randn((rows, nin, 1), generator=g, device=dev)
+                      for _ in range(2))
+            z = torch.zeros((rows, N), dtype=torch.complex64, device=dev)
+            z[:, :nin] = torch.complex(xr, xi)[..., 0]
+            lib = torch.fft.ifft if inv else torch.fft.fft
+            line(f"K3r y pass {'inverse out_rolled' if inv else 'forward '
+                               'in_rolled'} ({P}, {N}^2)", xr.shape,
+                 lambda: fftx_c2c_rows(xr, xi, N=N, inverse=inv,
+                                       in_rolled=pin, out_rolled=pout),
+                 (8.0 * rows * (nin + nout), fft_flops(N, rows)),
+                 lambda: lib(z, dim=-1))
+            del xr, xi, z
+        nb, ny = 8, N // 2
+        zr, zi = (torch.randn((nb, ny + 1, ny), generator=g, device=dev)
+                  for _ in range(2))
+        hr, hi = (torch.randn((nb, ny + 1, N), generator=g, device=dev)
+                  for _ in range(2))
+        zc, hc = torch.complex(zr, zi), torch.complex(hr, hi)
+        line(f"K10br psf_rows (8, {ny + 1}, {ny}) of {N}, complex H",
+             zr.shape, lambda: psf_rows(zr, zi, hr, hi),
+             rows_work(nb, ny + 1, ny, N, "complex"),
+             lambda: torch.fft.ifft(torch.fft.fft(zc, n=N, dim=-1) * hc,
+                                    dim=-1)[..., :ny], key="three_calls_ms")
+        del zr, zi, hr, hi, zc, hc
+        torch.cuda.empty_cache()
+
+
 MINB_RE = re.compile(r"constexpr int kColsMinBlocks = (\d+);")
 
 
 COLS_SHAPES = ((8, 2048, 2048, 2049), (8, 4096, 4096, 4097),
-               (4, 2048, 512, 2052))
+               (4, 2048, 512, 2052), (8, 1024, 1024, 1025),
+               (8, 1280, 1280, 1281), (8, 1536, 1536, 1537))
 
 
 def cols_times(reps, dev, smi, root, shapes=COLS_SHAPES):
@@ -991,24 +1260,39 @@ def cols_times(reps, dev, smi, root, shapes=COLS_SHAPES):
         torch.cuda.empty_cache()
 
 
+# the Python mirrors of the probed constants: (module of pfb_tpu_torch,
+# name), set in a copy along with the constant
+MIRRORS = {"kShortClusters": ("ops/cfft.py", "_SHORT_C")}
+
+
+def _set_once(path, pattern, repl):
+    """Replace the one match of ``pattern`` in the file at ``path``."""
+    text, n = re.subn(pattern, repl, path.read_text())
+    if n != 1:
+        raise RuntimeError(f"{pattern} not found once in {path}")
+    path.write_text(text)
+
+
 def const_probe(source, name, values, base, flag, reps):
     """Copies of pfb_tpu_torch under ``base/<value>/`` with the constant
-    ``constexpr int name`` of ``csrc/<source>`` set to each value, built
-    at once, then this tree, each copy and this tree again timed by the
-    lab's ``flag`` (--cols-times, --degrid) in child processes. Returns
-    the lines' records."""
-    pat = re.compile(rf"constexpr int {name} = (\d+);")
+    ``constexpr int name`` of ``csrc/<source>`` (and its Python mirror in
+    :data:`MIRRORS`) set to each value, built at once, then this tree,
+    each copy and this tree again timed by the lab's ``flag``
+    (--cols-times, --degrid) in child processes. Returns the lines'
+    records."""
     roots = []
     for v in values:
         d = base / str(v)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(ROOT / "pfb_tpu_torch", d / "pfb_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
-        f = d / "pfb_tpu_torch" / "csrc" / source
-        text, n = pat.subn(f"constexpr int {name} = {v};", f.read_text())
-        if n != 1:
-            raise RuntimeError(f"{name} not found once in {f}")
-        f.write_text(text)
+        _set_once(d / "pfb_tpu_torch" / "csrc" / source,
+                  rf"constexpr int {name} = \d+;",
+                  f"constexpr int {name} = {v};")
+        if name in MIRRORS:
+            module, py = MIRRORS[name]
+            _set_once(d / "pfb_tpu_torch" / module, rf"(?m)^{py} = \d+",
+                      f"{py} = {v}")
         roots.append(d)
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
@@ -1067,6 +1351,21 @@ def main():
     ap.add_argument("--degrid-const",
                     help="NAME=V1,V2: a constant of csrc/pg_degrid.cu and "
                     "the values to probe")
+    ap.add_argument("--offroute", action="store_true",
+                    help="time the kernels of --root at the lengths "
+                    "2048-5120, with each call's route")
+    ap.add_argument("--cols-short", action="store_true",
+                    help="time the cluster column kernels of --root below "
+                    "4096")
+    ap.add_argument("--cols-const",
+                    help="NAME=V1,V2: a constant of csrc/psf_cols.cuh and "
+                    "the values to probe")
+    ap.add_argument("--rows-times", action="store_true",
+                    help="time the register row kernels of --root at "
+                    "2048-5120")
+    ap.add_argument("--rows-const",
+                    help="NAME=V1,V2: a constant of csrc/rows_fft.cuh and "
+                    "the values to probe")
     ap.add_argument("--out")
     args = ap.parse_args()
     import torch
@@ -1091,6 +1390,27 @@ def main():
         return 0
     if args.degrid_rungs:
         degrid_rungs(args.reps, dev, smi)
+        return 0
+    if args.offroute:
+        offroute_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.cols_short:
+        cols_short_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.cols_const:
+        name, values = args.cols_const.split("=")
+        const_probe("psf_cols.cuh", name, [int(v) for v in values.split(",")],
+                    ROOT / "build" / "lab_cols" / name, "--cols-short",
+                    args.reps)
+        return 0
+    if args.rows_times:
+        rows_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.rows_const:
+        name, values = args.rows_const.split("=")
+        const_probe("rows_fft.cuh", name, [int(v) for v in values.split(",")],
+                    ROOT / "build" / "lab_rows" / name, "--rows-times",
+                    args.reps)
         return 0
     if args.degrid_const:
         name, values = args.degrid_const.split("=")

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The K11 path's MFS residual rms under a rounding-only change of its PSF
-operator, on the card.
+"""The K11 path's (or the pg path's) MFS residual rms under a
+rounding-only change of its PSF operator, on the card.
 
     python3 scripts/torch_rms_spread.py [--root DIR] [--runs kernel,plain]
-        [--device cuda] [--nx 3072]
+        [--device cuda] [--nx 3072] [--path k11 | pg]
 
 chip_smoke.py's K11 path (the pg field at 3072^2 with its 6144^2 PSF:
 init, grid, then spotless with K11, ``ops/psf.py:psf_convolve_full``,
@@ -24,6 +24,12 @@ one JSON line with the card's name and power limit, the root, the run's
 K11 launches and the MFS residual rms after each major cycle.
 ``--device cpu --nx 128`` rehearses the script (the path's operator
 takes K1 there, so the runs agree).
+
+``--path pg`` runs chip_smoke.py's pg path instead (srf 2, robustness 0;
+default ``--nx 1024``, the quick-look path of phase 26, whose 2048^2 PSF
+takes K1, ``ops/psf.py:psf_convolve_h``), with K1 as shipped
+(``kernel``) and K1's plain version (``psf_convolve_h_plain``) in its
+place (``plain``); the records then carry K1's launches.
 """
 
 import argparse
@@ -44,42 +50,54 @@ def card(dev):
     return out[0] if out else "nvidia-smi: no output"
 
 
-def plain_k11(psf):
-    """K11's plain version in the signature and with the launch counter
-    of ``psf.psf_convolve_full``."""
-    def psf_convolve_full(x, hr, hi=None):
-        psf_convolve_full.launches += 1
-        return psf.psf_convolve_full_plain(x, hr, hi)
-    psf_convolve_full.launches = 0
-    return psf_convolve_full
+def plain_entry(plain):
+    """A plain version in the signature and with the launch counter of
+    the kernel entry it stands in for."""
+    def entry(*args):
+        entry.launches += 1
+        return plain(*args)
+    entry.launches = 0
+    return entry
 
 
-def spread(root, dev, nx, runs, sim=None):
-    """The K11 path of the tree at ``root`` once per entry of ``runs``;
-    returns one record each."""
+# path: (kernel entry of ops/psf.py, its plain version, its counter in
+# chip_smoke.py, srf, grid of chip_smoke.py)
+PATHS = {"k11": ("psf_convolve_full", "psf_convolve_full_plain", "K11", 3.0,
+                 "GRID_K11"),
+         "pg": ("psf_convolve_h", "psf_convolve_h_plain", "K1", 2.0,
+                "GRID_PG")}
+
+
+def spread(root, dev, nx, runs, sim=None, path="k11"):
+    """The K11 path (or the pg path) of the tree at ``root`` once per entry
+    of ``runs``; returns one record each."""
     import torch
 
     sys.path.insert(0, str(Path(root).resolve()))
     import chip_smoke as cs
     from pfb_tpu_torch.ops import psf
 
+    name, plain, key, srf, grid = PATHS[path]
     smi = card(dev)
     workdir = Path(root).resolve() / "build" / "rms_spread"
     workdir.mkdir(parents=True, exist_ok=True)
     kw = {} if sim is None else {"sim": sim}
-    truth = cs.simulate(workdir, nx=nx, srf=3.0, **kw)
-    grid = dict(cs.GRID_K11, nx=nx, ny=nx)
-    shipped = psf.psf_convolve_full
+    truth = cs.simulate(workdir, nx=nx, srf=srf, **kw)
+    grid = dict(getattr(cs, grid), nx=nx, ny=nx)
+    shipped = getattr(psf, name)
     recs = []
     for run in runs:
-        psf.psf_convolve_full = plain_k11(psf) if run == "plain" else shipped
+        setattr(psf, name, plain_entry(getattr(psf, plain))
+                if run == "plain" else shipped)
         try:
             res = cs.main_path(truth, dev, grid=grid, spot=cs.SPOT_PG)
         finally:
-            psf.psf_convolve_full = shipped
+            setattr(psf, name, shipped)
         st = res["stats"]
         recs.append({"card": smi, "root": str(root), "run": run, "nx": nx,
-                     "k11_launches": res["launches"]["spotless"]["K11"],
+                     "path": path,
+                     f"{key.lower()}_launches":
+                         res["launches"]["spotless"][key],
                      "dirty_rms": res["dirty_rms"],
                      "rms": [float(r) for r in st["rms"]],
                      "seconds": {k: round(v, 3) for k, v in res["t"].items()}})
@@ -99,7 +117,10 @@ def main():
     ap.add_argument("--device", default="cuda",
                     help="cpu rehearses the script at a small --nx")
     ap.add_argument("--nx", type=int, help="image size (default: "
-                    "chip_smoke.py's NX_K11)")
+                    "chip_smoke.py's NX_K11, or 1024 with --path pg)")
+    ap.add_argument("--path", default="k11", choices=sorted(PATHS),
+                    help="k11: the 3072^2 path on K11; pg: the pg path on "
+                    "K1")
     args = ap.parse_args()
     import torch
     dev = torch.device(args.device)
@@ -111,11 +132,13 @@ def main():
         print(f"unknown run in {args.runs}", file=sys.stderr)
         return 1
     nx = args.nx
-    if nx is None:
+    if nx is None and args.path == "pg":
+        nx = 1024
+    elif nx is None:
         sys.path.insert(0, str(Path(args.root).resolve()))
         import chip_smoke
         nx = chip_smoke.NX_K11
-    spread(args.root, dev, nx, runs)
+    spread(args.root, dev, nx, runs, path=args.path)
     return 0
 
 

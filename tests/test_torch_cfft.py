@@ -135,16 +135,22 @@ def test_cluster_plain_ragged_matches_jax(mode, inverse):
 
 def test_cluster_route_and_shape():
     """The dispatch rule, written once in ops/cfft.py: the strided x pass
-    (L > 1) at N >= 4096 takes the cluster kernel where its tile fits;
-    the y pass (L = 1), N < 4096, N % 4 != 0 and tiles past a block's
-    8192 values keep line_fft_kernel. The shapes the card runs."""
+    (L > 1) at N >= 2048 takes the cluster kernel where its tile fits;
+    the y pass (L = 1), N < 2048, N % 4 != 0 and tiles past a block's
+    8192 values keep line_fft_kernel. The shapes the card runs: clusters
+    of 4 blocks and tiles of 8 columns below 4096."""
     assert cluster_route(4096, 8) and cluster_route(8192, 4096)
     assert cluster_route(16384, 2) and cluster_route(4100, 2)
-    assert not cluster_route(8192, 1) and not cluster_route(2048, 2048)
+    assert cluster_route(2048, 2048) and cluster_route(2560, 8)
+    assert cluster_route(3072, 2) and cluster_route(3000, 8)
+    assert not cluster_route(8192, 1) and not cluster_route(2048, 1)
+    assert not cluster_route(1024, 2048) and not cluster_route(2044, 8)
+    assert not cluster_route(2050, 8)
     assert not cluster_route(6561, 8) and not cluster_route(8748, 8)
     assert not cluster_route(32768, 8)
-    assert [cluster_shape(n) for n in (4096, 6144, 8192, 12288, 16384)] \
-        == [(4, 8), (8, 8), (8, 8), (8, 4), (8, 4)]
+    assert [cluster_shape(n) for n in (2048, 2560, 3072, 4096, 6144, 8192,
+                                       12288, 16384)] \
+        == [(4, 8), (4, 8), (4, 8), (4, 8), (8, 8), (8, 8), (8, 4), (8, 4)]
     with pytest.raises(ValueError):
         cluster_shape(6561)
     # a CPU stack keeps the plain route whatever the shape
@@ -154,16 +160,17 @@ def test_cluster_route_and_shape():
     _close(yr.numpy(), ref.real)
 
 
-@pytest.mark.parametrize("N", [2048, 4096, 6144, 8192, 12288, 16384])
+@pytest.mark.parametrize("N", [2048, 4096, 6144, 8192, 12288, 16384, 2560,
+                               3072, 4608, 5120])
 def test_cluster_shape_fits_a_block(N):
     """Every shape the route takes is one the kernel launches: a cluster
-    of 4 or 8 blocks dividing N, tiles of 4 or 8 columns, at most 8192
+    of 2, 4 or 8 blocks dividing N, tiles of 4 or 8 columns, at most 8192
     values a block, and each row segment of a tile a whole number of
     16-byte chunks."""
     C, W = cluster_shape(N)
-    assert C in (4, 8) and W in (4, 8) and N % C == 0
+    assert C in (2, 4, 8) and W in (4, 8) and N % C == 0
     assert (N // C) * W <= 8192 and W % 4 == 0
-    assert cluster_route(N, 2) == (N >= 4096)
+    assert cluster_route(N, 2) == (N >= 2048)
 
 
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
@@ -215,13 +222,14 @@ def _jax_rows(N, mode, inverse, R):
     return _JAX_ROWS[key]
 
 
-@pytest.mark.parametrize("N", [512, 640, 2304, 3072])
+@pytest.mark.parametrize("N", [512, 640, 2304, 3072, 2048, 2560, 4608, 5120])
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_rows_plain_matches_jax(N, mode, inverse):
-    """The row kernel's stages (16, N/256, 16 where 256 divides N; 16, 5,
-    8 at 640), rolled chunk offsets and kept half, in float64, against the
-    JAX y pass in float32."""
+    """The row kernel's stages (16, N/256, 16 where 256 divides N: R2 = 8,
+    10, 12, 18, 20 at the lengths 2048-5120; 16, 5, 8 at 640), rolled
+    chunk offsets and kept half, in float64, against the JAX y pass in
+    float32."""
     xr, xi, rr, ri = _jax_rows(N, mode, inverse, 8)
     yr, yi = fftx_c2c_rows_plain(
         torch.as_tensor(xr[..., None], dtype=torch.float64),
@@ -294,15 +302,18 @@ def test_rows_skeleton_plain_is_the_stage_permutation(N, mode):
 
 def test_row_route_and_radices():
     """The dispatch rule, written once in ops/cfft.py: contiguous rows (L
-    = 1) at the kernel's four lengths take the row kernel; L > 1 never
-    does (the cluster route's), nor other N; no shape takes both routes.
-    The plan is 16 x R2 x 16 at those lengths."""
-    for n in (4096, 6144, 8192, 12288):
+    = 1) at the kernel's nine lengths take the row kernel; L > 1 never
+    does (the cluster route's), nor other N (not a multiple of 256, or no
+    instance); no shape takes both routes. The plan is 16 x R2 x 16 at
+    those lengths."""
+    lengths = (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288)
+    for n in lengths:
         assert row_route(n, 1) and not cluster_route(n, 1)
         assert not row_route(n, 8) and cluster_route(n, 8)
         assert row_radices(n) == (16, n // 256, 16)
-    for n in (256, 2048, 3072, 4100, 16384, 6561):
+    for n in (256, 1024, 2304, 3000, 3584, 4100, 16384, 6561):
         assert not row_route(n, 1)
+    assert tuple(n for n in range(2, 16402) if row_route(n, 1)) == lengths
     for n, L in itertools.product((512, 2048, 4096, 6144, 8192, 12288,
                                    16384), (1, 2, 8, 64)):
         assert not (row_route(n, L) and cluster_route(n, L))
@@ -310,8 +321,8 @@ def test_row_route_and_radices():
     t = torch.zeros((2, 4096, 2))
     with pytest.raises(ValueError):   # L = 2: not contiguous rows
         fftx_c2c_rows(t, t, N=4096)
-    with pytest.raises(ValueError):   # N = 2048: no instance
-        fftx_c2c_rows(t[:, :2048, :1], None, N=2048)
+    with pytest.raises(ValueError):   # N = 1024: no instance
+        fftx_c2c_rows(t[:, :1024, :1], None, N=1024)
 
 
 class _CardStack:
@@ -324,10 +335,11 @@ class _CardStack:
         self.shape = shape
 
 
-@pytest.mark.parametrize("N,L,route", [(8192, 8, "cluster"),
-                                       (8192, 1, "rows"), (4096, 1, "rows"),
-                                       (2048, 1, "line"), (2048, 8, "line"),
-                                       (16384, 1, "line")])
+@pytest.mark.parametrize("N,L,route", [
+    (8192, 8, "cluster"), (8192, 1, "rows"), (4096, 1, "rows"),
+    (2048, 1, "rows"), (2048, 8, "cluster"), (16384, 1, "line"),
+    (1024, 8, "line"), (3000, 1, "line"), (3000, 8, "cluster"),
+    (5120, 1, "rows"), (2560, 8, "cluster")])
 def test_fftx_c2c_route_order(monkeypatch, N, L, route):
     """A CUDA stack asks cluster_route first, then row_route, then takes
     line_fft_kernel: each route's wrapper is called exactly where its
@@ -349,3 +361,68 @@ def test_fftx_c2c_route_order(monkeypatch, N, L, route):
     except RuntimeError:
         pass
     assert called == [route]
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, so that the wrappers can
+    be followed down to the kernel library here."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("N,L", [(2048, 1), (2048, 8), (2560, 1), (2560, 8),
+                                 (3072, 1), (3072, 8), (4608, 1), (5120, 1),
+                                 (1024, 8), (3000, 1)])
+def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
+    """On a stand-in CUDA stack (a stand-in library recording each entry's
+    shape arguments) fftx_c2c at the lengths 2048-5120 launches the
+    cluster kernel on clusters of 4 and tiles of 8 columns (its strided
+    x pass) and the row kernel at the length (its y pass), each counted
+    on its own route; N = 1024 (below the cluster floor) and 3000 (not a
+    multiple of 256) launch line_fft_kernel."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*a):
+                calls.append({"pfbt_cfft_cols": lambda: (name, a[12], a[13]),
+                              "pfbt_cfft_rows": lambda: (name, a[5]),
+                              "pfbt_cfft": lambda: (name, a[6])}[name]())
+                return 0
+            return entry
+    monkeypatch.setattr(cf.kernels, "library", lambda: Lib())
+    monkeypatch.setattr(cf.kernels, "require_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(cf.kernels, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(cf.kernels, "twiddles",
+                        lambda n, dev, kind="plan": torch.zeros((n, 2)))
+    x = torch.zeros((2, N, L)).as_subclass(_OnCard)
+    n0 = (fftx_c2c.launches, cf.fftx_c2c_cluster.launches,
+          cf.fftx_c2c_rows.launches)
+    cf.fftx_c2c(x, x, N=N)
+    got = tuple(f.launches - n for f, n in zip(
+        (fftx_c2c, cf.fftx_c2c_cluster, cf.fftx_c2c_rows), n0))
+    if cluster_route(N, L):
+        assert calls == [("pfbt_cfft_cols", 4, 8)] and got == (0, 1, 0)
+    elif row_route(N, L):
+        assert calls == [("pfbt_cfft_rows", N)] and got == (0, 0, 1)
+    else:
+        assert N in (1024, 3000)
+        assert calls == [("pfbt_cfft", N)] and got == (1, 0, 0)
+
+
+@pytest.mark.parametrize("N", [2048, 2560, 3072])
+def test_cluster_wrapper_takes_the_routes_clusters(N):
+    """fftx_c2c_cluster below 4096 on a CPU stack: the plain version at
+    the route's (C, W) = (4, 8), which is the transform, both ways."""
+    assert cluster_shape(N) == (4, 8) and cluster_route(N, 4)
+    xr, xi = _rand((1, N, 4), seed=N)
+    a, b = torch.as_tensor(xr, dtype=torch.float64), \
+        torch.as_tensor(xi, dtype=torch.float64)
+    z = xr.astype(np.float64) + 1j * xi
+    for inverse, ref in ((False, np.fft.fft(z, axis=-2)),
+                         (True, N * np.fft.ifft(z, axis=-2))):
+        yr, yi = fftx_c2c_cluster(a, b, N=N, inverse=inverse)
+        _close(yr.numpy(), ref.real, 1e-12)
+        _close(yi.numpy(), ref.imag, 1e-12)

@@ -38,7 +38,8 @@ def _operands(nb, nx, ny, seed, complex_h=True):
 @pytest.mark.parametrize("C", [2, 4, 8])
 @pytest.mark.parametrize("nx,ny,complex_h", [(128, 24, True),
                                              (256, 15, True),
-                                             (128, 8, False)])
+                                             (128, 8, False),
+                                             (1024, 16, True)])
 def test_cluster_model_matches_k2_plain(C, nx, ny, complex_h):
     """The cluster route's decomposition (prologue, decimated columns,
     rows, decimated inverse, block partials in order) is K2's function:
@@ -73,6 +74,31 @@ def test_cluster_model_matches_jax_cg(C, real_transfer):
     t = [torch.as_tensor(a).double() for a in (pp, r, beta, hr)]
     out_t = psf_convolve_h_cg_cols_plain(
         *t, None if hi is None else torch.as_tensor(hi).double(), C=C)
+    for a, b in zip(out_t, out_j):
+        assert a.shape == b.shape
+        assert _rel(a.numpy(), b) < 1e-5
+
+
+@pytest.mark.parametrize("C", [2, 4])
+def test_cluster_model_at_2048_matches_jax_cg(C):
+    """nx = 1024 (NX = 2048, the route's clusters of 4 and the lab's of
+    2) on 128 columns, 2 bands: the model against
+    psf_convolve_pallas_v3_cube_cg in interpret mode (1e-5)."""
+    nb, nx, ny = 2, 1024, 128
+    assert psf.cols_route(2 * nx, ny)
+    rng = np.random.default_rng(5)
+    psf_np = rng.normal(size=(nb, 2 * nx, 2 * ny)).astype(np.float32)
+    phrT, phiT, rb = prep_pallas_hessian(jnp.asarray(psf_np), nx, ny,
+                                         real_transfer=False)
+    pp, r = (rng.normal(size=(nb, nx, ny)).astype(np.float32)
+             for _ in range(2))
+    beta = rng.uniform(0.1, 1.0, size=(nb, 1, 1)).astype(np.float32)
+    out_j = psf_convolve_pallas_v3_cube_cg(
+        jnp.asarray(pp), jnp.asarray(r), jnp.asarray(beta), phrT, phiT, nx,
+        ny, row_block=rb, interpret=True)
+    hr, hi = h_from_jax_v3(phrT, phiT, nx, ny)
+    t = [torch.as_tensor(a).double() for a in (pp, r, beta, hr, hi)]
+    out_t = psf_convolve_h_cg_cols_plain(*t, C=C)
     for a, b in zip(out_t, out_j):
         assert a.shape == b.shape
         assert _rel(a.numpy(), b) < 1e-5
@@ -119,7 +145,9 @@ def _card(*shape):
 
 
 @pytest.mark.parametrize("nx,ny,C", [(2048, 16, 4), (4096, 8, 8),
-                                     (1024, 16, 0), (2048, 1, 0)])
+                                     (1024, 16, 4), (2048, 1, 0),
+                                     (512, 16, 0), (1280, 16, 4),
+                                     (1536, 16, 4)])
 def test_k2_takes_k1s_column_route_and_counts(stand_in, nx, ny, C):
     """On a CUDA stack K2 passes cols_route's C at (2 nx, ny) to its entry
     (0: the line kernels), the entry launches every stage, and the

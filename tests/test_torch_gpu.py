@@ -75,19 +75,22 @@ def _launches():
             cf.fftx_c2c_rows.launches)
 
 
-ROW_LENGTHS = (4096, 6144, 8192, 12288)
+ROW_LENGTHS = (4096, 6144, 8192, 12288, 2048, 2560, 3072, 4608, 5120)
 
 
 @pytest.mark.parametrize("N,L", [(256, 128), (512, 1), (640, 8),
                                  (2304, 128), (8192, 64), (16384, 4),
                                  (4096, 8), (6144, 24), (8192, 16),
-                                 (8192, 20), (12288, 8), (8192, 1)])
+                                 (8192, 20), (12288, 8), (8192, 1),
+                                 (2048, 8), (2560, 24), (3072, 1),
+                                 (4608, 1), (5120, 1), (1024, 8),
+                                 (3000, 1)])
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cfft_kernel_matches_plain(cuda, N, L, mode, inverse):
     """K3 on its three routes; the cluster column kernel launches exactly
-    where cluster_route says (L > 1 and N >= 4096), the row kernel where
-    row_route says (L = 1 at its four lengths), the line kernel
+    where cluster_route says (L > 1 and N >= 2048), the row kernel where
+    row_route says (L = 1 at its nine lengths), the line kernel
     elsewhere, and each launch counts on its own route only."""
     g = torch.Generator(device=cuda).manual_seed(N + L)
     kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
@@ -98,7 +101,7 @@ def test_cfft_kernel_matches_plain(cuda, N, L, mode, inverse):
     n0, c0, r0 = _launches()
     yr, yi = fftx_c2c(xr, xi, **kw)
     torch.cuda.synchronize()
-    cluster = L > 1 and N >= 4096
+    cluster = L > 1 and N >= 2048
     rows = L == 1 and N in ROW_LENGTHS
     assert cf.cluster_route(N, L) == cluster
     assert cf.row_route(N, L) == rows
@@ -138,11 +141,13 @@ def test_rows_kernel_matches_plain(cuda, N, mode, inverse):
 
 @pytest.mark.parametrize("N,pruned", [(4096, "out"), (8192, "in"),
                                       (6144, "out"), (2048, "out"),
-                                      (2048, "in")])
+                                      (2048, "in"), (2560, "in"),
+                                      (3072, "out"), (1024, "out")])
 def test_fft2_launches_by_route(cuda, N, pruned):
-    """fft2_c2c_pruned: at N >= 4096 the x pass launches the cluster
-    kernel and the y pass K3r, never line_fft_kernel; at N = 2048 both
-    passes keep the line kernel. Against the plain 2-D transform."""
+    """fft2_c2c_pruned: at N >= 2048 (the pg grids of 1024^2 images and
+    up) the x pass launches the cluster kernel and the y pass K3r, never
+    line_fft_kernel; at N = 1024 both passes keep the line kernel.
+    Against the plain 2-D transform."""
     g = torch.Generator(device=cuda).manual_seed(N)
     pin = pruned == "in"
     n = N // 2 if pin else N
@@ -153,7 +158,7 @@ def test_fft2_launches_by_route(cuda, N, pruned):
     n0, c0, r0 = _launches()
     yr, yi = cf.fft2_c2c_pruned(xr, xi, **kw)
     torch.cuda.synchronize()
-    big = N >= 4096
+    big = N >= 2048
     assert _launches() == (n0 + 2 * (not big), c0 + big, r0 + big)
     ref = torch.fft.ifft2 if not pin else torch.fft.fft2
     z = torch.zeros((2, N, N), dtype=torch.complex64, device=cuda)
@@ -168,7 +173,8 @@ def test_fft2_launches_by_route(cuda, N, pruned):
 
 
 @pytest.mark.parametrize("N,L", [(4096, 20), (8192, 48), (6144, 13),
-                                 (2048, 24), (12288, 12), (16384, 6)])
+                                 (2048, 24), (12288, 12), (16384, 6),
+                                 (2560, 20), (3072, 12)])
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 def test_cluster_kernel_launch_parameters(cuda, N, L, mode):
     """fftx_c2c_cluster at cluster_shape's (C, W) against the plain
@@ -198,16 +204,17 @@ def test_cluster_kernel_launch_parameters(cuda, N, L, mode):
     assert torch.equal(sr, pr) and torch.equal(si, pi)
 
 
-@pytest.mark.parametrize("N", [6561, 8748, 2048, 16384])
+@pytest.mark.parametrize("N", [6561, 8748, 3000, 16384, 1024])
 def test_cfft_other_lengths_keep_the_line_kernel(cuda, N):
-    """N = 3^8 (no cluster of 4 divides it) and 4 * 3^7 (a tile of 4
-    columns of N / 4 exceeds a block) take line_fft_kernel on strided
-    columns, as cluster_route says; on contiguous rows (L = 1) those and
-    2048 and 16384 (no row kernel instance) take it too, as row_route
-    says. The other two routes launch nothing."""
+    """N = 3^8 (no cluster of 4 divides it), 4 * 3^7 (a tile of 4 columns
+    of N / 4 exceeds a block) and 1024 (below the cluster route's 2048)
+    take line_fft_kernel on strided columns, as cluster_route says; on
+    contiguous rows (L = 1) those and 3000 (no multiple of 256) and 16384
+    (no row kernel instance) take it too, as row_route says. The other
+    two routes launch nothing."""
     g = torch.Generator(device=cuda).manual_seed(N)
     n0, c0, r0 = _launches()
-    Ls = (1,) if N in (2048, 16384) else (16, 1)
+    Ls = (1,) if N in (3000, 16384) else (16, 1)
     for L in Ls:
         xr = torch.randn((2, N, L), generator=g, device=cuda)
         xi = torch.randn((2, N, L), generator=g, device=cuda)
@@ -823,17 +830,22 @@ COLS_CASES = [(8, 2048, 4096, 2048, 2049, None),
               (4, 2048, 4096, 512, 2052, None),
               (8, 3072, 6144, 3072, 3073, None),
               (2, 3072, 4608, 3072, 2305, None),
-              (8, 4096, 8192, 4096, 4224, 4224)]
+              (8, 4096, 8192, 4096, 4224, 4224),
+              (8, 1024, 2048, 1024, 1025, None),
+              (4, 1024, 2048, 256, 1028, None),
+              (8, 1280, 2560, 1280, 1281, None),
+              (8, 1536, 3072, 1536, 1537, None),
+              (2, 1024, 2048, 1024, 1088, 1088)]
 
 
 def test_cols_route_matches_its_mirror(cuda):
     """The C++ predicate that decides (pfbt_psf_cols_route) against
-    ops/psf.py:cols_route and ops/cfft.py:cluster_shape, on every NX that
-    is a multiple of 4 from 2048 to 16400 and L = 1, 2, 8."""
+    ops/psf.py:cols_route and ops/cfft.py:cluster_shape, on every even NX
+    from 2 to 16400 and L = 1, 2, 8."""
     from pfb_tpu_torch import kernels
     lib = kernels.library()
     bad = []
-    for NX in range(2048, 16404, 4):
+    for NX in range(2, 16404, 2):
         for L in (1, 2, 8):
             want = cf.cluster_shape(NX)[0] if psf_mod.cols_route(NX, L) \
                 else 0
@@ -868,7 +880,8 @@ def test_cols_kernels_match_plain(cuda, nb, nx, NX, L, rows, keep):
     assert _ok(out, psf_stage_cols_inv_plain(w[0], w[1], nx, NX, 1, keep))
 
 
-@pytest.mark.parametrize("NX,L", [(4096, 13), (8192, 6), (6144, 3)])
+@pytest.mark.parametrize("NX,L", [(4096, 13), (8192, 6), (6144, 3),
+                                  (2048, 13), (3072, 5)])
 def test_cols_kernels_unaligned_and_ragged(cuda, NX, L):
     """Column counts that are not a multiple of the tile or of 4, an odd
     last pair, and operands 4 bytes past a 16-byte boundary (the scalar
@@ -972,10 +985,108 @@ def test_space_matvec_bitwise_k1_on_the_cluster_route(cuda, nspace):
     assert torch.equal(a, ref)
 
 
+def test_space_matvec_bitwise_k1_at_1024(cuda):
+    """The same at (4, 1024^2) on a (2, 4) virtual mesh (v3_space_supported
+    holds: 256 columns a shard), where K10's and K1's stages take the
+    cluster column kernels at NX = 2048 and K10br at NY = 2048: bit for
+    bit K1, and no PSF line kernel launches."""
+    from pfb_tpu_torch.parallel.dist import hessian_psf_space_dist
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    nb, nx, nspace = 4, 1024, 4
+    assert psf_mod.v3_space_supported(nx, nx, nspace)
+    hr, hi = _k10_h(cuda, nb, nx, nspace, True)
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.randn((nb, nx, nx), generator=g, device=cuda)
+    mesh = make_mesh(nband=2, nspace=nspace, devices=[cuda] * (2 * nspace))
+    f = hessian_psf_space_dist(mesh, method="pallas")
+    n0 = (psf_mod.psf_cols_fwd.launches, psf_mod.psf_rows.launches,
+          psf_mod.psf_cols_line.launches, psf_mod.psf_rows_line.launches)
+    a = f(x, hr, hi).gather()
+    got = [c.launches - n for c, n in zip(
+        (psf_mod.psf_cols_fwd, psf_mod.psf_rows, psf_mod.psf_cols_line,
+         psf_mod.psf_rows_line), n0)]
+    assert got[0] > 0 and got[1] > 0 and got[2:] == [0, 0]
+    ref = psf_convolve_h(x, hr[:, :nx + 1].contiguous(),
+                         hi[:, :nx + 1].contiguous())
+    assert torch.equal(a, ref)
+
+
+@pytest.mark.parametrize("nx", [1024, 1280, 1536, 512])
+def test_psf_entries_take_the_new_routes(cuda, nx):
+    """K1, K2 and K11 at (2, nx^2) in (2 nx)^2: at NX = NY = 2048, 2560
+    and 3072 every column stage launches the cluster kernels and every
+    rows stage K10br, and no PSF line kernel launches (psf_cols_line,
+    psf_rows_line); at 1024 (nx = 512) both stages keep the line kernels.
+    Each against its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(nx)
+    x = torch.randn((2, nx, nx), generator=g, device=cuda)
+    psf = torch.randn((2, 2 * nx, 2 * nx), generator=g, device=cuda)
+    hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=False)
+    Hr, Hi = prep_h_full(psf, torch.float32)
+    beta = torch.full((2, 1, 1), 0.5, device=cuda)
+    on = nx >= 1024
+    assert psf_mod.cols_route(2 * nx, nx) == on
+    assert psf_mod.rows_route(2 * nx) == on
+    calls = [(lambda: psf_convolve_h(x, hr, hi),
+              lambda: psf_convolve_h_plain(x, hr, hi)),
+             (lambda: psf_convolve_h_cg(x, x, beta, hr, hi)[1],
+              lambda: psf_convolve_h_cg_plain(x, x, beta, hr, hi)[1]),
+             (lambda: psf_convolve_full(x, Hr, Hi),
+              lambda: psf_convolve_full_plain(x, Hr, Hi))]
+    counters = (psf_mod.psf_cols_fwd, psf_mod.psf_cols_inv,
+                psf_mod.psf_rows, psf_mod.psf_cols_line,
+                psf_mod.psf_rows_line)
+    for fn, plain in calls:
+        n0 = [c.launches for c in counters]
+        out = fn()
+        torch.cuda.synchronize()
+        got = [c.launches - n for c, n in zip(counters, n0)]
+        assert got == ([1, 1, 1, 0, 0] if on else [0, 0, 0, 2, 1])
+        assert _ok(out, plain())
+
+
+@pytest.mark.parametrize("NX", [2048, 2560, 3072])
+def test_cluster_kernels_take_only_the_routes_clusters(cuda, NX):
+    """Below 4096, K3c (fftx_c2c_cluster) and the PSF column kernels
+    (psf_cols_fwd / _inv) on the route's clusters of 4 against their
+    plain versions; the column entry refuses C = 2 (not the route's C)
+    and the wrappers refuse NX / 2, below the 2048 floor, on the same 40
+    columns, launching nothing."""
+    from pfb_tpu_torch import kernels
+    g = torch.Generator(device=cuda).manual_seed(NX + 2)
+    nx, L = NX // 2, 40
+    x = torch.randn((2, nx, L), generator=g, device=cuda)
+    xr, xi = (torch.randn((2, NX, L), generator=g, device=cuda)
+              for _ in range(2))
+    w = [torch.randn((2, nx + 1, L), generator=g, device=cuda)
+         for _ in range(2)]
+    assert cf.cluster_shape(NX)[0] == 4
+    yr, yi = cf.fftx_c2c_cluster(xr, xi, N=NX, inverse=True)
+    pr, pi = fftx_c2c_plain(xr, xi, N=NX, inverse=True)
+    assert _ok(yr, pr) and _ok(yi, pi)
+    zr, zi = psf_mod.psf_cols_fwd(x, NX, nx + 1)
+    pr, pi = psf_stage_cols_fwd_plain(x, NX, nx + 1)
+    assert _ok(zr, pr) and _ok(zi, pi)
+    out = psf_mod.psf_cols_inv(*w, nx, NX, scale=1.0 / NX)
+    assert _ok(out, psf_stage_cols_inv_plain(*w, nx, NX, 1))
+    _, _, TM, TN = psf_mod._cols_tables(NX, L, cuda)
+    code = kernels.library().pfbt_psf_cols_fwd(
+        x.data_ptr(), zr.data_ptr(), zi.data_ptr(), 2, nx, L, NX, nx + 1,
+        nx + 1, 2, 0, TM, TN, kernels.stream_ptr())
+    assert code != 0
+    n0 = (psf_mod.psf_cols_fwd.launches, psf_mod.psf_cols_inv.launches)
+    with pytest.raises(ValueError):
+        psf_mod.psf_cols_fwd(x[:, :nx // 2], nx, nx // 2 + 1)
+    with pytest.raises(ValueError):
+        psf_mod.psf_cols_inv(*(a[:, :nx // 2 + 1] for a in w), nx // 2, nx)
+    assert (psf_mod.psf_cols_fwd.launches,
+            psf_mod.psf_cols_inv.launches) == n0
+
+
 def test_cols_wrappers_reject_bad_operands(cuda):
     x = torch.zeros((1, 2048, 8), device=cuda)
     with pytest.raises(ValueError):   # NX below the route
-        psf_mod.psf_cols_fwd(x[:, :1024], 2048, 1025)
+        psf_mod.psf_cols_fwd(x[:, :512], 1024, 513)
     with pytest.raises(ValueError):   # float64 on the card
         psf_mod.psf_cols_fwd(x.double(), 4096, 2049)
     with pytest.raises(ValueError):   # rows below keep
@@ -991,11 +1102,35 @@ def test_cols_wrappers_reject_bad_operands(cuda):
 
 def test_rows_route_matches_its_mirror(cuda):
     """The C++ predicate that decides (pfbt_psf_rows_route) against
-    ops/psf.py:rows_route on every even NY up to 16400."""
+    ops/psf.py:rows_route on every even NY up to 16400; K3's row_route
+    takes the same lengths."""
     from pfb_tpu_torch import kernels
     lib = kernels.library()
     bad = [NY for NY in range(2, 16402, 2)
-           if lib.pfbt_psf_rows_route(NY) != int(psf_mod.rows_route(NY))]
+           if lib.pfbt_psf_rows_route(NY) != int(psf_mod.rows_route(NY))
+           or cf.row_route(NY, 1) != psf_mod.rows_route(NY)]
+    assert not bad
+
+
+def test_row_kernel_launches_exactly_on_its_route(cuda):
+    """The row kernel's entry (pfbt_cfft_rows) launches at every length
+    from 2 to 16384 where ops/cfft.py:row_route holds and refuses every
+    other: its instances and the mirror agree."""
+    from pfb_tpu_torch import kernels
+    lib = kernels.library()
+    buf = torch.zeros((4, 16384), device=cuda)
+    table = kernels.twiddles(12288, cuda, kind="rows")
+    bad = []
+    for N in range(2, 16386, 2):
+        T = kernels.twiddles(N, cuda, kind="rows") if cf.row_route(N, 1) \
+            else table
+        code = lib.pfbt_cfft_rows(buf[0].data_ptr(), buf[1].data_ptr(),
+                                  buf[2].data_ptr(), buf[3].data_ptr(), 1,
+                                  N, 0, 0, 0, 0, T.data_ptr(),
+                                  kernels.stream_ptr())
+        if (code == 0) != cf.row_route(N, 1):
+            bad.append((N, code))
+    torch.cuda.synchronize()
     assert not bad
 
 
@@ -1139,8 +1274,8 @@ def test_rows_route_counts_from_every_entry(cuda):
 
 def test_rows_wrapper_rejects_bad_operands(cuda):
     z = torch.zeros((3, 1024), device=cuda)
-    with pytest.raises(ValueError):   # NY off the route
-        psf_mod.psf_rows(z, z, torch.zeros((3, 2048), device=cuda))
+    with pytest.raises(ValueError):   # NY off the route (256 x 9)
+        psf_mod.psf_rows(z, z, torch.zeros((3, 2304), device=cuda))
     with pytest.raises(ValueError):   # float64 on the card
         psf_mod.psf_rows(z.double(), z.double(),
                          torch.zeros((3, 4096), device=cuda).double())
@@ -1336,8 +1471,8 @@ def test_lab_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):   # 4 lines of 4096 exceed a block
         cf.fftx_c2c_cluster(z, z, N=32768)
     r = torch.zeros((4, 8192, 1), device=cuda)
-    with pytest.raises(ValueError):   # no row kernel instance at 2048
-        cf.fftx_c2c_rows(r[:, :2048], r[:, :2048], N=2048)
+    with pytest.raises(ValueError):   # no row kernel instance at 1024
+        cf.fftx_c2c_rows(r[:, :1024], r[:, :1024], N=1024)
     with pytest.raises(ValueError):   # strided columns
         cf.fftx_c2c_rows(z[:, :8192, :2], z[:, :8192, :2], N=8192)
     with pytest.raises(ValueError):   # float64 on the card
@@ -1348,12 +1483,12 @@ def test_lab_wrappers_reject_bad_operands(cuda):
         cf.fftx_c2c_split(x.double(), x.double(), N=512)
 
 
-@pytest.mark.parametrize("nx,C", [(2048, 4), (4096, 8)])
+@pytest.mark.parametrize("nx,C", [(2048, 4), (4096, 8), (1024, 4)])
 @pytest.mark.parametrize("complex_h", [False, True])
 def test_k2_cluster_route_matches_plain_and_k1(cuda, nx, C, complex_h):
-    """K2 where cols_route holds, (2, 2048^2) of 4096 and (2, 4096^2) of
-    8192: its stages launch the cluster column kernels (their counters
-    gain one launch each); p, conv(p) and pap against the plain version;
+    """K2 where cols_route holds, (2, 1024^2) of 2048, (2, 2048^2) of 4096
+    and (2, 4096^2) of 8192: its stages launch the cluster column kernels
+    (their counters gain one launch each); p, conv(p) and pap against the plain version;
     conv bitwise K1 of K2's own p (the same FFT on the same values);
     reruns bitwise (block partials added in a fixed order)."""
     nb = 2

@@ -70,7 +70,7 @@ def _pad_rows(a, rows):
 # the decimated plain versions against the JAX K10 stages
 
 
-@pytest.mark.parametrize("NX", [256, 512, 1024])
+@pytest.mark.parametrize("NX", [256, 512, 1024, 2048])
 @pytest.mark.parametrize("C", [2, 4, 8])
 @pytest.mark.parametrize("nspace", [1, 4])
 def test_cols_fwd_plain_matches_jax_stage_k1(NX, C, nspace):
@@ -90,7 +90,7 @@ def test_cols_fwd_plain_matches_jax_stage_k1(NX, C, nspace):
         assert not got[:, nx + 1:].any()
 
 
-@pytest.mark.parametrize("NX", [256, 512, 1024])
+@pytest.mark.parametrize("NX", [256, 512, 1024, 2048])
 @pytest.mark.parametrize("C", [2, 4, 8])
 def test_cols_inv_plain_matches_jax_stage_k3(NX, C):
     """The JAX stage 3 on the JAX stage-1 spectrum against the inverse
@@ -161,6 +161,61 @@ def test_k11_through_decimated_columns_matches_jax(C):
     got = psf_cols_inv_plain(w.real.contiguous(), w.imag.contiguous(), nx,
                              NX, C=C, scale=1.0 / NX)
     assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("NX,C", [(2560, 4), (3072, 4), (2560, 2),
+                                  (3072, 2)])
+def test_k11_columns_below_4096_match_jax(NX, C):
+    """K11 at 1280^2 in 2560^2 and 1536^2 in 3072^2 (v3 does not hold
+    there), on 64 columns (NY = 128): the forward decimated stage at the
+    route's clusters (C = 4: M = 640, 768) and at C = 2 (M = 1280, 1536),
+    K11's rows stage with H's Hermitian part, the inverse decimated stage
+    cropped to nx, against the JAX single-band psf_convolve_pallas on a
+    random H in interpret mode."""
+    nx, ny, NY = NX // 2, 64, 128
+    assert cols_route(NX, ny) and cluster_shape(NX)[0] == 4
+    rng = np.random.default_rng(NX + C)
+    x = rng.normal(size=(nx, ny)).astype(np.float32)
+    Hr, Hi = (rng.normal(size=(NX, NY)).astype(np.float32)
+              for _ in range(2))
+    ref = np.asarray(pf.psf_convolve_pallas(
+        jnp.asarray(x), jnp.asarray(Hr.T), jnp.asarray(Hi.T), nx, ny,
+        lane_block=64, row_block=64, interpret=True))
+    hr, hi = psf.full_h_rows(_t(Hr)[None], _t(Hi)[None])
+    nxh = NX // 2 + 1
+    zr, zi = psf_cols_fwd_plain(_t(x)[None], NX, nxh, C=C)
+    w = torch.fft.ifft(torch.fft.fft(torch.complex(zr, zi), n=NY, dim=-1)
+                       * torch.complex(hr, hi), dim=-1)[..., :ny]
+    got = psf_cols_inv_plain(w.real.contiguous(), w.imag.contiguous(), nx,
+                             NX, C=C, scale=1.0 / NX)
+    assert _rel(got[0], ref) <= TOL
+
+
+@pytest.mark.parametrize("NX", [2048, 2560, 3072])
+def test_cpu_wrappers_take_the_routes_clusters(NX):
+    """psf_cols_fwd / psf_cols_inv below 4096 on CPU tensors: the
+    decimated plain versions at the route's C = 4 (the stage's function);
+    the shapes off the route raise: NX below the 2048 floor on many
+    columns, M = NX / 4 odd, one column."""
+    nx, Lc = NX // 2, 6
+    assert cluster_shape(NX)[0] == 4 and cols_route(NX, Lc)
+    g = torch.Generator().manual_seed(NX)
+    x = torch.randn((1, nx, Lc), generator=g, dtype=torch.float64)
+    ref = psf_stage_cols_fwd_plain(x, NX, nx + 1)
+    zr, zi = psf_cols_fwd(x, NX, nx + 1)
+    assert _rel(zr, ref[0]) <= 1e-12 and _rel(zi, ref[1]) <= 1e-12
+    out = psf_cols_inv(zr, zi, nx, NX, scale=1.0 / NX)
+    assert _rel(out, x) <= 1e-12
+    for n in (NX // 2, 1024, 2044):   # below the floor
+        assert not cols_route(n, 64)
+        with pytest.raises(ValueError):
+            psf_cols_fwd(torch.zeros((1, n // 2, 64), dtype=torch.float64),
+                         n, n // 2 + 1)
+    with pytest.raises(ValueError):   # M = 2052 / 4 = 513 odd
+        psf_cols_fwd(torch.zeros((1, 1026, 4), dtype=torch.float64), 2052,
+                     1027)
+    with pytest.raises(ValueError):
+        psf_cols_inv(zr[..., :1], zi[..., :1], nx, NX)
 
 
 # ---------------------------------------------------------------------
@@ -312,31 +367,39 @@ def test_inv_skeleton_plain_is_the_hermitian_part_and_exchange():
 
 
 def test_cols_route_on_every_paths_shapes():
-    """The rule on the NX of every path: K1 and K10 at 4096 (2048^2
-    images), K1, K12 and K15 at 8192, K11 at 6144 (3072^2) and 4608
-    (psf_oversize 1.5) take the cluster kernels; below 4096, a single
-    column, M = NX / C odd and a tile past 8192 values keep the line
+    """The rule on the NX of every path: K1 and K10 at 2048 (1024^2
+    images) and 4096 (2048^2), K11 at 2560 and 3072 (1280^2 and 1536^2),
+    K1, K12 and K15 at 8192, K11 at 6144 (3072^2) and 4608 (psf_oversize
+    1.5) take the cluster kernels; below 2048, a single column, M = NX /
+    C odd or not 5-smooth and a tile past 8192 values keep the line
     kernel. The shapes follow ops/cfft.py:cluster_shape."""
     for NX, L in ((4096, 2048), (4096, 512), (8192, 4096), (6144, 3072),
-                  (4608, 3072), (12288, 8), (16384, 2)):
+                  (4608, 3072), (12288, 8), (16384, 2), (2048, 1024),
+                  (2048, 256), (2560, 1280), (3072, 1536), (3000, 8)):
         assert cols_route(NX, L), (NX, L)
-    for NX, L in ((2048, 2048), (1024, 512), (256, 128), (8192, 1),
-                  (4100, 8), (32768, 8), (6561, 8)):
+    for NX, L in ((1024, 512), (256, 128), (8192, 1), (2048, 1), (2044, 8),
+                  (4100, 8), (32768, 8), (6561, 8), (2052, 8)):
         assert not cols_route(NX, L), (NX, L)
-    assert [cluster_shape(n) for n in (4096, 4608, 6144, 8192, 12288, 16384)] \
-        == [(4, 8), (8, 8), (8, 8), (8, 8), (8, 4), (8, 4)]
+    assert [cluster_shape(n) for n in (2048, 2560, 3072, 4096, 4608, 6144,
+                                       8192, 12288, 16384)] \
+        == [(4, 8), (4, 8), (4, 8), (4, 8), (8, 8), (8, 8), (8, 8), (8, 4),
+            (8, 4)]
+    assert [n for n in range(2, 4096, 2) if cols_route(n, 8)] == \
+        [n for n in range(2048, 4096, 4) if psf.good_size(n // 4) == n // 4
+         and n // 4 % 2 == 0]
     with pytest.raises(ValueError):
         cluster_shape(6561)
 
 
-@pytest.mark.parametrize("NX", [4096, 4608, 6144, 8192, 12288, 16384])
+@pytest.mark.parametrize("NX", [4096, 4608, 6144, 8192, 12288, 16384, 2048,
+                                2560, 3072])
 def test_cols_tile_fits_a_block(NX):
-    """Every route shape is one the kernels launch: C in (4, 8) dividing
-    NX, M = NX / C even, W/2 pair lines of M within 4096 values (256
-    threads of 16 values), W a multiple of 4."""
+    """Every route shape is one the kernels launch: C in (2, 4, 8)
+    dividing NX, M = NX / C even, W/2 pair lines of M within 4096 values
+    (256 threads of 16 values), W a multiple of 4."""
     C, W = cluster_shape(NX)
     M = NX // C
-    assert C in (4, 8) and NX % C == 0 and M % 2 == 0 and W % 4 == 0
+    assert C in (2, 4, 8) and NX % C == 0 and M % 2 == 0 and W % 4 == 0
     assert (W // 2) * M <= 4096 and W * M <= 8192
 
 
@@ -357,7 +420,7 @@ def test_cpu_wrappers_run_the_decimated_plain_versions():
     with pytest.raises(ValueError):
         psf_cols_fwd(x[..., :1], NX, nx + 1)        # one column
     with pytest.raises(ValueError):
-        psf_cols_fwd(x[:, :512], 1024, 513)          # NX < 4096
+        psf_cols_fwd(x[:, :512], 1024, 513)          # NX < 2048
     with pytest.raises(ValueError):
         psf_cols_inv(zr[..., :1], zi[..., :1], nx, NX)
 
@@ -406,15 +469,20 @@ def _card(*shape):
 @pytest.mark.parametrize("entry,NX,L,C", [
     ("K1", 4096, 16, 4), ("K1", 1024, 16, 0), ("K11", 6144, 8, 8),
     ("K11", 4608, 8, 8), ("K12", 8192, 4, 8), ("K10", 4096, 8, 4),
-    ("K10", 2048, 8, 0), ("K15", 8192, 8, 8), ("direct", 4096, 8, 4)])
+    ("K10", 2048, 8, 4), ("K15", 8192, 8, 8), ("direct", 4096, 8, 4),
+    ("K1", 2048, 16, 4), ("K11", 2560, 8, 4), ("K11", 3072, 8, 4),
+    ("K10", 1024, 8, 0), ("K15", 2048, 8, 4), ("direct", 2048, 8, 4),
+    ("K11", 1024, 8, 0)])
 def test_entries_take_the_route_and_count(stand_in, entry, NX, L, C):
     """On a CUDA stack every entry with a column stage passes the C of
     cols_route to its C entry point (0: the line kernel), and the cluster
     kernels' counters (psf_cols_fwd / psf_cols_inv) count one launch per
-    stage that took the route, whichever entry launched it; the entries'
-    own counters count as before."""
+    stage that took the route, whichever entry launched it, the line
+    kernel's (psf_cols_line) one per stage off it; the entries' own
+    counters count as before."""
     nx = NX // 2
     n0 = (psf_cols_fwd.launches, psf_cols_inv.launches)
+    l0 = psf.psf_cols_line.launches
     own = None
     if entry == "K1":
         own = psf.psf_convolve_h
@@ -424,8 +492,8 @@ def test_entries_take_the_route_and_count(stand_in, entry, NX, L, C):
     elif entry == "K11":
         own = psf.psf_convolve_full
         k0 = own.launches
-        psf.psf_convolve_full(_card(1, 3072, L), _card(1, NX, 2 * L),
-                              _card(1, NX, 2 * L))
+        psf.psf_convolve_full(_card(1, min(3072, NX), L),
+                              _card(1, NX, 2 * L), _card(1, NX, 2 * L))
         want, stages = [("pfbt_psf_conv_full", C)], (1, 1)
     elif entry == "K12":
         own = pt.psf_convolve_pallas_v3
@@ -459,5 +527,6 @@ def test_entries_take_the_route_and_count(stand_in, entry, NX, L, C):
     assert stand_in.calls == want
     got = (psf_cols_fwd.launches - n0[0], psf_cols_inv.launches - n0[1])
     assert got == (stages if C else (0, 0))
+    assert psf.psf_cols_line.launches - l0 == (0 if C else sum(stages))
     if own is not None:
         assert own.launches == k0 + 1

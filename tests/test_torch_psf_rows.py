@@ -65,13 +65,14 @@ def _rows(N, ny, mode, R=5, seed=0):
 # the staged model against the plain stage
 
 
-@pytest.mark.parametrize("N", [512, 640, 2304, 3072])
+@pytest.mark.parametrize("N", [512, 640, 2304, 3072, 2048, 2560, 4608, 5120])
 @pytest.mark.parametrize("mode", ["real", "complex", "full"])
 @pytest.mark.parametrize("half", ["<", "=", ">"])
 def test_rows_plain_matches_stage_plain_f64(N, mode, half):
-    """The decomposition (16 x R2 x 16 where 256 divides N; 16, 5, 8 at
-    640) with ny below, at and above N / 2 against the plain stage in
-    float64; the full H through its Hermitian part."""
+    """The decomposition (16 x R2 x 16 where 256 divides N, R2 = 8, 10,
+    12, 18, 20 at the lengths 2048-5120; 16, 5, 8 at 640) with ny below,
+    at and above N / 2 against the plain stage in float64; the full H
+    through its Hermitian part."""
     ny = N // 2 + {"<": -19, "=": 0, ">": 77}[half]
     zr, zi, hr, hi, NX = _rows(N, ny, mode)
     wr, wi = psf_rows_plain(zr, zi, hr, hi, NX)
@@ -196,19 +197,106 @@ def test_full_h_rows_through_k11_match_jax_random_h(nx, ny, NX, NY):
     assert _rel(got, ref) <= TOL
 
 
+def test_rows_plain_at_2048_matches_jax_stage_k2():
+    """nx = 64, ny = 1024, NY = 2048 (16 x 8 x 16, the rows stage of
+    1024^2 images): the JAX stage 2 (psf_v3_stage_k2, interpret mode) on
+    the JAX stage-1 spectrum against the decomposition on the port's H
+    (K10's layout, two space shards), times NY; 1e-5 of max."""
+    nb, nx, ny, ps = 2, 64, 1024, 2
+    rng = np.random.default_rng(20)
+    p = rng.normal(size=(nb, 2 * nx, 2 * ny)).astype(np.float32)
+    Hsr, Hsi, NXH = prep_pallas_hessian_space(jnp.asarray(p), nx, ny, ps)
+    x = rng.normal(size=(nb, nx, ny)).astype(np.float32)
+    zr, zi = pf.psf_v3_stage_k1(jnp.asarray(x), nx, interpret=True)
+    pad = [(0, 0), (0, Hsr.shape[2] - NXH), (0, 0)]
+    wr_j, wi_j = (np.asarray(a) for a in pf.psf_v3_stage_k2(
+        jnp.pad(zr, pad), jnp.pad(zi, pad), Hsr, Hsi, interpret=True))
+    hr, hi = h_from_jax_space(Hsr, Hsi, nx, ny, ps)
+    rows = space_rows(nx, ps)
+    z = [_t(np.pad(np.asarray(a)[:, :nx + 1], pad[:1] + [(0, rows - nx - 1)]
+                   + pad[2:])) for a in (zr, zi)]
+    assert rows_route(2 * ny) and hr.shape[-1] == 2 * ny
+    wr, wi = psf_rows_plain(*z, _t(hr), _t(hi))
+    scale = np.abs(wr_j).max()
+    for got, ref in ((wr, wr_j), (wi, wi_j)):
+        assert np.abs(got[:, :nx + 1].numpy() / (2 * ny)
+                      - ref[:, :nx + 1]).max() <= TOL * scale
+
+
+def test_k1_at_1024_through_the_routes_matches_jax_v3_cube():
+    """K1 at nx = 1024 (NX = 2048) on 128 columns (NY = 256) through the
+    route's decomposition: the forward cluster column stage at
+    cluster_shape's C (4: M = 512), the rows stage, the inverse cluster
+    column stage scaled by 1 / (NX NY), against the JAX package's
+    psf_convolve_pallas_v3_cube in interpret mode; 1e-5 of max."""
+    from pfb_tpu.ops.psf import prep_pallas_hessian
+    from pfb_tpu_torch.ops.cfft import cluster_shape
+    nb, nx, ny = 1, 1024, 128
+    NX, NY = 2 * nx, 2 * ny
+    assert psf.cols_route(NX, ny) and psf.v3_supported(nx, ny)
+    C = cluster_shape(NX)[0]
+    p = _psf(nb, NX)[:, :, NX // 2 - ny:NX // 2 + ny]
+    phrT, phiT, rb = prep_pallas_hessian(jnp.asarray(p), nx, ny,
+                                         real_transfer=False)
+    x = np.random.default_rng(21).normal(size=(nb, nx, ny)).astype(
+        np.float32)
+    ref = np.asarray(pf.psf_convolve_pallas_v3_cube(
+        jnp.asarray(x), phrT, phiT, nx, ny, row_block=rb, interpret=True))
+    hr, hi = (_t(a) for a in psf.h_from_jax_v3(phrT, phiT, nx, ny))
+    zr, zi = psf.psf_cols_fwd_plain(_t(x), NX, nx + 1, C=C)
+    wr, wi = psf_rows_plain(zr, zi, hr, hi)
+    got = psf.psf_cols_inv_plain(wr, wi, nx, NX, C=C, scale=1.0 / (NX * NY))
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("nx,ny,NX,NY", [(1280, 64, 2560, 128),
+                                         (64, 1280, 128, 2560)])
+def test_k11_at_1280_through_the_routes_matches_jax(nx, ny, NX, NY):
+    """K11 on a random H at the length 2560 along x (the cluster column
+    stages at cluster_shape's C) and along y (K10br's rows stage on the
+    full H), through the routes' decompositions, against the JAX
+    single-band psf_convolve_pallas in interpret mode; 1e-5 of max."""
+    from pfb_tpu_torch.ops.cfft import cluster_shape
+    rng = np.random.default_rng(nx + ny)
+    x = rng.normal(size=(nx, ny)).astype(np.float32)
+    Hr, Hi = (rng.normal(size=(NX, NY)).astype(np.float32)
+              for _ in range(2))
+    ref = np.asarray(pf.psf_convolve_pallas(
+        jnp.asarray(x), jnp.asarray(Hr.T), jnp.asarray(Hi.T), nx, ny,
+        lane_block=64, row_block=64, interpret=True))
+    xt, nxh = _t(x)[None], NX // 2 + 1
+    if psf.cols_route(NX, ny):
+        C = cluster_shape(NX)[0]
+        zr, zi = psf.psf_cols_fwd_plain(xt, NX, nxh, C=C)
+    else:
+        zr, zi = psf_stage_cols_fwd_plain(xt, NX, nxh)
+    assert psf.cols_route(NX, ny) or rows_route(NY)
+    wr, wi = psf_rows_plain(zr, zi, _t(Hr)[None], _t(Hi)[None], NX)
+    if psf.cols_route(NX, ny):
+        got = psf.psf_cols_inv_plain(wr, wi, nx, NX, C=C,
+                                     scale=1.0 / (NX * NY))
+    else:
+        got = psf_stage_cols_inv_plain(wr, wi, nx, NX, NY)
+    assert _rel(got[0], ref) <= TOL
+
+
 # ---------------------------------------------------------------------
 # the route
 
 
 def test_rows_route_on_every_paths_length():
-    """The rule on the NY of every path: K1 and K10 at 4096 (2048^2
-    images), K1, K2, K12-K14 and L1 at 8192, K11 at 6144, and 12288;
-    K11's psf_oversize 1.5 (4608), lengths below 4096 and the lengths
-    the kernel is not built for keep psf_rows_kernel."""
-    for NY in (4096, 6144, 8192, 12288):
+    """The rule on the NY of every path: K1 and K10 at 2048 (1024^2
+    images) and 4096 (2048^2), K11 at 2560 and 3072 (1280^2 and 1536^2),
+    4608 (psf_oversize 1.5 at 3072^2) and 5120, K1, K2, K12-K14 and L1 at
+    8192, K11 at 6144, and 12288; lengths below 2048, lengths that are
+    no multiple of 256 (3000) and the multiples the kernel is not built
+    for (2304, 3584) keep psf_rows_kernel."""
+    for NY in (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288):
         assert rows_route(NY)
+    for NY in (1024, 2304, 3000, 3584, 16384):
+        assert not rows_route(NY)
     assert [NY for NY in range(2, 16402, 2) if rows_route(NY)] == \
-        [4096, 6144, 8192, 12288]
+        [2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288]
 
 
 def test_cpu_wrapper_runs_the_staged_plain_version():
@@ -224,7 +312,7 @@ def test_cpu_wrapper_runs_the_staged_plain_version():
     assert _rel(wr, psf_rows_plain(zf, zfi, Hr, Hi, NX)[0]) == 0.0
     assert psf_rows.launches == n0
     with pytest.raises(ValueError):
-        psf_rows(zr[:, :1024], zi[:, :1024], hr[:, :2048])  # NY = 2048
+        psf_rows(zr[:, :512], zi[:, :512], hr[:, :1024])    # NY = 1024
     with pytest.raises(ValueError):
         psf_rows(zr, zi, hr[:1])                            # rows differ
     with pytest.raises(ValueError):
@@ -295,16 +383,18 @@ def _card(*shape):
 
 @pytest.mark.parametrize("entry", ["K1", "K2", "K10b", "K11", "K12", "K13",
                                    "K14", "direct"])
-@pytest.mark.parametrize("NY", [4096, 8192, 2048])
+@pytest.mark.parametrize("NY", [4096, 8192, 2048, 2560, 5120, 1024, 2304])
 def test_entries_take_the_route_and_count(stand_in, entry, NY):
     """On a CUDA stack every entry with a rows stage passes the rows
     table (pfbt_rows_twiddles) at a route length and the line plan's
     (pfbt_twiddles) elsewhere, and psf_rows.launches counts one K10br
-    launch per rows stage on the route, whichever entry ran it; the
+    launch per rows stage on the route, psf_rows_line one
+    psf_rows_kernel launch per stage off it, whichever entry ran it; the
     entries' own counters count as before."""
     ny = NY // 2
     nx = 16
     n0 = psf_rows.launches
+    l0 = psf.psf_rows_line.launches
     own = {"K1": psf.psf_convolve_h, "K2": psf.psf_convolve_h_cg,
            "K10b": psf.psf_stage_rows, "K11": psf.psf_convolve_full,
            "K12": pt.psf_convolve_pallas_v3,
@@ -343,6 +433,7 @@ def test_entries_take_the_route_and_count(stand_in, entry, NY):
     on = rows_route(NY)
     assert stand_in.calls == [(name, "rows" if on else "plan", int(on))]
     assert psf_rows.launches - n0 == int(on)
+    assert psf.psf_rows_line.launches - l0 == int(not on)
     if own is not psf_rows:
         assert own.launches == k0 + 1
 
