@@ -186,7 +186,31 @@ Phases:
      2560^2) and (9, 3072^2) in both directions, and the CG-fused solver
      (K2 at NX = 2048, on the cluster column kernels) against pcg_bands
      on K1 with this path's PSF cube (<= 1e-4 of max), K2 against plain
-     there.
+     there;
+ 27. the post-deconvolution path, run after phase 9 on its products
+     (phase 3's observation, the pg path's xds and dds, the klean path's
+     dds, model and residual; nothing cut), each step's counts reset just
+     before it and read just after, with its seconds and peak device
+     memory: model2comps(Legendre, nbasisf 8), whose mds must reproduce
+     klean's model at the fit points to 1e-7 relative (1 + model, the
+     gate of tests/test_models_io.py:108); degrid(backend="pg", epsilon
+     1e-5, a plan per band) into MODEL_DATA, launching K6 once per band,
+     K3c and K3r, and K3 never, with its host planning, degrid and
+     update_ms_column seconds; init(DATA-MODEL_DATA) -> grid(pg, 2048^2,
+     no PSF), whose MFS dirty image must equal klean's MFS residual
+     within 1e-4 of the pg path's MFS dirty peak (XTOL: klean's residual
+     rms is near float32 rounding, so a gate relative to the residual's
+     own peak would test rounding); grid(transfer_model_from=the mds),
+     whose MFS residual must meet the same gate, launching K4, K5 and K6;
+     restore(outputs "mMrRiIc") of the klean dds, whose FITS files must
+     exist, with a finite image_mfs holding the three brightest true
+     sources at their pixels; fluxmop(backend="pg", use_psf, sigmainv
+     1e-4, gamma 0.9, cg_maxit 100) from the pg path's dirty image, whose
+     MFS residual peak must fall below 0.6 of the MFS dirty peak (the
+     gate of tests/test_aux_workers.py:38) with K4, K5 and K6 launched in
+     its exact residual, and the same step on a (1, 4) virtual space mesh
+     (distributed rFFT2 Hessian), whose model must match within 1e-4 of
+     max (CTOL) with no K10 stage launched.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -261,6 +285,12 @@ NX_SMALL = 1024
 GRID_SMALL = dict(GRID_PG, nx=NX_SMALL, ny=NX_SMALL)
 # (planes, N) of phase 26's pass records: the lengths below 4096
 SMALL_PASSES = ((9, 2048), (10, 2560), (9, 3072))
+# phase 27's fluxmop: tests/test_aux_workers.py:38's settings and gate
+MOP = dict(backend="pg", epsilon=1e-5, use_psf=True, sigmainv=1e-4,
+           gamma=0.9, cg_maxit=100, write=False, verbose=0)
+MOP_GATE = 0.6  # MFS residual peak below this share of the MFS dirty peak
+FTOL = 1e-7  # the mds against klean's model at the fit points
+POST_OUTPUTS = "mMrRiIc"
 
 
 class SmokeFailure(Exception):
@@ -2161,6 +2191,170 @@ def report_klean(rkl, truth, nx):
          f"klean: bright sources not recovered at their pixels: {srcs}")
 
 
+def mfs_over_wsum(dds, key):
+    return sum(ds[key] for ds in dds) / \
+        sum(float(ds["WSUM"][0]) for ds in dds)
+
+
+def post_path(rkl, rpg, truth, device, workdir, grid=GRID_PG):
+    """Phase 27: klean's model through model2comps -> degrid(pg) ->
+    init(DATA-MODEL_DATA) -> grid, then grid(transfer_model_from),
+    restore and fluxmop (single-program and on a (1, NSPACE) virtual
+    space mesh) on the path's products. Every step's counts are set to 0
+    just before it and read just after, with its seconds and peak device
+    memory; returns them with the step's outputs the gates read."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.models.comps import eval_coeffs_to_cube
+    from pfb_tpu_torch.workers.degrid import _degrid
+    from pfb_tpu_torch.workers.fluxmop import _fluxmop
+    from pfb_tpu_torch.workers.grid import _grid
+    from pfb_tpu_torch.workers.init import _init
+    from pfb_tpu_torch.workers.model2comps import _model2comps
+    from pfb_tpu_torch.workers.restore import _restore
+
+    cnt = counters()
+    res = {"t": {}, "peak_gib": {}, "launches": {}}
+
+    def step(name, fn):
+        for c in cnt.values():
+            c.launches = 0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        res["t"][name] = time.perf_counter() - t0
+        res["launches"][name] = {k: c.launches for k, c in cnt.items()}
+        if device.type == "cuda":
+            res["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
+        return out
+
+    model, nband = rkl["model"], rkl["model"].shape[0]
+    nx = model.shape[-1]
+    dds_m = [dict(ds, MODEL=model[ds["bandid"]]) for ds in rkl["dds"]]
+    mds = step("model2comps", lambda: _model2comps(
+        ddsi=dds_m, fit_mode="Legendre", nbasisf=nband))
+    cube = eval_coeffs_to_cube(
+        np.unique([ds["time_out"] for ds in dds_m]),
+        np.unique([ds["freq_out"] for ds in dds_m]), nx, nx,
+        mds["coefficients"], mds["location_x"], mds["location_y"],
+        mds["parametrisation"], mds["params"], mds["texpr"],
+        mds["fexpr"])[0]
+    res["ncomp"], res["nband"] = int(mds["location_x"].size), nband
+    res["fit_err"] = float(np.max(np.abs(cube - model) / np.abs(1 + model)))
+    del cube, dds_m
+
+    res["degrid"] = {}
+
+    def degrid():  # writes MODEL_DATA; the returned column is not kept
+        _degrid(ms=truth["ms"], mds=mds, backend="pg",
+                epsilon=grid["epsilon"], channels_per_image=1,
+                device=device, stats=res["degrid"])
+    step("degrid", degrid)
+
+    dirty_max = float(np.abs(mfs_over_wsum(rpg["dds"], "DIRTY")).max())
+    kres_mfs = rkl["residual"].sum(axis=0)
+    xds2 = step("init", lambda: _init(
+        ms=truth["ms"], precision="single", channels_per_image=1,
+        data_column="DATA-MODEL_DATA", write=False, device=device))
+    dds_r = step("grid", lambda: _grid(
+        xdsi=xds2, write=False, device=device,
+        **dict(grid, psf=False, residual=False)))
+    res["regrid_err"] = float(np.abs(mfs_over_wsum(dds_r, "DIRTY")
+                                     - kres_mfs).max() / dirty_max)
+    del xds2, dds_r
+    dds_t = step("transfer", lambda: _grid(
+        xdsi=rpg["xds"], write=False, device=device,
+        transfer_model_from=mds, **dict(grid, psf=False, residual=True)))
+    res["transfer_err"] = float(np.abs(mfs_over_wsum(dds_t, "RESIDUAL")
+                                       - kres_mfs).max() / dirty_max)
+    del dds_t
+
+    wsum = sum(float(ds["WSUM"][0]) for ds in rkl["dds"])
+    dds_k = [dict(ds, MODEL=model[ds["bandid"]],
+                  RESIDUAL=rkl["residual"][ds["bandid"]] * wsum)
+             for ds in rkl["dds"]]
+    base = str(Path(workdir) / "post")
+    for old in Path(workdir).glob("post_I_main.*.fits"):
+        old.unlink()
+    out = step("restore", lambda: _restore(
+        ddsi=dds_k, output_filename=base, outputs=POST_OUTPUTS))
+    res["fits"] = sorted(p.name for p in
+                         Path(workdir).glob("post_I_main.*.fits"))
+    res["image_mfs"] = out["image_mfs"]
+    del dds_k, out
+
+    m1, r1 = step("fluxmop", lambda: _fluxmop(
+        ddsi=[dict(ds) for ds in rpg["dds"]], device=device, **MOP))
+    res["mop_ratio"] = float(np.abs(r1.sum(axis=0)).max() / dirty_max)
+    m4, _ = step("fluxmop_space", lambda: _fluxmop(
+        ddsi=[dict(ds) for ds in rpg["dds"]], device=device,
+        space_shards=NSPACE, devices=[device] * NSPACE, **MOP))
+    res["mop_space_err"] = float(np.abs(m4 - m1).max() / np.abs(m1).max())
+    return res
+
+
+def report_post(rpost, truth):
+    """Print phase 27's stage seconds, peak memory, launches, errors and
+    degrid's host and device split; check its gates."""
+    import numpy as np
+    lp = rpost["launches"]
+    print("[post] " + json.dumps({
+        "seconds": {k: round(v, 3) for k, v in rpost["t"].items()},
+        "peak_gib": {k: round(v, 3) for k, v in rpost["peak_gib"].items()},
+        "launches": {s: {k: v for k, v in c.items() if v}
+                     for s, c in lp.items()}}))
+    dg = rpost["degrid"]
+    print(f"[post] degrid, {dg['nimages']} images: rendering "
+          f"{dg['render_s']:.3f} s, pg plans {dg['plan_s']:.3f} s (host), "
+          f"degrids with their copies to the host {dg['degrid_s']:.3f} s, "
+          f"update_ms_column {dg['write_s']:.3f} s")
+    print(f"[post] mds: {rpost['ncomp']} components; eval at the fit points "
+          f"vs klean's model: max|diff|/|1 + model| = {rpost['fit_err']:.3e} "
+          f"(bound {FTOL})")
+    print(f"[post] MFS residual vs klean's, over the pg path's MFS dirty "
+          f"peak: degrid -> DATA-MODEL_DATA -> grid {rpost['regrid_err']:.3e}"
+          f", transfer_model_from {rpost['transfer_err']:.3e} (bound {XTOL})")
+    print(f"[post] fluxmop: MFS residual peak / MFS dirty peak "
+          f"{rpost['mop_ratio']:.4f} (bound {MOP_GATE}); (1, {NSPACE}) space "
+          f"mesh vs single program: max|diff|/max = "
+          f"{rpost['mop_space_err']:.3e} (bound {CTOL})")
+    print(f"[post] restore wrote {rpost['fits']}")
+    srcs = source_checks({"model": rpost["image_mfs"][None]}, truth)
+    for s in srcs:
+        print(f"[post] image_mfs source {s}")
+    need(rpost["fit_err"] <= FTOL, f"mds vs klean's model {rpost['fit_err']}")
+    k6, nb = lp["degrid"]["K6"], rpost["nband"]
+    need(k6 == nb == rpost["degrid"]["nimages"], f"degrid launched K6 {k6} "
+         f"times for {rpost['degrid']['nimages']} images of {nb} bands")
+    for k in ("K3c", "K3r"):
+        need(lp["degrid"][k] > 0, f"{k} never launched inside _degrid")
+    need(lp["degrid"]["K3"] == 0, "K3 (line kernel) launched inside _degrid")
+    need(rpost["regrid_err"] <= XTOL, f"degrid -> regrid residual "
+         f"{rpost['regrid_err']} > {XTOL}")
+    need(rpost["transfer_err"] <= XTOL, f"transfer_model_from residual "
+         f"{rpost['transfer_err']} > {XTOL}")
+    for stage in ("transfer", "fluxmop"):
+        for k in ("K4", "K5", "K6"):
+            need(lp[stage][k] > 0, f"{k} never launched inside {stage}")
+    want = {f".{n}.fits" for n in ("model", "residual", "image")} | \
+        {f".{n}_mfs.fits" for n in ("model", "residual", "image", "cpsf")}
+    need({f[len("post_I_main"):] for f in rpost["fits"]} == want,
+         f"restore wrote {rpost['fits']}")
+    need(np.isfinite(rpost["image_mfs"]).all(), "image_mfs not finite")
+    need(all(s["local_max"] for s in srcs),
+         f"restore: bright sources not at their pixels: {srcs}")
+    need(rpost["mop_ratio"] < MOP_GATE, f"fluxmop residual ratio "
+         f"{rpost['mop_ratio']} >= {MOP_GATE}")
+    need(rpost["mop_space_err"] <= CTOL, f"fluxmop space mesh vs single "
+         f"program {rpost['mop_space_err']} > {CTOL}")
+    for k in ("K10a", "K10b", "K10c", "K10ac", "K10cc", "K10br"):
+        need(lp["fluxmop_space"][k] == 0,
+             f"{k} launched inside the space-sharded fluxmop")
+
+
 def main():
     try:
         import torch
@@ -2263,7 +2457,15 @@ def main():
         lk = rkl["launches"]["klean"]
         for k in launches:
             launches[k] += lk[k]
-        del rkl
+
+        # 27. the post-deconvolution path on the klean path's products
+        rpost = post_path(rkl, rpg, truth, device, workdir)
+        report_post(rpost, truth)
+        for lc in rpost["launches"].values():
+            for k in launches:
+                launches[k] += lc[k]
+        del rkl, rpost
+        torch.cuda.empty_cache()
 
         # 10. blocked against unblocked, K7-K9 against plain (2048^2)
         berr, bsum, gs_recs = blocked_checks(rpg, NX, device)

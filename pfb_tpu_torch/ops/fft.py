@@ -62,3 +62,20 @@ def psf_convolve_cube(x, psfhat, lastsize, band_chunk=None):
     return torch.cat([_convolve(x[b:b + band_chunk],
                                 psfhat[b:b + band_chunk], lastsize)
                       for b in range(0, x.shape[0], band_chunk)])
+
+
+def get_padding_info(nx, ny, pfrac):
+    """Padding bookkeeping for FFT convolutions (host numbers only;
+    reference: pfb/utils/misc.py:170-183)."""
+    npad_x = int(pfrac * nx)
+    nfft = good_size(nx + npad_x, True)
+    npad_xl = (nfft - nx) // 2
+    npad_xr = nfft - nx - npad_xl
+    npad_y = int(pfrac * ny)
+    nfft = good_size(ny + npad_y, True)
+    npad_yl = (nfft - ny) // 2
+    npad_yr = nfft - ny - npad_yl
+    padding = ((0, 0), (npad_xl, npad_xr), (npad_yl, npad_yr))
+    unpad_x = slice(npad_xl, -npad_xr) if npad_xr else slice(npad_xl, None)
+    unpad_y = slice(npad_yl, -npad_yr) if npad_yr else slice(npad_yl, None)
+    return padding, unpad_x, unpad_y

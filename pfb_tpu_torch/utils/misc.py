@@ -1,6 +1,8 @@
-"""Clean-beam fitting (``fitcleanbeam``, ``Gaussian2D``) and ``to4d``,
-carried over from pfb_tpu/utils/misc.py unchanged (numpy/scipy only), so
-the port imports no JAX.
+"""Clean-beam fitting (``fitcleanbeam``, ``Gaussian2D``), convolution to
+a common resolution (``convolve2gaussres``), Kronecker matvecs, edge
+slicing, island removal and ``to4d``: carried over from
+pfb_tpu/utils/misc.py unchanged (numpy/scipy only; the JAX package runs
+them on the host too), so the port imports no JAX.
 """
 
 import numpy as np
@@ -23,6 +25,35 @@ def to4d(data):
     if data.ndim == 1:
         return data[None, None, None]
     raise ValueError("Only arrays with ndim <= 4 can be broadcast to 4D.")
+
+
+def kron_matvec(A, b):
+    """Matvec with kron(A[0], A[1], ...) applied factor by factor,
+    never forming the product (reference misc.py:63-74)."""
+    x = b.ravel()
+    for M in A:
+        x = (M @ x.reshape(M.shape[1], -1)).T.ravel()
+    return x.reshape(b.shape)
+
+
+def _overlap_1d(centre, n_im, n_win):
+    """Overlap of an n_win window centred at ``centre`` with [0, n_im).
+
+    Returns matching (image_slice, window_slice).
+    """
+    half = n_win // 2
+    lo = max(centre - half, 0)
+    hi = min(centre + half, n_im)
+    shift = half - centre
+    return slice(lo, hi), slice(lo + shift, hi + shift)
+
+
+def give_edges(p, q, nx, ny, nx_psf, ny_psf):
+    """Matching image/PSF slices for a PSF centred at pixel (p, q)
+    (reference misc.py:141-167)."""
+    sx, spx = _overlap_1d(p, nx, nx_psf)
+    sy, spy = _overlap_1d(q, ny, ny_psf)
+    return sx, sy, spx, spy
 
 
 def _beam_frame(x, y, pa_deg):
@@ -166,3 +197,49 @@ def fitcleanbeam(psf, level=0.5, pixsize=1.0, extent=15.0):
         pa = (pa + 90.0) % 180.0 - 90.0
         beams.append([pv * pixsize, pu * pixsize, pa])
     return beams
+
+
+def convolve2gaussres(image, xx, yy, gaussparf, gausspari=None,
+                      pfrac=0.5, norm_kernel=False):
+    """Convolve a cube to a target resolution, optionally deconvolving
+    each band's initial resolution in the Fourier domain (reference
+    misc.py:186-238)."""
+    from pfb_tpu_torch.ops.fft import get_padding_info
+
+    nband, nx, ny = image.shape
+    padding, unpad_x, unpad_y = get_padding_info(nx, ny, pfrac)
+    firstsize = nx + int(np.sum(padding[1]))
+    lastsize = ny + int(np.sum(padding[2]))
+
+    def kernel_hat(par):
+        kern = Gaussian2D(xx, yy, par, normalise=norm_kernel)
+        kern = np.pad(kern, padding[1:], mode="constant")
+        return np.fft.rfft2(np.fft.ifftshift(kern))
+
+    target_hat = kernel_hat(gaussparf)
+    imhat = np.fft.rfft2(
+        np.fft.ifftshift(np.pad(image, padding, mode="constant"),
+                         axes=(1, 2)), axes=(1, 2))
+
+    if gausspari is None:
+        imhat *= target_hat[None]
+    else:
+        for b in range(nband):
+            band_hat = kernel_hat(gausspari[b])
+            live = np.abs(band_hat) > 0.0
+            imhat[b] *= np.where(
+                live, target_hat / np.where(live, band_hat, 1.0), 0.0)
+
+    out = np.fft.irfft2(imhat, s=(firstsize, lastsize), axes=(1, 2))
+    return np.fft.fftshift(out, axes=(1, 2))[:, unpad_x, unpad_y]
+
+
+def remove_large_islands(x, max_island_size=100):
+    """Zero islands larger than max_island_size pixels
+    (reference misc.py:1355-1363)."""
+    islands, num = label(x.squeeze())
+    for i in range(1, num + 1):
+        msk = islands == i
+        if msk.sum() > max_island_size:
+            x[msk] = 0.0
+    return x

@@ -181,6 +181,17 @@ def open_ms_source(ms):
     return DictMSSource(ms)
 
 
+def update_ms_column(path, name, values):
+    """Write column ``name`` of an npz measurement set: the whole file is
+    read and written again (every column), as in the JAX package."""
+    ms = read_ms(path)
+    ms[name] = values
+    p = str(path)
+    if not p.endswith(".npz"):
+        p = p + ".npz"
+    np.savez(p, **ms)
+
+
 def _degrid_sparse(uvw, freq, cube, cell_rad):
     """(nrow, nchan) visibilities of a (nchan, nx, ny) model cube by the
     exact DFT over its nonzero pixels only, in float64: the sum of

@@ -11,8 +11,13 @@ visible CUDA device, or the CPU); with fewer devices than shards, or
 another backend, it warns and grids on one device, as the JAX package
 does. A list that repeats a device gives virtual shards on it.
 
+``transfer_model_from`` names an mds store (or passes its dict): the
+component model is rendered on the host onto each dataset's image grid
+at its (time_out, freq_out) and the RESIDUAL is made from it as from a
+MODEL (reference grid.py:308-334).
+
 Not ported yet (they raise): channel re-binning (``nband`` != the xds
-band count), ``concat_row``, ``target`` and ``transfer_model_from``.
+band count), ``concat_row`` and ``target``.
 """
 
 import numpy as np
@@ -46,11 +51,9 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     ``{output_filename}_{PRODUCT}_{suffix}.dds`` unless write=False, with
     the MFS image and the per-band cubes of DIRTY, PSF and RESIDUAL as
     FITS files for ``fits_mfs`` and ``fits_cubes``)."""
-    if transfer_model_from is not None or target is not None or \
-            kw.get("concat_row"):
+    if target is not None or kw.get("concat_row"):
         raise NotImplementedError(
-            "transfer_model_from / target / concat_row are not ported to "
-            "pfb_tpu_torch yet")
+            "target / concat_row are not ported to pfb_tpu_torch yet")
     device = as_device(device)
     if xdsi is None:
         path = xds if isinstance(xds, str) and xds else \
@@ -97,6 +100,10 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     def tens(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
+    mds = transfer_model_from
+    if isinstance(mds, (str, bytes)):
+        mds = dstore.read_store(str(mds))[0]
+
     # row-sharded gridding: each dataset's rows split over a mesh, one sum
     # of the partial uv grids per image
     rd_mesh = None
@@ -120,8 +127,13 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
         """Launch one dataset's device products (asynchronous on CUDA:
         dataset k+1 is launched before dataset k is copied back)."""
         model = ds.get("MODEL")
-        if use_best_model:
+        if use_best_model and mds is None:
             model = ds.get("MODEL_BEST", model)
+        if mds is not None:
+            from pfb_tpu_torch.models.comps import eval_mds_to_slice
+            model = eval_mds_to_slice(mds, ds["time_out"], ds["freq_out"],
+                                      nx, ny, cell_rad, x0,
+                                      y0).astype(real_type)
         counts = None
         if robustness is not None:
             counts = compute_counts_host(ds["UVW"], ds["FREQ"], ds["MASK"],

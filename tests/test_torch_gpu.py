@@ -1803,3 +1803,63 @@ def test_degrid_lab_skeletons_launch(cuda):
             pgs.pg_degrid_lab(gr, gr, p["pos"], p["tid"], design=design,
                               mode=mode, **dict(kw, k=9))
         torch.cuda.synchronize()
+
+
+def _post_obs(tmp_path, device, **grid):
+    """A small observation through init -> grid on ``device``, with 0.8
+    of the true model as MODEL."""
+    from pfb_tpu_torch.utils.ms import simulate_ms
+    from pfb_tpu_torch.workers.grid import _grid
+    from pfb_tpu_torch.workers.init import _init
+    ms = str(tmp_path / "t.npz")
+    model = simulate_ms(ms, nant=16, ntime=12, nchan=4, nsource=5,
+                        fov_deg=0.4, seed=13)[0]
+    xds = _init(ms=ms, write=False, channels_per_image=1,
+                precision="single", device=device)
+    dds = _grid(xdsi=xds, write=False, device=device, field_of_view=0.4,
+                robustness=0.0, backend="pg", epsilon=1e-5, **grid)
+    for ds in dds:
+        ds["MODEL"] = 0.8 * model[ds["bandid"]]
+    return ms, dds
+
+
+def test_degrid_pg_on_card_matches_cpu(cuda, tmp_path):
+    """_degrid(backend="pg") on the card (float32 kernels, a plan and one
+    K6 launch per band) against the same call on the CPU (float64 plain
+    versions): 1e-5 of max."""
+    from pfb_tpu_torch.workers.degrid import _degrid
+    from pfb_tpu_torch.workers.model2comps import _model2comps
+    ms, dds = _post_obs(tmp_path, "cpu", psf=False, residual=False)
+    mds = _model2comps(ddsi=dds)
+    kw = dict(ms=ms, mds=mds, backend="pg", epsilon=1e-5,
+              channels_per_image=1, write=False)
+    ref = _degrid(device="cpu", **kw)
+    n0 = pg.pg_degrid.launches
+    got = _degrid(device=cuda, **kw)
+    assert pg.pg_degrid.launches == n0 + len(dds)
+    assert np.abs(ref).max() > 0
+    assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+
+
+def test_fluxmop_pg_on_card_reduces_residual(cuda, tmp_path):
+    """_fluxmop(backend="pg") on the card from the dirty image: its MFS
+    residual peak below 0.6 of the MFS dirty peak
+    (tests/test_aux_workers.py:38), with the spread, fold and degrid
+    kernels launched in its exact residual; on a (1, 4) virtual space
+    mesh the model stays within 1e-4 of max."""
+    from pfb_tpu_torch.workers.fluxmop import _fluxmop
+    _, dds = _post_obs(tmp_path, cuda, psf=True, residual=False)
+    for ds in dds:
+        del ds["MODEL"]
+    kw = dict(backend="pg", epsilon=1e-5, use_psf=True, sigmainv=1e-4,
+              gamma=0.9, cg_maxit=100, write=False, device=cuda, verbose=0)
+    n0 = [f.launches for f in (pg.pg_spread, pg.pg_fold, pg.pg_degrid)]
+    m1, r1 = _fluxmop(ddsi=[dict(d) for d in dds], **kw)
+    n1 = [f.launches for f in (pg.pg_spread, pg.pg_fold, pg.pg_degrid)]
+    assert all(b > a for a, b in zip(n0, n1))
+    wsum = sum(float(d["WSUM"][0]) for d in dds)
+    dirty = sum(d["DIRTY"] for d in dds) / wsum
+    assert np.abs(r1.sum(0)).max() < 0.6 * np.abs(dirty).max()
+    m4, _ = _fluxmop(ddsi=[dict(d) for d in dds], space_shards=4,
+                     devices=[cuda] * 4, **kw)
+    assert np.abs(m4 - m1).max() <= 1e-4 * np.abs(m1).max()

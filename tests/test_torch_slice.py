@@ -288,7 +288,10 @@ import pfb_tpu_torch.workers.spotless, pfb_tpu_torch.workers.grid
 import pfb_tpu_torch.parallel.dist, pfb_tpu_torch.parallel.dwt_halo
 import pfb_tpu_torch.parallel.runtime
 import pfb_tpu_torch.ops.pallas_fft, pfb_tpu_torch.utils.fits
-import pfb_tpu_torch.ops.memlab
+import pfb_tpu_torch.ops.memlab, pfb_tpu_torch.models
+import pfb_tpu_torch.workers.model2comps, pfb_tpu_torch.workers.degrid
+import pfb_tpu_torch.workers.restore, pfb_tpu_torch.workers.fluxmop
+import pfb_tpu_torch.utils.restoration
 sys.path.insert(0, {str(scripts)!r})
 import torch_kernel_lab, torch_g2i_lab, torch_capacity_lab, chip_smoke
 from pfb_tpu_torch.utils.ms import simulate_ms
@@ -307,8 +310,22 @@ dds = _grid(xdsi=xds, write=False, device="cpu", nx=128, backend="pg",
             robustness=0.0, psf=True, residual=False)
 _spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
           pd_maxit=2, pm_maxit=3, backend="pg", verbose=0)
-_klean(ddsi=dds, write=False, device="cpu", niter=1, backend="pg",
-       plane_block=2, minor_maxit=2, cg_maxit=3, verbose=0)
+model, _ = _klean(ddsi=dds, write=False, device="cpu", niter=1,
+                  backend="pg", plane_block=2, minor_maxit=2, cg_maxit=3,
+                  verbose=0)
+from pfb_tpu_torch.workers.model2comps import _model2comps
+from pfb_tpu_torch.workers.degrid import _degrid
+from pfb_tpu_torch.workers.restore import _restore
+from pfb_tpu_torch.workers.fluxmop import _fluxmop
+for ds in dds:
+    ds["MODEL"] = model[ds["bandid"]]
+mds = _model2comps(ddsi=dds)
+_degrid(ms=ms, mds=mds, backend="pg", write=False, device="cpu")
+_grid(xdsi=xds, write=False, device="cpu", nx=128, backend="pg", psf=False,
+      transfer_model_from=mds)
+_restore(ddsi=dds, output_filename={str(tmp_path / 'r')!r}, outputs="i")
+_fluxmop(ddsi=dds, write=False, device="cpu", backend="pg", cg_maxit=2,
+         space_shards=2, devices=["cpu"] * 2, verbose=0)
 from pfb_tpu_torch.parallel.mesh import make_mesh
 from pfb_tpu_torch.workers.spotless import _spotless_dist
 _spotless_dist(mesh=make_mesh(1, 2, ["cpu"] * 2), ddsi=dds, write=False,
