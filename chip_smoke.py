@@ -210,7 +210,41 @@ Phases:
      gate of tests/test_aux_workers.py:38) with K4, K5 and K6 launched in
      its exact residual, and the same step on a (1, 4) virtual space mesh
      (distributed rFFT2 Hessian), whose model must match within 1e-4 of
-     max (CTOL) with no K10 stage launched.
+     max (CTOL) with no K10 stage launched, whose Hessian must be the
+     mesh's (fluxmop's stats["hessian"] "psf space mesh (1, 4)": not
+     the single-program fallback);
+ 28. fwdbwd, fastim and smoovie after phase 27, on phase 3's observation
+     and the pg path's products at full width, each step's counts,
+     seconds and peak device memory as in 27: fwdbwd(backend="pg",
+     parametrisation "id", rmsfactor 0.3, bases "self,db1", nlevels 2,
+     niter 3; the settings of tests/test_fwdbwd.py:45-47) on copies of
+     the pg path's dds without MODEL, written to a dds store, whose MFS
+     residual peak must fall below 0.5 of the MFS dirty peak
+     (tests/test_fwdbwd.py:49-51) with PARAM written, K3c, K3r, K4, K5
+     and K6 launched and no PSF kernel (K1, K2, K11, K10ac, K10cc,
+     K10br: its PSF Hessian is torch.fft, as the JAX package's is XLA's
+     FFT); fastim(backend="pg", epsilon 1e-5, 2048^2 at the pg path's
+     cell, natural weights, one band, 4 integrations a snapshot: 32
+     snapshots of 8064 rows x 8 channels) with no model and with phase
+     27's mds degridded two channels a sub-band, each against one fastim
+     call of all 128 integrations: the snapshots' RESIDUAL sum within
+     1e-5 of the model-free one image's peak (STOL, the gridder's
+     epsilon on the scale of the sky: the model run's residual is near
+     float32 rounding of the model visibilities, which the 32 small
+     plans and the one large plan degrid to epsilon each; the reading
+     against the run's own peak is printed) and their WSUM sum within
+     1e-6 relative (gridding is linear); the
+     pg path's cell goes in arcsec and the mds takes the cell it
+     converts back to (an ulp away at most), so the model renders on
+     fastim's grid without a regrid; K4 and K5 at least once a snapshot,
+     K6 at least 4 a snapshot with the mds and never without, K3 never;
+     snapshots a second printed; the first snapshot's vis2dirty (K4,
+     K5, K3c, K3r) and its first model sub-band's dirty2vis (K6, K3c,
+     K3r), each on that snapshot's own pg plan, against the same calls
+     with the plain versions in the kernels' place (plain_gridder, which
+     must launch nothing), at the kernel tolerance; smoovie(animate_axis
+     "time", time_bin 2, gif) on the model-free snapshots: 16 finite
+     frames and the movie file.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -241,6 +275,7 @@ The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -291,6 +326,15 @@ MOP = dict(backend="pg", epsilon=1e-5, use_psf=True, sigmainv=1e-4,
 MOP_GATE = 0.6  # MFS residual peak below this share of the MFS dirty peak
 FTOL = 1e-7  # the mds against klean's model at the fit points
 POST_OUTPUTS = "mMrRiIc"
+# phase 28's fwdbwd: tests/test_fwdbwd.py:45-47's settings, 3 majors
+FWD = dict(backend="pg", epsilon=1e-5, parametrisation="id",
+           rmsfactor=0.3, bases="self,db1", nlevels=2, niter=3)
+FWD_GATE = 0.5  # MFS residual peak below this share of the MFS dirty peak
+# phase 28's fastim: 4 integrations a snapshot (32 of the 128), one band
+SNAP = dict(backend="pg", epsilon=1e-5, integrations_per_image=4,
+            channels_per_grid_image=-1, precision="single")
+WTOL = 1e-6  # WSUM of the snapshots against the one image, relative
+STOL = 1e-5  # their RESIDUAL sum, of the model-free image's peak
 
 
 class SmokeFailure(Exception):
@@ -2196,6 +2240,27 @@ def mfs_over_wsum(dds, key):
         sum(float(ds["WSUM"][0]) for ds in dds)
 
 
+def timed_step(res, device, name, fn):
+    """Run ``fn()`` as step ``name`` of a path: every kernel's count set
+    to 0 just before and read just after into res["launches"][name],
+    with its host-clock seconds (ending in a synchronise) and, on the
+    card, its peak device memory (max_memory_allocated after a reset)."""
+    import torch
+    cnt = counters()
+    for c in cnt.values():
+        c.launches = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    res["t"][name] = time.perf_counter() - t0
+    res["launches"][name] = {k: c.launches for k, c in cnt.items()}
+    if device.type == "cuda":
+        res["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
 def post_path(rkl, rpg, truth, device, workdir, grid=GRID_PG):
     """Phase 27: klean's model through model2comps -> degrid(pg) ->
     init(DATA-MODEL_DATA) -> grid, then grid(transfer_model_from),
@@ -2204,7 +2269,6 @@ def post_path(rkl, rpg, truth, device, workdir, grid=GRID_PG):
     just before it and read just after, with its seconds and peak device
     memory; returns them with the step's outputs the gates read."""
     import numpy as np
-    import torch
 
     from pfb_tpu_torch.models.comps import eval_coeffs_to_cube
     from pfb_tpu_torch.workers.degrid import _degrid
@@ -2214,22 +2278,10 @@ def post_path(rkl, rpg, truth, device, workdir, grid=GRID_PG):
     from pfb_tpu_torch.workers.model2comps import _model2comps
     from pfb_tpu_torch.workers.restore import _restore
 
-    cnt = counters()
     res = {"t": {}, "peak_gib": {}, "launches": {}}
 
     def step(name, fn):
-        for c in cnt.values():
-            c.launches = 0
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = fn()
-        sync(device)
-        res["t"][name] = time.perf_counter() - t0
-        res["launches"][name] = {k: c.launches for k, c in cnt.items()}
-        if device.type == "cuda":
-            res["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
-        return out
+        return timed_step(res, device, name, fn)
 
     model, nband = rkl["model"], rkl["model"].shape[0]
     nx = model.shape[-1]
@@ -2243,6 +2295,7 @@ def post_path(rkl, rpg, truth, device, workdir, grid=GRID_PG):
         mds["parametrisation"], mds["params"], mds["texpr"],
         mds["fexpr"])[0]
     res["ncomp"], res["nband"] = int(mds["location_x"].size), nband
+    res["mds"] = mds  # phase 28's model
     res["fit_err"] = float(np.max(np.abs(cube - model) / np.abs(1 + model)))
     del cube, dds_m
 
@@ -2289,9 +2342,11 @@ def post_path(rkl, rpg, truth, device, workdir, grid=GRID_PG):
     m1, r1 = step("fluxmop", lambda: _fluxmop(
         ddsi=[dict(ds) for ds in rpg["dds"]], device=device, **MOP))
     res["mop_ratio"] = float(np.abs(r1.sum(axis=0)).max() / dirty_max)
+    st4 = {}
     m4, _ = step("fluxmop_space", lambda: _fluxmop(
         ddsi=[dict(ds) for ds in rpg["dds"]], device=device,
-        space_shards=NSPACE, devices=[device] * NSPACE, **MOP))
+        space_shards=NSPACE, devices=[device] * NSPACE, stats=st4, **MOP))
+    res["mop_space_route"] = st4["hessian"]
     res["mop_space_err"] = float(np.abs(m4 - m1).max() / np.abs(m1).max())
     return res
 
@@ -2320,7 +2375,8 @@ def report_post(rpost, truth):
     print(f"[post] fluxmop: MFS residual peak / MFS dirty peak "
           f"{rpost['mop_ratio']:.4f} (bound {MOP_GATE}); (1, {NSPACE}) space "
           f"mesh vs single program: max|diff|/max = "
-          f"{rpost['mop_space_err']:.3e} (bound {CTOL})")
+          f"{rpost['mop_space_err']:.3e} (bound {CTOL}); its Hessian "
+          f"{rpost['mop_space_route']!r}")
     print(f"[post] restore wrote {rpost['fits']}")
     srcs = source_checks({"model": rpost["image_mfs"][None]}, truth)
     for s in srcs:
@@ -2350,9 +2406,280 @@ def report_post(rpost, truth):
          f"{rpost['mop_ratio']} >= {MOP_GATE}")
     need(rpost["mop_space_err"] <= CTOL, f"fluxmop space mesh vs single "
          f"program {rpost['mop_space_err']} > {CTOL}")
+    need(rpost["mop_space_route"] == f"psf space mesh (1, {NSPACE})",
+         f"the space-sharded fluxmop ran {rpost['mop_space_route']!r}: "
+         "not the mesh Hessian")
     for k in ("K10a", "K10b", "K10c", "K10ac", "K10cc", "K10br"):
         need(lp["fluxmop_space"][k] == 0,
              f"{k} launched inside the space-sharded fluxmop")
+
+
+@contextlib.contextmanager
+def plain_gridder():
+    """Inside the block the pg gridder runs its kernels' plain versions:
+    K4, K5 and K6 in ops/pgridder.py and the plane transforms (K3, K3c,
+    K3r, through ops/cfft.py:fft2_c2c_pruned) in ops/wgridder.py."""
+    from pfb_tpu_torch.ops import pgridder as pg
+    from pfb_tpu_torch.ops import wgridder as wg
+
+    def fold(Yc, slots, *, ntx, **kw):
+        return pg.pg_fold_plain(Yc, slots, **kw)
+
+    def fft2(xr, xi, *, Nx, Ny, inverse, pruned_in=False,
+             pruned_out=False):
+        return _fft2_pruned_plain(xr, xi, Nx, Ny, inverse, pruned_in,
+                                  pruned_out)
+
+    swap = ((pg, "pg_spread", pg.pg_spread_plain), (pg, "pg_fold", fold),
+            (pg, "pg_degrid", pg.pg_degrid_plain),
+            (wg, "fft2_c2c_pruned", fft2))
+    kept = [(m, n, getattr(m, n)) for m, n, _ in swap]
+    for m, n, f in swap:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in kept:
+            setattr(m, n, f)
+
+
+def snapshot_kernel_checks(truth, mds, device, nx, cell_rad):
+    """fastim's first snapshot (its first SNAP integrations, every
+    channel, weighted as fastim weights them) through the pg backend's
+    vis2dirty, and its first model sub-band (two channels, the mds
+    rendered as fastim renders it) through dirty2vis, each on the
+    snapshot's own plan: once through the kernels and once inside
+    plain_gridder, the counts set to 0 just before each call and read
+    just after. Returns (records, launches, plan summaries)."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.models.comps import eval_mds_to_slice
+    from pfb_tpu_torch.ops.pgridder import (dirty2vis_pg, pgrid_plan,
+                                            vis2dirty_pg)
+    from pfb_tpu_torch.utils.ms import read_ms
+    from pfb_tpu_torch.utils.stokes import unity_jones, weight_data
+    from pfb_tpu_torch.workers.init import _column_expr
+
+    msd = read_ms(truth["ms"])
+    utime, tbin = np.unique(msd["TIME"], return_inverse=True)
+    rows = np.where(tbin < SNAP["integrations_per_image"])[0]
+    data = _column_expr(msd, "DATA")[rows]
+    flag = msd.get("FLAG", np.zeros(data.shape, bool))[rows].any(axis=-1)
+    wgt = msd.get("WEIGHT_SPECTRUM", np.ones(data.shape))[rows]
+    a1, a2 = msd["ANTENNA1"][rows], msd["ANTENNA2"][rows]
+    freq = np.asarray(msd["FREQ"], np.float64)
+    nant = int(max(a1.max(), a2.max())) + 1
+
+    def dev(a, dt=None):
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        return t.to(device) if dt is None else t.to(device=device, dtype=dt)
+
+    f32 = torch.float32
+    mask = dev((~flag).astype(np.uint8))
+    vis, wout = weight_data(
+        dev(data, torch.complex64), dev(wgt, f32),
+        dev(flag.astype(np.uint8)),
+        dev(unity_jones(utime.size, nant, freq.size), torch.complex64),
+        dev(tbin[rows]), dev(a1), dev(a2),
+        pol=str(msd.get("POLTYPE", "linear")))
+    uvw = dev(msd["UVW"][rows], f32)
+    fsub = freq[:2]
+    image = eval_mds_to_slice(mds, float(np.mean(utime[:SNAP[
+        "integrations_per_image"]])), float(np.mean(fsub)), nx, nx,
+        cell_rad, 0.0, 0.0)
+    image = dev(image, f32)
+    pkw = dict(nx=nx, ny=nx, cellx=cell_rad, celly=cell_rad,
+               epsilon=SNAP["epsilon"], dtype=f32, device=device)
+    pv = pgrid_plan(uvw, dev(freq, f32), **pkw)
+    pd = pgrid_plan(uvw, dev(fsub, f32), **pkw)
+
+    def v2d():
+        return vis2dirty_pg(uvw, None, vis, wgt=wout, mask=mask, plan=pv,
+                            nx=nx, ny=nx, cellx=cell_rad, celly=cell_rad)
+
+    def d2v():
+        return torch.stack(dirty2vis_pg(uvw, None, image, cell_rad,
+                                        cell_rad, plan=pd, split=True))
+
+    cnt = counters()
+    recs, launches = [], {}
+    for tag, fn, name in (
+            ("v2d", v2d, "fastim snapshot vis2dirty (K4, K5, K3c, K3r)"),
+            ("d2v", d2v, "fastim sub-band dirty2vis (K6, K3c, K3r)")):
+        out = {}
+        for run in ("kernel", "plain"):
+            for c in cnt.values():
+                c.launches = 0
+            with plain_gridder() if run == "plain" else \
+                    contextlib.nullcontext():
+                out[run] = fn()
+            sync(device)
+            launches[f"{tag}_{run}"] = {k: c.launches
+                                        for k, c in cnt.items()}
+        recs.append(_record(name, out["plain"].shape, out["kernel"],
+                            out["plain"], None, None, False))
+        del out
+    return recs, launches, {"vis2dirty": plan_summary(pv),
+                            "dirty2vis": plan_summary(pd)}
+
+
+def imaging_path(rpg, mds, truth, device, workdir, nx=NX,
+                 ntime=SIM["ntime"]):
+    """Phase 28: fwdbwd(pg) on copies of the pg path's dds as _grid left
+    them (no MODEL), written to a dds store; fastim(pg) on the
+    observation at the pg path's 2048^2 grid, with no model and with
+    phase 27's mds degridded two channels a sub-band, each against one
+    fastim call of the whole observation; smoovie on the model-free
+    snapshots. Every step's counts, seconds and peak device memory as in
+    phase 27; returns them with the outputs the gates read."""
+    import shutil
+
+    import numpy as np
+
+    from pfb_tpu_torch.workers.fastim import _fastim
+    from pfb_tpu_torch.workers.fwdbwd import _fwdbwd
+    from pfb_tpu_torch.workers.smoovie import _smoovie
+
+    res = {"t": {}, "peak_gib": {}, "launches": {}}
+
+    def step(name, fn):
+        return timed_step(res, device, name, fn)
+
+    drop = ("MODEL", "MODEL_BEST", "RESIDUAL", "DUAL", "PARAM", "MODELP",
+            "UPDATE", "parametrisation")
+    dds = [{k: v for k, v in ds.items() if k not in drop}
+           for ds in rpg["dds"]]
+    base = str(Path(workdir) / "fwdbwd")
+    shutil.rmtree(base + "_I_main.dds", ignore_errors=True)
+    st = {}
+    _, _, resid = step("fwdbwd", lambda: _fwdbwd(
+        ddsi=dds, output_filename=base, device=device, stats=st, verbose=0,
+        **FWD))
+    dirty_max = float(np.abs(mfs_over_wsum(rpg["dds"], "DIRTY")).max())
+    res["fwd_ratio"] = float(np.abs(resid.sum(axis=0)).max() / dirty_max)
+    res["fwd_param"] = (Path(base + "_I_main.dds") / "ds_0000" /
+                        "PARAM").is_dir()
+    res["fwd_stats"] = st
+    del dds, resid
+
+    # the pg path's cell in arcsec, as fastim takes it; its conversion
+    # back may differ by an ulp, so the mds takes fastim's cell exactly
+    # and renders on the same grid without a regrid
+    cell_rad = rpg["dds"][0]["cell_rad"]
+    cell_arcsec = float(np.rad2deg(cell_rad)) * 3600
+    cell_f = cell_arcsec * np.pi / 60 / 60 / 180
+    need(abs(cell_f / cell_rad - 1) < 1e-12, f"fastim's cell {cell_f}")
+    mds = dict(mds, cell_rad_x=cell_f, cell_rad_y=cell_f)
+    fkw = dict(SNAP, ms=truth["ms"], nx=nx, cell_size=cell_arcsec,
+               write=False, device=device)
+    res["nsnap"] = ntime // SNAP["integrations_per_image"]
+    for tag, extra in (("fastim", {}),
+                       ("fastim_mds", dict(mds=mds,
+                                           channels_per_degrid_image=2))):
+        snaps = step(tag, lambda: _fastim(**fkw, **extra))
+        one = step(tag + "_one", lambda: _fastim(
+            **dict(fkw, integrations_per_image=ntime), **extra))
+        total = sum(ds["RESIDUAL"].astype(np.float64) for ds in snaps)
+        whole = one[0]["RESIDUAL"].astype(np.float64)
+        if tag == "fastim":
+            dirty_peak = float(np.abs(whole).max())
+        ws = sum(float(ds["WSUM"][0]) for ds in snaps)
+        diff = float(np.abs(total - whole).max())
+        res[tag] = dict(
+            nsnap=len(snaps), none=len(one),
+            snaps_per_s=len(snaps) / res["t"][tag],
+            rel=diff / float(np.abs(whole).max()), rel_dirty=diff / dirty_peak,
+            wsum_rel=abs(ws - float(one[0]["WSUM"][0])) / ws,
+            finite=bool(all(np.isfinite(ds["RESIDUAL"]).all()
+                            for ds in snaps)))
+        if tag == "fastim":
+            fds = snaps
+        del snaps, one, total, whole
+    res["snap_recs"], res["snap_launches"], res["snap_plans"] = \
+        snapshot_kernel_checks(truth, mds, device, nx, cell_f)
+
+    movie = Path(workdir) / "fastim_I_movie.gif"
+    if movie.exists():
+        movie.unlink()
+    frames = step("smoovie", lambda: _smoovie(
+        fdsi=fds, output_filename=str(Path(workdir) / "fastim"),
+        animate_axis="time", time_bin=2, out_format="gif"))
+    res["frames"] = len(frames)
+    res["frames_finite"] = bool(all(np.isfinite(f).all() for f in frames))
+    res["movie"] = movie.exists()
+    return res
+
+
+def report_imaging(rim):
+    """Print phase 28's stage seconds, peak memory, launches and gate
+    readings; check its gates."""
+    lp = rim["launches"]
+    print("[imaging] " + json.dumps({
+        "seconds": {k: round(v, 3) for k, v in rim["t"].items()},
+        "peak_gib": {k: round(v, 3) for k, v in rim["peak_gib"].items()},
+        "launches": {s: {k: v for k, v in c.items() if v}
+                     for s, c in lp.items()}}))
+    st = rim["fwd_stats"]
+    print(f"[imaging] fwdbwd(pg, id, {FWD['niter']} majors): MFS residual "
+          f"peak / MFS dirty peak {rim['fwd_ratio']:.4f} (bound {FWD_GATE});"
+          f" PARAM written: {rim['fwd_param']}; hessnorm "
+          f"{[round(h, 3) for h in st['hessnorm']]}, rms "
+          f"{[float(f'{r:.6e}') for r in st['rms']]}; exact residuals "
+          f"{st['t_exact']:.3f} s of {st['t_loop']:.3f} s")
+    for tag in ("fastim", "fastim_mds"):
+        f = rim[tag]
+        print(f"[imaging] {tag}: {f['nsnap']} snapshots, "
+              f"{f['snaps_per_s']:.2f} snapshots/s; their RESIDUAL sum vs "
+              f"the one image: max|diff| over the one image's peak "
+              f"{f['rel']:.3e}, over the model-free image's peak "
+              f"{f['rel_dirty']:.3e} (bound {STOL}), WSUM "
+              f"{f['wsum_rel']:.3e} (bound {WTOL})")
+    print("[imaging] the first snapshot's plans " + json.dumps(
+        rim["snap_plans"]))
+    for r in rim["snap_recs"]:
+        print("[kernel] " + json.dumps(r))
+    sl = rim["snap_launches"]
+    print("[imaging] its kernel and plain calls launched " + json.dumps(
+        {s: {k: v for k, v in c.items() if v} for s, c in sl.items()}))
+    print(f"[imaging] smoovie: {rim['frames']} frames, finite "
+          f"{rim['frames_finite']}, movie written {rim['movie']}")
+    need(rim["fwd_ratio"] < FWD_GATE, f"fwdbwd residual ratio "
+         f"{rim['fwd_ratio']} >= {FWD_GATE}")
+    need(rim["fwd_param"], "fwdbwd wrote no PARAM")
+    for k in ("K3c", "K3r", "K4", "K5", "K6"):
+        need(lp["fwdbwd"][k] > 0, f"{k} never launched inside fwdbwd")
+    for k in ("K1", "K2", "K11", "K10ac", "K10cc", "K10br"):
+        need(lp["fwdbwd"][k] == 0, f"{k} launched inside fwdbwd")
+    nsnap = rim["nsnap"]
+    for tag, k6 in (("fastim", 0), ("fastim_mds", 4)):
+        f, lc = rim[tag], lp[tag]
+        need(f["nsnap"] == nsnap and f["none"] == 1, f"{tag}: "
+             f"{f['nsnap']} snapshots and {f['none']} whole images")
+        need(f["finite"], f"{tag}: non-finite snapshot")
+        need(f["rel_dirty"] <= STOL, f"{tag}: snapshot sum vs one image "
+             f"{f['rel_dirty']} of the model-free peak > {STOL}")
+        need(f["wsum_rel"] <= WTOL, f"{tag}: WSUM {f['wsum_rel']} > {WTOL}")
+        for k in ("K4", "K5"):
+            need(lc[k] >= nsnap, f"{tag}: {k} launched {lc[k]} times for "
+                 f"{nsnap} snapshots")
+        need(lc["K6"] >= k6 * nsnap if k6 else lc["K6"] == 0,
+             f"{tag}: K6 launched {lc['K6']} times for {nsnap} snapshots")
+        need(lc["K3"] == 0, f"{tag}: K3 (line kernel) launched")
+    bad = [r["name"] for r in rim["snap_recs"] if not r["ok"]]
+    need(not bad, f"kernel disagrees with its plain version: {bad}")
+    for tag, ks in (("v2d", ("K4", "K5", "K3c", "K3r")),
+                    ("d2v", ("K6", "K3c", "K3r"))):
+        for k in ks:
+            need(sl[f"{tag}_kernel"][k] > 0, f"the first snapshot's {tag}:"
+                 f" {k} never launched")
+        need(sl[f"{tag}_kernel"]["K3"] == 0,
+             f"the first snapshot's {tag}: K3 (line kernel) launched")
+        need(not any(sl[f"{tag}_plain"].values()), f"the first snapshot's "
+             f"{tag}: a kernel launched inside plain_gridder")
+    need(rim["frames"] == nsnap // 2 and rim["frames_finite"],
+         f"smoovie: {rim['frames']} frames, finite {rim['frames_finite']}")
+    need(rim["movie"], "smoovie wrote no movie")
 
 
 def main():
@@ -2464,7 +2791,17 @@ def main():
         for lc in rpost["launches"].values():
             for k in launches:
                 launches[k] += lc[k]
+        mds = rpost["mds"]
         del rkl, rpost
+        torch.cuda.empty_cache()
+
+        # 28. fwdbwd, fastim and smoovie on the pg path's products
+        rim = imaging_path(rpg, mds, truth, device, workdir)
+        report_imaging(rim)
+        for lc in rim["launches"].values():
+            for k in launches:
+                launches[k] += lc[k]
+        del rim, mds
         torch.cuda.empty_cache()
 
         # 10. blocked against unblocked, K7-K9 against plain (2048^2)

@@ -149,9 +149,15 @@ def interp_beam(freq, nx, ny, cell_deg, btype="kbl", l0=0.0, m0=0.0,
     if utime is None:
         return model(ll, mm), l, m
 
-    raise NotImplementedError(
-        "parallactic-angle beam averaging needs utils/astrometry.py, "
-        "not yet carried into pfb_tpu_torch")
+    from pfb_tpu_torch.utils.astrometry import parallactic_angle
+    ra, dec = radec
+    pas = parallactic_angle(np.atleast_1d(utime), ra, dec, lat,
+                            lst0=lst0)
+    beam = np.zeros((nx, ny))
+    for pa in pas:
+        c, s = np.cos(pa), np.sin(pa)
+        beam += model(c * ll + s * mm, -s * ll + c * mm)
+    return beam / pas.size, l, m
 
 
 def eval_beam(beam, l_beam, m_beam, l_out, m_out):

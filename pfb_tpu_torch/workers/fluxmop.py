@@ -36,12 +36,13 @@ def _fluxmop(ddsi=None, output_filename=None, product="I",
              epsilon=1e-7, do_wgridding=True, write=True,
              band_chunk=None, verbose=1, fits_mfs=False,
              fits_cubes=False, space_shards=0, device=None, devices=None,
-             **kw):
+             stats=None, **kw):
     """Returns (model, residual) as numpy arrays. Writes back into the dds
     store. ``device`` None means the card when there is one; ``devices``
     (None: every visible CUDA device, or the CPU) are the devices of the
     ``space_shards`` mesh, and a list that repeats a device gives virtual
-    shards on it."""
+    shards on it. ``stats``, when a dict, receives ``hessian``: the PCG's
+    Hessian, "psf", "psf space mesh (nb, ns)" or "vis"."""
     device = as_device(device)
     dds_name = None
     if ddsi is None:
@@ -94,9 +95,9 @@ def _fluxmop(ddsi=None, output_filename=None, product="I",
     if use_psf:
         ctype = torch.complex128 if dtype == torch.float64 else \
             torch.complex64
-        A = _psf_hessian_maybe_space(bm, tens(psfhat, ctype), lastsize,
-                                     sigmainv, band_chunk, nband, nx,
-                                     space_shards, devices)
+        A, route = _psf_hessian_maybe_space(
+            bm, tens(psfhat, ctype), lastsize, sigmainv, band_chunk, nband,
+            nx, space_shards, devices)
         update = pcg_bands(A, b, tol=cg_tol, maxit=cg_maxit, minit=cg_minit,
                            backtrack=backtrack, verbosity=cg_verbose,
                            report_freq=cg_report_freq)
@@ -109,6 +110,9 @@ def _fluxmop(ddsi=None, output_filename=None, product="I",
         update = pcg(A, b, tol=cg_tol, maxit=cg_maxit, minit=cg_minit,
                      backtrack=backtrack, verbosity=cg_verbose,
                      report_freq=cg_report_freq)
+        route = "vis"
+    if stats is not None:
+        stats["hessian"] = route
 
     update = update.cpu().numpy()
     modelp = model.copy()
@@ -153,7 +157,9 @@ def _psf_hessian_maybe_space(bm, psfhat, lastsize, sigmainv, band_chunk,
     a (len(devices) // space_shards, space_shards) mesh. The PCG itself
     runs on the gathered cube: the JAX package's solve on arrays laid out
     ("band", "space", None) computes the same numbers, and the port's
-    mesh is single-process."""
+    mesh is single-process. Returns (A, route), route "psf space mesh
+    (nb, ns)" or "psf" (the single program, with a warning where
+    ``space_shards`` > 1 could not be met)."""
     ns = int(space_shards) if space_shards else 0
     if ns > 1:
         from pfb_tpu_torch.parallel.mesh import default_devices
@@ -176,7 +182,7 @@ def _psf_hessian_maybe_space(bm, psfhat, lastsize, sigmainv, band_chunk,
                 out = bm * hd(x * bm, php).gather(bm.device)
                 return out + x * sigmainv if sigmainv else out
 
-            return A
+            return A, f"psf space mesh ({nb_ax}, {ns})"
         log.warning(
             "fluxmop: space-shards=%d incompatible with %d device(s), "
             "nx=%d, nband=%d — using the single-program Hessian",
@@ -186,4 +192,4 @@ def _psf_hessian_maybe_space(bm, psfhat, lastsize, sigmainv, band_chunk,
         return hessian_psf_cube(x, psfhat, beam=bm, lastsize=lastsize,
                                 sigmainv=sigmainv, band_chunk=band_chunk)
 
-    return A
+    return A, "psf"

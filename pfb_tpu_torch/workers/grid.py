@@ -16,8 +16,12 @@ component model is rendered on the host onto each dataset's image grid
 at its (time_out, freq_out) and the RESIDUAL is made from it as from a
 MODEL (reference grid.py:308-334).
 
-Not ported yet (they raise): channel re-binning (``nband`` != the xds
-band count), ``concat_row`` and ``target``.
+``nband`` other than the xds band count re-bins the channels
+(workers/concat.py:concat_chan), ``concat_row`` joins each band's time
+chunks into one dataset (concat_row), and ``target`` recentres each
+dataset's image on an ephemeris body or 'HH:MM:SS,DD:MM:SS' through
+(x0, y0) from utils/astrometry.py:radec_to_lm (reference grid.py:371);
+all on the host.
 """
 
 import numpy as np
@@ -51,9 +55,6 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     ``{output_filename}_{PRODUCT}_{suffix}.dds`` unless write=False, with
     the MFS image and the per-band cubes of DIRTY, PSF and RESIDUAL as
     FITS files for ``fits_mfs`` and ``fits_cubes``)."""
-    if target is not None or kw.get("concat_row"):
-        raise NotImplementedError(
-            "target / concat_row are not ported to pfb_tpu_torch yet")
     device = as_device(device)
     if xdsi is None:
         path = xds if isinstance(xds, str) and xds else \
@@ -72,11 +73,17 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
         raise ValueError(f"xds spans fields {sorted(fids)} — image one "
                          "field per grid run (fields=...)")
 
+    nband_in = np.unique([ds["freq_out"] for ds in xds]).size
+    if nband is not None and nband != nband_in:
+        # channel re-binning (reference grid.py:203-214)
+        from pfb_tpu_torch.workers.concat import concat_chan
+        xds = concat_chan(xds, nband)
+    if kw.get("concat_row"):
+        from pfb_tpu_torch.workers.concat import concat_row
+        xds = concat_row(xds)
+
     freqs_out = np.unique([ds["freq_out"] for ds in xds])
     times_out = np.unique([ds["time_out"] for ds in xds])
-    if nband is not None and nband != freqs_out.size:
-        raise NotImplementedError("channel re-binning (concat_chan) is not "
-                                  "ported yet")
 
     uv_max = max(np.abs(ds["UVW"][:, :2]).max() for ds in xds)
     max_freq = max(ds["FREQ"].max() for ds in xds)
@@ -126,14 +133,22 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     def launch(ds):
         """Launch one dataset's device products (asynchronous on CUDA:
         dataset k+1 is launched before dataset k is copied back)."""
+        x0_ds, y0_ds = x0, y0
+        if target is not None:
+            # (x0, y0) = direction cosines of the target with respect to
+            # this dataset's phase centre
+            from pfb_tpu_torch.utils.astrometry import (parse_target,
+                                                        radec_to_lm)
+            radec_t = parse_target(target, obs_time=ds.get("time_out"))
+            x0_ds, y0_ds = radec_to_lm(radec_t, (ds["ra"], ds["dec"]))
         model = ds.get("MODEL")
         if use_best_model and mds is None:
             model = ds.get("MODEL_BEST", model)
         if mds is not None:
             from pfb_tpu_torch.models.comps import eval_mds_to_slice
             model = eval_mds_to_slice(mds, ds["time_out"], ds["freq_out"],
-                                      nx, ny, cell_rad, x0,
-                                      y0).astype(real_type)
+                                      nx, ny, cell_rad, x0_ds,
+                                      y0_ds).astype(real_type)
         counts = None
         if robustness is not None:
             counts = compute_counts_host(ds["UVW"], ds["FREQ"], ds["MASK"],
@@ -142,8 +157,8 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
                 counts = filter_extreme_counts(counts, level=filter_level,
                                                nbox=filter_nbox)
         kwp = dict(robustness=robustness,
-                   model=None if model is None else tens(model), x0=x0,
-                   y0=y0, l2reweight_dof=l2reweight_dof, backend=backend,
+                   model=None if model is None else tens(model), x0=x0_ds,
+                   y0=y0_ds, l2reweight_dof=l2reweight_dof, backend=backend,
                    epsilon=epsilon, do_wgridding=do_wgridding,
                    double_accum=double_accum)
         args = (tens(ds["UVW"]), tens(ds["FREQ"]), tens(ds["VIS"]),
@@ -159,8 +174,8 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
             out.update(_rowdist_products(
                 rd_mesh, ds["UVW"], ds["FREQ"], ds["VIS"],
                 out["WEIGHT"].cpu().numpy(), ds["MASK"], nx, ny, nx_psf,
-                ny_psf, cell_rad, model, x0, y0, epsilon, do_wgridding,
-                device, do_dirty=dirty, do_psf=psf,
+                ny_psf, cell_rad, model, x0_ds, y0_ds, epsilon,
+                do_wgridding, device, do_dirty=dirty, do_psf=psf,
                 do_residual=residual and model is not None))
             if not weight:
                 out.pop("WEIGHT")
@@ -168,7 +183,8 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
             out = image_data_products(*args, do_dirty=dirty, do_psf=psf,
                                       do_weight=weight,
                                       do_residual=residual, **kwp)
-        return dict(ds=ds, out=out, model=model, counts=counts,
+        return dict(ds=ds, out=out, model=model, counts=counts, x0=x0_ds,
+                    y0=y0_ds,
                     bandid=int(np.where(freqs_out == ds["freq_out"])[0][0]),
                     timeid=int(np.where(times_out == ds["time_out"])[0][0]))
 
@@ -179,7 +195,8 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
             return out[k].cpu().numpy()
 
         out_ds = {
-            "ra": ds["ra"], "dec": ds["dec"], "x0": x0, "y0": y0,
+            "ra": ds["ra"], "dec": ds["dec"], "x0": p["x0"],
+            "y0": p["y0"],
             "cell_rad": cell_rad, "bandid": p["bandid"],
             "timeid": p["timeid"],
             "freq_out": ds["freq_out"], "time_out": ds["time_out"],
@@ -190,7 +207,8 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
             "FREQ": np.asarray(ds["FREQ"]),
             "UVW": np.asarray(ds["UVW"]),
             "MASK": np.asarray(ds["MASK"]),
-            "BEAM": _eval_ds_beam(ds, nx, ny, cell_rad, x0, y0, real_type),
+            "BEAM": _eval_ds_beam(ds, nx, ny, cell_rad, p["x0"], p["y0"],
+                                  real_type),
             "WSUM": host("WSUM"),
         }
         if dirty:

@@ -1,8 +1,8 @@
 """init worker: MS (+ optional gain table) -> per-chunk Stokes
 visibility store (xds). Counterpart of pfb_tpu/workers/init.py; the
-Jones/Stokes step runs in torch on ``device``. Rephasing to a common
-``radec`` and the ``site_latitude`` beam average raise
-NotImplementedError (they need utils/astrometry.py, not yet ported).
+Jones/Stokes step runs in torch on ``device``; rephasing to a common
+``radec`` and the ``site_latitude`` beam average run on the host
+(utils/astrometry.py, utils/beam.py).
 
 Reference: pfb/workers/init.py + utils/stokes2vis.py +
 construct_mappings (utils/misc.py:250-487). Reads the npz MS, groups
@@ -115,10 +115,6 @@ def _init(ms=None, output_filename=None, product="I",
     so observations larger than RAM ingest with bounded memory
     (CasaMSSource streams getcol(startrow, nrow) runs).
     """
-    if radec is not None or site_latitude is not None:
-        raise NotImplementedError(
-            "radec rephasing / site_latitude beam averaging are not "
-            "ported to pfb_tpu_torch yet")
     device = as_device(device)
     if isinstance(ms, (list, tuple)):
         ms_list = list(ms)
@@ -232,6 +228,16 @@ def _init_one_ms(ms, product, channels_per_image,
     ddids = _idlist(ddids)
     scans = _idlist(scans)
 
+    radec_out = None
+    if radec is not None:
+        # parse once per run and share across the MS list so every
+        # field of every MS re-references to the SAME centre
+        if "radec" not in _radec_shared:
+            from pfb_tpu_torch.utils.astrometry import parse_target
+            _radec_shared["radec"] = parse_target(
+                radec, obs_time=float(np.mean(time)))
+        radec_out = _radec_shared["radec"]
+
     # (field, ddid, scan) groups (reference misc.py:312-370)
     groups = np.unique(np.stack([fid, did, sid], axis=1), axis=0)
 
@@ -274,12 +280,18 @@ def _init_one_ms(ms, product, channels_per_image,
             "product": product,
         }
         # primary beam on a coarse grid at freq_out (reference
-        # attaches BEAM/l_beam/m_beam, stokes2vis.py:235-280)
+        # attaches BEAM/l_beam/m_beam, stokes2vis.py:235-280);
+        # with site_latitude the beam is the parallactic-angle
+        # average over the chunk's time samples (beam.py:16-83)
         from pfb_tpu_torch.utils.beam import interp_beam
         nb = int(beam_resolution)
         cell_b = max_field_of_view / nb
+        bkw = {}
+        if site_latitude is not None:
+            bkw = dict(utime=ut, radec=(ds["ra"], ds["dec"]),
+                       lat=site_latitude)
         bvals, l_b, m_b = interp_beam(ds["freq_out"], nb, nb, cell_b,
-                                      btype=beam_model)
+                                      btype=beam_model, **bkw)
         ds["BEAM"] = bvals
         ds["l_beam"] = l_b
         ds["m_beam"] = m_b
@@ -302,6 +314,11 @@ def _init_one_ms(ms, product, channels_per_image,
 
         ra_f = float(fra[min(f, fra.size - 1)])
         dec_f = float(fdec[min(f, fdec.size - 1)])
+        need_rephase = radec_out is not None and not np.allclose(
+            (ra_f, dec_f), radec_out)
+        if need_rephase:
+            radec_orig = (ra_f, dec_f)
+            ra_f, dec_f = radec_out
 
         utime = np.unique(time[grow])
         ntime = utime.size
@@ -349,6 +366,12 @@ def _init_one_ms(ms, product, channels_per_image,
                 wcol = weight_column or "WEIGHT_SPECTRUM"
                 wgt_t = np.asarray(slab[wcol]) if wcol in slab else \
                     np.ones(data_t.shape)
+            if need_rephase:
+                # re-reference to the common centre on the host (exact
+                # fixvis-style uvw rotation + phase counter-rotation)
+                from pfb_tpu_torch.utils.astrometry import rephase_to
+                data_t, uvw_t = rephase_to(data_t, uvw_t, radec_orig,
+                                           radec_out, freq_g)
             flag_rc = flag_t[:, chans].any(axis=-1)
 
             for c0 in range(0, nchan, cpi):

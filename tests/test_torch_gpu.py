@@ -1863,3 +1863,92 @@ def test_fluxmop_pg_on_card_reduces_residual(cuda, tmp_path):
     m4, _ = _fluxmop(ddsi=[dict(d) for d in dds], space_shards=4,
                      devices=[cuda] * 4, **kw)
     assert np.abs(m4 - m1).max() <= 1e-4 * np.abs(m1).max()
+
+
+def test_fwdbwd_pg_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """_fwdbwd(backend="pg", parametrisation="id", niter=2) on the card
+    against the same call on the CPU (float32 data in both, each power
+    method started from one numpy draw): the exact residual launches the
+    spread, fold and degrid kernels and no PSF kernel, the MFS residual
+    peak falls below 0.5 of the MFS dirty peak (tests/test_fwdbwd.py:49),
+    and the model agrees to 2e-3 of max: rounding grows through the PCG
+    and primal-dual solves, and the same CPU run in float32 reads 6.2e-4
+    of max from its float64 twin."""
+    from pfb_tpu_torch.opt.power_method import power_method
+    from pfb_tpu_torch.workers import fwdbwd as fwdbwd_mod
+
+    def pm(A, imsize, b0=None, device=None, dtype=torch.float64, **kw):
+        if b0 is None:
+            b0 = torch.as_tensor(np.random.default_rng(42).standard_normal(
+                imsize)).to(device=device, dtype=dtype)
+        return power_method(A, imsize, b0=b0, device=device, dtype=dtype,
+                            **kw)
+
+    monkeypatch.setattr(fwdbwd_mod, "power_method", pm)
+    _, dds = _post_obs(tmp_path, "cpu", psf=True, residual=False)
+    for ds in dds:
+        del ds["MODEL"]
+    kw = dict(backend="pg", epsilon=1e-5, niter=2, parametrisation="id",
+              rmsfactor=0.3, bases="self,db1", nlevels=2, write=False,
+              verbose=0)
+    mc, _, _ = fwdbwd_mod._fwdbwd(ddsi=[dict(d) for d in dds],
+                                  device="cpu", **kw)
+    kernels = (pg.pg_spread, pg.pg_fold, pg.pg_degrid, psf_convolve_h,
+               psf_convolve_full)
+    n0 = [f.launches for f in kernels]
+    mg, _, rg = fwdbwd_mod._fwdbwd(ddsi=[dict(d) for d in dds],
+                                   device=cuda, **kw)
+    n1 = [f.launches for f in kernels]
+    assert all(b > a for a, b in zip(n0[:3], n1[:3]))
+    assert n1[3:] == n0[3:]
+    wsum = sum(float(d["WSUM"][0]) for d in dds)
+    dirty = sum(d["DIRTY"] for d in dds) / wsum
+    assert np.abs(rg.sum(0)).max() < 0.5 * np.abs(dirty).max()
+    err = np.abs(mg - mc).max() / np.abs(mc).max()
+    assert err <= 2e-3, err
+
+
+def test_fastim_pg_on_card_matches_cpu(cuda, tmp_path):
+    """_fastim(backend="pg") on the card, with an mds degridded at two
+    channels a sub-band, against the same call on the CPU (float64 plain
+    versions): every snapshot's RESIDUAL within 1e-5 of the largest
+    snapshot peak and its WSUM to 1e-6; K4 and K5 at least once a
+    snapshot, K6 once a snapshot and sub-band."""
+    from pfb_tpu_torch.workers.fastim import _fastim
+    from pfb_tpu_torch.workers.model2comps import _model2comps
+    ms, dds = _post_obs(tmp_path, "cpu", psf=False, residual=False)
+    mds = _model2comps(ddsi=dds)
+    kw = dict(ms=ms, backend="pg", epsilon=1e-5, integrations_per_image=3,
+              channels_per_grid_image=-1, channels_per_degrid_image=2,
+              field_of_view=0.4, mds=mds, write=False)
+    ref = _fastim(device="cpu", **kw)
+    n0 = [f.launches for f in (pg.pg_spread, pg.pg_fold, pg.pg_degrid)]
+    got = _fastim(device=cuda, **kw)
+    n1 = [f.launches for f in (pg.pg_spread, pg.pg_fold, pg.pg_degrid)]
+    ns = len(ref)
+    assert len(got) == ns == 4
+    assert n1[0] - n0[0] >= ns and n1[1] - n0[1] >= ns
+    assert n1[2] - n0[2] == 2 * ns
+    peak = max(np.abs(d["RESIDUAL"]).max() for d in ref)
+    for a, b in zip(got, ref):
+        assert np.abs(a["RESIDUAL"] - b["RESIDUAL"]).max() <= TOL * peak
+        assert abs(a["WSUM"][0] - b["WSUM"][0]) <= 1e-6 * b["WSUM"][0]
+
+
+def test_fit_spi_on_card_matches_cpu(cuda):
+    """utils/spi.py:fit_spi on the card (the batched Gauss-Newton on
+    device tensors) against the same call on the CPU: the same pixels
+    fitted, alpha and i0 to 1e-10 relative (float64 in both)."""
+    from pfb_tpu_torch.utils.spi import fit_spi
+    rng = np.random.default_rng(3)
+    freqs = 1e9 + np.arange(4) * 1e8
+    cube = np.zeros((4, 64, 64))
+    pix = rng.integers(0, 64, size=(200, 2))
+    for (ix, iy), a in zip(pix, rng.normal(-0.7, 0.2, size=200)):
+        cube[:, ix, iy] = (1.0 + rng.random()) * (freqs / freqs.mean()) ** a
+    ac, ic = fit_spi(cube, freqs, threshold=0.1, device="cpu")
+    ag, ig = fit_spi(cube, freqs, threshold=0.1, device=cuda)
+    np.testing.assert_array_equal(np.isnan(ag), np.isnan(ac))
+    ok = ~np.isnan(ac)
+    for g, c in ((ag, ac), (ig, ic)):
+        assert np.abs(g[ok] - c[ok]).max() <= 1e-10 * np.abs(c[ok]).max()

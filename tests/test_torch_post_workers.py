@@ -20,7 +20,10 @@ tests/test_aux_workers.py:10 (8 antennas, 6 integrations, 2 channels,
   1e-12;
 - fluxmop: model and residual at 1e-8 relative for use_psf True / False
   and dft / pg, the mask options, and space_shards=2 on a 2 x 2 virtual
-  CPU mesh against the single-program step.
+  CPU mesh against the single-program step; which Hessian its PCG ran
+  (stats["hessian"]) on a (1, 4) mesh and on the fallback;
+- grid's ``target``, ``concat_row`` and ``nband`` re-binning:
+  DIRTY, PSF (and RESIDUAL with a model) at 1e-10 relative.
 """
 
 import glob
@@ -218,11 +221,56 @@ def _write_mds(mds, tmp_path):
     return name
 
 
-def test_grid_still_refuses_target_and_concat_row(pipe):
-    with pytest.raises(NotImplementedError):
-        grid_t(xdsi=pipe["xt"], device="cpu", target="Sun", **GRID)
-    with pytest.raises(NotImplementedError):
-        grid_t(xdsi=pipe["xt"], device="cpu", concat_row=True, **GRID)
+def test_grid_target_matches_jax(pipe):
+    """_grid(target=...): each dataset's image recentred through (x0, y0)
+    from radec_to_lm of the target (reference grid.py:371), with a model
+    so the residual's degrid runs off-centre too; DIRTY, PSF and
+    RESIDUAL at 1e-10 relative, x0 / y0 and BEAM exact to 1e-12."""
+    ra, dec = pipe["xt"][0]["ra"], pipe["xt"][0]["dec"]
+    kw = dict(GRID, target=f"{ra + 1e-3},{dec - 7e-4}", residual=True)
+    freqs = sorted({ds["freq_out"] for ds in pipe["xt"]})
+    xt, xj = ([dict(ds, MODEL=pipe["model"][freqs.index(ds["freq_out"])])
+               for ds in x] for x in (pipe["xt"], pipe["xj"]))
+    dt = grid_t(xdsi=xt, device="cpu", **kw)
+    dj = grid_j(xdsi=xj, **kw)
+    assert dt[0]["x0"] != 0.0 and dt[0]["y0"] != 0.0
+    for a, b in zip(dt, dj):
+        assert abs(a["x0"] - b["x0"]) <= 1e-12 * abs(b["x0"])
+        assert abs(a["y0"] - b["y0"]) <= 1e-12 * abs(b["y0"])
+        assert _rel(a["BEAM"], b["BEAM"]) < 1e-12
+        for k in ("DIRTY", "PSF", "RESIDUAL"):
+            assert _rel(a[k], b[k]) < 1e-10, k
+
+
+@pytest.fixture(scope="module")
+def xds4(tmp_path_factory):
+    """Single-channel xds of a 4-channel observation in 2 time chunks:
+    4 bands x 2 times, from both packages."""
+    ms = str(tmp_path_factory.mktemp("concat") / "t.npz")
+    simulate_ms(ms, nant=7, ntime=6, nchan=4, nsource=2, fov_deg=FOV,
+                seed=5)
+    kw = dict(write=False, channels_per_image=1, integrations_per_image=3)
+    return init_t(ms=ms, device="cpu", **kw), init_j(ms=ms, **kw)
+
+
+@pmp("opt", [dict(concat_row=True), dict(nband=2),
+             dict(nband=2, concat_row=True)])
+def test_grid_concat_matches_jax(xds4, opt):
+    """_grid(concat_row=True) joins each band's time chunks into one
+    dataset and _grid(nband=2) re-bins the 4 single-channel bands into 2
+    (workers/concat.py, reference grid.py:203-214); the datasets' count,
+    bands and times, and DIRTY and PSF at 1e-10 relative."""
+    xt, xj = xds4
+    kw = dict(GRID, **opt)
+    dt = grid_t(xdsi=xt, device="cpu", **kw)
+    dj = grid_j(xdsi=xj, **kw)
+    nb = opt.get("nband", 4)
+    assert len(dt) == len(dj) == nb * (1 if opt.get("concat_row") else 2)
+    for a, b in zip(dt, dj):
+        for k in ("bandid", "timeid", "freq_out", "time_out"):
+            assert a[k] == b[k], k
+        for k in ("DIRTY", "PSF", "WSUM"):
+            assert _rel(a[k], b[k]) < 1e-10, k
 
 
 def _files(d, prefix):
@@ -387,3 +435,20 @@ def test_fluxmop_space_shards_match_single_program(pipe, caplog):
                           space_shards=5, devices=["cpu"] * 4, **kw)
     assert "single-program" in caplog.text
     np.testing.assert_array_equal(m5, m1)
+
+
+@pmp("ndev,route", [(4, "psf space mesh (1, 4)"), (3, "psf")])
+def test_fluxmop_space_route_is_observable(pipe, caplog, ndev, route):
+    """space_shards=4: on four devices the conditions of
+    workers/fluxmop.py:_psf_hessian_maybe_space hold (nx % 4 == 0, a
+    (1, 4) mesh), so the PCG runs the mesh Hessian, which
+    stats["hessian"] shows; on three devices it takes the single-program
+    Hessian and warns."""
+    assert pipe["nx"] % 4 == 0
+    st = {}
+    with caplog.at_level("WARNING"):
+        fluxmop_t(ddsi=_copies(pipe["dt"]), device="cpu", space_shards=4,
+                  devices=["cpu"] * ndev, stats=st,
+                  **dict(MOP, use_psf=True, cg_maxit=6))
+    assert st["hessian"] == route
+    assert ("single-program" in caplog.text) == (ndev != 4)

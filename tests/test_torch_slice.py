@@ -292,6 +292,10 @@ import pfb_tpu_torch.ops.memlab, pfb_tpu_torch.models
 import pfb_tpu_torch.workers.model2comps, pfb_tpu_torch.workers.degrid
 import pfb_tpu_torch.workers.restore, pfb_tpu_torch.workers.fluxmop
 import pfb_tpu_torch.utils.restoration
+import pfb_tpu_torch.utils.astrometry, pfb_tpu_torch.utils.spi
+import pfb_tpu_torch.ops.gauss, pfb_tpu_torch.ops.mask
+import pfb_tpu_torch.workers.concat, pfb_tpu_torch.workers.fwdbwd
+import pfb_tpu_torch.workers.fastim, pfb_tpu_torch.workers.smoovie
 sys.path.insert(0, {str(scripts)!r})
 import torch_kernel_lab, torch_g2i_lab, torch_capacity_lab, chip_smoke
 from pfb_tpu_torch.utils.ms import simulate_ms
@@ -335,6 +339,18 @@ dds = _grid(xdsi=xds, write=False, device="cpu", nx=128, backend="wgrid",
             psf_oversize=3.0, psf=True, residual=False)
 _spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
           pd_maxit=2, pm_maxit=3, backend="wgrid", verbose=0)
+from pfb_tpu_torch.workers.fwdbwd import _fwdbwd
+from pfb_tpu_torch.workers.fastim import _fastim
+from pfb_tpu_torch.workers.smoovie import _smoovie
+_fwdbwd(ddsi=dds, write=False, device="cpu", backend="wgrid", niter=1,
+        parametrisation="exp", pd_maxit=2, pm_maxit=3, cg_maxit=2,
+        verbose=0)
+fds = _fastim(ms=ms, write=False, device="cpu", nx=64, backend="pg",
+              mds=mds, robustness=0.0)
+_smoovie(fdsi=fds, output_filename={str(tmp_path / 'm')!r})
+_init(ms=ms, write=False, device="cpu", radec="Sun", site_latitude=-0.5)
+_grid(xdsi=xds, write=False, device="cpu", nx=64, target="Sun",
+      concat_row=True, nband=1, psf=False)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "pfb_tpu")]
 assert not bad, bad
 print("clean")
