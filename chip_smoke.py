@@ -228,7 +228,7 @@ Phases:
      snapshots of 8064 rows x 8 channels) with no model and with phase
      27's mds degridded two channels a sub-band, each against one fastim
      call of all 128 integrations: the snapshots' RESIDUAL sum within
-     1e-5 of the model-free one image's peak (STOL, the gridder's
+     1e-5 of the model-free one image's peak (SNAPTOL, the gridder's
      epsilon on the scale of the sky: the model run's residual is near
      float32 rounding of the model visibilities, which the 32 small
      plans and the one large plan degrid to epsilon each; the reading
@@ -244,7 +244,35 @@ Phases:
      with the plain versions in the kernels' place (plain_gridder, which
      must launch nothing), at the kernel tolerance; smoovie(animate_axis
      "time", time_bin 2, gif) on the model-free snapshots: 16 finite
-     frames and the movie file.
+     frames and the movie file;
+ 29. the CLI path at full width, after phase 28, in this process:
+     ``cli.main(["--device", "cuda", "pipeline", <recipe>],
+     standalone_mode=False)`` with the recipe of phase 6's init -> grid
+     -> spotless (cli_recipe: phase 3's observation, every parameter whose
+     schema default differs from what phase 6 passes stated), counts reset
+     before the recipe and read at each step's start (the pipeline's
+     "step i/n" log line) and after it: the model and MFS residual read
+     back from the written dds store against phase 6's within 1e-5 of the
+     MFS dirty peak (the maximum difference and whether they are equal bit
+     for bit printed), each stage's launches of K1, K3c, K3r and K4-K6
+     equal to phase 6's and K3 at 0; then the recipe's grid step as a grid
+     command of its own under ``--profile-dir`` (a trace of the whole
+     recipe is too large to keep), with the same launches, whose
+     torch.profiler trace must name at least one of the port's kernels
+     (its size and export seconds printed);
+ 30. two processes on the card: two ``python3`` subprocesses join through
+     ``set_client(coordinator="127.0.0.1:<free port>", num_processes=2,
+     process_id=r, devices=["cuda:0"])`` (gloo, host-staged) and read
+     phase 29's dds store (the (8, 4096^2) PSF, phase 29's model as x);
+     each runs hessian_psf_dist(engine="pallas") and power_method_dist on
+     a (2, 1) band mesh (4 bands a process) and
+     hessian_psf_space_dist(method="pallas") on a (1, 2) space mesh (K10
+     with all-to-alls across the processes), and writes its gathered
+     results, launches and seconds to an npz; this process runs the same
+     on one-process meshes of the same shapes on the card. The matvecs
+     within 1e-6 of max (STOL) and beta within 1e-6 relative (whether each
+     is equal bit for bit printed), K1 and the K10 stages launched in each
+     process, both processes ending with 0 within their timeout.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -290,6 +318,7 @@ HBM_BPS = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM FP32 rate outside the tensor cores
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 NX = 2048
+INIT = dict(precision="single", channels_per_image=1)
 SIM = dict(nant=64, ntime=128, nchan=8, nsource=20, extent=4000.0,
            seed=7, gains=False)
 GRID = dict(backend="wgrid", nx=NX, ny=NX, epsilon=1e-5, robustness=None,
@@ -334,7 +363,7 @@ FWD_GATE = 0.5  # MFS residual peak below this share of the MFS dirty peak
 SNAP = dict(backend="pg", epsilon=1e-5, integrations_per_image=4,
             channels_per_grid_image=-1, precision="single")
 WTOL = 1e-6  # WSUM of the snapshots against the one image, relative
-STOL = 1e-5  # their RESIDUAL sum, of the model-free image's peak
+SNAPTOL = 1e-5  # their RESIDUAL sum, of the model-free image's peak
 
 
 class SmokeFailure(Exception):
@@ -475,8 +504,7 @@ def main_path(truth, device, grid=GRID, spot=SPOT):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    xds = _init(ms=truth["ms"], precision="single", channels_per_image=1,
-                write=False, device=device)
+    xds = _init(ms=truth["ms"], write=False, device=device, **INIT)
     res["t"]["init"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1511,11 +1539,12 @@ def k2_checks(psf, wsums, model, device, timing=True, pcg=PCG):
     return err, recs, rates, launches, k2_info
 
 
-def k10_checks(psf, nx, nspace, device, timing=True):
-    """K10's three stages against their plain versions at the shapes the
-    dist path gives them: the (nb / 2)-band rows of a (2, nspace) mesh,
-    nx / nspace columns or (nx + 1 padded) / nspace spectrum rows per
-    shard, with the grid phase's PSF; returns the records."""
+def k10_checks(psf, nx, nspace, device, timing=True, nbl=None):
+    """K10's three stages against their plain versions at the shapes a
+    space mesh gives them: the ``nbl``-band rows (default nb / 2, those
+    of a (2, nspace) mesh), nx / nspace columns or (nx + 1 padded) /
+    nspace spectrum rows per shard, with the grid phase's PSF; returns
+    the records."""
     import torch
 
     from pfb_tpu_torch.ops.psf import (prep_h_space, psf_stage_cols_fwd,
@@ -1524,7 +1553,7 @@ def k10_checks(psf, nx, nspace, device, timing=True):
                                        psf_stage_cols_inv_plain,
                                        psf_stage_rows, psf_stage_rows_plain,
                                        space_rows)
-    nbl = psf.shape[0] // 2
+    nbl = psf.shape[0] // 2 if nbl is None else nbl
     psf_t = torch.as_tensor(psf[:nbl], dtype=torch.float32, device=device)
     hr, hi = prep_h_space(psf_t, nx, nx, nspace, torch.float32)
     del psf_t
@@ -2633,7 +2662,7 @@ def report_imaging(rim):
               f"{f['snaps_per_s']:.2f} snapshots/s; their RESIDUAL sum vs "
               f"the one image: max|diff| over the one image's peak "
               f"{f['rel']:.3e}, over the model-free image's peak "
-              f"{f['rel_dirty']:.3e} (bound {STOL}), WSUM "
+              f"{f['rel_dirty']:.3e} (bound {SNAPTOL}), WSUM "
               f"{f['wsum_rel']:.3e} (bound {WTOL})")
     print("[imaging] the first snapshot's plans " + json.dumps(
         rim["snap_plans"]))
@@ -2657,8 +2686,8 @@ def report_imaging(rim):
         need(f["nsnap"] == nsnap and f["none"] == 1, f"{tag}: "
              f"{f['nsnap']} snapshots and {f['none']} whole images")
         need(f["finite"], f"{tag}: non-finite snapshot")
-        need(f["rel_dirty"] <= STOL, f"{tag}: snapshot sum vs one image "
-             f"{f['rel_dirty']} of the model-free peak > {STOL}")
+        need(f["rel_dirty"] <= SNAPTOL, f"{tag}: snapshot sum vs one image "
+             f"{f['rel_dirty']} of the model-free peak > {SNAPTOL}")
         need(f["wsum_rel"] <= WTOL, f"{tag}: WSUM {f['wsum_rel']} > {WTOL}")
         for k in ("K4", "K5"):
             need(lc[k] >= nsnap, f"{tag}: {k} launched {lc[k]} times for "
@@ -2680,6 +2709,373 @@ def report_imaging(rim):
     need(rim["frames"] == nsnap // 2 and rim["frames_finite"],
          f"smoovie: {rim['frames']} frames, finite {rim['frames_finite']}")
     need(rim["movie"], "smoovie wrote no movie")
+
+
+# phase 29's recipe: phase 6's init -> grid -> spotless through the CLI,
+# with every parameter whose schema default differs from what main_path
+# passes stated (tests/test_torch_cli.py holds the resolved arguments
+# against INIT, GRID_PG and SPOT_PG)
+RECIPE = """steps:
+  - worker: init
+    params: {{ms: {ms}, output-filename: {out}, channels-per-image: 1,
+             precision: single, weight-column: null, overwrite: true}}
+  - worker: grid
+    params: {{output-filename: {out}, backend: pg, nx: {nx}, ny: {nx},
+             robustness: 0.0, psf: true, residual: false,
+             epsilon: 1.0e-5, fits-mfs: false, overwrite: true}}
+  - worker: spotless
+    params: {{output-filename: {out}, engine: pallas, backend: pg,
+             epsilon: 1.0e-5, bases: 'self,db1,db2', nlevels: 3,
+             niter: 3, pd-maxit: 100, diverge-count: 3, fits-mfs: false,
+             verbose: 0, pm-verbose: 0, pd-verbose: 0}}
+"""
+CLI_STAGES = ("init", "grid", "spotless")
+# phase 29's profiled command: the recipe's grid on its own (a trace of the
+# whole recipe measured 200 MB at 128^2 on the CPU, most of it the
+# solver's small operations), into another output name
+CLI_GRID = ["grid", "--backend", "pg", "--robustness", "0.0", "--psf",
+            "--no-residual", "--epsilon", "1e-5", "--no-fits-mfs",
+            "--overwrite"]
+MP_TIMEOUT = 300  # seconds each phase-30 process may take
+PM = dict(tol=1e-5, maxit=100)  # phase 30's power method (spotless's pm)
+
+
+def cli_recipe(ms, out, nx=NX):
+    return RECIPE.format(ms=ms, out=out, nx=nx)
+
+
+def port_kernel_names():
+    """The __global__ functions of pfb_tpu_torch/csrc."""
+    import re
+    names = set()
+    for src in (Path(__file__).resolve().parent / "pfb_tpu_torch" /
+                "csrc").glob("*.cu*"):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                r"\((?:[^()]|\([^()]*\))*\)\s+)?(\w+)",
+                                src.read_text()))
+    return names
+
+
+def trace_kernels(path):
+    """(events of the port's kernels by name, every kernel event) in a
+    torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = port_kernel_names()
+    ours, nkern = {}, 0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        nkern += 1
+        for n in names:
+            if n in e.get("name", ""):
+                ours[n] = ours.get(n, 0) + 1
+    return ours, nkern
+
+
+def cli_path(truth, rpg, device, workdir, nx=NX):
+    """Phase 29: phase 6's path through the CLI's ``pipeline`` command in
+    this process, then the recipe's grid step as a ``grid`` command of its
+    own under ``--profile-dir``; returns the stage launches (counts reset
+    before the recipe and read at each step's start and after it, and
+    around the profiled command), the read-back model and residual
+    against phase 6's and the trace."""
+    import logging
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.utils import dstore
+    from pfb_tpu_torch.utils.profiling import stop_profile
+    from pfb_tpu_torch.workers.cubes import dds2cubes
+    from pfb_tpu_torch.workers.main import cli
+
+    wd = Path(workdir) / "cli"
+    shutil.rmtree(wd, ignore_errors=True)
+    wd.mkdir(parents=True)
+    out = str(wd / "out")
+    recipe = wd / "recipe.yaml"
+    recipe.write_text(cli_recipe(truth["ms"], out, nx))
+    cnt = counters()
+    snaps = []
+
+    class StepCounts(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("step "):
+                snaps.append({k: c.launches for k, c in cnt.items()})
+
+    handler = StepCounts()
+    plog = logging.getLogger("pfb_tpu_torch.PIPELINE")
+    for c in cnt.values():
+        c.launches = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    plog.addHandler(handler)
+    t0 = time.perf_counter()
+    try:
+        cli.main(["--device", str(device), "pipeline", str(recipe)],
+                 standalone_mode=False)
+        sync(device)
+    finally:
+        plog.removeHandler(handler)
+    res = dict(t={"recipe": time.perf_counter() - t0}, store=out +
+               "_I_main.dds")
+    snaps.append({k: c.launches for k, c in cnt.items()})
+    need(len(snaps) == len(CLI_STAGES) + 1,
+         f"the pipeline logged {len(snaps) - 1} steps, not "
+         f"{len(CLI_STAGES)}")
+    res["launches"] = {st: {k: snaps[i + 1][k] - snaps[i][k] for k in cnt}
+                       for i, st in enumerate(CLI_STAGES)}
+    if device.type == "cuda":
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+
+    for c in cnt.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    cli.main(["--device", str(device), "--profile-dir", str(wd / "prof")] +
+             CLI_GRID + ["--xds", out + "_I.xds", "-o", str(wd / "prof_out"),
+                         "--nx", str(nx), "--ny", str(nx)],
+             standalone_mode=False)
+    sync(device)
+    res["t"]["grid_profiled"] = time.perf_counter() - t0
+    res["launches"]["grid_profiled"] = {k: c.launches for k, c in
+                                        cnt.items()}
+    t0 = time.perf_counter()
+    trace = stop_profile()
+    res["t"]["trace_export"] = time.perf_counter() - t0
+    need(trace is not None and Path(trace).exists(),
+         f"no trace under {wd / 'prof'}")
+    res["trace_bytes"] = Path(trace).stat().st_size
+    res["trace_ours"], res["trace_kernels"] = trace_kernels(trace)
+
+    dds = dstore.read_store(res["store"])
+    wsum = dds2cubes(dds, len(dds))[6].sum()
+    model = np.stack([ds["MODEL"] for ds in dds])
+    resid = np.stack([ds["RESIDUAL"] for ds in dds])
+    resid6 = np.stack([rpg["residual"][ds["bandid"]] * wsum for ds in dds])
+    peak = float(np.abs(mfs_over_wsum(rpg["dds"], "DIRTY")).max())
+    res["model_err"] = float(np.abs(model - rpg["model"]).max()) / peak
+    res["mfs_resid_err"] = float(np.abs(resid.sum(0) - resid6.sum(0)).max()
+                                 / wsum) / peak
+    res["model_bitwise"] = bool(np.array_equal(model, rpg["model"]))
+    res["resid_bitwise"] = bool(np.array_equal(resid, resid6))
+    return res
+
+
+def report_cli(rcli, lp):
+    """Print phase 29's seconds, memory, launches, trace and errors, and
+    gate them against phase 6's launches ``lp``."""
+    print(f"[cli] pipeline recipe (init -> grid -> spotless) "
+          f"{rcli['t']['recipe']:.3f} s, peak device memory "
+          f"{rcli.get('peak_mem_gb', 0.0):.2f} GiB; grid command under "
+          f"--profile-dir {rcli['t']['grid_profiled']:.3f} s, trace export "
+          f"{rcli['t']['trace_export']:.3f} s")
+    print("[cli] launches " + json.dumps(
+        {st: {k: v for k, v in lc.items() if v}
+         for st, lc in rcli["launches"].items()}))
+    print(f"[cli] trace {rcli['trace_bytes']} bytes, {rcli['trace_kernels']}"
+          f" kernel events, the port's kernels " +
+          json.dumps(rcli["trace_ours"]))
+    print(f"[cli] read back vs phase 6, over the MFS dirty peak: model "
+          f"{rcli['model_err']:.3e} (bitwise {rcli['model_bitwise']}), MFS "
+          f"residual {rcli['mfs_resid_err']:.3e} (residual cube bitwise "
+          f"{rcli['resid_bitwise']}), bound {TOL}")
+    need(max(rcli["model_err"], rcli["mfs_resid_err"]) <= TOL,
+         f"the CLI's model / residual differ from phase 6's: "
+         f"{rcli['model_err']}, {rcli['mfs_resid_err']}")
+    lc = rcli["launches"]
+    for k in ("K1", "K3c", "K3r", "K4", "K5", "K6"):
+        grid = lc["init"][k] + lc["grid"][k]
+        need(grid == lp["grid"][k] and lc["spotless"][k] ==
+             lp["spotless"][k], f"CLI {k} launches init+grid {grid}, "
+             f"spotless {lc['spotless'][k]}; phase 6 {lp['grid'][k]}, "
+             f"{lp['spotless'][k]}")
+        need(lc["grid_profiled"][k] == lc["grid"][k], f"the profiled grid "
+             f"command launched {k} {lc['grid_profiled'][k]} times, the "
+             f"recipe's grid {lc['grid'][k]}")
+    need(all(lc[st]["K3"] == 0 for st in lc), "K3 launched on the CLI path")
+    need(rcli["trace_ours"], "the profiler trace names none of the port's "
+         "kernels")
+
+
+# one process of phase 30: joins the mesh, runs mesh_runs, writes its npz
+MP_CHILD = r"""
+import json, sys, time
+t_start = time.perf_counter()
+root, port, rank, store, out, nx, dev = sys.argv[1:8]
+sys.path.insert(0, root)
+import numpy as np
+import chip_smoke as cs
+from pfb_tpu_torch.parallel.runtime import set_client
+t0 = time.perf_counter()
+set_client(coordinator=f"127.0.0.1:{port}", num_processes=2,
+           process_id=int(rank), devices=[dev])
+t_join = time.perf_counter() - t0
+r = cs.mesh_runs(store, int(nx), dev, 1)
+r["t"]["join"] = t_join
+r["t"]["process"] = time.perf_counter() - t_start
+np.savez(out, band=r.pop("band"), space=r.pop("space"),
+         info=json.dumps(r))
+"""
+
+
+def mesh_runs(store, nx, dev, nvirtual, checks=False):
+    """Phase 30's work on this process's part of a (2, 1) band mesh and a
+    (1, 2) space mesh, ``nvirtual`` shards of each on ``dev`` (2 in one
+    process, 1 in each of two): the PSF and model of the dds ``store``,
+    hessian_psf_dist(engine="pallas") and power_method_dist on the band
+    mesh and hessian_psf_space_dist(method="pallas") on the space mesh,
+    each gathered to the host, with launches and seconds. With
+    ``checks``, also K1 on the whole cube ("k1", what the space matvec is
+    held to) and K10's stages against their plain versions at the (1, 2)
+    mesh's shard shapes ("k10_recs"), each with its counts reset before
+    it."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.ops.psf import prep_h, prep_h_space, psf_convolve_h
+    from pfb_tpu_torch.parallel.dist import (hessian_psf_dist,
+                                             hessian_psf_space_dist,
+                                             power_method_dist)
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    from pfb_tpu_torch.utils import dstore
+    from pfb_tpu_torch.workers.cubes import dds2cubes
+    dev = torch.device(dev)
+    cnt = counters()
+    res = {"t": {}, "launches": {}}
+
+    def step(name, fn):
+        for c in cnt.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        res["t"][name] = time.perf_counter() - t0
+        res["launches"][name] = {k: c.launches for k, c in cnt.items()
+                                 if c.launches}
+        return out
+
+    t0 = time.perf_counter()
+    dds = dstore.read_store(store)
+    cubes = dds2cubes(dds, len(dds))
+    psf = torch.as_tensor(cubes[3], dtype=torch.float32, device=dev)
+    x = torch.as_tensor(np.ascontiguousarray(cubes[1]), dtype=torch.float32,
+                        device=dev)
+    del dds, cubes
+    if dev.type == "cuda":
+        # after the first allocation: a fresh process's allocator refuses
+        # the reset before it
+        torch.cuda.reset_peak_memory_stats(dev)
+    res["t"]["read"] = time.perf_counter() - t0
+    h = [a for a in prep_h(psf, nx, nx, torch.float32) if a is not None]
+    band = make_mesh(nband=2, nspace=1, devices=[dev] * nvirtual)
+    hess = hessian_psf_dist(band, engine="pallas")
+    res["band"] = step("band", lambda: hess(x, *h).gather()).cpu().numpy()
+    pm = power_method_dist(band, engine="pallas", **PM)
+    res["beta"] = float(step("power", lambda: pm(x, *h)[0]))
+    del h
+    hs = [a for a in prep_h_space(psf, nx, nx, 2, torch.float32)
+          if a is not None]
+    space = make_mesh(nband=1, nspace=2, devices=[dev] * nvirtual)
+    sp = hessian_psf_space_dist(space, method="pallas")
+    res["space"] = step("space", lambda: sp(x, *hs).gather()).cpu().numpy()
+    if checks:
+        h1 = [a[:, :nx + 1].contiguous() for a in hs]
+        res["k1"] = step("k1", lambda: psf_convolve_h(x, *h1)).cpu().numpy()
+        del h1, hs
+        res["k10_recs"] = step("k10_plain", lambda: k10_checks(
+            psf, nx, 2, dev, timing=False, nbl=psf.shape[0]))
+    del psf
+    if dev.type == "cuda":
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return res
+
+
+def mesh_procs(store, nx, device, workdir):
+    """Phase 30: mesh_runs in two processes joined by set_client and in
+    this one on one-process meshes of the same shapes; returns both."""
+    import socket
+
+    import numpy as np
+    import torch
+    root = str(Path(__file__).resolve().parent)
+    dev = str(torch.device(device.type, 0) if device.type == "cuda"
+              else device)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = [str(Path(workdir) / f"mesh{r}.npz") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MP_CHILD, root, str(port), str(r), store,
+         outs[r], str(nx), dev], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=MP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        need(p.returncode == 0, f"phase-30 process {r} exited "
+             f"{p.returncode}: {lg[-3000:]}")
+    kids = []
+    for o in outs:
+        with np.load(o) as d:
+            k = json.loads(str(d["info"]))
+            k.update(band=d["band"], space=d["space"])
+        kids.append(k)
+    one = mesh_runs(store, nx, dev, 2, checks=True)
+    return dict(kids=kids, one=one, wall=wall)
+
+
+def report_mesh(rm):
+    """Print phase 30's backend, seconds, launches and agreement, and gate
+    them."""
+    import numpy as np
+    one = rm["one"]
+    print(f"[mesh] two processes, gloo (host-staged), both done in "
+          f"{rm['wall']:.3f} s; one-process meshes " + json.dumps(
+              {k: round(v, 3) for k, v in one["t"].items()}) +
+          f", peak {one.get('peak_mem_gb', 0.0):.2f} GiB")
+    err = float(np.abs(one["space"] - one["k1"]).max()
+                / np.abs(one["k1"]).max())
+    print(f"[mesh] one-process space matvec vs K1 on the whole cube: "
+          f"max|diff|/max = {err:.3e} (bound {STOL}), bitwise "
+          f"{bool(np.array_equal(one['space'], one['k1']))}")
+    need(err <= STOL, f"one-process space matvec vs K1 {err} > {STOL}")
+    need(one["launches"]["k1"].get("K1", 0) > 0, "the whole-cube reference "
+         "launched no K1")
+    for r in one["k10_recs"]:
+        print("[mesh] [kernel] " + json.dumps(r))
+    bad = [r["name"] for r in one["k10_recs"] if not r["ok"]]
+    need(not bad, f"K10 disagrees with its plain version at the (1, 2) "
+         f"mesh's shard shapes: {bad}")
+    for r, k in enumerate(rm["kids"]):
+        print(f"[mesh] process {r} seconds " + json.dumps(
+            {a: round(v, 3) for a, v in k["t"].items()}) + ", peak device "
+            f"memory {k.get('peak_mem_gb', 0.0):.2f} GiB")
+        print(f"[mesh] process {r} launches " + json.dumps(k["launches"]))
+        for key in ("band", "space"):
+            ref = one[key]
+            err = float(np.abs(k[key] - ref).max() / np.abs(ref).max())
+            bit = bool(np.array_equal(k[key], ref))
+            print(f"[mesh] process {r} {key} matvec vs one process: "
+                  f"max|diff|/max = {err:.3e} (bound {STOL}), bitwise {bit}")
+            need(err <= STOL, f"process {r} {key} matvec {err} > {STOL}")
+        berr = abs(k["beta"] - one["beta"]) / abs(one["beta"])
+        print(f"[mesh] process {r} beta {k['beta']:.9e} vs {one['beta']:.9e}"
+              f": {berr:.3e} relative (bound {STOL}), bitwise "
+              f"{k['beta'] == one['beta']}")
+        need(berr <= STOL, f"process {r} beta {berr} > {STOL}")
+        lc = k["launches"]
+        need(lc["band"].get("K1", 0) > 0 and lc["power"].get("K1", 0) > 0,
+             f"process {r} launched no K1 on the band mesh")
+        for s in ("K10a", "K10b", "K10c"):
+            need(lc["space"].get(s, 0) > 0, f"process {r} launched no {s} "
+                 "on the space mesh")
 
 
 def main():
@@ -2802,6 +3198,20 @@ def main():
             for k in launches:
                 launches[k] += lc[k]
         del rim, mds
+        torch.cuda.empty_cache()
+
+        # 29. the CLI path: phase 6's recipe through the pipeline command
+        rcli = cli_path(truth, rpg, device, workdir)
+        report_cli(rcli, lp)
+        for lc in rcli["launches"].values():
+            for k in launches:
+                launches[k] += lc[k]
+        torch.cuda.empty_cache()
+
+        # 30. two processes on the card, on phase 29's dds store
+        rmesh = mesh_procs(rcli["store"], NX, device, workdir)
+        report_mesh(rmesh)
+        del rcli, rmesh
         torch.cuda.empty_cache()
 
         # 10. blocked against unblocked, K7-K9 against plain (2048^2)

@@ -19,6 +19,15 @@ Cubes are (nband, nx, ny); a band-sharded cube is replicated over
 "space", which on virtual shards of one device is one tensor and one
 computation per band row.
 
+Across processes (a mesh from ``set_client(coordinator=...)``) each
+process runs the same host loop on its own shards, and the collectives of
+the groups that cross processes move tensors between them; the sums stay
+in mesh order, so a two-process run gives the one-process mesh's numbers.
+The JAX package runs these across processes: the band-sharded Hessian,
+power method, PCG and primal-dual, and the space-sharded Hessian. The
+space-sharded primal-dual, whose halo wavelet transform indexes every
+shard of its band row, runs in one process.
+
 Engines of the PSF Hessian: ``"fft"`` (torch.fft on PSFHAT) and
 ``"pallas"`` (the name is the JAX package's): K1 per band shard
 (ops/psf.py:psf_convolve_h) on the band-local steps, and K10
@@ -331,7 +340,7 @@ def _space_kernel_conv(xs, hargs, devs, sigmainv=0.0):
     rows -> (all-to-all) columns -> stage 1 -> (all-to-all) spectrum rows
     -> stage 2 -> (all-to-all) columns -> stage 3 -> (all-to-all) rows.
     Float32 on CUDA (the kernels' type), the cube's dtype on the CPU."""
-    ps = len(xs)
+    ps = coll.group_size(devs)
     nx, ny = xs[0].shape[1] * ps, xs[0].shape[2]
     NX, NY = 2 * nx, 2 * ny
     hr = hargs[0]
@@ -364,7 +373,7 @@ def _space_fft_conv(xs, psfhat_ps, devs, lastsize, sigmainv=0.0):
     the inverse y transform. The JAX package's band chunks (``nsplit``),
     which only let XLA overlap the collectives with compute, are left
     out: the lockstep mesh runs the collectives in turn either way."""
-    ps = len(xs)
+    ps = coll.group_size(devs)
     nyp = lastsize
     nyw = nyp // 2 + 1
     nxl, ny = xs[0].shape[-2:]
@@ -389,11 +398,12 @@ def _space_allgather_conv(xs, psfhats, devs, lastsize, sigmainv=0.0):
     """Gather the band row's image rows, convolve whole, keep the own
     rows (the all-gather method; O(cube) received per shard)."""
     nxl = xs[0].shape[1]
+    r0 = coll.as_group(devs).first
     full = coll.all_gather(xs, devs, 1)
     out = smap(lambda f, p: hessian_psf_cube(f, p, lastsize=lastsize,
                                              sigmainv=sigmainv), full,
                psfhats)
-    return [o[:, r * nxl:(r + 1) * nxl] for r, o in enumerate(out)]
+    return [o[:, r * nxl:(r + 1) * nxl] for r, o in enumerate(out, r0)]
 
 
 def _need_lastsize(lastsize, what):
@@ -510,6 +520,10 @@ def primal_dual_space_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
         _need_lastsize(lastsize, "primal_dual_space_dist")
     elif engine != "pallas":
         raise ValueError(f"unknown engine {engine!r}")
+    if mesh.nproc > 1:
+        raise NotImplementedError(
+            "primal_dual_space_dist runs in one process (its wavelet "
+            "transforms index every shard of a band row)")
     if nu is None:
         nu = psi.nbasis
     ps = mesh.shape["space"]
@@ -632,7 +646,8 @@ def make_vis2dirty_rowdist(mesh, uvw, freq, *, nx, ny, cellx, celly,
                           x0=x0, y0=y0, w_params=wp, tile_u=tu, tile_v=tv,
                           nentries_to=nentries_to, device=dev)
 
-    keys = [(mesh.index(i, axis), str(d)) for i, d in enumerate(mesh.devices)]
+    keys = [(mesh.index(i, axis), str(d))
+            for i, d in zip(mesh.local, mesh.devices)]
     built = {}
     for (s, _), d in zip(keys, mesh.devices):
         if (s, str(d)) not in built:
@@ -746,7 +761,7 @@ def make_hessian_dds_dist(mesh, dds, nband, wsum, nx, ny, sigmainv=0.0,
 
     ops = {}
     shard_ops = []
-    for i, d in enumerate(mesh.devices):
+    for i, d in zip(mesh.local, mesh.devices):
         key = (mesh.index(i, "band"), str(d))
         if key not in ops:
             ops[key] = build(key[0], d)

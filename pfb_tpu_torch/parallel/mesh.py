@@ -2,25 +2,33 @@
 pfb_tpu/parallel/mesh.py).
 
 The JAX package runs its distributed steps as ``shard_map`` programs
-over a ``jax.sharding.Mesh``. The port's mesh is single-process: a
-(nband, nspace) grid of ``torch.device`` with axes ("band", "space"),
-whose entries may repeat. Several *virtual shards* can then share one
-card (or the CPU in the tests), which is how the space-sharded path runs
-on a machine with one GPU; on a host with several cards the same code
-puts one shard per card and moves tensors between them with ``.to``.
+over a ``jax.sharding.Mesh``. The port's mesh is a (nband, nspace) grid
+of shards with axes ("band", "space"), each on a ``torch.device``, whose
+entries may repeat. Several *virtual shards* can then share one card (or
+the CPU in the tests), which is how the space-sharded path runs on a
+machine with one GPU; on a host with several cards the same code puts one
+shard per card and moves tensors between them with ``.to``.
 
-A :class:`Sharded` tensor is the per-shard tensors plus a spec naming,
-per dimension, the mesh axis that splits it (``None``: not split), as a
-``PartitionSpec`` does. Shards that the spec does not tell apart and
-that sit on one device share ONE tensor (and the dist functions compute
-on it once): replicated means one tensor per device, not one per shard.
-A layout is named by its spec tuple alone (parallel/dist.py's ``CUBE``,
-``COEFF`` and the rest), where the JAX package builds NamedShardings.
+A mesh may span processes (``parallel/runtime.py:set_client(coordinator=
+...)``, torch.distributed over gloo). The global mesh is process-major,
+as JAX's is: process r holds shards r L ... r L + L - 1 on the L devices
+it was given, and only those; the collectives along an axis whose groups
+cross processes move tensors between them (parallel/collectives.py).
+
+A :class:`Sharded` tensor is this process's per-shard tensors plus a spec
+naming, per dimension, the mesh axis that splits it (``None``: not
+split), as a ``PartitionSpec`` does. Shards that the spec does not tell
+apart and that sit on one device share ONE tensor (and the dist functions
+compute on it once): replicated means one tensor per device, not one per
+shard. A layout is named by its spec tuple alone (parallel/dist.py's
+``CUBE``, ``COEFF`` and the rest), where the JAX package builds
+NamedShardings.
 """
 
 import torch
 
 from pfb_tpu_torch.config import default_device
+from pfb_tpu_torch.parallel.collectives import Group, world_gather
 
 AXES = ("band", "space")
 
@@ -42,17 +50,32 @@ def _device(d):
     return d
 
 
-class Mesh:
-    """A (nband, nspace) grid of devices with axes ("band", "space").
-    Shard i = b * nspace + s sits on ``devices[i]``."""
+def _world():
+    """(rank, process count) of the torch.distributed group, (0, 1) when
+    none is initialised."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
-    def __init__(self, grid):
-        self.grid = [[_device(d) for d in row] for row in grid]
-        self.shape = {"band": len(self.grid), "space": len(self.grid[0])}
-        if any(len(row) != self.shape["space"] for row in self.grid):
-            raise ValueError("mesh rows of different lengths")
-        self.devices = [d for row in self.grid for d in row]
-        self.size = len(self.devices)
+
+class Mesh:
+    """A (nband, nspace) grid of shards with axes ("band", "space"); shard
+    i = b * nspace + s. This process (``rank`` of ``nproc``) holds the
+    shards ``local`` = offset ... offset + L - 1, offset = rank L, on its
+    L ``devices``."""
+
+    def __init__(self, nband, nspace, devices, rank=0, nproc=1):
+        self.shape = {"band": nband, "space": nspace}
+        self.size = nband * nspace
+        self.devices = [_device(d) for d in devices]
+        L = len(self.devices)
+        if L * nproc != self.size:
+            raise ValueError(f"{nband} x {nspace} shards over {nproc} "
+                             f"process(es) of {L} device(s)")
+        self.rank, self.nproc = rank, nproc
+        self.offset = rank * L
+        self.local = range(self.offset, self.offset + L)
 
     def coords(self, i):
         return divmod(i, self.shape["space"])
@@ -71,24 +94,49 @@ class Mesh:
             return [[b * ns + s for s in range(ns)] for b in range(nb)]
         return [list(range(self.size))]
 
+    def check_spans(self):
+        """Every group along every axis either sits in one process or
+        holds the same number of shards in every process: the condition
+        under which the collectives of a group that crosses processes are
+        one world collective, called by every process in the same order."""
+        L = len(self.devices)
+        for axis in ("band", "space", ("band", "space")):
+            for g in self.groups(axis):
+                per = {}
+                for i in g:
+                    per[i // L] = per.get(i // L, 0) + 1
+                if len(per) > 1 and (len(per) != self.nproc or
+                                     len(set(per.values())) > 1):
+                    raise ValueError(
+                        f"{self}: a group along {axis} holds shards "
+                        f"{per} of the {self.nproc} processes; each "
+                        "group must sit in one process or hold as many "
+                        "shards of each")
+
     def __repr__(self):
+        procs = f", process {self.rank} of {self.nproc}" \
+            if self.nproc > 1 else ""
         return f"Mesh({self.shape['band']} x {self.shape['space']}, " \
-               f"{sorted({str(d) for d in self.devices})})"
+               f"{sorted({str(d) for d in self.devices})}{procs})"
 
 
 def make_mesh(nband=None, nspace=1, devices=None):
     """Mesh with ("band", "space") axes over ``devices`` (None: every
-    visible CUDA device, or the CPU); ``nband * nspace`` must equal the
-    device count, as in the JAX package. A list that repeats a device
-    gives virtual shards on it."""
+    visible CUDA device, or the CPU) of every process of the
+    torch.distributed group (this one alone when none is initialised);
+    ``nband * nspace`` must equal the global device count, as in the JAX
+    package. A list that repeats a device gives virtual shards on it."""
     if devices is None:
         devices = default_devices()
-    n = len(devices)
+    rank, nproc = _world()
+    n = len(devices) * nproc
     if nband is None:
         nband = n // nspace
     assert nband * nspace == n, f"{nband} x {nspace} != {n} devices"
-    return Mesh([devices[b * nspace:(b + 1) * nspace]
-                 for b in range(nband)])
+    mesh = Mesh(nband, nspace, devices, rank=rank, nproc=nproc)
+    if nproc > 1:
+        mesh.check_spans()
+    return mesh
 
 
 def _spec(spec, ndim):
@@ -110,7 +158,7 @@ class Sharded:
         self.shape = tuple(shape)
         self.spec = _spec(spec, len(self.shape))
         self.parts = list(parts)
-        if len(self.parts) != mesh.size:
+        if len(self.parts) != len(mesh.devices):
             raise ValueError(f"{len(self.parts)} parts for {mesh}")
 
     @property
@@ -118,17 +166,23 @@ class Sharded:
         return self.parts[0].dtype
 
     def block(self, b, s=0):
-        return self.parts[b * self.mesh.shape["space"] + s]
+        """The part of shard (b, s), which this process must hold."""
+        return self.parts[b * self.mesh.shape["space"] + s -
+                          self.mesh.offset]
 
     def gather(self, device=None):
-        """The global tensor on ``device`` (default: shard 0's)."""
+        """The global tensor on ``device`` (default: this process's first
+        shard's). Across processes every process must call it: each
+        receives every shard's part (an all-gather)."""
         device = self.mesh.devices[0] if device is None else device
         nb, ns = self.mesh.shape["band"], self.mesh.shape["space"]
         db = self.spec.index("band") if "band" in self.spec else None
         ds = self.spec.index("space") if "space" in self.spec else None
+        parts = self.parts if self.mesh.nproc == 1 else \
+            world_gather(self.parts)
         rows = []
         for b in range(nb if db is not None else 1):
-            row = [self.block(b, s).to(device)
+            row = [parts[b * ns + s].to(device)
                    for s in range(ns if ds is not None else 1)]
             rows.append(torch.cat(row, ds) if ds is not None else row[0])
         out = torch.cat(rows, db) if db is not None else rows[0]
@@ -142,11 +196,13 @@ class Sharded:
 
 
 def shard(x, mesh, spec, pad_value=0.0):
-    """Lay a tensor out over the mesh (the counterpart of
-    ``jax.device_put(x, NamedSharding(mesh, spec))``). A split dimension
-    that the axis does not divide is padded with ``pad_value``. Shards
-    with the same block on one device share one tensor; a block that is a
-    contiguous view of ``x`` on its device is not copied."""
+    """Lay a global tensor out over the mesh (the counterpart of
+    ``jax.device_put(x, NamedSharding(mesh, spec))``, or across processes
+    of ``jax.make_array_from_callback``: this process keeps its shards'
+    blocks). A split dimension that the axis does not divide is padded
+    with ``pad_value``. Shards with the same block on one device share one
+    tensor; a block that is a contiguous view of ``x`` on its device is
+    not copied."""
     x = torch.as_tensor(x)
     spec = _spec(spec, x.dim())
     pads = [0] * x.dim()
@@ -162,7 +218,7 @@ def shard(x, mesh, spec, pad_value=0.0):
         xp = torch.nn.functional.pad(x, flat, value=pad_value)
     cache = {}
     parts = []
-    for i, dev in enumerate(mesh.devices):
+    for i, dev in zip(mesh.local, mesh.devices):
         b, s = mesh.coords(i)
         idx = []
         key = []
@@ -213,19 +269,32 @@ def smap(fn, *lists):
 
 
 def along(mesh, axis, fn, *lists):
-    """Run the group function ``fn(*sublists, devices)`` on each group of
-    shards along ``axis`` (:meth:`Mesh.groups`) and scatter its per-shard
-    results back; groups holding the same objects on the same devices run
-    once."""
-    out = [None] * mesh.size
+    """Run the group function ``fn(*sublists, devs)`` on each group of
+    shards along ``axis`` (:meth:`Mesh.groups`) that this process holds
+    shards of, and scatter its per-shard results back. ``devs`` is a
+    :class:`~.collectives.Group`: the devices of the group's local shards
+    (all of its shards in a one-process mesh), and the sublists hold those
+    shards' entries. Groups holding the same objects on the same devices
+    run once; a group that crosses processes runs every time, so that
+    every process makes the same collective calls in the same order."""
+    out = [None] * len(mesh.devices)
     cache = {}
+    off = mesh.offset
     for g in mesh.groups(axis):
-        devs = [mesh.devices[i] for i in g]
-        sub = [[lst[i] for i in g] for lst in lists]
-        key = (tuple(tuple(id(v) for v in s) for s in sub),
-               tuple(str(d) for d in devs))
-        if key not in cache:
-            cache[key] = fn(*sub, devs)
-        for i, r in zip(g, cache[key]):
-            out[i] = r
+        mine = [i for i in g if i in mesh.local]
+        if not mine:
+            continue
+        devs = Group([mesh.devices[i - off] for i in mine], len(g),
+                     g.index(mine[0]))
+        sub = [[lst[i - off] for i in mine] for lst in lists]
+        if devs.spans:
+            res = fn(*sub, devs)
+        else:
+            key = (tuple(tuple(id(v) for v in s) for s in sub),
+                   tuple(str(d) for d in devs))
+            if key not in cache:
+                cache[key] = fn(*sub, devs)
+            res = cache[key]
+        for i, r in zip(mine, res):
+            out[i - off] = r
     return out

@@ -124,7 +124,7 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
                 [torch.device(d) for d in devices]
             nsh = min(int(row_shards), len(devs))
             if nsh > 1:
-                rd_mesh = Mesh([devs[:nsh]])
+                rd_mesh = Mesh(1, nsh, devs[:nsh])
                 log.info("row-sharding gridding over %d shards", nsh)
             else:
                 log.warning("row-shards=%s but only %d device(s) given; "

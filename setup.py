@@ -10,11 +10,14 @@ setup(
                                     "pfb_tpu_torch", "pfb_tpu_torch.*"]),
     package_data={"pfb_tpu.parser": ["*.yaml", "*.yml"],
                   "pfb_tpu.native": ["*.cc"],
-                  "pfb_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "pfb_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "pfb_tpu_torch.parser": ["*.yaml", "*.yml"],
+                  "pfb_tpu_torch.native": ["*.cc"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy", "sympy", "click",
                       "pyyaml"],
     entry_points={
-        "console_scripts": ["pfb-tpu = pfb_tpu.workers.main:cli"],
+        "console_scripts": ["pfb-tpu = pfb_tpu.workers.main:cli",
+                            "pfb-tpu-torch = pfb_tpu_torch.workers.main:cli"],
     },
 )

@@ -1952,3 +1952,135 @@ def test_fit_spi_on_card_matches_cpu(cuda):
     ok = ~np.isnan(ac)
     for g, c in ((ag, ac), (ig, ic)):
         assert np.abs(g[ok] - c[ok]).max() <= 1e-10 * np.abs(c[ok]).max()
+
+
+def _cli_run(tmp_path, device, ms, tag, hessnorm=None):
+    """The CLI's pipeline: init -> grid(pg) at 256^2 x 2 (float32 data)
+    -> spotless(pallas, pg) when ``hessnorm`` is given; returns the dds."""
+    from click.testing import CliRunner
+
+    from pfb_tpu_torch.utils import dstore
+    from pfb_tpu_torch.workers.main import cli
+    out = str(tmp_path / tag)
+    steps = f"""steps:
+  - worker: init
+    params: {{ms: {ms}, output-filename: {out}, channels-per-image: 1,
+             precision: single, overwrite: true}}
+  - worker: grid
+    params: {{output-filename: {out}, backend: pg, nx: 256, ny: 256,
+             field-of-view: 0.4, robustness: 0.0, psf: true,
+             residual: false, epsilon: 1.0e-5, overwrite: true}}
+"""
+    if hessnorm is not None:
+        steps += f"""  - worker: spotless
+    params: {{output-filename: {out}, engine: pallas, backend: pg,
+             epsilon: 1.0e-5, niter: 2, pd-maxit: 50, nlevels: 2,
+             hessnorm: {hessnorm!r}, verbose: 0, pd-verbose: 0}}
+"""
+    recipe = tmp_path / f"{tag}.yaml"
+    recipe.write_text(steps)
+    r = CliRunner().invoke(cli, ["--device", str(device), "pipeline",
+                                 str(recipe)])
+    assert r.exit_code == 0, (r.output, r.exception)
+    return dstore.read_store(out + "_I_main.dds")
+
+
+def test_cli_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """The CLI's init -> grid(pg) -> spotless(engine pallas, pg) at 256^2 x
+    2 bands on the card (``--device cuda``) against the same recipe on the
+    CPU (float32 data in both; one hessnorm, 1.05 max|PSFHAT|, given to
+    both so that the power method's device-dependent start vector is out
+    of the comparison): DIRTY and PSF within 1e-5 of max, the model within
+    2e-3 of max (the tolerance of the fwdbwd card test: rounding grows
+    through the primal-dual solves), and K1, K4, K5 and K6 launched on the
+    card only."""
+    from pfb_tpu_torch.utils.ms import simulate_ms
+    ms = str(tmp_path / "t.npz")
+    simulate_ms(ms, nant=16, ntime=12, nchan=2, nsource=5, fov_deg=0.4,
+                seed=13)
+    cpu = _cli_run(tmp_path, "cpu", ms, "cpu0")
+    psf = np.stack([ds["PSF"] for ds in cpu])
+    wsum = sum(float(ds["WSUM"][0]) for ds in cpu)
+    hn = 1.05 * float(np.abs(np.fft.rfft2(psf / wsum)).max())
+    kernels = (psf_convolve_h, pg.pg_spread, pg.pg_fold, pg.pg_degrid)
+    n0 = [f.launches for f in kernels]
+    cpu = _cli_run(tmp_path, "cpu", ms, "cpu", hessnorm=hn)
+    assert [f.launches for f in kernels] == n0
+    gpu = _cli_run(tmp_path, cuda, ms, "gpu", hessnorm=hn)
+    assert all(f.launches > n for f, n in zip(kernels, n0))
+    for key, tol in (("DIRTY", TOL), ("PSF", TOL), ("MODEL", 2e-3)):
+        a = np.stack([ds[key] for ds in cpu])
+        b = np.stack([ds[key] for ds in gpu])
+        assert a.shape == b.shape and np.abs(a).max() > 0, key
+        assert np.abs(b - a).max() <= tol * np.abs(a).max(), key
+
+
+MESH_CHILD = r"""
+import sys
+root, port, rank, out = sys.argv[1:5]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from pfb_tpu_torch.ops.psf import psf_convolve_h
+from pfb_tpu_torch.parallel.runtime import set_client
+sys.path.insert(0, root + "/tests")
+from test_torch_gpu import _mesh_case
+set_client(coordinator=f"127.0.0.1:{port}", num_processes=2,
+           process_id=int(rank), devices=["cuda:0"])
+hess, beta = _mesh_case(1)
+np.savez(out, hess=hess, beta=beta, k1=psf_convolve_h.launches)
+"""
+
+
+def _mesh_case(nvirtual):
+    """hessian_psf_dist(engine="pallas") and power_method_dist on a (2, 1)
+    band mesh of (4, 256^2) with a random PSF, ``nvirtual`` shards on
+    cuda:0 in this process."""
+    from pfb_tpu_torch.parallel.dist import hessian_psf_dist, power_method_dist
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(30)
+    psf = torch.rand((4, 512, 512), generator=g, device=dev)
+    x = torch.randn((4, 256, 256), generator=g, device=dev)
+    h = [a for a in prep_h(psf, 256, 256, torch.float32) if a is not None]
+    mesh = make_mesh(nband=2, nspace=1, devices=[dev] * nvirtual)
+    hess = hessian_psf_dist(mesh, engine="pallas")(x, *h).gather()
+    beta, _ = power_method_dist(mesh, engine="pallas", tol=1e-5,
+                                maxit=50)(x, *h)
+    return hess.cpu().numpy(), float(beta)
+
+
+def test_two_process_band_mesh_on_one_card(cuda, tmp_path):
+    """Two processes joined by set_client(coordinator=...) on one card
+    (gloo, host-staged), one band shard each, against the one-process
+    (2, 1) mesh of virtual shards: the K1 matvec and the power method's
+    beta within 1e-5 of max (the sums across the processes are taken in
+    mesh order, so they read equal bit for bit), K1 launched in each
+    process."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = [str(tmp_path / f"m{r}.npz") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_CHILD, root,
+                               str(port), str(r), outs[r]],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, lg in zip(procs, logs):
+        assert p.returncode == 0, lg[-3000:]
+    hess, beta = _mesh_case(2)
+    for o in outs:
+        d = np.load(o)
+        assert int(d["k1"]) > 0
+        assert np.abs(d["hess"] - hess).max() <= TOL * np.abs(hess).max()
+        assert abs(float(d["beta"]) - beta) <= TOL * abs(beta)

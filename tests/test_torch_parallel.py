@@ -305,7 +305,7 @@ def test_coeff_rms_dist_matches_jax(meshes):
 def test_mesh_of_several_devices_moves_shards():
     """A mesh over two distinct devices (the CPU under two names is one
     device, so use the meta device for the layout check only)."""
-    m = Mesh([[torch.device("cpu"), torch.device("meta")]])
+    m = Mesh(1, 2, [torch.device("cpu"), torch.device("meta")])
     s = shard(torch.zeros(2, 4), m, (None, "space"))
     assert s.parts[1].device.type == "meta" and s.parts[0].device == CPU
 
@@ -314,6 +314,10 @@ def test_set_client_single_host_only():
     from pfb_tpu_torch.parallel.runtime import set_client
     m = set_client(nspace=1, devices=[CPU] * 2)
     assert m.shape == {"band": 2, "space": 1}
-    with pytest.raises(NotImplementedError):
-        set_client(coordinator="localhost:1234", num_processes=2,
-                   process_id=0)
+    # several processes need a coordinator, and a coordinator needs the
+    # process count and this process's index (tests/test_torch_multiprocess.py
+    # runs the two-process mesh)
+    with pytest.raises(ValueError):
+        set_client(num_processes=2, devices=[CPU] * 2)
+    with pytest.raises(ValueError):
+        set_client(coordinator="localhost:1234", num_processes=2)

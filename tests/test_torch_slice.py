@@ -351,6 +351,10 @@ _smoovie(fdsi=fds, output_filename={str(tmp_path / 'm')!r})
 _init(ms=ms, write=False, device="cpu", radec="Sun", site_latitude=-0.5)
 _grid(xdsi=xds, write=False, device="cpu", nx=64, target="Sun",
       concat_row=True, nband=1, psf=False)
+import pfb_tpu_torch.workers.pipeline, pfb_tpu_torch.parser.schemas
+import pfb_tpu_torch.utils.profiling
+from pfb_tpu_torch.workers.main import cli
+assert cli.main(["--help"], standalone_mode=False) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "pfb_tpu")]
 assert not bad, bad
 print("clean")
