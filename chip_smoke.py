@@ -272,7 +272,17 @@ Phases:
      on one-process meshes of the same shapes on the card. The matvecs
      within 1e-6 of max (STOL) and beta within 1e-6 relative (whether each
      is equal bit for bit printed), K1 and the K10 stages launched in each
-     process, both processes ending with 0 within their timeout.
+     process, both processes ending with 0 within their timeout;
+ 31. backend "mm" after phase 30 (the JAX package's matmul gridder, which
+     the port runs on the pg gridder): grid(backend="mm", robustness 0,
+     2048^2, PSF 4096^2) on phase 6's xds, its DIRTY and PSF within 1e-6
+     of max (STOL) of phase 6's pg products (whether equal bit for bit
+     printed), K4, K5, K3c and K3r launched and K3 not; then the joint
+     solve (make_hess_vis_dct(backend="mm") on band 0's dataset with two
+     1024^2 fields 60 field widths apart, without the w term, which would
+     need thousands of w planes there): self-adjoint within 1e-4, cg_dct's
+     residual after 20 iterations below b's, K4, K5, K6, K3c and K3r
+     launched and K3 not; each step's seconds and peak memory printed.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -3078,6 +3088,137 @@ def report_mesh(rm):
                  "on the space mesh")
 
 
+# phase 31: backend "mm" (the JAX package's matmul gridder, which the
+# port runs on the pg gridder) on phase 6's xds, and the joint multi-field
+# solve on one band's dataset
+GRID_MM = dict(GRID_PG, backend="mm")
+NX_JOINT = 1024  # each field of the joint solve
+JOINT_WIDTHS = 60  # field widths between the two (tests/test_ingest.py:150)
+# w-stacking at that offset (|l| ~ 0.49) would need thousands of w planes
+# (joint_solve counts them), so the joint operator grids without the w term
+JOINT = dict(backend="mm", epsilon=1e-5, do_wgridding=False, sigmainv=1e-6)
+JOINT_ITERS = 20
+JTOL = 1e-4  # the joint operator's self-adjointness in float32, relative
+
+
+def joint_solve(ds, vis, device, n=NX_JOINT):
+    """make_hess_vis_dct(backend="mm") on one dataset with two NX_JOINT^2
+    fields, the second JOINT_WIDTHS field widths away, b the two fields'
+    dirty images of ``vis``: the self-adjointness <v, H u> against
+    <H v, u> on random u, v, and cg_dct's residual after JOINT_ITERS
+    iterations against b's."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.ops.gridder import get_backend, make_hess_vis_dct
+    from pfb_tpu_torch.ops.wgridder import _nm1_min, _w_params, kernel_params
+    from pfb_tpu_torch.opt.pcg import cg_dct
+    cell = float(ds["cell_rad"])
+    geom = {"f0": dict(nx=n, ny=n, cell_rad=cell, x0=0.0, y0=0.0),
+            "f1": dict(nx=n, ny=n, cell_rad=cell,
+                       x0=JOINT_WIDTHS * n * cell, y0=0.0)}
+    k, _ = kernel_params(JOINT["epsilon"])
+    nw_w = _w_params(np.asarray(ds["UVW"]), np.asarray(ds["FREQ"]),
+                     _nm1_min(n, n, cell, cell, geom["f1"]["x0"], 0.0),
+                     2.0, k)[0]
+    kw = {key: JOINT[key] for key in ("backend", "epsilon", "do_wgridding")}
+    vds = dict(key="b0", **{key: ds[key] for key in
+                            ("UVW", "FREQ", "WEIGHT", "MASK")})
+    hess = make_hess_vis_dct([vds], geom, sigmainv=JOINT["sigmainv"],
+                             device=device, **kw)
+    _, v2d = get_backend(kw["backend"], kw["epsilon"], kw["do_wgridding"])
+    t = {key: torch.as_tensor(np.asarray(ds[key])).to(device, torch.float32)
+         for key in ("UVW", "FREQ", "WEIGHT", "MASK")}
+    vis = torch.as_tensor(np.asarray(vis)).to(device, torch.complex64)
+    b = {f: {"b0": v2d(t["UVW"], t["FREQ"], vis, wgt=t["WEIGHT"],
+                       mask=t["MASK"], nx=n, ny=n, cellx=cell, celly=cell,
+                       x0=g["x0"], y0=g["y0"])} for f, g in geom.items()}
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rand():
+        return {f: {"b0": torch.randn((n, n), generator=gen, device=device)}
+                for f in geom}
+
+    def dot(a, c):
+        return sum(float((a[f]["b0"].double() * c[f]["b0"].double()).sum())
+                   for f in geom)
+
+    u, v = rand(), rand()
+    vhu, hvu = dot(v, hess(u)), dot(hess(v), u)
+    x0 = {f: {"b0": torch.zeros((n, n), device=device)} for f in geom}
+    _, r = cg_dct(hess, b, x0, tol=0.0, maxit=JOINT_ITERS)
+    return dict(n=n, nw_with_w=int(nw_w),
+                adjoint_rel=abs(vhu - hvu) / abs(vhu),
+                bnorm=dot(b, b), rnorm=dot(r, r))
+
+
+def mm_path(rpg, device, nx=NX, nx_joint=NX_JOINT):
+    """Phase 31: grid(backend="mm") on the pg path's xds, against the pg
+    path's products, then the joint solve. Each step's counts are set to
+    0 just before it and read just after, with its seconds and peak
+    device memory; returns them with the readings the gates take."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.workers.grid import _grid
+
+    res = {"t": {}, "peak_gib": {}, "launches": {}}
+
+    def step(name, fn):
+        return timed_step(res, device, name, fn)
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    dds = step("grid", lambda: _grid(xdsi=rpg["xds"], write=False,
+                                     device=device,
+                                     **dict(GRID_MM, nx=nx, ny=nx)))
+    keys = ("DIRTY", "PSF")
+    res["grid_err"] = {key: max(
+        float(np.abs(a[key] - b[key]).max() / np.abs(b[key]).max())
+        for a, b in zip(dds, rpg["dds"])) for key in keys}
+    res["grid_bitwise"] = all(np.array_equal(a[key], b[key])
+                              for a, b in zip(dds, rpg["dds"])
+                              for key in keys)
+    del dds
+    res["joint"] = step("joint", lambda: joint_solve(
+        rpg["dds"][0], rpg["xds"][0]["VIS"], device, n=nx_joint))
+    return res
+
+
+def report_mm(rmm):
+    """Print phase 31's stage seconds, peak memory, launches and
+    readings, and check its gates."""
+    st = rmm["launches"]
+    print("[mm] " + json.dumps({
+        "seconds": {k: round(v, 3) for k, v in rmm["t"].items()},
+        "peak_gib": {k: round(v, 3) for k, v in rmm["peak_gib"].items()},
+        "launches": {s: {k: v for k, v in c.items() if v}
+                     for s, c in st.items()}}))
+    ge, jt = rmm["grid_err"], rmm["joint"]
+    print(f"[mm] grid(backend='mm') vs phase 6's grid(backend='pg'), "
+          f"max|diff|/max over the datasets: DIRTY {ge['DIRTY']:.3e}, PSF "
+          f"{ge['PSF']:.3e} (bound {STOL}); bit for bit: "
+          f"{rmm['grid_bitwise']}")
+    print(f"[mm] joint solve, two {jt['n']}^2 fields {JOINT_WIDTHS} widths "
+          f"apart, " + json.dumps(JOINT) + f" (with the w term: "
+          f"{jt['nw_with_w']} w planes): |<v,Hu> - <Hv,u>| / |<v,Hu>| = "
+          f"{jt['adjoint_rel']:.3e} (bound {JTOL}); cg_dct "
+          f"{JOINT_ITERS} iterations: r.r {jt['rnorm']:.6e} from b.b "
+          f"{jt['bnorm']:.6e}")
+    for key in ("DIRTY", "PSF"):
+        need(ge[key] <= STOL, f"mm vs pg {key} {ge[key]} > {STOL}")
+    need(jt["adjoint_rel"] <= JTOL, f"joint operator not self-adjoint: "
+         f"{jt['adjoint_rel']}")
+    need(jt["rnorm"] < jt["bnorm"], "cg_dct did not bring the joint "
+         "residual down")
+    for stage, ks in (("grid", ("K4", "K5", "K3c", "K3r")),
+                      ("joint", ("K4", "K5", "K6", "K3c", "K3r"))):
+        for k in ks:
+            need(st[stage][k] > 0, f"{k} never launched inside the mm "
+                 f"{stage}")
+        need(st[stage]["K3"] == 0, f"K3 launched inside the mm {stage}")
+
+
 def main():
     try:
         import torch
@@ -3212,6 +3353,16 @@ def main():
         rmesh = mesh_procs(rcli["store"], NX, device, workdir)
         report_mesh(rmesh)
         del rcli, rmesh
+        torch.cuda.empty_cache()
+
+        # 31. backend "mm" on the pg path's xds, and the joint solve
+        rmm = mm_path(rpg, device)
+        report_mm(rmm)
+        l31 = rmm["launches"]
+        for lc in l31.values():
+            for k in launches:
+                launches[k] += lc[k]
+        del rmm
         torch.cuda.empty_cache()
 
         # 10. blocked against unblocked, K7-K9 against plain (2048^2)

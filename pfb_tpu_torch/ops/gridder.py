@@ -1,8 +1,13 @@
-"""Measurement-operator products and the vis-space Hessian
-(counterpart of pfb_tpu/ops/gridder.py: the dft, wgrid and pg backends,
-the pg gridder's w-plane-blocked engine, robust weighting).
+"""Measurement-operator products and the vis-space Hessians
+(counterpart of pfb_tpu/ops/gridder.py): the dft, wgrid and pg backends,
+the pg gridder's w-plane-blocked engine, robust weighting, the
+exact-residual operator of the major cycle and the multi-field joint
+Hessian :func:`make_hess_vis_dct`.
 
-Not ported: the ``mm`` backend.
+The JAX package's ``mm`` backend (its matmul gridder, the TPU's way onto
+its matrix units) runs here as ``pg``: both compute R and R.H to the
+gridder's epsilon, and on the card the pg gridder's kernels do it in
+less time and memory (see :data:`ROUTES`).
 """
 
 from functools import partial
@@ -10,19 +15,28 @@ from functools import partial
 import numpy as np
 import torch
 
-from pfb_tpu_torch.config import as_device
+from pfb_tpu_torch.config import as_device, kernel_dtype
 from pfb_tpu_torch.ops.dft import dirty2vis_dft, vis2dirty_dft
 from pfb_tpu_torch.ops.fft import make_psfhat
 from pfb_tpu_torch.ops.weighting import counts_to_weights
 
+# backend names of the JAX package that the port runs on another backend
+ROUTES = {"mm": "pg"}
+
+
+def route(backend):
+    """The backend the port runs for ``backend``."""
+    return ROUTES.get(backend, backend)
+
 
 def get_backend(backend, epsilon=None, do_wgridding=None,
                 double_accum=None):
-    """(dirty2vis, vis2dirty) for the named backend, with epsilon /
-    do_wgridding / double_accum bound in when given (the exact DFT maps
-    do_wgridding onto its do_wterm switch and takes no epsilon; the pg
-    gridder is float32 on the card and takes no double_accum, as in the
-    JAX package)."""
+    """(dirty2vis, vis2dirty) for the named backend ("mm" runs pg), with
+    epsilon / do_wgridding / double_accum bound in when given (the exact
+    DFT maps do_wgridding onto its do_wterm switch and takes no epsilon;
+    the pg gridder is float32 on the card and takes no double_accum, as
+    in the JAX package)."""
+    backend = route(backend)
     if backend == "dft":
         d2v, v2d = dirty2vis_dft, vis2dirty_dft
         if do_wgridding is not None:
@@ -37,7 +51,7 @@ def get_backend(backend, epsilon=None, do_wgridding=None,
         from pfb_tpu_torch.ops.pgridder import dirty2vis_pg, vis2dirty_pg
         d2v, v2d = dirty2vis_pg, vis2dirty_pg
     else:
-        raise ValueError(f"Unknown or unported gridder backend {backend}")
+        raise ValueError(f"Unknown gridder backend {backend}")
     kw = {}
     if epsilon is not None:
         kw["epsilon"] = epsilon
@@ -277,15 +291,18 @@ def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
       w-gridded.
     - ``pg`` plans every dataset with the caller's ``epsilon`` and
       ``do_wgridding`` (JAX ops/gridder.py:340-383): one shared geometry
-      for more than one dataset, else the dataset's own plan. The
+      for more than one dataset of one cell size and phase centre, else
+      (as the JAX package's mm branch does) each dataset's own plan. The
       returned matvec carries its plans as ``matvec.plans``.
     - ``pg`` with ``plane_block`` and w-gridding runs every dataset
       through the w-plane-blocked engine (ops/pg_stream.py, JAX
       ops/gridder.py:303-338): one plan per dataset on its own rows,
       grid memory O(plane_block x padded grid).
+    - ``mm`` runs ``pg``.
     - ``dft``, as in the JAX package, always evaluates the w term.
     ``device`` None means the card when there is one."""
     device = as_device(device)
+    backend = route(backend)
     if backend == "wgrid":
         cache = [_ds_tensors(ds, device) for ds in dds]
 
@@ -316,7 +333,9 @@ def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
         from pfb_tpu_torch.ops.pgridder import (make_hessian_pg,
                                                 make_hessian_pg_stacked,
                                                 pgrid_plan)
-        if len(dds) > 1:
+        geoms = {(float(ds["cell_rad"]), float(ds.get("x0", 0.0)),
+                  float(ds.get("y0", 0.0))) for ds in dds}
+        if len(dds) > 1 and len(geoms) == 1:
             return make_hessian_pg_stacked(
                 dds, nband, wsum, nx, ny, sigmainv=sigmainv,
                 use_beam=use_beam, mask_image=mask_image, epsilon=epsilon,
@@ -336,7 +355,7 @@ def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
         return _reduce_datasets(per_ds, nband, wsum, sigmainv)
 
     if backend != "dft":
-        raise ValueError(f"Unknown or unported gridder backend {backend}")
+        raise ValueError(f"Unknown gridder backend {backend}")
 
     per_ds = []
     for ds in dds:
@@ -364,3 +383,64 @@ def make_hessian_dds(dds, nband, wsum, nx, ny, sigmainv=0.0,
         return out
 
     return matvec_dft
+
+
+def make_hess_vis_dct(vis_ds, field_geom, sigmainv=1.0, backend="dft",
+                      epsilon=None, do_wgridding=None, device=None):
+    """Multi-field joint vis-space Hessian (counterpart of the JAX
+    package's make_hess_vis_dct; reference hess_vis): for each shared
+    visibility dataset the model visibilities of every field, each
+    rendered at its own phase centre and cell, are summed and gridded
+    back onto every field's grid, so the fields couple through the
+    shared visibilities. The matvec maps ``{field: {key: (nx, ny)
+    tensor}}`` to the same nest (solved by opt/pcg.py:cg_dct).
+
+    ``vis_ds``: dataset dicts with UVW/FREQ/WEIGHT/MASK and a ``key``
+    naming the (time, band) slot; ``field_geom``: ``{field: dict(nx=,
+    ny=, cell_rad=, x0=, y0=)}``. Any backend; pg (and mm, which runs
+    pg) plans every (dataset, field) pair once. The datasets go to
+    ``device`` (None: the card when there is one), float32 on CUDA and
+    float64 on the CPU."""
+    device = as_device(device)
+    dtype = kernel_dtype(device, torch.float64)
+    d2v, v2d = get_backend(backend, epsilon, do_wgridding)
+    make_plan = None
+    if route(backend) == "pg":
+        from pfb_tpu_torch.ops.pgridder import pgrid_plan as make_plan
+    pkw = {k: v for k, v in (("epsilon", epsilon),
+                             ("do_wgridding", do_wgridding)) if v is not None}
+
+    items = []
+    for ds in vis_ds:
+        t = {k: torch.as_tensor(np.asarray(ds[k])).to(device, dtype)
+             for k in ("UVW", "FREQ", "WEIGHT", "MASK")}
+        geo = {}
+        for f, g in field_geom.items():
+            kw = dict(x0=g.get("x0", 0.0), y0=g.get("y0", 0.0))
+            if make_plan is not None:
+                kw["plan"] = make_plan(
+                    np.asarray(ds["UVW"]), np.asarray(ds["FREQ"]),
+                    nx=g["nx"], ny=g["ny"], cellx=g["cell_rad"],
+                    celly=g["cell_rad"], dtype=dtype, device=device, **kw,
+                    **pkw)
+            geo[f] = kw
+        items.append((ds["key"], t, geo))
+
+    def matvec(x):
+        out = {f: {k: sigmainv * v for k, v in sub.items()}
+               for f, sub in x.items()}
+        for key, t, geo in items:
+            mvis = None
+            for f, g in field_geom.items():
+                mv = d2v(t["UVW"], t["FREQ"], x[f][key], g["cell_rad"],
+                         g["cell_rad"], **geo[f])
+                mvis = mv if mvis is None else mvis + mv
+            mvis = mvis * t["MASK"]
+            for f, g in field_geom.items():
+                out[f][key] = out[f][key] + v2d(
+                    t["UVW"], t["FREQ"], mvis, wgt=t["WEIGHT"],
+                    mask=t["MASK"], nx=g["nx"], ny=g["ny"],
+                    cellx=g["cell_rad"], celly=g["cell_rad"], **geo[f])
+        return out
+
+    return matvec

@@ -1,10 +1,13 @@
 """The full PSF transfer function (counterpart of
 pfb_tpu/ops/mmfft.py:make_full_psfhat).
 
-Only this helper comes over: the matmul FFTs of the JAX module are the
-TPU's stepping stones and have no place in the port. The general PSF
-convolution (ops/psf.py:psf_convolve_full, kernel K11) multiplies by the
-full fft2 transfer function this builds.
+Only this helper comes over. The JAX module's matmul FFTs compute
+functions the port already runs on the card: ``fft_mm_last`` and
+``fft2_mm`` are 2-D FFTs (cuFFT, or ops/cfft.py's K3c / K3r on the
+w-plane stacks), and ``psf_convolve_mm`` is the PSF convolution with the
+full transfer function (ops/psf.py:psf_convolve_full, kernel K11, which
+multiplies by the full fft2 transfer function this builds). They were
+the TPU's way round a slow XLA FFT.
 """
 
 import torch

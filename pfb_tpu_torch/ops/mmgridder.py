@@ -1,9 +1,12 @@
 """Tiling helpers of the matmul gridder that the pg gridder uses
 (counterpart of the same functions in pfb_tpu/ops/mmgridder.py).
 
-The matmul backend itself (``backend="mm"``, a stepping stone to the
-TPU's pg gridder) is not ported. What is kept: the tile geometry and
-the host-side binning of visibilities into capacity-C tile entries.
+The matmul gridder itself is not ported: it was the TPU's way onto its
+matrix units, and ``backend="mm"`` runs the pg gridder in the port
+(ops/gridder.py:ROUTES), which computes the same R and R.H to the
+gridder's epsilon on the card's own kernels. What is kept: the tile
+geometry and the host-side binning of visibilities into capacity-C tile
+entries.
 """
 
 import numpy as np

@@ -263,8 +263,9 @@ def _finish_plan(meta, arrays, utid, device, dtype):
         gpm=dev(arrays["gpm"], dtype), gmap=dev(arrays["gmap"], i32),
         ltid=dev(arrays["ltid"], i32), utid=dev(utid, i32),
         start=dev(start, i32), count=dev(count, i32),
-        tslot=dev(tslot, i32), uvw_full=dev(arrays["uvw_full"], dtype),
-        freq_d=dev(arrays["freq_d"], dtype))
+        tslot=dev(tslot, i32),
+        uvw_full=dev(arrays["uvw_full"], torch.float64),
+        freq_d=dev(arrays["freq_d"], torch.float64))
     return out
 
 
@@ -666,7 +667,7 @@ def _weighted_vispack(bp, vr, vi, wflat):
     vr, vi = vr.to(rdt), vi.to(rdt)
     if p0["x0"] or p0["y0"]:
         cs, sn = _shift_phases(bp["uvw_full"], bp["freq_d"], p0["x0"],
-                               p0["y0"])
+                               p0["y0"], rdt)
         vr, vi = vr * cs - vi * sn, vr * sn + vi * cs
     if wflat is not None:
         vr = vr * wflat
@@ -737,7 +738,7 @@ def _forward_wblocked_impl(bp, image, consts=None):
     fi = fi.reshape(bp["nrow"], bp["nchan"])
     if p0["x0"] or p0["y0"]:
         cs, sn = _shift_phases(bp["uvw_full"], bp["freq_d"], p0["x0"],
-                               p0["y0"])
+                               p0["y0"], fr.dtype)
         fr, fi = fr * cs + fi * sn, fi * cs - fr * sn
     return fr, fi
 

@@ -153,7 +153,7 @@ def pgrid_plan(uvw, freq, *, nx, ny, cellx, celly, epsilon=1e-7,
     ``nentries_to`` pads the entry stream with no-op entries. Arrays go
     to ``device`` (None: the card when there is one): pos and pm in
     ``dtype`` (float32 on CUDA, float64 on the CPU by default), tid and
-    idx as int32."""
+    idx as int32, uvw and freq (for the centre shift) in float64."""
     k, beta = kernel_params(epsilon)
     Nx, Ny = _grid_setup(nx, ny, cellx, celly, sigma)
     uvw_np = _np(uvw).astype(np.float64)
@@ -223,7 +223,7 @@ def pgrid_plan(uvw, freq, *, nx, ny, cellx, celly, epsilon=1e-7,
         y0=y0, nrow=uvw_np.shape[0], nchan=freq_np.shape[0],
         pos=dev(pos, dtype), tid=dev(utid, torch.int32),
         idx=dev(idx, torch.int32), pm=dev(pmask, dtype),
-        uvw_d=dev(uvw_np, dtype), freq_d=dev(freq_np, dtype))
+        uvw_d=dev(uvw_np, torch.float64), freq_d=dev(freq_np, torch.float64))
 
 
 def plan_from_jax(plan, device=None, dtype=None):
@@ -239,8 +239,8 @@ def plan_from_jax(plan, device=None, dtype=None):
         "nrow", "nchan")}
     out["rdtype"] = dtype
     for key, dt in (("pos", dtype), ("tid", torch.int32),
-                    ("idx", torch.int32), ("pm", dtype), ("uvw_d", dtype),
-                    ("freq_d", dtype)):
+                    ("idx", torch.int32), ("pm", dtype),
+                    ("uvw_d", torch.float64), ("freq_d", torch.float64)):
         out[key] = torch.as_tensor(np.array(plan[key])).to(device=device,
                                                              dtype=dt)
     return out
@@ -578,12 +578,16 @@ pg_degrid.launches = 0
 # adjoint and forward
 
 
-def _shift_phases(uvw, freq, x0, y0):
-    """cos/sin of the centre-shift phase per (row, chan)."""
-    scale = freq / LIGHTSPEED
+def _shift_phases(uvw, freq, x0, y0, dtype):
+    """cos/sin of the centre-shift phase per (row, chan), in ``dtype``.
+    The phase is formed and reduced to one turn in float64 (the plans
+    keep uvw and freq in float64): a centre a few fields away puts it
+    thousands of turns out, past float32's resolution of a turn."""
+    scale = freq.double() / LIGHTSPEED
+    uvw = uvw.double()
     ph = (uvw[:, 0:1] * x0 + uvw[:, 1:2] * y0) * scale[None, :]
     ph = 2.0 * np.pi * (ph - torch.round(ph))
-    return torch.cos(ph), torch.sin(ph)
+    return torch.cos(ph).to(dtype), torch.sin(ph).to(dtype)
 
 
 def _spread_fold(vr, vi, wflat, tid, pos, idx, pm, uvw, freq, *, beta, k,
@@ -593,7 +597,7 @@ def _spread_fold(vr, vi, wflat, tid, pos, idx, pm, uvw, freq, *, beta, k,
     planes, then imaginary planes)."""
     Thx, Thy = txs + k, tys + k
     if x0 or y0:
-        cs, sn = _shift_phases(uvw, freq, x0, y0)
+        cs, sn = _shift_phases(uvw, freq, x0, y0, vr.dtype)
         vr, vi = vr * cs - vi * sn, vr * sn + vi * cs
     if wflat is not None:
         vr = vr * wflat
@@ -670,7 +674,8 @@ def _forward_from_plan(p, image, consts=None, divide_by_n=False):
     nchan = int(p["nchan"])
     fr, fi = fr.reshape(-1, nchan), fi.reshape(-1, nchan)
     if p["x0"] or p["y0"]:
-        cs, sn = _shift_phases(p["uvw_d"], p["freq_d"], p["x0"], p["y0"])
+        cs, sn = _shift_phases(p["uvw_d"], p["freq_d"], p["x0"], p["y0"],
+                               fr.dtype)
         fr, fi = fr * cs + fi * sn, fi * cs - fr * sn
     return fr, fi
 

@@ -5,12 +5,13 @@ pfb/workers/degrid.py:21-236 + comps2vis, pfb/operators/gridder.py:
 394-548): per (time chunk, band) render the fitted model onto the image
 grid at the chunk's mean (t, f) on the host, degrid it to model
 visibilities on ``device`` through the backend of ops/gridder.py
-(``dft``, ``wgrid`` or ``pg``), and carry them to the host as
+(``dft``, ``wgrid``, ``mm`` or ``pg``), and carry them to the host as
 complex128, optionally accumulating into an existing column.
 
-With ``backend="pg"`` each (time chunk, band) builds its own plan on the
-host (ops/pgridder.py:pgrid_plan) and runs the image-to-grid transforms
-(K3c / K3r by route) and the degrid kernel (K6) on the card.
+With ``backend="pg"`` (or ``"mm"``, which runs pg) each (time chunk,
+band) builds its own plan on the host (ops/pgridder.py:pgrid_plan) and
+runs the image-to-grid transforms (K3c / K3r by route) and the degrid
+kernel (K6) on the card.
 """
 
 import time
@@ -20,7 +21,7 @@ import torch
 
 from pfb_tpu_torch.config import as_device, kernel_dtype
 from pfb_tpu_torch.models.comps import eval_mds_to_slice
-from pfb_tpu_torch.ops.gridder import get_backend
+from pfb_tpu_torch.ops.gridder import get_backend, route
 from pfb_tpu_torch.ops.pgridder import pgrid_plan
 from pfb_tpu_torch.utils import dstore
 from pfb_tpu_torch.utils.ms import read_ms, update_ms_column
@@ -90,7 +91,7 @@ def _degrid(ms=None, mds=None, output_filename=None, product="I",
                                       x0, y0)
             t["render_s"] += time.perf_counter() - tic
             kwp = {}
-            if backend == "pg":
+            if route(backend) == "pg":
                 tic = time.perf_counter()
                 kwp["plan"] = pgrid_plan(
                     uvw[rows], freq[csel], nx=nx, ny=ny, cellx=cell_rad,

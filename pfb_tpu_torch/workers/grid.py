@@ -2,7 +2,8 @@
 Counterpart of pfb_tpu/workers/grid.py: image sizing from uv_max, then
 one image_data_products pass per dataset on ``device``. ``robustness``
 sets Briggs weights from host uv counts (ops/weighting.py), written to
-the dds as COUNTS; ``backend`` is "dft", "wgrid" or "pg".
+the dds as COUNTS; ``backend`` is "dft", "wgrid", "mm" or "pg" ("mm"
+runs "pg", ops/gridder.py:ROUTES).
 
 ``row_shards`` > 1 with the pg backend grids each dataset's DIRTY, PSF
 and RESIDUAL through the row-sharded adjoint
@@ -30,7 +31,7 @@ import torch
 from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.ops.dft import LIGHTSPEED
 from pfb_tpu_torch.ops.fft import good_even_size
-from pfb_tpu_torch.ops.gridder import image_data_products
+from pfb_tpu_torch.ops.gridder import image_data_products, route
 from pfb_tpu_torch.ops.weighting import (compute_counts_host,
                                          filter_extreme_counts)
 from pfb_tpu_torch.utils import dstore
@@ -71,7 +72,9 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     fids = {ds.get("fieldid", 0) for ds in xds}
     if len(fids) > 1:
         raise ValueError(f"xds spans fields {sorted(fids)} — image one "
-                         "field per grid run (fields=...)")
+                         "field per grid run (fields=...) or solve jointly "
+                         "with ops.gridder.make_hess_vis_dct + "
+                         "opt.pcg.cg_dct")
 
     nband_in = np.unique([ds["freq_out"] for ds in xds]).size
     if nband is not None and nband != nband_in:
@@ -115,7 +118,7 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     # of the partial uv grids per image
     rd_mesh = None
     if row_shards and int(row_shards) > 1:
-        if backend != "pg":
+        if route(backend) != "pg":
             log.warning("row-shards=%s needs the 'pg' backend (got %r); "
                         "gridding single-device", row_shards, backend)
         else:

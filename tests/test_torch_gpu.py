@@ -2084,3 +2084,48 @@ def test_two_process_band_mesh_on_one_card(cuda, tmp_path):
         assert int(d["k1"]) > 0
         assert np.abs(d["hess"] - hess).max() <= TOL * np.abs(hess).max()
         assert abs(float(d["beta"]) - beta) <= TOL * abs(beta)
+
+
+def test_mm_route_and_joint_hessian_on_card_matches_cpu(cuda):
+    """backend "mm" on the card runs the pg kernels (K4, K5, K6), and
+    make_hessian_dds(backend="mm") on two datasets with different phase
+    centres (one pg plan each) and make_hess_vis_dct(backend="mm") on two
+    fields, in float32, agree with the CPU's float64 runs within 1e-5 of
+    max, at 1024^2 (2048^2 grids: the w planes on K3c and K3r)."""
+    from pfb_tpu_torch.ops.gridder import make_hess_vis_dct, make_hessian_dds
+    obs = simulate_obs(nant=16, ntime=8, nchan=2, seed=3)
+    nx = 1024
+    _, cell = image_size_for(obs, fov_deg=1.0)
+    rng = np.random.default_rng(0)
+    shape = (obs.uvw.shape[0], obs.freq.size)
+    wgt = rng.random(shape)
+    dds = [dict(UVW=obs.uvw, FREQ=obs.freq[b:b + 1], WEIGHT=wgt[:, b:b + 1],
+                MASK=np.ones((shape[0], 1)), bandid=b, cell_rad=cell,
+                x0=3 * cell * b, y0=-2 * cell * b) for b in range(2)]
+    x = rng.normal(size=(2, nx, nx))
+    hk = dict(backend="mm", epsilon=1e-5, do_wgridding=True)
+    n0 = (pg.pg_spread.launches, pg.pg_fold.launches,
+          pg.pg_degrid.launches) + _launches()
+    h32 = make_hessian_dds(dds, 2, 1.0, nx, nx, device=cuda, **hk)
+    out = h32(torch.as_tensor(x).to(cuda, torch.float32))
+    n1 = (pg.pg_spread.launches, pg.pg_fold.launches,
+          pg.pg_degrid.launches) + _launches()
+    assert all(b - a >= 2 for a, b in zip(n0[:3], n1[:3]))
+    assert n1[4] > n0[4] and n1[5] > n0[5]
+    h64 = make_hessian_dds(dds, 2, 1.0, nx, nx, device="cpu", **hk)
+    assert _ok(out.double().cpu(), h64(torch.as_tensor(x)))
+
+    geom = {"f0": dict(nx=nx, ny=nx, cell_rad=cell, x0=0.0, y0=0.0),
+            "f1": dict(nx=nx, ny=nx, cell_rad=cell, x0=4 * nx * cell,
+                       y0=0.0)}
+    ds = dict(dds[0], key="k")
+    u = {f: {"k": rng.normal(size=(nx, nx))} for f in geom}
+    hv = {dev: make_hess_vis_dct([ds], geom, sigmainv=1e-3, backend="mm",
+                                 epsilon=1e-5, device=dev)
+          for dev in (cuda, "cpu")}
+    got = hv[cuda]({f: {"k": torch.as_tensor(a["k"]).to(cuda, torch.float32)}
+                    for f, a in u.items()})
+    ref = hv["cpu"]({f: {"k": torch.as_tensor(a["k"])} for f, a in u.items()})
+    for f in geom:
+        assert got[f]["k"].dtype == torch.float32
+        assert _ok(got[f]["k"].double().cpu(), ref[f]["k"])

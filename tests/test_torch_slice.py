@@ -296,6 +296,7 @@ import pfb_tpu_torch.utils.astrometry, pfb_tpu_torch.utils.spi
 import pfb_tpu_torch.ops.gauss, pfb_tpu_torch.ops.mask
 import pfb_tpu_torch.workers.concat, pfb_tpu_torch.workers.fwdbwd
 import pfb_tpu_torch.workers.fastim, pfb_tpu_torch.workers.smoovie
+import pfb_tpu_torch.ops.mmgridder
 sys.path.insert(0, {str(scripts)!r})
 import torch_kernel_lab, torch_g2i_lab, torch_capacity_lab, chip_smoke
 from pfb_tpu_torch.utils.ms import simulate_ms
@@ -351,6 +352,14 @@ _smoovie(fdsi=fds, output_filename={str(tmp_path / 'm')!r})
 _init(ms=ms, write=False, device="cpu", radec="Sun", site_latitude=-0.5)
 _grid(xdsi=xds, write=False, device="cpu", nx=64, target="Sun",
       concat_row=True, nband=1, psf=False)
+dds = _grid(xdsi=xds, write=False, device="cpu", nx=64, backend="mm",
+            psf=True, residual=False)
+_spotless(ddsi=dds, write=False, device="cpu", engine="pallas", niter=1,
+          pd_maxit=2, pm_maxit=3, backend="mm", verbose=0)
+from pfb_tpu_torch.ops.gridder import make_hess_vis_dct
+make_hess_vis_dct([dict(dds[0], key="k")],
+                  {{"f": dict(nx=64, ny=64, cell_rad=dds[0]["cell_rad"])}},
+                  backend="mm", device="cpu")
 import pfb_tpu_torch.workers.pipeline, pfb_tpu_torch.parser.schemas
 import pfb_tpu_torch.utils.profiling
 from pfb_tpu_torch.workers.main import cli
