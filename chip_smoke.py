@@ -21,9 +21,9 @@ Phases:
      kernel (K3c, fftx_c2c_cluster) and its y pass alone on the row
      kernel (K3r, fftx_c2c_rows), with K3r also at the K11 path's
      lengths (8, 6144^2) and (2, 12288^2); the line kernel (K3,
-     line_fft_kernel) on the y pass of (9, 3000^2) (the pg grid of a
-     1500^2 image), a shape its route still takes (3000 is no multiple
-     of 256; no imaging path here runs it);
+     line_fft_kernel) on the x pass of (9, 1024^2) (the pg grids of a
+     512^2 image), a length its route still takes on a path (strided
+     lengths below 2048; no imaging path here runs it);
   5. checks of the wgrid path: launches > 0 inside grid and spotless
      (K1, K3r on its y passes and K3c on its x passes),
      kernel errors within tolerance, the MFS residual rms after the last
@@ -283,6 +283,35 @@ Phases:
      need thousands of w planes there): self-adjoint within 1e-4, cg_dct's
      residual after 20 iterations below b's, K4, K5, K6, K3c and K3r
      launched and K3 not; each step's seconds and peak memory printed.
+ 32. after phase 26: (a) the 1920^2 pg path, phase 3's observation
+     re-simulated at 1920^2 with the 2048^2 paths' cell, init ->
+     grid(backend="pg", robustness=0, 1920^2, PSF 3840^2) ->
+     spotless(engine="pallas", backend="pg", 3 majors), counts reset
+     just before and read just after each stage, seconds and peak memory
+     by stage: v3 does not hold at 1920^2, so spotless runs K11 (K1 and K2
+     never); its image grids' y passes are at 3840 (R2 = 15), its PSF
+     grids' at 7680 (R2 = 30) and K11's rows stage at 3840, all on the
+     register row kernels: K3c, K3r, K4 and K5 inside grid and spotless,
+     K6, K10ac, K10cc, K10br (once each rows stage) and K11 inside
+     spotless, and neither line_fft_kernel (K3) nor psf_rows_kernel nor
+     the PSF column line kernels inside either; residual and sources as
+     in 5. (b) Records: K3r's y pass at every length whose R2 is 9, 15,
+     25, 27, 30, 36, 40, 45, 50, 54, 60 or 64 (2304-16384; 9 planes up
+     to 8192, 2 above), inverse out_rolled and forward in_rolled; K10br
+     at each of those NY on (8, NY/2 + 1, NY/2) rows with a complex H
+     (K1's), and the full H at 3840 (K11's of (a)); the four-step (K3f,
+     then K3c at N / 8) at N = 18432 and 32768 (the PSF grids of 4608^2
+     and 8192^2 images) on one plane, its x pass and the y pass of the
+     rows that leaves, inverse out_rolled: K3f alone (its bound its own
+     bytes), and the route (K3f once, then K3c once); each against its
+     plain version (the plain rows stage, K3f's and the four-step's plain
+     versions in chunks of bands, columns or rows, the whole stack at
+     once needing several times its size). (c) grid(backend="pg") at 4608^2 on a small
+     observation (8 antennas, 4 integrations, 2 channels; w-gridding off,
+     so that one plane of its 18432^2 PSF grid fits), counts reset just
+     before and read just after: K3f twice a dataset (the PSF grid's x and
+     y passes) and K3 never, its PSF and dirty image within 1e-5 of their
+     peaks of the same call on the kernels' plain versions.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -290,7 +319,8 @@ the bytes the function must move over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, or its bf16 tensor-core operations over 989 TFLOP/s for
 the split pass, counted for this run's inputs; ``bound_by`` says which)
 and the time of one PyTorch call that computes the same function where
-there is one (``library_ms``: torch.fft for K3, K3c and K3r, the
+there is one (``library_ms``: torch.fft for K3, K3c, K3r and the
+four-step route, the
 column stages of K10 and K15, their cluster kernels K10ac and K10cc and
 the x-pass labs L2b and L2c, a zero
 fill and ``index_add_`` for the folds, a slice's ``clone`` for the copy
@@ -299,9 +329,12 @@ single call computes K1's, K2's, K10's rows stage's (K10br's, L1's),
 K11-K14's padded convolution or L3's paired spread). A kernel's entry in
 the kernels
 line takes its times from its first record: K3's from the line
-kernel's y pass at 3000, K3c's from its x pass, K3r's from its y pass.
-Each counts the launches of its own kernel, so K3 + K3c + K3r is the
-number of launches of the three routes of ``fftx_c2c``; K10ac and K10cc
+kernel's x pass at 1024, K3c's from its x pass, K3r's from its y pass,
+K3f's from K3f alone on the four-step's x pass at 18432 (the route's
+time, K3f and K3c at 2304, is a record of its own). Each counts the
+launches of its own kernel, so K3 + K3c + K3r is the number of launches
+of the routes of ``fftx_c2c``, whose four-step launches K3f and K3c once
+each; K10ac and K10cc
 count the cluster column kernels' launches from every entry that runs a
 PSF column stage on their route (K1, K2, K10, K11-K15), and K10br the
 register rows kernel's from every entry that runs a rows stage on its
@@ -359,6 +392,14 @@ NX_SMALL = 1024
 GRID_SMALL = dict(GRID_PG, nx=NX_SMALL, ny=NX_SMALL)
 # (planes, N) of phase 26's pass records: the lengths below 4096
 SMALL_PASSES = ((9, 2048), (10, 2560), (9, 3072))
+# phase 32: the 1920^2 pg path (no v3: K11; rows at R2 = 15 and 30), the
+# register row kernels' lengths whose R2 (9-64) they took last, and the
+# four-step's lengths (the PSF grids of 4608^2 and 8192^2)
+NX_1920 = 1920
+GRID_1920 = dict(GRID_PG, nx=NX_1920, ny=NX_1920)
+NEW_ROW_LENGTHS = (2304, 3840, 6400, 6912, 7680, 9216, 10240, 11520, 12800,
+                   13824, 15360, 16384)
+FOUR_LENGTHS = (18432, 32768)
 # phase 27's fluxmop: tests/test_aux_workers.py:38's settings and gate
 MOP = dict(backend="pg", epsilon=1e-5, use_psf=True, sigmainv=1e-4,
            gamma=0.9, cg_maxit=100, write=False, verbose=0)
@@ -412,8 +453,8 @@ def counters():
     from pfb_tpu_torch.ops import memlab
     from pfb_tpu_torch.ops import pallas_fft as pf
     from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_cluster,
-                                        fftx_c2c_lab, fftx_c2c_rows,
-                                        fftx_c2c_split)
+                                        fftx_c2c_four, fftx_c2c_lab,
+                                        fftx_c2c_rows, fftx_c2c_split)
     from pfb_tpu_torch.ops.pg_stream import (pg_degrid_gs, pg_fold_gs,
                                              pg_spread_gs)
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
@@ -427,7 +468,8 @@ def counters():
     # (line_fft_kernel and K2's, psf_rows_kernel), off the routes
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
             "K3c": fftx_c2c_cluster, "K3r": fftx_c2c_rows,
-            "K4": pg_spread, "K5": pg_fold, "K6": pg_degrid,
+            "K3f": fftx_c2c_four, "K4": pg_spread, "K5": pg_fold,
+            "K6": pg_degrid,
             "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
             "K10a": psf_stage_cols_fwd, "K10b": psf_stage_rows,
             "K10c": psf_stage_cols_inv, "K10ac": psf_cols_fwd,
@@ -508,20 +550,28 @@ def main_path(truth, device, grid=GRID, spot=SPOT):
     from pfb_tpu_torch.workers.spotless import _spotless
 
     cnt = counters()
-    res = {"t": {}, "launches": {}}
+    res = {"t": {}, "launches": {}, "peak_gb": {}}
     for fn in cnt.values():
         fn.launches = 0
+
+    def peak(stage):
+        # the stage's peak device memory (reset at its start)
+        if device.type == "cuda":
+            res["peak_gb"][stage] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     xds = _init(ms=truth["ms"], write=False, device=device, **INIT)
     res["t"]["init"] = time.perf_counter() - t0
+    peak("init")
 
     t0 = time.perf_counter()
     dds = _grid(xdsi=xds, write=False, device=device, **grid)
     sync(device)
     res["t"]["grid"] = time.perf_counter() - t0
     res["launches"]["grid"] = {k: fn.launches for k, fn in cnt.items()}
+    peak("grid")
 
     dirty_mfs = sum(ds["DIRTY"] for ds in dds) / \
         sum(float(ds["WSUM"][0]) for ds in dds)
@@ -531,8 +581,9 @@ def main_path(truth, device, grid=GRID, spot=SPOT):
     model, residual = _spotless(ddsi=dds, write=False, device=device,
                                 stats=stats, verbose=0, **spot)
     sync(device)
+    peak("spotless")
     if device.type == "cuda":
-        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        res["peak_mem_gb"] = max(res["peak_gb"].values())
     res["t"]["spotless"] = time.perf_counter() - t0
     res["launches"]["spotless"] = {
         k: fn.launches - res["launches"]["grid"][k] for k, fn in cnt.items()}
@@ -687,30 +738,28 @@ def k1_records(psf, nx, device, g, timing=True):
     return recs
 
 
-def line_record(g, device, timing=True, P=9, N=3000):
-    """The line kernel (K3) where its route still runs: the y pass of P
-    (N, N) pg grids (an image of 1500^2), inverse out_rolled, whose rows
-    are not a multiple of 256 (no row kernel instance), on the (P N/2, N,
-    1) row stack the x pass leaves, against its plain version and
-    torch.fft."""
+def line_record(g, device, timing=True, P=9, N=1024):
+    """The line kernel (K3) where its route still runs on a path: the x
+    pass of P (N, N) pg grids of an image of N/2 = 512^2 (strided lengths
+    below the cluster kernel's 2048), inverse out_rolled, against its
+    plain version and torch.fft."""
     import torch
 
     from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
-    rows = P * N // 2
-    xr = torch.randn((rows, N, 1), generator=g, device=device)
-    xi = torch.randn((rows, N, 1), generator=g, device=device)
+    xr = torch.randn((P, N, N), generator=g, device=device)
+    xi = torch.randn((P, N, N), generator=g, device=device)
     kw = dict(N=N, inverse=True, out_rolled=True)
     n0 = fftx_c2c.launches
     out = torch.cat(fftx_c2c(xr, xi, **kw))
     need(device.type != "cuda" or fftx_c2c.launches == n0 + 1,
-         f"the y pass at N={N} did not take line_fft_kernel")
+         f"the x pass at N={N} did not take line_fft_kernel")
     ref = torch.cat(fftx_c2c_plain(xr, xi, **kw))
     z = torch.complex(xr, xi)
     r = _record(
-        f"K3 y pass inverse out_rolled ({P}, {N}^2) (line_fft_kernel)",
+        f"K3 x pass inverse out_rolled ({P}, {N}^2) (line_fft_kernel)",
         xr.shape, out, ref, lambda: fftx_c2c(xr, xi, **kw),
         lambda: fftx_c2c_plain(xr, xi, **kw), timing,
-        work=(8 * rows * (N + N // 2), fft_flops(N, rows)),
+        work=(8 * P * N * (N + N // 2), P * fft_flops(N, N)),
         flib=lambda: torch.fft.ifft(z, dim=-2))
     del xr, xi, out, ref, z
     return r
@@ -720,7 +769,7 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
     """K1 and K3 against their plain versions on the same inputs (K3 as
     the 2-D transform, its x pass alone on the cluster column kernel
     K3c, its y pass alone on the row kernel K3r, and the line kernel on
-    the y pass of (9, 3000^2), where its route still runs); returns one
+    the x pass of (9, 1024^2), where its route still runs); returns one
     record per comparison."""
     import torch
 
@@ -1073,7 +1122,9 @@ def report_path(tag, res, truth, nx):
     st = res["stats"]
     print(f"[{tag}] stage seconds " + json.dumps(
         {k: round(v, 3) for k, v in res["t"].items()}))
-    print(f"[{tag}] peak device memory {res['peak_mem_gb']:.2f} GiB")
+    print(f"[{tag}] peak device memory {res['peak_mem_gb']:.2f} GiB; by "
+          "stage " + json.dumps({k: round(v, 3)
+                                 for k, v in res.get("peak_gb", {}).items()}))
     print(f"[{tag}] hessnorm {st['hessnorm']:.6e}, engine {st['engine']}; "
           f"dirty MFS rms {res['dirty_rms']:.6e}")
     for k, (r, m, n) in enumerate(zip(st["rms"], st["rmax"],
@@ -2246,6 +2297,202 @@ def small_kernel_checks(psf, nx, device, timing=True):
     return recs
 
 
+def row_planes(N):
+    """Planes of phase 32's y-pass records at row length N: 9 (the pg
+    image plan's at 2048^2) up to 8192, 2 above (as phase 4's K3r at
+    12288)."""
+    return 9 if N <= 8192 else 2
+
+
+def _long_rows_record(nb, NY, h, g, device, timing):
+    """K10br (psf_rows) on K1's (nb, NY/2 + 1, NY/2) rows at NY with a
+    complex H, or K11's with the full (nb, NY, NY) H (h "full"), against
+    the plain stage (psf_stage_rows_plain) a band at a time."""
+    import torch
+
+    from pfb_tpu_torch.ops.psf import (full_h_rows, psf_rows,
+                                       psf_stage_rows_plain)
+    ny, rows = NY // 2, NY // 2 + 1
+    zr, zi = (torch.randn((nb, rows, ny), generator=g, device=device)
+              for _ in range(2))
+    hshape = (nb, NY, NY) if h == "full" else (nb, rows, NY)
+    hr, hi = (torch.randn(hshape, generator=g, device=device)
+              for _ in range(2))
+    NX = NY if h == "full" else None
+    hh = full_h_rows(hr, hi) if h == "full" else (hr, hi)
+
+    def plain():
+        parts = [psf_stage_rows_plain(zr[b], zi[b], hh[0][b], hh[1][b])
+                 for b in range(nb)]
+        return (torch.stack([q[0] for q in parts]),
+                torch.stack([q[1] for q in parts]))
+    r = _record(
+        f"K10br psf_rows ({nb}, {rows}, {ny}) of {NY}, {h} H (R2 = "
+        f"{NY // 256})", zr.shape, torch.cat(psf_rows(zr, zi, hr, hi, NX)),
+        torch.cat(plain()), lambda: psf_rows(zr, zi, hr, hi, NX), plain,
+        timing, work=rows_work(nb, rows, ny, NY, h))
+    del zr, zi, hr, hi, hh
+    return r
+
+
+def _four_records(tag, xr, xi, N, timing, chunks=4):
+    """The four-step (fftx_c2c above 16384: K3f, then K3c at N / 8 on 8 L
+    columns) on a (P, N, L) stack, inverse out_rolled, as two records:
+    K3f alone against fftx_c2c_four_first_plain (its bound its own bytes,
+    8 P L (N + N) read and written, and the 8-point DFTs and twiddles;
+    no library call), and the route through fftx_c2c against
+    fftx_c2c_four_plain with torch.fft on the whole stack as the library
+    call. The plain versions run in ``chunks`` pieces of columns, or of
+    rows where L = 1."""
+    import torch
+
+    from pfb_tpu_torch import kernels
+    from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_cluster,
+                                        fftx_c2c_four,
+                                        fftx_c2c_four_first_plain,
+                                        fftx_c2c_four_plain)
+    kw = dict(N=N, inverse=True, out_rolled=True)
+    P, _, L = xr.shape
+    M = N // 8
+    dev = xr.device
+    dim = 0 if L == 1 else 2
+
+    def first_plain():
+        parts = [fftx_c2c_four_first_plain(a, b, N=N, inverse=True) for a, b
+                 in zip(xr.chunk(chunks, dim), xi.chunk(chunks, dim))]
+        return tuple(torch.cat([q[k].reshape(q[k].shape[0], M, 8, -1)
+                                for q in parts], 0 if L == 1 else 3)
+                     .reshape(-1, M, 8 * L) for k in (0, 1))
+
+    if dev.type == "cuda":
+        TW = kernels.twiddles(N, dev, kind="four")
+        tr, ti = (torch.empty((P, M, 8 * L), device=dev) for _ in range(2))
+
+        def k3f():
+            kernels.check(kernels.library().pfbt_cfft_four(
+                xr.data_ptr(), xi.data_ptr(), tr.data_ptr(), ti.data_ptr(),
+                P, L, N, 0, 1, TW.data_ptr(), kernels.stream_ptr()),
+                "pfbt_cfft_four")
+            return tr, ti
+    else:
+        def k3f():
+            return fftx_c2c_four_first_plain(xr, xi, N=N, inverse=True)
+    out = torch.cat(k3f())
+    ref = torch.cat(first_plain())
+    # 8 P L N/8 radix-8 DFTs and 7 P L N/8 twiddle products (6 each)
+    k3f_rec = _record(
+        f"K3f alone {tag} inverse {list(xr.shape)}, N = {N} (radix 8, "
+        f"twiddles, reorder to ({P}, {M}, {8 * L}))", xr.shape, out, ref,
+        k3f, first_plain, timing,
+        work=(8 * P * L * (N + N), fft_flops(8, P * L * M)
+              + 6.0 * 7 * P * L * M))
+    del out, ref
+    if dev.type == "cuda":
+        del tr, ti
+        torch.cuda.empty_cache()
+
+    f0, c0 = fftx_c2c_four.launches, fftx_c2c_cluster.launches
+    out = torch.cat(fftx_c2c(xr, xi, **kw))
+    need(dev.type != "cuda" or (fftx_c2c_four.launches,
+                                fftx_c2c_cluster.launches) == (f0 + 1,
+                                                               c0 + 1),
+         f"the pass at N={N} did not take the four-step")
+
+    def plain():
+        parts = [fftx_c2c_four_plain(a, b, **kw) for a, b in
+                 zip(xr.chunk(chunks, dim), xi.chunk(chunks, dim))]
+        return (torch.cat([q[0] for q in parts], dim),
+                torch.cat([q[1] for q in parts], dim))
+    ref = torch.cat(plain())
+    z = torch.complex(xr, xi)
+    route_rec = _record(
+        f"four-step route {tag} inverse out_rolled {list(xr.shape)}, N = "
+        f"{N} (K3f, then K3c at {M})", xr.shape, out, ref,
+        lambda: fftx_c2c(xr, xi, **kw), plain, timing,
+        work=(8 * P * L * (N + N // 2), P * fft_flops(N, L)),
+        flib=lambda: torch.fft.ifft(z, dim=-2))
+    del out, ref, z
+    return [k3f_rec, route_rec]
+
+
+def long_kernel_checks(device, timing=True, lengths=NEW_ROW_LENGTHS,
+                       four=FOUR_LENGTHS):
+    """Phase 32's records: K3r's y pass at each of ``lengths`` (row_planes
+    planes; inverse out_rolled and forward in_rolled), K10br there on
+    (8, NY/2 + 1, NY/2) rows (complex H; the full H at 3840, K11's of
+    the 1920^2 path), and the four-step at each of ``four`` on one plane:
+    its x pass and the y pass of the rows that leaves."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(32)
+    recs = []
+    for N in lengths:
+        P = row_planes(N)
+        for inv, pin, pout, tag in ((True, False, True, "out_rolled inverse"),
+                                    (False, True, False, "in_rolled forward")):
+            recs.append(_ypass_record(
+                f"K3r y pass {tag} ({P}, {N}^2) (R2 = {N // 256})", P, N,
+                inv, pin, pout, g, timing))
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        for h in ("complex",) + (("full",) if N == 2 * NX_1920 else ()):
+            recs.append(_long_rows_record(8, N, h, g, device, timing))
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    for N in four:
+        for tag, shape in (("x pass", (1, N, N)), ("y pass", (N // 2, N, 1))):
+            xr, xi = (torch.randn(shape, generator=g, device=device)
+                      for _ in range(2))
+            recs += _four_records(tag, xr, xi, N, timing)
+            del xr, xi
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return recs
+
+
+def four_step_path(workdir, device, nx=4608):
+    """Phase 32 (c): _grid(backend="pg") at nx^2 on a small observation
+    (8 antennas, 4 integrations, 2 channels), whose PSF grid of 4 nx above
+    16384 takes the four-step in both passes, w-gridding off so that one
+    plane of that grid fits, counts reset just before and read just
+    after; its PSF and dirty image against the same call on the kernels'
+    plain versions (plain_gridder), relative to their peaks."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.utils.ms import simulate_ms
+    from pfb_tpu_torch.workers.grid import _grid
+    from pfb_tpu_torch.workers.init import _init
+    ms = str(Path(workdir) / f"small{nx}.npz")
+    simulate_ms(ms, nant=8, ntime=4, nchan=2, nsource=3, fov_deg=0.4,
+                seed=19)
+    xds = _init(ms=ms, write=False, channels_per_image=2,
+                precision="single", device=device)
+    kw = dict(xdsi=xds, write=False, device=device, nx=nx, ny=nx,
+              cell_size=0.5, robustness=0.0, backend="pg", epsilon=1e-5,
+              do_wgridding=False, psf=True, residual=False)
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dds = _grid(**kw)
+    sync(device)
+    res = dict(t=time.perf_counter() - t0, nds=len(dds),
+               launches={k: fn.launches for k, fn in cnt.items()},
+               psf_shape=list(dds[0]["PSF"].shape))
+    if device.type == "cuda":
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    with plain_gridder():
+        ref = _grid(**kw)
+    res["rel_err"] = {key: max(
+        float(np.abs(np.asarray(a[key], np.float64)
+                     - np.asarray(b[key], np.float64)).max()
+              / np.abs(np.asarray(b[key], np.float64)).max())
+        for a, b in zip(dds, ref)) for key in ("PSF", "DIRTY")}
+    return res
+
+
 def report_klean(rkl, truth, nx):
     """Print the klean path's stage time, memory, residuals and
     launches; check its residual and image."""
@@ -3292,6 +3539,7 @@ def main():
             launches[k] += rpg["launches"]["grid"][k] + \
                 rpg["launches"]["spotless"][k]
         lp = rpg["launches"]
+        t6, p6 = dict(rpg["t"]), dict(rpg.get("peak_gb", {}))
 
         # 7. kernel vs plain (K4, K5, K6), pg against wgrid
         pg_recs, plans = pg_kernel_checks(rpg, NX, GRID_PG["epsilon"],
@@ -3592,6 +3840,45 @@ def main():
         recs += small_recs + k2_recs26
         torch.cuda.empty_cache()
 
+        # 32. (a) the 1920^2 pg path: K11, rows at R2 = 15 and 30
+        truth32 = simulate(workdir, nx=NX_1920)
+        print(f"[1920] simulate {truth32['t_simulate']:.3f} s (host), cell "
+              f"{truth32['cell_rad']:.6e} rad, {truth32['nvis']} "
+              "visibilities")
+        r32 = main_path(truth32, device, grid=GRID_1920, spot=SPOT_PG)
+        report_path("1920", r32, truth32, NX_1920)
+        l32, st32 = r32["launches"], r32["stats"]
+        for k in l32["grid"]:
+            launches[k] += l32["grid"][k] + l32["spotless"][k]
+        print("[1920] seconds and peak GiB by stage against the 2048^2 pg "
+              "path's (phase 6, this call): " + json.dumps({
+                  stage: {"1920": [round(r32["t"][stage], 3),
+                                   round(r32["peak_gb"].get(stage, 0), 3)],
+                          "2048": [round(t6[stage], 3),
+                                   round(p6.get(stage, 0), 3)]}
+                  for stage in ("init", "grid", "spotless")}))
+        print(f"[1920] engine {st32['engine']}, pd solver "
+              f"{st32['pd_solver']}")
+        del r32, truth32
+        torch.cuda.empty_cache()
+        # (b) the register row kernels at R2 = 9-64, the four-step
+        long_recs = long_kernel_checks(device)
+        for r in long_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += long_recs
+        torch.cuda.empty_cache()
+        # (c) the grid worker at 4608^2: its PSF grid on the four-step
+        r32c = four_step_path(workdir, device)
+        l32c = r32c["launches"]
+        for k in l32c:
+            launches[k] += l32c[k]
+        print(f"[4608] _grid(pg, no w) {r32c['nds']} datasets, PSF "
+              f"{r32c['psf_shape']}: {r32c['t']:.3f} s, peak "
+              f"{r32c.get('peak_gb', 0.0):.2f} GiB; vs its plain versions "
+              + json.dumps(r32c["rel_err"]) + f" (bound {TOL}); launches "
+              + json.dumps({k: v for k, v in l32c.items() if v}))
+        torch.cuda.empty_cache()
+
         # every rows stage of the PSF paths at NY = 4096, 6144 and 8192
         # took the register kernel (none took psf_rows_kernel)
         for tag, lc in (("wgrid _spotless", lw["spotless"]),
@@ -3600,7 +3887,8 @@ def main():
                         ("3072^2 _spotless", l12["spotless"]),
                         ("the PCG phase", l14), ("the single-band phase", l20),
                         ("the L1 lab's run", l25),
-                        ("1024^2 _spotless", l26["spotless"])):
+                        ("1024^2 _spotless", l26["spotless"]),
+                        ("1920^2 _spotless", l32["spotless"])):
             need(lc["K10br"] > 0, f"K10br never launched inside {tag}")
             need(lc["K10br"] == rows_stages(lc) and lc["rows_line"] == 0,
                  f"{tag}: {rows_stages(lc)} rows stages, {lc['K10br']} on "
@@ -3612,7 +3900,8 @@ def main():
                         ("pg _spotless", lp["spotless"]),
                         ("_spotless_dist", ld),
                         ("3072^2 _spotless", l12["spotless"]),
-                        ("1024^2 _spotless", l26["spotless"])):
+                        ("1024^2 _spotless", l26["spotless"]),
+                        ("1920^2 _spotless", l32["spotless"])):
             for k in ("K10ac", "K10cc"):
                 need(lc[k] > 0, f"{k} never launched inside {tag}")
             need(lc["cols_line"] == 0, f"a PSF column stage inside {tag} "
@@ -3641,6 +3930,32 @@ def main():
             need(info["conv_bitwise_k1_of_p"], f"K2 {tag}: conv is not "
                  "K1's of its own p bit for bit")
             need(info["reruns_bitwise"], f"K2 {tag}: reruns differ")
+
+        # checks of phase 32: the 1920^2 path on the register row kernels
+        # (R2 = 15 and 30) and K11, no line kernel inside grid or spotless
+        for stage in ("grid", "spotless"):
+            for k in ("K3c", "K3r", "K4", "K5"):
+                need(l32[stage][k] > 0,
+                     f"{k} never launched inside the 1920^2 _{stage}")
+            for k in ("K3", "cols_line", "rows_line", "K3f"):
+                need(l32[stage][k] == 0,
+                     f"{k} launched inside the 1920^2 _{stage}")
+        for k in ("K6", "K10ac", "K10cc", "K10br", "K11"):
+            need(l32["spotless"][k] > 0,
+                 f"{k} never launched inside the 1920^2 _spotless")
+        for k in ("K1", "K2"):
+            need(l32["spotless"][k] == 0, f"{k} launched inside the 1920^2 "
+                 "_spotless: v3 does not hold there")
+        need(st32["pd_solver"] == "primal_dual_hostloop",
+             f"1920^2 spotless ran {st32['pd_solver']}")
+        for prefix in ("K3f ", "four-step route "):
+            n = sum(r["name"].startswith(prefix) for r in long_recs)
+            need(n == 2 * len(FOUR_LENGTHS), f"{prefix}records {n}")
+        need(l32c["K3f"] == 2 * r32c["nds"] and l32c["K3"] == 0,
+             f"the 4608^2 grid's PSF passes: K3f {l32c['K3f']}, K3 "
+             f"{l32c['K3']} for {r32c['nds']} datasets")
+        bad = {k: v for k, v in r32c["rel_err"].items() if not v <= TOL}
+        need(not bad, f"the 4608^2 grid against its plain versions: {bad}")
 
         # checks of phases 22-23
         for k in ("L2a", "L2b", "L2c", "K3", "K3c"):
@@ -3733,6 +4048,8 @@ def main():
                  ("K3c", "fftx_c2c_cluster", "cfft_cols.cu",
                   "pfb_tpu/ops/pallas_cfft.py:132"),
                  ("K3r", "fftx_c2c_rows", "cfft_rows.cu",
+                  "pfb_tpu/ops/pallas_cfft.py:132"),
+                 ("K3f", "fftx_c2c_four", "cfft_four.cu",
                   "pfb_tpu/ops/pallas_cfft.py:132"),
                  ("K4", "pg_spread", "pg_grid.cu",
                   "pfb_tpu/ops/pgridder.py:330"),

@@ -17,9 +17,10 @@
 // on contiguous rows (L = 1), so no transpose pass is needed. What
 // bounds it: shared-memory traffic (every pass reads and writes the
 // whole line) and the narrow strips of the strided pass. The
-// strided pass at N >= 2048 runs cfft_cols.cu and the rows at N = 2048,
-// 2560, 3072, 4096, 4608, 5120, 6144, 8192 and 12288 run cfft_rows.cu
-// (ops/cfft.py's routes); this kernel takes every other length.
+// strided pass at 2048 <= N <= 16384 runs cfft_cols.cu, the rows at N =
+// 256 R2 (R2 = 8-64, 5-smooth) run cfft_rows.cu and both passes above
+// 16384 run cfft_four.cu's four-step (ops/cfft.py's routes); this kernel
+// takes every other length up to kMaxN.
 #include "fft_lines.cuh"
 
 namespace pfbt {

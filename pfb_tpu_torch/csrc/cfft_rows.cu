@@ -7,8 +7,9 @@
 // the unnormalised DFT of each of R contiguous rows of a (R, Nin)
 // float32 re/im stack, with in_rolled / out_rolled as cfft.cu absorbs
 // them (forward e^-, inverse e^+, no 1/N; xi == nullptr reads a real
-// input). N = 2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192 or 12288
-// (ops/cfft.py:row_route).
+// input). N = 256 R2 for every 5-smooth R2 from 8 to 64, 2048-16384: the
+// row length of every 128-aligned image from 1024^2 to 8192^2 and of its
+// PSF grid up to 4096^2 (ops/cfft.py:row_route).
 //
 // What bounds it on the H100: bytes, 8 R (Nin + Nout), each input read
 // once and each output written once. line_fft_kernel (fft_lines.cuh)
@@ -16,8 +17,8 @@
 // (two lines an SM), sweeps shared memory twice per radix pass (ten
 // sweeps at 8192 = 16 16 16 2), issues no HBM traffic while the line is
 // transformed and transforms the known zeros of a rolled input. Here N =
-// 16 R2 16 (R2 = 8, 10, 12, 16, 18, 20, 24, 32, 48) in three Stockham
-// stages, one line a block (rows_fft.cuh):
+// 16 R2 16 (R2 = 8-64, 5-smooth) in three Stockham stages, one line a
+// block (rows_fft.cuh):
 //   1. radix 16 from HBM to registers: butterfly j takes n = j + q N/16,
 //      so each warp's loads are whole 128-byte segments of re and of im;
 //      in_rolled reads input chunk [N/4, N/2) at n < N/4 (q < 4) and
@@ -34,8 +35,10 @@
 // table rounded once to float32 (rows_twiddle_kernel), conjugated for the
 // inverse. Latency is hidden by resident lines: the launch bounds ask for
 // registers for four blocks an SM at 2048-4096 (a butterfly a thread in
-// stages 1 and 3), two at 4608-8192 and one at 12288 (no spills), so one
-// block's stages run while another's loads are in flight. A persistent
+// stages 1 and 3), two at 4608-8192 and one from 9216 (stages 1 and 3
+// hold three or four butterflies a thread there; from 13824 one line's
+// buffer, N + N/16 float2, leaves room for no second block anyway), so
+// one block's stages run while another's loads are in flight. A persistent
 // block that prefetched its next line with 1-D bulk copies
 // (cp.async.bulk, an mbarrier) measured slower at every shape of the
 // paths on the H100 (PERF.md) and was not kept. The
@@ -186,8 +189,8 @@ static cudaError_t launch_rows(const float* xr, const float* xi, float* yr,
 
 }  // namespace pfbt
 
-// The y pass of a (rows, Nin) stack at N = 2048, 2560, 3072, 4096, 4608,
-// 5120, 6144, 8192 or 12288; TW is the rows plan's table
+// The y pass of a (rows, Nin) stack at N = 256 R2, R2 = 8-64 5-smooth;
+// TW is the rows plan's table
 // (pfbt_rows_twiddles). skeleton = 1 launches the lab's
 // load/transpose/store skeleton.
 extern "C" int pfbt_cfft_rows(const float* xr, const float* xi, float* yr,
@@ -204,14 +207,26 @@ extern "C" int pfbt_cfft_rows(const float* xr, const float* xi, float* yr,
         s));
   switch (N) {
     PFBT_ROWS(2048, 8, 4)
+    PFBT_ROWS(2304, 9, 4)
     PFBT_ROWS(2560, 10, 4)
     PFBT_ROWS(3072, 12, 4)
+    PFBT_ROWS(3840, 15, 4)
     PFBT_ROWS(4096, 16, 4)
     PFBT_ROWS(4608, 18, 2)
     PFBT_ROWS(5120, 20, 2)
     PFBT_ROWS(6144, 24, 2)
+    PFBT_ROWS(6400, 25, 2)
+    PFBT_ROWS(6912, 27, 2)
+    PFBT_ROWS(7680, 30, 2)
     PFBT_ROWS(8192, 32, 2)
+    PFBT_ROWS(9216, 36, 1)
+    PFBT_ROWS(10240, 40, 1)
+    PFBT_ROWS(11520, 45, 1)
     PFBT_ROWS(12288, 48, 1)
+    PFBT_ROWS(12800, 50, 1)
+    PFBT_ROWS(13824, 54, 1)
+    PFBT_ROWS(15360, 60, 1)
+    PFBT_ROWS(16384, 64, 1)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -220,7 +235,7 @@ extern "C" int pfbt_cfft_rows(const float* xr, const float* xi, float* yr,
 
 // The rows plan's twiddle table (N - 1 float2 entries) into T.
 extern "C" int pfbt_rows_twiddles(int N, void* T, void* stream) {
-  if (N % 256 || N < 2048 || N > 12288)
+  if (N % 256 || N < 2048 || N > 16384)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = N - 1, threads = 256;
   pfbt::rows_twiddle_kernel<<<(n + threads - 1) / threads, threads, 0,

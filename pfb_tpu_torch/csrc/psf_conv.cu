@@ -61,9 +61,8 @@
 // prologue and epilogue, so its conv(p) is K1's of its own p bit for bit;
 // on the line route, the fused line kernels below.
 // The rows kernel of every entry (K1, K2, K10, K11) is the fused register
-// row FFT K10br of psf_rows.cu where psf_rows_fused(NY) holds (NY = 2048,
-// 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288), else psf_rows_kernel
-// below. The caller passes that route's table as TY (pfbt_rows_twiddles,
+// row FFT K10br of psf_rows.cu where psf_rows_fused(NY) holds (NY = 256
+// R2, R2 = 8-64 5-smooth), else psf_rows_kernel below. The caller passes that route's table as TY (pfbt_rows_twiddles,
 // or the length-NY plan's pfbt_twiddles) and the route it is for
 // (`fused`, 1 or 0), and an entry refuses a route that is not the
 // predicate's; *nfused (may be null) gains the number of K10br launches

@@ -5,11 +5,13 @@
 // registers between two transposes through one padded shared buffer
 // (rows_mid), stage 3 radix 16 from shared memory (rows_last_load) with
 // output k = j + q N/16 in registers. Stage 2 has kRowBflies = 256
-// butterflies (N = 256 R2); stages 1 and 3 have N/16 = 16 R2. R2 = 8-48
-// (N = 2048-12288): divisors of 96, 20 or 18, each a DFT in registers
-// (reg_dft). A block has row_threads(R2) threads. The stage
-// twiddles W_{Ns R}^{q k} come from cfft_rows.cu's float64 table
-// (pfbt_rows_twiddles), [q - 1][k] per stage, conjugated for the inverse.
+// butterflies (N = 256 R2); stages 1 and 3 have N/16 = 16 R2. R2 is any
+// 5-smooth radix from 8 to 64 (N = 2048-16384), each a DFT in registers
+// (reg_dft): 16, 8 and below directly, the others as a pair R2 = RA RB of
+// smaller ones with the roots W_R2 between them. A block has
+// row_threads(R2) threads. The stage twiddles W_{Ns R}^{q k} come from
+// cfft_rows.cu's float64 table (pfbt_rows_twiddles), [q - 1][k] per stage,
+// conjugated for the inverse.
 #pragma once
 
 #include "fft_lines.cuh"
@@ -96,13 +98,128 @@ __device__ __forceinline__ float2 w18(int m, bool inv) {
   return make_float2(c[m % 18], inv ? s[m % 18] : -s[m % 18]);
 }
 
-// W_R^m = exp(-2 pi i m / R) from the table whose length R divides
+// cos and sin of x, |x| <= pi/4, in float64 by their Taylor series (to
+// x^29, below 1e-17 there), for tables the compiler evaluates
+__host__ __device__ constexpr double taylor_cos(double x) {
+  double term = 1.0, sum = 1.0;
+  for (int k = 1; k <= 14; ++k) {
+    term *= -x * x / ((2.0 * k - 1.0) * (2.0 * k));
+    sum += term;
+  }
+  return sum;
+}
+
+__host__ __device__ constexpr double taylor_sin(double x) {
+  double term = x, sum = x;
+  for (int k = 1; k <= 14; ++k) {
+    term *= -x * x / ((2.0 * k) * (2.0 * k + 1.0));
+    sum += term;
+  }
+  return sum;
+}
+
+// cos and sin of 2 pi m / R rounded once to float32, m < R: the angle
+// is reduced exactly to a quadrant and an octant in integers (4 m = q R
+// + r), so the series sees |x| <= pi/4
+template <int R>
+struct RootTable {
+  float c[R], s[R];
+  __host__ __device__ constexpr RootTable() : c(), s() {
+    constexpr double kHalfPi = 1.57079632679489661923;
+    for (int m = 0; m < R; ++m) {
+      const int q = 4 * m / R, r = 4 * m - q * R;  // angle q pi/2 + phi
+      const bool low = 2 * r <= R;                 // phi <= pi/4
+      const double x = kHalfPi * (low ? r : R - r) / R;
+      const double cp = low ? taylor_cos(x) : taylor_sin(x);  // cos phi
+      const double sp = low ? taylor_sin(x) : taylor_cos(x);  // sin phi
+      c[m] = static_cast<float>(q == 0 ? cp : q == 1 ? -sp : q == 2 ? -cp
+                                                                   : sp);
+      s[m] = static_cast<float>(q == 0 ? sp : q == 1 ? cp : q == 2 ? -sp
+                                                                   : -cp);
+    }
+  }
+};
+
+// W_R^m = exp(-2 pi i m / R), conjugated for the inverse: from the typed
+// table whose length R divides (96, 20, 18: the radices up to 48 that
+// had them), else from R's own table, made by the compiler in float64
+// and rounded once (m a constant after unrolling)
 template <int R>
 __device__ __forceinline__ float2 wroot(int m, bool inv) {
-  static_assert(96 % R == 0 || 20 % R == 0 || 18 % R == 0, "no table");
   if constexpr (96 % R == 0) return w96((m % R) * (96 / R), inv);
   else if constexpr (20 % R == 0) return w20((m % R) * (20 / R), inv);
-  else return w18((m % R) * (18 / R), inv);
+  else if constexpr (18 % R == 0) return w18((m % R) * (18 / R), inv);
+  else {
+    constexpr RootTable<R> t{};
+    const int e = m % R;
+    return make_float2(t.c[e], inv ? t.s[e] : -t.s[e]);
+  }
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+// i a forward, -i a inverse (W_4^3 = i forward)
+__device__ __forceinline__ float2 iw(float2 a, bool inv) {
+  return inv ? make_float2(a.y, -a.x) : make_float2(-a.y, a.x);
+}
+// a + c b for a real c
+__device__ __forceinline__ float2 caxpy(float2 a, float c, float2 b) {
+  return make_float2(a.x + c * b.x, a.y + c * b.y);
+}
+
+// X_k = sum_n x_n W_3^{n k}: X_1,2 = x0 - (x1 + x2) / 2 -+ i sin(2 pi/3)
+// (x1 - x2) forward
+__device__ __forceinline__ void odd_dft3(float2* v, bool inv) {
+  constexpr float s = 0.866025404f;  // sin(2 pi / 3)
+  const float2 t = cadd(v[1], v[2]);
+  const float2 m = caxpy(v[0], -0.5f, t);
+  const float2 d = iw(csub(v[1], v[2]), inv);
+  v[0] = cadd(v[0], t);
+  v[1] = caxpy(m, -s, d);
+  v[2] = caxpy(m, s, d);
+}
+
+// X_k = sum_n x_n W_5^{n k} by the symmetric pairs t1 = x1 + x4, t2 = x2 +
+// x3 and antisymmetric d1 = x1 - x4, d2 = x2 - x3: X_1,4 = x0 + c1 t1 +
+// c2 t2 -+ i (s1 d1 + s2 d2), X_2,3 = x0 + c2 t1 + c1 t2 -+ i (s2 d1 - s1
+// d2) forward (c_k, s_k = cos, sin 2 pi k / 5)
+__device__ __forceinline__ void odd_dft5(float2* v, bool inv) {
+  constexpr float c1 = 0.309016994f, c2 = -0.809016994f;
+  constexpr float s1 = 0.951056516f, s2 = 0.587785252f;
+  const float2 t1 = cadd(v[1], v[4]), t2 = cadd(v[2], v[3]);
+  const float2 d1 = csub(v[1], v[4]), d2 = csub(v[2], v[3]);
+  const float2 a1 = caxpy(caxpy(v[0], c1, t1), c2, t2);
+  const float2 a2 = caxpy(caxpy(v[0], c2, t1), c1, t2);
+  const float2 b1 = iw(caxpy(make_float2(s1 * d1.x, s1 * d1.y), s2, d2),
+                       inv);
+  const float2 b2 = iw(caxpy(make_float2(s2 * d1.x, s2 * d1.y), -s1, d2),
+                       inv);
+  v[0] = cadd(v[0], cadd(t1, t2));
+  v[1] = csub(a1, b1);
+  v[4] = cadd(a1, b1);
+  v[2] = csub(a2, b2);
+  v[3] = cadd(a2, b2);
+}
+
+// The pair R = RA (R / RA) that reg_dft takes at a radix R without a DFT
+// of its own (0 elsewhere)
+__host__ __device__ constexpr int pair_ra(int R) {
+  switch (R) {
+    case 9: return 3;
+    case 10: case 15: case 20: case 25: return 5;
+    case 12: return 4;
+    case 18: case 27: case 36: case 45: return 9;
+    case 24: case 32: case 40: return 8;
+    case 30: case 50: return 10;
+    case 48: case 64: return 16;
+    case 54: return 18;
+    case 60: return 20;
+    default: return 0;
+  }
 }
 
 template <int R>
@@ -134,31 +251,19 @@ __device__ __forceinline__ void dft_pair(float2* v, bool inv) {
   }
 }
 
-// An R-point DFT in registers: fft_lines.cuh's radices, or a pair
+// An R-point DFT in registers: radices 3 and 5 by their shared sums, 2,
+// 4, 8 and 16 by fft_lines.cuh's small_dft, the others as a pair
 template <int R>
 __device__ __forceinline__ void reg_dft(float2* v, bool inv) {
-  if constexpr (R == 2 || R == 3 || R == 4 || R == 5 || R == 8 || R == 16)
+  if constexpr (R == 3) odd_dft3(v, inv);
+  else if constexpr (R == 5) odd_dft5(v, inv);
+  else if constexpr (R == 2 || R == 4 || R == 8 || R == 16)
     small_dft<R>(v, inv);
-  else if constexpr (R == 9) dft_pair<3, 3>(v, inv);
-  else if constexpr (R == 10) dft_pair<5, 2>(v, inv);
-  else if constexpr (R == 12) dft_pair<4, 3>(v, inv);
-  else if constexpr (R == 18) dft_pair<9, 2>(v, inv);
-  else if constexpr (R == 20) dft_pair<5, 4>(v, inv);
-  else if constexpr (R == 24) dft_pair<8, 3>(v, inv);
-  else if constexpr (R == 32) dft_pair<8, 4>(v, inv);
-  else if constexpr (R == 48) dft_pair<16, 3>(v, inv);
-  else static_assert(R == 2, "no register DFT of this radix");
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-// i a forward, -i a inverse (W_4^3 = i forward)
-__device__ __forceinline__ float2 iw(float2 a, bool inv) {
-  return inv ? make_float2(a.y, -a.x) : make_float2(-a.y, a.x);
+  else {
+    constexpr int RA = pair_ra(R);
+    static_assert(RA > 0, "no register DFT of this radix");
+    dft_pair<RA, R / RA>(v, inv);
+  }
 }
 
 // 16-point DFT as 4 x 4 (n = 4 n1 + n2, k = k1 + 4 k2). kIn: only the

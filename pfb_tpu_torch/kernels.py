@@ -24,9 +24,11 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
             "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu", "cfft_cols.cu",
             "cfft_rows.cu", "psf_cols.cu", "psf_rows.cu", "lab_spread.cu",
-            "lab_degrid.cu")
+            "lab_degrid.cu", "cfft_four.cu", "psf_rows_mid.cu",
+            "psf_rows_long.cu")
 _HEADERS = ("fft_lines.cuh", "pg_degrid.cuh", "pg_es.cuh", "pg_spread.cuh",
-            "psf_cols.cuh", "psf_rows.cuh", "rows_fft.cuh")
+            "psf_cols.cuh", "psf_rows.cuh", "psf_rows_kernel.cuh",
+            "rows_fft.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / \
     "pfb_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,6 +46,8 @@ _SIGNATURES = {
     "pfbt_cols_twiddles": [_I, _P, _P],
     "pfbt_cfft_rows": [_P] * 4 + [_I] * 6 + [_P] * 2,
     "pfbt_rows_twiddles": [_I, _P, _P],
+    "pfbt_cfft_four": [_P] * 4 + [_I] * 5 + [_P] * 2,
+    "pfbt_four_twiddles": [_I, _P, _P],
     "pfbt_lab_copy": [_P] * 4 + [_I] * 4 + [_P],
     "pfbt_psf_conv": [_P] * 8 + [_I] * 6 + [_P] * 4 + [_I, _P, _P],
     "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 7 + [_P] * 4,
@@ -202,11 +206,14 @@ def twiddles(N, device, kind="plan"):
     plan (each pass's exp(-2 pi i q k / (Ns R))); ``kind="cols"``: W_N^e
     = exp(-2 pi i e / N) for e < N, the cluster column kernels'
     (``csrc/cfft_cols.cu``, ``csrc/psf_cols.cu``); ``kind="rows"``: the
-    row kernel's three stages (``csrc/cfft_rows.cu``), N - 1 entries."""
+    row kernel's three stages (``csrc/cfft_rows.cu``), N - 1 entries;
+    ``kind="four"``: the four-step's W_N^(n2 k1), k1 = 1..7, n2 < N/8
+    (``csrc/cfft_four.cu``), 7 N/8 entries."""
     key = (kind, N, str(device))
     if key not in _TWIDDLES:
         make = {"plan": "pfbt_twiddles", "cols": "pfbt_cols_twiddles",
-                "rows": "pfbt_rows_twiddles"}[kind]
+                "rows": "pfbt_rows_twiddles",
+                "four": "pfbt_four_twiddles"}[kind]
         t = torch.empty((N, 2), dtype=torch.float32, device=device)
         check(getattr(library(), make)(N, t.data_ptr(), stream_ptr()),
               f"twiddles({kind}, {N})")

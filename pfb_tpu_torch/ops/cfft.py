@@ -10,14 +10,17 @@
   roll or crop pass).
 
 A CUDA float32 stack runs a hand-written kernel, chosen by
-:func:`cluster_route`, then :func:`row_route`: the strided x pass (L >
-1) at N >= 2048 runs the cluster column FFT :func:`fftx_c2c_cluster`
+:func:`cluster_route`, then :func:`row_route`, then
+:func:`four_step_route`: the strided x pass (L > 1) at 2048 <= N <= 16384
+runs the cluster column FFT :func:`fftx_c2c_cluster`
 (``csrc/cfft_cols.cu``: a cluster of C blocks shares a tile of W columns
-through distributed shared memory); contiguous rows (L = 1) at N = 2048,
-2560, 3072, 4096, 4608, 5120, 6144, 8192 and 12288 run the row FFT
+through distributed shared memory); contiguous rows (L = 1) at N = 256
+R2, R2 a 5-smooth radix from 8 to 64 (2048-16384), run the row FFT
 :func:`fftx_c2c_rows` (``csrc/cfft_rows.cu``: three register stages, two
-transposes through shared memory); everything else ``line_fft_kernel``
-(``csrc/cfft.cu``, whole lines in one block). A CPU stack runs the plain
+transposes through shared memory); both passes above 16384 run the
+four-step :func:`fftx_c2c_four` (``csrc/cfft_four.cu``, then the cluster
+kernel at N / 8); everything else ``line_fft_kernel`` (``csrc/cfft.cu``,
+whole lines in one block, up to 16384). A CPU stack runs the plain
 version :func:`fftx_c2c_plain` (``torch.fft`` with the roll/crop written
 out).
 The y pass of :func:`fft2_c2c_pruned` runs the same transform on
@@ -50,16 +53,21 @@ __all__ = ["fftx_c2c", "fftx_c2c_plain", "fft2_c2c_pruned",
            "fftx_c2c_cluster", "fftx_c2c_cluster_plain",
            "fftx_c2c_cluster_skeleton_plain", "row_route", "row_radices",
            "fftx_c2c_rows", "fftx_c2c_rows_plain",
-           "fftx_c2c_rows_skeleton_plain", "fftx_c2c_lab",
+           "fftx_c2c_rows_skeleton_plain", "four_step_route",
+           "fftx_c2c_four", "fftx_c2c_four_plain", "fftx_c2c_route",
+           "fftx_c2c_lab",
            "fftx_c2c_first_pass_plain", "fftx_c2c_split",
            "fftx_c2c_split_plain"]
 
 _LINE_ELEMS = 8192  # csrc/fft_lines.cuh: kLineElems
+_LINE_MAX_N = 16384  # csrc/fft_lines.cuh: kMaxN
 _CLUSTER_MIN_N = 2048  # csrc/psf_cols.cuh: kColsMinNX
 _SHORT_C = 4  # clusters below 4096, csrc/psf_cols.cuh: kShortClusters
-# csrc/cfft_rows.cu and csrc/psf_rows.cu instances: 256 R2, R2 = 8, 10,
-# 12, 16, 18, 20, 24, 32, 48
-_ROW_LENGTHS = (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288)
+# csrc/cfft_rows.cu and csrc/psf_rows.cu instances (csrc/psf_rows.cuh:
+# psf_rows_fused): 256 R2 for every 5-smooth R2 from 8 to 64
+_ROW_RADICES = (8, 9, 10, 12, 15, 16, 18, 20, 24, 25, 27, 30, 32, 36, 40,
+                45, 48, 50, 54, 60, 64)
+_ROW_LENGTHS = tuple(256 * r for r in _ROW_RADICES)
 
 
 def _factor(N):
@@ -156,13 +164,45 @@ def cluster_shape(N):
 def row_route(N, L):
     """Whether :func:`fftx_c2c` on a CUDA stack launches the row kernel
     (``csrc/cfft_rows.cu``, K3r): contiguous rows (L = 1, the y pass) at
-    the lengths it is built for, N = 16 R2 16 with R2 = 8, 10, 12, 16,
-    18, 20, 24, 32, 48 (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192,
-    12288: every y pass of the imaging paths at 128-aligned images up to
-    3072^2). Other N (not a multiple of 256, or no instance) keep
-    ``line_fft_kernel``. :func:`cluster_route` is asked first; the two
-    never both hold (it needs L > 1)."""
+    the lengths it is built for, N = 16 R2 16 with R2 a 5-smooth radix
+    from 8 to 64 (:data:`_ROW_LENGTHS`, 2048-16384: the y pass of every
+    128-aligned image grid from 1024^2 to 8192^2 and of its PSF grid up
+    to 4096^2). Other N (not a multiple of 256, or no instance) keep
+    ``line_fft_kernel`` up to 16384 and :func:`four_step_route` above.
+    :func:`cluster_route` is asked first; the two never both hold (it
+    needs L > 1)."""
     return L == 1 and N in _ROW_LENGTHS
+
+
+def four_step_route(N, L):
+    """Whether :func:`fftx_c2c` on a CUDA stack runs the four-step
+    :func:`fftx_c2c_four` (``csrc/cfft_four.cu``, K3f, then the cluster
+    kernel at N / 8): either pass above 16384, where no kernel takes one
+    line a pass (``line_fft_kernel`` stops at its kMaxN, the cluster
+    kernel at a tile of 8192 values, the row kernel at R2 = 64), on the
+    lengths whose eighth M = N / 8 the cluster kernel takes with 8 L
+    columns and keeps rolled (N % 32 == 0): the PSF grids of the
+    128-aligned images above 4096^2 (18432-32768) and any such length up
+    to 8 x 16384."""
+    return N > _LINE_MAX_N and N % 32 == 0 and cluster_route(N // 8, 8 * L)
+
+
+def fftx_c2c_route(N, L):
+    """The kernel :func:`fftx_c2c` runs on a CUDA (P, ., L) stack of
+    length N: "cluster", "rows", "four" or "line"; ValueError where none
+    takes it (N above 16384 off the four-step)."""
+    if cluster_route(N, L):
+        return "cluster"
+    if row_route(N, L):
+        return "rows"
+    if four_step_route(N, L):
+        return "four"
+    if N > _LINE_MAX_N:
+        raise ValueError(f"fftx_c2c: no kernel takes N={N}, L={L} (the "
+                         f"line kernel stops at {_LINE_MAX_N}, the "
+                         "four-step needs N % 32 == 0 and N/8 on the "
+                         "cluster route)")
+    return "line"
 
 
 def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
@@ -171,11 +211,14 @@ def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
     (Nin = N, or N/2 when ``in_rolled``); output (P, Nout, L) with
     Nout = N or N/2 (``out_rolled``). Forward e^-, inverse e^+, no 1/N.
     ``xi`` may be None for a real input. A CUDA stack launches the
-    cluster column kernel where :func:`cluster_route` says so, else the
-    row kernel where :func:`row_route` says so, else
-    ``line_fft_kernel``. ``fftx_c2c.launches`` counts the launches of
-    ``line_fft_kernel``, ``fftx_c2c_cluster.launches`` and
-    ``fftx_c2c_rows.launches`` those of the other two."""
+    kernel :func:`fftx_c2c_route` names: the cluster column kernel where
+    :func:`cluster_route` says so, else the row kernel where
+    :func:`row_route` says so, else the four-step where
+    :func:`four_step_route` says so, else ``line_fft_kernel``.
+    ``fftx_c2c.launches`` counts the launches of ``line_fft_kernel``,
+    ``fftx_c2c_cluster.launches``, ``fftx_c2c_rows.launches`` and
+    ``fftx_c2c_four.launches`` those of the others (the four-step's
+    cluster step counts as the cluster kernel's)."""
     P, Nin, L = _check_stack("fftx_c2c", xr, xi, N, in_rolled, out_rolled)
     if not xr.is_cuda:
         xi_ = torch.zeros_like(xr) if xi is None else xi
@@ -184,10 +227,13 @@ def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
     kernels.require_cuda_f32("fftx_c2c", xr, xi)
     kw = dict(N=N, inverse=inverse, in_rolled=in_rolled,
               out_rolled=out_rolled)
-    if cluster_route(N, L):
+    route = fftx_c2c_route(N, L)
+    if route == "cluster":
         return fftx_c2c_cluster(xr, xi, **kw)
-    if row_route(N, L):
+    if route == "rows":
         return fftx_c2c_rows(xr, xi, **kw)
+    if route == "four":
+        return fftx_c2c_four(xr, xi, **kw)
     Nout = N // 2 if out_rolled else N
     yr = torch.empty((P, Nout, L), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
@@ -412,6 +458,91 @@ def fftx_c2c_rows(xr, xi, *, N, inverse=False, in_rolled=False,
 
 
 fftx_c2c_rows.launches = 0
+
+
+# ---------------------------------------------------------------------
+# the four-step above 16384 (K3f, then the cluster kernel at N / 8)
+
+
+def fftx_c2c_four_first_plain(xr, xi, *, N, inverse=False,
+                              in_rolled=False):
+    """Plain version of K3f alone, the four-step's first steps as torch
+    operations on a (P, Nin, L) stack, N = 8 M: x[n2 + M n1] as [n1, n2],
+    the 8-point DFTs over n1, the twiddles W_N^(n2 k1) (float64, rounded
+    once to the working type) and the reorder to [n2, k1]: the real and
+    imaginary (P, M, 8 L) stacks whose M-point DFTs over n2 finish the
+    transform. Any N % 8 == 0."""
+    if N % 8:
+        raise ValueError(f"fftx_c2c_four_plain: N={N} is not a multiple "
+                         "of 8")
+    M = N // 8
+    z = _full_rows(torch.complex(xr, xi), N, in_rolled)
+    P, _, L = z.shape
+    zz = z.reshape(P, 8, M, L)  # [n1, n2] = x[n2 + M n1]
+    Y = torch.fft.ifft(zz, dim=1) * 8 if inverse else torch.fft.fft(zz,
+                                                                   dim=1)
+    sign = 1.0 if inverse else -1.0
+    e = torch.outer(torch.arange(8, dtype=torch.float64),
+                    torch.arange(M, dtype=torch.float64))
+    tw = torch.polar(torch.ones_like(e), sign * 2.0 * np.pi * e / N)
+    T = (Y * tw.to(Y.dtype).to(Y.device)[None, :, :, None]).transpose(1, 2)
+    T = T.reshape(P, M, 8 * L)
+    return T.real.contiguous(), T.imag.contiguous()
+
+
+def fftx_c2c_four_plain(xr, xi, *, N, inverse=False, in_rolled=False,
+                        out_rolled=False):
+    """Plain version of the four-step's steps as torch operations on a
+    (P, Nin, L) stack: :func:`fftx_c2c_four_first_plain`, then the
+    M-point DFTs over n2, whose [k2, k1] is X[k1 + 8 k2] in natural
+    order, and the rolled row selection. Same conventions as
+    :func:`fftx_c2c`; any N % 8 == 0."""
+    tr, ti = fftx_c2c_four_first_plain(xr, xi, N=N, inverse=inverse,
+                                       in_rolled=in_rolled)
+    P, M, L = tr.shape[0], N // 8, tr.shape[2] // 8
+    T = torch.complex(tr, ti).reshape(P, M, 8, L)
+    X = torch.fft.ifft(T, dim=1) * M if inverse else torch.fft.fft(T, dim=1)
+    return _out_rows(X.reshape(P, N, L), N, out_rolled)
+
+
+def fftx_c2c_four(xr, xi, *, N, inverse=False, in_rolled=False,
+                  out_rolled=False):
+    """K3 above 16384 as a four-step N = 8 M: K3f (``csrc/cfft_four.cu``:
+    the 8-point DFTs over the strided factor, the twiddles W_N^(n2 k1)
+    and the reorder to a (P, M, 8, L) stack, one HBM read and one write)
+    and the M-point DFTs on :func:`fftx_c2c` at M with 8 L columns (the
+    cluster column kernel, which also keeps the rolled rows), whose rows
+    are in natural order. Same shapes and conventions as
+    :func:`fftx_c2c`; raises where :func:`four_step_route` does not hold.
+    ``fftx_c2c_four.launches`` counts K3f's launches. A CPU stack runs
+    :func:`fftx_c2c_four_plain`."""
+    P, Nin, L = _check_stack("fftx_c2c_four", xr, xi, N, in_rolled,
+                             out_rolled)
+    if not four_step_route(N, L):
+        raise ValueError(f"fftx_c2c_four: N={N}, L={L} is off the "
+                         "four-step route")
+    kw = dict(N=N, inverse=inverse, in_rolled=in_rolled,
+              out_rolled=out_rolled)
+    if not xr.is_cuda:
+        xi_ = torch.zeros_like(xr) if xi is None else xi
+        return fftx_c2c_four_plain(xr, xi_, **kw)
+    kernels.require_cuda_f32("fftx_c2c_four", xr, xi)
+    M = N // 8
+    tr = xr.new_empty((P, M, 8 * L))
+    ti = xr.new_empty((P, M, 8 * L))
+    code = kernels.library().pfbt_cfft_four(
+        xr.data_ptr(), None if xi is None else xi.data_ptr(),
+        tr.data_ptr(), ti.data_ptr(), P, L, N, int(in_rolled), int(inverse),
+        kernels.twiddles(N, xr.device, kind="four").data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_four")
+    fftx_c2c_four.launches += 1
+    yr, yi = fftx_c2c(tr, ti, N=M, inverse=inverse, out_rolled=out_rolled)
+    del tr, ti
+    return yr.reshape(P, -1, L), yi.reshape(P, -1, L)
+
+
+fftx_c2c_four.launches = 0
 
 
 def fft2_c2c_pruned(xr, xi, *, Nx, Ny, inverse, pruned_in=False,

@@ -41,7 +41,7 @@ kernels' own decomposition as torch operations, for the CPU tests.
 
 The rows stage of every entry (K1, K2, K10 stage 2, K11, and through them
 K12-K14) runs on one of two kernels, by :func:`rows_route` at NY: at NY =
-2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192 and 12288 the fused
+256 R2, R2 a 5-smooth radix from 8 to 64 (2048-16384), the fused
 register row FFT K10br of ``csrc/psf_rows.cu`` (:func:`psf_rows` counts
 its launches, from whichever entry, as the entry reports them), elsewhere
 ``psf_rows_kernel`` (:data:`psf_rows_line` counts its launches). The C++
@@ -345,9 +345,10 @@ psf_cols_inv.launches = 0
 def rows_route(NY):
     """Whether the rows stage of length NY takes K10br, the fused register
     row FFT (``csrc/psf_rows.cu:psf_rows_fused``, which decides; this is
-    its mirror): NY = 16 R2 16 with R2 = 8, 10, 12, 16, 18, 20, 24, 32, 48
-    (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288), K3r's lengths
-    (ops/cfft.py:row_route). Every other NY keeps ``psf_rows_kernel``."""
+    its mirror): NY = 16 R2 16 with R2 a 5-smooth radix from 8 to 64
+    (2048-16384: every PSF Hessian of a 128-aligned image from 1024^2 to
+    8192^2), K3r's lengths (ops/cfft.py:row_route). Every other NY keeps
+    ``psf_rows_kernel``."""
     return NY in _ROW_LENGTHS
 
 

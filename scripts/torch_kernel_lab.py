@@ -16,6 +16,9 @@ the card (counterpart of scripts/wl_kernel_lab.py's k1 / k2 / k3).
     python3 scripts/torch_kernel_lab.py --cols-const NAME=V1,V2
     python3 scripts/torch_kernel_lab.py --rows-times [--root DIR]
     python3 scripts/torch_kernel_lab.py --rows-const NAME=V1,V2
+    python3 scripts/torch_kernel_lab.py --lengths [--root DIR]
+    python3 scripts/torch_kernel_lab.py --two-pass [--root DIR] [--out FILE]
+    python3 scripts/torch_kernel_lab.py --spills [--out FILE]
 
 At (8, nx^2) with a (2nx)^2 PSF for each nx of ``--nx`` (a delta 1.0 at
 the centre and 0.05 at +5, +3, as wl_kernel_lab.py builds it; complex
@@ -126,12 +129,34 @@ for ``kShortClusters``, its mirror ops/cfft.py:_SHORT_C with it) under
 ``--degrid-const`` does: the readings that set the route's C below 4096.
 
 ``--rows-times`` times the register row kernels of the tree at ``--root``
-at the lengths 2048-5120 (:func:`rows_times`: K3r's y pass and K10br's
-rows stage, K1's shapes); ``--rows-const NAME=V1,V2`` builds copies of
+at the nine lengths 2048-12288 of R2 = 8-48 (:func:`rows_times`: K3r's y
+pass and K10br's rows stage, K1's shapes); ``--rows-const NAME=V1,V2`` builds copies of
 the package with ``csrc/rows_fft.cuh``'s ``constexpr int NAME`` set to
 each value (``kShortRowThreads``: the threads of a block at N = 2048)
 under ``build/lab_rows/<NAME>/<value>/`` and times them by
 ``--rows-times``, as ``--degrid-const`` does.
+
+``--lengths`` times the tree at ``--root`` at the row lengths of the
+128-aligned images whose R2 = N / 256 had no register instance before
+(2304-16384: K3's y pass through fftx_c2c and the
+PSF rows stage through psf_stage_rows) and fftx_c2c at 18432 and 32768
+(the PSF grids of 4608^2 and 8192^2 images), each with the route its call
+took, torch.fft and the bound; a call that raises is recorded with what
+it raised. Run it with and without ``--root`` in one call to compare two
+trees.
+
+``--two-pass`` builds a copy of the package under
+``build/lab_two_pass/pairs/`` whose row kernels take stage 2 in two
+register passes at every pair R2 (:data:`TWO_PASS_ROWS_MID`, which
+replaces ``csrc/rows_fft.cuh:rows_mid`` there), builds it, this tree and
+the tree at ``--root`` at once, and times ``--root``, this tree, the
+copy, the copy, this tree and ``--root`` by ``--rows-times``, then this
+tree, the copy, the copy and this tree by ``--lengths``.
+
+``--spills`` needs nvcc but no card: the row kernels' sources of this
+tree and of the two-pass copy compiled side by side with ptxas's report
+and line info, each row kernel instance's registers and spill bytes and
+its local loads and stores (``nvdisasm -g``) by source line.
 
 ``--minblocks 1,2,3,4`` probes the cluster column kernels' register
 budget: for each value, a copy of pfb_tpu_torch under
@@ -993,6 +1018,9 @@ def _route(fn):
            "K10cc": psf.psf_cols_inv, "K10br": psf.psf_rows,
            "K1": psf.psf_convolve_h, "K2": psf.psf_convolve_h_cg,
            "K11": psf.psf_convolve_full}
+    # the four-step route above 16384 (a tree before it has none)
+    if hasattr(cfft, "fftx_c2c_four"):
+        cnt["K3f"] = cfft.fftx_c2c_four
     # the PSF line kernels' counters (a tree before them has none: its
     # line route shows only as the absence of the others)
     for name in ("psf_cols_line", "psf_rows_line"):
@@ -1158,10 +1186,15 @@ def cols_short_times(reps, dev, smi, root):
         torch.cuda.empty_cache()
 
 
+# the row kernels' first nine lengths (R2 = 8, 10, 12, 16, 18, 20, 24, 32
+# and 48)
+ROWS_TIMES_LENGTHS = (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288)
+
+
 def rows_times(reps, dev, smi, root):
     """--rows-times: K3r (the y pass of (P, N^2) planes, inverse out_rolled
     and forward in_rolled) and K10br (psf_rows at K1's (8, NY/2 + 1, NY/2)
-    rows, complex H) of the tree at ``root`` at the lengths 2048-5120,
+    rows, complex H) of the tree at ``root`` at ROWS_TIMES_LENGTHS,
     beside torch.fft (for K10br three calls, for context: no one call
     computes it); one JSON line a case."""
     import torch
@@ -1183,7 +1216,7 @@ def rows_times(reps, dev, smi, root):
             key: cuda_ms(lib, reps, dev), "bound_ms": bms, "bound_by": bby,
             "card": smi}), flush=True)
 
-    for N in OFFROUTE_STAGES:
+    for N in ROWS_TIMES_LENGTHS:
         P = 9
         for inv, pin, pout in ((True, False, True), (False, True, False)):
             nin = N // 2 if pin else N
@@ -1214,6 +1247,91 @@ def rows_times(reps, dev, smi, root):
                                     dim=-1)[..., :ny], key="three_calls_ms")
         del zr, zi, hr, hi, zc, hc
         torch.cuda.empty_cache()
+
+
+def lengths_times(reps, dev, smi, root):
+    """--lengths: the tree at ``root`` at the row lengths whose R2 = N /
+    256 (9, 15, 25, 27, 30, 36, 40, 45, 50, 54, 60, 64) were the last to
+    get register instances and at the lengths above 16384 (chip_smoke.py's NEW_ROW_LENGTHS and FOUR_LENGTHS), each
+    call's route (the launch counters it moved), its bound and torch.fft,
+    one JSON line a case: K3's y pass through fftx_c2c on the rows the x
+    pass of P planes leaves (chip_smoke.py's row_planes), inverse
+    out_rolled and forward in_rolled; the PSF rows stage through
+    K10's entry (psf_stage_rows on (8, NY/2 + 1, NY/2) rows, complex H;
+    three torch.fft calls for context); where the row kernel takes the
+    y pass, its skeleton (loads, transposes and stores, the arithmetic
+    compiled out) beside it; fftx_c2c above 16384 on one
+    plane, its x pass and the y pass of the rows that leaves, both
+    directions, where a tree without a route there records what it
+    raised."""
+    import torch
+
+    from pfb_tpu_torch.ops import cfft
+    from pfb_tpu_torch.ops.psf import psf_stage_rows
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import (FOUR_LENGTHS, NEW_ROW_LENGTHS, bound, fft_flops,
+                            row_planes, rows_work)
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def line(case, shape, fn, work, **extra):
+        bms, bby = bound(*work)
+        rec = {"probe": "lengths", "root": str(root), "case": case,
+               "shape": list(shape), "bound_ms": bms, "bound_by": bby,
+               "card": smi}
+        try:
+            rec["route"] = _route(fn)
+            rec["ms"] = cuda_ms(fn, reps, dev)
+        except (RuntimeError, ValueError) as e:
+            rec["raised"] = f"{type(e).__name__}: {e}"
+        rec.update({k: cuda_ms(f, reps, dev) for k, f in extra.items()})
+        print(json.dumps(rec), flush=True)
+
+    def passes(N, axes):
+        for inv, pin, pout in ((True, False, True), (False, True, False)):
+            nin = N // 2 if pin else N
+            nout = N // 2 if pout else N
+            kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+            lib = torch.fft.ifft if inv else torch.fft.fft
+            tag = "inverse out_rolled" if inv else "forward in_rolled"
+            # the x pass of (P, nin, nin) planes; the y pass of the rows
+            # the x pass leaves, P N/2 (out_rolled) or P N (in_rolled)
+            rows = N if pin else N // 2
+            for axis, shape in axes((nin, nin), (rows, nin, 1)):
+                xr, xi = (torch.randn(shape, generator=g, device=dev)
+                          for _ in range(2))
+                z = torch.zeros((shape[0], N, shape[2]),
+                                dtype=torch.complex64, device=dev)
+                z[:, :nin] = torch.complex(xr, xi)
+                lines = shape[0] * shape[2]
+                # the row kernel's load/transpose/store skeleton beside it
+                extra = {"skeleton_ms": lambda: cfft.fftx_c2c_rows(
+                    xr, xi, skeleton=True, **kw)} \
+                    if cfft.row_route(N, shape[2]) else {}
+                line(f"fftx_c2c {axis} pass {tag} N={N}", shape,
+                     lambda: cfft.fftx_c2c(xr, xi, **kw),
+                     (8.0 * lines * (nin + nout), fft_flops(N, lines)),
+                     library_ms=lambda: lib(z, dim=-2), **extra)
+                del xr, xi, z
+                torch.cuda.empty_cache()
+
+    for N in NEW_ROW_LENGTHS:
+        P = row_planes(N)
+        passes(N, lambda x, y: (("y", (P * y[0],) + y[1:]),))
+        nb, ny = 8, N // 2
+        zr, zi = (torch.randn((nb, ny + 1, ny), generator=g, device=dev)
+                  for _ in range(2))
+        hr, hi = (torch.randn((nb, ny + 1, N), generator=g, device=dev)
+                  for _ in range(2))
+        zc, hc = torch.complex(zr, zi), torch.complex(hr, hi)
+        line(f"rows stage psf_stage_rows (8, {ny + 1}, {ny}) of {N}, "
+             "complex H", zr.shape, lambda: psf_stage_rows(zr, zi, hr, hi),
+             rows_work(nb, ny + 1, ny, N, "complex"),
+             three_calls_ms=lambda: torch.fft.ifft(
+                 torch.fft.fft(zc, n=N, dim=-1) * hc, dim=-1)[..., :ny])
+        del zr, zi, hr, hi, zc, hc
+        torch.cuda.empty_cache()
+    for N in FOUR_LENGTHS:
+        passes(N, lambda x, y: (("x", (1,) + x), ("y", y)))
 
 
 MINB_RE = re.compile(r"constexpr int kColsMinBlocks = (\d+);")
@@ -1310,6 +1428,228 @@ def const_probe(source, name, values, base, flag, reps):
     return recs
 
 
+# csrc/rows_fft.cuh's stage 2 (rows_mid) with every pair R2 in two
+# register passes through each thread's own slots of the line: RB DFTs
+# of RA in place (the stage twiddles on load, W_R2^{n2 k1} on store), then
+# RA DFTs of RB into registers in output order; dft_pair's operations
+# with RA or RB values at a time beside the R2 outputs. The design the
+# rows kernels measured against and did not take (PERF.md).
+TWO_PASS_ROWS_MID = """// Stage 2 with every pair R2 in two register passes (the lab's copy)
+template <int R2>
+__device__ __forceinline__ void mid_two_pass(float2* sm, const float2* T2,
+                                             bool inv, float2* u) {
+  constexpr int RA = pair_ra(R2), RB = R2 / RA;
+  const float sg = inv ? -1.f : 1.f;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int n2 = 0; n2 < RB; ++n2) {
+    float2 a[RA];
+#pragma unroll
+    for (int n1 = 0; n1 < RA; ++n1) {
+      const int q = RB * n1 + n2;
+      a[n1] = sm[rpad(t + kRowBflies * q)];
+      if (q > 0) {
+        const float2 w = __ldg(&T2[(q - 1) * 16]);
+        a[n1] = cmul(a[n1], make_float2(w.x, sg * w.y));
+      }
+    }
+    reg_dft<RA>(a, inv);
+#pragma unroll
+    for (int k1 = 0; k1 < RA; ++k1) {
+      if (n2 > 0 && k1 > 0) a[k1] = cmul(a[k1], wroot<R2>(n2 * k1, inv));
+      sm[rpad(t + kRowBflies * (RB * k1 + n2))] = a[k1];
+    }
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < RA; ++k1) {
+    float2 b[RB];
+#pragma unroll
+    for (int n2 = 0; n2 < RB; ++n2)
+      b[n2] = sm[rpad(t + kRowBflies * (RB * k1 + n2))];
+    reg_dft<RB>(b, inv);
+#pragma unroll
+    for (int k2 = 0; k2 < RB; ++k2) u[k1 + RA * k2] = b[k2];
+  }
+}
+
+template <int R2, int T, bool kFFT>
+__device__ __forceinline__ void rows_mid(float2* sm, const float2* TW,
+                                         bool inv) {
+  constexpr int B2 = kRowBflies / T;
+  static_assert(B2 * T == kRowBflies, "T divides 256");
+  constexpr bool kTwo = kFFT && B2 == 1 && pair_ra(R2) > 0;
+  const float sg = inv ? -1.f : 1.f;
+  float2 u[B2][R2];
+  if constexpr (kTwo) {
+    mid_two_pass<R2>(sm, TW + 15 + (threadIdx.x & 15), inv, u[0]);
+  } else {
+#pragma unroll
+    for (int b = 0; b < B2; ++b)
+#pragma unroll
+      for (int q = 0; q < R2; ++q)
+        u[b][q] = sm[rpad(threadIdx.x + T * b + kRowBflies * q)];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < B2; ++b) {
+    const int t = threadIdx.x + T * b;
+    if constexpr (kFFT && !kTwo) {
+      const float2* T2 = TW + 15 + (t & 15);
+#pragma unroll
+      for (int q = 1; q < R2; ++q) {
+        const float2 w = __ldg(&T2[(q - 1) * 16]);
+        u[b][q] = cmul(u[b][q], make_float2(w.x, sg * w.y));
+      }
+      reg_dft<R2>(u[b], inv);
+    }
+    const int o = (t >> 4) * 16 * R2 + (t & 15);
+#pragma unroll
+    for (int q = 0; q < R2; ++q) sm[rpad(o + 16 * q)] = u[b][q];
+  }
+}
+
+"""
+
+
+def two_pass_copy():
+    """A copy of pfb_tpu_torch under ``build/lab_two_pass/pairs/`` whose
+    rows_mid is :data:`TWO_PASS_ROWS_MID`. Returns its root."""
+    d = ROOT / "build" / "lab_two_pass" / "pairs"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(ROOT / "pfb_tpu_torch", d / "pfb_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    _set_once(d / "pfb_tpu_torch" / "csrc" / "rows_fft.cuh",
+              r"(?s)// Stage 2, radix R2 at Ns = 16.*?(?=// Stage 3's input)",
+              lambda m: TWO_PASS_ROWS_MID)
+    return d
+
+
+def two_pass_probe(reps, root, out):
+    """--two-pass: :func:`two_pass_copy` built at once with this tree and
+    the tree at ``root``; then ``root`` (when another tree), this tree,
+    the copy, the copy, this tree and ``root`` timed by --rows-times, and
+    this tree, the copy, the copy and this tree by --lengths, in child
+    processes. Returns the lines' records."""
+    two = two_pass_copy()
+    refs = [] if Path(root).resolve() == ROOT else [Path(root)]
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from pfb_tpu_torch import kernels; kernels.build()", str(d)])
+        for d in refs + [ROOT, two]]
+    if any(b.wait() for b in builds):
+        raise RuntimeError("a build of the probe's trees failed")
+    turn = [ROOT, two, two, ROOT]
+    recs = []
+    for flag, roots in (("--rows-times", refs + turn + refs),
+                        ("--lengths", turn)):
+        for d in roots:
+            res = subprocess.run(
+                [sys.executable, __file__, flag, "--reps", str(reps),
+                 "--root", str(d)], capture_output=True, text=True,
+                check=True)
+            print(res.stdout, end="", flush=True)
+            recs += [json.loads(v) for v in res.stdout.splitlines()]
+    if out:
+        Path(out).write_text("".join(json.dumps(r) + "\n" for r in recs))
+    return recs
+
+
+ROW_SOURCES = ("cfft_rows.cu", "psf_rows.cu", "psf_rows_mid.cu",
+               "psf_rows_long.cu")
+
+
+def _ptxas_rows(log):
+    """Registers and spill bytes of the row kernels in a ptxas -v log,
+    by mangled name."""
+    found, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if ("rows_fft_kernel" in m.group(1) or
+                                 "psf_rows_fused_kernel" in m.group(1)) \
+                else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            found.setdefault(cur, {})["spill_bytes"] = [int(m.group(1)),
+                                                        int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            found.setdefault(cur, {})["registers"] = int(m.group(1))
+            cur = None
+    return found
+
+
+def _local_by_line(sass):
+    """nvdisasm -g's local stores and loads (STL, LDL) by function and
+    source line."""
+    found, func, loc = {}, None, None
+    for line in sass.splitlines():
+        m = re.search(r"\.text\.(_Z\w+)", line)
+        if m:
+            func, loc = m.group(1), None
+            continue
+        m = re.search(r'//## File "([^"]+)", line (\d+)', line)
+        if m:
+            loc = f"{Path(m.group(1)).name}:{m.group(2)}"
+            continue
+        m = re.search(r"\b(STL|LDL)\b", line)
+        if m and func:
+            key = f"{m.group(1)} {loc}"
+            found.setdefault(func, {})
+            found[func][key] = found[func].get(key, 0) + 1
+    return found
+
+
+def spills(out):
+    """--spills: ROW_SOURCES of this tree and of :func:`two_pass_copy`
+    compiled to cubins at once with ptxas -v and line info; one JSON line
+    a row kernel instance that spills or has R2 >= 45: its template
+    arguments (N, R2, MINB, then the kernel's flags), registers, spill
+    bytes (stores, loads) and local loads and stores by source line.
+    Returns the records."""
+    sys.path.insert(0, str(ROOT))
+    from pfb_tpu_torch import kernels
+    flags = [f for f in kernels.NVCC_FLAGS if f != "-shared"]
+    trees = {"this": ROOT, "two_pass": two_pass_copy()}
+    work = ROOT / "build" / "lab_spills"
+    work.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for tree, d in trees.items():
+        for src in ROW_SOURCES:
+            cub = work / f"{tree}.{src}.cubin"
+            jobs.append((tree, src, cub, subprocess.Popen(
+                [kernels._nvcc(), *flags, "-Xptxas", "-v", "-lineinfo",
+                 "-cubin", "-o", str(cub),
+                 str(d / "pfb_tpu_torch" / "csrc" / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    nvdisasm = str(Path(kernels._nvcc()).with_name("nvdisasm"))
+    recs = []
+    for tree, src, cub, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {tree} {src}:\n{log}")
+        sass = subprocess.run([nvdisasm, "-g", "-c", str(cub)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        local = _local_by_line(sass)
+        for name, rec in sorted(_ptxas_rows(log).items()):
+            args = [int(a or b) for a, b in
+                    re.findall(r"Li(\d+)E|Lb(\d)E", name)]
+            r = {"probe": "spills", "tree": tree, "source": src,
+                 "kernel": "psf_rows_fused_kernel" if "psf_rows" in name
+                 else "rows_fft_kernel", "args": args, **rec,
+                 "local_by_line": local.get(name, {})}
+            if r.get("spill_bytes", [0, 0]) != [0, 0] or args[1] >= 45:
+                print(json.dumps(r), flush=True)
+            recs.append(r)
+    if out:
+        Path(out).write_text("".join(json.dumps(r) + "\n" for r in recs))
+    return recs
+
+
 def minblocks(values, reps, out):
     """--minblocks: :func:`const_probe` of kColsMinBlocks (psf_cols.cu)
     by --cols-times. Returns the lines' records."""
@@ -1362,12 +1702,26 @@ def main():
                     "the values to probe")
     ap.add_argument("--rows-times", action="store_true",
                     help="time the register row kernels of --root at "
-                    "2048-5120")
+                    "2048-12288 (R2 = 8-48)")
+    ap.add_argument("--lengths", action="store_true",
+                    help="time --root's row passes and rows stage at the "
+                    "lengths of the images R2 = 9-64 and fftx_c2c above "
+                    "16384, with each call's route")
     ap.add_argument("--rows-const",
                     help="NAME=V1,V2: a constant of csrc/rows_fft.cuh and "
                     "the values to probe")
+    ap.add_argument("--two-pass", action="store_true",
+                    help="time a copy with stage 2 of the row kernels in "
+                    "two register passes beside this tree")
+    ap.add_argument("--spills", action="store_true",
+                    help="registers, spills and local loads and stores by "
+                    "source line of the row kernels, this tree and the "
+                    "two-pass copy (nvcc, no card)")
     ap.add_argument("--out")
     args = ap.parse_args()
+    if args.spills:
+        spills(args.out)
+        return 0
     import torch
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -1405,6 +1759,12 @@ def main():
         return 0
     if args.rows_times:
         rows_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.lengths:
+        lengths_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.two_pass:
+        two_pass_probe(args.reps, args.root, args.out)
         return 0
     if args.rows_const:
         name, values = args.rows_const.split("=")

@@ -1,11 +1,16 @@
 """pfb_tpu_torch w-plane c2c transforms (ops/cfft.py, the plain versions
 of the CUDA kernels on the CPU: the line kernel's, the cluster column
-kernel's steps at C = 2, 4, 8 and 16, and the row kernel's three stages)
-against pfb_tpu/ops/pallas_cfft.py in interpret mode. Float32 on both
+kernel's steps at C = 2, 4, 8 and 16, the row kernel's three stages and
+the four-step's above 16384) against pfb_tpu/ops/pallas_cfft.py in
+interpret mode; the routes of every pass of the imaging paths at the
+128-aligned images from 1024^2 to 8192^2 against the kernels' instance
+tables. Float32 on both
 sides, or float64 in the port; tolerance 1e-5 of max|ref| (f32 four-step
 DFTs, ~1e-6 log2 N)."""
 
 import itertools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +24,11 @@ from pfb_tpu_torch.ops.cfft import (_factor, cfft_supported, cluster_route,
                                     cluster_shape, fft2_c2c_pruned, fftx_c2c,
                                     fftx_c2c_cluster, fftx_c2c_cluster_plain,
                                     fftx_c2c_rows, fftx_c2c_rows_plain,
-                                    fftx_c2c_rows_skeleton_plain, row_radices,
-                                    row_route)
+                                    fftx_c2c_rows_skeleton_plain,
+                                    four_step_route, fftx_c2c_four,
+                                    fftx_c2c_four_first_plain,
+                                    fftx_c2c_four_plain, fftx_c2c_route,
+                                    row_radices, row_route)
 
 torch.set_num_threads(1)
 N = 256
@@ -35,6 +43,14 @@ def _rand(shape, seed):
 def _close(got, ref, tol=1e-5):
     ref = np.asarray(ref)
     assert np.abs(np.asarray(got) - ref).max() <= tol * np.abs(ref).max()
+
+
+def _smooth(m):
+    """Whether m has no prime factor but 2, 3 and 5."""
+    for p in (2, 3, 5):
+        while m % p == 0:
+            m //= p
+    return m == 1
 
 
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
@@ -302,18 +318,20 @@ def test_rows_skeleton_plain_is_the_stage_permutation(N, mode):
 
 def test_row_route_and_radices():
     """The dispatch rule, written once in ops/cfft.py: contiguous rows (L
-    = 1) at the kernel's nine lengths take the row kernel; L > 1 never
-    does (the cluster route's), nor other N (not a multiple of 256, or no
-    instance); no shape takes both routes. The plan is 16 x R2 x 16 at
-    those lengths."""
-    lengths = (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288)
+    = 1) at the kernel's 21 lengths 256 R2 (R2 5-smooth, 8-64) take the
+    row kernel; L > 1 never does (the cluster route's), nor other N (not
+    a multiple of 256, or R2 not 5-smooth or past 64); no shape takes
+    both routes. The plan is 16 x R2 x 16 at those lengths."""
+    lengths = tuple(256 * r for r in range(8, 65) if _smooth(r))
+    assert len(lengths) == 21 and lengths[0] == 2048 and \
+        lengths[-1] == 16384
     for n in lengths:
         assert row_route(n, 1) and not cluster_route(n, 1)
         assert not row_route(n, 8) and cluster_route(n, 8)
         assert row_radices(n) == (16, n // 256, 16)
-    for n in (256, 1024, 2304, 3000, 3584, 4100, 16384, 6561):
+    for n in (256, 1024, 3000, 3584, 4100, 6561, 16640, 18432):
         assert not row_route(n, 1)
-    assert tuple(n for n in range(2, 16402) if row_route(n, 1)) == lengths
+    assert tuple(n for n in range(2, 16900) if row_route(n, 1)) == lengths
     for n, L in itertools.product((512, 2048, 4096, 6144, 8192, 12288,
                                    16384), (1, 2, 8, 64)):
         assert not (row_route(n, L) and cluster_route(n, L))
@@ -337,19 +355,24 @@ class _CardStack:
 
 @pytest.mark.parametrize("N,L,route", [
     (8192, 8, "cluster"), (8192, 1, "rows"), (4096, 1, "rows"),
-    (2048, 1, "rows"), (2048, 8, "cluster"), (16384, 1, "line"),
+    (2048, 1, "rows"), (2048, 8, "cluster"), (16384, 1, "rows"),
     (1024, 8, "line"), (3000, 1, "line"), (3000, 8, "cluster"),
-    (5120, 1, "rows"), (2560, 8, "cluster")])
+    (5120, 1, "rows"), (2560, 8, "cluster"), (2304, 1, "rows"),
+    (7680, 1, "rows"), (18432, 1, "four"), (18432, 9216, "four"),
+    (32768, 1, "four"), (16000, 1, "line")])
 def test_fftx_c2c_route_order(monkeypatch, N, L, route):
-    """A CUDA stack asks cluster_route first, then row_route, then takes
-    line_fft_kernel: each route's wrapper is called exactly where its
-    rule says."""
+    """A CUDA stack asks cluster_route first, then row_route, then
+    four_step_route, then takes line_fft_kernel: each route's wrapper is
+    called exactly where its rule says (fftx_c2c_route names it)."""
     called = []
+    assert fftx_c2c_route(N, L) == route
     monkeypatch.setattr(cf.kernels, "require_cuda_f32", lambda *a: None)
     monkeypatch.setattr(cf, "fftx_c2c_cluster",
                         lambda *a, **k: called.append("cluster") or "c")
     monkeypatch.setattr(cf, "fftx_c2c_rows",
                         lambda *a, **k: called.append("rows") or "r")
+    monkeypatch.setattr(cf, "fftx_c2c_four",
+                        lambda *a, **k: called.append("four") or "f")
 
     def line(*a, **k):
         called.append("line")
@@ -374,22 +397,29 @@ class _OnCard(torch.Tensor):
 
 @pytest.mark.parametrize("N,L", [(2048, 1), (2048, 8), (2560, 1), (2560, 8),
                                  (3072, 1), (3072, 8), (4608, 1), (5120, 1),
-                                 (1024, 8), (3000, 1)])
+                                 (1024, 8), (3000, 1), (2304, 1), (3840, 1),
+                                 (16384, 1), (18432, 1), (18432, 4),
+                                 (32768, 1)])
 def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
     """On a stand-in CUDA stack (a stand-in library recording each entry's
     shape arguments) fftx_c2c at the lengths 2048-5120 launches the
     cluster kernel on clusters of 4 and tiles of 8 columns (its strided
-    x pass) and the row kernel at the length (its y pass), each counted
-    on its own route; N = 1024 (below the cluster floor) and 3000 (not a
-    multiple of 256) launch line_fft_kernel."""
-    calls = []
+    x pass) and the row kernel at the length (its y pass, also at R2 = 9,
+    15 and 64), each counted on its own route; above 16384 K3f at N, then
+    the cluster kernel at N / 8 on 8 L columns (clusters of 4, tiles of
+    8); N = 1024 (below the cluster floor) and 3000 (not a multiple of
+    256) launch line_fft_kernel."""
+    calls, cols = [], []
 
     class Lib:
         def __getattr__(self, name):
             def entry(*a):
                 calls.append({"pfbt_cfft_cols": lambda: (name, a[12], a[13]),
                               "pfbt_cfft_rows": lambda: (name, a[5]),
+                              "pfbt_cfft_four": lambda: (name, a[6]),
                               "pfbt_cfft": lambda: (name, a[6])}[name]())
+                if name == "pfbt_cfft_cols":
+                    cols.append((a[6], a[5]))
                 return 0
             return entry
     monkeypatch.setattr(cf.kernels, "library", lambda: Lib())
@@ -398,18 +428,22 @@ def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
     monkeypatch.setattr(cf.kernels, "twiddles",
                         lambda n, dev, kind="plan": torch.zeros((n, 2)))
     x = torch.zeros((2, N, L)).as_subclass(_OnCard)
-    n0 = (fftx_c2c.launches, cf.fftx_c2c_cluster.launches,
-          cf.fftx_c2c_rows.launches)
-    cf.fftx_c2c(x, x, N=N)
-    got = tuple(f.launches - n for f, n in zip(
-        (fftx_c2c, cf.fftx_c2c_cluster, cf.fftx_c2c_rows), n0))
+    counters = (fftx_c2c, cf.fftx_c2c_cluster, cf.fftx_c2c_rows,
+                fftx_c2c_four)
+    n0 = tuple(f.launches for f in counters)
+    y = cf.fftx_c2c(x, x, N=N)
+    got = tuple(f.launches - n for f, n in zip(counters, n0))
     if cluster_route(N, L):
-        assert calls == [("pfbt_cfft_cols", 4, 8)] and got == (0, 1, 0)
+        assert calls == [("pfbt_cfft_cols", 4, 8)] and got == (0, 1, 0, 0)
     elif row_route(N, L):
-        assert calls == [("pfbt_cfft_rows", N)] and got == (0, 0, 1)
+        assert calls == [("pfbt_cfft_rows", N)] and got == (0, 0, 1, 0)
+    elif four_step_route(N, L):
+        assert calls == [("pfbt_cfft_four", N), ("pfbt_cfft_cols", 4, 8)]
+        assert cols == [(N // 8, 8 * L)] and got == (0, 1, 0, 1)
+        assert y[0].shape == (2, N, L)
     else:
         assert N in (1024, 3000)
-        assert calls == [("pfbt_cfft", N)] and got == (1, 0, 0)
+        assert calls == [("pfbt_cfft", N)] and got == (1, 0, 0, 0)
 
 
 @pytest.mark.parametrize("N", [2048, 2560, 3072])
@@ -426,3 +460,184 @@ def test_cluster_wrapper_takes_the_routes_clusters(N):
         yr, yi = fftx_c2c_cluster(a, b, N=N, inverse=inverse)
         _close(yr.numpy(), ref.real, 1e-12)
         _close(yi.numpy(), ref.imag, 1e-12)
+
+
+# ---------------------------------------------------------------------
+# the register row kernel at R2 = 9-64, the four-step above 16384, and the
+# routes of the imaging paths
+
+NEW_ROW_LENGTHS = (2304, 3840, 6400, 6912, 7680, 9216, 10240, 11520, 12800,
+                   13824, 15360, 16384)
+
+
+@pytest.mark.parametrize("N", NEW_ROW_LENGTHS)
+@pytest.mark.parametrize("mode,inverse", [("full", False),
+                                          ("in_rolled", False),
+                                          ("out_rolled", True)])
+def test_rows_plain_new_lengths_match_jax(N, mode, inverse):
+    """The row kernel's plan at the lengths whose R2 = N / 256 (9, 15, 25,
+    27, 30, 36, 40, 45, 50, 54, 60, 64) it was generalised to: 16 x R2 x
+    16, rolled chunk offsets and kept half, in float64, against the JAX y
+    pass in float32 on 4 rows."""
+    assert row_route(N, 1) and row_radices(N) == (16, N // 256, 16)
+    xr, xi, rr, ri = _jax_rows(N, mode, inverse, 4)
+    yr, yi = fftx_c2c_rows_plain(
+        torch.as_tensor(xr[..., None], dtype=torch.float64),
+        torch.as_tensor(xi[..., None], dtype=torch.float64), N=N,
+        inverse=inverse, in_rolled=mode == "in_rolled",
+        out_rolled=mode == "out_rolled")
+    _close(yr.numpy()[..., 0], rr)
+    _close(yi.numpy()[..., 0], ri)
+
+
+@pytest.mark.parametrize("N", [18432, 512])
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_four_step_plain_matches_jax(N, mode, inverse):
+    """The four-step's steps (8-point DFTs over the strided factor,
+    W_N^(n2 k1), the reorder, the N/8-point DFTs; fftx_c2c_four_plain) in
+    float64 against the JAX fftx_c2c in interpret mode in float32 on (2,
+    Nin, 8) stacks: at 18432 (the PSF grid of a 4608^2 image, on the
+    route) and at 512, the split forced off the route; fftx_c2c_four and
+    fftx_c2c on a CPU stack at 18432 beside them."""
+    xr, xi, rr, ri = _jax_ref(N, mode, inverse, 8)
+    kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
+              out_rolled=mode == "out_rolled")
+    a, b = (torch.as_tensor(v, dtype=torch.float64) for v in (xr, xi))
+    yr, yi = fftx_c2c_four_plain(a, b, **kw)
+    assert yr.dtype == torch.float64 and yr.shape == rr.shape
+    _close(yr.numpy(), rr)
+    _close(yi.numpy(), ri)
+    assert four_step_route(N, 8) == (N > 16384)
+    if N > 16384:
+        for fn in (fftx_c2c_four, fftx_c2c):
+            yr, yi = fn(torch.as_tensor(xr), torch.as_tensor(xi), **kw)
+            _close(yr.numpy(), rr)
+            _close(yi.numpy(), ri)
+    else:
+        with pytest.raises(ValueError):
+            fftx_c2c_four(a, b, **kw)
+
+
+def test_four_step_route_and_refusals():
+    """four_step_route holds above 16384 where N / 8 is on the cluster
+    route with 8 L columns and rolled (N % 32 == 0), for both passes:
+    18432-32768 and on to 8 x 16384; never at or below 16384. A CUDA
+    stack of a length above 16384 off the route is refused before any
+    launch (no length above kMaxN reaches line_fft_kernel)."""
+    for N in (18432, 20480, 23040, 24576, 25600, 27648, 30720, 32768,
+              65536, 131072):
+        for L in (1, 2, 4096):
+            assert four_step_route(N, L) and fftx_c2c_route(N, L) == "four"
+    for N in (16384, 8192, 2048, 16392, 16400, 24584, 262144, 20000 * 8):
+        for L in (1, 4):
+            assert not four_step_route(N, L)
+    for N, L in ((16400, 1), (24584, 1), (262144, 8), (160000, 1)):
+        with pytest.raises(ValueError):
+            fftx_c2c_route(N, L)
+    t = torch.zeros((1, 16400, 1)).as_subclass(_OnCard)
+    with pytest.raises(ValueError):
+        fftx_c2c(t, t, N=16400)
+
+
+@pytest.mark.parametrize("N, L", [(512, 3), (18432, 1)])
+@pytest.mark.parametrize("in_rolled", [False, True])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_four_step_first_plain_is_its_definition(N, L, in_rolled, inverse):
+    """K3f's plain version (fftx_c2c_four_first_plain) in float64 against
+    its sums written out in numpy: T[n2, L k1 + l] = W_N^(n2 k1) sum_n1
+    x[n2 + M n1, l] W_8^(n1 k1) (conjugate roots, no scale, for the
+    inverse), x zero-padded from the rolled rows; then its M-point DFTs
+    over n2 are the whole transform."""
+    M = N // 8
+    nin = N // 2 if in_rolled else N
+    xr, xi = _rand((2, nin, L), 31)
+    a, b = (torch.as_tensor(v, dtype=torch.float64) for v in (xr, xi))
+    tr, ti = fftx_c2c_four_first_plain(a, b, N=N, inverse=inverse,
+                                       in_rolled=in_rolled)
+    assert tr.shape == (2, M, 8 * L) and tr.dtype == torch.float64
+    x = np.zeros((2, N, L), complex)
+    z = xr.astype(np.float64) + 1j * xi.astype(np.float64)
+    if in_rolled:
+        x[:, :nin // 2], x[:, N - nin // 2:] = z[:, nin // 2:], z[:, :nin // 2]
+    else:
+        x[:] = z
+    s = 1.0 if inverse else -1.0
+    k1 = np.arange(8)
+    w8 = np.exp(s * 2j * np.pi * np.outer(k1, k1) / 8)  # [n1, k1]
+    wn = np.exp(s * 2j * np.pi * np.outer(np.arange(M), k1) / N)  # [n2, k1]
+    ref = np.einsum("paml,ak->pmkl", x.reshape(2, 8, M, L), w8)
+    ref = (ref * wn[None, :, :, None]).reshape(2, M, 8 * L)
+    _close(tr.numpy(), ref.real)
+    _close(ti.numpy(), ref.imag)
+    X = np.fft.ifft(ref.reshape(2, M, 8, L), axis=1) * M if inverse else \
+        np.fft.fft(ref.reshape(2, M, 8, L), axis=1)
+    yr, yi = cf.fftx_c2c_plain(
+        a, b, N=N, inverse=inverse, in_rolled=in_rolled)
+    _close(X.reshape(2, N, L).real, yr.numpy())
+    _close(X.reshape(2, N, L).imag, yi.numpy())
+
+
+def _cu_ints(name, pattern):
+    """The integer groups of ``pattern`` in the sources csrc/``name`` (a
+    glob)."""
+    csrc = Path(cf.__file__).resolve().parents[1] / "csrc"
+    return [tuple(int(v) for v in m) if isinstance(m, tuple) else int(m)
+            for src in sorted(csrc.glob(name))
+            for m in re.findall(pattern, src.read_text())]
+
+
+def test_route_table_every_image_1024_to_8192():
+    """For every 128-aligned 5-smooth image from 1024^2 to 8192^2 (21
+    sizes): the image grid's and the PSF grid's w-plane transforms (the
+    grid worker's nx_psf = good_even_size(2 nx), both on the gridder's
+    sigma = 2 grids, which _resolve_cfft sends to fftx_c2c), their x pass
+    out_rolled and in_rolled and their y pass, and the PSF Hessian's
+    column and rows stages at NX = NY = 2 nx each reach a routed kernel
+    whose plan takes the length: the cluster kernel with a tile within a
+    block, the register row kernel at an instanced N (the C++ tables of
+    cfft_rows.cu, psf_rows*.cu and psf_rows.cuh, and the rows twiddles'
+    ceiling, read from the sources), the four-step with N / 8 on the
+    cluster route. No pass is left on line_fft_kernel or psf_rows_kernel,
+    so none above kMaxN reaches them."""
+    from pfb_tpu_torch.ops import psf
+    from pfb_tpu_torch.ops.fft import good_even_size
+    from pfb_tpu_torch.ops.wgridder import _grid_setup, _resolve_cfft
+    k3r = dict(_cu_ints("cfft_rows.cu", r"PFBT_ROWS\((\d+), (\d+), \d+\)"))
+    k10br = dict(_cu_ints("psf_rows*.cu",
+                          r"PFBT_FUSED\((\d+), (\d+), \d+\)"))
+    fused = _cu_ints("psf_rows.cuh", r"case (\d+):")
+    ceiling = _cu_ints("cfft_rows.cu", r"N > (\d+)\)")
+    kmax = _cu_ints("fft_lines.cuh", r"constexpr int kMaxN = (\d+);")
+    assert k3r == k10br == {256 * r: r for r in cf._ROW_RADICES}
+    assert sorted(fused) == sorted(k3r) == list(cf._ROW_LENGTHS)
+    assert ceiling == [max(k3r)] and kmax == [cf._LINE_MAX_N]
+
+    def takes(N, L):
+        route = fftx_c2c_route(N, L)
+        if route == "cluster":
+            C, W = cluster_shape(N)
+            return (N // C) * W <= 8192 and N % C == 0
+        if route == "rows":
+            return L == 1 and k3r.get(N) == N // 256
+        if route == "four":
+            return N % 32 == 0 and takes(N // 8, 8 * L) and \
+                fftx_c2c_route(N // 8, 8 * L) == "cluster"
+        return False
+
+    images = [128 * m for m in range(8, 65) if _smooth(m)]
+    assert len(images) == 21 and images[0] == 1024 and images[-1] == 8192
+    cell = 1e-5
+    seen = set()
+    for nx in images:
+        for n in (nx, good_even_size(int(2.0 * nx))):
+            Nx, Ny = _grid_setup(n, n, cell, cell, 2.0)
+            assert (Nx, Ny) == (2 * n, 2 * n)
+            assert _resolve_cfft("auto", torch.float32, n, n, Nx, Ny, True)
+            for N, L in ((Nx, Ny), (Nx, Ny // 2), (Ny, 1)):
+                assert takes(N, L), (nx, n, N, L, fftx_c2c_route(N, L))
+                seen.add(fftx_c2c_route(N, L))
+        NX = NY = 2 * nx
+        assert psf.cols_route(NX, nx) and psf.rows_route(NY)
+        assert NY in fused and k10br[NY] == NY // 256
+    assert seen == {"cluster", "rows", "four"}

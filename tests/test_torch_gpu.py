@@ -75,7 +75,11 @@ def _launches():
             cf.fftx_c2c_rows.launches)
 
 
-ROW_LENGTHS = (4096, 6144, 8192, 12288, 2048, 2560, 3072, 4608, 5120)
+# every length of the register row kernels (K3r, K10br): 256 R2, R2
+# 5-smooth from 8 to 64; the nine of PRs 9-14 first
+ROW_LENGTHS = (4096, 6144, 8192, 12288, 2048, 2560, 3072, 4608, 5120, 2304,
+               3840, 6400, 6912, 7680, 9216, 10240, 11520, 12800, 13824,
+               15360, 16384)
 
 
 @pytest.mark.parametrize("N,L", [(256, 128), (512, 1), (640, 8),
@@ -90,7 +94,7 @@ ROW_LENGTHS = (4096, 6144, 8192, 12288, 2048, 2560, 3072, 4608, 5120)
 def test_cfft_kernel_matches_plain(cuda, N, L, mode, inverse):
     """K3 on its three routes; the cluster column kernel launches exactly
     where cluster_route says (L > 1 and N >= 2048), the row kernel where
-    row_route says (L = 1 at its nine lengths), the line kernel
+    row_route says (L = 1 at its 21 lengths), the line kernel
     elsewhere, and each launch counts on its own route only."""
     g = torch.Generator(device=cuda).manual_seed(N + L)
     kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
@@ -204,17 +208,17 @@ def test_cluster_kernel_launch_parameters(cuda, N, L, mode):
     assert torch.equal(sr, pr) and torch.equal(si, pi)
 
 
-@pytest.mark.parametrize("N", [6561, 8748, 3000, 16384, 1024])
+@pytest.mark.parametrize("N", [6561, 8748, 3000, 16000, 1024])
 def test_cfft_other_lengths_keep_the_line_kernel(cuda, N):
     """N = 3^8 (no cluster of 4 divides it), 4 * 3^7 (a tile of 4 columns
     of N / 4 exceeds a block) and 1024 (below the cluster route's 2048)
     take line_fft_kernel on strided columns, as cluster_route says; on
-    contiguous rows (L = 1) those and 3000 (no multiple of 256) and 16384
-    (no row kernel instance) take it too, as row_route says. The other
-    two routes launch nothing."""
+    contiguous rows (L = 1) those and 3000 and 16000 (no multiple of 256;
+    16384 has had a row kernel instance since R2 = 64) take it too, as
+    row_route says. The other two routes launch nothing."""
     g = torch.Generator(device=cuda).manual_seed(N)
     n0, c0, r0 = _launches()
-    Ls = (1,) if N in (3000, 16384) else (16, 1)
+    Ls = (1,) if N in (3000, 16000) else (16, 1)
     for L in Ls:
         xr = torch.randn((2, N, L), generator=g, device=cuda)
         xi = torch.randn((2, N, L), generator=g, device=cuda)
@@ -223,6 +227,70 @@ def test_cfft_other_lengths_keep_the_line_kernel(cuda, N):
             pr, pi = fftx_c2c_plain(xr, xi, N=N, inverse=inverse)
             assert _ok(yr, pr) and _ok(yi, pi)
     assert _launches() == (n0 + 2 * len(Ls), c0, r0)
+
+
+@pytest.mark.parametrize("N,L", [(18432, 1), (18432, 5), (18432, 64),
+                                 (32768, 1), (32768, 3)])
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_four_step_matches_plain(cuda, N, L, mode, inverse):
+    """fftx_c2c above 16384 (before the four-step it raised there: the
+    line kernel's plan stops at 16384): K3f once, then the cluster kernel
+    at N / 8 once, the line and row kernels never; against torch.fft and
+    against the four-step's plain version, with xi and with a real
+    input."""
+    g = torch.Generator(device=cuda).manual_seed(N + L)
+    kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
+              out_rolled=mode == "out_rolled")
+    nin = N // 2 if kw["in_rolled"] else N
+    xr = torch.randn((2, nin, L), generator=g, device=cuda)
+    xi = torch.randn((2, nin, L), generator=g, device=cuda)
+    assert cf.four_step_route(N, L)
+    for b in (xi, None):
+        n0, f0 = _launches(), cf.fftx_c2c_four.launches
+        yr, yi = fftx_c2c(xr, b, **kw)
+        torch.cuda.synchronize()
+        assert _launches() == (n0[0], n0[1] + 1, n0[2])
+        assert cf.fftx_c2c_four.launches == f0 + 1
+        bb = torch.zeros_like(xr) if b is None else b
+        pr, pi = fftx_c2c_plain(xr, bb, **kw)
+        assert _ok(yr, pr) and _ok(yi, pi)
+        mr, mi = cf.fftx_c2c_four_plain(xr, bb, **kw)
+        assert _ok(yr, mr) and _ok(yi, mi)
+
+
+def test_grid_pg_psf_grid_above_16384_matches_cpu(cuda, tmp_path):
+    """_grid(backend="pg") at 4608^2 on a small observation: its PSF is
+    9216^2 on a grid of 18432^2, whose two passes take the four-step (the
+    grid raised on the card before it), its image grid of 9216^2 the
+    cluster and row kernels (R2 = 36), w-gridding off so that one plane
+    fits; the PSF and the dirty image against the CPU's within 1e-5 of
+    their peaks."""
+    from pfb_tpu_torch.utils.ms import simulate_ms
+    from pfb_tpu_torch.workers.grid import _grid
+    from pfb_tpu_torch.workers.init import _init
+    ms = str(tmp_path / "t.npz")
+    simulate_ms(ms, nant=8, ntime=4, nchan=2, nsource=3, fov_deg=0.4,
+                seed=19)
+    xds = _init(ms=ms, write=False, channels_per_image=2,
+                precision="single", device=cuda)
+    kw = dict(write=False, nx=4608, ny=4608, cell_size=0.5, robustness=0.0,
+              backend="pg", epsilon=1e-5, do_wgridding=False, psf=True,
+              residual=False)
+    n0, f0 = _launches(), cf.fftx_c2c_four.launches
+    dds = _grid(xdsi=xds, device=cuda, **kw)
+    torch.cuda.synchronize()
+    n1 = _launches()
+    assert n1[0] == n0[0] and n1[1] > n0[1] and n1[2] > n0[2]
+    assert cf.fftx_c2c_four.launches - f0 == 2 * len(dds)
+    ref = _grid(xdsi=_init(ms=ms, write=False, channels_per_image=2,
+                           precision="single", device="cpu"),
+                device="cpu", **kw)
+    for ds, rs in zip(dds, ref):
+        assert ds["PSF"].shape == (9216, 9216)
+        for key in ("PSF", "DIRTY"):
+            got, want = (np.asarray(d[key], np.float64) for d in (ds, rs))
+            assert np.abs(got - want).max() <= TOL * np.abs(want).max()
 
 
 @pytest.mark.parametrize("nb,nx", [(2, 128), (1, 1152), (2, 1024)])
@@ -1274,8 +1342,8 @@ def test_rows_route_counts_from_every_entry(cuda):
 
 def test_rows_wrapper_rejects_bad_operands(cuda):
     z = torch.zeros((3, 1024), device=cuda)
-    with pytest.raises(ValueError):   # NY off the route (256 x 9)
-        psf_mod.psf_rows(z, z, torch.zeros((3, 2304), device=cuda))
+    with pytest.raises(ValueError):   # NY off the route (256 x 14)
+        psf_mod.psf_rows(z, z, torch.zeros((3, 3584), device=cuda))
     with pytest.raises(ValueError):   # float64 on the card
         psf_mod.psf_rows(z.double(), z.double(),
                          torch.zeros((3, 4096), device=cuda).double())

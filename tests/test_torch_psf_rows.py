@@ -284,19 +284,63 @@ def test_k11_at_1280_through_the_routes_matches_jax(nx, ny, NX, NY):
 # the route
 
 
+NEW_ROW_LENGTHS = (2304, 3840, 6400, 6912, 7680, 9216, 10240, 11520, 12800,
+                   13824, 15360, 16384)
+
+
 def test_rows_route_on_every_paths_length():
     """The rule on the NY of every path: K1 and K10 at 2048 (1024^2
     images) and 4096 (2048^2), K11 at 2560 and 3072 (1280^2 and 1536^2),
     4608 (psf_oversize 1.5 at 3072^2) and 5120, K1, K2, K12-K14 and L1 at
-    8192, K11 at 6144, and 12288; lengths below 2048, lengths that are
-    no multiple of 256 (3000) and the multiples the kernel is not built
-    for (2304, 3584) keep psf_rows_kernel."""
-    for NY in (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288):
+    8192, K11 at 6144, and 12288; since R2 was generalised, every 256 R2
+    with R2 5-smooth from 8 to 64 (the PSF Hessians of the 128-aligned
+    images from 1024^2 to 8192^2: 2304 at 1152^2, 3840 at 1920^2, ...,
+    16384 at 8192^2); lengths below 2048, lengths that are no multiple of
+    256 (3000) and the multiples whose R2 is not 5-smooth (3584 = 256 x
+    14) or past 64 keep psf_rows_kernel."""
+    for NY in (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288) + \
+            NEW_ROW_LENGTHS:
         assert rows_route(NY)
-    for NY in (1024, 2304, 3000, 3584, 16384):
+    for NY in (1024, 3000, 3584, 16640, 18432):
         assert not rows_route(NY)
-    assert [NY for NY in range(2, 16402, 2) if rows_route(NY)] == \
-        [2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288]
+    assert [NY for NY in range(2, 16900, 2) if rows_route(NY)] == sorted(
+        (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288)
+        + NEW_ROW_LENGTHS)
+
+
+@pytest.mark.parametrize("N", NEW_ROW_LENGTHS)
+@pytest.mark.parametrize("mode", ["complex", "full"])
+def test_rows_plain_new_lengths_match_stage_plain_f64(N, mode):
+    """The decomposition at the lengths R2 = 9-64 added to the register
+    route (16 x R2 x 16), ny = N / 2 (every PSF at twice the image) and
+    ny above it, against the plain stage in float64; the full H through
+    its Hermitian part."""
+    for ny in (N // 2, N // 2 + 77):
+        zr, zi, hr, hi, NX = _rows(N, ny, mode, R=3)
+        wr, wi = psf_rows_plain(zr, zi, hr, hi, NX)
+        h = (hr, hi) if NX is None else full_h_rows(hr, hi)
+        qr, qi = psf_stage_rows_plain(zr, zi, *h)
+        assert _rel(wr, qr) <= 1e-12 and _rel(wi, qi) <= 1e-12
+
+
+@pytest.mark.parametrize("NY", NEW_ROW_LENGTHS)
+def test_k11_new_row_lengths_match_jax(NY):
+    """K11 on a random H with its rows stage at each length added to the
+    register route (the PSF Hessians of 1152^2-8192^2 images along y; 64
+    rows along x, NX = 128, on the line route there), through the
+    decomposition, against the JAX single-band psf_convolve_pallas in
+    interpret mode; 1e-5 of max."""
+    nx, ny, NX = 64, NY // 2, 128
+    rng = np.random.default_rng(NY)
+    x = rng.normal(size=(nx, ny)).astype(np.float32)
+    Hr, Hi = (rng.normal(size=(NX, NY)).astype(np.float32)
+              for _ in range(2))
+    ref = np.asarray(pf.psf_convolve_pallas(
+        jnp.asarray(x), jnp.asarray(Hr.T), jnp.asarray(Hi.T), nx, ny,
+        lane_block=64, row_block=64, interpret=True))
+    assert rows_route(NY)
+    got = _k11_chain(_t(x)[None], _t(Hr)[None], _t(Hi)[None], NX)[0]
+    assert _rel(got, ref) <= TOL
 
 
 def test_cpu_wrapper_runs_the_staged_plain_version():
