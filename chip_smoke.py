@@ -21,9 +21,9 @@ Phases:
      kernel (K3c, fftx_c2c_cluster) and its y pass alone on the row
      kernel (K3r, fftx_c2c_rows), with K3r also at the K11 path's
      lengths (8, 6144^2) and (2, 12288^2); the line kernel (K3,
-     line_fft_kernel) on the x pass of (9, 1024^2) (the pg grids of a
-     512^2 image), a length its route still takes on a path (strided
-     lengths below 2048; no imaging path here runs it);
+     line_fft_kernel) on the x pass of (9, 1350^2), inverse, a length
+     its route still takes (N % 4 == 2; no 128-aligned imaging path runs
+     it since the routes reach 256);
   5. checks of the wgrid path: launches > 0 inside grid and spotless
      (K1, K3r on its y passes and K3c on its x passes),
      kernel errors within tolerance, the MFS residual rms after the last
@@ -312,6 +312,35 @@ Phases:
      before and read just after: K3f twice a dataset (the PSF grid's x and
      y passes) and K3 never, its PSF and dirty image within 1e-5 of their
      peaks of the same call on the kernels' plain versions.
+ 33. after phase 32: (a) the 512^2 pg path, phase 3's observation
+     re-simulated at 512^2 with the same cell (a quarter of the 1024^2
+     field; 64 antennas, 128 integrations, 8 channels, nothing cut), init
+     -> grid(backend="pg", robustness=0, 512^2, PSF 1024^2) ->
+     spotless(engine="pallas", backend="pg", 3 majors), counts reset
+     just before and read just after each stage, seconds and peak memory
+     by stage: its image grids (1024^2), PSF grids (2048^2) and PSF
+     Hessian (NX = NY = 1024) on the short designs (the cluster column
+     kernels on one block or clusters of two, the register row kernels several
+     rows a block): K3c, K3r, K4 and K5 inside grid and spotless; K1, K6,
+     K10ac, K10cc and K10br (once each rows stage) inside spotless, K11
+     never; neither line_fft_kernel (K3), the PSF column line kernels nor
+     psf_rows_kernel inside either; residual and sources as in 5; K2's
+     CG-fused PCG against pcg_bands on K1 with this path's PSF cube (<=
+     1e-4 of max), its columns on the cluster route, its rows on K10br,
+     its conv K1's of its own p and its reruns bit for bit, as phase 26
+     checks at 1024^2. (b) The same at 768^2 (PSF 1536^2: R2 = 6 and a
+     factor 3 on both designs; its PSF grids of 3072^2 on the routes of
+     phase 26), where v3 does not hold (NX = 1536 = 48 x 32: 32 does not
+     divide 48), so spotless runs K11 with primal_dual_hostloop on the
+     same column and rows kernels, as phase 32 at 1920^2: K11 instead of
+     K1 inside spotless, K1 and K2 never, and no K2 check. (c) Records: at every short length N = 256-1536, K3c's x
+     pass and K3r's y pass of (9, N^2), inverse out_rolled and forward
+     in_rolled, K10ac / K10cc at (8, N/2, N/2) of N and K10br on (8, N/2
+     + 1, N/2) rows of N with a complex H, each against its plain version
+     (<= 1e-5 of max) with its time, bound, library time and the time of
+     the line kernel these lengths took before (``line_ms``: the same
+     inputs through fftx_c2c_lab, or ops/psf.py:psf_line_lab, which run
+     line_fft_kernel and psf_rows_kernel whatever the routes say).
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -329,7 +358,7 @@ single call computes K1's, K2's, K10's rows stage's (K10br's, L1's),
 K11-K14's padded convolution or L3's paired spread). A kernel's entry in
 the kernels
 line takes its times from its first record: K3's from the line
-kernel's x pass at 1024, K3c's from its x pass, K3r's from its y pass,
+kernel's x pass at 1350, K3c's from its x pass, K3r's from its y pass,
 K3f's from K3f alone on the four-step's x pass at 18432 (the route's
 time, K3f and K3c at 2304, is a record of its own). Each counts the
 launches of its own kernel, so K3 + K3c + K3r is the number of launches
@@ -400,6 +429,11 @@ GRID_1920 = dict(GRID_PG, nx=NX_1920, ny=NX_1920)
 NEW_ROW_LENGTHS = (2304, 3840, 6400, 6912, 7680, 9216, 10240, 11520, 12800,
                    13824, 15360, 16384)
 FOUR_LENGTHS = (18432, 32768)
+# phase 33: the 512^2 and 768^2 pg paths on the short designs, and the
+# short lengths (the grids and PSF Hessians of the 128-aligned images from
+# 128^2 to 768^2) of its records
+NX_SHORT = (512, 768)
+SHORT_LENGTHS = (256, 512, 768, 1024, 1280, 1536)
 # phase 27's fluxmop: tests/test_aux_workers.py:38's settings and gate
 MOP = dict(backend="pg", epsilon=1e-5, use_psf=True, sigmainv=1e-4,
            gamma=0.9, cg_maxit=100, write=False, verbose=0)
@@ -622,11 +656,13 @@ def _fft2_pruned_plain(xr, xi, Nx, Ny, inverse, pruned_in, pruned_out):
 
 
 def _record(name, shape, out, ref, fk, fp, timing, work=None, flib=None,
-            reps=5, tol=TOL):
+            reps=5, tol=TOL, fline=None):
     """One kernel-against-plain comparison (max|out - ref| <= tol
-    max|ref|), with CUDA-event times of the kernel, its plain version and
-    the library call ``flib`` (when given), and the bound of ``work`` =
-    (bytes, FP32 operations[, bf16 tensor-core operations])."""
+    max|ref|), with CUDA-event times of the kernel, its plain version,
+    the library call ``flib`` and the line kernel ``fline`` (when given:
+    ``line_ms``, the kernel the lengths below 2048 took before the short
+    designs), and the bound of ``work`` = (bytes, FP32 operations[, bf16
+    tensor-core operations])."""
     import numpy as np
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
@@ -640,18 +676,21 @@ def _record(name, shape, out, ref, fk, fp, timing, work=None, flib=None,
         r["ms"] = cuda_ms(fk, reps)
         r["plain_ms"] = 0.5 * (r["plain_ms"] + cuda_ms(fp, reps))
         r["library_ms"] = None if flib is None else cuda_ms(flib, reps)
+        if fline is not None:
+            r["line_ms"] = cuda_ms(fline, reps)
     r["max_abs_err"] = float(np.float64(r["max_abs_err"]))
     return r
 
 
-def _xpass_record(name, xr, xi, N, inv, pin, pout, timing):
+def _xpass_record(name, xr, xi, N, inv, pin, pout, timing, line=False):
     """K3's x pass on the cluster column kernel (fftx_c2c_cluster) of a
     (P, nin, L) stack against its plain version, with torch.fft along
-    dim -2 of the zero-padded (P, N, L) stack as the library call."""
+    dim -2 of the zero-padded (P, N, L) stack as the library call and
+    (``line``) line_fft_kernel on the same stack (fftx_c2c_lab)."""
     import torch
 
     from pfb_tpu_torch.ops.cfft import (cluster_shape, fftx_c2c_cluster,
-                                        fftx_c2c_cluster_plain)
+                                        fftx_c2c_cluster_plain, fftx_c2c_lab)
     kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
     P, nin, L = xr.shape
     out = torch.cat(fftx_c2c_cluster(xr, xi, **kw))
@@ -665,20 +704,22 @@ def _xpass_record(name, xr, xi, N, inv, pin, pout, timing):
                 lambda: fftx_c2c_cluster_plain(xr, xi, C=C, **kw), timing,
                 work=(8 * P * L * (nin + out.shape[1]),
                       P * fft_flops(N, L)),
-                flib=lambda: lib(z, dim=-2))
+                flib=lambda: lib(z, dim=-2),
+                fline=(lambda: fftx_c2c_lab(xr, xi, **kw)) if line else None)
     del out, ref, z
     return r
 
 
-def _ypass_record(name, P, N, inv, pin, pout, g, timing):
+def _ypass_record(name, P, N, inv, pin, pout, g, timing, line=False):
     """K3's y pass on the row kernel (fftx_c2c_rows, K3r) of a 2-D
     transform of P (N, N) planes, on the (P * nrow, nin, 1) row stack the
     x pass leaves, against its plain version, with torch.fft along dim
-    -2 of the zero-padded (P * nrow, N, 1) stack as the library call."""
+    -2 of the zero-padded (P * nrow, N, 1) stack as the library call and
+    (``line``) line_fft_kernel on the same rows (fftx_c2c_lab)."""
     import torch
 
-    from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_rows,
-                                        fftx_c2c_rows_plain)
+    from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_lab,
+                                        fftx_c2c_rows, fftx_c2c_rows_plain)
     kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
     rows = P * (N if pin else N // 2)
     nin = N // 2 if pin else N
@@ -698,7 +739,8 @@ def _ypass_record(name, P, N, inv, pin, pout, g, timing):
     r = _record(name, xr.shape, out, ref, lambda: fftx_c2c(xr, xi, **kw),
                 lambda: fftx_c2c_rows_plain(xr, xi, **kw), timing,
                 work=(8 * rows * (nin + out.shape[1]), fft_flops(N, rows)),
-                flib=lambda: lib(z, dim=-2))
+                flib=lambda: lib(z, dim=-2),
+                fline=(lambda: fftx_c2c_lab(xr, xi, **kw)) if line else None)
     del out, ref, z, xr, xi
     return r
 
@@ -738,17 +780,17 @@ def k1_records(psf, nx, device, g, timing=True):
     return recs
 
 
-def line_record(g, device, timing=True, P=9, N=1024):
-    """The line kernel (K3) where its route still runs on a path: the x
-    pass of P (N, N) pg grids of an image of N/2 = 512^2 (strided lengths
-    below the cluster kernel's 2048), inverse out_rolled, against its
+def line_record(g, device, timing=True, P=9, N=1350):
+    """The line kernel (K3) where its route still runs: the x pass of P
+    (N, N) planes at a length off the cluster route (N % 4 == 2, so no
+    rolled modes; no 128-aligned grid has it), inverse, against its
     plain version and torch.fft."""
     import torch
 
     from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_plain
     xr = torch.randn((P, N, N), generator=g, device=device)
     xi = torch.randn((P, N, N), generator=g, device=device)
-    kw = dict(N=N, inverse=True, out_rolled=True)
+    kw = dict(N=N, inverse=True)
     n0 = fftx_c2c.launches
     out = torch.cat(fftx_c2c(xr, xi, **kw))
     need(device.type != "cuda" or fftx_c2c.launches == n0 + 1,
@@ -756,10 +798,10 @@ def line_record(g, device, timing=True, P=9, N=1024):
     ref = torch.cat(fftx_c2c_plain(xr, xi, **kw))
     z = torch.complex(xr, xi)
     r = _record(
-        f"K3 x pass inverse out_rolled ({P}, {N}^2) (line_fft_kernel)",
+        f"K3 x pass inverse ({P}, {N}^2) (line_fft_kernel)",
         xr.shape, out, ref, lambda: fftx_c2c(xr, xi, **kw),
         lambda: fftx_c2c_plain(xr, xi, **kw), timing,
-        work=(8 * P * N * (N + N // 2), P * fft_flops(N, N)),
+        work=(8 * P * N * 2 * N, P * fft_flops(N, N)),
         flib=lambda: torch.fft.ifft(z, dim=-2))
     del xr, xi, out, ref, z
     return r
@@ -769,7 +811,7 @@ def kernel_checks(dds, nx, nw_img, nw_psf, device, timing=True):
     """K1 and K3 against their plain versions on the same inputs (K3 as
     the 2-D transform, its x pass alone on the cluster column kernel
     K3c, its y pass alone on the row kernel K3r, and the line kernel on
-    the x pass of (9, 1024^2), where its route still runs); returns one
+    the x pass of (9, 1350^2), where its route still runs); returns one
     record per comparison."""
     import torch
 
@@ -1921,15 +1963,17 @@ COLS_SHAPES = [("K1, 2048^2", 8, 2048, 4096, 2048, 2049, None),
                ("K11, 1536^2 in 3072^2", 8, 1536, 3072, 1536, 1537, None)]
 
 
-def cols_checks(device, shapes=COLS_SHAPES, timing=True):
+def cols_checks(device, shapes=COLS_SHAPES, timing=True, line=False):
     """Phase 24: the cluster column kernels (psf_cols_fwd, psf_cols_inv)
     against the functions' plain versions (psf_stage_cols_fwd_plain /
     _inv_plain: rfft / irfft, or fft / ifft with the mirror at keep =
     NXH) on seeded random inputs at each shape, with the library column
-    calls. Returns the records."""
+    calls and (``line``, keep NX/2 + 1) line_fft_kernel's column stages
+    on the same inputs (psf_line_lab). Returns the records."""
     import torch
 
     from pfb_tpu_torch.ops.psf import (psf_cols_fwd, psf_cols_inv,
+                                       psf_line_lab,
                                        psf_stage_cols_fwd_plain,
                                        psf_stage_cols_inv_plain)
     g = torch.Generator(device=device).manual_seed(24)
@@ -1953,7 +1997,9 @@ def cols_checks(device, shapes=COLS_SHAPES, timing=True):
             torch.cat(psf_stage_cols_fwd_plain(x, NX, rows, keep)),
             lambda: psf_cols_fwd(x, NX, rows, keep),
             lambda: psf_stage_cols_fwd_plain(x, NX, rows, keep), timing,
-            work=work, flib=flib))
+            work=work, flib=flib,
+            fline=(lambda: psf_line_lab(1, x, NX=NX, rows=rows))
+            if line else None))
         del x
         wr, wi = (torch.randn((nb, rows, L), generator=g, device=device)
                   for _ in range(2))
@@ -1971,7 +2017,9 @@ def cols_checks(device, shapes=COLS_SHAPES, timing=True):
             lambda: psf_stage_cols_inv_plain(wr, wi, nx, NX, 1, keep),
             timing, work=(4 * (2 * nb * k * L + nb * nx * L),
                           nb * fft_flops(NX, L, real=True)),
-            flib=lambda: torch.fft.irfft(wc, n=NX, dim=-2)[:, :nx]))
+            flib=lambda: torch.fft.irfft(wc, n=NX, dim=-2)[:, :nx],
+            fline=(lambda: psf_line_lab(3, wr, wi, NX=NX, nx=nx, NY=1))
+            if line else None))
         del wr, wi, wc
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -2008,19 +2056,20 @@ def rows_work(nb, rows, ny, NY, h):
 
 
 def rows_checks(device, shapes=ROWS_SHAPES, l1=(8, 4224, 4096, 8192),
-                timing=True):
+                timing=True, line=False):
     """Phase 25: the rows stage's register kernel K10br (psf_rows) at the
     shapes the paths give it, on seeded random rows and H, against the
     plain stage (psf_stage_rows_plain; the full H through its Hermitian
     part), printing beside each the rows stage as three torch.fft calls
     (fft, the product, ifft; for context, not a one-call library); then
     the L1 lab's rows stage on K15's NXH rows through K10's entry
-    (psf_stage_rows at (8, 4224, 4096) in 8192^2), its launches counted
-    over its run alone. Returns (records, three-call times, L1's
-    launches)."""
+    (psf_stage_rows at (8, 4224, 4096) in 8192^2; ``l1`` None: not run),
+    its launches counted over its run alone. ``line``: psf_rows_kernel on
+    the same rows beside each (psf_line_lab; not for the full H).
+    Returns (records, three-call times, L1's launches)."""
     import torch
 
-    from pfb_tpu_torch.ops.psf import (full_h_rows, psf_rows,
+    from pfb_tpu_torch.ops.psf import (full_h_rows, psf_line_lab, psf_rows,
                                        psf_stage_rows, psf_stage_rows_plain)
     g = torch.Generator(device=device).manual_seed(25)
     recs, three = [], {}
@@ -2040,7 +2089,9 @@ def rows_checks(device, shapes=ROWS_SHAPES, l1=(8, 4224, 4096, 8192),
             torch.cat(psf_stage_rows_plain(zr, zi, *hh)),
             lambda: psf_rows(zr, zi, hr, hi, NX),
             lambda: psf_stage_rows_plain(zr, zi, *hh), timing,
-            work=rows_work(nb, rows, ny, NY, h)))
+            work=rows_work(nb, rows, ny, NY, h),
+            fline=(lambda: psf_line_lab(2, zr, zi, NX=NY, hr=hr, hi=hi))
+            if line and h != "full" else None))
         if timing:
             zc = torch.complex(zr, zi)
             hc = hh[0] if hh[1] is None else torch.complex(*hh)
@@ -2051,6 +2102,8 @@ def rows_checks(device, shapes=ROWS_SHAPES, l1=(8, 4224, 4096, 8192),
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
+    if l1 is None:
+        return recs, three, None
     # L1: wl_kernel_lab.py's rows stage on K15's NXH = 4224 rows
     nb, rows, ny, NY = l1
     zr, zi = (torch.randn((nb, rows, ny), generator=g, device=device)
@@ -2491,6 +2544,70 @@ def four_step_path(workdir, device, nx=4608):
               / np.abs(np.asarray(b[key], np.float64)).max())
         for a, b in zip(dds, ref)) for key in ("PSF", "DIRTY")}
     return res
+
+
+def short_path(workdir, device, nx, sim=SIM, timing=True):
+    """Phase 33 (a) and (b): phase 3's observation re-simulated at nx^2
+    with the same cell, init -> grid(pg) -> spotless(pg) on the short
+    designs, then, where v3 holds (spotless on K1), K2's CG-fused solve
+    against pcg_bands on K1 with this path's PSF cube (k2_checks without
+    the bench case). Returns the path's launches, seconds, peaks, stats,
+    whether v3 holds and K2's (error, records, cases)."""
+    import torch
+
+    from pfb_tpu_torch.ops.psf import v3_supported
+    from pfb_tpu_torch.workers.cubes import dds2cubes
+    truth = simulate(workdir, nx=nx, sim=sim)
+    print(f"[{nx}] simulate {truth['t_simulate']:.3f} s (host), cell "
+          f"{truth['cell_rad']:.6e} rad, {truth['nvis']} visibilities")
+    res = main_path(truth, device, grid=dict(GRID_PG, nx=nx, ny=nx),
+                    spot=SPOT_PG)
+    report_path(str(nx), res, truth, nx)
+    out = dict(launches=res["launches"], t=res["t"],
+               peak_gb=res.get("peak_gb", {}), stats=res["stats"],
+               v3=v3_supported(nx, nx), cerr=None, k2_recs=[], k2_info={})
+    if out["v3"]:
+        cubes = dds2cubes(res["dds"], len(res["dds"]))
+        k2 = k2_checks(cubes[3], cubes[6], res["model"], device, timing,
+                       pcg=None)
+        out.update(cerr=k2[0], k2_recs=k2[1], k2_info=k2[4])
+        del cubes
+    del res, truth
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def short_kernel_checks(device, timing=True, lengths=SHORT_LENGTHS, P=9):
+    """Phase 33 (c): at each short length N, K3c's x pass and K3r's y
+    pass of (P, N^2), inverse out_rolled and forward in_rolled, K10ac /
+    K10cc at (8, N/2, N/2) of N and K10br on (8, N/2 + 1, N/2) rows of N
+    with a complex H, each against its plain version, with the line
+    kernel these lengths took before on the same inputs (line_ms)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(33)
+    recs = []
+    for N in lengths:
+        for inv, pin, pout, tag in ((True, False, True, "out_rolled inverse"),
+                                    (False, True, False, "in_rolled forward")):
+            nin = N // 2 if pin else N
+            xr = torch.randn((P, nin, nin), generator=g, device=device)
+            xi = torch.randn((P, nin, nin), generator=g, device=device)
+            recs.append(_xpass_record(f"K3c x pass {tag} ({P}, {N}^2)", xr,
+                                      xi, N, inv, pin, pout, timing,
+                                      line=True))
+            del xr, xi
+            recs.append(_ypass_record(f"K3r y pass {tag} ({P}, {N}^2)", P, N,
+                                      inv, pin, pout, g, timing, line=True))
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    cols = [(f"K1, {N // 2}^2", 8, N // 2, N, N // 2, N // 2 + 1, None)
+            for N in lengths]
+    rows = [(f"K1, {N // 2}^2", 8, N // 2 + 1, N // 2, N, "complex")
+            for N in lengths]
+    recs += cols_checks(device, cols, timing, line=True)
+    recs += rows_checks(device, rows, None, timing, line=True)[0]
+    return recs
 
 
 def report_klean(rkl, truth, nx):
@@ -3820,6 +3937,7 @@ def main():
         r26 = main_path(truth26, device, grid=GRID_SMALL, spot=SPOT_PG)
         report_path("1024", r26, truth26, NX_SMALL)
         l26 = r26["launches"]
+        t26, p26 = dict(r26["t"]), dict(r26.get("peak_gb", {}))
         for k in l26["grid"]:
             launches[k] += l26["grid"][k] + l26["spotless"][k]
         cubes26 = dds2cubes(r26["dds"], len(r26["dds"]))
@@ -3877,6 +3995,41 @@ def main():
               f"{r32c.get('peak_gb', 0.0):.2f} GiB; vs its plain versions "
               + json.dumps(r32c["rel_err"]) + f" (bound {TOL}); launches "
               + json.dumps({k: v for k, v in l32c.items() if v}))
+        torch.cuda.empty_cache()
+
+        # 33. (a), (b) the 512^2 and 768^2 pg paths on the short designs
+        r33 = {}
+        for n in NX_SHORT:
+            r33[n] = short_path(workdir, device, n)
+            for k in r33[n]["launches"]["grid"]:
+                launches[k] += r33[n]["launches"]["grid"][k] + \
+                    r33[n]["launches"]["spotless"][k]
+            st = r33[n]["stats"]
+            print(f"[{n}] engine {st['engine']}, pd solver "
+                  f"{st['pd_solver']}, v3 {r33[n]['v3']}")
+            if r33[n]["v3"]:
+                print(f"[{n}] CG-fused (K2) vs pcg_bands (K1), {2 * n}^2 "
+                      f"grid PSF, 25 iterations: max|diff|/max = "
+                      f"{r33[n]['cerr']:.3e} (bound {CTOL})")
+            for tag, info in r33[n]["k2_info"].items():
+                print(f"[{n}] K2 {tag}: " + json.dumps(info))
+            for r in r33[n]["k2_recs"]:
+                print("[kernel] " + json.dumps(r))
+            recs += r33[n]["k2_recs"]
+        print("[short] seconds and peak GiB by stage against the 1024^2 pg "
+              "path's (phase 26, this call): " + json.dumps({
+                  stage: {**{str(n): [round(q["t"][stage], 3),
+                                      round(q["peak_gb"].get(stage, 0), 3)]
+                             for n, q in r33.items()},
+                          "1024": [round(t26[stage], 3),
+                                   round(p26.get(stage, 0), 3)]}
+                  for stage in ("init", "grid", "spotless")}))
+        # (c) the short designs at every short length, beside the line
+        # kernels they replace
+        short_recs = short_kernel_checks(device)
+        for r in short_recs:
+            print("[kernel] " + json.dumps(r))
+        recs += short_recs
         torch.cuda.empty_cache()
 
         # every rows stage of the PSF paths at NY = 4096, 6144 and 8192
@@ -3956,6 +4109,47 @@ def main():
              f"{l32c['K3']} for {r32c['nds']} datasets")
         bad = {k: v for k, v in r32c["rel_err"].items() if not v <= TOL}
         need(not bad, f"the 4608^2 grid against its plain versions: {bad}")
+
+        # checks of phase 33: the 512^2 and 768^2 paths on the short
+        # designs, no line kernel inside grid or spotless
+        for n, q in r33.items():
+            lq = q["launches"]
+            for stage in ("grid", "spotless"):
+                for k in ("K3c", "K3r", "K4", "K5"):
+                    need(lq[stage][k] > 0,
+                         f"{k} never launched inside the {n}^2 _{stage}")
+                for k in ("K3", "cols_line", "rows_line", "K3f"):
+                    need(lq[stage][k] == 0,
+                         f"{k} launched inside the {n}^2 _{stage}")
+            psfk = "K1" if q["v3"] else "K11"
+            for k in (psfk, "K6", "K10ac", "K10cc", "K10br"):
+                need(lq["spotless"][k] > 0,
+                     f"{k} never launched inside the {n}^2 _spotless")
+            for k in (("K11",) if q["v3"] else ("K1", "K2")):
+                need(lq["spotless"][k] == 0, f"{k} launched inside the "
+                     f"{n}^2 _spotless (v3 {q['v3']})")
+            need(q["v3"] or q["stats"]["pd_solver"] ==
+                 "primal_dual_hostloop", f"{n}^2 spotless ran "
+                 f"{q['stats']['pd_solver']}")
+            need(lq["spotless"]["K10br"] == rows_stages(lq["spotless"]),
+                 f"the {n}^2 _spotless: {rows_stages(lq['spotless'])} rows "
+                 f"stages, {lq['spotless']['K10br']} on K10br")
+            need(not q["v3"] or q["cerr"] <= CTOL, f"{n}^2 CG-fused vs "
+                 f"pcg_bands {q['cerr']} > {CTOL}")
+            for tag, info in q["k2_info"].items():
+                need(info["columns"].startswith("cluster") and
+                     info["rows"] == "K10br", f"K2 {tag} is off the routes: "
+                     f"{info}")
+                need(info["conv_bitwise_k1_of_p"], f"K2 {tag}: conv is not "
+                     "K1's of its own p bit for bit")
+                need(info["reruns_bitwise"], f"K2 {tag}: reruns differ")
+        need(r33[NX_SHORT[0]]["v3"] and r33[NX_SHORT[0]]["k2_info"],
+             f"no K2 check at {NX_SHORT[0]}^2")
+        for N in SHORT_LENGTHS:
+            for prefix in ("K3c x pass", "K3r y pass"):
+                n = sum(r["name"].startswith(prefix) and f", {N}^2)" in
+                        r["name"] for r in short_recs)
+                need(n == 2, f"{prefix} records at {N}: {n}")
 
         # checks of phases 22-23
         for k in ("L2a", "L2b", "L2c", "K3", "K3c"):

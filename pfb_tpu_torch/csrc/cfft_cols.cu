@@ -1,8 +1,8 @@
-// K3's strided x pass at N >= 2048: a column FFT over a thread-block
-// cluster.
+// K3's strided x pass at N >= 256: a column FFT over a thread-block
+// cluster (from 2048) or a block (below).
 //
 // Replaces pfb_tpu/ops/pallas_cfft.py:fftx_c2c (Pallas _kx_kernel) along
-// axis -2 of a (P, Nin, L) float32 re/im stack where L > 1 and N >= 2048
+// axis -2 of a (P, Nin, L) float32 re/im stack where L > 1 and N >= 256
 // (ops/cfft.py:cluster_route), with in_rolled / out_rolled as cfft.cu
 // absorbs them: forward e^-, inverse e^+, no 1/N.
 //
@@ -40,6 +40,22 @@
 // columns a block of the line kernel, 16-byte row segments, half of each
 // sector) the same design takes clusters of kShortClusters blocks
 // (psf_cols.cuh), M = 512-768 at C = 4.
+//
+// Short columns (256 <= N < 2048: the w-plane grids of the 128-aligned
+// images from 128^2 to 768^2 and the PSF grids up to 384^2, before this
+// on line_fft_kernel): a whole column fits one block, so the kernel runs
+// on clusters of tiny_clusters(N) blocks (psf_cols.cuh: one where one
+// block's tile is 8 columns, N = 768-1024, and there step 3 reads the
+// block's own shared memory, the C-point DFT is the identity and the
+// cluster syncs are __syncthreads; else kTinyClusters = 2) and tiles of
+// W = cols_tile_width(N, C) columns, up to 32 (32 at N = 256 and 512, 8
+// at 768-1536), so that a block holds 4096-8192 values and a row segment
+// is 32-128 bytes of re and of im in 16-byte loads and stores.
+// line_fft_kernel takes 8192 / N adjacent columns a block there with
+// 4-byte loads, one pass of shared memory a radix pass as here. What
+// bounds the kernel is still the bytes, but a pass of (9, 512^2) moves
+// 28 MB, 8 us at the HBM rate, so the launch and the latency of one
+// load -> FFT -> store round of a block set a floor near it.
 #include <cooperative_groups.h>
 
 #include "fft_lines.cuh"
@@ -63,11 +79,11 @@ __global__ void cols_twiddle_kernel(float2* __restrict__ T, int N) {
 
 // One cluster of C blocks per tile of W columns (W a multiple of 4) of
 // one plane; p is the plan of M = N / C (W lines in shared memory), VPT
-// values a thread, MINB blocks an SM (registers for MINB blocks of
-// kThreads / MINB threads); vec: L % 4 == 0 and 16-byte aligned
-// pointers (float4 loads and stores).
-template <int C, int VPT, int MINB, bool kFFT>
-__global__ void __launch_bounds__(kThreads / MINB, MINB)
+// values a thread, MINB blocks an SM (registers for MINB blocks of MAXT
+// threads); vec: L % 4 == 0 and 16-byte aligned pointers (float4 loads
+// and stores).
+template <int C, int VPT, int MAXT, int MINB, bool kFFT>
+__global__ void __launch_bounds__(MAXT, MINB)
 cols_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi, int L,
                 int Nin, int Nout, int in_rolled, int out_rolled, int inv,
@@ -133,12 +149,13 @@ cols_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 
   // 2. Y_c = the M-point DFTs of the lines
   if (kFFT) block_fft<VPT>(sm, W, p, inv != 0);
-  cluster.sync();
+  cluster_sync<C>(cluster);
 
   // 3. block c' finishes k1 in [c' Mc, (c' + 1) Mc) for every column
   const float2* src[C];
 #pragma unroll
-  for (int r = 0; r < C; ++r) src[r] = cluster.map_shared_rank(sm, r);
+  for (int r = 0; r < C; ++r)
+    src[r] = C == 1 ? sm : cluster.map_shared_rank(sm, r);
   const int Mc = (M + C - 1) / C;
   const int pairs = ((Mc + 15) >> 4) * fg.d * 16;
   const float sg = inv ? -1.f : 1.f;
@@ -190,10 +207,10 @@ cols_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     }
   }
   // 4. no block leaves while a peer may still read its shared memory
-  cluster.sync();
+  cluster_sync<C>(cluster);
 }
 
-template <int C, int VPT, int MINB>
+template <int C, int VPT, int MAXT, int MINB>
 static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
                                float* yi, int B, int L, int Nin, int Nout,
                                int in_rolled, int out_rolled, int inv, int W,
@@ -202,8 +219,8 @@ static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
                                size_t smem, cudaStream_t stream) {
   void (*kernel)(const float*, const float*, float*, float*, int, int, int,
                  int, int, int, int, int, LinePlan, const float2*) =
-      skeleton ? cols_fft_kernel<C, VPT, MINB, false>
-               : cols_fft_kernel<C, VPT, MINB, true>;
+      skeleton ? cols_fft_kernel<C, VPT, MAXT, MINB, false>
+               : cols_fft_kernel<C, VPT, MAXT, MINB, true>;
   return launch_cluster(kernel, C, (long)B * ((L + W - 1) / W) * C,
                         threads, smem, stream, xr, xi, yr, yi, L, Nin, Nout,
                         in_rolled, out_rolled, inv, W, vec, p, TN);
@@ -215,7 +232,10 @@ static cudaError_t launch_cols(const float* xr, const float* xi, float* yr,
 // (scripts/torch_g2i_lab.py, PERF.md) two blocks took 10-24% less time
 // at W = 8 (N = 4096, 6144, 8192) and 6-14% less at N = 16384 (W = 4,
 // 8192 values); one block 33-38% less at N = 12288 (W = 4, 6144 values)
-// and 6-25% less at W = 4 with 4096 values.
+// and 6-25% less at W = 4 with 4096 values. Below kShortNX (a whole
+// column in the block) kVpt values a thread and registers for
+// kTinyColsMinBlocks blocks of kThreads: a block's work is short there,
+// and warps resident on an SM hide the latency of its loads.
 static inline bool two_blocks_an_sm(int M, int W) {
   return W == 8 || M * W == kLineElems;
 }
@@ -228,25 +248,36 @@ static cudaError_t launch_cols_c(const float* xr, const float* xi,
                                  const LinePlan& p, const float2* TN,
                                  cudaStream_t stream) {
   const LineLaunch lc = line_launch(p.N, W);  // kVpt values a thread
-  if (two_blocks_an_sm(p.N, W)) {
-    const unsigned threads = ((lc.threads / 2 + 31) / 32) * 32;
-    return launch_cols<C, 2 * kVpt, 2>(xr, xi, yr, yi, B, L, Nin, Nout,
-                                       in_rolled, out_rolled, inv, W, vec,
-                                       skeleton, p, TN, threads, lc.smem,
-                                       stream);
+  constexpr bool kShort = C == 1 || C == kTinyClusters;
+  if constexpr (kShort) {
+    if (C * p.N < kShortNX)
+      return launch_cols<C, kVpt, kThreads, kTinyColsMinBlocks>(
+          xr, xi, yr, yi, B, L, Nin, Nout, in_rolled, out_rolled, inv, W,
+          vec, skeleton, p, TN, lc.threads, lc.smem, stream);
   }
-  return launch_cols<C, kVpt, 1>(xr, xi, yr, yi, B, L, Nin, Nout, in_rolled,
-                                 out_rolled, inv, W, vec, skeleton, p, TN,
-                                 lc.threads, lc.smem, stream);
+  // the short band's clusters take no N from kShortNX up (cluster_shape)
+  if constexpr (kShort && C != 4 && C != 8 && C != kShortClusters) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (two_blocks_an_sm(p.N, W)) {
+      const unsigned threads = ((lc.threads / 2 + 31) / 32) * 32;
+      return launch_cols<C, 2 * kVpt, kThreads / 2, 2>(
+          xr, xi, yr, yi, B, L, Nin, Nout, in_rolled, out_rolled, inv, W,
+          vec, skeleton, p, TN, threads, lc.smem, stream);
+    }
+    return launch_cols<C, kVpt, kThreads, 1>(
+        xr, xi, yr, yi, B, L, Nin, Nout, in_rolled, out_rolled, inv, W, vec,
+        skeleton, p, TN, lc.threads, lc.smem, stream);
+  }
 }
 
 }  // namespace pfbt
 
-// The x pass of a (B, Nin, L) stack on clusters of C blocks (4, 8 or
-// kShortClusters) and tiles of W columns (4 or 8; (N / C) W <=
-// kLineElems), as ops/cfft.py:cluster_shape picks them. TM is the
-// length-(N / C) plan's table (pfbt_twiddles), TN W_N^e for e < N
-// (pfbt_cols_twiddles).
+// The x pass of a (B, Nin, L) stack on clusters of C blocks (1, 4, 8,
+// kShortClusters or kTinyClusters) and tiles of W columns (4, 8, 16 or
+// 32; (N / C) W <= kLineElems), as ops/cfft.py:cluster_shape picks them.
+// TM is the length-(N / C) plan's table (pfbt_twiddles), TN W_N^e for e <
+// N (pfbt_cols_twiddles).
 // skeleton = 1 launches the lab's copy skeleton.
 extern "C" int pfbt_cfft_cols(const float* xr, const float* xi, float* yr,
                               float* yi, int B, int L, int N, int Nin,
@@ -255,8 +286,10 @@ extern "C" int pfbt_cfft_cols(const float* xr, const float* xi, float* yr,
                               const void* TM, const void* TN, void* stream) {
   pfbt::LinePlan p;
   const bool rolled = in_rolled || out_rolled;
-  if ((C != 4 && C != 8 && C != pfbt::kShortClusters) || N % C != 0 || (rolled && N % 4) ||
-      (W != 4 && W != 8) || L < 1 || B < 1 || !yi ||
+  if ((C != 1 && C != 4 && C != 8 && C != pfbt::kShortClusters &&
+       C != pfbt::kTinyClusters) ||
+      N % C != 0 || (rolled && N % 4) ||
+      (W != 4 && W != 8 && W != 16 && W != 32) || L < 1 || B < 1 || !yi ||
       Nin != (in_rolled ? N / 2 : N) || Nout != (out_rolled ? N / 2 : N) ||
       (long)(N / C) * W > pfbt::kLineElems || !pfbt::make_plan(N / C, TM, &p))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -265,9 +298,12 @@ extern "C" int pfbt_cfft_cols(const float* xr, const float* xi, float* yr,
                   pfbt::aligned16(yi);
   const float2* T = static_cast<const float2*>(TN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto launch = C == 8   ? pfbt::launch_cols_c<8>
-                      : C == 4 ? pfbt::launch_cols_c<4>
-                               : pfbt::launch_cols_c<pfbt::kShortClusters>;
+  const auto launch =
+      C == 8   ? pfbt::launch_cols_c<8>
+      : C == 4 ? pfbt::launch_cols_c<4>
+      : C == pfbt::kShortClusters ? pfbt::launch_cols_c<pfbt::kShortClusters>
+      : C == pfbt::kTinyClusters  ? pfbt::launch_cols_c<pfbt::kTinyClusters>
+                                  : pfbt::launch_cols_c<1>;
   return static_cast<int>(launch(xr, xi, yr, yi, B, L, Nin, Nout, in_rolled,
                                  out_rolled, inverse, W, vec, skeleton, p, T,
                                  s));

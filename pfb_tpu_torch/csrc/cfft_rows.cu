@@ -7,9 +7,10 @@
 // the unnormalised DFT of each of R contiguous rows of a (R, Nin)
 // float32 re/im stack, with in_rolled / out_rolled as cfft.cu absorbs
 // them (forward e^-, inverse e^+, no 1/N; xi == nullptr reads a real
-// input). N = 256 R2 for every 5-smooth R2 from 8 to 64, 2048-16384: the
-// row length of every 128-aligned image from 1024^2 to 8192^2 and of its
-// PSF grid up to 4096^2 (ops/cfft.py:row_route).
+// input). N = 256 R2 for every 5-smooth R2 from 1 to 64, 256-16384: the
+// row length of every 128-aligned image from 128^2 to 8192^2 and of its
+// PSF grid up to 4096^2 (ops/cfft.py:row_route); below 2048 several lines
+// a block (rows_fft.cuh: rows_per_block).
 //
 // What bounds it on the H100: bytes, 8 R (Nin + Nout), each input read
 // once and each output written once. line_fft_kernel (fft_lines.cuh)
@@ -45,39 +46,52 @@
 // skeleton instance (kFFT = false, the lab's) keeps the loads, the
 // transposes and the stores and compiles the radix arithmetic and the
 // twiddles out.
+//
+// Short rows (N = 256-1536, R2 = 1-6): a block of S = 16 / R2 lines, a
+// stage-1 and stage-3 butterfly a thread (rows_fft.cuh), registers for
+// three blocks an SM. line_fft_kernel took 8192 / N lines a block there in
+// two to four shared-memory passes (N = 256 = 16 x 16: two, 1536 = 16 x 16
+// x 2 x 3: four), each a read and a write of the whole buffer; here the
+// same HBM traffic with two transposes (one at 256). A pass of 9 planes
+// moves 2-30 MB, 1-9 us at the HBM rate, so the launch sets part of the
+// floor.
 #include "rows_fft.cuh"
 
 namespace pfbt {
 
-// One block of T = row_threads(R2) threads per line of N = 16 R2 16;
-// stage 1 and 3 have N/16 butterflies (B a thread), stage 2 has 256. The
-// table TW holds (R - 1) Ns entries per stage, [q - 1][k] (stage 1's are
-// 1).
+// One block of T = row_threads(R2) threads per S = rows_per_block(R2)
+// lines of N = 16 R2 16 (line s of the block is row blockIdx.x S + s <
+// rows); stage 1 and 3 have N/16 butterflies a line (B a thread), stage 2
+// has 256. The table TW holds (R - 1) Ns entries per stage, [q - 1][k]
+// (stage 1's are 1).
 template <int N, int R2, int MINB, bool kFFT>
 __global__ void __launch_bounds__(row_threads(R2), MINB)
 rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                float* __restrict__ yr, float* __restrict__ yi,
+                float* __restrict__ yr, float* __restrict__ yi, int rows,
                 int in_rolled, int out_rolled, int inv,
                 const float2* __restrict__ TW) {
   constexpr int T = row_threads(R2);
+  constexpr int S = rows_per_block(R2);
   constexpr int NB = N / 16;
-  constexpr int B = (NB + T - 1) / T;
+  constexpr int NF = S * NB;  // stage-1 butterflies of the block
+  constexpr int B = (NF + T - 1) / T;
   static_assert(16 * R2 * 16 == N, "N = 16 R2 16");
   extern __shared__ float2 sm[];
   const int t = threadIdx.x;
   const bool iv = inv != 0;
   const long Nin = in_rolled ? N / 2 : N, Nout = out_rolled ? N / 2 : N;
-  const float* xrl = xr + blockIdx.x * Nin;
-  const float* xil = xi ? xi + blockIdx.x * Nin : nullptr;
-  float* yrl = yr + blockIdx.x * Nout;
-  float* yil = yi + blockIdx.x * Nout;
 
   // 1. radix 16 from HBM: every load of the thread issued first
   float2 v[B][16];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * T;
-    if (NB % T && j >= NB) continue;
+    const int f = t + b * T;
+    if (NF % T && f >= NF) continue;
+    const int s = S > 1 ? f / NB : 0, j = f - s * NB;
+    const long g = (long)blockIdx.x * S + s;
+    if (S > 1 && g >= rows) continue;
+    const float* xrl = xr + g * Nin;
+    const float* xil = xi ? xi + g * Nin : nullptr;
     if (in_rolled) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -97,8 +111,9 @@ rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * T;
-    if (NB % T && j >= NB) continue;
+    const int f = t + b * T;
+    if (NF % T && f >= NF) continue;
+    const int s = S > 1 ? f / NB : 0, j = f - s * NB;
     if (kFFT) {
       if (in_rolled)
         dft16<true, false>(v[b], iv);
@@ -106,21 +121,28 @@ rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         small_dft<16>(v[b], iv);
     }
 #pragma unroll
-    for (int q = 0; q < 16; ++q) sm[rpad(16 * j + q)] = v[b][q];
+    for (int q = 0; q < 16; ++q) sm[rpad(s * N + 16 * j + q)] = v[b][q];
   }
   __syncthreads();
 
-  // 2. radix R2, Ns = 16
-  rows_mid<R2, T, kFFT>(sm, TW, iv);
-  __syncthreads();
+  // 2. radix R2, Ns = 16 (none at R2 = 1)
+  if constexpr (R2 > 1) {
+    rows_mid<R2, T, S, kFFT>(sm, TW, iv);
+    __syncthreads();
+  }
 
   // 3. radix 16 to HBM, Ns = N / 16: butterfly j reads n = j + NB q,
   // twiddles W_N^{q j}, writes X[j + NB q]
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    const int j = t + b * T;
-    if (NB % T && j >= NB) continue;
-    rows_last_load<N, R2, kFFT>(sm, TW, j, iv, v[b]);
+    const int f = t + b * T;
+    if (NF % T && f >= NF) continue;
+    const int s = S > 1 ? f / NB : 0, j = f - s * NB;
+    const long g = (long)blockIdx.x * S + s;
+    if (S > 1 && g >= rows) continue;
+    float* yrl = yr + g * Nout;
+    float* yil = yi + g * Nout;
+    rows_last_load<N, R2, kFFT>(sm + s * (N + N / 16), TW, j, iv, v[b]);
     if (kFFT) {
       if (out_rolled)
         dft16<false, true>(v[b], iv);
@@ -176,20 +198,21 @@ static cudaError_t launch_rows(const float* xr, const float* xi, float* yr,
                                int out_rolled, int inv, int skeleton,
                                const float2* TW, cudaStream_t stream) {
   void (*kernel)(const float*, const float*, float*, float*, int, int, int,
-                 const float2*) =
+                 int, const float2*) =
       skeleton ? rows_fft_kernel<N, R2, MINB, false>
                : rows_fft_kernel<N, R2, MINB, true>;
-  const size_t smem = (size_t)(N + N / 16) * sizeof(float2);
+  constexpr int S = rows_per_block(R2);
+  const size_t smem = (size_t)S * (N + N / 16) * sizeof(float2);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)rows, row_threads(R2), smem, stream>>>(
-      xr, xi, yr, yi, in_rolled, out_rolled, inv, TW);
+  kernel<<<(unsigned)((rows + S - 1) / S), row_threads(R2), smem, stream>>>(
+      xr, xi, yr, yi, rows, in_rolled, out_rolled, inv, TW);
   return cudaGetLastError();
 }
 
 }  // namespace pfbt
 
-// The y pass of a (rows, Nin) stack at N = 256 R2, R2 = 8-64 5-smooth;
+// The y pass of a (rows, Nin) stack at N = 256 R2, R2 = 1-64 5-smooth;
 // TW is the rows plan's table
 // (pfbt_rows_twiddles). skeleton = 1 launches the lab's
 // load/transpose/store skeleton.
@@ -206,6 +229,12 @@ extern "C" int pfbt_cfft_rows(const float* xr, const float* xi, float* yr,
         xr, xi, yr, yi, rows, in_rolled, out_rolled, inverse, skeleton, T, \
         s));
   switch (N) {
+    PFBT_ROWS(256, 1, 3)
+    PFBT_ROWS(512, 2, 3)
+    PFBT_ROWS(768, 3, 3)
+    PFBT_ROWS(1024, 4, 3)
+    PFBT_ROWS(1280, 5, 3)
+    PFBT_ROWS(1536, 6, 3)
     PFBT_ROWS(2048, 8, 4)
     PFBT_ROWS(2304, 9, 4)
     PFBT_ROWS(2560, 10, 4)
@@ -235,7 +264,7 @@ extern "C" int pfbt_cfft_rows(const float* xr, const float* xi, float* yr,
 
 // The rows plan's twiddle table (N - 1 float2 entries) into T.
 extern "C" int pfbt_rows_twiddles(int N, void* T, void* stream) {
-  if (N % 256 || N < 2048 || N > 16384)
+  if (N % 256 || N < 256 || N > 16384)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = N - 1, threads = 256;
   pfbt::rows_twiddle_kernel<<<(n + threads - 1) / threads, threads, 0,

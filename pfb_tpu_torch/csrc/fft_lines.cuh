@@ -98,7 +98,9 @@ __device__ __forceinline__ float2 unit_root(int e) {
 // in-register DFT of R values, forward e^- (inv: e^+)
 template <int R>
 __device__ __forceinline__ void small_dft(float2* v, bool inv) {
-  if (R == 2) {
+  if (R == 1) {
+    // the C-point DFT of a cluster of one block (cfft_cols.cu, psf_cols.cu)
+  } else if (R == 2) {
     const float2 a = v[0], b = v[1];
     v[0] = make_float2(a.x + b.x, a.y + b.y);
     v[1] = make_float2(a.x - b.x, a.y - b.y);

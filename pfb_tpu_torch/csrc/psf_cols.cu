@@ -1,5 +1,5 @@
-// The PSF-Hessian's column stages at NX >= 2048: column FFTs over a
-// thread-block cluster.
+// The PSF-Hessian's column stages at NX >= 256: column FFTs over a
+// thread-block cluster (from 2048) or a block (below).
 //
 // Replaces the column stages of pfb_tpu/ops/pallas_fft.py:psf_v3_stage_k1
 // (:1075) and psf_v3_stage_k3 (:1153), K10's stages 1 and 3, and with them
@@ -64,7 +64,25 @@
 // K1's bits. The skeleton instances (kFFT = false, the lab's) keep the
 // loads, the exchange, the separation and the stores and compile the FFT
 // passes, the twiddles and the C-point DFT out.
+//
+// Short columns (256 <= NX < 2048, the PSF Hessians of the 128-aligned
+// images from 128^2 to 768^2, before this on line_fft_kernel and K2's
+// line kernels): a whole column fits one block, so the same kernels run on
+// clusters of one block where its tile is 8 columns (NX = 768-1024: the
+// exchange reads the block's own shared memory, the C-point DFT is the
+// identity and cluster_sync a __syncthreads), else of kTinyClusters =
+// 2 (psf_cols.cuh: tiny_clusters), and tiles of up to 32 columns
+// (cols_tile_width: 32 at NX = 256 and 512, 8 at 768-1536), so a block
+// holds 2048-4096 pair values and each row segment it moves is 32-128
+// bytes of 16-byte loads. What bounds them is
+// still the bytes, but at these sizes a stage moves 0.5-20 MB, a few
+// microseconds at the HBM rate, so the launch and the block's load ->
+// FFT -> store latency set much of its time. The line route's shape
+// there, one column per line with a zero imaginary part, S = 8192 / NX
+// lines a block and 4-byte loads, does twice the FFT work of the pairs.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "fft_lines.cuh"
 #include "psf_cols.cuh"
@@ -81,17 +99,15 @@ constexpr int kQuad = 4;           // adjacent columns a thread moves
 // spill than at two; one, with no spill, was the slowest.
 constexpr int kColsMinBlocks = 3;
 
-int psf_cols_width(int NX, int C) {
-  return (NX / C) * 8 <= kLineElems ? 8 : 4;
-}
-
 int psf_cols_clusters(int NX, int L) {
   if (L < 2 || NX < kColsMinNX || NX % 4) return 0;
-  const int C = NX < 4096 ? kShortClusters
-                          : (NX > 4096 && NX % 8 == 0) ? 8 : 4;
+  const int C = NX < kShortNX  ? tiny_clusters(NX)
+                : NX < 4096    ? kShortClusters
+                : (NX > 4096 && NX % 8 == 0) ? 8
+                                             : 4;
   const int M = NX / C;
   LinePlan p;
-  if (NX % C || M % 2 || M * psf_cols_width(NX, C) > kLineElems ||
+  if (NX % C || M % 2 || M * cols_tile_width(NX, C) > kLineElems ||
       !make_plan(M, nullptr, &p))
     return 0;
   return C;
@@ -193,10 +209,12 @@ struct CgOut {
 
 // K2's per-block column sums: every thread holds the sums of the four
 // columns of its quad g = (threadIdx.x / 16) mod (W / 4) (the same quad
-// in every pass of the stores' loop); the lanes of a warp with one quad
-// are added by a fixed butterfly, the warps in order into red (after the
-// stage's last cluster.sync, when no peer reads sm any more), and thread
-// t < W then holds column j0 + t's block sums in (*s0, *s1).
+// in every pass of the stores' loop: blockDim / 16 is a multiple of W /
+// 4); the lanes of a warp with one quad are added by a fixed butterfly,
+// the warps that hold a column in order into red (after the stage's last
+// cluster sync, when no peer reads sm any more; at W <= 8 every warp holds
+// every column), and thread t < W then holds column j0 + t's block sums in
+// (*s0, *s1).
 __device__ __forceinline__ bool cg_block_sums(double (&s)[kQuad][2],
                                               double* red, int W,
                                               double* s0, double* s1) {
@@ -208,19 +226,22 @@ __device__ __forceinline__ bool cg_block_sums(double (&s)[kQuad][2],
     for (int u = 0; u < 2; ++u)
       for (int o = nq == 1 ? 16 : 8; o > 0; o >>= 1)
         s[t][u] += __shfl_xor_sync(0xffffffffu, s[t][u], o);
-  // lane 0 holds quad 0's sums, lane 16 quad 1's (nq = 2)
+  // lane 0 holds quad (2 warp) mod nq's sums, lane 16 quad (2 warp + 1)
+  // mod nq's (nq >= 2)
   if (lane % 16 == 0 && lane / 16 < nq)
 #pragma unroll
     for (int t = 0; t < kQuad; ++t) {
-      const int col = (lane / 16) * kQuad + t;
+      const int col = ((threadIdx.x >> 4) % nq) * kQuad + t;
       red[2 * (warp * W + col)] = s[t][0];
       red[2 * (warp * W + col) + 1] = s[t][1];
     }
   __syncthreads();
   const int col = threadIdx.x;
   if (col >= W) return false;
+  const int g = col / kQuad;
   double a0 = 0.0, a1 = 0.0;
   for (int w = 0; w < nwarp; ++w) {
+    if (nq > 2 && (2 * w) % nq != g && (2 * w + 1) % nq != g) continue;
     a0 += red[2 * (w * W + col)];
     a1 += red[2 * (w * W + col) + 1];
   }
@@ -338,12 +359,13 @@ psf_cols_fwd_kernel(In in, float* __restrict__ zr, float* __restrict__ zi,
 
   // 2. Y_c = the M-point DFTs of the lines
   if (kFFT) block_fft<VPT>(sm, W / 2, p, false);
-  cluster.sync();
+  cluster_sync<C>(cluster);
 
   // 3. the exchange, the C-point DFTs and the kept rows
   const float2* src[C];
 #pragma unroll
-  for (int r = 0; r < C; ++r) src[r] = cluster.map_shared_rank(sm, r);
+  for (int r = 0; r < C; ++r)
+    src[r] = C == 1 ? sm : cluster.map_shared_rank(sm, r);
   // block c takes h in [c Hc, (c + 1) Hc): k1 = h and its mirror
   const int Mh = M / 2;
   const int Hc = (Mh + C - 1) / C;
@@ -375,7 +397,7 @@ psf_cols_fwd_kernel(In in, float* __restrict__ zr, float* __restrict__ zi,
     }
   }
   // 4. no block leaves while a peer may still read its shared memory
-  cluster.sync();
+  cluster_sync<C>(cluster);
 }
 
 // The inverse stage: one cluster of C blocks per tile of W columns of one
@@ -455,12 +477,13 @@ psf_cols_inv_kernel(const float* __restrict__ wr,
 
   // 2. Y_c = the inverse M-point DFTs of the lines
   if (kFFT) block_fft<VPT>(sm, W / 2, p, true);
-  cluster.sync();
+  cluster_sync<C>(cluster);
 
   // 3. block c' finishes n1 in [c' Mc, (c' + 1) Mc); rows n1 + M n2 < nx
   const float2* src[C];
 #pragma unroll
-  for (int r = 0; r < C; ++r) src[r] = cluster.map_shared_rank(sm, r);
+  for (int r = 0; r < C; ++r)
+    src[r] = C == 1 ? sm : cluster.map_shared_rank(sm, r);
   const int Mc = (M + C - 1) / C;
   const int work = ((Mc + 15) >> 4) * fg.d * 16;
   double acc[Out::kSums ? Out::kSums : 1][2] = {};
@@ -481,7 +504,7 @@ psf_cols_inv_kernel(const float* __restrict__ wr,
     }
   }
   // 4. no block leaves while a peer may still read its shared memory
-  cluster.sync();
+  cluster_sync<C>(cluster);
   if constexpr (Out::kSums > 0) {
     // K2: this block's column sums of the tile, (nb, L, C, 2); band_sums
     // adds a column's C partials in block order (adding them through DSMEM
@@ -512,9 +535,10 @@ static cudaError_t fwd_c(In in, float* zr, float* zi, int nb, int nx, int L,
   const long blocks = (long)nb * ((L + W - 1) / W) * C;
   const int M = p.N;
   void (*k)(In, float*, float*, int, int, int, int, int, int, LinePlan,
-            const float2*) =
-      skeleton ? psf_cols_fwd_kernel<C, kVpt, false, In>
-               : psf_cols_fwd_kernel<C, kVpt, true, In>;
+            const float2*) = psf_cols_fwd_kernel<C, kVpt, true, In>;
+  // the lab's skeleton of the plain stage only (K2's entries pass 0)
+  if constexpr (std::is_same_v<In, ColsIn>)
+    if (skeleton) k = psf_cols_fwd_kernel<C, kVpt, false, In>;
   return launch_cluster(k, C, blocks, cols_threads(W / 2, M, kVpt),
                         smem_bytes(W / 2 * M), st, in, zr, zi, L, nx, keep,
                         rows, W, vec, p, TN);
@@ -527,11 +551,15 @@ static cudaError_t inv_c(const float* wr, const float* wi, Out o, int nb,
                          const float2* TN, cudaStream_t st) {
   const long blocks = (long)nb * ((L + W - 1) / W) * C;
   const int M = p.N;
+  const unsigned threads = cols_threads(W / 2, M, kVpt);
+  // K2's sums keep a thread on one quad (cg_block_sums)
+  if (Out::kSums && (threads / 16) % (W / kQuad)) return cudaErrorInvalidValue;
   void (*k)(const float*, const float*, Out, int, int, int, int, float, int,
             int, LinePlan, const float2*) =
-      skeleton ? psf_cols_inv_kernel<C, kVpt, false, Out>
-               : psf_cols_inv_kernel<C, kVpt, true, Out>;
-  return launch_cluster(k, C, blocks, cols_threads(W / 2, M, kVpt),
+      psf_cols_inv_kernel<C, kVpt, true, Out>;
+  if constexpr (std::is_same_v<Out, ColsOut>)
+    if (skeleton) k = psf_cols_inv_kernel<C, kVpt, false, Out>;
+  return launch_cluster(k, C, blocks, threads,
                         smem_bytes(W / 2 * M), st, wr, wi, o, L, nx, keep,
                         rows, scale, W, vec, p, TN);
 }
@@ -552,13 +580,15 @@ static cudaError_t cols_fwd(In in, bool aligned, float* zr, float* zi,
   LinePlan p;
   if (!cols_args(nb, nx, L, NX, keep, rows, C, TM, TN, &p))
     return cudaErrorInvalidValue;
-  const int W = psf_cols_width(NX, C);
+  const int W = cols_tile_width(NX, C);
   const int vec = L % kQuad == 0 && aligned && aligned16(zr) &&
                   aligned16(zi);
   const float2* T = static_cast<const float2*>(TN);
   const auto launch = C == 8   ? fwd_c<8, In>
                       : C == 4 ? fwd_c<4, In>
-                               : fwd_c<kShortClusters, In>;
+                      : C == kShortClusters ? fwd_c<kShortClusters, In>
+                      : C == kTinyClusters  ? fwd_c<kTinyClusters, In>
+                                            : fwd_c<1, In>;
   return launch(in, zr, zi, nb, nx, L, keep, rows, W, vec, skeleton, p, T,
                 stream);
 }
@@ -572,13 +602,15 @@ static cudaError_t cols_inv(const float* wr, const float* wi, Out o,
   LinePlan p;
   if (!cols_args(nb, nx, L, NX, keep, rows, C, TM, TN, &p))
     return cudaErrorInvalidValue;
-  const int W = psf_cols_width(NX, C);
+  const int W = cols_tile_width(NX, C);
   const int vec = L % kQuad == 0 && aligned && aligned16(wr) &&
                   aligned16(wi);
   const float2* T = static_cast<const float2*>(TN);
   const auto launch = C == 8   ? inv_c<8, Out>
                       : C == 4 ? inv_c<4, Out>
-                               : inv_c<kShortClusters, Out>;
+                      : C == kShortClusters ? inv_c<kShortClusters, Out>
+                      : C == kTinyClusters  ? inv_c<kTinyClusters, Out>
+                                            : inv_c<1, Out>;
   return launch(wr, wi, o, nb, nx, L, keep, rows, scale, W, vec, skeleton, p,
                 T, stream);
 }

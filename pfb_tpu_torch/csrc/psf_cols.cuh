@@ -4,22 +4,63 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_lines.cuh"
+
 namespace pfbt {
 
-// The cluster route's floor, and its clusters below NX = 4096 (M = 512-768
-// at C = 4), for K3's x pass (cfft_cols.cu) and the column stages alike:
-// ops/cfft.py:_CLUSTER_MIN_N and _SHORT_C mirror them. C = 4 was chosen
-// on the H100 against C = 2 (scripts/torch_kernel_lab.py --cols-const
-// kShortClusters=2,4, PERF.md).
-constexpr int kColsMinNX = 2048;
+// The cluster route's floor, its clusters from kShortNX to 4096 (M =
+// 512-768 at C = 4) and below kShortNX (tiny_clusters), for K3's x pass
+// (cfft_cols.cu) and the column stages alike: ops/cfft.py:_CLUSTER_MIN_N,
+// _SHORT_N, _SHORT_C and _TINY_C mirror them. kShortClusters = 4 was
+// chosen on the H100 against 2 (scripts/torch_kernel_lab.py --cols-const
+// kShortClusters=2,4), and kTinyClusters = 2 against 1 (--cols-const
+// kTinyClusters=1,2, PERF.md).
+constexpr int kColsMinNX = 256;
+constexpr int kShortNX = 2048;
 constexpr int kShortClusters = 4;
+constexpr int kTinyClusters = 2;
+// Blocks an SM that K3c's registers are budgeted for below kShortNX
+// (cfft_cols.cu: blocks of up to kThreads threads, kVpt values a thread;
+// 2: 64 registers, as line_fft_kernel's), probed on the H100 against 1
+// (128 registers) by --cols-const kTinyColsMinBlocks=1,2 (PERF.md).
+constexpr int kTinyColsMinBlocks = 2;
 
 // C, the blocks of a cluster, where the column stages of length NX on L
 // columns take the cluster kernels; 0 where they keep line_fft_kernel.
 int psf_cols_clusters(int NX, int L);
 
-// Columns of a tile at NX on clusters of C blocks.
-int psf_cols_width(int NX, int C);
+// Columns of a tile of W lines of M = N / C: below kShortNX the widest of
+// 32, 16, 8 and 4 whose lines fit a block's kLineElems values, so that a
+// short column's block still holds 4096-8192 values and its rows are
+// 32-128 bytes of re and of im; from kShortNX 8 where they fit, else 4
+// (one 32-byte sector of re and of im a row, or half).
+inline int cols_tile_width(int N, int C) {
+  const int M = N / C;
+  if (N >= kShortNX) return M * 8 <= kLineElems ? 8 : 4;
+  int W = 32;
+  while (W > 4 && M * W > kLineElems) W /= 2;
+  return W;
+}
+
+// C below kShortNX, where a whole column fits one block: one block a tile
+// where its tile is 8 columns (a 32-byte sector of re and of im a row, N
+// = 768-1024; no exchange through distributed shared memory), else
+// kTinyClusters. On the H100 (CUDA-graph replays, PERF.md) one block took
+// 6-30% less time than two at 768 and 1024, and two took 10-50% less at
+// 256 (twice the blocks of 72-144), 512 (M = 256: a radix pass less) and
+// 1280-1536 (one block's tile is 4 columns, half a sector a row).
+inline int tiny_clusters(int N) {
+  return cols_tile_width(N, 1) == 8 ? 1 : kTinyClusters;
+}
+
+// cluster.sync(), or __syncthreads() in a cluster of one block
+template <int C, class Cluster>
+__device__ __forceinline__ void cluster_sync(Cluster& cluster) {
+  if constexpr (C == 1)
+    __syncthreads();
+  else
+    cluster.sync();
+}
 
 // Forward column stage: x (nb, nx, L) real -> zr, zi (nb, rows, L), rows
 // k < keep of the length-NX transform of the zero-padded columns, rows

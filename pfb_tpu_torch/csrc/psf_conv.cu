@@ -52,7 +52,7 @@
 //   3. per column: inverse x-DFT with the conjugate mirror rebuilt, real
 //      part, crop to nx, scale 1/(NX NY).           column kernel
 // The column kernel of a stage is the cluster column FFT of psf_cols.cu
-// where psf_cols_clusters(NX, ny) holds (NX >= 2048 and its tile fits),
+// where psf_cols_clusters(NX, ny) holds (NX >= 256 and its tile fits),
 // else line_fft_kernel (fft_lines.cuh). Every entry here asks the same
 // predicate, so K1, K2, K10, K11 and K15 take one route at one NX; the
 // caller passes the C it expects (0 for the line kernel) and the tables
@@ -62,8 +62,13 @@
 // on the line route, the fused line kernels below.
 // The rows kernel of every entry (K1, K2, K10, K11) is the fused register
 // row FFT K10br of psf_rows.cu where psf_rows_fused(NY) holds (NY = 256
-// R2, R2 = 8-64 5-smooth), else psf_rows_kernel below. The caller passes that route's table as TY (pfbt_rows_twiddles,
-// or the length-NY plan's pfbt_twiddles) and the route it is for
+// R2, R2 = 1-64 5-smooth), else psf_rows_kernel below. No 128-aligned
+// sigma-2 path reaches the line kernels (K2's below, psf_rows_kernel,
+// line_fft_kernel) since the routes reach NX = NY = 256; they keep the
+// other lengths (rows no multiple of 256, NX % 4 != 0, NX < 256), and
+// pfbt_psf_line_lab runs them at any length for the lab. The caller
+// passes that route's table as TY (pfbt_rows_twiddles, or the length-NY
+// plan's pfbt_twiddles) and the route it is for
 // (`fused`, 1 or 0), and an entry refuses a route that is not the
 // predicate's; *nfused (may be null) gains the number of K10br launches
 // the entry made.
@@ -170,6 +175,22 @@ static bool rows_ok(int NY, const void* TY, int fused) {
   return fused ? TY != nullptr : make_plan(NY, TY, &py);
 }
 
+// The rows stage on psf_rows_kernel, TY the length-NY plan's table.
+template <bool kFull>
+static cudaError_t line_rows(const float* zr, const float* zi,
+                             const float* hr, const float* hi, float* wr,
+                             float* wi, int R, int ny, int NX, int NY,
+                             const void* TY, cudaStream_t st) {
+  LinePlan py;
+  if (!make_plan(NY, TY, &py)) return cudaErrorInvalidValue;
+  const LineLaunch c = line_launch(py.N);
+  return c.vpt == kVpt
+             ? launch_rows<kVpt, kFull>(zr, zi, hr, hi, wr, wi, R, ny, NX, c,
+                                        py, st)
+             : launch_rows<2 * kVpt, kFull>(zr, zi, hr, hi, wr, wi, R, ny,
+                                            NX, c, py, st);
+}
+
 template <bool kFull>
 static cudaError_t rows_stage(const float* zr, const float* zi,
                               const float* hr, const float* hi, float* wr,
@@ -179,14 +200,7 @@ static cudaError_t rows_stage(const float* zr, const float* zi,
   if (psf_rows_fused(NY))
     return psf_rows_fused_stage(zr, zi, hr, hi, wr, wi, R, ny, NY,
                                 kFull ? NX : 0, TY, nfused, st);
-  LinePlan py;
-  if (!make_plan(NY, TY, &py)) return cudaErrorInvalidValue;
-  const LineLaunch c = line_launch(py.N);
-  return c.vpt == kVpt
-             ? launch_rows<kVpt, kFull>(zr, zi, hr, hi, wr, wi, R, ny, NX, c,
-                                        py, st)
-             : launch_rows<2 * kVpt, kFull>(zr, zi, hr, hi, wr, wi, R, ny,
-                                            NX, c, py, st);
+  return line_rows<kFull>(zr, zi, hr, hi, wr, wi, R, ny, NX, NY, TY, st);
 }
 
 // K2 stage 1: p = beta_b p_prev - r on the S columns of a block, written
@@ -586,4 +600,36 @@ extern "C" int pfbt_psf_conv_cg(const float* pp, const float* rr,
   band_sums_kernel<<<nb, kSumThreads, 0, st>>>(colsum, pap, ny,
                                                C ? C : 1);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The lab's PSF line kernels at any length, whatever the routes say (the
+// kernels the lengths below 2048 took before the cluster and register
+// routes reached them): stage 1, the forward column stage of a (nb, n, L)
+// real into rows k < keep of o1, o2 (nb, rows, L), on line_fft_kernel;
+// stage 2, K1's rows stage on psf_rows_kernel, nb rows of a, b (nb, n)
+// against hr, hi (nb, N) into o1, o2 (nb, n); stage 3, the inverse column
+// stage of rows k < keep of a, b (nb, rows, L) into o1 (nb, n, L) times
+// scale, on line_fft_kernel. TX is the length-N plan's table
+// (pfbt_twiddles).
+extern "C" int pfbt_psf_line_lab(int stage, const float* a, const float* b,
+                                 const float* hr, const float* hi,
+                                 float* o1, float* o2, int nb, int n, int L,
+                                 int N, int keep, int rows, float scale,
+                                 const void* TX, void* stream) {
+  using namespace pfbt;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  LinePlan p;
+  if (nb < 1 || n < 1 || n > N || !make_plan(N, TX, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (stage == 2)
+    return static_cast<int>(
+        line_rows<false>(a, b, hr, hi, o1, o2, nb, n, 0, N, TX, st));
+  if (N % 2 || keep < N / 2 + 1 || keep > N || rows < keep ||
+      (stage != 1 && stage != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      stage == 1 ? cols_fwd(a, o1, o2, nb, n, L, N, keep, rows, 0, p,
+                            nullptr, nullptr, st)
+                 : cols_inv(a, b, o1, nb, n, L, N, keep, rows, scale, 0, p,
+                            nullptr, nullptr, st));
 }

@@ -7,8 +7,8 @@
 // of the row zero-padded from ny to N = NY, the product with its row of
 // the transfer function H, the inverse DFT left unscaled (the column
 // stage scales by 1 / (NX NY)), cropped to ny. psf_conv.cu's rows_stage
-// sends every entry's rows stage here at N = 256 R2, R2 = 8-64 5-smooth
-// (2048-16384, psf_rows_fused), so K1, K2, K10 stage
+// sends every entry's rows stage here at N = 256 R2, R2 = 1-64 5-smooth
+// (256-16384, psf_rows_fused), so K1, K2, K10 stage
 // 2, K11 and K12-K14 take it at one N, and a row's arithmetic depends
 // only on that row and N: K10's row shards stay bitwise K1.
 //
@@ -20,7 +20,8 @@
 // each at 8192 = 16 16 16 2), transforms the known zeros and computes
 // all N outputs of the inverse: shared memory sets its pace. Here the row
 // lives in registers through both transforms, K3r's plan (rows_fft.cuh:
-// N = 16 R2 16, row_threads(R2) threads, one row a block):
+// N = 16 R2 16, row_threads(R2) threads, one row a block from 2048,
+// rows_per_block(R2) = 16 / R2 below):
 //   1. forward radix 16 from HBM: butterfly j loads n = j + q N/16 for
 //      n < ny only; where ny <= N/2 (every PSF at twice the image) the
 //      zeros at q >= 8 are never loaded or multiplied (dft16_low<true>);
@@ -39,6 +40,11 @@
 // wait on L2, not on HBM. The launch bounds ask for registers for three
 // blocks an SM at 2048-4096 (K3r's four spilled here; three measured level
 // or faster, PERF.md), two at 4608-8192 and one from 9216, as K3r's.
+// Short rows (NY = 256-1536, psf_rows_short.cu): 16 / R2 rows a block of
+// 192-256 threads, a stage-1 and stage-3 butterfly a thread, registers for
+// two blocks an SM. psf_rows_kernel took 8192 / NY rows a block there
+// with two to four shared-memory passes a transform; a stage of (8, NY/2
+// + 1, NY/2) rows moves 0.4-14 MB, so the launch sets part of its time.
 #include <algorithm>
 
 #include "psf_rows_kernel.cuh"
@@ -54,6 +60,8 @@ static cudaError_t launch_length(const float* zr, const float* zi,
     return launch_length_long(zr, zi, hr, hi, wr, wi, R, ny, NY, NX, T, st);
   if (NY > 7680)
     return launch_length_mid(zr, zi, hr, hi, wr, wi, R, ny, NY, NX, T, st);
+  if (NY < 2048)
+    return launch_length_short(zr, zi, hr, hi, wr, wi, R, ny, NY, NX, T, st);
   switch (NY) {
     PFBT_FUSED(2048, 8, 3)
     PFBT_FUSED(2304, 9, 3)

@@ -7,11 +7,12 @@
 namespace pfbt {
 
 // Whether the rows stage of length NY takes the fused register row FFT
-// (K10br): NY = 16 R2 16 with R2 a 5-smooth radix from 8 to 64, 2048-16384
-// (the instances of psf_rows.cu and cfft_rows.cu). Every other NY keeps
+// (K10br): NY = 16 R2 16 with R2 a 5-smooth radix from 1 to 64, 256-16384
+// (the instances of psf_rows*.cu and cfft_rows.cu). Every other NY keeps
 // psf_rows_kernel (psf_conv.cu). ops/psf.py:rows_route is its mirror.
 inline bool psf_rows_fused(int NY) {
   switch (NY) {
+    case 256: case 512: case 768: case 1024: case 1280: case 1536:
     case 2048: case 2304: case 2560: case 3072: case 3840: case 4096:
     case 4608: case 5120: case 6144: case 6400: case 6912: case 7680:
     case 8192: case 9216: case 10240: case 11520: case 12288: case 12800:

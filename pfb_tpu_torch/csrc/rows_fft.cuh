@@ -1,15 +1,27 @@
 // Device code of the register row FFTs, N = 16 R2 16 in three Stockham
-// stages, one line a block: K3r's y pass (cfft_rows.cu) and the PSF rows
-// stage K10br (psf_rows.cu). Stage 1 is radix 16 between HBM and
-// registers (butterfly j holds n = j + q N/16), stage 2 radix R2 in
-// registers between two transposes through one padded shared buffer
-// (rows_mid), stage 3 radix 16 from shared memory (rows_last_load) with
-// output k = j + q N/16 in registers. Stage 2 has kRowBflies = 256
-// butterflies (N = 256 R2); stages 1 and 3 have N/16 = 16 R2. R2 is any
-// 5-smooth radix from 8 to 64 (N = 2048-16384), each a DFT in registers
-// (reg_dft): 16, 8 and below directly, the others as a pair R2 = RA RB of
-// smaller ones with the roots W_R2 between them. A block has
-// row_threads(R2) threads. The stage twiddles W_{Ns R}^{q k} come from
+// stages, S = rows_per_block(R2) lines a block: K3r's y pass
+// (cfft_rows.cu) and the PSF rows stage K10br (psf_rows.cu). Stage 1 is
+// radix 16 between HBM and registers (butterfly j holds n = j + q N/16),
+// stage 2 radix R2 in registers between two transposes through one padded
+// shared buffer (rows_mid), stage 3 radix 16 from shared memory
+// (rows_last_load) with output k = j + q N/16 in registers. Stage 2 has
+// kRowBflies = 256 butterflies a line (N = 256 R2); stages 1 and 3 have
+// N/16 = 16 R2. R2 is any 5-smooth radix from 1 to 64 (N = 256-16384),
+// each a DFT in registers (reg_dft): 16, 8 and below directly, the others
+// as a pair R2 = RA RB of smaller ones with the roots W_R2 between them;
+// at R2 = 1 (N = 256 = 16 x 16) there is no stage 2. A block has
+// row_threads(R2) threads.
+//
+// Short rows (R2 = 1-6, N = 256-1536: the y passes of the w-plane grids of
+// the 128-aligned images from 128^2 to 768^2 and the rows stages of their
+// PSF Hessians, before this on line_fft_kernel and psf_rows_kernel): one
+// line a block would give stages 1 and 3 only 16-96 butterflies, so a
+// block takes S = 16 / R2 lines (16, 8, 5, 4, 3, 2) side by side in its
+// shared buffer, one stage-1 and stage-3 butterfly a thread (S 16 R2 =
+// 192-256 threads) and 16 / R2 stage-2 butterflies, the last round of
+// R2 = 3, 5 and 6 partly idle (89%, 80%, 89% busy). A line's arithmetic is
+// the same whichever slot of the block it takes, so K10's row shards stay
+// bitwise K1. The stage twiddles W_{Ns R}^{q k} come from
 // cfft_rows.cu's float64 table (pfbt_rows_twiddles), [q - 1][k] per stage,
 // conjugated for the inverse.
 #pragma once
@@ -28,8 +40,16 @@ constexpr int kRowBflies = 256;  // stage 2's butterflies, N / R2
 // every other R2 keeps 256.
 constexpr int kShortRowThreads = 128;
 
+// Lines a block: one from R2 = 8, 16 / R2 below (16 R2 S = 192-256
+// threads, one stage-1 butterfly each).
+__host__ __device__ constexpr int rows_per_block(int R2) {
+  return R2 >= 8 ? 1 : 16 / R2;
+}
+
 __host__ __device__ constexpr int row_threads(int R2) {
-  return R2 == 8 ? kShortRowThreads : kRowBflies;
+  return R2 == 8   ? kShortRowThreads
+         : R2 > 8  ? kRowBflies
+                   : rows_per_block(R2) * 16 * R2;
 }
 
 // shared-memory slot of element i of the line: one float2 of padding
@@ -211,6 +231,7 @@ __host__ __device__ constexpr int pair_ra(int R) {
   switch (R) {
     case 9: return 3;
     case 10: case 15: case 20: case 25: return 5;
+    case 6: return 3;
     case 12: return 4;
     case 18: case 27: case 36: case 45: return 9;
     case 24: case 32: case 40: return 8;
@@ -345,27 +366,37 @@ __device__ __forceinline__ void dft16_low(float2* v, bool inv) {
   }
 }
 
-// Stage 2, radix R2 at Ns = 16, on the line in shared memory with T
-// threads: butterfly t (t < 256, 256 / T a thread) reads n = t + 256 q,
-// writes (t / 16) 16 R2 + 16 q + t % 16. The caller synchronises before
-// (stage 1's stores) and after (stage 3's loads). kFFT = false (the lab's
-// skeleton) keeps the two transposes alone.
-template <int R2, int T, bool kFFT>
+// Stage 2, radix R2 at Ns = 16, on the S lines in shared memory (line s at
+// element s N) with T threads: butterfly f = 256 s + t of line s reads n
+// = t + 256 q, writes (t / 16) 16 R2 + 16 q + t % 16; a thread takes f =
+// threadIdx.x + T b. The caller synchronises before (stage 1's stores)
+// and after (stage 3's loads). kFFT = false (the lab's skeleton) keeps the
+// two transposes alone.
+template <int R2, int T, int S, bool kFFT>
 __device__ __forceinline__ void rows_mid(float2* sm, const float2* TW,
                                          bool inv) {
-  constexpr int B2 = kRowBflies / T;
-  static_assert(B2 * T == kRowBflies, "T divides 256");
+  constexpr int NF = S * kRowBflies;
+  constexpr int B2 = (NF + T - 1) / T;
+  static_assert(S > 1 || B2 * T == kRowBflies, "T divides 256");
   const float sg = inv ? -1.f : 1.f;
   float2 u[B2][R2];
 #pragma unroll
-  for (int b = 0; b < B2; ++b)
+  for (int b = 0; b < B2; ++b) {
+    const int f = threadIdx.x + T * b;
+    if (NF % T && f >= NF) continue;
+    const int s = S > 1 ? f / kRowBflies : 0;
+    const int base = s * kRowBflies * R2, t = f - s * kRowBflies;
 #pragma unroll
     for (int q = 0; q < R2; ++q)
-      u[b][q] = sm[rpad(threadIdx.x + T * b + kRowBflies * q)];
+      u[b][q] = sm[rpad(base + t + kRowBflies * q)];
+  }
   __syncthreads();  // every read done before the in-place writes
 #pragma unroll
   for (int b = 0; b < B2; ++b) {
-    const int t = threadIdx.x + T * b;
+    const int f = threadIdx.x + T * b;
+    if (NF % T && f >= NF) continue;
+    const int s = S > 1 ? f / kRowBflies : 0;
+    const int base = s * kRowBflies * R2, t = f - s * kRowBflies;
     if (kFFT) {
       const float2* T2 = TW + 15 + (t & 15);
 #pragma unroll
@@ -375,7 +406,7 @@ __device__ __forceinline__ void rows_mid(float2* sm, const float2* TW,
       }
       reg_dft<R2>(u[b], inv);
     }
-    const int o = (t >> 4) * 16 * R2 + (t & 15);
+    const int o = base + (t >> 4) * 16 * R2 + (t & 15);
 #pragma unroll
     for (int q = 0; q < R2; ++q) sm[rpad(o + 16 * q)] = u[b][q];
   }

@@ -25,7 +25,7 @@ _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
             "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu", "cfft_cols.cu",
             "cfft_rows.cu", "psf_cols.cu", "psf_rows.cu", "lab_spread.cu",
             "lab_degrid.cu", "cfft_four.cu", "psf_rows_mid.cu",
-            "psf_rows_long.cu")
+            "psf_rows_long.cu", "psf_rows_short.cu")
 _HEADERS = ("fft_lines.cuh", "pg_degrid.cuh", "pg_es.cuh", "pg_spread.cuh",
             "psf_cols.cuh", "psf_rows.cuh", "psf_rows_kernel.cuh",
             "rows_fft.cuh")
@@ -59,6 +59,7 @@ _SIGNATURES = {
     "pfbt_psf_cols_inv": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 3,
     "pfbt_psf_conv_cg": [_P] * 13 + [_I] * 6 + [_P] * 4 + [_I, _P, _I, _P],
     "pfbt_psf_rows_route": [_I],
+    "pfbt_psf_line_lab": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P, _P],
     "pfbt_psf_rows": [_P] * 6 + [_I] * 4 + [_P] * 3,
     "pfbt_twiddles": [_I, _P, _P],
     "pfbt_pg_spread": [_P] * 5 + [_I] * 6 + [_D, _P],

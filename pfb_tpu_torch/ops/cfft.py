@@ -11,16 +11,20 @@
 
 A CUDA float32 stack runs a hand-written kernel, chosen by
 :func:`cluster_route`, then :func:`row_route`, then
-:func:`four_step_route`: the strided x pass (L > 1) at 2048 <= N <= 16384
+:func:`four_step_route`: the strided x pass (L > 1) at 256 <= N <= 16384
 runs the cluster column FFT :func:`fftx_c2c_cluster`
 (``csrc/cfft_cols.cu``: a cluster of C blocks shares a tile of W columns
-through distributed shared memory); contiguous rows (L = 1) at N = 256
-R2, R2 a 5-smooth radix from 8 to 64 (2048-16384), run the row FFT
+through distributed shared memory; below 2048 one block or a cluster of
+``_TINY_C`` = 2, :func:`cluster_shape`, and tiles of up to 32 columns);
+contiguous rows (L = 1) at N = 256 R2, R2 a 5-smooth radix from 1 to 64
+(256-16384), run the row FFT
 :func:`fftx_c2c_rows` (``csrc/cfft_rows.cu``: three register stages, two
-transposes through shared memory); both passes above 16384 run the
-four-step :func:`fftx_c2c_four` (``csrc/cfft_four.cu``, then the cluster
-kernel at N / 8); everything else ``line_fft_kernel`` (``csrc/cfft.cu``,
-whole lines in one block, up to 16384). A CPU stack runs the plain
+transposes through shared memory, several lines a block below 2048);
+both passes above 16384 run the four-step :func:`fftx_c2c_four`
+(``csrc/cfft_four.cu``, then the cluster kernel at N / 8); everything
+else ``line_fft_kernel`` (``csrc/cfft.cu``, whole lines in one block, up
+to 16384): no pass of a 128-aligned sigma-2 grid takes it, only rows no
+multiple of 256, N % 4 != 0 and N < 256. A CPU stack runs the plain
 version :func:`fftx_c2c_plain` (``torch.fft`` with the roll/crop written
 out).
 The y pass of :func:`fft2_c2c_pruned` runs the same transform on
@@ -61,12 +65,14 @@ __all__ = ["fftx_c2c", "fftx_c2c_plain", "fft2_c2c_pruned",
 
 _LINE_ELEMS = 8192  # csrc/fft_lines.cuh: kLineElems
 _LINE_MAX_N = 16384  # csrc/fft_lines.cuh: kMaxN
-_CLUSTER_MIN_N = 2048  # csrc/psf_cols.cuh: kColsMinNX
-_SHORT_C = 4  # clusters below 4096, csrc/psf_cols.cuh: kShortClusters
-# csrc/cfft_rows.cu and csrc/psf_rows.cu instances (csrc/psf_rows.cuh:
-# psf_rows_fused): 256 R2 for every 5-smooth R2 from 8 to 64
-_ROW_RADICES = (8, 9, 10, 12, 15, 16, 18, 20, 24, 25, 27, 30, 32, 36, 40,
-                45, 48, 50, 54, 60, 64)
+_CLUSTER_MIN_N = 256  # csrc/psf_cols.cuh: kColsMinNX
+_SHORT_N = 2048  # csrc/psf_cols.cuh: kShortNX
+_SHORT_C = 4  # clusters from 2048 to 4096, csrc/psf_cols.cuh: kShortClusters
+_TINY_C = 2  # clusters below 2048, csrc/psf_cols.cuh: kTinyClusters
+# csrc/cfft_rows.cu and csrc/psf_rows*.cu instances (csrc/psf_rows.cuh:
+# psf_rows_fused): 256 R2 for every 5-smooth R2 from 1 to 64
+_ROW_RADICES = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 15, 16, 18, 20, 24, 25, 27,
+                30, 32, 36, 40, 45, 48, 50, 54, 60, 64)
 _ROW_LENGTHS = tuple(256 * r for r in _ROW_RADICES)
 
 
@@ -77,6 +83,15 @@ def _factor(N):
         if N % n2 == 0:
             return N // n2, n2
     return N, 1
+
+
+def _smooth(m):
+    """Whether m has no prime factor but 2, 3 and 5 (the kernels'
+    plans, csrc/fft_lines.cuh:make_plan)."""
+    for p in (2, 3, 5):
+        while m % p == 0:
+            m //= p
+    return m == 1
 
 
 def cfft_supported(N):
@@ -136,39 +151,59 @@ def _check_stack(name, xr, xi, N, in_rolled, out_rolled):
 def cluster_route(N, L):
     """Whether :func:`fftx_c2c` on a CUDA stack launches the cluster
     column kernel (``csrc/cfft_cols.cu``): the strided x pass (L > 1) at
-    N >= 2048, where ``line_fft_kernel`` fits one to four columns in a
-    block and its warps use 4-16 bytes of each 32-byte sector, on the
+    N >= 256 (from 2048, where ``line_fft_kernel`` fits one to four
+    columns in a block and its warps use 4-16 bytes of each 32-byte
+    sector, on clusters; below, where a column fits a block, on clusters
+    of ``_TINY_C`` blocks with wider tiles and 16-byte loads), on the
     shapes the kernel takes (N % 4 == 0 and a tile of :func:`cluster_
     shape` within a block's 8192 values: N <= 16384, or <= 8192 where 8
-    does not divide N). The y pass (L = 1, contiguous rows), N < 2048
-    (eight or more columns a block) and the other N keep
+    does not divide N; N / C a product of 2, 3 and 5). The y pass (L = 1,
+    contiguous rows), N < 256, N % 4 != 0 and the other N keep
     ``line_fft_kernel``."""
     if L < 2 or N < _CLUSTER_MIN_N or N % 4:
         return False
     C, W = cluster_shape(N)
-    return (N // C) * W <= _LINE_ELEMS
+    return (N // C) * W <= _LINE_ELEMS and _smooth(N // C)
 
 
 def cluster_shape(N):
     """(C, W) of the cluster kernel at N: C blocks a cluster (8 above
-    4096 where 8 divides N, 4 at 4096 and the others, ``_SHORT_C`` below
-    4096) and tiles of W columns, 8 (a full 32-byte sector of re and of im
-    a row) where the block's W lines of M = N / C fit 8192 complex values,
-    else 4 (N = 12288, 16384)."""
+    4096 where 8 divides N, 4 at 4096 and the others, ``_SHORT_C`` from
+    2048 to 4096, one or ``_TINY_C`` below 2048) and tiles of W columns
+    (csrc/psf_cols.cuh:cols_tile_width, which M = N / C sets): from 2048,
+    8 (a full 32-byte sector of re and of im a row) where the block's W
+    lines of M fit 8192 complex values, else 4 (N = 12288, 16384); below
+    2048 (csrc/psf_cols.cuh:tiny_clusters) one block where its tile, the
+    widest of 32, 16, 8 and 4 that fits, is 8 columns (768 and 1024),
+    else ``_TINY_C`` = 2 blocks (32 columns at 256 and 512, 8 at 1280 and
+    1536)."""
     if N % 4:
         raise ValueError(f"fftx_c2c_cluster: N={N} is not a multiple of 4")
+    if N < _SHORT_N:
+        C = 1 if _tiny_width(N) == 8 else _TINY_C
+        return C, _tiny_width(N // C)
     C = _SHORT_C if N < 4096 else 8 if N > 4096 and N % 8 == 0 else 4
     return C, (8 if (N // C) * 8 <= _LINE_ELEMS else 4)
+
+
+def _tiny_width(M):
+    """Columns of a tile of lines of M below 2048: the widest of 32, 16,
+    8 and 4 within a block's 8192 values."""
+    W = 32
+    while W > 4 and M * W > _LINE_ELEMS:
+        W //= 2
+    return W
 
 
 def row_route(N, L):
     """Whether :func:`fftx_c2c` on a CUDA stack launches the row kernel
     (``csrc/cfft_rows.cu``, K3r): contiguous rows (L = 1, the y pass) at
     the lengths it is built for, N = 16 R2 16 with R2 a 5-smooth radix
-    from 8 to 64 (:data:`_ROW_LENGTHS`, 2048-16384: the y pass of every
-    128-aligned image grid from 1024^2 to 8192^2 and of its PSF grid up
-    to 4096^2). Other N (not a multiple of 256, or no instance) keep
-    ``line_fft_kernel`` up to 16384 and :func:`four_step_route` above.
+    from 1 to 64 (:data:`_ROW_LENGTHS`, 256-16384: the y pass of every
+    128-aligned image grid from 128^2 to 8192^2 and of its PSF grid up
+    to 4096^2; below 2048, 16 / R2 lines a block). Other N (not a
+    multiple of 256, or no instance) keep ``line_fft_kernel`` up to 16384
+    and :func:`four_step_route` above.
     :func:`cluster_route` is asked first; the two never both hold (it
     needs L > 1)."""
     return L == 1 and N in _ROW_LENGTHS
@@ -252,7 +287,7 @@ fftx_c2c.launches = 0
 
 
 # ---------------------------------------------------------------------
-# the cluster column kernel (K3's x pass at N >= 2048)
+# the cluster column kernel (K3's x pass at N >= 256)
 
 
 def fftx_c2c_cluster_plain(xr, xi, *, N, C, inverse=False, in_rolled=False,

@@ -28,9 +28,10 @@ K1's with the rows padded to the shard count (:func:`prep_h_space`).
 
 The column stages of every entry (K1, K2, K10, K11, and through them
 K12-K15) run on one of two kernels, by :func:`cols_route` at (NX,
-columns): at NX >= 2048 where the tile fits, the cluster column FFT of
-``csrc/psf_cols.cu`` (:func:`psf_cols_fwd` / :func:`psf_cols_inv` count
-its launches, from whichever entry; K2's with its prologue and epilogue,
+columns): at NX >= 256 where the tile fits, the cluster column FFT of
+``csrc/psf_cols.cu``, below 2048 on clusters of one or two blocks
+(:func:`psf_cols_fwd` / :func:`psf_cols_inv` count its launches, from
+whichever entry; K2's with its prologue and epilogue,
 :func:`psf_convolve_h_cg_cols_plain` its decomposition); elsewhere
 ``line_fft_kernel`` (K2: its fused line kernels), whose launches from
 every entry :data:`psf_cols_line` counts. The C++ predicate
@@ -41,7 +42,7 @@ kernels' own decomposition as torch operations, for the CPU tests.
 
 The rows stage of every entry (K1, K2, K10 stage 2, K11, and through them
 K12-K14) runs on one of two kernels, by :func:`rows_route` at NY: at NY =
-256 R2, R2 a 5-smooth radix from 8 to 64 (2048-16384), the fused
+256 R2, R2 a 5-smooth radix from 1 to 64 (256-16384), the fused
 register row FFT K10br of ``csrc/psf_rows.cu`` (:func:`psf_rows` counts
 its launches, from whichever entry, as the entry reports them), elsewhere
 ``psf_rows_kernel`` (:data:`psf_rows_line` counts its launches). The C++
@@ -126,11 +127,12 @@ def psf_convolve_h_plain(x, hr, hi):
 def cols_route(NX, L):
     """Whether the column stages of length NX on L columns take the
     cluster column kernels (``csrc/psf_cols.cu:psf_cols_clusters``, which
-    decides; this is its mirror): L >= 2, NX >= 2048, NX % 4 == 0 and, at
-    ops/cfft.py:cluster_shape's (C, W), C dividing NX, M = NX / C even
-    (two columns pair, and k1 pairs with M - k1), a tile of W lines of M
-    within 8192 values and M a product of 2, 3 and 5. Every other shape
-    keeps ``line_fft_kernel``."""
+    decides; this is its mirror): L >= 2, NX >= 256 (the PSF Hessian of
+    every 128-aligned image from 128^2; below 2048 on one block or
+    clusters of ``_TINY_C``), NX % 4 == 0 and, at ops/cfft.py:cluster_shape's
+    (C, W), C dividing NX, M = NX / C even (two columns pair, and k1 pairs
+    with M - k1), a tile of W lines of M within 8192 values and M a
+    product of 2, 3 and 5. Every other shape keeps ``line_fft_kernel``."""
     if L < 2 or NX < _CLUSTER_MIN_N or NX % 4:
         return False
     C, W = cluster_shape(NX)
@@ -345,10 +347,10 @@ psf_cols_inv.launches = 0
 def rows_route(NY):
     """Whether the rows stage of length NY takes K10br, the fused register
     row FFT (``csrc/psf_rows.cu:psf_rows_fused``, which decides; this is
-    its mirror): NY = 16 R2 16 with R2 a 5-smooth radix from 8 to 64
-    (2048-16384: every PSF Hessian of a 128-aligned image from 1024^2 to
-    8192^2), K3r's lengths (ops/cfft.py:row_route). Every other NY keeps
-    ``psf_rows_kernel``."""
+    its mirror): NY = 16 R2 16 with R2 a 5-smooth radix from 1 to 64
+    (256-16384: every PSF Hessian of a 128-aligned image from 128^2 to
+    8192^2; below 2048 16 / R2 rows a block), K3r's lengths
+    (ops/cfft.py:row_route). Every other NY keeps ``psf_rows_kernel``."""
     return NY in _ROW_LENGTHS
 
 
@@ -909,6 +911,60 @@ def psf_stage_cols_inv(wr, wi, nx, NX, NY, keep=None):
 
 
 psf_stage_cols_inv.launches = 0
+
+
+def psf_line_lab(stage, a, b=None, *, NX, nx=None, rows=None, hr=None,
+                 hi=None, NY=None):
+    """The lab's PSF line kernels at any length, whatever the routes say
+    (``pfbt_psf_line_lab``: the kernels the lengths below 2048 took before
+    the cluster and register routes reached them), with K10's stage
+    conventions: stage 1 is :func:`psf_stage_cols_fwd`'s function on
+    ``line_fft_kernel`` (x = a, NX, ``rows``; keep NX/2 + 1), stage 2
+    :func:`psf_stage_rows`'s on ``psf_rows_kernel`` (a, b against hr, hi;
+    NX unused), stage 3 :func:`psf_stage_cols_inv`'s on
+    ``line_fft_kernel`` (a, b, ``nx``, NX, ``NY``). A CPU tensor runs the
+    stage's plain version. ``psf_line_lab.launches`` counts its launches
+    (no path's counter does)."""
+    if stage == 1:
+        if not a.is_cuda:
+            return psf_stage_cols_fwd_plain(a, NX, rows)
+        nb, n, L = a.shape
+        keep = NX // 2 + 1
+        o1 = a.new_empty((nb, rows, L))
+        o2 = torch.empty_like(o1)
+        args = (a, None, None, None, o1, o2, nb, n, L, NX, keep, rows, 1.0)
+        res = (o1, o2)
+    elif stage == 2:
+        if not a.is_cuda:
+            return psf_stage_rows_plain(a, b, hr, hi)
+        n, N = a.shape[-1], hr.shape[-1]
+        o1, o2 = torch.empty_like(a), torch.empty_like(a)
+        args = (a, b, hr, hi, o1, o2, a.numel() // n, n, 1, N, 0, 0, 1.0)
+        res = (o1, o2)
+    elif stage == 3:
+        if not a.is_cuda:
+            return psf_stage_cols_inv_plain(a, b, nx, NX, NY)
+        nb, r, L = a.shape
+        o1 = a.new_empty((nb, nx, L))
+        scale = float(np.float32(1.0) / (np.float32(NX) * np.float32(NY)))
+        args = (a, b, None, None, o1, None, nb, nx, L, NX, NX // 2 + 1, r,
+                scale)
+        res = o1
+    else:
+        raise ValueError(f"psf_line_lab: stage {stage} (1, 2 or 3)")
+    kernels.require_cuda_f32("psf_line_lab", *(t for t in args[:4]
+                                               if torch.is_tensor(t)))
+    N = args[9]
+    ptrs = [None if t is None else t.data_ptr() for t in args[:6]]
+    code = kernels.library().pfbt_psf_line_lab(
+        stage, *ptrs, *args[6:12], args[12],
+        kernels.twiddles(N, a.device).data_ptr(), kernels.stream_ptr())
+    kernels.check(code, "psf_line_lab")
+    psf_line_lab.launches += 1
+    return res
+
+
+psf_line_lab.launches = 0
 
 
 def make_psf_convolve_pallas(psf, nx, ny, beam=None, sigmainv=0.0,

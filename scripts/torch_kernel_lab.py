@@ -17,6 +17,8 @@ the card (counterpart of scripts/wl_kernel_lab.py's k1 / k2 / k3).
     python3 scripts/torch_kernel_lab.py --rows-times [--root DIR]
     python3 scripts/torch_kernel_lab.py --rows-const NAME=V1,V2
     python3 scripts/torch_kernel_lab.py --lengths [--root DIR]
+    python3 scripts/torch_kernel_lab.py --short [--root DIR]
+    python3 scripts/torch_kernel_lab.py --cols-tiny [--root DIR]
     python3 scripts/torch_kernel_lab.py --two-pass [--root DIR] [--out FILE]
     python3 scripts/torch_kernel_lab.py --spills [--out FILE]
 
@@ -235,6 +237,34 @@ def back_to_back_ms(fn, reps, dev):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps, dev):
+    """Milliseconds a call of fn() when it is captured once in a CUDA graph
+    and the graph replayed ``reps`` times back to back between two CUDA
+    events: the device's time with no host work between launches (None on
+    the CPU, or where fn cannot be captured)."""
+    import torch
+    if dev.type != "cuda":
+        return None
+    try:
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        g.replay()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            g.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+    except RuntimeError:
+        return None
 
 
 def card(dev):
@@ -1334,6 +1364,179 @@ def lengths_times(reps, dev, smi, root):
         passes(N, lambda x, y: (("x", (1,) + x), ("y", y)))
 
 
+# the lengths below 2048 that a 128-aligned image's grids and PSF Hessian
+# take (N = 2 nx for nx = 128-768, and the PSF grids' 4 nx up to 384^2),
+# and K1's two shapes at them: the 512^2 and 768^2 images' PSF Hessians
+SHORT_LENGTHS = (256, 512, 768, 1024, 1280, 1536)
+SHORT_K1 = ((8, 512, 1024), (8, 768, 1536))
+
+
+def short_times(reps, dev, smi, root, lengths=SHORT_LENGTHS, k1=SHORT_K1):
+    """--short: the tree at ``root`` at the lengths below 2048, each call's
+    route (the launch counters it moved), its bound (chip_smoke.py:bound)
+    and the library call, one JSON line a case: K3's x pass (fftx_c2c on
+    (9, nin, nin) planes) and y pass (on the (9 nrow, nin, 1) rows that
+    pass leaves), inverse out_rolled and forward in_rolled, beside
+    torch.fft and the line kernel (fftx_c2c_lab, line_fft_kernel whatever
+    the routes say); the PSF column stages (psf_stage_cols_fwd / _inv at
+    (8, NX/2, NX/2)) beside rfft / irfft, and the rows stage
+    (psf_stage_rows on (8, NY/2 + 1, NY/2) rows, complex H) beside three
+    torch.fft calls, each beside the line kernels of ops/psf.py:
+    psf_line_lab where the tree has it; K1 (psf_convolve_h, random
+    complex H) at ``k1``'s (nb, nx, NX) beside its plain version. A tree
+    whose routes stop at 2048 runs the line kernels on every case. Each
+    single call's CUDA-event time (``ms``, ``line_ms``, ...) holds the
+    launch and the wrapper's host work; ``graph_ms`` / ``line_graph_ms``
+    are the same calls replayed from a CUDA graph (graph_ms), the
+    device's time alone."""
+    import torch
+
+    from pfb_tpu_torch.ops import psf
+    from pfb_tpu_torch.ops.cfft import fftx_c2c, fftx_c2c_lab
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, conv_work, fft_flops, rows_work
+    g = torch.Generator(device=dev).manual_seed(20)
+    lab = getattr(psf, "psf_line_lab", None)
+
+    def line(case, shape, fn, work, **extra):
+        bms, bby = bound(*work)
+        rec = {"probe": "short", "root": str(root), "case": case,
+               "shape": list(shape), "route": _route(fn),
+               "ms": cuda_ms(fn, reps, dev), "bound_ms": bms,
+               "bound_by": bby, "card": smi,
+               "graph_ms": graph_ms(fn, reps, dev)}
+        rec.update({k: cuda_ms(f, reps, dev) for k, f in extra.items()
+                    if f is not None})
+        if extra.get("line_ms") is not None:
+            rec["line_graph_ms"] = graph_ms(extra["line_ms"], reps, dev)
+        print(json.dumps(rec), flush=True)
+
+    P = 9
+    for N in lengths:
+        for inv, pin, pout in ((True, False, True), (False, True, False)):
+            nin = N // 2 if pin else N
+            nout = N // 2 if pout else N
+            kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+            lib = torch.fft.ifft if inv else torch.fft.fft
+            tag = "inverse out_rolled" if inv else "forward in_rolled"
+            rows = N if pin else N // 2
+            for axis, shape in (("x", (P, nin, nin)),
+                                ("y", (P * rows, nin, 1))):
+                xr, xi = (torch.randn(shape, generator=g, device=dev)
+                          for _ in range(2))
+                z = torch.zeros((shape[0], N, shape[2]),
+                                dtype=torch.complex64, device=dev)
+                z[:, :nin] = torch.complex(xr, xi)
+                lines = shape[0] * shape[2]
+                line(f"K3 {axis} pass {tag} ({P}, {N}^2)", shape,
+                     lambda: fftx_c2c(xr, xi, **kw),
+                     (8.0 * lines * (nin + nout), fft_flops(N, lines)),
+                     library_ms=lambda: lib(z, dim=-2),
+                     line_ms=lambda: fftx_c2c_lab(xr, xi, **kw))
+                del xr, xi, z
+                torch.cuda.empty_cache()
+    nb = 8
+    for NX in lengths:
+        nx = NX // 2
+        x = torch.randn((nb, nx, nx), generator=g, device=dev)
+        w = [torch.randn((nb, nx + 1, nx), generator=g, device=dev)
+             for _ in range(2)]
+        wc = torch.complex(*w)
+        cols = (4.0 * nb * nx * (nx + 2 * (nx + 1)),
+                nb * fft_flops(NX, nx, real=True))
+        line(f"column stage 1 psf_stage_cols_fwd (8, {nx}^2) of {NX}",
+             x.shape, lambda: psf.psf_stage_cols_fwd(x, NX, nx + 1), cols,
+             library_ms=lambda: torch.fft.rfft(x, n=NX, dim=-2),
+             line_ms=lab and (lambda: lab(1, x, NX=NX, rows=nx + 1)))
+        line(f"column stage 3 psf_stage_cols_inv (8, {nx + 1}, {nx}) of "
+             f"{NX}", w[0].shape,
+             lambda: psf.psf_stage_cols_inv(*w, nx, NX, NX), cols,
+             library_ms=lambda: torch.fft.irfft(wc, n=NX, dim=-2),
+             line_ms=lab and (lambda: lab(3, *w, NX=NX, nx=nx, NY=NX)))
+        hr, hi = (torch.randn((nb, nx + 1, NX), generator=g, device=dev)
+                  for _ in range(2))
+        hc = torch.complex(hr, hi)
+        line(f"rows stage psf_stage_rows (8, {nx + 1}, {nx}) of {NX}, "
+             "complex H", w[0].shape,
+             lambda: psf.psf_stage_rows(*w, hr, hi),
+             rows_work(nb, nx + 1, nx, NX, "complex"),
+             three_calls_ms=lambda: torch.fft.ifft(
+                 torch.fft.fft(wc, n=NX, dim=-1) * hc, dim=-1)[..., :nx],
+             line_ms=lab and (lambda: lab(2, *w, NX=NX, hr=hr, hi=hi)))
+        del x, w, wc, hr, hi, hc
+        torch.cuda.empty_cache()
+    for nb, nx, NX in k1:
+        x = torch.randn((nb, nx, nx), generator=g, device=dev)
+        hr, hi = (torch.randn((nb, nx + 1, NX), generator=g, device=dev)
+                  for _ in range(2))
+        line(f"K1 psf_convolve_h ({nb}, {nx}^2) in {NX}^2, random complex "
+             "H", x.shape, lambda: psf.psf_convolve_h(x, hr, hi),
+             conv_work(nb, nx, nx, NX, NX, hr.numel(), True),
+             plain_ms=lambda: psf.psf_convolve_h_plain(x, hr, hi))
+        del x, hr, hi
+        torch.cuda.empty_cache()
+
+
+def cols_tiny_times(reps, dev, smi, root):
+    """--cols-tiny: the cluster column kernels of the tree at ``root``
+    at the lengths below 2048 (K3c's x pass of (9, N^2) inverse
+    out_rolled and forward in_rolled, K10ac / K10cc at (8, NX/2, NX/2)),
+    on that tree's clusters (ops/cfft.py:cluster_shape), beside
+    torch.fft, each single call's time and its CUDA-graph replay's
+    (graph_ms); one JSON line a case (--cols-const kTinyClusters=1,2 times
+    one tree a value)."""
+    import torch
+
+    from pfb_tpu_torch.ops.cfft import cluster_shape, fftx_c2c_cluster
+    from pfb_tpu_torch.ops.psf import psf_cols_fwd, psf_cols_inv
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, fft_flops
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def line(case, shape, N, fn, work, lib):
+        bms, bby = bound(*work)
+        C, W = cluster_shape(N)
+        rec = {"probe": "cols-tiny", "root": str(root), "case": case,
+               "shape": list(shape), "C": C, "W": W,
+               "route": _route(fn), "ms": cuda_ms(fn, reps, dev),
+               "graph_ms": graph_ms(fn, reps, dev),
+               "library_ms": cuda_ms(lib, reps, dev), "bound_ms": bms,
+               "bound_by": bby, "card": smi}
+        print(json.dumps(rec), flush=True)
+
+    for N in SHORT_LENGTHS:
+        for inv, pin, pout in ((True, False, True), (False, True, False)):
+            nin = N // 2 if pin else N
+            nout = N // 2 if pout else N
+            kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+            xr, xi = (torch.randn((9, nin, nin), generator=g, device=dev)
+                      for _ in range(2))
+            z = torch.zeros((9, N, nin), dtype=torch.complex64, device=dev)
+            z[:, :nin] = torch.complex(xr, xi)
+            lib = torch.fft.ifft if inv else torch.fft.fft
+            line(f"K3c x pass {'inverse out_rolled' if inv else 'forward '
+                              'in_rolled'} (9, {N}^2)", xr.shape, N,
+                 lambda: fftx_c2c_cluster(xr, xi, **kw),
+                 (8.0 * 9 * nin * (nin + nout), 9 * fft_flops(N, nin)),
+                 lambda: lib(z, dim=-2))
+            del xr, xi, z
+        nx = N // 2
+        x = torch.randn((8, nx, nx), generator=g, device=dev)
+        w = [torch.randn((8, nx + 1, nx), generator=g, device=dev)
+             for _ in range(2)]
+        wc = torch.complex(*w)
+        cols = (4.0 * 8 * nx * (nx + 2 * (nx + 1)),
+                8 * fft_flops(N, nx, real=True))
+        line(f"K10ac psf_cols_fwd (8, {nx}^2) of {N}", x.shape, N,
+             lambda: psf_cols_fwd(x, N, nx + 1), cols,
+             lambda: torch.fft.rfft(x, n=N, dim=-2))
+        line(f"K10cc psf_cols_inv (8, {nx + 1}, {nx}) of {N}", w[0].shape,
+             N, lambda: psf_cols_inv(*w, nx, N), cols,
+             lambda: torch.fft.irfft(wc, n=N, dim=-2))
+        del x, w, wc
+        torch.cuda.empty_cache()
+
+
 MINB_RE = re.compile(r"constexpr int kColsMinBlocks = (\d+);")
 
 
@@ -1380,7 +1583,8 @@ def cols_times(reps, dev, smi, root, shapes=COLS_SHAPES):
 
 # the Python mirrors of the probed constants: (module of pfb_tpu_torch,
 # name), set in a copy along with the constant
-MIRRORS = {"kShortClusters": ("ops/cfft.py", "_SHORT_C")}
+MIRRORS = {"kShortClusters": ("ops/cfft.py", "_SHORT_C"),
+           "kTinyClusters": ("ops/cfft.py", "_TINY_C")}
 
 
 def _set_once(path, pattern, repl):
@@ -1472,27 +1676,36 @@ __device__ __forceinline__ void mid_two_pass(float2* sm, const float2* T2,
   }
 }
 
-template <int R2, int T, bool kFFT>
+template <int R2, int T, int S, bool kFFT>
 __device__ __forceinline__ void rows_mid(float2* sm, const float2* TW,
                                          bool inv) {
-  constexpr int B2 = kRowBflies / T;
-  static_assert(B2 * T == kRowBflies, "T divides 256");
-  constexpr bool kTwo = kFFT && B2 == 1 && pair_ra(R2) > 0;
+  constexpr int NF = S * kRowBflies;
+  constexpr int B2 = (NF + T - 1) / T;
+  static_assert(S > 1 || B2 * T == kRowBflies, "T divides 256");
+  constexpr bool kTwo = kFFT && S == 1 && B2 == 1 && pair_ra(R2) > 0;
   const float sg = inv ? -1.f : 1.f;
   float2 u[B2][R2];
   if constexpr (kTwo) {
     mid_two_pass<R2>(sm, TW + 15 + (threadIdx.x & 15), inv, u[0]);
   } else {
 #pragma unroll
-    for (int b = 0; b < B2; ++b)
+    for (int b = 0; b < B2; ++b) {
+      const int f = threadIdx.x + T * b;
+      if (NF % T && f >= NF) continue;
+      const int s = S > 1 ? f / kRowBflies : 0;
+      const int base = s * kRowBflies * R2, t = f - s * kRowBflies;
 #pragma unroll
       for (int q = 0; q < R2; ++q)
-        u[b][q] = sm[rpad(threadIdx.x + T * b + kRowBflies * q)];
+        u[b][q] = sm[rpad(base + t + kRowBflies * q)];
+    }
   }
   __syncthreads();
 #pragma unroll
   for (int b = 0; b < B2; ++b) {
-    const int t = threadIdx.x + T * b;
+    const int f = threadIdx.x + T * b;
+    if (NF % T && f >= NF) continue;
+    const int s = S > 1 ? f / kRowBflies : 0;
+    const int base = s * kRowBflies * R2, t = f - s * kRowBflies;
     if constexpr (kFFT && !kTwo) {
       const float2* T2 = TW + 15 + (t & 15);
 #pragma unroll
@@ -1502,7 +1715,7 @@ __device__ __forceinline__ void rows_mid(float2* sm, const float2* TW,
       }
       reg_dft<R2>(u[b], inv);
     }
-    const int o = (t >> 4) * 16 * R2 + (t & 15);
+    const int o = base + (t >> 4) * 16 * R2 + (t & 15);
 #pragma unroll
     for (int q = 0; q < R2; ++q) sm[rpad(o + 16 * q)] = u[b][q];
   }
@@ -1697,9 +1910,15 @@ def main():
     ap.add_argument("--cols-short", action="store_true",
                     help="time the cluster column kernels of --root below "
                     "4096")
+    ap.add_argument("--cols-tiny", action="store_true",
+                    help="time the cluster column kernels of --root below "
+                    "2048")
     ap.add_argument("--cols-const",
                     help="NAME=V1,V2: a constant of csrc/psf_cols.cuh and "
                     "the values to probe")
+    ap.add_argument("--short", action="store_true",
+                    help="time K3's passes, the PSF stages and K1 of --root "
+                    "below 2048 beside the line kernels and torch.fft")
     ap.add_argument("--rows-times", action="store_true",
                     help="time the register row kernels of --root at "
                     "2048-12288 (R2 = 8-48)")
@@ -1751,11 +1970,18 @@ def main():
     if args.cols_short:
         cols_short_times(args.reps, dev, smi, args.root)
         return 0
+    if args.short:
+        short_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.cols_tiny:
+        cols_tiny_times(args.reps, dev, smi, args.root)
+        return 0
     if args.cols_const:
         name, values = args.cols_const.split("=")
         const_probe("psf_cols.cuh", name, [int(v) for v in values.split(",")],
-                    ROOT / "build" / "lab_cols" / name, "--cols-short",
-                    args.reps)
+                    ROOT / "build" / "lab_cols" / name,
+                    "--cols-tiny" if name.startswith("kTiny")
+                    else "--cols-short", args.reps)
         return 0
     if args.rows_times:
         rows_times(args.reps, dev, smi, args.root)

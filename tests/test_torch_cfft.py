@@ -121,8 +121,8 @@ def _jax_ref(N, mode, inverse, L):
     return _JAX_REF[key]
 
 
-@pytest.mark.parametrize("N", [512, 640, 2304])
-@pytest.mark.parametrize("C", [2, 4, 8, 16])
+@pytest.mark.parametrize("N", [512, 640, 2304, 256, 768, 1280])
+@pytest.mark.parametrize("C", [2, 4, 8, 16, 1])
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cluster_plain_matches_jax(N, C, mode, inverse):
@@ -151,22 +151,31 @@ def test_cluster_plain_ragged_matches_jax(mode, inverse):
 
 def test_cluster_route_and_shape():
     """The dispatch rule, written once in ops/cfft.py: the strided x pass
-    (L > 1) at N >= 2048 takes the cluster kernel where its tile fits;
-    the y pass (L = 1), N < 2048, N % 4 != 0 and tiles past a block's
-    8192 values keep line_fft_kernel. The shapes the card runs: clusters
-    of 4 blocks and tiles of 8 columns below 4096."""
+    (L > 1) at N >= 256 takes the cluster kernel where its tile fits and
+    N / C is 5-smooth; the y pass (L = 1), N < 256, N % 4 != 0, tiles
+    past a block's 8192 values and N / C with another prime factor (2044,
+    4100) keep line_fft_kernel. The shapes the card runs: clusters of 4
+    blocks and tiles of 8 columns from 2048 to 4096; below 2048 one block
+    where its tile is 8 columns (768, 1024), else clusters of _TINY_C = 2,
+    with tiles of up to 32 columns."""
     assert cluster_route(4096, 8) and cluster_route(8192, 4096)
-    assert cluster_route(16384, 2) and cluster_route(4100, 2)
+    assert cluster_route(16384, 2) and cluster_route(4320, 2)
     assert cluster_route(2048, 2048) and cluster_route(2560, 8)
     assert cluster_route(3072, 2) and cluster_route(3000, 8)
     assert not cluster_route(8192, 1) and not cluster_route(2048, 1)
-    assert not cluster_route(1024, 2048) and not cluster_route(2044, 8)
+    assert cluster_route(1024, 2048) and not cluster_route(2044, 8)
+    assert cluster_route(256, 2) and cluster_route(1536, 8)
+    assert not cluster_route(4100, 2) and not cluster_route(128, 8)
+    assert not cluster_route(1350, 8) and not cluster_route(1024, 1)
     assert not cluster_route(2050, 8)
     assert not cluster_route(6561, 8) and not cluster_route(8748, 8)
     assert not cluster_route(32768, 8)
     assert [cluster_shape(n) for n in (2048, 2560, 3072, 4096, 6144, 8192,
                                        12288, 16384)] \
         == [(4, 8), (4, 8), (4, 8), (4, 8), (8, 8), (8, 8), (8, 4), (8, 4)]
+    assert cf._TINY_C == 2
+    assert [cluster_shape(n) for n in (256, 512, 768, 1024, 1280, 1536)] \
+        == [(2, 32), (2, 32), (1, 8), (1, 8), (2, 8), (2, 8)]
     with pytest.raises(ValueError):
         cluster_shape(6561)
     # a CPU stack keeps the plain route whatever the shape
@@ -177,23 +186,25 @@ def test_cluster_route_and_shape():
 
 
 @pytest.mark.parametrize("N", [2048, 4096, 6144, 8192, 12288, 16384, 2560,
-                               3072, 4608, 5120])
+                               3072, 4608, 5120, 256, 512, 768, 1024, 1280,
+                               1536])
 def test_cluster_shape_fits_a_block(N):
     """Every shape the route takes is one the kernel launches: a cluster
-    of 2, 4 or 8 blocks dividing N, tiles of 4 or 8 columns, at most 8192
-    values a block, and each row segment of a tile a whole number of
-    16-byte chunks."""
+    of 1, 2, 4 or 8 blocks dividing N, tiles of 4, 8, 16 or 32 columns (8
+    or 4 from 2048), at most 8192 values a block, and each row segment of
+    a tile a whole number of 16-byte chunks."""
     C, W = cluster_shape(N)
-    assert C in (2, 4, 8) and W in (4, 8) and N % C == 0
+    assert C in (1, 2, 4, 8) and W in (4, 8, 16, 32) and N % C == 0
+    assert W <= 8 or N < 2048
     assert (N // C) * W <= 8192 and W % 4 == 0
-    assert cluster_route(N, 2) == (N >= 2048)
+    assert cluster_route(N, 2) == (N >= 256)
 
 
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 def test_cluster_skeleton_plain_is_the_exchange_permutation(mode):
     """The skeleton (loads, exchange, stores, no FFT passes) writes
     X[k1 + M c] = x[c + C k1]: checked element by element in numpy."""
-    N, C, L = 64, 4, 3
+    N, C, L = 2048, 4, 3
     M = N // C
     in_rolled, out_rolled = mode == "in_rolled", mode == "out_rolled"
     xr, xi = _rand((2, N // 2 if in_rolled else N, L), seed=11)
@@ -238,13 +249,15 @@ def _jax_rows(N, mode, inverse, R):
     return _JAX_ROWS[key]
 
 
-@pytest.mark.parametrize("N", [512, 640, 2304, 3072, 2048, 2560, 4608, 5120])
+@pytest.mark.parametrize("N", [512, 640, 2304, 3072, 2048, 2560, 4608, 5120,
+                               256, 768, 1024, 1280, 1536])
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_rows_plain_matches_jax(N, mode, inverse):
     """The row kernel's stages (16, N/256, 16 where 256 divides N: R2 = 8,
-    10, 12, 18, 20 at the lengths 2048-5120; 16, 5, 8 at 640), rolled
-    chunk offsets and kept half, in float64, against the JAX y pass in
+    10, 12, 18, 20 at the lengths 2048-5120, the short R2 = 1-6 at
+    256-1536 (none at 256 = 16 x 16); 16, 5, 8 at 640), rolled chunk
+    offsets and kept half, in float64, against the JAX y pass in
     float32."""
     xr, xi, rr, ri = _jax_rows(N, mode, inverse, 8)
     yr, yi = fftx_c2c_rows_plain(
@@ -318,18 +331,18 @@ def test_rows_skeleton_plain_is_the_stage_permutation(N, mode):
 
 def test_row_route_and_radices():
     """The dispatch rule, written once in ops/cfft.py: contiguous rows (L
-    = 1) at the kernel's 21 lengths 256 R2 (R2 5-smooth, 8-64) take the
+    = 1) at the kernel's 27 lengths 256 R2 (R2 5-smooth, 1-64) take the
     row kernel; L > 1 never does (the cluster route's), nor other N (not
     a multiple of 256, or R2 not 5-smooth or past 64); no shape takes
     both routes. The plan is 16 x R2 x 16 at those lengths."""
-    lengths = tuple(256 * r for r in range(8, 65) if _smooth(r))
-    assert len(lengths) == 21 and lengths[0] == 2048 and \
+    lengths = tuple(256 * r for r in range(1, 65) if _smooth(r))
+    assert len(lengths) == 27 and lengths[0] == 256 and \
         lengths[-1] == 16384
     for n in lengths:
         assert row_route(n, 1) and not cluster_route(n, 1)
         assert not row_route(n, 8) and cluster_route(n, 8)
         assert row_radices(n) == (16, n // 256, 16)
-    for n in (256, 1024, 3000, 3584, 4100, 6561, 16640, 18432):
+    for n in (128, 1000, 1792, 3000, 3584, 4100, 6561, 16640, 18432):
         assert not row_route(n, 1)
     assert tuple(n for n in range(2, 16900) if row_route(n, 1)) == lengths
     for n, L in itertools.product((512, 2048, 4096, 6144, 8192, 12288,
@@ -339,8 +352,8 @@ def test_row_route_and_radices():
     t = torch.zeros((2, 4096, 2))
     with pytest.raises(ValueError):   # L = 2: not contiguous rows
         fftx_c2c_rows(t, t, N=4096)
-    with pytest.raises(ValueError):   # N = 1024: no instance
-        fftx_c2c_rows(t[:, :1024, :1], None, N=1024)
+    with pytest.raises(ValueError):   # N = 1000: no instance
+        fftx_c2c_rows(t[:, :1000, :1], None, N=1000)
 
 
 class _CardStack:
@@ -356,7 +369,9 @@ class _CardStack:
 @pytest.mark.parametrize("N,L,route", [
     (8192, 8, "cluster"), (8192, 1, "rows"), (4096, 1, "rows"),
     (2048, 1, "rows"), (2048, 8, "cluster"), (16384, 1, "rows"),
-    (1024, 8, "line"), (3000, 1, "line"), (3000, 8, "cluster"),
+    (1024, 8, "cluster"), (3000, 1, "line"), (3000, 8, "cluster"),
+    (1350, 8, "line"), (160, 8, "line"), (2044, 8, "line"),
+    (512, 1, "rows"), (1536, 1, "rows"), (256, 8, "cluster"),
     (5120, 1, "rows"), (2560, 8, "cluster"), (2304, 1, "rows"),
     (7680, 1, "rows"), (18432, 1, "four"), (18432, 9216, "four"),
     (32768, 1, "four"), (16000, 1, "line")])
@@ -399,16 +414,19 @@ class _OnCard(torch.Tensor):
                                  (3072, 1), (3072, 8), (4608, 1), (5120, 1),
                                  (1024, 8), (3000, 1), (2304, 1), (3840, 1),
                                  (16384, 1), (18432, 1), (18432, 4),
-                                 (32768, 1)])
+                                 (32768, 1), (256, 8), (512, 1), (768, 24),
+                                 (1536, 1), (1350, 8)])
 def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
     """On a stand-in CUDA stack (a stand-in library recording each entry's
     shape arguments) fftx_c2c at the lengths 2048-5120 launches the
     cluster kernel on clusters of 4 and tiles of 8 columns (its strided
     x pass) and the row kernel at the length (its y pass, also at R2 = 9,
-    15 and 64), each counted on its own route; above 16384 K3f at N, then
-    the cluster kernel at N / 8 on 8 L columns (clusters of 4, tiles of
-    8); N = 1024 (below the cluster floor) and 3000 (not a multiple of
-    256) launch line_fft_kernel."""
+    15 and 64), each counted on its own route; below 2048 the cluster
+    kernel at cluster_shape's (C, W) (one block or _TINY_C, tiles of 8-32)
+    and the row kernel at R2 = 2 and 6; above 16384 K3f at N, then the
+    cluster kernel at N / 8 on 8 L columns (clusters of 4, tiles of 8);
+    N = 3000 (not a multiple of 256) and 1350 (N % 4 == 2) launch
+    line_fft_kernel."""
     calls, cols = [], []
 
     class Lib:
@@ -434,7 +452,9 @@ def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
     y = cf.fftx_c2c(x, x, N=N)
     got = tuple(f.launches - n for f, n in zip(counters, n0))
     if cluster_route(N, L):
-        assert calls == [("pfbt_cfft_cols", 4, 8)] and got == (0, 1, 0, 0)
+        C, W = cluster_shape(N)
+        assert N < 2048 and C in (1, cf._TINY_C) or (C, W) == (4, 8)
+        assert calls == [("pfbt_cfft_cols", C, W)] and got == (0, 1, 0, 0)
     elif row_route(N, L):
         assert calls == [("pfbt_cfft_rows", N)] and got == (0, 0, 1, 0)
     elif four_step_route(N, L):
@@ -442,7 +462,7 @@ def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
         assert cols == [(N // 8, 8 * L)] and got == (0, 1, 0, 1)
         assert y[0].shape == (2, N, L)
     else:
-        assert N in (1024, 3000)
+        assert N in (1350, 3000)
         assert calls == [("pfbt_cfft", N)] and got == (1, 0, 0, 0)
 
 
@@ -641,3 +661,68 @@ def test_route_table_every_image_1024_to_8192():
         assert psf.cols_route(NX, nx) and psf.rows_route(NY)
         assert NY in fused and k10br[NY] == NY // 256
     assert seen == {"cluster", "rows", "four"}
+
+
+def test_route_table_every_image_128_to_8192():
+    """For every 128-aligned 5-smooth image from 128^2 to 8192^2 (27
+    sizes, those below 1024^2 on the short designs): the image grid's and
+    the PSF grid's w-plane transforms (the grid worker's nx_psf =
+    good_even_size(2 nx), both on the gridder's sigma = 2 grids, which
+    _resolve_cfft sends to fftx_c2c), their x pass out_rolled and
+    in_rolled and their y pass, and the PSF Hessian's column and rows
+    stages at NX = NY = 2 nx each reach a redesigned kernel whose plan
+    takes the length: the cluster kernel with a tile within a block (one
+    block or _TINY_C below 2048), the register row kernel at an instanced
+    N (the C++ tables of cfft_rows.cu, psf_rows*.cu and psf_rows.cuh read from
+    the sources, R2 = 1-64), the four-step with N / 8 on the cluster
+    route. None reaches line_fft_kernel, psf_rows_kernel or K2's line
+    column kernels (which K2 takes only off cols_route)."""
+    from pfb_tpu_torch.ops import psf
+    from pfb_tpu_torch.ops.fft import good_even_size
+    from pfb_tpu_torch.ops.wgridder import _grid_setup, _resolve_cfft
+    k3r = dict(_cu_ints("cfft_rows.cu", r"PFBT_ROWS\((\d+), (\d+), \d+\)"))
+    k10br = dict(_cu_ints("psf_rows*.cu",
+                          r"PFBT_FUSED\((\d+), (\d+), \d+\)"))
+    fused = _cu_ints("psf_rows.cuh", r"case (\d+):")
+    floor = _cu_ints("cfft_rows.cu", r"N < (\d+) \|\|")
+    assert k3r == k10br == {256 * r: r for r in cf._ROW_RADICES}
+    assert sorted(fused) == sorted(k3r) == list(cf._ROW_LENGTHS)
+    assert floor == [min(k3r)] == [256]
+    assert _cu_ints("psf_cols.cuh", r"kColsMinNX = (\d+);") == \
+        [cf._CLUSTER_MIN_N] == [256]
+    assert _cu_ints("psf_cols.cuh", r"kTinyClusters = (\d+);") == \
+        [cf._TINY_C]
+
+    def takes(N, L):
+        route = fftx_c2c_route(N, L)
+        if route == "cluster":
+            C, W = cluster_shape(N)
+            assert N >= 2048 or C in (1, cf._TINY_C)
+            return (N // C) * W <= 8192 and N % C == 0 and _smooth(N // C)
+        if route == "rows":
+            return L == 1 and k3r.get(N) == N // 256
+        if route == "four":
+            return N % 32 == 0 and takes(N // 8, 8 * L) and \
+                fftx_c2c_route(N // 8, 8 * L) == "cluster"
+        return False
+
+    images = [128 * m for m in range(1, 65) if _smooth(m)]
+    assert len(images) == 27 and images[0] == 128 and images[-1] == 8192
+    cell = 1e-5
+    seen, short = set(), set()
+    for nx in images:
+        for n in (nx, good_even_size(int(2.0 * nx))):
+            Nx, Ny = _grid_setup(n, n, cell, cell, 2.0)
+            assert (Nx, Ny) == (2 * n, 2 * n)
+            assert _resolve_cfft("auto", torch.float32, n, n, Nx, Ny, True)
+            for N, L in ((Nx, Ny), (Nx, Ny // 2), (Ny, 1)):
+                assert takes(N, L), (nx, n, N, L, fftx_c2c_route(N, L))
+                seen.add(fftx_c2c_route(N, L))
+                if N < 2048:
+                    short.add((N, fftx_c2c_route(N, L)))
+        NX = NY = 2 * nx
+        assert psf.cols_route(NX, nx) and psf.rows_route(NY)
+        assert NY in fused and k10br[NY] == NY // 256
+    assert seen == {"cluster", "rows", "four"}
+    assert short == {(n, r) for n in (256, 512, 768, 1024, 1280, 1536)
+                     for r in ("cluster", "rows")}

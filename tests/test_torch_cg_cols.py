@@ -146,8 +146,9 @@ def _card(*shape):
 
 @pytest.mark.parametrize("nx,ny,C", [(2048, 16, 4), (4096, 8, 8),
                                      (1024, 16, 4), (2048, 1, 0),
-                                     (512, 16, 0), (1280, 16, 4),
-                                     (1536, 16, 4)])
+                                     (512, 16, 1), (1280, 16, 4),
+                                     (1536, 16, 4), (64, 16, 0),
+                                     (128, 16, 2), (768, 16, 2)])
 def test_k2_takes_k1s_column_route_and_counts(stand_in, nx, ny, C):
     """On a CUDA stack K2 passes cols_route's C at (2 nx, ny) to its entry
     (0: the line kernels), the entry launches every stage, and the

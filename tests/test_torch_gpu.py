@@ -76,10 +76,12 @@ def _launches():
 
 
 # every length of the register row kernels (K3r, K10br): 256 R2, R2
-# 5-smooth from 8 to 64; the nine of PRs 9-14 first
+# 5-smooth from 1 to 64; the nine of PRs 9-14 first, the short ones (R2 =
+# 1-6, several rows a block) last
+SHORT_LENGTHS = (256, 512, 768, 1024, 1280, 1536)
 ROW_LENGTHS = (4096, 6144, 8192, 12288, 2048, 2560, 3072, 4608, 5120, 2304,
                3840, 6400, 6912, 7680, 9216, 10240, 11520, 12800, 13824,
-               15360, 16384)
+               15360, 16384) + SHORT_LENGTHS
 
 
 @pytest.mark.parametrize("N,L", [(256, 128), (512, 1), (640, 8),
@@ -93,8 +95,8 @@ ROW_LENGTHS = (4096, 6144, 8192, 12288, 2048, 2560, 3072, 4608, 5120, 2304,
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cfft_kernel_matches_plain(cuda, N, L, mode, inverse):
     """K3 on its three routes; the cluster column kernel launches exactly
-    where cluster_route says (L > 1 and N >= 2048), the row kernel where
-    row_route says (L = 1 at its 21 lengths), the line kernel
+    where cluster_route says (L > 1 and N >= 256 here), the row kernel
+    where row_route says (L = 1 at its 27 lengths), the line kernel
     elsewhere, and each launch counts on its own route only."""
     g = torch.Generator(device=cuda).manual_seed(N + L)
     kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
@@ -105,7 +107,7 @@ def test_cfft_kernel_matches_plain(cuda, N, L, mode, inverse):
     n0, c0, r0 = _launches()
     yr, yi = fftx_c2c(xr, xi, **kw)
     torch.cuda.synchronize()
-    cluster = L > 1 and N >= 2048
+    cluster = L > 1 and N >= 256
     rows = L == 1 and N in ROW_LENGTHS
     assert cf.cluster_route(N, L) == cluster
     assert cf.row_route(N, L) == rows
@@ -146,12 +148,15 @@ def test_rows_kernel_matches_plain(cuda, N, mode, inverse):
 @pytest.mark.parametrize("N,pruned", [(4096, "out"), (8192, "in"),
                                       (6144, "out"), (2048, "out"),
                                       (2048, "in"), (2560, "in"),
-                                      (3072, "out"), (1024, "out")])
+                                      (3072, "out"), (1024, "out"),
+                                      (256, "in"), (512, "out"),
+                                      (768, "in"), (1280, "out"),
+                                      (1536, "in")])
 def test_fft2_launches_by_route(cuda, N, pruned):
-    """fft2_c2c_pruned: at N >= 2048 (the pg grids of 1024^2 images and
-    up) the x pass launches the cluster kernel and the y pass K3r, never
-    line_fft_kernel; at N = 1024 both passes keep the line kernel.
-    Against the plain 2-D transform."""
+    """fft2_c2c_pruned: at every 128-aligned grid from N = 256 (the pg
+    grids of 128^2 images and up) the x pass launches the cluster kernel
+    and the y pass K3r, never line_fft_kernel. Against the plain 2-D
+    transform."""
     g = torch.Generator(device=cuda).manual_seed(N)
     pin = pruned == "in"
     n = N // 2 if pin else N
@@ -162,8 +167,7 @@ def test_fft2_launches_by_route(cuda, N, pruned):
     n0, c0, r0 = _launches()
     yr, yi = cf.fft2_c2c_pruned(xr, xi, **kw)
     torch.cuda.synchronize()
-    big = N >= 2048
-    assert _launches() == (n0 + 2 * (not big), c0 + big, r0 + big)
+    assert _launches() == (n0, c0 + 1, r0 + 1)
     ref = torch.fft.ifft2 if not pin else torch.fft.fft2
     z = torch.zeros((2, N, N), dtype=torch.complex64, device=cuda)
     rows = (torch.arange(n, device=cuda) - N // 4) % N if pin else \
@@ -178,7 +182,9 @@ def test_fft2_launches_by_route(cuda, N, pruned):
 
 @pytest.mark.parametrize("N,L", [(4096, 20), (8192, 48), (6144, 13),
                                  (2048, 24), (12288, 12), (16384, 6),
-                                 (2560, 20), (3072, 12)])
+                                 (2560, 20), (3072, 12), (256, 40),
+                                 (512, 24), (768, 20), (1024, 12),
+                                 (1280, 13), (1536, 8)])
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 def test_cluster_kernel_launch_parameters(cuda, N, L, mode):
     """fftx_c2c_cluster at cluster_shape's (C, W) against the plain
@@ -208,11 +214,12 @@ def test_cluster_kernel_launch_parameters(cuda, N, L, mode):
     assert torch.equal(sr, pr) and torch.equal(si, pi)
 
 
-@pytest.mark.parametrize("N", [6561, 8748, 3000, 16000, 1024])
+@pytest.mark.parametrize("N", [6561, 8748, 3000, 16000, 1350, 160])
 def test_cfft_other_lengths_keep_the_line_kernel(cuda, N):
     """N = 3^8 (no cluster of 4 divides it), 4 * 3^7 (a tile of 4 columns
-    of N / 4 exceeds a block) and 1024 (below the cluster route's 2048)
-    take line_fft_kernel on strided columns, as cluster_route says; on
+    of N / 4 exceeds a block), 1350 (N % 4 == 2) and 160 (below the
+    cluster route's 256) take line_fft_kernel on strided columns, as
+    cluster_route says; on
     contiguous rows (L = 1) those and 3000 and 16000 (no multiple of 256;
     16384 has had a row kernel instance since R2 = 64) take it too, as
     row_route says. The other two routes launch nothing."""
@@ -892,7 +899,9 @@ def test_k12_k15_wrappers_reject_bad_operands(cuda):
 
 # (nb, nx, NX, L, rows, keep) at every shape chip_smoke.py gives them: K1
 # at (8, 2048^2), K1 and K12 at 4096^2, one K10 shard of the (2, 4) mesh,
-# K11 at 3072^2 in 6144^2 and in 4608^2, K15's NXH rows at 8192
+# K11 at 3072^2 in 6144^2 and in 4608^2, K15's NXH rows at 8192, and K1
+# at every short NX (256-1536, one block or clusters of _TINY_C) with a K10
+# shard at 1024
 COLS_CASES = [(8, 2048, 4096, 2048, 2049, None),
               (8, 4096, 8192, 4096, 4097, None),
               (4, 2048, 4096, 512, 2052, None),
@@ -903,7 +912,14 @@ COLS_CASES = [(8, 2048, 4096, 2048, 2049, None),
               (4, 1024, 2048, 256, 1028, None),
               (8, 1280, 2560, 1280, 1281, None),
               (8, 1536, 3072, 1536, 1537, None),
-              (2, 1024, 2048, 1024, 1088, 1088)]
+              (2, 1024, 2048, 1024, 1088, 1088),
+              (8, 128, 256, 128, 129, None),
+              (8, 256, 512, 256, 257, None),
+              (8, 384, 768, 384, 385, None),
+              (8, 512, 1024, 512, 513, None),
+              (4, 512, 1024, 128, 516, None),
+              (8, 640, 1280, 640, 641, None),
+              (8, 768, 1536, 768, 769, None)]
 
 
 def test_cols_route_matches_its_mirror(cuda):
@@ -949,7 +965,8 @@ def test_cols_kernels_match_plain(cuda, nb, nx, NX, L, rows, keep):
 
 
 @pytest.mark.parametrize("NX,L", [(4096, 13), (8192, 6), (6144, 3),
-                                  (2048, 13), (3072, 5)])
+                                  (2048, 13), (3072, 5), (256, 37),
+                                  (512, 13), (1536, 5)])
 def test_cols_kernels_unaligned_and_ragged(cuda, NX, L):
     """Column counts that are not a multiple of the tile or of 4, an odd
     last pair, and operands 4 bytes past a 16-byte boundary (the scalar
@@ -971,7 +988,8 @@ def test_cols_kernels_unaligned_and_ragged(cuda, NX, L):
     assert _ok(out, psf_stage_cols_inv_plain(wr, wi, nx, NX, 1) * NX)
 
 
-@pytest.mark.parametrize("NX,L,keep", [(4096, 512, None), (8192, 16, 4224)])
+@pytest.mark.parametrize("NX,L,keep", [(4096, 512, None), (8192, 16, 4224),
+                                       (1024, 40, None), (256, 64, 160)])
 def test_cols_skeletons_equal_their_plain_permutations(cuda, NX, L, keep):
     """The lab's skeletons (loads, exchange, separation or Hermitian part,
     stores; no FFT) equal the plain versions' index algebra run on the
@@ -997,7 +1015,7 @@ def test_cluster_column_stages_bitwise_k1(cuda, complex_h):
     """At nx = 2048 (NX = 4096, the cluster route): K10's stages chained
     on the whole cube and on four column shards of 512 (the padded row
     stride of four space shards) equal K1 bit for bit, and K1 launches
-    each cluster kernel once, a cube below the route none."""
+    each cluster kernel once, a cube below the route (NX = 128) none."""
     nb, nx = 2, 2048
     NX = NY = 2 * nx
     hr, hi = _k10_h(cuda, nb, nx, 4, complex_h)
@@ -1023,11 +1041,11 @@ def test_cluster_column_stages_bitwise_k1(cuda, complex_h):
                                         .contiguous(), nx, NX, NY)
                      for q in range(4)], dim=-1)
     assert torch.equal(out, ref)
-    small = torch.randn((nb, 512, 512), generator=g, device=cuda)
+    small = torch.randn((nb, 64, 64), generator=g, device=cuda)
     n1 = (psf_mod.psf_cols_fwd.launches, psf_mod.psf_cols_inv.launches)
-    hs = _k10_h(cuda, nb, 512, 1, True)
-    psf_convolve_h(small, hs[0][:, :513].contiguous(),
-                   hs[1][:, :513].contiguous())
+    hs = _k10_h(cuda, nb, 64, 1, True)
+    psf_convolve_h(small, hs[0][:, :65].contiguous(),
+                   hs[1][:, :65].contiguous())
     assert (psf_mod.psf_cols_fwd.launches,
             psf_mod.psf_cols_inv.launches) == n1
 
@@ -1079,20 +1097,76 @@ def test_space_matvec_bitwise_k1_at_1024(cuda):
     assert torch.equal(a, ref)
 
 
-@pytest.mark.parametrize("nx", [1024, 1280, 1536, 512])
+def test_space_matvec_bitwise_k1_at_512(cuda):
+    """The same at (4, 512^2) on a (2, 4) virtual mesh (128 columns a
+    shard), where K10's and K1's column stages take the cluster kernels
+    at NX = 1024 on one block a tile (C = 1) and the rows stages K10br
+    at NY = 1024 (R2 = 4, four rows a block, a shard's rows in other
+    slots of a block than K1's): bit for bit K1, and no PSF line kernel
+    launches."""
+    from pfb_tpu_torch.parallel.dist import hessian_psf_space_dist
+    from pfb_tpu_torch.parallel.mesh import make_mesh
+    nb, nx, nspace = 4, 512, 4
+    assert psf_mod.v3_space_supported(nx, nx, nspace)
+    hr, hi = _k10_h(cuda, nb, nx, nspace, True)
+    g = torch.Generator(device=cuda).manual_seed(25)
+    x = torch.randn((nb, nx, nx), generator=g, device=cuda)
+    mesh = make_mesh(nband=2, nspace=nspace, devices=[cuda] * (2 * nspace))
+    f = hessian_psf_space_dist(mesh, method="pallas")
+    n0 = (psf_mod.psf_cols_fwd.launches, psf_mod.psf_rows.launches,
+          psf_mod.psf_cols_line.launches, psf_mod.psf_rows_line.launches)
+    a = f(x, hr, hi).gather()
+    got = [c.launches - n for c, n in zip(
+        (psf_mod.psf_cols_fwd, psf_mod.psf_rows, psf_mod.psf_cols_line,
+         psf_mod.psf_rows_line), n0)]
+    assert got[0] > 0 and got[1] > 0 and got[2:] == [0, 0]
+    ref = psf_convolve_h(x, hr[:, :nx + 1].contiguous(),
+                         hi[:, :nx + 1].contiguous())
+    assert torch.equal(a, ref)
+
+
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_k2_conv_bitwise_k1_at_512(cuda, complex_h):
+    """K2 at (8, 512^2) of 1024 (chip_smoke.py phase 33's shape): its
+    column stages on the cluster kernels (one block a tile at NX = 1024),
+    its rows stage on K10br, conv(p) bit for bit K1's of its own p, p and
+    pap against the plain version, reruns bit for bit; no PSF line kernel
+    launches."""
+    nb, nx = 8, 512
+    g = torch.Generator(device=cuda).manual_seed(512 + complex_h)
+    psf = torch.randn((nb, 2 * nx, 2 * nx), generator=g, device=cuda)
+    hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=not complex_h)
+    del psf
+    pp, r = (torch.randn((nb, nx, nx), generator=g, device=cuda)
+             for _ in range(2))
+    beta = torch.rand((nb, 1, 1), generator=g, device=cuda)
+    counters = (psf_mod.psf_cols_fwd, psf_mod.psf_cols_inv, psf_mod.psf_rows,
+                psf_mod.psf_cols_line, psf_mod.psf_rows_line)
+    n0 = [c.launches for c in counters]
+    got = psf_convolve_h_cg(pp, r, beta, hr, hi)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, n0)] == [1, 1, 1, 0, 0]
+    for a, b in zip(got, psf_convolve_h_cg_plain(pp, r, beta, hr, hi)):
+        assert _ok(a, b)
+    assert torch.equal(got[1], psf_convolve_h(got[0], hr, hi))
+    for a, b in zip(got, psf_convolve_h_cg(pp, r, beta, hr, hi)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nx", [1024, 1280, 1536, 512, 128, 256, 384, 640,
+                                768])
 def test_psf_entries_take_the_new_routes(cuda, nx):
-    """K1, K2 and K11 at (2, nx^2) in (2 nx)^2: at NX = NY = 2048, 2560
-    and 3072 every column stage launches the cluster kernels and every
-    rows stage K10br, and no PSF line kernel launches (psf_cols_line,
-    psf_rows_line); at 1024 (nx = 512) both stages keep the line kernels.
-    Each against its plain version."""
+    """K1, K2 and K11 at (2, nx^2) in (2 nx)^2: at NX = NY = 256-3072
+    every column stage launches the cluster kernels and every rows stage
+    K10br, and no PSF line kernel launches (psf_cols_line,
+    psf_rows_line). Each against its plain version."""
     g = torch.Generator(device=cuda).manual_seed(nx)
     x = torch.randn((2, nx, nx), generator=g, device=cuda)
     psf = torch.randn((2, 2 * nx, 2 * nx), generator=g, device=cuda)
     hr, hi = prep_h(psf, nx, nx, torch.float32, real_transfer=False)
     Hr, Hi = prep_h_full(psf, torch.float32)
     beta = torch.full((2, 1, 1), 0.5, device=cuda)
-    on = nx >= 1024
+    on = True
     assert psf_mod.cols_route(2 * nx, nx) == on
     assert psf_mod.rows_route(2 * nx) == on
     calls = [(lambda: psf_convolve_h(x, hr, hi),
@@ -1113,13 +1187,14 @@ def test_psf_entries_take_the_new_routes(cuda, nx):
         assert _ok(out, plain())
 
 
-@pytest.mark.parametrize("NX", [2048, 2560, 3072])
+@pytest.mark.parametrize("NX", [2048, 2560, 3072, 512, 1024, 1536])
 def test_cluster_kernels_take_only_the_routes_clusters(cuda, NX):
     """Below 4096, K3c (fftx_c2c_cluster) and the PSF column kernels
-    (psf_cols_fwd / _inv) on the route's clusters of 4 against their
-    plain versions; the column entry refuses C = 2 (not the route's C)
-    and the wrappers refuse NX / 2, below the 2048 floor, on the same 40
-    columns, launching nothing."""
+    (psf_cols_fwd / _inv) on the route's clusters (4 from 2048, one block
+    or _TINY_C below) against their plain versions; the column entry refuses
+    another C (2, or 4 where the route's is 2) and the wrappers refuse NX
+    = 128, below the 256 floor, on the same 40 columns, launching
+    nothing."""
     from pfb_tpu_torch import kernels
     g = torch.Generator(device=cuda).manual_seed(NX + 2)
     nx, L = NX // 2, 40
@@ -1128,7 +1203,8 @@ def test_cluster_kernels_take_only_the_routes_clusters(cuda, NX):
               for _ in range(2))
     w = [torch.randn((2, nx + 1, L), generator=g, device=cuda)
          for _ in range(2)]
-    assert cf.cluster_shape(NX)[0] == 4
+    C = cf.cluster_shape(NX)[0]
+    assert C == (4 if NX >= 2048 else 1 if NX == 1024 else cf._TINY_C)
     yr, yi = cf.fftx_c2c_cluster(xr, xi, N=NX, inverse=True)
     pr, pi = fftx_c2c_plain(xr, xi, N=NX, inverse=True)
     assert _ok(yr, pr) and _ok(yi, pi)
@@ -1140,21 +1216,52 @@ def test_cluster_kernels_take_only_the_routes_clusters(cuda, NX):
     _, _, TM, TN = psf_mod._cols_tables(NX, L, cuda)
     code = kernels.library().pfbt_psf_cols_fwd(
         x.data_ptr(), zr.data_ptr(), zi.data_ptr(), 2, nx, L, NX, nx + 1,
-        nx + 1, 2, 0, TM, TN, kernels.stream_ptr())
+        nx + 1, 2 if C != 2 else 4, 0, TM, TN, kernels.stream_ptr())
     assert code != 0
     n0 = (psf_mod.psf_cols_fwd.launches, psf_mod.psf_cols_inv.launches)
     with pytest.raises(ValueError):
-        psf_mod.psf_cols_fwd(x[:, :nx // 2], nx, nx // 2 + 1)
+        psf_mod.psf_cols_fwd(x[:, :64], 128, 65)
     with pytest.raises(ValueError):
-        psf_mod.psf_cols_inv(*(a[:, :nx // 2 + 1] for a in w), nx // 2, nx)
+        psf_mod.psf_cols_inv(*(a[:, :65] for a in w), 64, 128)
     assert (psf_mod.psf_cols_fwd.launches,
             psf_mod.psf_cols_inv.launches) == n0
+
+
+@pytest.mark.parametrize("NX", [512, 1536])
+def test_psf_line_lab_matches_plain(cuda, NX):
+    """The lab's PSF line kernels (psf_line_lab: line_fft_kernel's column
+    stages and psf_rows_kernel, at lengths now on the routes) against the
+    K10 stages' plain versions, counting their own launches and none of
+    the paths' counters."""
+    nx = NX // 2
+    g = torch.Generator(device=cuda).manual_seed(NX + 5)
+    x = torch.randn((2, nx, 40), generator=g, device=cuda)
+    w = [torch.randn((2, nx + 1, 40), generator=g, device=cuda)
+         for _ in range(2)]
+    hr, hi = (torch.randn((2 * (nx + 1), NX), generator=g, device=cuda)
+              for _ in range(2))
+    z = [torch.randn((2 * (nx + 1), nx), generator=g, device=cuda)
+         for _ in range(2)]
+    paths = (psf_mod.psf_cols_fwd, psf_mod.psf_cols_inv, psf_mod.psf_rows,
+             psf_mod.psf_cols_line, psf_mod.psf_rows_line)
+    n0 = [c.launches for c in paths] + [psf_mod.psf_line_lab.launches]
+    got = psf_mod.psf_line_lab(1, x, NX=NX, rows=nx + 1)
+    ref = psf_stage_cols_fwd_plain(x, NX, nx + 1)
+    assert all(_ok(a, b) for a, b in zip(got, ref))
+    got = psf_mod.psf_line_lab(3, *w, NX=NX, nx=nx, NY=NX)
+    assert _ok(got, psf_stage_cols_inv_plain(*w, nx, NX, NX))
+    got = psf_mod.psf_line_lab(2, *z, NX=NX, hr=hr, hi=hi)
+    ref = psf_stage_rows_plain(*z, hr, hi)
+    assert all(_ok(a, b) for a, b in zip(got, ref))
+    torch.cuda.synchronize()
+    n1 = [c.launches for c in paths] + [psf_mod.psf_line_lab.launches]
+    assert n1 == n0[:-1] + [n0[-1] + 3]
 
 
 def test_cols_wrappers_reject_bad_operands(cuda):
     x = torch.zeros((1, 2048, 8), device=cuda)
     with pytest.raises(ValueError):   # NX below the route
-        psf_mod.psf_cols_fwd(x[:, :512], 1024, 513)
+        psf_mod.psf_cols_fwd(x[:, :64], 128, 65)
     with pytest.raises(ValueError):   # float64 on the card
         psf_mod.psf_cols_fwd(x.double(), 4096, 2049)
     with pytest.raises(ValueError):   # rows below keep
@@ -1224,7 +1331,7 @@ def test_rows_kernel_matches_plain(cuda, NY, mode, half):
     full (K11's Hermitian part) H, ny below, at and above NY / 2, against
     the plain stage (torch.fft) and its own staged decomposition; one
     launch counted."""
-    ny = NY // 2 + {"<": -40, "=": 0, ">": 300}[half]
+    ny = NY // 2 + {"<": -40, "=": 0, ">": min(300, NY // 2 - 8)}[half]
     zr, zi, hr, hi, NX = _rows_case(cuda, NY, ny, mode)
     n0 = psf_mod.psf_rows.launches
     wr, wi = psf_mod.psf_rows(zr, zi, hr, hi, NX)
@@ -1276,7 +1383,7 @@ def test_rows_stage_shards_bitwise_k1(cuda, complex_h):
     """At NY = 4096 (the register route): K10 stage 2 on four row shards
     of K1's padded spectrum equals the stage on all rows, and K10's
     stages chained equal K1, bit for bit; K1 and each K10b call count one
-    K10br launch, and the line kernel's rows stage (NY = 1024) none."""
+    K10br launch, and the line kernel's rows stage (NY = 128) none."""
     nb, nx = 2, 2048
     NX = NY = 2 * nx
     hr, hi = _k10_h(cuda, nb, nx, 4, complex_h)
@@ -1298,10 +1405,10 @@ def test_rows_stage_shards_bitwise_k1(cuda, complex_h):
     assert torch.equal(torch.cat([p[0] for p in parts], dim=1), wr)
     assert torch.equal(torch.cat([p[1] for p in parts], dim=1), wi)
     assert torch.equal(psf_stage_cols_inv(wr, wi, nx, NX, NY), ref)
-    small = _k10_h(cuda, nb, 512, 1, True)
+    small = _k10_h(cuda, nb, 64, 1, True)
     n1 = psf_mod.psf_rows.launches
-    psf_convolve_h(x[:, :512, :512].contiguous(),
-                   *[a[:, :513].contiguous() for a in small])
+    psf_convolve_h(x[:, :64, :64].contiguous(),
+                   *[a[:, :65].contiguous() for a in small])
     assert psf_mod.psf_rows.launches == n1
 
 
@@ -1551,12 +1658,15 @@ def test_lab_wrappers_reject_bad_operands(cuda):
         cf.fftx_c2c_split(x.double(), x.double(), N=512)
 
 
-@pytest.mark.parametrize("nx,C", [(2048, 4), (4096, 8), (1024, 4)])
+@pytest.mark.parametrize("nx,C", [(2048, 4), (4096, 8), (1024, 4),
+                                  (512, 1), (128, cf._TINY_C),
+                                  (768, cf._TINY_C)])
 @pytest.mark.parametrize("complex_h", [False, True])
 def test_k2_cluster_route_matches_plain_and_k1(cuda, nx, C, complex_h):
-    """K2 where cols_route holds, (2, 1024^2) of 2048, (2, 2048^2) of 4096
-    and (2, 4096^2) of 8192: its stages launch the cluster column kernels
-    (their counters gain one launch each); p, conv(p) and pap against the plain version;
+    """K2 where cols_route holds, (2, 1024^2) of 2048, (2, 2048^2) of 4096,
+    (2, 4096^2) of 8192 and the short NX = 256, 1024 and 1536 (tiles of
+    32 columns at C = 2, 8 at C = 1 and 8 at C = 2): its stages launch
+    the cluster column kernels (their counters gain one launch each); p, conv(p) and pap against the plain version;
     conv bitwise K1 of K2's own p (the same FFT on the same values);
     reruns bitwise (block partials added in a fixed order)."""
     nb = 2

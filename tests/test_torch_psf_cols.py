@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 import pfb_tpu.ops.pallas_fft as pf
 from pfb_tpu.ops.mmfft import make_full_psfhat as make_full_psfhat_j
 from pfb_tpu_torch import kernels
+from pfb_tpu_torch.ops import cfft as cf
 from pfb_tpu_torch.ops import pallas_fft as pt
 from pfb_tpu_torch.ops import psf
 from pfb_tpu_torch.ops.cfft import cluster_shape
@@ -71,7 +72,7 @@ def _pad_rows(a, rows):
 
 
 @pytest.mark.parametrize("NX", [256, 512, 1024, 2048])
-@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("C", [2, 4, 8, 1])
 @pytest.mark.parametrize("nspace", [1, 4])
 def test_cols_fwd_plain_matches_jax_stage_k1(NX, C, nspace):
     """Rows 0 .. NX/2 of the JAX stage 1 (v3's NXH rows), two real
@@ -91,7 +92,7 @@ def test_cols_fwd_plain_matches_jax_stage_k1(NX, C, nspace):
 
 
 @pytest.mark.parametrize("NX", [256, 512, 1024, 2048])
-@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("C", [2, 4, 8, 1])
 def test_cols_inv_plain_matches_jax_stage_k3(NX, C):
     """The JAX stage 3 on the JAX stage-1 spectrum against the inverse
     plain version on its rows 0 .. NX/2, read at a padded row stride, the
@@ -164,16 +165,20 @@ def test_k11_through_decimated_columns_matches_jax(C):
 
 
 @pytest.mark.parametrize("NX,C", [(2560, 4), (3072, 4), (2560, 2),
-                                  (3072, 2)])
+                                  (3072, 2), (768, 1), (768, 2), (1280, 1),
+                                  (1280, 2), (1536, 1)])
 def test_k11_columns_below_4096_match_jax(NX, C):
     """K11 at 1280^2 in 2560^2 and 1536^2 in 3072^2 (v3 does not hold
-    there), on 64 columns (NY = 128): the forward decimated stage at the
-    route's clusters (C = 4: M = 640, 768) and at C = 2 (M = 1280, 1536),
-    K11's rows stage with H's Hermitian part, the inverse decimated stage
-    cropped to nx, against the JAX single-band psf_convolve_pallas on a
-    random H in interpret mode."""
+    there), and at 384^2, 640^2 and 768^2 in twice that (radices 3 and 5,
+    where the JAX v3 stages do not run), on 64 columns (NY = 128): the
+    forward decimated stage at the route's clusters (C = 4 from 2048: M =
+    640, 768; below, one block or _TINY_C) and at C = 2 (M = 1280, 1536)
+    or 1-2 below, K11's rows stage with H's Hermitian part, the inverse
+    decimated stage cropped to nx, against the JAX single-band
+    psf_convolve_pallas on a random H in interpret mode."""
     nx, ny, NY = NX // 2, 64, 128
-    assert cols_route(NX, ny) and cluster_shape(NX)[0] == 4
+    assert cols_route(NX, ny) and cluster_shape(NX)[0] == \
+        (4 if NX >= 2048 else 1 if NX == 768 else cf._TINY_C)
     rng = np.random.default_rng(NX + C)
     x = rng.normal(size=(nx, ny)).astype(np.float32)
     Hr, Hi = (rng.normal(size=(NX, NY)).astype(np.float32)
@@ -195,8 +200,8 @@ def test_k11_columns_below_4096_match_jax(NX, C):
 def test_cpu_wrappers_take_the_routes_clusters(NX):
     """psf_cols_fwd / psf_cols_inv below 4096 on CPU tensors: the
     decimated plain versions at the route's C = 4 (the stage's function);
-    the shapes off the route raise: NX below the 2048 floor on many
-    columns, M = NX / 4 odd, one column."""
+    the shapes off the route raise: NX below the 256 floor on many
+    columns, M = NX / C not 5-smooth or odd, one column."""
     nx, Lc = NX // 2, 6
     assert cluster_shape(NX)[0] == 4 and cols_route(NX, Lc)
     g = torch.Generator().manual_seed(NX)
@@ -206,7 +211,7 @@ def test_cpu_wrappers_take_the_routes_clusters(NX):
     assert _rel(zr, ref[0]) <= 1e-12 and _rel(zi, ref[1]) <= 1e-12
     out = psf_cols_inv(zr, zi, nx, NX, scale=1.0 / NX)
     assert _rel(out, x) <= 1e-12
-    for n in (NX // 2, 1024, 2044):   # below the floor
+    for n in (NX // 16, 128, 2044):   # below the floor; M = 2044
         assert not cols_route(n, 64)
         with pytest.raises(ValueError):
             psf_cols_fwd(torch.zeros((1, n // 2, 64), dtype=torch.float64),
@@ -370,21 +375,26 @@ def test_cols_route_on_every_paths_shapes():
     """The rule on the NX of every path: K1 and K10 at 2048 (1024^2
     images) and 4096 (2048^2), K11 at 2560 and 3072 (1280^2 and 1536^2),
     K1, K12 and K15 at 8192, K11 at 6144 (3072^2) and 4608 (psf_oversize
-    1.5) take the cluster kernels; below 2048, a single column, M = NX /
-    C odd or not 5-smooth and a tile past 8192 values keep the line
-    kernel. The shapes follow ops/cfft.py:cluster_shape."""
+    1.5), and K1 at every NX from 256 to 1536 (128^2 to 768^2 images)
+    take the cluster kernels; below 256, a single column, M = NX / C odd
+    or not 5-smooth and a tile past 8192 values keep the line kernel.
+    The shapes follow ops/cfft.py:cluster_shape."""
     for NX, L in ((4096, 2048), (4096, 512), (8192, 4096), (6144, 3072),
                   (4608, 3072), (12288, 8), (16384, 2), (2048, 1024),
-                  (2048, 256), (2560, 1280), (3072, 1536), (3000, 8)):
+                  (2048, 256), (2560, 1280), (3072, 1536), (3000, 8),
+                  (1024, 512), (256, 128), (1536, 768), (768, 384)):
         assert cols_route(NX, L), (NX, L)
-    for NX, L in ((1024, 512), (256, 128), (8192, 1), (2048, 1), (2044, 8),
-                  (4100, 8), (32768, 8), (6561, 8), (2052, 8)):
+    for NX, L in ((128, 64), (8192, 1), (2048, 1), (2044, 8), (1350, 8),
+                  (4100, 8), (32768, 8), (6561, 8), (2052, 8), (1028, 8)):
         assert not cols_route(NX, L), (NX, L)
     assert [cluster_shape(n) for n in (2048, 2560, 3072, 4096, 4608, 6144,
                                        8192, 12288, 16384)] \
         == [(4, 8), (4, 8), (4, 8), (4, 8), (8, 8), (8, 8), (8, 8), (8, 4),
             (8, 4)]
     assert [n for n in range(2, 4096, 2) if cols_route(n, 8)] == \
+        [n for n in range(256, 2048, 4)
+         if psf.good_size(n // cluster_shape(n)[0]) == n // cluster_shape(n)[0]
+         and n // cluster_shape(n)[0] % 2 == 0] + \
         [n for n in range(2048, 4096, 4) if psf.good_size(n // 4) == n // 4
          and n // 4 % 2 == 0]
     with pytest.raises(ValueError):
@@ -392,14 +402,18 @@ def test_cols_route_on_every_paths_shapes():
 
 
 @pytest.mark.parametrize("NX", [4096, 4608, 6144, 8192, 12288, 16384, 2048,
-                                2560, 3072])
+                                2560, 3072, 256, 512, 768, 1024, 1280, 1536])
 def test_cols_tile_fits_a_block(NX):
-    """Every route shape is one the kernels launch: C in (2, 4, 8)
+    """Every route shape is one the kernels launch: C in (1, 2, 4, 8)
     dividing NX, M = NX / C even, W/2 pair lines of M within 4096 values
-    (256 threads of 16 values), W a multiple of 4."""
+    (256 threads of 16 values), W a multiple of 4, and (K2's column sums)
+    a thread on one quad of the tile: the (W/2) M / 16 threads, rounded
+    up to a warp, a multiple of 16 W / 4."""
     C, W = cluster_shape(NX)
     M = NX // C
-    assert C in (2, 4, 8) and NX % C == 0 and M % 2 == 0 and W % 4 == 0
+    assert C in (1, 2, 4, 8) and NX % C == 0 and M % 2 == 0 and W % 4 == 0
+    threads = -(-((W // 2) * M // 16) // 32) * 32
+    assert (threads // 16) % (W // 4) == 0
     assert (W // 2) * M <= 4096 and W * M <= 8192
 
 
@@ -420,7 +434,7 @@ def test_cpu_wrappers_run_the_decimated_plain_versions():
     with pytest.raises(ValueError):
         psf_cols_fwd(x[..., :1], NX, nx + 1)        # one column
     with pytest.raises(ValueError):
-        psf_cols_fwd(x[:, :512], 1024, 513)          # NX < 2048
+        psf_cols_fwd(x[:, :64], 128, 65)             # NX < 256
     with pytest.raises(ValueError):
         psf_cols_inv(zr[..., :1], zi[..., :1], nx, NX)
 
@@ -467,12 +481,13 @@ def _card(*shape):
 
 
 @pytest.mark.parametrize("entry,NX,L,C", [
-    ("K1", 4096, 16, 4), ("K1", 1024, 16, 0), ("K11", 6144, 8, 8),
+    ("K1", 4096, 16, 4), ("K1", 1024, 16, 1), ("K11", 6144, 8, 8),
     ("K11", 4608, 8, 8), ("K12", 8192, 4, 8), ("K10", 4096, 8, 4),
     ("K10", 2048, 8, 4), ("K15", 8192, 8, 8), ("direct", 4096, 8, 4),
     ("K1", 2048, 16, 4), ("K11", 2560, 8, 4), ("K11", 3072, 8, 4),
-    ("K10", 1024, 8, 0), ("K15", 2048, 8, 4), ("direct", 2048, 8, 4),
-    ("K11", 1024, 8, 0)])
+    ("K10", 1024, 8, 1), ("K15", 2048, 8, 4), ("direct", 2048, 8, 4),
+    ("K11", 1024, 8, 1), ("K1", 128, 16, 0), ("K10", 128, 8, 0),
+    ("K11", 1350, 8, 0), ("direct", 256, 8, 2)])
 def test_entries_take_the_route_and_count(stand_in, entry, NX, L, C):
     """On a CUDA stack every entry with a column stage passes the C of
     cols_route to its C entry point (0: the line kernel), and the cluster

@@ -65,7 +65,8 @@ def _rows(N, ny, mode, R=5, seed=0):
 # the staged model against the plain stage
 
 
-@pytest.mark.parametrize("N", [512, 640, 2304, 3072, 2048, 2560, 4608, 5120])
+@pytest.mark.parametrize("N", [512, 640, 2304, 3072, 2048, 2560, 4608, 5120,
+                               256, 768, 1280, 1536])
 @pytest.mark.parametrize("mode", ["real", "complex", "full"])
 @pytest.mark.parametrize("half", ["<", "=", ">"])
 def test_rows_plain_matches_stage_plain_f64(N, mode, half):
@@ -249,8 +250,69 @@ def test_k1_at_1024_through_the_routes_matches_jax_v3_cube():
     assert _rel(got, ref) <= TOL
 
 
+@pytest.mark.parametrize("nx", [128, 256])
+def test_k1_short_through_the_routes_matches_jax_v3_cube(nx):
+    """K1 at (2, nx^2) in (2 nx)^2, nx = 128 and 256 (the shapes at which
+    the JAX v3 pipeline's interpret mode runs below 1024^2), through the
+    short routes' decompositions: the forward cluster column stage at
+    cluster_shape's C (_TINY_C), the rows stage (R2 = 1 and 2), the
+    inverse cluster column stage scaled by 1 / (NX NY), against
+    psf_convolve_pallas_v3_cube in interpret mode; 1e-5 of max."""
+    from pfb_tpu.ops.psf import prep_pallas_hessian
+    from pfb_tpu_torch.ops.cfft import cluster_shape
+    nb = 2
+    NX = NY = 2 * nx
+    assert psf.cols_route(NX, nx) and rows_route(NY) and \
+        psf.v3_supported(nx, nx)
+    C = cluster_shape(NX)[0]
+    p = _psf(nb, NX)
+    phrT, phiT, rb = prep_pallas_hessian(jnp.asarray(p), nx, nx,
+                                         real_transfer=False)
+    x = np.random.default_rng(nx).normal(size=(nb, nx, nx)).astype(
+        np.float32)
+    ref = np.asarray(pf.psf_convolve_pallas_v3_cube(
+        jnp.asarray(x), phrT, phiT, nx, nx, row_block=rb, interpret=True))
+    hr, hi = (_t(a) for a in psf.h_from_jax_v3(phrT, phiT, nx, nx))
+    zr, zi = psf.psf_cols_fwd_plain(_t(x), NX, nx + 1, C=C)
+    wr, wi = psf_rows_plain(zr, zi, hr, hi)
+    got = psf.psf_cols_inv_plain(wr, wi, nx, NX, C=C, scale=1.0 / (NX * NY))
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("nx", [128, 64])
+def test_rows_plain_short_matches_jax_stage_k2(nx):
+    """nx = 128 (NY = 256 = 16 x 16, no stage 2) and 64 on 256 columns
+    (NY = 512, R2 = 2): the JAX stage 2 (psf_v3_stage_k2, interpret mode)
+    on the JAX stage-1 spectrum against the decomposition on the port's H
+    (K10's layout, two space shards), times NY; 1e-5 of max."""
+    nb, ps = 2, 2
+    ny = 128 if nx == 128 else 256
+    rng = np.random.default_rng(nx + 7)
+    p = rng.normal(size=(nb, 2 * nx, 2 * ny)).astype(np.float32)
+    Hsr, Hsi, NXH = prep_pallas_hessian_space(jnp.asarray(p), nx, ny, ps)
+    x = rng.normal(size=(nb, nx, ny)).astype(np.float32)
+    zr, zi = pf.psf_v3_stage_k1(jnp.asarray(x), nx, interpret=True)
+    pad = [(0, 0), (0, Hsr.shape[2] - NXH), (0, 0)]
+    wr_j, wi_j = (np.asarray(a) for a in pf.psf_v3_stage_k2(
+        jnp.pad(zr, pad), jnp.pad(zi, pad), Hsr, Hsi, interpret=True))
+    hr, hi = h_from_jax_space(Hsr, Hsi, nx, ny, ps)
+    rows = space_rows(nx, ps)
+    z = [_t(np.pad(np.asarray(a)[:, :nx + 1], pad[:1] + [(0, rows - nx - 1)]
+                   + pad[2:])) for a in (zr, zi)]
+    assert rows_route(2 * ny) and hr.shape[-1] == 2 * ny
+    wr, wi = psf_rows_plain(*z, _t(hr), _t(hi))
+    scale = np.abs(wr_j).max()
+    for got, ref in ((wr, wr_j), (wi, wi_j)):
+        assert np.abs(got[:, :nx + 1].numpy() / (2 * ny)
+                      - ref[:, :nx + 1]).max() <= TOL * scale
+
+
 @pytest.mark.parametrize("nx,ny,NX,NY", [(1280, 64, 2560, 128),
-                                         (64, 1280, 128, 2560)])
+                                         (64, 1280, 128, 2560),
+                                         (64, 384, 128, 768),
+                                         (64, 640, 128, 1280),
+                                         (384, 64, 768, 128),
+                                         (640, 64, 1280, 128)])
 def test_k11_at_1280_through_the_routes_matches_jax(nx, ny, NX, NY):
     """K11 on a random H at the length 2560 along x (the cluster column
     stages at cluster_shape's C) and along y (K10br's rows stage on the
@@ -286,6 +348,8 @@ def test_k11_at_1280_through_the_routes_matches_jax(nx, ny, NX, NY):
 
 NEW_ROW_LENGTHS = (2304, 3840, 6400, 6912, 7680, 9216, 10240, 11520, 12800,
                    13824, 15360, 16384)
+# the short instances, R2 = 1-6, several rows a block
+SHORT_ROW_LENGTHS = (256, 512, 768, 1024, 1280, 1536)
 
 
 def test_rows_route_on_every_paths_length():
@@ -295,17 +359,19 @@ def test_rows_route_on_every_paths_length():
     8192, K11 at 6144, and 12288; since R2 was generalised, every 256 R2
     with R2 5-smooth from 8 to 64 (the PSF Hessians of the 128-aligned
     images from 1024^2 to 8192^2: 2304 at 1152^2, 3840 at 1920^2, ...,
-    16384 at 8192^2); lengths below 2048, lengths that are no multiple of
-    256 (3000) and the multiples whose R2 is not 5-smooth (3584 = 256 x
-    14) or past 64 keep psf_rows_kernel."""
+    16384 at 8192^2); since the short instances, 256 R2 with R2 = 1-6 too
+    (the PSF Hessians of 128^2 to 768^2); lengths that are no multiple of
+    256 (3000, K11's 1920 at psf_oversize 1.5 of 1280^2) and the
+    multiples whose R2 is not 5-smooth (1792 = 256 x 7, 3584 = 256 x 14)
+    or past 64 keep psf_rows_kernel."""
     for NY in (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288) + \
-            NEW_ROW_LENGTHS:
+            NEW_ROW_LENGTHS + SHORT_ROW_LENGTHS:
         assert rows_route(NY)
-    for NY in (1024, 3000, 3584, 16640, 18432):
+    for NY in (128, 1920, 1792, 3000, 3584, 16640, 18432):
         assert not rows_route(NY)
     assert [NY for NY in range(2, 16900, 2) if rows_route(NY)] == sorted(
         (2048, 2560, 3072, 4096, 4608, 5120, 6144, 8192, 12288)
-        + NEW_ROW_LENGTHS)
+        + NEW_ROW_LENGTHS + SHORT_ROW_LENGTHS)
 
 
 @pytest.mark.parametrize("N", NEW_ROW_LENGTHS)
@@ -356,7 +422,7 @@ def test_cpu_wrapper_runs_the_staged_plain_version():
     assert _rel(wr, psf_rows_plain(zf, zfi, Hr, Hi, NX)[0]) == 0.0
     assert psf_rows.launches == n0
     with pytest.raises(ValueError):
-        psf_rows(zr[:, :512], zi[:, :512], hr[:, :1024])    # NY = 1024
+        psf_rows(zr[:, :500], zi[:, :500], hr[:, :1000])    # NY = 1000
     with pytest.raises(ValueError):
         psf_rows(zr, zi, hr[:1])                            # rows differ
     with pytest.raises(ValueError):
@@ -427,7 +493,8 @@ def _card(*shape):
 
 @pytest.mark.parametrize("entry", ["K1", "K2", "K10b", "K11", "K12", "K13",
                                    "K14", "direct"])
-@pytest.mark.parametrize("NY", [4096, 8192, 2048, 2560, 5120, 1024, 2304])
+@pytest.mark.parametrize("NY", [4096, 8192, 2048, 2560, 5120, 1024, 2304,
+                                3584, 512])
 def test_entries_take_the_route_and_count(stand_in, entry, NY):
     """On a CUDA stack every entry with a rows stage passes the rows
     table (pfbt_rows_twiddles) at a route length and the line plan's
