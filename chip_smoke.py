@@ -300,18 +300,24 @@ Phases:
      to 8192, 2 above), inverse out_rolled and forward in_rolled; K10br
      at each of those NY on (8, NY/2 + 1, NY/2) rows with a complex H
      (K1's), and the full H at 3840 (K11's of (a)); the four-step (K3f,
-     then K3c at N / 8) at N = 18432 and 32768 (the PSF grids of 4608^2
-     and 8192^2 images) on one plane, its x pass and the y pass of the
-     rows that leaves, inverse out_rolled: K3f alone (its bound its own
-     bytes), and the route (K3f once, then K3c once); each against its
-     plain version (the plain rows stage, K3f's and the four-step's plain
-     versions in chunks of bands, columns or rows, the whole stack at
-     once needing several times its size). (c) grid(backend="pg") at 4608^2 on a small
-     observation (8 antennas, 4 integrations, 2 channels; w-gridding off,
-     so that one plane of its 18432^2 PSF grid fits), counts reset just
-     before and read just after: K3f twice a dataset (the PSF grid's x and
-     y passes) and K3 never, its PSF and dirty image within 1e-5 of their
-     peaks of the same call on the kernels' plain versions.
+     then K3c at N / 8, the lab's route at these lengths since K3xl and
+     K3yl) at N = 18432 and 32768 (the PSF grids of 4608^2 and 8192^2
+     images) on one plane, its x pass and the y pass of the rows that
+     leaves, inverse out_rolled: K3f alone (its bound its own bytes), and
+     the route (K3f once, then K3c once); the long column kernel (K3xl)
+     on the x pass and the long row kernel (K3yl) on the rows there,
+     inverse out_rolled ((1, N, N), N/2 rows of N) and forward in_rolled
+     ((1, N/2, N/2), N rows of N/2), each with the four-step's time on
+     the same inputs (``old_ms``), and beside each the lab's one-pass
+     design of the same pass (K3cl, K3fr); each against its plain version
+     (the plain rows stage, the plain versions in chunks of bands,
+     columns or rows, the whole stack at once needing several times its
+     size). (c) grid(backend="pg") at 4608^2 on a small observation (8
+     antennas, 4 integrations, 2 channels; w-gridding off, so that one
+     plane of its 18432^2 PSF grid fits), counts reset just before and
+     read just after: K3xl and K3yl once a dataset (the PSF grid's x and
+     y passes), K3f and K3 never, its PSF and dirty image within 1e-5 of
+     their peaks of the same call on the kernels' plain versions.
  33. after phase 32: (a) the 512^2 pg path, phase 3's observation
      re-simulated at 512^2 with the same cell (a quarter of the 1024^2
      field; 64 antennas, 128 integrations, 8 channels, nothing cut), init
@@ -341,6 +347,22 @@ Phases:
      the line kernel these lengths took before (``line_ms``: the same
      inputs through fftx_c2c_lab, or ops/psf.py:psf_line_lab, which run
      line_fft_kernel and psf_rows_kernel whatever the routes say).
+ 34. after phase 33: the grid worker's w-gridded PSF at 4608^2. Phase 3's
+     observation (64 antennas, 128 integrations, 8 channels, 4000 m, 20
+     sources, seed 7, 2,064,384 visibilities) re-simulated at 4608^2 with
+     its hour-angle span cut from 1 h to 7.5 min (SIM_W: over the hour a
+     band's PSF grid needs more w planes of 18432^2 than the card holds;
+     the cell made from its uv coverage), the planes a band and their
+     bytes printed for both spans, then init -> grid(backend="pg",
+     robustness=0, psf=True, do_wgridding=True, 4608^2, PSF 9216^2 on a
+     18432^2 grid), counts reset just before and read just after: K3xl
+     and K3yl (every PSF w plane's x pass and rows, four planes a call),
+     K4 and K5 launched, K3f and K3 never; the grid's seconds and peak
+     memory; the same call on the route K3xl and K3yl replaced (K3f twice
+     as often as K3xl, its peak and seconds: the memory the full-size
+     intermediate took) and on the kernels' plain versions (one plane a
+     transform), the PSF and dirty image within 1e-5 of their peaks of
+     both.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -360,7 +382,9 @@ the kernels
 line takes its times from its first record: K3's from the line
 kernel's x pass at 1350, K3c's from its x pass, K3r's from its y pass,
 K3f's from K3f alone on the four-step's x pass at 18432 (the route's
-time, K3f and K3c at 2304, is a record of its own). Each counts the
+time, K3f and K3c at 2304, is a record of its own), K3xl's and K3yl's
+from their inverse out_rolled passes at 18432, the lab's K3cl and K3fr
+from theirs beside them. Each counts the
 launches of its own kernel, so K3 + K3c + K3r is the number of launches
 of the routes of ``fftx_c2c``, whose four-step launches K3f and K3c once
 each; K10ac and K10cc
@@ -434,6 +458,13 @@ FOUR_LENGTHS = (18432, 32768)
 # 128^2 to 768^2) of its records
 NX_SHORT = (512, 768)
 SHORT_LENGTHS = (256, 512, 768, 1024, 1280, 1536)
+# phase 34: the grid worker's w-gridded PSF at 4608^2 (a 18432^2 grid, both
+# passes on K3xl and K3yl): phase 3's observation with the hour-angle span
+# cut from 1 h to 7.5 min, so that a band's w planes fit the card (phase 34
+# prints them for both spans); antennas, integrations, channels, bands and
+# image width as phase 3's, the cell made from its uv coverage as phase 3's
+NX_W = 4608
+SIM_W = dict(SIM, duration_h=0.125)
 # phase 27's fluxmop: tests/test_aux_workers.py:38's settings and gate
 MOP = dict(backend="pg", epsilon=1e-5, use_psf=True, sigmainv=1e-4,
            gamma=0.9, cg_maxit=100, write=False, verbose=0)
@@ -487,8 +518,11 @@ def counters():
     from pfb_tpu_torch.ops import memlab
     from pfb_tpu_torch.ops import pallas_fft as pf
     from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_cluster,
-                                        fftx_c2c_four, fftx_c2c_lab,
-                                        fftx_c2c_rows, fftx_c2c_split)
+                                        fftx_c2c_cluster_long,
+                                        fftx_c2c_cols_long, fftx_c2c_four,
+                                        fftx_c2c_four_rows, fftx_c2c_lab,
+                                        fftx_c2c_rows, fftx_c2c_rows_long,
+                                        fftx_c2c_split)
     from pfb_tpu_torch.ops.pg_stream import (pg_degrid_gs, pg_fold_gs,
                                              pg_spread_gs)
     from pfb_tpu_torch.ops.pgridder import pg_degrid, pg_fold, pg_spread
@@ -502,7 +536,9 @@ def counters():
     # (line_fft_kernel and K2's, psf_rows_kernel), off the routes
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
             "K3c": fftx_c2c_cluster, "K3r": fftx_c2c_rows,
-            "K3f": fftx_c2c_four, "K4": pg_spread, "K5": pg_fold,
+            "K3f": fftx_c2c_four, "K3xl": fftx_c2c_cols_long,
+            "K3yl": fftx_c2c_rows_long, "K3cl": fftx_c2c_cluster_long,
+            "K3fr": fftx_c2c_four_rows, "K4": pg_spread, "K5": pg_fold,
             "K6": pg_degrid,
             "K7": pg_spread_gs, "K8": pg_fold_gs, "K9": pg_degrid_gs,
             "K10a": psf_stage_cols_fwd, "K10b": psf_stage_rows,
@@ -560,7 +596,8 @@ def simulate(workdir, nx=NX, sim=SIM, srf=2.0):
     t0 = time.perf_counter()
     obs = simulate_obs(nant=sim["nant"], ntime=sim["ntime"],
                        nchan=sim["nchan"], seed=sim["seed"],
-                       extent=sim["extent"])
+                       extent=sim["extent"],
+                       duration_h=sim.get("duration_h", 1.0))
     _, cell = image_size_for(obs, fov_deg=1.0, srf=srf)
     fov = (nx + 0.5) * np.rad2deg(cell)
     ms = str(Path(workdir) / f"sim{nx}.npz")
@@ -2389,18 +2426,19 @@ def _long_rows_record(nb, NY, h, g, device, timing):
 
 
 def _four_records(tag, xr, xi, N, timing, chunks=4):
-    """The four-step (fftx_c2c above 16384: K3f, then K3c at N / 8 on 8 L
-    columns) on a (P, N, L) stack, inverse out_rolled, as two records:
+    """The four-step (fftx_c2c_four: K3f, then K3c at N / 8 on 8 L
+    columns; fftx_c2c's route above 16384 before K3xl and K3yl, the lab's
+    since) on a (P, N, L) stack, inverse out_rolled, as two records:
     K3f alone against fftx_c2c_four_first_plain (its bound its own bytes,
     8 P L (N + N) read and written, and the 8-point DFTs and twiddles;
-    no library call), and the route through fftx_c2c against
+    no library call), and the route through fftx_c2c_four against
     fftx_c2c_four_plain with torch.fft on the whole stack as the library
     call. The plain versions run in ``chunks`` pieces of columns, or of
     rows where L = 1."""
     import torch
 
     from pfb_tpu_torch import kernels
-    from pfb_tpu_torch.ops.cfft import (fftx_c2c, fftx_c2c_cluster,
+    from pfb_tpu_torch.ops.cfft import (fftx_c2c_cluster,
                                         fftx_c2c_four,
                                         fftx_c2c_four_first_plain,
                                         fftx_c2c_four_plain)
@@ -2444,8 +2482,10 @@ def _four_records(tag, xr, xi, N, timing, chunks=4):
         del tr, ti
         torch.cuda.empty_cache()
 
+    # the CPU rehearsal's lengths are off the four-step: its plain version
+    four = fftx_c2c_four if dev.type == "cuda" else fftx_c2c_four_plain
     f0, c0 = fftx_c2c_four.launches, fftx_c2c_cluster.launches
-    out = torch.cat(fftx_c2c(xr, xi, **kw))
+    out = torch.cat(four(xr, xi, **kw))
     need(dev.type != "cuda" or (fftx_c2c_four.launches,
                                 fftx_c2c_cluster.launches) == (f0 + 1,
                                                                c0 + 1),
@@ -2461,11 +2501,100 @@ def _four_records(tag, xr, xi, N, timing, chunks=4):
     route_rec = _record(
         f"four-step route {tag} inverse out_rolled {list(xr.shape)}, N = "
         f"{N} (K3f, then K3c at {M})", xr.shape, out, ref,
-        lambda: fftx_c2c(xr, xi, **kw), plain, timing,
+        lambda: four(xr, xi, **kw), plain, timing,
         work=(8 * P * L * (N + N // 2), P * fft_flops(N, L)),
         flib=lambda: torch.fft.ifft(z, dim=-2))
     del out, ref, z
     return [k3f_rec, route_rec]
+
+
+def _long_record(name, xr, xi, N, inv, pin, pout, timing, chunks=4):
+    """K3xl (the x pass, L > 1) or K3yl (rows, L = 1) through fftx_c2c on
+    a (P, Nin, L) stack against its plain version in ``chunks`` pieces of
+    columns or rows, with torch.fft along dim -2 of the zero-padded (P, N,
+    L) stack as the library call and the earlier route on the same inputs
+    (fftx_c2c_four: K3f, then K3c at N / 8; ``old_ms``); then the lab's
+    one-pass design of the same pass (K3cl for the x pass, K3fr for rows)
+    as a record of its own against its plain version, with the same
+    library call. Returns the two records."""
+    import torch
+
+    from pfb_tpu_torch.ops import cfft as cf
+    kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+    P, nin, L = xr.shape
+    dev = xr.device
+    rows = L == 1
+    dim = 0 if rows else 2
+    if rows:
+        path, path_plain = cf.fftx_c2c_rows_long, cf.fftx_c2c_rows_long_plain
+        # K3fr's steps are the four-step's
+        lab, lab_plain = cf.fftx_c2c_four_rows, cf.fftx_c2c_four_plain
+    else:
+        path, path_plain = cf.fftx_c2c_cols_long, cf.fftx_c2c_cols_long_plain
+        lab = cf.fftx_c2c_cluster_long
+
+        def lab_plain(a, b, **k):  # the cluster kernel's at its C
+            return cf.fftx_c2c_cluster_plain(a, b, C=cf._LONG_C, **k)
+    z = torch.zeros((P, N, L), dtype=torch.complex64, device=dev)
+    z[:, cf._rolled_index(N, dev) if pin else slice(None)] = \
+        torch.complex(xr, xi)
+    fft = torch.fft.ifft if inv else torch.fft.fft
+    work = (8 * P * L * (nin + (N // 2 if pout else N)), P * fft_flops(N, L))
+    # the CPU rehearsal's lengths are off the lab's kernels: their plain
+    labfn = lab if dev.type == "cuda" else lab_plain
+    recs = []
+    for tag, fn, plain_fn, route in (
+            (name, lambda: cf.fftx_c2c(xr, xi, **kw), path_plain, path),
+            (f"{'K3cl' if not rows else 'K3fr'} lab, same pass: "
+             + name.split(" ", 1)[1], lambda: labfn(xr, xi, **kw),
+             lab_plain, lab)):
+        n0 = route.launches
+        out = torch.cat(fn())
+        need(dev.type != "cuda" or route.launches == n0 + 1,
+             f"{tag} did not take its kernel")
+
+        def plain(plain_fn=plain_fn):
+            parts = [plain_fn(a, b, **kw) for a, b in
+                     zip(xr.chunk(chunks, dim), xi.chunk(chunks, dim))]
+            return tuple(torch.cat([q[k] for q in parts], dim)
+                         for k in (0, 1))
+        ref = torch.cat(plain())
+        recs.append(_record(tag, xr.shape, out, ref, fn, plain, timing,
+                            work=work, flib=lambda: fft(z, dim=-2),
+                            reps=5 if route is path else 3))
+        del out, ref
+    del z
+    if timing:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # the CPU rehearsal's lengths are off the four-step
+        four = cf.fftx_c2c_four if dev.type == "cuda" else \
+            cf.fftx_c2c_four_plain
+        recs[0]["old_ms"] = cuda_ms(lambda: four(xr, xi, **kw))
+    return recs
+
+
+def _long_records(N, g, device, timing):
+    """Phase 32's records of K3xl and K3yl at N (and of the lab's K3cl and
+    K3fr beside them): the x pass of one plane and the y pass of the rows
+    it leaves, inverse out_rolled ((1, N, N), then N/2 rows of N) and
+    forward in_rolled ((1, N/2, N/2), then N rows of N/2), each with the
+    earlier route's time."""
+    import torch
+    recs = []
+    for inv, pin, pout, mtag in ((True, False, True, "inverse out_rolled"),
+                                 (False, True, False, "forward in_rolled")):
+        nin = N // 2 if pin else N
+        for name, shape in (("K3xl x pass", (1, nin, nin)),
+                            ("K3yl y pass", (N if pin else N // 2, nin, 1))):
+            xr, xi = (torch.randn(shape, generator=g, device=device)
+                      for _ in range(2))
+            recs += _long_record(f"{name} {mtag} {list(shape)}, N = {N}",
+                                 xr, xi, N, inv, pin, pout, timing)
+            del xr, xi
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return recs
 
 
 def long_kernel_checks(device, timing=True, lengths=NEW_ROW_LENGTHS,
@@ -2473,8 +2602,10 @@ def long_kernel_checks(device, timing=True, lengths=NEW_ROW_LENGTHS,
     """Phase 32's records: K3r's y pass at each of ``lengths`` (row_planes
     planes; inverse out_rolled and forward in_rolled), K10br there on
     (8, NY/2 + 1, NY/2) rows (complex H; the full H at 3840, K11's of
-    the 1920^2 path), and the four-step at each of ``four`` on one plane:
-    its x pass and the y pass of the rows that leaves."""
+    the 1920^2 path), the earlier four-step at each of ``four`` on one
+    plane (its x pass and the y pass of the rows that leaves; the lab's
+    route since K3xl and K3yl), and K3xl and K3yl there in both modes,
+    with the lab's K3cl and K3fr (_long_records)."""
     import torch
     g = torch.Generator(device=device).manual_seed(32)
     recs = []
@@ -2499,6 +2630,7 @@ def long_kernel_checks(device, timing=True, lengths=NEW_ROW_LENGTHS,
             del xr, xi
             if device.type == "cuda":
                 torch.cuda.empty_cache()
+        recs += _long_records(N, g, device, timing)
     return recs
 
 
@@ -2543,6 +2675,114 @@ def four_step_path(workdir, device, nx=4608):
                      - np.asarray(b[key], np.float64)).max()
               / np.abs(np.asarray(b[key], np.float64)).max())
         for a, b in zip(dds, ref)) for key in ("PSF", "DIRTY")}
+    return res
+
+
+@contextlib.contextmanager
+def earlier_route():
+    """Inside the block fftx_c2c sends the lengths of K3xl and K3yl to the
+    route they replaced, the four-step (K3f, then K3c at N / 8)."""
+    from pfb_tpu_torch.ops import cfft
+    route = cfft.fftx_c2c_route
+
+    def old(N, L):
+        r = route(N, L)
+        if r in ("cols_long", "rows_long") and cfft.four_step_fits(N, L):
+            return "four"
+        return r
+    cfft.fftx_c2c_route = old
+    try:
+        yield
+    finally:
+        cfft.fftx_c2c_route = route
+
+
+def wgrid_psf_path(workdir, device, nx=NX_W, sim=SIM_W):
+    """Phase 34: phase 3's observation re-simulated at nx^2, its
+    hour-angle span cut (SIM_W; the planes a band printed for the cut and
+    the whole span), then _init ->
+    _grid(backend="pg", psf=True, do_wgridding=True): a PSF grid of (2
+    good_even_size(2 nx))^2, whose two passes of every w plane take K3xl
+    and K3yl, counts reset just before and read just after; the grid's
+    seconds and peak memory; the same call on the route K3xl and K3yl
+    replaced (earlier_route: its seconds, peak memory and launches); and
+    the same call on the plain versions (plain_gridder, one plane a
+    transform), its PSF and dirty image against this call's, relative to
+    their peaks."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.ops.fft import good_even_size
+    from pfb_tpu_torch.ops.pgridder import kernel_params, w_geometry
+    from pfb_tpu_torch.utils.simulation import simulate_obs
+    from pfb_tpu_torch.workers.grid import _grid
+    from pfb_tpu_torch.workers.init import _init
+    truth = simulate(workdir, nx=nx, sim=sim)
+    res = dict(nvis=truth["nvis"], t_simulate=truth["t_simulate"])
+    t0 = time.perf_counter()
+    xds = _init(ms=truth["ms"], write=False, device=device, **INIT)
+    res["t_init"] = time.perf_counter() - t0
+    npsf = good_even_size(int(2.0 * nx))
+    cell = truth["cell_rad"]
+    k = kernel_params(GRID_PG["epsilon"])[0]
+    res["nw"] = [w_geometry(ds["UVW"], ds["FREQ"], npsf, npsf, cell, cell,
+                            0.0, 0.0, 2.0, k, True)[0] for ds in xds]
+    # the same observation over its whole span (phase 3's), which the cut
+    # is for: a band's planes at the same grid and cell
+    full = simulate_obs(nant=sim["nant"], ntime=sim["ntime"],
+                        nchan=sim["nchan"], seed=sim["seed"],
+                        extent=sim["extent"])
+    res["nw_full_span"] = [w_geometry(full.uvw, full.freq[c:c + 1], npsf,
+                                      npsf, cell, cell, 0.0, 0.0, 2.0, k,
+                                      True)[0]
+                           for c in range(len(full.freq))]
+    res["grid_n"] = 2 * npsf
+    plane = (2 * npsf) ** 2 * 8
+    print(f"[{nx}w] {truth['nvis']} visibilities, {len(xds)} bands, cell "
+          f"{cell:.6e} rad, PSF {npsf}^2 on a {2 * npsf}^2 grid: w planes "
+          "by band "
+          f"{res['nw']}, planes' bytes by band (nw x {2 * npsf}^2 x 8 B) "
+          + json.dumps([nw * plane for nw in res["nw"]]) + f" = "
+          f"{[round(nw * plane / 2**30, 2) for nw in res['nw']]} GiB; over "
+          f"phase 3's whole span {res['nw_full_span']} planes = "
+          f"{[round(nw * plane / 1e9, 1) for nw in res['nw_full_span']]} GB")
+    kw = dict(GRID_PG, nx=nx, ny=nx, do_wgridding=True, xdsi=xds,
+              write=False, device=device)
+    cnt = counters()
+
+    def run(tag):
+        for fn in cnt.values():
+            fn.launches = 0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dds = _grid(**kw)
+        sync(device)
+        res[f"t_grid{tag}"] = time.perf_counter() - t0
+        res[f"launches{tag}"] = {k: fn.launches for k, fn in cnt.items()}
+        if device.type == "cuda":
+            res[f"peak_gb{tag}"] = torch.cuda.max_memory_allocated() / 2**30
+        return dds
+
+    def rel(got, want):
+        return {key: max(
+            float(np.abs(np.asarray(a[key], np.float64)
+                         - np.asarray(b[key], np.float64)).max()
+                  / np.abs(np.asarray(b[key], np.float64)).max())
+            for a, b in zip(got, want)) for key in ("PSF", "DIRTY")}
+    dds = run("")
+    res["nds"] = len(dds)
+    with earlier_route():
+        old = run("_earlier")
+    res["earlier_rel_err"] = rel(old, dds)
+    del old
+    with plain_gridder(planes=1):
+        ref = run("_plain")
+    res["rel_err"] = rel(dds, ref)
+    del ref, dds, xds
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2818,10 +3058,14 @@ def report_post(rpost, truth):
 
 
 @contextlib.contextmanager
-def plain_gridder():
+def plain_gridder(planes=None):
     """Inside the block the pg gridder runs its kernels' plain versions:
     K4, K5 and K6 in ops/pgridder.py and the plane transforms (K3, K3c,
-    K3r, through ops/cfft.py:fft2_c2c_pruned) in ops/wgridder.py."""
+    K3r, K3xl, K3yl, through ops/cfft.py:fft2_c2c_pruned) in
+    ops/wgridder.py, ``planes`` planes of a stack at a time (None: the
+    whole stack; torch.fft takes several times a stack's size)."""
+    import torch
+
     from pfb_tpu_torch.ops import pgridder as pg
     from pfb_tpu_torch.ops import wgridder as wg
 
@@ -2830,8 +3074,13 @@ def plain_gridder():
 
     def fft2(xr, xi, *, Nx, Ny, inverse, pruned_in=False,
              pruned_out=False):
-        return _fft2_pruned_plain(xr, xi, Nx, Ny, inverse, pruned_in,
-                                  pruned_out)
+        step = planes or xr.shape[0]
+        parts = [_fft2_pruned_plain(xr[p:p + step], xi[p:p + step], Nx, Ny,
+                                    inverse, pruned_in, pruned_out)
+                 for p in range(0, xr.shape[0], step)]
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(torch.cat([q[k] for q in parts]) for k in (0, 1))
 
     swap = ((pg, "pg_spread", pg.pg_spread_plain), (pg, "pg_fold", fold),
             (pg, "pg_degrid", pg.pg_degrid_plain),
@@ -3617,7 +3866,8 @@ def main():
         t0 = time.perf_counter()
         kernels.library()
         print(f"[build] {time.perf_counter() - t0:.1f} s "
-              f"(nvcc {kernels.build_seconds()} s); plan builder: "
+              f"(nvcc {kernels.build_seconds()} s, by source "
+              f"{json.dumps(kernels.source_seconds())}); plan builder: "
               f"{native.builder()}")
 
         # 3. wgrid path
@@ -3979,10 +4229,14 @@ def main():
               f"{st32['pd_solver']}")
         del r32, truth32
         torch.cuda.empty_cache()
-        # (b) the register row kernels at R2 = 9-64, the four-step
+        # (b) the register row kernels at R2 = 9-64, the four-step, K3xl
+        # and K3yl
+        t0 = time.perf_counter()
         long_recs = long_kernel_checks(device)
         for r in long_recs:
             print("[kernel] " + json.dumps(r))
+        print(f"[long] {len(long_recs)} records in "
+              f"{time.perf_counter() - t0:.1f} s")
         recs += long_recs
         torch.cuda.empty_cache()
         # (c) the grid worker at 4608^2: its PSF grid on the four-step
@@ -4031,6 +4285,28 @@ def main():
             print("[kernel] " + json.dumps(r))
         recs += short_recs
         torch.cuda.empty_cache()
+
+        # 34. the grid worker's w-gridded PSF at 4608^2 on K3xl and K3yl
+        t0 = time.perf_counter()
+        r34 = wgrid_psf_path(workdir, device)
+        t34 = time.perf_counter() - t0
+        l34, l34e = r34["launches"], r34["launches_earlier"]
+        for k in l34:
+            launches[k] += l34[k]
+        print(f"[{NX_W}w] simulate {r34['t_simulate']:.3f} s (host), init "
+              f"{r34['t_init']:.3f} s; _grid(pg, w-gridded) "
+              f"{r34['nds']} bands: {r34['t_grid']:.3f} s, peak "
+              f"{r34.get('peak_gb', 0.0):.2f} GiB; on the earlier route "
+              f"(K3f, then K3c) {r34['t_grid_earlier']:.3f} s, peak "
+              f"{r34.get('peak_gb_earlier', 0.0):.2f} GiB, products "
+              + json.dumps(r34["earlier_rel_err"]) + "; on the plain "
+              f"versions {r34['t_grid_plain']:.3f} s, peak "
+              f"{r34.get('peak_gb_plain', 0.0):.2f} GiB; this call vs "
+              "plain " + json.dumps(r34["rel_err"]) + f" (bound {TOL}); "
+              "launches " + json.dumps({k: v for k, v in l34.items() if v})
+              + ", earlier route's " + json.dumps(
+                  {k: v for k, v in l34e.items() if v})
+              + f"; the phase {t34:.1f} s")
 
         # every rows stage of the PSF paths at NY = 4096, 6144 and 8192
         # took the register kernel (none took psf_rows_kernel)
@@ -4104,11 +4380,37 @@ def main():
         for prefix in ("K3f ", "four-step route "):
             n = sum(r["name"].startswith(prefix) for r in long_recs)
             need(n == 2 * len(FOUR_LENGTHS), f"{prefix}records {n}")
-        need(l32c["K3f"] == 2 * r32c["nds"] and l32c["K3"] == 0,
-             f"the 4608^2 grid's PSF passes: K3f {l32c['K3f']}, K3 "
-             f"{l32c['K3']} for {r32c['nds']} datasets")
+        for prefix in ("K3xl ", "K3yl ", "K3cl ", "K3fr "):
+            n = sum(r["name"].startswith(prefix) for r in long_recs)
+            need(n == 2 * len(FOUR_LENGTHS), f"{prefix}records {n}")
+        need(l32c["K3xl"] == l32c["K3yl"] == r32c["nds"] and
+             l32c["K3f"] == 0 and l32c["K3"] == 0,
+             f"the 4608^2 grid's PSF passes: K3xl {l32c['K3xl']}, K3yl "
+             f"{l32c['K3yl']}, K3f {l32c['K3f']}, K3 {l32c['K3']} for "
+             f"{r32c['nds']} datasets")
         bad = {k: v for k, v in r32c["rel_err"].items() if not v <= TOL}
         need(not bad, f"the 4608^2 grid against its plain versions: {bad}")
+
+        # checks of phase 34: both passes of every PSF w plane on K3xl and
+        # K3yl, none on the four-step or the line kernel
+        for k in ("K3xl", "K3yl", "K4", "K5"):
+            need(l34[k] > 0, f"{k} never launched inside the {NX_W}^2 "
+                 "w-gridded _grid")
+        for k in ("K3f", "K3"):
+            need(l34[k] == 0, f"{k} launched inside the {NX_W}^2 "
+                 "w-gridded _grid")
+        need(l34["K3xl"] == l34["K3yl"] >= r34["nds"], f"the {NX_W}^2 "
+             f"w-gridded PSF: K3xl {l34['K3xl']}, K3yl {l34['K3yl']} for "
+             f"{r34['nds']} bands, w planes {r34['nw']} (4 a transform)")
+        need(l34e["K3f"] == 2 * l34["K3xl"] and l34e["K3xl"] ==
+             l34e["K3yl"] == 0, f"the earlier route's launches {l34e}")
+        bad = {k: v for k, v in r34["rel_err"].items() if not v <= TOL}
+        need(not bad, f"the {NX_W}^2 w-gridded grid against its plain "
+             f"versions: {bad}")
+        bad = {k: v for k, v in r34["earlier_rel_err"].items()
+               if not v <= TOL}
+        need(not bad, f"the {NX_W}^2 w-gridded grid against the earlier "
+             f"route: {bad}")
 
         # checks of phase 33: the 512^2 and 768^2 paths on the short
         # designs, no line kernel inside grid or spotless
@@ -4244,6 +4546,14 @@ def main():
                  ("K3r", "fftx_c2c_rows", "cfft_rows.cu",
                   "pfb_tpu/ops/pallas_cfft.py:132"),
                  ("K3f", "fftx_c2c_four", "cfft_four.cu",
+                  "pfb_tpu/ops/pallas_cfft.py:132"),
+                 ("K3xl", "fftx_c2c_cols_long", "cfft_cols_long.cu",
+                  "pfb_tpu/ops/pallas_cfft.py:132"),
+                 ("K3yl", "fftx_c2c_rows_long", "cfft_rows_long.cu",
+                  "pfb_tpu/ops/pallas_cfft.py:132"),
+                 ("K3cl", "fftx_c2c_cluster_long", "cfft_cols.cu",
+                  "pfb_tpu/ops/pallas_cfft.py:132"),
+                 ("K3fr", "fftx_c2c_four_rows", "cfft_four_rows.cu",
                   "pfb_tpu/ops/pallas_cfft.py:132"),
                  ("K4", "pg_spread", "pg_grid.cu",
                   "pfb_tpu/ops/pgridder.py:330"),

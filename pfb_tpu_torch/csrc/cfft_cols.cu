@@ -56,6 +56,15 @@
 // bounds the kernel is still the bytes, but a pass of (9, 512^2) moves
 // 28 MB, 8 us at the HBM rate, so the launch and the latency of one
 // load -> FFT -> store round of a block set a floor near it.
+//
+// Long columns (K3cl, the lab's: 16384 < N <= 32768 with N / 8 5-smooth;
+// ops/cfft.py:fftx_c2c_cluster_long): the same kernel on clusters of 8
+// and tiles of W = 4 lines of M = N / 8 (2304-4096, 74-131 KB of shared
+// memory, one block an SM), one read and one write a pass. Its Stockham
+// passes left it level with or slower than the four-step (cfft_four.cu,
+// then this kernel at M on 8 L columns, two reads and two writes) on the
+// H100, so no route takes it; cfft_cols_long.cu (K3xl) does these lines
+// by the register row FFT instead (PERF.md).
 #include <cooperative_groups.h>
 
 #include "fft_lines.cuh"
@@ -259,6 +268,14 @@ static cudaError_t launch_cols_c(const float* xr, const float* xi,
   if constexpr (kShort && C != 4 && C != 8 && C != kShortClusters) {
     return cudaErrorInvalidValue;
   } else {
+    if constexpr (C == 8) {
+      // long tiles above kMaxN: 2 kVpt values a thread, registers for one
+      // block of up to kThreads
+      if (p.N * W > kLineElems)
+        return launch_cols<C, 2 * kVpt, kThreads, 1>(
+            xr, xi, yr, yi, B, L, Nin, Nout, in_rolled, out_rolled, inv, W,
+            vec, skeleton, p, TN, lc.threads, lc.smem, stream);
+    }
     if (two_blocks_an_sm(p.N, W)) {
       const unsigned threads = ((lc.threads / 2 + 31) / 32) * 32;
       return launch_cols<C, 2 * kVpt, kThreads / 2, 2>(
@@ -275,7 +292,9 @@ static cudaError_t launch_cols_c(const float* xr, const float* xi,
 
 // The x pass of a (B, Nin, L) stack on clusters of C blocks (1, 4, 8,
 // kShortClusters or kTinyClusters) and tiles of W columns (4, 8, 16 or
-// 32; (N / C) W <= kLineElems), as ops/cfft.py:cluster_shape picks them.
+// 32; (N / C) W <= kLineElems), as ops/cfft.py:cluster_shape picks them;
+// above kMaxN (K3cl, the lab's: ops/cfft.py:cluster_long_fits) C = 8 and
+// tiles of up to kLongLineElems values.
 // TM is the length-(N / C) plan's table (pfbt_twiddles), TN W_N^e for e <
 // N (pfbt_cols_twiddles).
 // skeleton = 1 launches the lab's copy skeleton.
@@ -291,7 +310,9 @@ extern "C" int pfbt_cfft_cols(const float* xr, const float* xi, float* yr,
       N % C != 0 || (rolled && N % 4) ||
       (W != 4 && W != 8 && W != 16 && W != 32) || L < 1 || B < 1 || !yi ||
       Nin != (in_rolled ? N / 2 : N) || Nout != (out_rolled ? N / 2 : N) ||
-      (long)(N / C) * W > pfbt::kLineElems || !pfbt::make_plan(N / C, TM, &p))
+      (long)(N / C) * W > (C == 8 && N > pfbt::kMaxN ? pfbt::kLongLineElems
+                                                     : pfbt::kLineElems) ||
+      !pfbt::make_plan(N / C, TM, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = L % pfbt::kChunk == 0 && pfbt::aligned16(xr) &&
                   pfbt::aligned16(xi) && pfbt::aligned16(yr) &&

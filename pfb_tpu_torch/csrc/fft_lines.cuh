@@ -30,6 +30,9 @@ namespace pfbt {
 constexpr int kMaxPass = 21;      // 3 bits a pass in `codes`
 constexpr int kMaxN = 16384;
 constexpr int kLineElems = 8192;  // S * N per block (S lines of length N)
+// a tile of the cluster column kernel above kMaxN (cfft_cols.cu: W = 4
+// lines of M = N / 8 <= 4096), one block an SM
+constexpr int kLongLineElems = 2 * kLineElems;
 constexpr int kVpt = 16;          // values per thread at kLineElems
 constexpr int kThreads = kLineElems / kVpt;
 

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -25,7 +26,8 @@ _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
             "pg_degrid.cu", "cfft_split.cu", "lab_copy.cu", "cfft_cols.cu",
             "cfft_rows.cu", "psf_cols.cu", "psf_rows.cu", "lab_spread.cu",
             "lab_degrid.cu", "cfft_four.cu", "psf_rows_mid.cu",
-            "psf_rows_long.cu", "psf_rows_short.cu")
+            "psf_rows_long.cu", "psf_rows_short.cu", "cfft_four_rows.cu",
+            "cfft_rows_long.cu", "cfft_cols_long.cu")
 _HEADERS = ("fft_lines.cuh", "pg_degrid.cuh", "pg_es.cuh", "pg_spread.cuh",
             "psf_cols.cuh", "psf_rows.cuh", "psf_rows_kernel.cuh",
             "rows_fft.cuh")
@@ -48,6 +50,9 @@ _SIGNATURES = {
     "pfbt_rows_twiddles": [_I, _P, _P],
     "pfbt_cfft_four": [_P] * 4 + [_I] * 5 + [_P] * 2,
     "pfbt_four_twiddles": [_I, _P, _P],
+    "pfbt_cfft_four_rows": [_P] * 4 + [_I] * 5 + [_P] * 3,
+    "pfbt_cfft_rows_long": [_P] * 4 + [_I] * 5 + [_P] * 3,
+    "pfbt_cfft_cols_long": [_P] * 4 + [_I] * 6 + [_P] * 3,
     "pfbt_lab_copy": [_P] * 4 + [_I] * 4 + [_P],
     "pfbt_psf_conv": [_P] * 8 + [_I] * 6 + [_P] * 4 + [_I, _P, _P],
     "pfbt_psf_stage_cols_fwd": [_P] * 3 + [_I] * 7 + [_P] * 4,
@@ -76,6 +81,7 @@ _SIGNATURES = {
 class _State:
     lib = None
     build_seconds = None
+    source_seconds = None
 
 
 def _source_hash():
@@ -121,7 +127,13 @@ def build(verbose=False):
                                str(_CSRC / s)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for s, o in zip(_SOURCES, objs)]
-    logs = [p.communicate()[0] for p in procs]
+
+    def finish(p):
+        log = p.communicate()[0]
+        return log, time.perf_counter() - t0
+    with ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(finish, procs))
+    logs = [log for log, _ in done]
     failed = [(s, p.returncode, log) for s, p, log in
               zip(_SOURCES, procs, logs) if p.returncode != 0]
     if not failed:
@@ -139,6 +151,8 @@ def build(verbose=False):
         print("".join(logs))
     os.replace(tmp, lib_path)
     _State.build_seconds = time.perf_counter() - t0
+    _State.source_seconds = {s: round(sec, 1) for s, (_, sec) in
+                             zip(_SOURCES, done)}
     return lib_path
 
 
@@ -158,6 +172,13 @@ def build_seconds():
     """Seconds the last compile in this process took (None if the
     library was found already built)."""
     return _State.build_seconds
+
+
+def source_seconds():
+    """Seconds from the start of the last compile in this process to the
+    end of each source's nvcc (all run at once), by source; None if the
+    library was found already built."""
+    return _State.source_seconds
 
 
 def check(code, name):

@@ -10,8 +10,10 @@
   roll or crop pass).
 
 A CUDA float32 stack runs a hand-written kernel, chosen by
-:func:`cluster_route`, then :func:`row_route`, then
-:func:`four_step_route`: the strided x pass (L > 1) at 256 <= N <= 16384
+:func:`fftx_c2c_route` (:func:`cluster_route`, :func:`row_route`,
+:func:`cols_long_route`, :func:`rows_long_route`,
+:func:`four_step_route`, in that order): the strided x pass (L > 1) at
+256 <= N <= 16384
 runs the cluster column FFT :func:`fftx_c2c_cluster`
 (``csrc/cfft_cols.cu``: a cluster of C blocks shares a tile of W columns
 through distributed shared memory; below 2048 one block or a cluster of
@@ -20,8 +22,17 @@ contiguous rows (L = 1) at N = 256 R2, R2 a 5-smooth radix from 1 to 64
 (256-16384), run the row FFT
 :func:`fftx_c2c_rows` (``csrc/cfft_rows.cu``: three register stages, two
 transposes through shared memory, several lines a block below 2048);
-both passes above 16384 run the four-step :func:`fftx_c2c_four`
-(``csrc/cfft_four.cu``, then the cluster kernel at N / 8); everything
+above 16384 the x pass at N = 8 x 256 R2 (R2 = 9, 10, 12, 15, 16)
+runs the long column kernel :func:`fftx_c2c_cols_long` (K3xl,
+``csrc/cfft_cols_long.cu``: clusters of 8 blocks, each block's lines of
+N / 8 by the register row FFT) and the rows of N = 2 x 256 R2 (R2 =
+36-64, the PSF grids of the 128-aligned images from 4608^2 to 8192^2)
+the long row kernel :func:`fftx_c2c_rows_long` (K3yl,
+``csrc/cfft_rows_long.cu``: two blocks a row, the radix-2 step on the
+loads, then the register row FFT of N / 2 a block), each one HBM read
+and one write; the other passes above 16384 run the four-step
+:func:`fftx_c2c_four` (``csrc/cfft_four.cu``, then the cluster kernel
+at N / 8); everything
 else ``line_fft_kernel`` (``csrc/cfft.cu``, whole lines in one block, up
 to 16384): no pass of a 128-aligned sigma-2 grid takes it, only rows no
 multiple of 256, N % 4 != 0 and N < 256. A CPU stack runs the plain
@@ -31,8 +42,8 @@ The y pass of :func:`fft2_c2c_pruned` runs the same transform on
 contiguous rows, viewing (P, nrow, Ny) as (P*nrow, Ny, 1), so no
 transpose pass is needed.
 
-Two lab entries sit beside it (scripts/torch_g2i_lab.py), and no imaging
-path calls them:
+Lab entries sit beside it (scripts/torch_g2i_lab.py,
+scripts/torch_kernel_lab.py --long), and no imaging path calls them:
 
 - :func:`fftx_c2c_lab`: K3 with launch parameters, lines per block ``S``
   and the plan cut to its first radix pass (``npass=1``, timing only);
@@ -41,7 +52,12 @@ path calls them:
   products are three bf16 products each, on the tensor cores
   (``csrc/cfft_split.cu``), with its plain version
   :func:`fftx_c2c_split_plain` (the same split products as torch
-  matmuls). pg_stream's blocked engine keeps the float32 K3.
+  matmuls). pg_stream's blocked engine keeps the float32 K3;
+- above 16384 the one-pass designs that measured slower than the
+  four-step: :func:`fftx_c2c_cluster_long` (K3cl, the cluster column
+  kernel's Stockham passes on long tiles) and :func:`fftx_c2c_four_rows`
+  (K3fr, eight blocks a row), and :func:`fftx_c2c_four` itself at the
+  lengths K3xl and K3yl took from it.
 """
 
 import math
@@ -58,7 +74,14 @@ __all__ = ["fftx_c2c", "fftx_c2c_plain", "fft2_c2c_pruned",
            "fftx_c2c_cluster_skeleton_plain", "row_route", "row_radices",
            "fftx_c2c_rows", "fftx_c2c_rows_plain",
            "fftx_c2c_rows_skeleton_plain", "four_step_route",
-           "fftx_c2c_four", "fftx_c2c_four_plain", "fftx_c2c_route",
+           "four_step_fits", "fftx_c2c_four", "fftx_c2c_four_plain",
+           "cols_long_route", "fftx_c2c_cols_long",
+           "fftx_c2c_cols_long_plain", "cluster_long_fits",
+           "fftx_c2c_cluster_long",
+           "rows_long_route",
+           "fftx_c2c_rows_long", "fftx_c2c_rows_long_plain",
+           "four_rows_fits", "fftx_c2c_four_rows",
+           "fftx_c2c_route",
            "fftx_c2c_lab",
            "fftx_c2c_first_pass_plain", "fftx_c2c_split",
            "fftx_c2c_split_plain"]
@@ -69,6 +92,10 @@ _CLUSTER_MIN_N = 256  # csrc/psf_cols.cuh: kColsMinNX
 _SHORT_N = 2048  # csrc/psf_cols.cuh: kShortNX
 _SHORT_C = 4  # clusters from 2048 to 4096, csrc/psf_cols.cuh: kShortClusters
 _TINY_C = 2  # clusters below 2048, csrc/psf_cols.cuh: kTinyClusters
+_LONG_C, _LONG_W = 8, 4  # K3cl's clusters and tile width above 16384
+_LONG_ELEMS = 16384  # its tile, csrc/fft_lines.cuh: kLongLineElems
+# csrc/cfft_cols_long.cu instances (K3xl): 8 x 256 R2, R2 = 9, 10, 12, 15, 16
+_COLS_LONG_LENGTHS = (18432, 20480, 24576, 30720, 32768)
 # csrc/cfft_rows.cu and csrc/psf_rows*.cu instances (csrc/psf_rows.cuh:
 # psf_rows_fused): 256 R2 for every 5-smooth R2 from 1 to 64
 _ROW_RADICES = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 15, 16, 18, 20, 24, 25, 27,
@@ -203,39 +230,93 @@ def row_route(N, L):
     128-aligned image grid from 128^2 to 8192^2 and of its PSF grid up
     to 4096^2; below 2048, 16 / R2 lines a block). Other N (not a
     multiple of 256, or no instance) keep ``line_fft_kernel`` up to 16384
-    and :func:`four_step_route` above.
+    and the routes above 16384 there.
     :func:`cluster_route` is asked first; the two never both hold (it
     needs L > 1)."""
     return L == 1 and N in _ROW_LENGTHS
 
 
+def cols_long_route(N, L):
+    """Whether :func:`fftx_c2c` on a CUDA stack launches the long column
+    kernel (:func:`fftx_c2c_cols_long`, K3xl, ``csrc/cfft_cols_long.cu``):
+    the strided x pass (L > 1) above 16384 at N = 8 x 256 R2, R2 = 9, 10,
+    12, 15, 16 (18432, 20480, 24576, 30720, 32768: the PSF grids of the
+    128-aligned images 4608^2, 5120^2, 6144^2, 7680^2 and 8192^2); a
+    cluster of 8 blocks a tile, each line's DFT a register row FFT."""
+    return L > 1 and N in _COLS_LONG_LENGTHS
+
+
+def cluster_long_fits(N, L):
+    """Whether the lab's cluster column kernel on long tiles
+    (:func:`fftx_c2c_cluster_long`, K3cl) takes a (P, ., L) stack: the
+    strided x pass (L > 1) above 16384 up to 8 x 4096 = 32768 where N / 8
+    is a product of 2, 3 and 5: clusters of 8 blocks, each 4 lines of N /
+    8 (up to 16384 values, one block an SM)."""
+    return L > 1 and _LINE_MAX_N < N <= _LONG_C * _LONG_ELEMS // _LONG_W \
+        and N % _LONG_C == 0 and _smooth(N // _LONG_C)
+
+
+def rows_long_route(N, L):
+    """Whether :func:`fftx_c2c` on a CUDA stack launches the long row
+    kernel (:func:`fftx_c2c_rows_long`, K3yl, ``csrc/cfft_rows_long.cu``):
+    contiguous rows (L = 1, the y pass) above 16384 whose half is a
+    length of the register row kernel, N = 2 x 256 R2 with R2 = 36, 40,
+    45, 48, 50, 54, 60, 64 (18432-32768: the PSF grids of the 128-aligned
+    images from 4608^2 to 8192^2); two blocks a row."""
+    return L == 1 and N > _LINE_MAX_N and N % 2 == 0 and \
+        N // 2 in _ROW_LENGTHS
+
+
+def four_rows_fits(N, L):
+    """Whether the lab's eight-block row kernel (:func:`fftx_c2c_four_rows`,
+    ``csrc/cfft_four_rows.cu``) takes a (P, ., L) stack: rows (L = 1)
+    above 16384, N = 8 M with M <= 16384 a product of 2, 3 and 5."""
+    return L == 1 and N > _LINE_MAX_N and N % 8 == 0 and \
+        N // 8 <= _LINE_MAX_N and _smooth(N // 8)
+
+
+def four_step_fits(N, L):
+    """Whether the four-step :func:`fftx_c2c_four` (K3f, then the cluster
+    kernel at N / 8) takes a (P, ., L) stack of length N: N > 16384, N %
+    32 == 0 (the cluster kernel keeps the rolled rows at M = N / 8) and
+    M on the cluster route with 8 L columns; up to 8 x 16384."""
+    return N > _LINE_MAX_N and N % 32 == 0 and cluster_route(N // 8, 8 * L)
+
+
 def four_step_route(N, L):
     """Whether :func:`fftx_c2c` on a CUDA stack runs the four-step
     :func:`fftx_c2c_four` (``csrc/cfft_four.cu``, K3f, then the cluster
-    kernel at N / 8): either pass above 16384, where no kernel takes one
-    line a pass (``line_fft_kernel`` stops at its kMaxN, the cluster
-    kernel at a tile of 8192 values, the row kernel at R2 = 64), on the
-    lengths whose eighth M = N / 8 the cluster kernel takes with 8 L
-    columns and keeps rolled (N % 32 == 0): the PSF grids of the
-    128-aligned images above 4096^2 (18432-32768) and any such length up
-    to 8 x 16384."""
-    return N > _LINE_MAX_N and N % 32 == 0 and cluster_route(N // 8, 8 * L)
+    kernel at N / 8): where it fits (:func:`four_step_fits`) and no kernel
+    of one pass takes the length: the x pass at the other lengths (23040,
+    25600, 27648 among the PSF grids of 4608^2-8192^2, whose N / 8 is no
+    multiple of 256, and above 32768) and the rows whose half is no length
+    of the register row kernel (``line_fft_kernel`` stops at its kMaxN,
+    the cluster kernel at a tile of 8192 values, the row kernels at R2 =
+    64)."""
+    return four_step_fits(N, L) and not cols_long_route(N, L) and \
+        not rows_long_route(N, L)
 
 
 def fftx_c2c_route(N, L):
     """The kernel :func:`fftx_c2c` runs on a CUDA (P, ., L) stack of
-    length N: "cluster", "rows", "four" or "line"; ValueError where none
-    takes it (N above 16384 off the four-step)."""
+    length N: "cluster", "rows", "cols_long", "rows_long", "four" or
+    "line"; ValueError where none takes it (N above 16384 off the routes
+    above 16384)."""
     if cluster_route(N, L):
         return "cluster"
     if row_route(N, L):
         return "rows"
+    if cols_long_route(N, L):
+        return "cols_long"
+    if rows_long_route(N, L):
+        return "rows_long"
     if four_step_route(N, L):
         return "four"
     if N > _LINE_MAX_N:
         raise ValueError(f"fftx_c2c: no kernel takes N={N}, L={L} (the "
-                         f"line kernel stops at {_LINE_MAX_N}, the "
-                         "four-step needs N % 32 == 0 and N/8 on the "
+                         f"line kernel stops at {_LINE_MAX_N}; above it "
+                         "the kernels need N/8 a product of 2, 3 and 5, "
+                         "the four-step N % 32 == 0 and N/8 on the "
                          "cluster route)")
     return "line"
 
@@ -246,13 +327,11 @@ def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
     (Nin = N, or N/2 when ``in_rolled``); output (P, Nout, L) with
     Nout = N or N/2 (``out_rolled``). Forward e^-, inverse e^+, no 1/N.
     ``xi`` may be None for a real input. A CUDA stack launches the
-    kernel :func:`fftx_c2c_route` names: the cluster column kernel where
-    :func:`cluster_route` says so, else the row kernel where
-    :func:`row_route` says so, else the four-step where
-    :func:`four_step_route` says so, else ``line_fft_kernel``.
-    ``fftx_c2c.launches`` counts the launches of ``line_fft_kernel``,
-    ``fftx_c2c_cluster.launches``, ``fftx_c2c_rows.launches`` and
-    ``fftx_c2c_four.launches`` those of the others (the four-step's
+    kernel :func:`fftx_c2c_route` names, else ``line_fft_kernel``.
+    ``fftx_c2c.launches`` counts the launches of ``line_fft_kernel``;
+    ``fftx_c2c_cluster.launches``, ``fftx_c2c_rows.launches``,
+    ``fftx_c2c_cols_long.launches``, ``fftx_c2c_rows_long.launches``
+    and ``fftx_c2c_four.launches`` those of the others (the four-step's
     cluster step counts as the cluster kernel's)."""
     P, Nin, L = _check_stack("fftx_c2c", xr, xi, N, in_rolled, out_rolled)
     if not xr.is_cuda:
@@ -267,6 +346,10 @@ def fftx_c2c(xr, xi, *, N, inverse=False, in_rolled=False,
         return fftx_c2c_cluster(xr, xi, **kw)
     if route == "rows":
         return fftx_c2c_rows(xr, xi, **kw)
+    if route == "cols_long":
+        return fftx_c2c_cols_long(xr, xi, **kw)
+    if route == "rows_long":
+        return fftx_c2c_rows_long(xr, xi, **kw)
     if route == "four":
         return fftx_c2c_four(xr, xi, **kw)
     Nout = N // 2 if out_rolled else N
@@ -548,14 +631,16 @@ def fftx_c2c_four(xr, xi, *, N, inverse=False, in_rolled=False,
     and the M-point DFTs on :func:`fftx_c2c` at M with 8 L columns (the
     cluster column kernel, which also keeps the rolled rows), whose rows
     are in natural order. Same shapes and conventions as
-    :func:`fftx_c2c`; raises where :func:`four_step_route` does not hold.
+    :func:`fftx_c2c`; raises where :func:`four_step_fits` does not hold.
+    :func:`fftx_c2c` takes it only on :func:`four_step_route`; at the
+    lengths of K3xl and K3yl it is the lab's earlier route.
     ``fftx_c2c_four.launches`` counts K3f's launches. A CPU stack runs
     :func:`fftx_c2c_four_plain`."""
     P, Nin, L = _check_stack("fftx_c2c_four", xr, xi, N, in_rolled,
                              out_rolled)
-    if not four_step_route(N, L):
-        raise ValueError(f"fftx_c2c_four: N={N}, L={L} is off the "
-                         "four-step route")
+    if not four_step_fits(N, L):
+        raise ValueError(f"fftx_c2c_four: N={N}, L={L} does not fit the "
+                         "four-step")
     kw = dict(N=N, inverse=inverse, in_rolled=in_rolled,
               out_rolled=out_rolled)
     if not xr.is_cuda:
@@ -578,6 +663,221 @@ def fftx_c2c_four(xr, xi, *, N, inverse=False, in_rolled=False,
 
 
 fftx_c2c_four.launches = 0
+
+
+# ---------------------------------------------------------------------
+# one pass above 16384: K3xl (x pass) and K3yl (y pass), and the lab's
+# designs K3cl and K3fr
+
+
+def fftx_c2c_cluster_long(xr, xi, *, N, inverse=False, in_rolled=False,
+                          out_rolled=False, skeleton=False):
+    """The lab's x pass above 16384 on the cluster column kernel with long
+    tiles (K3cl, ``csrc/cfft_cols.cu``; no route takes it: its Stockham
+    passes left it level with or slower than the four-step, PERF.md):
+    clusters of 8 blocks, each 4 lines of N / 8, one HBM read of the input
+    and one write of the output. Same shapes and conventions as
+    :func:`fftx_c2c`; raises where :func:`cluster_long_fits` does not
+    hold. ``skeleton=True`` launches its load/exchange/store skeleton. A
+    CPU stack runs the plain versions (the cluster kernel's at C = 8)."""
+    P, Nin, L = _check_stack("fftx_c2c_cluster_long", xr, xi, N, in_rolled,
+                             out_rolled)
+    if not cluster_long_fits(N, L):
+        raise ValueError(f"fftx_c2c_cluster_long: N={N}, L={L} does not fit "
+                         "its kernel")
+    kw = dict(N=N, in_rolled=in_rolled, out_rolled=out_rolled)
+    if not xr.is_cuda:
+        xi_ = torch.zeros_like(xr) if xi is None else xi
+        if skeleton:
+            return fftx_c2c_cluster_skeleton_plain(xr, xi_, C=_LONG_C, **kw)
+        return fftx_c2c_cluster_plain(xr, xi_, C=_LONG_C, inverse=inverse,
+                                      **kw)
+    kernels.require_cuda_f32("fftx_c2c_cluster_long", xr, xi)
+    Nout = N // 2 if out_rolled else N
+    yr = torch.empty((P, Nout, L), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    code = kernels.library().pfbt_cfft_cols(
+        xr.data_ptr(), None if xi is None else xi.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), P, L, N, Nin, Nout, int(in_rolled),
+        int(out_rolled), int(inverse), _LONG_C, _LONG_W, int(skeleton),
+        kernels.twiddles(N // _LONG_C, xr.device).data_ptr(),
+        kernels.twiddles(N, xr.device, kind="cols").data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_cluster_long")
+    fftx_c2c_cluster_long.launches += 1
+    return yr, yi
+
+
+fftx_c2c_cluster_long.launches = 0
+
+
+def fftx_c2c_cols_long_plain(xr, xi, *, N, inverse=False, in_rolled=False,
+                             out_rolled=False):
+    """Plain version of K3xl's steps as torch operations on a (P, Nin, L)
+    stack, N = 8 M: rows n = c + 8 m of block c, the register row
+    kernel's three stages on each line of M (:func:`row_radices` at M,
+    twiddles float64 rounded once), the twiddles W_N^(c k1), the 8-point
+    DFTs across the cluster, X[k1 + M k2] and the kept rows. Any N % 8 ==
+    0 (the tests run lines that are no length of the kernel)."""
+    if N % 8:
+        raise ValueError(f"fftx_c2c_cols_long_plain: N={N} is not a "
+                         "multiple of 8")
+    M = N // 8
+    z = _full_rows(torch.complex(xr, xi), N, in_rolled)
+    P, _, L = z.shape
+    lines = z.reshape(P, M, 8, L).permute(0, 2, 3, 1).reshape(-1, M)
+    Y = _row_stages(lines, M, inverse).reshape(P, 8, L, M)
+    Y = Y.permute(0, 3, 1, 2)  # [k1, c, l]
+    sign = 1.0 if inverse else -1.0
+    e = torch.outer(torch.arange(M, dtype=torch.float64),
+                    torch.arange(8, dtype=torch.float64))
+    tw = torch.polar(torch.ones_like(e), sign * 2.0 * np.pi * e / N)
+    Z = Y * tw.to(Y.dtype).to(Y.device)[None, :, :, None]
+    X = torch.fft.ifft(Z, dim=2) * 8 if inverse else torch.fft.fft(Z, dim=2)
+    return _out_rows(X.transpose(1, 2).reshape(P, N, L), N, out_rolled)
+
+
+def fftx_c2c_cols_long(xr, xi, *, N, inverse=False, in_rolled=False,
+                       out_rolled=False):
+    """K3's x pass above 16384 on the long column kernel (K3xl,
+    ``csrc/cfft_cols_long.cu``): a cluster of 8 blocks a tile of 8 (N <=
+    24576) or 4 columns, each block's lines of N / 8 by the register row
+    FFT, then the 8-point DFTs across the cluster through distributed
+    shared memory; one HBM read of the input and one write of the output.
+    Same shapes and conventions as :func:`fftx_c2c`; raises where
+    :func:`cols_long_route` does not hold. A CPU stack runs
+    :func:`fftx_c2c_cols_long_plain`."""
+    P, Nin, L = _check_stack("fftx_c2c_cols_long", xr, xi, N, in_rolled,
+                             out_rolled)
+    if not cols_long_route(N, L):
+        raise ValueError(f"fftx_c2c_cols_long: N={N}, L={L} is off its "
+                         "route")
+    kw = dict(N=N, inverse=inverse, in_rolled=in_rolled,
+              out_rolled=out_rolled)
+    if not xr.is_cuda:
+        xi_ = torch.zeros_like(xr) if xi is None else xi
+        return fftx_c2c_cols_long_plain(xr, xi_, **kw)
+    kernels.require_cuda_f32("fftx_c2c_cols_long", xr, xi)
+    Nout = N // 2 if out_rolled else N
+    yr = torch.empty((P, Nout, L), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    code = kernels.library().pfbt_cfft_cols_long(
+        xr.data_ptr(), None if xi is None else xi.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), P, L, N, int(in_rolled),
+        int(out_rolled), int(inverse),
+        kernels.twiddles(N // 8, xr.device, kind="rows").data_ptr(),
+        kernels.twiddles(N, xr.device, kind="cols").data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_cols_long")
+    fftx_c2c_cols_long.launches += 1
+    return yr, yi
+
+
+fftx_c2c_cols_long.launches = 0
+
+
+def fftx_c2c_four_rows(xr, xi, *, N, inverse=False, in_rolled=False,
+                       out_rolled=False):
+    """The lab's eight-block row kernel above 16384 (K3fr,
+    ``csrc/cfft_four_rows.cu``; no route takes it: it measured slower than
+    the four-step it was to replace, PERF.md): the DFT of each contiguous
+    row of a (P, Nin, 1) stack on a cluster of 8 blocks a row (the radix-8
+    step across the cluster through distributed shared memory, then an
+    N/8-point DFT a block in shared memory), one HBM read of the input
+    and one write of the output. Same conventions as :func:`fftx_c2c`;
+    raises where :func:`four_rows_fits` does not hold. A CPU stack runs
+    the four-step's plain version (:func:`fftx_c2c_four_plain`: the same
+    steps, the radix-8 over n1, the twiddles and the N/8-point DFTs)."""
+    P, Nin, L = _check_stack("fftx_c2c_four_rows", xr, xi, N, in_rolled,
+                             out_rolled)
+    if not four_rows_fits(N, L):
+        raise ValueError(f"fftx_c2c_four_rows: N={N}, L={L} does not fit "
+                         "its kernel")
+    kw = dict(N=N, inverse=inverse, in_rolled=in_rolled,
+              out_rolled=out_rolled)
+    if not xr.is_cuda:
+        xi_ = torch.zeros_like(xr) if xi is None else xi
+        return fftx_c2c_four_plain(xr, xi_, **kw)
+    kernels.require_cuda_f32("fftx_c2c_four_rows", xr, xi)
+    if P * 8 > 0x7fffffff:
+        raise ValueError(f"fftx_c2c_four_rows: {P} rows exceed one launch")
+    Nout = N // 2 if out_rolled else N
+    yr = torch.empty((P, Nout, 1), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    code = kernels.library().pfbt_cfft_four_rows(
+        xr.data_ptr(), None if xi is None else xi.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), P, N, int(in_rolled), int(out_rolled),
+        int(inverse), kernels.twiddles(N // 8, xr.device).data_ptr(),
+        kernels.twiddles(N, xr.device, kind="four").data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_four_rows")
+    fftx_c2c_four_rows.launches += 1
+    return yr, yi
+
+
+fftx_c2c_four_rows.launches = 0
+
+
+def fftx_c2c_rows_long_plain(xr, xi, *, N, inverse=False, in_rolled=False,
+                             out_rolled=False):
+    """Plain version of K3yl's steps as torch operations on a (P, Nin, 1)
+    row stack, N = 2 M: the halves x[n] and x[n + M], u_0 = x[n] + x[n +
+    M] and u_1 = (x[n] - x[n + M]) W_N^n (float64, rounded once to the
+    working type), the register row kernel's three stages on each
+    (:func:`row_radices` at M), X[2 k' + c] and the kept rows. Any even N
+    (the tests run halves that are no length of the kernel)."""
+    if N % 2 or xr.shape[-1] != 1:
+        raise ValueError(f"fftx_c2c_rows_long_plain: rows (P, Nin, 1) of an "
+                         f"even N, got N={N}, {tuple(xr.shape)}")
+    M = N // 2
+    z = _full_rows(torch.complex(xr, xi), N, in_rolled)[..., 0]
+    a, b = z[:, :M], z[:, M:]
+    sign = 1.0 if inverse else -1.0
+    e = torch.arange(M, dtype=torch.float64)
+    w = torch.polar(torch.ones_like(e), sign * 2.0 * np.pi * e / N)
+    u1 = (a - b) * w.to(z.dtype).to(z.device)
+    X = torch.stack([_row_stages(a + b, M, inverse),
+                     _row_stages(u1, M, inverse)], dim=-1).reshape(-1, N)
+    return _out_rows(X[..., None], N, out_rolled)
+
+
+def fftx_c2c_rows_long(xr, xi, *, N, inverse=False, in_rolled=False,
+                       out_rolled=False):
+    """K3's y pass above 16384 on the long row kernel (K3yl,
+    ``csrc/cfft_rows_long.cu``): the DFT of each contiguous row of a (P,
+    Nin, 1) stack, N = 2 M, by two blocks a row (block c the radix-2 step's
+    u_c from both halves of the row, then its register row FFT of M, X[2
+    k' + c]), one HBM read of the input and one write of the output. Same
+    conventions as :func:`fftx_c2c`; raises where :func:`rows_long_route`
+    does not hold. A CPU stack runs :func:`fftx_c2c_rows_long_plain`."""
+    P, Nin, L = _check_stack("fftx_c2c_rows_long", xr, xi, N, in_rolled,
+                             out_rolled)
+    if not rows_long_route(N, L):
+        raise ValueError(f"fftx_c2c_rows_long: N={N}, L={L} is off its "
+                         "route")
+    kw = dict(N=N, inverse=inverse, in_rolled=in_rolled,
+              out_rolled=out_rolled)
+    if not xr.is_cuda:
+        xi_ = torch.zeros_like(xr) if xi is None else xi
+        return fftx_c2c_rows_long_plain(xr, xi_, **kw)
+    kernels.require_cuda_f32("fftx_c2c_rows_long", xr, xi)
+    if P * 2 > 0x7fffffff:
+        raise ValueError(f"fftx_c2c_rows_long: {P} rows exceed one launch")
+    Nout = N // 2 if out_rolled else N
+    yr = torch.empty((P, Nout, 1), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    code = kernels.library().pfbt_cfft_rows_long(
+        xr.data_ptr(), None if xi is None else xi.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), P, N, int(in_rolled), int(out_rolled),
+        int(inverse), kernels.twiddles(N // 2, xr.device, kind="rows")
+        .data_ptr(), kernels.twiddles(N, xr.device, kind="cols").data_ptr(),
+        kernels.stream_ptr())
+    kernels.check(code, "fftx_c2c_rows_long")
+    fftx_c2c_rows_long.launches += 1
+    return yr, yi
+
+
+fftx_c2c_rows_long.launches = 0
 
 
 def fft2_c2c_pruned(xr, xi, *, Nx, Ny, inverse, pruned_in=False,

@@ -27,6 +27,9 @@ from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.ops.cfft import cfft_supported, fft2_c2c_pruned
 from pfb_tpu_torch.ops.dft import LIGHTSPEED, nterm
 
+# the longest grid side whose w planes _grid_to_image transforms in one
+# call; above it (the PSF grids of images from 4608^2) wchunk planes a call
+_CFFT_STACK_N = 16384
 # (support k, beta, max relative error vs the exact DFT at sigma=2):
 # the calibration table of the JAX package (scripts/calibrate_beta.py).
 _BETA_TABLE = (
@@ -299,9 +302,13 @@ def _grid_to_image(gr, gi, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
             c, s = _phasor0(consts, w0)
             cd, sd = consts["cd"], consts["sd"]
             if use_cfft:
-                ir, ii = fft2_c2c_pruned(gr, gi, Nx=Nx, Ny=Ny,
-                                         inverse=True, pruned_out=True)
-                batches = [(ir, ii)]
+                # the whole stack in one call, or wchunk planes a call
+                # above 16384, where a plane of the grid is 2.7-8.6 GB
+                step = nw if max(Nx, Ny) <= _CFFT_STACK_N else wchunk
+                batches = (fft2_c2c_pruned(gr[p:p + step], gi[p:p + step],
+                                           Nx=Nx, Ny=Ny, inverse=True,
+                                           pruned_out=True)
+                           for p in range(0, nw, step))
             else:
                 batches = (_plane_images(gr[p:p + wchunk],
                                          gi[p:p + wchunk], nx, ny)

@@ -17,6 +17,7 @@ the card (counterpart of scripts/wl_kernel_lab.py's k1 / k2 / k3).
     python3 scripts/torch_kernel_lab.py --rows-times [--root DIR]
     python3 scripts/torch_kernel_lab.py --rows-const NAME=V1,V2
     python3 scripts/torch_kernel_lab.py --lengths [--root DIR]
+    python3 scripts/torch_kernel_lab.py --long [--root DIR]
     python3 scripts/torch_kernel_lab.py --short [--root DIR]
     python3 scripts/torch_kernel_lab.py --cols-tiny [--root DIR]
     python3 scripts/torch_kernel_lab.py --two-pass [--root DIR] [--out FILE]
@@ -146,6 +147,12 @@ PSF rows stage through psf_stage_rows) and fftx_c2c at 18432 and 32768
 took, torch.fft and the bound; a call that raises is recorded with what
 it raised. Run it with and without ``--root`` in one call to compare two
 trees.
+
+``--long`` times the tree at ``--root`` above 16384 (:func:`long_times`:
+the x pass and the y pass at 18432, 24576 and 32768, both directions,
+each call's route beside the four-step, the lab's one-pass designs K3cl
+and K3fr, K3cl's skeleton and torch.fft; K3c alone and its skeleton at
+the four-step's second stage). ``--device cpu`` rehearses it at 1024.
 
 ``--two-pass`` builds a copy of the package under
 ``build/lab_two_pass/pairs/`` whose row kernels take stage 2 in two
@@ -1048,9 +1055,13 @@ def _route(fn):
            "K10cc": psf.psf_cols_inv, "K10br": psf.psf_rows,
            "K1": psf.psf_convolve_h, "K2": psf.psf_convolve_h_cg,
            "K11": psf.psf_convolve_full}
-    # the four-step route above 16384 (a tree before it has none)
-    if hasattr(cfft, "fftx_c2c_four"):
-        cnt["K3f"] = cfft.fftx_c2c_four
+    # the routes above 16384 (a tree before them has none of them)
+    for k, name in (("K3f", "fftx_c2c_four"), ("K3xl", "fftx_c2c_cols_long"),
+                    ("K3yl", "fftx_c2c_rows_long"),
+                    ("K3cl", "fftx_c2c_cluster_long"),
+                    ("K3fr", "fftx_c2c_four_rows")):
+        if hasattr(cfft, name):
+            cnt[k] = getattr(cfft, name)
     # the PSF line kernels' counters (a tree before them has none: its
     # line route shows only as the absence of the others)
     for name in ("psf_cols_line", "psf_rows_line"):
@@ -1362,6 +1373,107 @@ def lengths_times(reps, dev, smi, root):
         torch.cuda.empty_cache()
     for N in FOUR_LENGTHS:
         passes(N, lambda x, y: (("x", (1,) + x), ("y", y)))
+
+
+# the PSF grids of the 4608^2, 6144^2 and 8192^2 images; the four-step's
+# second stage at the first and last (K3c at N / 8 on 8 N columns)
+LONG_LENGTHS = (18432, 24576, 32768)
+LONG_STAGE2 = ((2304, 147456), (4096, 131072))
+
+
+def long_times(reps, dev, smi, root, lengths=LONG_LENGTHS,
+               stage2=LONG_STAGE2):
+    """--long: the tree at ``root`` above 16384, one JSON line a case. At
+    each of ``lengths`` the x pass of one plane and the y pass of the
+    rows it leaves, inverse out_rolled ((1, N, N), N/2 rows of N) and
+    forward in_rolled ((1, N/2, N/2), N rows of N/2): fftx_c2c with the
+    route it took, and on the same inputs, where the tree has them, the
+    four-step (fftx_c2c_four: K3f, then K3c at N / 8; the route before
+    K3xl and K3yl), the lab's one-pass designs (K3cl for the x pass, with
+    its skeleton, K3fr for rows), torch.fft along the axis and the bound.
+    Then K3c alone at the four-step's second stage, (1, N/8, 8 N)
+    inverse out_rolled at ``stage2``, beside its skeleton (the loads, the
+    exchange and the stores with the FFT passes compiled out): what holds
+    K3c there. A call that raises is recorded with what it raised."""
+    import torch
+
+    from pfb_tpu_torch.ops import cfft
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bound, fft_flops
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def timed(fn):
+        try:
+            return cuda_ms(fn, reps, dev)
+        except (RuntimeError, ValueError) as e:
+            return f"{type(e).__name__}: {e}"
+
+    def lab(name, **kw):
+        f = getattr(cfft, name, None)
+        return None if f is None else (lambda: f(**kw))
+
+    for N in lengths:
+        for inv, pin, pout in ((True, False, True), (False, True, False)):
+            nin = N // 2 if pin else N
+            nout = N // 2 if pout else N
+            kw = dict(N=N, inverse=inv, in_rolled=pin, out_rolled=pout)
+            fft = torch.fft.ifft if inv else torch.fft.fft
+            tag = "inverse out_rolled" if inv else "forward in_rolled"
+            for axis, shape in (("x", (1, nin, nin)),
+                                ("y", (N if pin else N // 2, nin, 1))):
+                xr, xi = (torch.randn(shape, generator=g, device=dev)
+                          for _ in range(2))
+                lines = shape[0] * shape[2]
+                bms, bby = bound(8.0 * lines * (nin + nout),
+                                 fft_flops(N, lines))
+                rec = {"probe": "long", "root": str(root), "card": smi,
+                       "case": f"{axis} pass {tag} N={N}",
+                       "shape": list(shape), "bound_ms": bms,
+                       "bound_by": bby}
+                try:
+                    rec["route"] = _route(lambda: cfft.fftx_c2c(xr, xi, **kw))
+                except (RuntimeError, ValueError) as e:
+                    rec["raised"] = f"{type(e).__name__}: {e}"
+                else:
+                    rec["ms"] = timed(lambda: cfft.fftx_c2c(xr, xi, **kw))
+                extra = {"four_step_ms": lab("fftx_c2c_four", xr=xr, xi=xi,
+                                             **kw)}
+                if axis == "x":
+                    extra["k3cl_ms"] = lab("fftx_c2c_cluster_long", xr=xr,
+                                           xi=xi, **kw)
+                    extra["k3cl_skeleton_ms"] = lab(
+                        "fftx_c2c_cluster_long", xr=xr, xi=xi, skeleton=True,
+                        **kw)
+                else:
+                    extra["k3fr_ms"] = lab("fftx_c2c_four_rows", xr=xr,
+                                           xi=xi, **kw)
+                for k, f in extra.items():
+                    if f is not None:
+                        rec[k] = timed(f)
+                        torch.cuda.empty_cache()
+                z = torch.zeros((shape[0], N, shape[2]),
+                                dtype=torch.complex64, device=dev)
+                z[:, cfft._rolled_index(N, dev) if pin else slice(None)] = \
+                    torch.complex(xr, xi)
+                rec["library_ms"] = timed(lambda: fft(z, dim=-2))
+                print(json.dumps(rec), flush=True)
+                del xr, xi, z
+                torch.cuda.empty_cache()
+    for M, L in stage2:
+        xr, xi = (torch.randn((1, M, L), generator=g, device=dev)
+                  for _ in range(2))
+        kw = dict(N=M, inverse=True, out_rolled=True)
+        bms, bby = bound(8.0 * L * (M + M // 2), fft_flops(M, L))
+        print(json.dumps({
+            "probe": "long", "root": str(root), "card": smi,
+            "case": f"K3c at the four-step's second stage, inverse "
+                    f"out_rolled, N = {M}", "shape": [1, M, L],
+            "bound_ms": bms, "bound_by": bby,
+            "ms": timed(lambda: cfft.fftx_c2c_cluster(xr, xi, **kw)),
+            "skeleton_ms": timed(lambda: cfft.fftx_c2c_cluster(
+                xr, xi, skeleton=True, **kw))}), flush=True)
+        del xr, xi
+        torch.cuda.empty_cache()
 
 
 # the lengths below 2048 that a 128-aligned image's grids and PSF Hessian
@@ -1926,6 +2038,10 @@ def main():
                     help="time --root's row passes and rows stage at the "
                     "lengths of the images R2 = 9-64 and fftx_c2c above "
                     "16384, with each call's route")
+    ap.add_argument("--long", action="store_true",
+                    help="time --root's passes above 16384 beside the "
+                    "four-step, the lab's one-pass designs and torch.fft, "
+                    "and K3c's split at the four-step's second stage")
     ap.add_argument("--rows-const",
                     help="NAME=V1,V2: a constant of csrc/rows_fft.cuh and "
                     "the values to probe")
@@ -1988,6 +2104,13 @@ def main():
         return 0
     if args.lengths:
         lengths_times(args.reps, dev, smi, args.root)
+        return 0
+    if args.long:
+        if dev.type == "cuda":
+            long_times(args.reps, dev, smi, args.root)
+        else:
+            long_times(args.reps, dev, smi, args.root, lengths=(1024,),
+                       stage2=((128, 1024),))
         return 0
     if args.two_pass:
         two_pass_probe(args.reps, args.root, args.out)

@@ -1,15 +1,17 @@
 """pfb_tpu_torch w-plane c2c transforms (ops/cfft.py, the plain versions
 of the CUDA kernels on the CPU: the line kernel's, the cluster column
-kernel's steps at C = 2, 4, 8 and 16, the row kernel's three stages and
-the four-step's above 16384) against pfb_tpu/ops/pallas_cfft.py in
-interpret mode; the routes of every pass of the imaging paths at the
-128-aligned images from 1024^2 to 8192^2 against the kernels' instance
-tables. Float32 on both
+kernel's steps at C = 2, 4, 8 and 16, the row kernel's three stages, and
+above 16384 the four-step's, the long column and row kernels' (K3xl,
+K3yl) and the lab's one-pass designs' (K3cl, K3fr)) against
+pfb_tpu/ops/pallas_cfft.py in interpret mode; the routes of every pass
+of the imaging paths at the 128-aligned images from 1024^2 to 8192^2
+against the kernels' instance tables. Float32 on both
 sides, or float64 in the port; tolerance 1e-5 of max|ref| (f32 four-step
 DFTs, ~1e-6 log2 N)."""
 
 import itertools
 import re
+from functools import partial
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -20,15 +22,25 @@ import torch
 from pfb_tpu.ops.pallas_cfft import fft2_c2c_pruned as fft2_j
 from pfb_tpu.ops.pallas_cfft import fftx_c2c as fftx_j
 from pfb_tpu_torch.ops import cfft as cf
-from pfb_tpu_torch.ops.cfft import (_factor, cfft_supported, cluster_route,
-                                    cluster_shape, fft2_c2c_pruned, fftx_c2c,
-                                    fftx_c2c_cluster, fftx_c2c_cluster_plain,
-                                    fftx_c2c_rows, fftx_c2c_rows_plain,
-                                    fftx_c2c_rows_skeleton_plain,
-                                    four_step_route, fftx_c2c_four,
+from pfb_tpu_torch.ops.cfft import (_factor, cfft_supported,
+                                    cluster_long_fits, cluster_route,
+                                    cluster_shape, cols_long_route,
+                                    fft2_c2c_pruned, fftx_c2c,
+                                    fftx_c2c_cluster,
+                                    fftx_c2c_cluster_long,
+                                    fftx_c2c_cluster_plain,
+                                    fftx_c2c_cols_long,
+                                    fftx_c2c_cols_long_plain, fftx_c2c_four,
                                     fftx_c2c_four_first_plain,
-                                    fftx_c2c_four_plain, fftx_c2c_route,
-                                    row_radices, row_route)
+                                    fftx_c2c_four_plain, fftx_c2c_four_rows,
+                                    fftx_c2c_route,
+                                    fftx_c2c_rows, fftx_c2c_rows_long,
+                                    fftx_c2c_rows_long_plain,
+                                    fftx_c2c_rows_plain,
+                                    fftx_c2c_rows_skeleton_plain,
+                                    four_rows_fits, four_step_fits,
+                                    four_step_route, row_radices, row_route,
+                                    rows_long_route)
 
 torch.set_num_threads(1)
 N = 256
@@ -107,13 +119,16 @@ def test_real_input_and_shape_checks():
 _JAX_REF = {}
 
 
-def _jax_ref(N, mode, inverse, L):
+def _jax_ref(N, mode, inverse, L, real=False):
     """JAX fftx_c2c(interpret=True) on seeded inputs, once per case (the
-    reference does not depend on C); lane_block=L takes a ragged L."""
-    key = (N, mode, inverse, L)
+    reference does not depend on C); lane_block=L takes a ragged L;
+    ``real``: xi zeros."""
+    key = (N, mode, inverse, L, real)
     if key not in _JAX_REF:
         in_rolled, out_rolled = mode == "in_rolled", mode == "out_rolled"
         xr, xi = _rand((2, N // 2 if in_rolled else N, L), seed=N + L)
+        if real:
+            xi = np.zeros_like(xi)
         ref = fftx_j(jnp.asarray(xr), jnp.asarray(xi), N=N, inverse=inverse,
                      in_rolled=in_rolled, out_rolled=out_rolled,
                      lane_block=min(L, 128), interpret=True)
@@ -234,13 +249,16 @@ def test_cluster_skeleton_plain_is_the_exchange_permutation(mode):
 _JAX_ROWS = {}
 
 
-def _jax_rows(N, mode, inverse, R):
+def _jax_rows(N, mode, inverse, R, real=False):
     """R seeded rows of a y pass and the JAX fftx_c2c(interpret=True) of
-    their transposed (1, Nin, R) view, transposed back to (R, Nout)."""
-    key = (N, mode, inverse, R)
+    their transposed (1, Nin, R) view, transposed back to (R, Nout);
+    ``real``: xi zeros."""
+    key = (N, mode, inverse, R, real)
     if key not in _JAX_ROWS:
         in_rolled, out_rolled = mode == "in_rolled", mode == "out_rolled"
         xr, xi = _rand((R, N // 2 if in_rolled else N), seed=N + R)
+        if real:
+            xi = np.zeros_like(xi)
         ref = fftx_j(jnp.asarray(xr.T[None]), jnp.asarray(xi.T[None]), N=N,
                      inverse=inverse, in_rolled=in_rolled,
                      out_rolled=out_rolled, lane_block=R, interpret=True)
@@ -373,12 +391,15 @@ class _CardStack:
     (1350, 8, "line"), (160, 8, "line"), (2044, 8, "line"),
     (512, 1, "rows"), (1536, 1, "rows"), (256, 8, "cluster"),
     (5120, 1, "rows"), (2560, 8, "cluster"), (2304, 1, "rows"),
-    (7680, 1, "rows"), (18432, 1, "four"), (18432, 9216, "four"),
-    (32768, 1, "four"), (16000, 1, "line")])
+    (7680, 1, "rows"), (18432, 1, "rows_long"),
+    (18432, 9216, "cols_long"), (32768, 1, "rows_long"),
+    (16000, 1, "line"), (65536, 8, "four"), (131072, 1, "four"),
+    (23040, 9216, "four")])
 def test_fftx_c2c_route_order(monkeypatch, N, L, route):
     """A CUDA stack asks cluster_route first, then row_route, then
-    four_step_route, then takes line_fft_kernel: each route's wrapper is
-    called exactly where its rule says (fftx_c2c_route names it)."""
+    cols_long_route, rows_long_route and four_step_route, then takes
+    line_fft_kernel: each route's wrapper is called exactly where its
+    rule says (fftx_c2c_route names it)."""
     called = []
     assert fftx_c2c_route(N, L) == route
     monkeypatch.setattr(cf.kernels, "require_cuda_f32", lambda *a: None)
@@ -388,6 +409,10 @@ def test_fftx_c2c_route_order(monkeypatch, N, L, route):
                         lambda *a, **k: called.append("rows") or "r")
     monkeypatch.setattr(cf, "fftx_c2c_four",
                         lambda *a, **k: called.append("four") or "f")
+    monkeypatch.setattr(cf, "fftx_c2c_cols_long",
+                        lambda *a, **k: called.append("cols_long") or "l")
+    monkeypatch.setattr(cf, "fftx_c2c_rows_long",
+                        lambda *a, **k: called.append("rows_long") or "w")
 
     def line(*a, **k):
         called.append("line")
@@ -415,7 +440,8 @@ class _OnCard(torch.Tensor):
                                  (1024, 8), (3000, 1), (2304, 1), (3840, 1),
                                  (16384, 1), (18432, 1), (18432, 4),
                                  (32768, 1), (256, 8), (512, 1), (768, 24),
-                                 (1536, 1), (1350, 8)])
+                                 (1536, 1), (1350, 8), (65536, 2),
+                                 (23040, 4), (24576, 2), (19200, 1)])
 def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
     """On a stand-in CUDA stack (a stand-in library recording each entry's
     shape arguments) fftx_c2c at the lengths 2048-5120 launches the
@@ -423,9 +449,12 @@ def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
     x pass) and the row kernel at the length (its y pass, also at R2 = 9,
     15 and 64), each counted on its own route; below 2048 the cluster
     kernel at cluster_shape's (C, W) (one block or _TINY_C, tiles of 8-32)
-    and the row kernel at R2 = 2 and 6; above 16384 K3f at N, then the
-    cluster kernel at N / 8 on 8 L columns (clusters of 4, tiles of 8);
-    N = 3000 (not a multiple of 256) and 1350 (N % 4 == 2) launch
+    and the row kernel at R2 = 2 and 6; above 16384 the long column
+    kernel (K3xl) for the x pass at N = 8 x 256 R2 and the long row
+    kernel (K3yl) for rows at N = 2 x 256 R2, each once on its own
+    counter, and at the other lengths (23040, 19200, 65536) K3f at N,
+    then the cluster kernel at N / 8 on 8 L columns; N = 3000
+    (not a multiple of 256) and 1350 (N % 4 == 2) launch
     line_fft_kernel."""
     calls, cols = [], []
 
@@ -435,6 +464,8 @@ def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
                 calls.append({"pfbt_cfft_cols": lambda: (name, a[12], a[13]),
                               "pfbt_cfft_rows": lambda: (name, a[5]),
                               "pfbt_cfft_four": lambda: (name, a[6]),
+                              "pfbt_cfft_rows_long": lambda: (name, a[5]),
+                              "pfbt_cfft_cols_long": lambda: (name, a[6]),
                               "pfbt_cfft": lambda: (name, a[6])}[name]())
                 if name == "pfbt_cfft_cols":
                     cols.append((a[6], a[5]))
@@ -447,23 +478,31 @@ def test_fftx_c2c_passes_the_new_routes_shapes(monkeypatch, N, L):
                         lambda n, dev, kind="plan": torch.zeros((n, 2)))
     x = torch.zeros((2, N, L)).as_subclass(_OnCard)
     counters = (fftx_c2c, cf.fftx_c2c_cluster, cf.fftx_c2c_rows,
-                fftx_c2c_four)
+                fftx_c2c_four, fftx_c2c_cols_long, fftx_c2c_rows_long)
     n0 = tuple(f.launches for f in counters)
     y = cf.fftx_c2c(x, x, N=N)
     got = tuple(f.launches - n for f, n in zip(counters, n0))
     if cluster_route(N, L):
         C, W = cluster_shape(N)
         assert N < 2048 and C in (1, cf._TINY_C) or (C, W) == (4, 8)
-        assert calls == [("pfbt_cfft_cols", C, W)] and got == (0, 1, 0, 0)
+        assert calls == [("pfbt_cfft_cols", C, W)]
+        assert got == (0, 1, 0, 0, 0, 0)
     elif row_route(N, L):
-        assert calls == [("pfbt_cfft_rows", N)] and got == (0, 0, 1, 0)
+        assert calls == [("pfbt_cfft_rows", N)] and got == (0, 0, 1, 0, 0, 0)
+    elif cols_long_route(N, L):
+        assert calls == [("pfbt_cfft_cols_long", N)]
+        assert got == (0, 0, 0, 0, 1, 0) and y[0].shape == (2, N, L)
+    elif rows_long_route(N, L):
+        assert calls == [("pfbt_cfft_rows_long", N)]
+        assert got == (0, 0, 0, 0, 0, 1) and y[0].shape == (2, N, L)
     elif four_step_route(N, L):
-        assert calls == [("pfbt_cfft_four", N), ("pfbt_cfft_cols", 4, 8)]
-        assert cols == [(N // 8, 8 * L)] and got == (0, 1, 0, 1)
+        assert calls == [("pfbt_cfft_four", N),
+                         ("pfbt_cfft_cols",) + cluster_shape(N // 8)]
+        assert cols == [(N // 8, 8 * L)] and got == (0, 1, 0, 1, 0, 0)
         assert y[0].shape == (2, N, L)
     else:
         assert N in (1350, 3000)
-        assert calls == [("pfbt_cfft", N)] and got == (1, 0, 0, 0)
+        assert calls == [("pfbt_cfft", N)] and got == (1, 0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("N", [2048, 2560, 3072])
@@ -518,8 +557,9 @@ def test_four_step_plain_matches_jax(N, mode, inverse):
     W_N^(n2 k1), the reorder, the N/8-point DFTs; fftx_c2c_four_plain) in
     float64 against the JAX fftx_c2c in interpret mode in float32 on (2,
     Nin, 8) stacks: at 18432 (the PSF grid of a 4608^2 image, on the
-    route) and at 512, the split forced off the route; fftx_c2c_four and
-    fftx_c2c on a CPU stack at 18432 beside them."""
+    four-step's lengths, now the lab's earlier route) and at 512, the split
+    forced off the route; fftx_c2c_four and fftx_c2c on a CPU stack at
+    18432 beside them."""
     xr, xi, rr, ri = _jax_ref(N, mode, inverse, 8)
     kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
               out_rolled=mode == "out_rolled")
@@ -528,7 +568,7 @@ def test_four_step_plain_matches_jax(N, mode, inverse):
     assert yr.dtype == torch.float64 and yr.shape == rr.shape
     _close(yr.numpy(), rr)
     _close(yi.numpy(), ri)
-    assert four_step_route(N, 8) == (N > 16384)
+    assert four_step_fits(N, 8) == (N > 16384)
     if N > 16384:
         for fn in (fftx_c2c_four, fftx_c2c):
             yr, yi = fn(torch.as_tensor(xr), torch.as_tensor(xi), **kw)
@@ -540,18 +580,26 @@ def test_four_step_plain_matches_jax(N, mode, inverse):
 
 
 def test_four_step_route_and_refusals():
-    """four_step_route holds above 16384 where N / 8 is on the cluster
-    route with 8 L columns and rolled (N % 32 == 0), for both passes:
-    18432-32768 and on to 8 x 16384; never at or below 16384. A CUDA
-    stack of a length above 16384 off the route is refused before any
-    launch (no length above kMaxN reaches line_fft_kernel)."""
+    """The four-step fits above 16384 where N / 8 is on the cluster route
+    with 8 L columns and rolled (N % 32 == 0): 18432-32768 and on to 8 x
+    16384; never at or below 16384. Where it fits, rows (L = 1) of N = 2
+    x 256 R2 take K3yl and the x pass at N = 8 x 256 R2 K3xl, so
+    four_step_route keeps the rest: the x pass at 23040, 25600, 27648 and
+    above 32768, the rows above 32768. A CUDA stack of a length above
+    16384 off the routes is refused before any launch (no length above
+    kMaxN reaches line_fft_kernel)."""
     for N in (18432, 20480, 23040, 24576, 25600, 27648, 30720, 32768,
               65536, 131072):
         for L in (1, 2, 4096):
-            assert four_step_route(N, L) and fftx_c2c_route(N, L) == "four"
+            assert four_step_fits(N, L)
+            new = ("rows_long" if N <= 32768 else "four") if L == 1 else \
+                "cols_long" if N in (18432, 20480, 24576, 30720, 32768) \
+                else "four"
+            assert fftx_c2c_route(N, L) == new
+            assert four_step_route(N, L) == (new == "four")
     for N in (16384, 8192, 2048, 16392, 16400, 24584, 262144, 20000 * 8):
         for L in (1, 4):
-            assert not four_step_route(N, L)
+            assert not four_step_route(N, L) and not four_step_fits(N, L)
     for N, L in ((16400, 1), (24584, 1), (262144, 8), (160000, 1)):
         with pytest.raises(ValueError):
             fftx_c2c_route(N, L)
@@ -598,6 +646,118 @@ def test_four_step_first_plain_is_its_definition(N, L, in_rolled, inverse):
     _close(X.reshape(2, N, L).imag, yi.numpy())
 
 
+@pytest.mark.parametrize("N", [18432, 512])
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("real", [False, True])
+def test_rows_long_plain_matches_jax(N, mode, inverse, real):
+    """K3yl's steps (fftx_c2c_rows_long_plain: the halves x[n] and x[n +
+    N/2], u_0 = their sum, u_1 = their difference times W_N^n in float64,
+    the register row kernel's three stages on each, X[2 k' + c] and the
+    kept rows) and those of the lab's eight-block row kernel K3fr
+    (the four-step's, fftx_c2c_four_plain) in float64 against the JAX y pass
+    (fftx_c2c on the transposed view, interpret mode) in float32 on 2
+    rows: at 18432 (the PSF grid of a 4608^2 image, on the route) and at
+    512 = 2 x 256, the split forced off it; with xi and with a real input
+    (None through the wrappers, zeros to JAX); fftx_c2c_rows_long,
+    fftx_c2c_four_rows and fftx_c2c on a CPU stack at 18432 beside
+    them."""
+    xr, xi, rr, ri = _jax_rows(N, mode, inverse, 2, real)
+    kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
+              out_rolled=mode == "out_rolled")
+    a, b = (torch.as_tensor(v[..., None], dtype=torch.float64)
+            for v in (xr, xi))
+    for plain in (fftx_c2c_rows_long_plain, fftx_c2c_four_plain):
+        yr, yi = plain(a, b, **kw)
+        assert yr.dtype == torch.float64 and yr.shape == rr.shape + (1,)
+        _close(yr.numpy()[..., 0], rr)
+        _close(yi.numpy()[..., 0], ri)
+    assert rows_long_route(N, 1) == four_rows_fits(N, 1) == (N > 16384)
+    if N > 16384:
+        for fn in (fftx_c2c_rows_long, fftx_c2c_four_rows, fftx_c2c):
+            yr, yi = fn(torch.as_tensor(xr[..., None]),
+                        None if real else torch.as_tensor(xi[..., None]),
+                        **kw)
+            _close(yr.numpy()[..., 0], rr)
+            _close(yi.numpy()[..., 0], ri)
+    else:
+        for fn in (fftx_c2c_rows_long, fftx_c2c_four_rows):
+            with pytest.raises(ValueError):
+                fn(a, b, **kw)
+
+
+@pytest.mark.parametrize("N", [18432, 512])
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("real", [False, True])
+def test_cols_long_plain_matches_jax(N, mode, inverse, real):
+    """K3xl's steps (fftx_c2c_cols_long_plain: rows n = c + 8 m of block
+    c, the register row kernel's three stages on each line of N/8, W_N^(c
+    k1) in float64, the 8-point DFTs across the cluster, the kept rows)
+    and those of the lab's K3cl (fftx_c2c_cluster_plain at C = 8, the N/8-point
+    DFTs whole) in float64 against the JAX x pass in interpret mode in
+    float32 on (2, Nin, 8) stacks: at 18432 (on the route) and at 512 =
+    8 x 64, forced off it; with xi and with a real input;
+    fftx_c2c_cols_long, fftx_c2c_cluster_long and fftx_c2c on a CPU stack
+    at 18432 beside them."""
+    xr, xi, rr, ri = _jax_ref(N, mode, inverse, 8, real)
+    kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
+              out_rolled=mode == "out_rolled")
+    a, b = (torch.as_tensor(v, dtype=torch.float64) for v in (xr, xi))
+    for plain in (fftx_c2c_cols_long_plain, partial(fftx_c2c_cluster_plain,
+                                                    C=8)):
+        yr, yi = plain(a, b, **kw)
+        assert yr.dtype == torch.float64 and yr.shape == rr.shape
+        _close(yr.numpy(), rr)
+        _close(yi.numpy(), ri)
+    assert cols_long_route(N, 8) == cluster_long_fits(N, 8) == (N > 16384)
+    if N > 16384:
+        for fn in (fftx_c2c_cols_long, fftx_c2c_cluster_long, fftx_c2c):
+            yr, yi = fn(torch.as_tensor(xr),
+                        None if real else torch.as_tensor(xi), **kw)
+            _close(yr.numpy(), rr)
+            _close(yi.numpy(), ri)
+    else:
+        for fn in (fftx_c2c_cols_long, fftx_c2c_cluster_long):
+            with pytest.raises(ValueError):
+                fn(a, b, **kw)
+
+
+def test_long_routes_keep_every_length_the_four_step_took():
+    """No length loses its kernel: every N above 16384 up to 8 x 16384
+    that the four-step fits still reaches one, K3yl for rows of N = 2 x
+    256 R2 (the eight PSF grids 18432-32768 among them), K3xl for the x
+    pass at N = 8 x 256 R2 (five of them), the four-step everywhere else;
+    K3yl's plain version and the wrappers refuse stacks off their
+    routes."""
+    n, seen = 0, set()
+    for N in range(16392, 8 * 16384 + 1, 8):
+        for L in (1, 3):
+            if not four_step_fits(N, L):
+                continue
+            n += 1
+            route = fftx_c2c_route(N, L)
+            want = "rows_long" if L == 1 and N // 2 in cf._ROW_LENGTHS \
+                else "cols_long" if L > 1 and N // 8 in cf._ROW_LENGTHS \
+                and N <= 32768 else "four"
+            assert route == want, (N, L, route)
+            seen.add(route)
+    assert n > 100 and seen == {"rows_long", "cols_long", "four"}
+    with pytest.raises(ValueError):
+        fftx_c2c_rows_long_plain(torch.zeros((1, 512, 2)),
+                                 torch.zeros((1, 512, 2)), N=512)
+    t = torch.zeros((1, 18432, 2))
+    for fn in (fftx_c2c_four_rows, fftx_c2c_rows_long):
+        with pytest.raises(ValueError):
+            fn(t, t, N=18432)
+    for fn in (fftx_c2c_cluster_long, fftx_c2c_cols_long):
+        with pytest.raises(ValueError):
+            fn(t[..., :1], t[..., :1], N=18432)
+    with pytest.raises(ValueError):
+        fftx_c2c_cols_long(torch.zeros((1, 23040, 2)),
+                           torch.zeros((1, 23040, 2)), N=23040)
+
+
 def _cu_ints(name, pattern):
     """The integer groups of ``pattern`` in the sources csrc/``name`` (a
     glob)."""
@@ -618,8 +778,13 @@ def test_route_table_every_image_1024_to_8192():
     block, the register row kernel at an instanced N (the C++ tables of
     cfft_rows.cu, psf_rows*.cu and psf_rows.cuh, and the rows twiddles'
     ceiling, read from the sources), the four-step with N / 8 on the
-    cluster route. No pass is left on line_fft_kernel or psf_rows_kernel,
-    so none above kMaxN reaches them."""
+    cluster route, and from 18432 (4608^2) up the PSF grids' rows on the
+    long row kernel (K3yl) and their x pass on the long column kernel
+    (K3xl) at the five lengths N / 8 = 256 R2 it is built for (the
+    tables of cfft_rows_long.cu and cfft_cols_long.cu read from the
+    sources), the four-step at the other three. No pass is left on
+    line_fft_kernel or psf_rows_kernel, so none above kMaxN reaches
+    them."""
     from pfb_tpu_torch.ops import psf
     from pfb_tpu_torch.ops.fft import good_even_size
     from pfb_tpu_torch.ops.wgridder import _grid_setup, _resolve_cfft
@@ -629,6 +794,12 @@ def test_route_table_every_image_1024_to_8192():
     fused = _cu_ints("psf_rows.cuh", r"case (\d+):")
     ceiling = _cu_ints("cfft_rows.cu", r"N > (\d+)\)")
     kmax = _cu_ints("fft_lines.cuh", r"constexpr int kMaxN = (\d+);")
+    k3xl = dict(_cu_ints("cfft_cols_long.cu",
+                         r"PFBT_COLS_LONG\((\d+), (\d+)\)"))
+    k3yl = dict(_cu_ints("cfft_rows_long.cu",
+                         r"PFBT_ROWS_LONG\((\d+), (\d+), \d+\)"))
+    assert k3xl == {2048 * r: r for r in (9, 10, 12, 15, 16)}
+    assert k3yl == {512 * r: r for r in (36, 40, 45, 48, 50, 54, 60, 64)}
     assert k3r == k10br == {256 * r: r for r in cf._ROW_RADICES}
     assert sorted(fused) == sorted(k3r) == list(cf._ROW_LENGTHS)
     assert ceiling == [max(k3r)] and kmax == [cf._LINE_MAX_N]
@@ -643,6 +814,10 @@ def test_route_table_every_image_1024_to_8192():
         if route == "four":
             return N % 32 == 0 and takes(N // 8, 8 * L) and \
                 fftx_c2c_route(N // 8, 8 * L) == "cluster"
+        if route == "cols_long":
+            return L > 1 and k3xl.get(N) == N // 2048
+        if route == "rows_long":
+            return L == 1 and k3yl.get(N) == N // 512
         return False
 
     images = [128 * m for m in range(8, 65) if _smooth(m)]
@@ -660,7 +835,11 @@ def test_route_table_every_image_1024_to_8192():
         NX = NY = 2 * nx
         assert psf.cols_route(NX, nx) and psf.rows_route(NY)
         assert NY in fused and k10br[NY] == NY // 256
-    assert seen == {"cluster", "rows", "four"}
+    assert seen == {"cluster", "rows", "cols_long", "rows_long", "four"}
+    for N in (18432, 20480, 23040, 24576, 25600, 27648, 30720, 32768):
+        assert fftx_c2c_route(N, 1) == "rows_long"
+        assert fftx_c2c_route(N, N) == fftx_c2c_route(N, N // 2) == \
+            ("cols_long" if N in k3xl else "four")
 
 
 def test_route_table_every_image_128_to_8192():
@@ -674,9 +853,11 @@ def test_route_table_every_image_128_to_8192():
     takes the length: the cluster kernel with a tile within a block (one
     block or _TINY_C below 2048), the register row kernel at an instanced
     N (the C++ tables of cfft_rows.cu, psf_rows*.cu and psf_rows.cuh read from
-    the sources, R2 = 1-64), the four-step with N / 8 on the cluster
-    route. None reaches line_fft_kernel, psf_rows_kernel or K2's line
-    column kernels (which K2 takes only off cols_route)."""
+    the sources, R2 = 1-64), and from 18432 up the long row kernel (K3yl)
+    for rows, the long column kernel (K3xl) or the four-step for the x
+    pass.
+    None reaches line_fft_kernel, psf_rows_kernel or K2's line column
+    kernels (which K2 takes only off cols_route)."""
     from pfb_tpu_torch.ops import psf
     from pfb_tpu_torch.ops.fft import good_even_size
     from pfb_tpu_torch.ops.wgridder import _grid_setup, _resolve_cfft
@@ -685,6 +866,12 @@ def test_route_table_every_image_128_to_8192():
                           r"PFBT_FUSED\((\d+), (\d+), \d+\)"))
     fused = _cu_ints("psf_rows.cuh", r"case (\d+):")
     floor = _cu_ints("cfft_rows.cu", r"N < (\d+) \|\|")
+    k3xl = dict(_cu_ints("cfft_cols_long.cu",
+                         r"PFBT_COLS_LONG\((\d+), (\d+)\)"))
+    k3yl = dict(_cu_ints("cfft_rows_long.cu",
+                         r"PFBT_ROWS_LONG\((\d+), (\d+), \d+\)"))
+    assert k3xl == {2048 * r: r for r in (9, 10, 12, 15, 16)}
+    assert k3yl == {512 * r: r for r in (36, 40, 45, 48, 50, 54, 60, 64)}
     assert k3r == k10br == {256 * r: r for r in cf._ROW_RADICES}
     assert sorted(fused) == sorted(k3r) == list(cf._ROW_LENGTHS)
     assert floor == [min(k3r)] == [256]
@@ -704,6 +891,10 @@ def test_route_table_every_image_128_to_8192():
         if route == "four":
             return N % 32 == 0 and takes(N // 8, 8 * L) and \
                 fftx_c2c_route(N // 8, 8 * L) == "cluster"
+        if route == "cols_long":
+            return L > 1 and k3xl.get(N) == N // 2048
+        if route == "rows_long":
+            return L == 1 and k3yl.get(N) == N // 512
         return False
 
     images = [128 * m for m in range(1, 65) if _smooth(m)]
@@ -723,6 +914,10 @@ def test_route_table_every_image_128_to_8192():
         NX = NY = 2 * nx
         assert psf.cols_route(NX, nx) and psf.rows_route(NY)
         assert NY in fused and k10br[NY] == NY // 256
-    assert seen == {"cluster", "rows", "four"}
+    assert seen == {"cluster", "rows", "cols_long", "rows_long", "four"}
+    for N in (18432, 20480, 23040, 24576, 25600, 27648, 30720, 32768):
+        assert fftx_c2c_route(N, 1) == "rows_long"
+        assert fftx_c2c_route(N, N) == fftx_c2c_route(N, N // 2) == \
+            ("cols_long" if N in k3xl else "four")
     assert short == {(n, r) for n in (256, 512, 768, 1024, 1280, 1536)
                      for r in ("cluster", "rows")}

@@ -241,21 +241,21 @@ def test_cfft_other_lengths_keep_the_line_kernel(cuda, N):
 @pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_four_step_matches_plain(cuda, N, L, mode, inverse):
-    """fftx_c2c above 16384 (before the four-step it raised there: the
-    line kernel's plan stops at 16384): K3f once, then the cluster kernel
-    at N / 8 once, the line and row kernels never; against torch.fft and
-    against the four-step's plain version, with xi and with a real
-    input."""
+    """The four-step above 16384 (fftx_c2c's route there before K3xl and
+    K3yl, the lab's since; the line kernel's plan stops at 16384): K3f
+    once, then the cluster kernel at N / 8 once, the line and row kernels
+    never; against torch.fft and against the four-step's plain version,
+    with xi and with a real input."""
     g = torch.Generator(device=cuda).manual_seed(N + L)
     kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
               out_rolled=mode == "out_rolled")
     nin = N // 2 if kw["in_rolled"] else N
     xr = torch.randn((2, nin, L), generator=g, device=cuda)
     xi = torch.randn((2, nin, L), generator=g, device=cuda)
-    assert cf.four_step_route(N, L)
+    assert cf.four_step_fits(N, L)
     for b in (xi, None):
         n0, f0 = _launches(), cf.fftx_c2c_four.launches
-        yr, yi = fftx_c2c(xr, b, **kw)
+        yr, yi = cf.fftx_c2c_four(xr, b, **kw)
         torch.cuda.synchronize()
         assert _launches() == (n0[0], n0[1] + 1, n0[2])
         assert cf.fftx_c2c_four.launches == f0 + 1
@@ -266,13 +266,92 @@ def test_four_step_matches_plain(cuda, N, L, mode, inverse):
         assert _ok(yr, mr) and _ok(yi, mi)
 
 
+@pytest.mark.parametrize("N,L", [(18432, 1), (32768, 1), (18432, 5),
+                                 (18432, 64), (32768, 3)])
+@pytest.mark.parametrize("mode", ["full", "in_rolled", "out_rolled"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_long_kernels_match_plain(cuda, N, L, mode, inverse):
+    """fftx_c2c above 16384 on the PSF grids' lengths: rows (L = 1) on the
+    long row kernel (K3yl), the x pass on the long column kernel (K3xl),
+    each once on its own counter, the four-step, line, cluster and row
+    kernels never; against its plain version and against torch.fft, with
+    xi and with a real input. The lab's one-pass designs of the same
+    pass (K3fr for rows, K3cl for the x pass) against theirs."""
+    g = torch.Generator(device=cuda).manual_seed(N + L + 7)
+    kw = dict(N=N, inverse=inverse, in_rolled=mode == "in_rolled",
+              out_rolled=mode == "out_rolled")
+    nin = N // 2 if kw["in_rolled"] else N
+    xr = torch.randn((2, nin, L), generator=g, device=cuda)
+    xi = torch.randn((2, nin, L), generator=g, device=cuda)
+    if L == 1:
+        path, plain = cf.fftx_c2c_rows_long, cf.fftx_c2c_rows_long_plain
+        lab, lab_plain = cf.fftx_c2c_four_rows, cf.fftx_c2c_four_plain
+    else:
+        path, plain = cf.fftx_c2c_cols_long, cf.fftx_c2c_cols_long_plain
+        lab = cf.fftx_c2c_cluster_long
+
+        def lab_plain(a, b, **k):
+            return cf.fftx_c2c_cluster_plain(a, b, C=cf._LONG_C, **k)
+    assert cf.fftx_c2c_route(N, L) == ("rows_long" if L == 1
+                                       else "cols_long")
+    for b in (xi, None):
+        bb = torch.zeros_like(xr) if b is None else b
+        pr, pi = fftx_c2c_plain(xr, bb, **kw)
+        n0, f0 = _launches(), cf.fftx_c2c_four.launches
+        p0 = path.launches
+        yr, yi = fftx_c2c(xr, b, **kw)
+        torch.cuda.synchronize()
+        assert _launches() == n0 and cf.fftx_c2c_four.launches == f0
+        assert path.launches == p0 + 1
+        assert _ok(yr, pr) and _ok(yi, pi)
+        mr, mi = plain(xr, bb, **kw)
+        assert _ok(yr, mr) and _ok(yi, mi)
+        q0 = lab.launches
+        yr, yi = lab(xr, b, **kw)
+        torch.cuda.synchronize()
+        assert lab.launches == q0 + 1
+        mr, mi = lab_plain(xr, bb, **kw)
+        assert _ok(yr, mr) and _ok(yi, mi) and _ok(yr, pr)
+
+
+def test_grid_pg_w_gridded_psf_grid_above_16384(cuda, tmp_path):
+    """_grid(backend="pg", do_wgridding=True) at 4608^2 on a small
+    observation: every w plane of its 18432^2 PSF grid takes K3xl (x pass)
+    and K3yl (rows), a launch of each for every four planes, and no
+    kernel of the four-step (K3f) or the line kernel; its PSF and dirty
+    image finite, the PSF's peak at the centre."""
+    from pfb_tpu_torch.utils.ms import simulate_ms
+    from pfb_tpu_torch.workers.grid import _grid
+    from pfb_tpu_torch.workers.init import _init
+    ms = str(tmp_path / "t.npz")
+    simulate_ms(ms, nant=8, ntime=4, nchan=2, nsource=3, fov_deg=0.4,
+                seed=19)
+    xds = _init(ms=ms, write=False, channels_per_image=2,
+                precision="single", device=cuda)
+    n0, f0 = _launches(), cf.fftx_c2c_four.launches
+    x0, y0 = cf.fftx_c2c_cols_long.launches, cf.fftx_c2c_rows_long.launches
+    dds = _grid(xdsi=xds, device=cuda, write=False, nx=4608, ny=4608,
+                cell_size=0.5, robustness=0.0, backend="pg", epsilon=1e-5,
+                do_wgridding=True, psf=True, residual=False)
+    torch.cuda.synchronize()
+    nx, ny = cf.fftx_c2c_cols_long.launches - x0, \
+        cf.fftx_c2c_rows_long.launches - y0
+    assert nx == ny >= len(dds) and cf.fftx_c2c_four.launches == f0
+    assert _launches()[0] == n0[0]
+    for ds in dds:
+        psf = np.asarray(ds["PSF"], np.float64)
+        assert psf.shape == (9216, 9216) and np.isfinite(psf).all()
+        assert np.isfinite(np.asarray(ds["DIRTY"])).all()
+        assert np.unravel_index(psf.argmax(), psf.shape) == (4608, 4608)
+
+
 def test_grid_pg_psf_grid_above_16384_matches_cpu(cuda, tmp_path):
     """_grid(backend="pg") at 4608^2 on a small observation: its PSF is
-    9216^2 on a grid of 18432^2, whose two passes take the four-step (the
-    grid raised on the card before it), its image grid of 9216^2 the
-    cluster and row kernels (R2 = 36), w-gridding off so that one plane
-    fits; the PSF and the dirty image against the CPU's within 1e-5 of
-    their peaks."""
+    9216^2 on a grid of 18432^2, whose two passes take K3xl and K3yl (the
+    four-step before them; the grid raised on the card before that), its
+    image grid of 9216^2 the cluster and row kernels (R2 = 36),
+    w-gridding off so that one plane fits; the PSF and the dirty image
+    against the CPU's within 1e-5 of their peaks."""
     from pfb_tpu_torch.utils.ms import simulate_ms
     from pfb_tpu_torch.workers.grid import _grid
     from pfb_tpu_torch.workers.init import _init
@@ -285,11 +364,14 @@ def test_grid_pg_psf_grid_above_16384_matches_cpu(cuda, tmp_path):
               backend="pg", epsilon=1e-5, do_wgridding=False, psf=True,
               residual=False)
     n0, f0 = _launches(), cf.fftx_c2c_four.launches
+    x0, y0 = cf.fftx_c2c_cols_long.launches, cf.fftx_c2c_rows_long.launches
     dds = _grid(xdsi=xds, device=cuda, **kw)
     torch.cuda.synchronize()
     n1 = _launches()
     assert n1[0] == n0[0] and n1[1] > n0[1] and n1[2] > n0[2]
-    assert cf.fftx_c2c_four.launches - f0 == 2 * len(dds)
+    assert cf.fftx_c2c_four.launches == f0
+    assert cf.fftx_c2c_cols_long.launches - x0 == len(dds)
+    assert cf.fftx_c2c_rows_long.launches - y0 == len(dds)
     ref = _grid(xdsi=_init(ms=ms, write=False, channels_per_image=2,
                            precision="single", device="cpu"),
                 device="cpu", **kw)
