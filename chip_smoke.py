@@ -363,6 +363,19 @@ Phases:
      intermediate took) and on the kernels' plain versions (one plane a
      transform), the PSF and dirty image within 1e-5 of their peaks of
      both.
+ 35. after phase 34: the JAX package's last public functions, on phase
+     6's data (no new simulation, no kernel): ops/weighting.py's device
+     compute_counts on the card, k = 6 and k = 0, on every dataset of the
+     pg path (2,064,384 visibilities, float64 uvw, its 2048^2 grid and
+     cell) against compute_counts_host, the native builder the workers
+     run, within 1e-9 of max, and counts_to_weights(robust=0) of both
+     within 1e-9, with the seconds of both and the card's peak memory;
+     ops/psf.py's hessian_psf_slice on each band of phase 6's (8,
+     4096^2) PSF against hessian_psf_cube's band (1e-5 of max);
+     make_psfhat(band_chunk=2) against the whole cube (1e-6 of max), with
+     the peak memory of both; ops/prox.py's dual_update_21 in float32 on
+     the card against float64 on the CPU, on coefficients of the pg
+     path's SARA transform's shape (1e-6 of max). Its seconds printed.
 Kernel tolerance: max|kernel - plain| <= 1e-5 max|plain|, with
 CUDA-event medians of both. Every kernel record also carries the least
 time the card could take for the same work (``bound_ms``: the larger of
@@ -465,6 +478,9 @@ SHORT_LENGTHS = (256, 512, 768, 1024, 1280, 1536)
 # image width as phase 3's, the cell made from its uv coverage as phase 3's
 NX_W = 4608
 SIM_W = dict(SIM, duration_h=0.125)
+# phase 35: the device counts and their weights against the host builder
+CNTOL = 1e-9
+PHTOL = 1e-6  # chunked against whole psfhat; float32 dual update vs float64
 # phase 27's fluxmop: tests/test_aux_workers.py:38's settings and gate
 MOP = dict(backend="pg", epsilon=1e-5, use_psf=True, sigmainv=1e-4,
            gamma=0.9, cg_maxit=100, write=False, verbose=0)
@@ -3832,6 +3848,179 @@ def report_mm(rmm):
         need(st[stage]["K3"] == 0, f"K3 launched inside the mm {stage}")
 
 
+def api_inputs(rpg, cubes):
+    """What phase 35 keeps of the pg path (phase 6): its datasets (host
+    arrays), its grid's cell, and its PSF cube and band weights, on the
+    host so that they take no card memory in the phases between."""
+    return dict(xds=rpg["xds"], cell=float(rpg["dds"][0]["cell_rad"]),
+                psf=cubes[3], wsums=cubes[6])
+
+
+def _peak_gb(device, fn):
+    """(fn(), the card's peak memory during fn above what was allocated
+    before it, GiB; 0 on the CPU)."""
+    import torch
+    if device.type != "cuda":
+        return fn(), 0.0
+    sync(device)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    sync(device)
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def api_path(inp, device, nx=NX, spot=SPOT_PG, seed=35):
+    """Phase 35: the JAX package's last public functions on the pg path's
+    data. Returns a dict of records; gates nothing itself."""
+    import numpy as np
+    import torch
+
+    from pfb_tpu_torch.ops.fft import make_psfhat
+    from pfb_tpu_torch.ops.prox import dual_update_21
+    from pfb_tpu_torch.ops.psf import hessian_psf_cube, hessian_psf_slice
+    from pfb_tpu_torch.ops.psi import make_psi
+    from pfb_tpu_torch.ops.weighting import (compute_counts,
+                                             compute_counts_host,
+                                             counts_to_weights)
+    out = {"counts": {}}
+    cell = inp["cell"]
+    # (a) the uv counts on the card against the host builder, every dataset
+    for k in (6, 0):
+        rec = dict(nvis=0, datasets=len(inp["xds"]), t_card=0.0,
+                   t_host=0.0, peak_gb=0.0, rel_err=0.0, cells_differ=0,
+                   occupancy_differs=0, weights_rel_err=0.0)
+        for ds in inp["xds"]:
+            uvw = np.asarray(ds["UVW"], np.float64)
+            freq = np.asarray(ds["FREQ"], np.float64)
+            mask = np.asarray(ds["MASK"])
+            rec["nvis"] += int(mask.size)
+            t0 = time.perf_counter()
+            host = compute_counts_host(uvw, freq, mask, nx, nx, cell, cell,
+                                       k=k)
+            rec["t_host"] += time.perf_counter() - t0
+            sync(device)
+            t0 = time.perf_counter()
+            card, peak = _peak_gb(device, lambda: compute_counts(
+                uvw, freq, mask, nx, nx, cell, cell, k=k, device=device))
+            rec["t_card"] += time.perf_counter() - t0
+            rec["peak_gb"] = max(rec["peak_gb"], peak)
+            rec["dtype"] = str(card.dtype)
+            host_t = torch.as_tensor(host, device=device)
+            diff = (card - host_t).abs()
+            rec["rel_err"] = max(rec["rel_err"], float(
+                diff.max() / host_t.abs().max()))
+            rec["cells_differ"] += int((diff > 0).sum())
+            rec["occupancy_differs"] += int(((card != 0) !=
+                                             (host_t != 0)).sum())
+            uvw_t = torch.as_tensor(uvw, device=device)
+            freq_t = torch.as_tensor(freq, device=device)
+            wc, wh = (counts_to_weights(c, uvw_t, freq_t, nx, nx, cell, cell,
+                                        0.0) for c in (card, host_t))
+            rec["weights_rel_err"] = max(rec["weights_rel_err"], float(
+                (wc - wh).abs().max() / wh.abs().max()))
+        out["counts"][k] = rec
+    # (b) hessian_psf_slice on each band against hessian_psf_cube's band
+    psf = torch.as_tensor(inp["psf"], device=device)
+    nb = psf.shape[0]
+    wsum = float(np.sum(inp["wsums"]))
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(nb, nx, nx, device=device, dtype=psf.dtype, generator=g)
+    psfhat = make_psfhat(psf)
+    sync(device)
+    t0 = time.perf_counter()
+    cube = hessian_psf_cube(x, psfhat, sigmainv=1e-4, wsum=wsum)
+    sync(device)
+    out["t_cube"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    err = 0.0
+    for b in range(nb):
+        sl = hessian_psf_slice(x[b], psfhat[b], sigmainv=1e-4, wsum=wsum)
+        err = max(err, float((sl - cube[b]).abs().max()
+                             / cube[b].abs().max()))
+    sync(device)
+    out["t_slices"] = time.perf_counter() - t0
+    out["slice_rel_err"] = err
+    out["psf_shape"] = list(psf.shape)
+    del x, cube, sl, psfhat
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # (c) make_psfhat in chunks of 2 bands against the whole cube
+    ph0, out["psfhat_peak_gb"] = _peak_gb(device, lambda: make_psfhat(psf))
+    ph2, out["psfhat_chunked_peak_gb"] = _peak_gb(
+        device, lambda: make_psfhat(psf, band_chunk=2))
+    out["psfhat_rel_err"] = float((ph2 - ph0).abs().max()
+                                  / ph0.abs().max())
+    del ph0, ph2, psf
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # (d) dual_update_21 in float32 on the card against float64 on the CPU,
+    # on coefficients of the SARA transform's shape, some all zero
+    psi = make_psi(nx, nx, tuple(spot["bases"].split(",")), spot["nlevels"])
+    shape = (nb, len(spot["bases"].split(",")), psi.Nymax, psi.Nxmax)
+    rng = np.random.default_rng(seed)
+    vp = rng.standard_normal(shape, dtype=np.float32)
+    v = rng.standard_normal(shape, dtype=np.float32)
+    w = rng.random(shape[1:], dtype=np.float32) + 0.5
+    vp[:, 0, :16] = v[:, 0, :16] = 0.0
+    lam, sigma = 5.0, 1.7
+    ref = dual_update_21(*(torch.as_tensor(a, dtype=torch.float64)
+                           for a in (vp, v)), lam, sigma=sigma,
+                         weight=torch.as_tensor(w, dtype=torch.float64))
+    t0 = time.perf_counter()
+    got = dual_update_21(*(torch.as_tensor(a, device=device)
+                           for a in (vp, v)), lam, sigma=sigma,
+                         weight=torch.as_tensor(w, device=device))
+    sync(device)
+    out["t_dual"] = time.perf_counter() - t0
+    out["dual_shape"] = list(shape)
+    out["dual_rel_err"] = float((got.cpu().double() - ref).abs().max()
+                                / ref.abs().max())
+    out["dual_zero_kept"] = bool((got[:, 0, :16] == 0).all())
+    return out
+
+
+def report_api(r35, t35):
+    """Print phase 35's records and gate them."""
+    for k, rec in r35["counts"].items():
+        print(f"[api] compute_counts k={k} ({rec['dtype']}), "
+              f"{rec['nvis']} visibilities in {rec['datasets']} datasets: "
+              f"card {rec['t_card']:.3f} s (peak +{rec['peak_gb']:.3f} GiB), "
+              f"host builder {rec['t_host']:.3f} s; "
+              f"max|card - host|/max = {rec['rel_err']:.3e} (bound "
+              f"{CNTOL}), cells differing at all {rec['cells_differ']}, "
+              f"occupied on one side only {rec['occupancy_differs']}; "
+              f"counts_to_weights(robust=0) {rec['weights_rel_err']:.3e} "
+              f"(bound {CNTOL})")
+    print(f"[api] hessian_psf_slice on each band of the {r35['psf_shape']} "
+          f"PSF vs hessian_psf_cube's band: max|diff|/max = "
+          f"{r35['slice_rel_err']:.3e} (bound {TOL}); slices "
+          f"{r35['t_slices']:.3f} s, cube {r35['t_cube']:.3f} s")
+    print(f"[api] make_psfhat(band_chunk=2) vs band_chunk=None: "
+          f"{r35['psfhat_rel_err']:.3e} (bound {PHTOL}); peak above the "
+          f"PSF {r35['psfhat_chunked_peak_gb']:.3f} GiB against "
+          f"{r35['psfhat_peak_gb']:.3f} GiB")
+    print(f"[api] dual_update_21 float32 on the card vs float64 on the CPU, "
+          f"{r35['dual_shape']}: {r35['dual_rel_err']:.3e} (bound {PHTOL}), "
+          f"zero coefficients kept {r35['dual_zero_kept']}; card "
+          f"{r35['t_dual']:.3f} s")
+    print(f"[api] phase 35 {t35:.1f} s")
+    for k, rec in r35["counts"].items():
+        need(rec["rel_err"] <= CNTOL, f"compute_counts k={k} card vs host "
+             f"{rec['rel_err']} > {CNTOL}")
+        need(rec["weights_rel_err"] <= CNTOL, f"counts_to_weights k={k} "
+             f"card vs host {rec['weights_rel_err']} > {CNTOL}")
+        need(rec["dtype"] == "torch.float64", f"compute_counts k={k} on "
+             f"float64 uvw gave {rec['dtype']}")
+    need(r35["slice_rel_err"] <= TOL, f"hessian_psf_slice vs the cube's "
+         f"band {r35['slice_rel_err']} > {TOL}")
+    need(r35["psfhat_rel_err"] <= PHTOL, f"make_psfhat chunked vs whole "
+         f"{r35['psfhat_rel_err']} > {PHTOL}")
+    need(r35["dual_rel_err"] <= PHTOL and r35["dual_zero_kept"],
+         f"dual_update_21 card vs float64 {r35['dual_rel_err']}, zero "
+         f"coefficients kept {r35['dual_zero_kept']}")
+
+
 def main():
     try:
         import torch
@@ -3992,10 +4181,12 @@ def main():
         recs += gs_recs
         # kept for phase 14: the 2048^2 grid phase's PSF cube, its band
         # weights and the pg path's model; for phases 15-19 the pg path's
-        # datasets, dataset 0's visibilities, model and hessnorm
+        # datasets, dataset 0's visibilities, model and hessnorm; for
+        # phase 35 the datasets, the cell, the PSF cube and band weights
         from pfb_tpu_torch.workers.cubes import dds2cubes
         cubes = dds2cubes(rpg["dds"], len(rpg["dds"]))
         k2_in = dict(psf=cubes[3], wsums=cubes[6], model=rpg["model"])
+        api_in = api_inputs(rpg, cubes)
         dist_in = dict(dds=rpg["dds"], xds=rpg["xds"][:1], psf=cubes[3],
                        model=rpg["model"], dirty_rms=rpg["dirty_rms"],
                        hessnorm=rpg["stats"]["hessnorm"])
@@ -4307,6 +4498,13 @@ def main():
               + ", earlier route's " + json.dumps(
                   {k: v for k, v in l34e.items() if v})
               + f"; the phase {t34:.1f} s")
+
+        # 35. the JAX package's last public functions on the pg path's data
+        t0 = time.perf_counter()
+        r35 = api_path(api_in, device)
+        del api_in
+        report_api(r35, time.perf_counter() - t0)
+        torch.cuda.empty_cache()
 
         # every rows stage of the PSF paths at NY = 4096, 6144 and 8192
         # took the register kernel (none took psf_rows_kernel)

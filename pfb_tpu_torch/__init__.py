@@ -19,3 +19,5 @@ copies under ``utils/``.
 """
 
 __version__ = "0.1.0"
+
+from pfb_tpu_torch.config import default_real_dtype, set_precision

@@ -38,10 +38,37 @@ def good_even_size(n: int) -> int:
     return m
 
 
-def make_psfhat(psf):
-    """PSFHAT from a PSF image: rfft2(ifftshift(psf))."""
-    return torch.fft.rfft2(torch.fft.ifftshift(psf, dim=(-2, -1)),
-                           dim=(-2, -1))
+def fft2d(x, axes=(-2, -1)):
+    """rfft2 of ifftshift(x) over ``axes``, forward unnormalised."""
+    return torch.fft.rfft2(torch.fft.ifftshift(x, dim=axes), dim=axes)
+
+
+def fft_cube(x):
+    """Per-band rfft2 of ifftshift over the last two axes."""
+    return fft2d(x, axes=(-2, -1))
+
+
+def _band_chunks(fn, x, band_chunk, *outs):
+    """fn over ``band_chunk`` bands of x at a time, each chunk's results
+    written into ``outs`` (preallocated, one per result of fn), so the
+    transform's workspace is one chunk's. Returns ``outs``."""
+    for b in range(0, x.shape[0], band_chunk):
+        res = fn(x[b:b + band_chunk])
+        for out, r in zip(outs, res if isinstance(res, tuple) else (res,)):
+            out[b:b + band_chunk] = r
+    return outs
+
+
+def make_psfhat(psf, band_chunk=None):
+    """PSFHAT from a PSF image or cube: rfft2(ifftshift(psf)).
+    ``band_chunk`` bounds the FFT workspace of a big cube by
+    transforming that many bands at a time."""
+    if band_chunk is None or psf.ndim == 2 or psf.shape[0] <= band_chunk:
+        return fft2d(psf)
+    nb, NX, NY = psf.shape
+    out = torch.empty((nb, NX, NY // 2 + 1), device=psf.device,
+                      dtype=torch.promote_types(psf.dtype, torch.complex64))
+    return _band_chunks(fft2d, psf, band_chunk, out)[0]
 
 
 def _convolve(x, psfhat, lastsize):
@@ -51,6 +78,12 @@ def _convolve(x, psfhat, lastsize):
     xhat = torch.fft.rfft2(xpad, dim=(-2, -1)) * psfhat
     out = torch.fft.irfft2(xhat, s=(nx_psf, lastsize), dim=(-2, -1))
     return out[..., :nx, :ny]
+
+
+def psf_convolve_slice(x, psfhat, lastsize):
+    """Zero-pad -> rfft2 -> * psfhat -> irfft2 -> unpad for one (nx, ny)
+    image; psfhat is rfft2(ifftshift(psf)) of a (nx_psf, lastsize) PSF."""
+    return _convolve(x, psfhat, lastsize)
 
 
 def psf_convolve_cube(x, psfhat, lastsize, band_chunk=None):

@@ -12,15 +12,10 @@ the TPU's way round a slow XLA FFT.
 
 import torch
 
+from pfb_tpu_torch.ops.fft import _band_chunks
 
-def make_full_psfhat(psf):
-    """Full (fft2, not rfft2) transform of ifftshift(psf) over the last
-    two axes as real and imaginary parts, built from the rfft2 half
-    spectrum by Hermitian extension: for a real input X[N1-k1 mod N1,
-    N2-k2 mod N2] = conj X[k1, k2]. Works in the PSF's dtype (the JAX
-    package casts to float32 first); its ``band_chunk`` workspace bound
-    is the caller's band loop here (ops/psf.py:prep_h_full)."""
-    sh = torch.fft.ifftshift(psf, dim=(-2, -1))
+
+def _full(sh):
     N2 = sh.shape[-1]
     H2 = N2 // 2 + 1
     half = torch.fft.rfft2(sh, dim=(-2, -1))  # (..., N1, H2)
@@ -32,3 +27,17 @@ def make_full_psfhat(psf):
     mr = torch.cat([src[..., :1, :], src[..., 1:, :].flip(-2)], dim=-2)
     mi = -torch.cat([srci[..., :1, :], srci[..., 1:, :].flip(-2)], dim=-2)
     return torch.cat([hr, mr], dim=-1), torch.cat([hi, mi], dim=-1)
+
+
+def make_full_psfhat(psf, band_chunk=None):
+    """Full (fft2, not rfft2) transform of ifftshift(psf) over the last
+    two axes as real and imaginary parts, built from the rfft2 half
+    spectrum by Hermitian extension: for a real input X[N1-k1 mod N1,
+    N2-k2 mod N2] = conj X[k1, k2]. Works in the PSF's dtype (the JAX
+    package casts to float32 first). ``band_chunk`` bounds the FFT
+    workspace of a cube by transforming that many bands at a time."""
+    sh = torch.fft.ifftshift(psf, dim=(-2, -1))
+    if band_chunk is None or sh.ndim == 2 or sh.shape[0] <= band_chunk:
+        return _full(sh)
+    hr, hi = torch.empty_like(sh), torch.empty_like(sh)
+    return _band_chunks(_full, sh, band_chunk, hr, hi)

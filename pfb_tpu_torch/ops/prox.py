@@ -34,3 +34,11 @@ def dual_update_21m(vp, v, lam, sigma=1.0, weight=1.0):
     vsum = vtilde.sum(dim=0).abs() / sigma
     soft = torch.clamp(vsum - lam * weight / sigma, min=0.0)
     return vtilde * (1.0 - _safe_ratio(soft, vsum, 0.0))[None]
+
+
+def dual_update_21(vp, v, lam, sigma=1.0, weight=1.0):
+    """Same with the l2 norm over the band axis."""
+    vtilde = vp + sigma * v
+    vnorm = torch.linalg.vector_norm(vtilde, dim=0) / sigma
+    soft = torch.clamp(vnorm - lam * weight / sigma, min=0.0)
+    return vtilde * (1.0 - _safe_ratio(soft, vnorm, 0.0))[None]

@@ -62,8 +62,24 @@ from pfb_tpu_torch.config import kernel_dtype
 from pfb_tpu_torch.ops.cfft import (_CLUSTER_MIN_N, _LINE_ELEMS,
                                     _ROW_LENGTHS, _factor, _row_stages,
                                     cluster_shape)
-from pfb_tpu_torch.ops.fft import good_size, psf_convolve_cube
+from pfb_tpu_torch.ops.fft import (good_size, psf_convolve_cube,
+                                   psf_convolve_slice)
 from pfb_tpu_torch.ops.mmfft import make_full_psfhat
+
+
+def hessian_psf_slice(x, psfhat, beam=None, lastsize=None, sigmainv=0.0,
+                      wsum=None):
+    """One band's beam * (PSF conv (beam * x)) / wsum + sigmainv * x;
+    ``lastsize`` defaults to psfhat.shape[-2], as the cube form's."""
+    if lastsize is None:
+        lastsize = psfhat.shape[-2]
+    xin = x * beam if beam is not None else x
+    xout = psf_convolve_slice(xin, psfhat, lastsize)
+    if beam is not None:
+        xout = xout * beam
+    if wsum is not None:
+        xout = xout / wsum
+    return xout + x * sigmainv
 
 
 def hessian_psf_cube(x, psfhat, beam=None, lastsize=None, sigmainv=0.0,

@@ -4,19 +4,29 @@
 Grid convention of the reference (pfb/utils/weighting.py:48-55):
     u_cell = 1/(nx*cellx);  umax = |-1/(2 cellx) - u_cell/2|
     ug = (u*f/c + umax)/u_cell
-ES-kernel stencil k=6, beta=2.3. The counts are a once-per-run host
-pass (native C++ or numpy); the weights are a gather on the device.
+ES-kernel stencil k=6, beta=2.3. The workers take the counts from a
+once-per-run host pass (native C++ or numpy); :func:`compute_counts` is
+the same sum on a device, for callers whose data lives there. The
+weights are a gather on the device.
 
 Unlike the JAX package's numpy path, which multiplies each tap by the
-mask value, both paths here count a visibility when its mask is
-nonzero, as the native builder and the reference's numba kernel do.
+mask value, every path here counts a visibility when its mask is
+nonzero, as the native builder and the reference's numba kernel do. Every
+path drops the taps outside [0, nx) x [0, ny), those below the low edge
+included, where the JAX package's device path wraps them onto the far
+edge.
 """
 
 import numpy as np
 import torch
 
+from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.native import pg_counts_native
 from pfb_tpu_torch.ops.dft import LIGHTSPEED
+
+# visibilities a chunk of compute_counts: at k = 6 (36 taps each) a
+# chunk's index and value tensors take some 300 MB
+_COUNTS_VIS = 1 << 18
 
 
 def _uv_cells(nx, ny, cellx, celly):
@@ -78,13 +88,68 @@ def compute_counts_numpy(uvw, freq, mask, nx, ny, cellx, celly, k=6,
     return counts.reshape(nx, ny)
 
 
-def compute_counts_host(uvw, freq, mask, nx, ny, cellx, celly, k=6):
+def compute_counts_host(uvw, freq, mask, nx, ny, cellx, celly, k=6,
+                        row_chunk=65536):
     """(nx, ny) float64 uv counts on the host: the native builder when
-    it is built, else :func:`compute_counts_numpy`."""
+    it is built, else :func:`compute_counts_numpy` over ``row_chunk``
+    rows at a time."""
     nat = pg_counts_native(uvw, freq, mask, nx, ny, cellx, celly, k=k)
     if nat is not None:
         return nat
-    return compute_counts_numpy(uvw, freq, mask, nx, ny, cellx, celly, k=k)
+    return compute_counts_numpy(uvw, freq, mask, nx, ny, cellx, celly, k=k,
+                                row_chunk=row_chunk)
+
+
+def _es(x, k):
+    arg = torch.clamp((1.0 - x) * (1.0 + x), min=0.0)
+    return torch.where(x.abs() <= 1.0,
+                       torch.exp(2.3 * k * (torch.sqrt(arg) - 1.0)),
+                       torch.zeros_like(x))
+
+
+def compute_counts(uvw, freq, mask, nx, ny, cellx, celly, k=6, device=None):
+    """(nx, ny) uv counts on ``device`` (the card when there is one):
+    the ES stencil (k = 6) or the nearest cell (k = 0) of every
+    visibility whose mask is nonzero, summed by ``index_add_`` over flat
+    cell indices, a chunk of rows at a time. Tensors or numpy arrays;
+    computes in the dtype of uvw promoted to at least float32, so float64
+    uvw gives float64 counts."""
+    dev = as_device(device)
+    uvw = torch.as_tensor(uvw, device=dev)
+    dtype = torch.promote_types(uvw.dtype, torch.float32)
+    uvw = uvw.to(dtype)
+    normfreq = torch.as_tensor(freq, device=dev).to(dtype) / LIGHTSPEED
+    live = torch.as_tensor(mask, device=dev) != 0
+    u_cell, umax, v_cell, vmax = map(float, _uv_cells(nx, ny, cellx, celly))
+    counts = torch.zeros(nx * ny, dtype=dtype, device=dev)
+    ko2 = k // 2
+    offs = torch.arange(-ko2, ko2, device=dev)
+    nrow = uvw.shape[0]
+    step = max(1, _COUNTS_VIS // max(1, normfreq.numel()))
+    for r0 in range(0, nrow, step):
+        ug = (uvw[r0:r0 + step, 0:1] * normfreq[None, :] + umax) / u_cell
+        vg = (uvw[r0:r0 + step, 1:2] * normfreq[None, :] + vmax) / v_cell
+        m = live[r0:r0 + step].to(dtype)
+        if k:
+            xi = torch.round(ug).long()[..., None] + offs  # (row, chan, k)
+            yi = torch.round(vg).long()[..., None] + offs
+            xval = _es((xi - ug[..., None] + 0.5) / ko2, k)
+            yval = _es((yi - vg[..., None] + 0.5) / ko2, k)
+            vals = m[..., None, None] * xval[..., :, None] \
+                * yval[..., None, :]
+            ok = ((xi >= 0) & (xi < nx))[..., :, None] & \
+                ((yi >= 0) & (yi < ny))[..., None, :]
+            flat = xi[..., :, None] * ny + yi[..., None, :]
+        else:
+            xi = torch.floor(ug).long()
+            yi = torch.floor(vg).long()
+            vals = m
+            ok = (xi >= 0) & (xi < nx) & (yi >= 0) & (yi < ny)
+            flat = xi * ny + yi
+        # taps off the grid add 0 to cell 0 (no compaction, no sync)
+        counts.index_add_(0, torch.where(ok, flat, 0).reshape(-1),
+                          torch.where(ok, vals, 0.0).reshape(-1))
+    return counts.reshape(nx, ny)
 
 
 def counts_to_weights(counts, uvw, freq, nx, ny, cellx, celly, robust):

@@ -306,3 +306,9 @@ def read_store(path):
 
 def store_exists(path):
     return Path(path).is_dir()
+
+
+def remove_store(path):
+    """Delete the store at ``path``; a missing path is no error."""
+    if Path(path).exists():
+        shutil.rmtree(path)

@@ -2389,3 +2389,83 @@ def test_mm_route_and_joint_hessian_on_card_matches_cpu(cuda):
     for f in geom:
         assert got[f]["k"].dtype == torch.float32
         assert _ok(got[f]["k"].double().cpu(), ref[f]["k"])
+
+
+@pytest.mark.parametrize("k", [6, 0])
+def test_compute_counts_on_card_matches_numpy(cuda, k):
+    """The device counts on the card against the numpy counts, float64
+    uvw, on a 32^2 grid spanning 3/4 of the uv extent (taps below 0 and
+    past nx - 1 dropped): 1e-12 of max (atomic sums in another order)."""
+    from pfb_tpu_torch.ops.dft import LIGHTSPEED
+    from pfb_tpu_torch.ops.weighting import (compute_counts,
+                                             compute_counts_numpy)
+    o = simulate_obs(nant=9, ntime=8, nchan=3, seed=5)
+    mask = (np.random.default_rng(1).random((o.uvw.shape[0], o.freq.size))
+            > 0.2).astype(np.float64)
+    nx = 32
+    cell = 1.0 / (1.5 * np.abs(o.uvw[:, :2]).max() * o.freq.max()
+                  / LIGHTSPEED)
+    args = (o.uvw, o.freq, mask, nx, nx, cell, cell)
+    ref = compute_counts_numpy(*args, k=k)
+    got = compute_counts(*args, k=k)
+    assert got.is_cuda and got.dtype == torch.float64
+    got = got.cpu().numpy()
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def test_hessian_psf_slice_on_card_matches_cube_band(cuda):
+    from pfb_tpu_torch.ops.fft import make_psfhat
+    from pfb_tpu_torch.ops.psf import hessian_psf_cube, hessian_psf_slice
+    g = torch.Generator(device="cuda").manual_seed(0)
+    nb, n = 4, 256
+    psf = torch.randn(nb, 2 * n, 2 * n, device=cuda, generator=g)
+    x = torch.randn(nb, n, n, device=cuda, generator=g)
+    beam = torch.rand(nb, n, n, device=cuda, generator=g) + 0.5
+    ph = make_psfhat(psf)
+    cube = hessian_psf_cube(x, ph, beam=beam, sigmainv=1e-3, wsum=3.0)
+    for b in range(nb):
+        got = hessian_psf_slice(x[b], ph[b], beam=beam[b], sigmainv=1e-3,
+                                wsum=3.0)
+        assert _ok(got, cube[b])
+
+
+@pytest.mark.parametrize("band_chunk", [1, 3])
+def test_psfhat_band_chunk_on_card_matches_unchunked(cuda, band_chunk):
+    from pfb_tpu_torch.ops.fft import make_psfhat
+    from pfb_tpu_torch.ops.mmfft import make_full_psfhat
+    g = torch.Generator(device="cuda").manual_seed(1)
+    psf = torch.randn(8, 384, 384, device=cuda, generator=g)
+    ref = make_psfhat(psf)
+    got = make_psfhat(psf, band_chunk=band_chunk)
+    assert got.is_cuda and got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    hr0, hi0 = make_full_psfhat(psf)
+    hr, hi = make_full_psfhat(psf, band_chunk=band_chunk)
+    scale = float(hr0.abs().max())
+    assert float((hr - hr0).abs().max()) <= 1e-6 * scale
+    assert float((hi - hi0).abs().max()) <= 1e-6 * scale
+
+
+def test_dual_update_21_on_card_matches_cpu_float64(cuda):
+    """float32 on the card against float64 on the CPU from the same
+    float32 inputs, at chip_smoke.py phase 35's lam and sigma: 1e-6 of
+    max. Where the threshold is a small share of the norm (lam 0.3 here)
+    the formula's 1 - soft / vnorm cancels to about 0.05 and float32
+    reads 1.1e-6 of max on the CPU too."""
+    from pfb_tpu_torch.ops.prox import dual_update_21
+    rng = np.random.default_rng(2)
+    vp = rng.standard_normal((8, 3, 64, 48), dtype=np.float32)
+    v = rng.standard_normal(vp.shape, dtype=np.float32)
+    w = rng.random(vp.shape[1:], dtype=np.float32) + 0.5
+    vp[:, 0, :4] = v[:, 0, :4] = 0.0
+    ref = dual_update_21(torch.as_tensor(vp, dtype=torch.float64),
+                         torch.as_tensor(v, dtype=torch.float64), 5.0,
+                         sigma=1.7, weight=torch.as_tensor(
+                             w, dtype=torch.float64))
+    got = dual_update_21(torch.as_tensor(vp, device=cuda),
+                         torch.as_tensor(v, device=cuda), 5.0, sigma=1.7,
+                         weight=torch.as_tensor(w, device=cuda))
+    assert got.dtype == torch.float32
+    assert float((got.cpu().double() - ref).abs().max()) <= \
+        1e-6 * float(ref.abs().max())
+    assert not got[:, 0, :4].any()

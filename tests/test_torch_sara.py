@@ -75,3 +75,35 @@ def test_prox_and_dual_update_match_jax():
     np.testing.assert_array_equal(
         prox_t.dual_update_21m(torch.as_tensor(z), torch.as_tensor(z),
                                0.9).numpy(), z)
+
+
+@pytest.mark.parametrize("zero_columns", [False, True])
+def test_dual_update_21_matches_jax(zero_columns):
+    """tests/test_psi_prox.py:73's case (3 bands, 2 bases, 6 x 7, lam
+    0.25, sigma 1.7, a weight a coefficient) within 1e-12 relative; with
+    ``zero_columns`` some coefficients are 0 in every band, where both
+    leave the dual at 0."""
+    rng = np.random.default_rng(2)
+    nband, nbasis, ny, nx = 3, 2, 6, 7
+    vp = rng.normal(size=(nband, nbasis, ny, nx))
+    v = rng.normal(size=(nband, nbasis, ny, nx))
+    w = np.abs(rng.normal(size=(nbasis, ny, nx)))
+    if zero_columns:
+        vp[:, 0, :2] = v[:, 0, :2] = 0.0
+        vp[:, 1, :, 3] = v[:, 1, :, 3] = 0.0
+    got = prox_t.dual_update_21(torch.as_tensor(vp), torch.as_tensor(v),
+                                0.25, sigma=1.7,
+                                weight=torch.as_tensor(w)).numpy()
+    ref = np.asarray(prox_j.dual_update_21(jnp.asarray(vp), jnp.asarray(v),
+                                           0.25, sigma=1.7,
+                                           weight=jnp.asarray(w)))
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+    if zero_columns:
+        assert not got[:, 0, :2].any() and not got[:, 1, :, 3].any()
+        assert np.isfinite(got).all()
+    # default sigma and weight
+    np.testing.assert_allclose(
+        prox_t.dual_update_21(torch.as_tensor(vp), torch.as_tensor(v),
+                              0.4).numpy(),
+        np.asarray(prox_j.dual_update_21(jnp.asarray(vp), jnp.asarray(v),
+                                         0.4)), rtol=1e-12, atol=1e-14)

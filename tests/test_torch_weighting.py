@@ -74,6 +74,107 @@ def test_counts_gate_on_nonzero_mask(obs):
     assert _rel(native.pg_counts_native(*args, m2, *rest), ref) < 1e-12
 
 
+def _taps(obs, nx, cell, k):
+    """(lowest, highest) stencil cell index, over u and v, of the live
+    samples of ``obs`` on an nx^2 grid of ``cell``."""
+    from pfb_tpu_torch.ops.dft import LIGHTSPEED
+    u_cell = 1.0 / (nx * cell)
+    umax = abs(-1.0 / cell / 2.0 - u_cell / 2.0)
+    g = (obs["uvw"][:, :2, None] * obs["freq"][None, None, :] / LIGHTSPEED
+         + umax) / u_cell  # (row, 2, chan)
+    live = np.broadcast_to((obs["mask"] != 0)[:, None, :], g.shape)
+    c = (np.round(g) if k else np.floor(g))[live]
+    return c.min() - k // 2, c.max() + max(k // 2 - 1, 0)
+
+
+def _edge_cell(obs, share):
+    """A cell on which the grid spans ``share`` of the data's uv extent
+    (1 / (share * 2 max|uv| f_max / c))."""
+    from pfb_tpu_torch.ops.dft import LIGHTSPEED
+    return 1.0 / (share * 2 * np.abs(obs["uvw"][:, :2]).max()
+                  * obs["freq"].max() / LIGHTSPEED)
+
+
+@pmp("k", [6, 0])
+def test_device_counts_match_jax_inside_the_grid(obs, k):
+    """compute_counts against the JAX package's device counts where every
+    stencil tap lies inside the grid (a cell of 1 / (4 max|uv| f_max / c)
+    at nx = 64, as tests/test_gridder.py:99), 0/1 mask, 1e-12 of max."""
+    nx, cell = 64, _edge_cell(obs, 2.0)
+    lo, hi = _taps(obs, nx, cell, k)
+    assert lo >= 0 and hi < nx, (lo, hi)
+    args = (obs["uvw"], obs["freq"], obs["mask"], nx, nx, cell, cell)
+    ref = np.asarray(w_j.compute_counts(
+        jnp.asarray(obs["uvw"]), jnp.asarray(obs["freq"]),
+        jnp.asarray(obs["mask"]), *args[3:], k=k))
+    got = w_t.compute_counts(*args, k=k, device="cpu")
+    assert got.dtype == torch.float64 and got.shape == (nx, nx)
+    assert ref.sum() > 0
+    assert _rel(got.numpy(), ref) < 1e-12
+
+
+@pmp("k", [6, 0])
+def test_device_counts_drop_taps_off_the_grid(obs, k):
+    """On a 32^2 grid that spans 3/4 of the data's uv extent, taps fall
+    below 0 and past nx - 1: compute_counts drops them all, as the host
+    counts (native and numpy) do."""
+    nx, cell = 32, _edge_cell(obs, 0.75)
+    lo, hi = _taps(obs, nx, cell, k)
+    assert lo < 0 and hi >= nx, (lo, hi)
+    args = (obs["uvw"], obs["freq"], obs["mask"], nx, nx, cell, cell)
+    ref = w_t.compute_counts_numpy(*args, k=k)
+    got = w_t.compute_counts(*args, k=k, device="cpu").numpy()
+    assert _rel(got, ref) < 1e-12
+    assert _rel(got, w_t.compute_counts_host(*args, k=k)) < 1e-12
+
+
+def test_device_counts_one_visibility_at_the_low_edge():
+    """One visibility at ug = 1.0 (k = 6: taps on rows -2 .. 3): only rows
+    0-3 get counts, and the counts are the host's."""
+    from pfb_tpu_torch.ops.dft import LIGHTSPEED
+    nx, cell, freq = 32, 1e-4, np.array([LIGHTSPEED])
+    u_cell = 1.0 / (nx * cell)
+    umax = abs(-1.0 / cell / 2.0 - u_cell / 2.0)
+    uvw = np.array([[1.0 * u_cell - umax, 0.25 * u_cell, 0.0]])
+    mask = np.ones((1, 1))
+    got = w_t.compute_counts(uvw, freq, mask, nx, nx, cell, cell,
+                             device="cpu").numpy()
+    ref = w_t.compute_counts_numpy(uvw, freq, mask, nx, nx, cell, cell)
+    assert sorted(set(np.nonzero(got)[0])) == [0, 1, 2, 3]
+    assert _rel(got, ref) < 1e-12
+
+
+@pmp("k", [6, 0])
+def test_device_counts_gate_on_nonzero_mask(obs, k):
+    """A mask of 2s (and of other nonzero values) gives the counts of a
+    mask of 1s, in float32 and float64 uvw."""
+    nx, cell = 64, obs["cell"]
+    rest = (nx, nx, cell, cell)
+    m2 = obs["mask"] * np.where(np.arange(obs["mask"].shape[1]) % 2, 2.0,
+                                0.5)
+    for uvw in (obs["uvw"], obs["uvw"].astype(np.float32)):
+        ref = w_t.compute_counts(uvw, obs["freq"], obs["mask"], *rest, k=k,
+                                 device="cpu")
+        got = w_t.compute_counts(uvw, obs["freq"], m2, *rest, k=k,
+                                 device="cpu")
+        assert got.dtype == torch.as_tensor(uvw).dtype
+        assert ref.sum() > 0
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pmp("k", [6, 0])
+def test_counts_host_row_chunk(obs, k):
+    """compute_counts_host takes the JAX package's row_chunk (37 rows, as
+    tests/test_gridder.py:259) and gives the unchunked counts."""
+    args = (obs["uvw"], obs["freq"], obs["mask"], NX, NX, obs["cell"],
+            obs["cell"])
+    ref = w_t.compute_counts_numpy(*args, k=k)
+    assert _rel(w_t.compute_counts_host(*args, k=k, row_chunk=37), ref) \
+        < 1e-12
+    assert _rel(w_t.compute_counts_numpy(*args, k=k, row_chunk=37), ref) \
+        < 1e-12
+
+
 def test_native_counts_reject_wide_stencil(obs):
     if native.get_lib() is None:
         pytest.skip("no C++ compiler")
