@@ -23,6 +23,8 @@ imported. Setting the two flags touches no device.
 import numpy as np
 import torch
 
+from pfb_tpu_torch.utils.profiling import count
+
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -82,7 +84,11 @@ def to_device(x, dtype=None, device=None):
 
 
 def to_host(x):
-    """Tensor -> numpy, complex included."""
+    """Tensor -> numpy, complex included. A tensor's bytes count under
+    ``copy.d2h_bytes``, its readback under ``sync.d2h``
+    (utils/profiling.py: while a profiler runs, on every device)."""
     if isinstance(x, torch.Tensor):
+        count("copy.d2h_bytes", x.numel() * x.element_size())
+        count("sync.d2h")
         return x.detach().cpu().numpy()
     return np.asarray(x)

@@ -20,6 +20,16 @@ The w-plane-blocked engine (``plane_block``, kernels K7-K9) is
 ops/pg_stream.py; the row-distributed adjoint is
 parallel/dist.py:make_vis2dirty_rowdist on :func:`_spread_fold_from_plan`
 and :func:`_grid_to_image_from_plan`.
+
+While a torch profiler runs (utils/profiling.py): device spans
+``pg.spread_fold`` (K4, K5), ``pg.wplanes`` (the w screens and plane
+transforms, both ways) and ``pg.degrid`` (K6) in the from-plan
+functions; ``pg.plan.host`` (geometry, tiles, the binning) and
+``pg.plan.upload`` (the plan's copies to the device) where plans are
+built; ``pg.applications``, one a stacked Hessian application; and
+the blocking copies: ``sync.pg.colour_perm`` (the slots' colour
+permutation, each spread), ``sync.pg.phasor`` (ops/wgridder.py, each
+w-plane pass) and ``sync.pg.plan_upload`` (each plan array).
 """
 
 import numpy as np
@@ -35,6 +45,7 @@ from pfb_tpu_torch.ops.wgridder import (_grid_setup, _grid_to_image,
                                         _image_to_grid, _nm1_min, _w_params,
                                         es_kernel, gi_consts,
                                         kernel_params)
+from pfb_tpu_torch.utils import profiling
 
 # elements of the largest temporary of a plain version's chunk
 _PLAIN_CHUNK = 1 << 24
@@ -154,76 +165,80 @@ def pgrid_plan(uvw, freq, *, nx, ny, cellx, celly, epsilon=1e-7,
     to ``device`` (None: the card when there is one): pos and pm in
     ``dtype`` (float32 on CUDA, float64 on the CPU by default), tid and
     idx as int32, uvw and freq (for the centre shift) in float64."""
-    k, beta = kernel_params(epsilon)
-    Nx, Ny = _grid_setup(nx, ny, cellx, celly, sigma)
-    uvw_np = _np(uvw).astype(np.float64)
-    freq_np = _np(freq).astype(np.float64)
-    device = as_device(device)
-    if dtype is None:
-        dtype = kernel_dtype(device, torch.float64)
+    with profiling.span("pg.plan.host"):
+        k, beta = kernel_params(epsilon)
+        Nx, Ny = _grid_setup(nx, ny, cellx, celly, sigma)
+        uvw_np = _np(uvw).astype(np.float64)
+        freq_np = _np(freq).astype(np.float64)
+        device = as_device(device)
+        if dtype is None:
+            dtype = kernel_dtype(device, torch.float64)
 
-    if w_params is not None:
-        nw, w0, dw = w_params
-    else:
-        nw, w0, dw = w_geometry(uvw_np, freq_np, nx, ny, cellx, celly,
-                                x0, y0, sigma, k, do_wgridding)
-    if tile_u is None and tile_v is None and \
-            uvw_np.shape[0] * freq_np.shape[0] >= (1 << 18):
-        tile_u, tile_v = _auto_tiles(uvw_np, freq_np, Nx, Ny, cellx,
-                                     celly, k, capacity)
-    txs, tys = _tile_geometry(Nx, Ny, k, tile_u, tile_v)
-    ntx = -(-Nx // txs)
-    nty = -(-Ny // tys)
-    C = capacity
+        if w_params is not None:
+            nw, w0, dw = w_params
+        else:
+            nw, w0, dw = w_geometry(uvw_np, freq_np, nx, ny, cellx, celly,
+                                    x0, y0, sigma, k, do_wgridding)
+        if tile_u is None and tile_v is None and \
+                uvw_np.shape[0] * freq_np.shape[0] >= (1 << 18):
+            tile_u, tile_v = _auto_tiles(uvw_np, freq_np, Nx, Ny, cellx,
+                                         celly, k, capacity)
+        txs, tys = _tile_geometry(Nx, Ny, k, tile_u, tile_v)
+        ntx = -(-Nx // txs)
+        nty = -(-Ny // tys)
+        C = capacity
 
-    nat = pg_plan_native(uvw_np, freq_np, Nx=Nx, Ny=Ny, cellx=cellx,
-                         celly=celly, txs=txs, tys=tys, ntx=ntx, nty=nty,
-                         w0=w0, dw=dw, nw=nw, C=C, k=k)
-    if nat is not None:
-        pos, utid, idx, pmask = nat
-    else:
-        pos, utid, idx, pmask, _ = _pg_plan_numpy(
-            uvw_np, freq_np, Nx, Ny, cellx, celly, txs, tys, ntx, nty, w0,
-            dw, nw, C, k)
+        nat = pg_plan_native(uvw_np, freq_np, Nx=Nx, Ny=Ny, cellx=cellx,
+                             celly=celly, txs=txs, tys=tys, ntx=ntx, nty=nty,
+                             w0=w0, dw=dw, nw=nw, C=C, k=k)
+        if nat is not None:
+            pos, utid, idx, pmask = nat
+        else:
+            pos, utid, idx, pmask, _ = _pg_plan_numpy(
+                uvw_np, freq_np, Nx, Ny, cellx, celly, txs, tys, ntx, nty, w0,
+                dw, nw, C, k)
 
-    # drop the all-padding entries of empty uv tiles
-    live = pmask.any(axis=1)
-    if not live.any():
-        live[0] = True  # keep one entry so shapes stay non-empty
-    if not live.all():
-        pos, utid = pos[live], utid[live]
-        idx, pmask = idx[live], pmask[live]
-    nentries = utid.size
+        # drop the all-padding entries of empty uv tiles
+        live = pmask.any(axis=1)
+        if not live.any():
+            live[0] = True  # keep one entry so shapes stay non-empty
+        if not live.all():
+            pos, utid = pos[live], utid[live]
+            idx, pmask = idx[live], pmask[live]
+        nentries = utid.size
 
-    if nentries_to is not None:
-        if nentries_to < nentries:
-            raise ValueError(
-                f"nentries_to={nentries_to} < nentries={nentries}")
-        npe = nentries_to - nentries
-        if npe:
-            # no-op entries: the last entry's tile, coordinates at -2k
-            # (identically zero factors), zero mask
-            pade = np.repeat(pos[-1:], npe, axis=0)
-            pade[:, 0:2] = -2.0 * k
-            pade[:, 3:5] = -2.0 * k
-            pos = np.concatenate([pos, pade])
-            utid = np.concatenate([utid, np.full(npe, utid[-1])])
-            idx = np.concatenate([idx, np.zeros((npe, C), idx.dtype)])
-            pmask = np.concatenate([pmask, np.zeros((npe, C), bool)])
-            nentries = nentries_to
+        if nentries_to is not None:
+            if nentries_to < nentries:
+                raise ValueError(
+                    f"nentries_to={nentries_to} < nentries={nentries}")
+            npe = nentries_to - nentries
+            if npe:
+                # no-op entries: the last entry's tile, coordinates at -2k
+                # (identically zero factors), zero mask
+                pade = np.repeat(pos[-1:], npe, axis=0)
+                pade[:, 0:2] = -2.0 * k
+                pade[:, 3:5] = -2.0 * k
+                pos = np.concatenate([pos, pade])
+                utid = np.concatenate([utid, np.full(npe, utid[-1])])
+                idx = np.concatenate([idx, np.zeros((npe, C), idx.dtype)])
+                pmask = np.concatenate([pmask, np.zeros((npe, C), bool)])
+                nentries = nentries_to
 
-    def dev(a, dt):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
-                                                           dtype=dt)
+    with profiling.span("pg.plan.upload"):
+        def dev(a, dt):
+            profiling.count("sync.pg.plan_upload")
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
+                                                               dtype=dt)
 
-    return dict(
-        k=k, beta=float(beta), Nx=Nx, Ny=Ny, nw=nw, w0=w0, dw=dw,
-        ntx=ntx, nty=nty, txs=txs, tys=tys, C=C, nentries=nentries,
-        rdtype=dtype, nx=nx, ny=ny, cellx=cellx, celly=celly, x0=x0,
-        y0=y0, nrow=uvw_np.shape[0], nchan=freq_np.shape[0],
-        pos=dev(pos, dtype), tid=dev(utid, torch.int32),
-        idx=dev(idx, torch.int32), pm=dev(pmask, dtype),
-        uvw_d=dev(uvw_np, torch.float64), freq_d=dev(freq_np, torch.float64))
+        return dict(
+            k=k, beta=float(beta), Nx=Nx, Ny=Ny, nw=nw, w0=w0, dw=dw,
+            ntx=ntx, nty=nty, txs=txs, tys=tys, C=C, nentries=nentries,
+            rdtype=dtype, nx=nx, ny=ny, cellx=cellx, celly=celly, x0=x0,
+            y0=y0, nrow=uvw_np.shape[0], nchan=freq_np.shape[0],
+            pos=dev(pos, dtype), tid=dev(utid, torch.int32),
+            idx=dev(idx, torch.int32), pm=dev(pmask, dtype),
+            uvw_d=dev(uvw_np, torch.float64),
+            freq_d=dev(freq_np, torch.float64))
 
 
 def plan_from_jax(plan, device=None, dtype=None):
@@ -284,6 +299,7 @@ def _compact_slots(tid, pm, ntx, nty, txs, tys, k):
     lv = (pm != 0).any(dim=1).long()
     tval = torch.zeros(ntiles, dtype=torch.long, device=dev).scatter_reduce(
         0, tidl, lv, "amax")
+    profiling.count("sync.pg.colour_perm")
     perm = torch.as_tensor(_colour_perm(ntx, nty, txs, tys, k), device=dev)
     tp = tval[perm]
     rank = torch.empty(ntiles, dtype=torch.long, device=dev).scatter_(
@@ -626,22 +642,24 @@ def _spread_fold_from_plan(p, vr, vi, wflat):
     """Spread (K4) and fold (K5) of a plan's weighted components into the
     (2 nw, Nx, Ny) grids: the unit that the row-distributed adjoint sums
     over its shards (parallel/dist.py:make_vis2dirty_rowdist)."""
-    return _spread_fold(
-        vr, vi, wflat, p["tid"], p["pos"], p["idx"], p["pm"], p["uvw_d"],
-        p["freq_d"], beta=p["beta"], k=p["k"], nw=p["nw"], ntx=p["ntx"],
-        nty=p["nty"], txs=p["txs"], tys=p["tys"], C=p["C"], x0=p["x0"],
-        y0=p["y0"], Nx=p["Nx"], Ny=p["Ny"])
+    with profiling.span("pg.spread_fold", device=p["pos"].device):
+        return _spread_fold(
+            vr, vi, wflat, p["tid"], p["pos"], p["idx"], p["pm"],
+            p["uvw_d"], p["freq_d"], beta=p["beta"], k=p["k"], nw=p["nw"],
+            ntx=p["ntx"], nty=p["nty"], txs=p["txs"], tys=p["tys"],
+            C=p["C"], x0=p["x0"], y0=p["y0"], Nx=p["Nx"], Ny=p["Ny"])
 
 
 def _grid_to_image_from_plan(p, folded, divide_by_n=False, consts=None):
     """The w planes of folded (2 nw, Nx, Ny) grids to the (nx, ny) image
     in the plan's geometry."""
     nw = p["nw"]
-    return _grid_to_image(folded[:nw], folded[nw:], p["nx"], p["ny"],
-                          p["cellx"], p["celly"], p["k"], p["beta"],
-                          p["Nx"], p["Ny"], nw > 1, nw, float(p["w0"]),
-                          float(p["dw"]), divide_by_n, p["x0"], p["y0"],
-                          consts=consts)
+    with profiling.span("pg.wplanes", device=folded.device):
+        return _grid_to_image(folded[:nw], folded[nw:], p["nx"], p["ny"],
+                              p["cellx"], p["celly"], p["k"], p["beta"],
+                              p["Nx"], p["Ny"], nw > 1, nw, float(p["w0"]),
+                              float(p["dw"]), divide_by_n, p["x0"], p["y0"],
+                              consts=consts)
 
 
 def _adjoint_from_plan(p, vr, vi, wflat, consts=None, divide_by_n=False):
@@ -655,28 +673,32 @@ def _forward_from_plan(p, image, consts=None, divide_by_n=False):
     """R of a plan: (nx, ny) image -> (nrow, nchan) components (fr, fi),
     degridded by :func:`pg_degrid` (K6)."""
     nw, k = p["nw"], p["k"]
-    gr, gi = _image_to_grid(image, p["nx"], p["ny"], p["cellx"],
-                            p["celly"], k, p["beta"], p["Nx"], p["Ny"],
-                            nw > 1, nw, float(p["w0"]), float(p["dw"]),
-                            divide_by_n, p["x0"], p["y0"], consts=consts)
-    kw = dict(beta=p["beta"], k=k, nw=nw, txs=p["txs"], tys=p["tys"],
-              nty=p["nty"])
-    out = pg_degrid(gr.contiguous(), gi.contiguous(), p["pos"], p["tid"],
-                    **kw)
-    del gr, gi
-    nvis = int(p["nrow"]) * int(p["nchan"])
-    ix = p["idx"].long().reshape(-1)
-    pm = p["pm"]
-    fr = torch.zeros(nvis, dtype=out.dtype, device=out.device).index_add_(
-        0, ix, (out[:, 0] * pm).reshape(-1))
-    fi = torch.zeros(nvis, dtype=out.dtype, device=out.device).index_add_(
-        0, ix, (out[:, 1] * pm).reshape(-1))
-    nchan = int(p["nchan"])
-    fr, fi = fr.reshape(-1, nchan), fi.reshape(-1, nchan)
-    if p["x0"] or p["y0"]:
-        cs, sn = _shift_phases(p["uvw_d"], p["freq_d"], p["x0"], p["y0"],
-                               fr.dtype)
-        fr, fi = fr * cs + fi * sn, fi * cs - fr * sn
+    with profiling.span("pg.wplanes", device=image.device):
+        gr, gi = _image_to_grid(image, p["nx"], p["ny"], p["cellx"],
+                                p["celly"], k, p["beta"], p["Nx"], p["Ny"],
+                                nw > 1, nw, float(p["w0"]), float(p["dw"]),
+                                divide_by_n, p["x0"], p["y0"], consts=consts)
+    with profiling.span("pg.degrid", device=image.device):
+        kw = dict(beta=p["beta"], k=k, nw=nw, txs=p["txs"], tys=p["tys"],
+                  nty=p["nty"])
+        out = pg_degrid(gr.contiguous(), gi.contiguous(), p["pos"],
+                        p["tid"], **kw)
+        del gr, gi
+        nvis = int(p["nrow"]) * int(p["nchan"])
+        ix = p["idx"].long().reshape(-1)
+        pm = p["pm"]
+        fr = torch.zeros(nvis, dtype=out.dtype,
+                         device=out.device).index_add_(
+            0, ix, (out[:, 0] * pm).reshape(-1))
+        fi = torch.zeros(nvis, dtype=out.dtype,
+                         device=out.device).index_add_(
+            0, ix, (out[:, 1] * pm).reshape(-1))
+        nchan = int(p["nchan"])
+        fr, fi = fr.reshape(-1, nchan), fi.reshape(-1, nchan)
+        if p["x0"] or p["y0"]:
+            cs, sn = _shift_phases(p["uvw_d"], p["freq_d"], p["x0"],
+                                   p["y0"], fr.dtype)
+            fr, fi = fr * cs + fi * sn, fi * cs - fr * sn
     return fr, fi
 
 
@@ -805,16 +827,17 @@ def stack_pg_plans(dds, *, nx, ny, epsilon=1e-7, do_wgridding=True,
             raise ValueError("stack_pg_plans: mixed cell sizes")
         if float(ds.get("x0", 0.0)) != x0 or float(ds.get("y0", 0.0)) != y0:
             raise ValueError("stack_pg_plans: mixed phase centres")
-    k, _ = kernel_params(epsilon)
-    wp = w_geometry_union([(ds["UVW"], ds["FREQ"]) for ds in dds], nx, ny,
-                          cell, cell, x0, y0, 2.0, k, do_wgridding)
-    nchan = max(ds["FREQ"].shape[0] for ds in dds)
-    all_uvw = np.concatenate([_np(ds["UVW"]) for ds in dds])
-    tu = tv = None
-    if all_uvw.shape[0] * nchan >= (1 << 18):
-        Nx_, Ny_ = _grid_setup(nx, ny, cell, cell, 2.0)
-        tu, tv = _auto_tiles(all_uvw, _np(dds[0]["FREQ"]), Nx_, Ny_, cell,
-                             cell, k, capacity)
+    with profiling.span("pg.plan.host"):
+        k, _ = kernel_params(epsilon)
+        wp = w_geometry_union([(ds["UVW"], ds["FREQ"]) for ds in dds], nx,
+                              ny, cell, cell, x0, y0, 2.0, k, do_wgridding)
+        nchan = max(ds["FREQ"].shape[0] for ds in dds)
+        all_uvw = np.concatenate([_np(ds["UVW"]) for ds in dds])
+        tu = tv = None
+        if all_uvw.shape[0] * nchan >= (1 << 18):
+            Nx_, Ny_ = _grid_setup(nx, ny, cell, cell, 2.0)
+            tu, tv = _auto_tiles(all_uvw, _np(dds[0]["FREQ"]), Nx_, Ny_,
+                                 cell, cell, k, capacity)
     items = []
     has_beam = use_beam and any("BEAM" in ds for ds in dds)
     for ds in dds:
@@ -825,13 +848,16 @@ def stack_pg_plans(dds, *, nx, ny, epsilon=1e-7, do_wgridding=True,
                           do_wgridding=do_wgridding, capacity=capacity,
                           x0=x0, y0=y0, w_params=wp, tile_u=tu, tile_v=tv,
                           device=device, dtype=dtype)
-        w = _weights(_np(ds["WEIGHT"]) * _np(ds["MASK"]), None,
-                     plan["rdtype"], device)
-        beam = None
-        if has_beam or mask_image is not None:
-            beam = torch.as_tensor(_ds_beam_image(
-                ds, nx, ny, use_beam, mask_image)).to(
-                    device=device, dtype=plan["rdtype"])
+        with profiling.span("pg.plan.upload"):
+            profiling.count("sync.pg.plan_upload")
+            w = _weights(_np(ds["WEIGHT"]) * _np(ds["MASK"]), None,
+                         plan["rdtype"], device)
+            beam = None
+            if has_beam or mask_image is not None:
+                profiling.count("sync.pg.plan_upload")
+                beam = torch.as_tensor(_ds_beam_image(
+                    ds, nx, ny, use_beam, mask_image)).to(
+                        device=device, dtype=plan["rdtype"])
         items.append((int(ds["bandid"]), plan, w, beam))
     return dict(p0=items[0][1] if items else None, items=items)
 
@@ -870,6 +896,7 @@ def make_hessian_pg_stacked(dds, nband, wsum, nx, ny, sigmainv=0.0,
     wsum = float(wsum)
 
     def matvec(x):
+        profiling.count("pg.applications")
         x = x.to(device=p0["pos"].device, dtype=rdtype)
         out = _hessian_pg_cube_local(x, st["items"], consts) / wsum
         if sigmainv:

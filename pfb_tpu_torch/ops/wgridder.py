@@ -26,6 +26,7 @@ import torch
 from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.ops.cfft import cfft_supported, fft2_c2c_pruned
 from pfb_tpu_torch.ops.dft import LIGHTSPEED, nterm
+from pfb_tpu_torch.utils.profiling import count
 
 # the longest grid side whose w planes _grid_to_image transforms in one
 # call; above it (the PSF grids of images from 4608^2) wchunk planes a call
@@ -253,8 +254,11 @@ def gi_consts(nx, ny, cellx, celly, k, beta, Nx, Ny, do_w, dw, x0=0.0,
 
 def _phasor0(consts, w0):
     """(cos, sin) of 2 pi w0 (n-1) in the working dtype (the start of
-    the float32 phasor-rotation recurrence)."""
+    the float32 phasor-rotation recurrence). Its 2 pi goes to the device
+    by a blocking copy, counted under ``sync.pg.phasor``
+    (utils/profiling.py)."""
     nm1 = consts["nm1"]
+    count("sync.pg.phasor")
     tpi = torch.tensor(2.0 * math.pi, dtype=nm1.dtype, device=nm1.device)
     return torch.cos(tpi * w0 * nm1), torch.sin(tpi * w0 * nm1)
 

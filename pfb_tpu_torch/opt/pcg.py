@@ -9,6 +9,10 @@ only, and the fixed-iteration solvers (``tol <= 0``) and the CG-fused
 loop of :func:`make_pcg_bands_fused` (on the PSF kernel K2) read nothing
 inside the loop. Also :func:`pcg_psf`, the klean flux mop's solve, and
 :func:`cg_dct` over dicts of grids.
+
+While a torch profiler runs (utils/profiling.py), :func:`pcg` counts its
+iterations under ``pcg.iters`` and its readbacks under
+``sync.pcg.backtrack`` (the line search's test) and ``sync.pcg.eps``.
 """
 
 import torch
@@ -16,6 +20,7 @@ import torch
 from pfb_tpu_torch.ops.psf import hessian_psf_cube
 from pfb_tpu_torch.opt.primal_dual import norm_diff
 from pfb_tpu_torch.utils.logging import get_logger
+from pfb_tpu_torch.utils.profiling import count
 
 log = get_logger("PCG")
 
@@ -58,6 +63,12 @@ def _report(name, k, eps, report_freq, verbosity):
         log.info(f"{name}: iter {k}  eps {float(torch.max(eps)):.3e}")
 
 
+def _grows(rnorm_next, rnorm):
+    """The backtracking test, read from the device."""
+    count("sync.pcg.backtrack")
+    return bool(rnorm_next > rnorm)
+
+
 def pcg(A, b, x0=None, M=None, tol=1e-5, maxit=500, minit=100,
         backtrack=True, return_resid=False, verbosity=0, report_freq=10,
         name="pcg"):
@@ -83,7 +94,7 @@ def pcg(A, b, x0=None, M=None, tol=1e-5, maxit=500, minit=100,
         r = rp + alpha * Ap
         y = M(r)
         rnorm_next = _vdot(r, y)
-        while backtrack and bool(rnorm_next > rnorm):
+        while backtrack and _grows(rnorm_next, rnorm):
             alpha = alpha * 0.75
             x = xp + alpha * p
             r = rp + alpha * Ap
@@ -93,6 +104,8 @@ def pcg(A, b, x0=None, M=None, tol=1e-5, maxit=500, minit=100,
         p = beta * p - y
         eps_t = norm_diff(x, xp)
         _report(name, k, eps_t, report_freq, verbosity)
+        count("pcg.iters")
+        count("sync.pcg.eps")
         eps = float(eps_t)
         k += 1
     if verbosity >= 1:

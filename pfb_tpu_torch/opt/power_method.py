@@ -1,11 +1,14 @@
 """Power method for the spectral norm of the Hessian approximation
 (counterpart of pfb_tpu/opt/power_method.py). A Python loop replaces
-the JAX while_loop; the convergence test reads eps every iteration."""
+the JAX while_loop; the convergence test reads eps every iteration
+(counted, while a torch profiler runs, under ``pm.iters`` and
+``sync.pm.eps``: utils/profiling.py)."""
 
 import torch
 
 from pfb_tpu_torch.config import as_device
 from pfb_tpu_torch.utils.logging import get_logger
+from pfb_tpu_torch.utils.profiling import count
 
 
 def power_method(A, imsize, b0=None, tol=1e-5, maxit=250, generator=None,
@@ -36,6 +39,8 @@ def power_method(A, imsize, b0=None, tol=1e-5, maxit=250, generator=None,
         betap = beta
         beta = torch.sum(b * bnew) / torch.sum(b * b)
         b = bnew / bnorm
+        count("pm.iters")
+        count("sync.pm.eps")
         eps = float(torch.abs(beta - betap) / betap)
         k += 1
         if verbosity > 1 and report_freq and k % report_freq == 0:

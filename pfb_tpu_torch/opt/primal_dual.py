@@ -10,12 +10,19 @@ while_loop does; :func:`primal_dual_hostloop` every ``check_freq``
 iterations, as the JAX package's host loop does (the solver spotless
 runs on the general PSF kernel K11 and on the fft fallback of
 ``engine="pallas"``).
+
+While a torch profiler runs (utils/profiling.py) each iteration counts
+under ``pd.iters``, each readback of eps under ``sync.pd.eps``, and the
+iteration's parts are device spans: ``sara.analysis`` (psiH),
+``sara.prox`` (the dual update), ``sara.synthesis`` (psi) and
+``pd.grad`` (the Hessian).
 """
 
 import torch
 
 from pfb_tpu_torch.ops.prox import dual_update_21m
 from pfb_tpu_torch.utils.logging import get_logger
+from pfb_tpu_torch.utils.profiling import count, span
 
 
 def norm_diff(x, xp):
@@ -45,8 +52,22 @@ def _pd_steps(L, gamma, nu, sigma):
 def _pd_iterate(x, v, w, lam, psiH, psi, grad, sigma, tau, positivity):
     """One iteration: (x, v, eps) with eps the relative change of x, a
     device scalar."""
-    vnew = dual_update_21m(v, psiH(x), lam, sigma=sigma, weight=w)
-    xout = psi(2.0 * vnew - v) + grad(x)
+    count("pd.iters")
+    dev = x.device
+    # a span a part; each temporary goes where the one expression
+    # vnew = ...(psiH(x)); xout = psi(2 vnew - v) + grad(x) dropped it,
+    # so the peak memory stays that expression's
+    with span("sara.analysis", device=dev):
+        coeffs = psiH(x)
+    with span("sara.prox", device=dev):
+        vnew = dual_update_21m(v, coeffs, lam, sigma=sigma, weight=w)
+    del coeffs
+    with span("sara.synthesis", device=dev):
+        xout = psi(2.0 * vnew - v)
+    with span("pd.grad", device=dev):
+        g = grad(x)
+    xout = xout + g
+    del g
     xnew = apply_positivity(x - tau * xout, positivity)
     return xnew, vnew, norm_diff(xnew, x)
 
@@ -67,6 +88,7 @@ def primal_dual(x, v, lam, psiH, psi, L, l1weight, grad, reweighter=None,
     while k < maxit:
         x, v, eps_t = _pd_iterate(x, v, w, lam, psiH, psi, grad, sigma, tau,
                                   positivity)
+        count("sync.pd.eps")
         eps = float(eps_t)
         k += 1
         if verbosity > 1 and report_freq and k % report_freq == 0:
@@ -105,8 +127,10 @@ def primal_dual_hostloop(x, v, lam, psiH, psi, L, l1weight, grad,
         k += 1
         if verbosity > 1 and report_freq and k % report_freq == 0:
             log.info(f"pd: iter {k}  eps {float(eps):.3e}")
-        if tol > 0 and (k % check_freq == 0 or k == maxit) and \
-                float(eps) < tol:
+        if tol > 0 and (k % check_freq == 0 or k == maxit):
+            count("sync.pd.eps")
+            if not float(eps) < tol:
+                continue
             if reweighter is not None and nrw < maxreweight:
                 w = reweighter(x)
                 nrw += 1

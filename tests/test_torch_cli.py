@@ -308,30 +308,11 @@ def test_logging_and_profiling(tmp_path):
     import logging
 
     from pfb_tpu_torch.utils.logging import get_logger, log_to_file
-    from pfb_tpu_torch.utils.profiling import PhaseTimer
     log = get_logger("TEST")
     fname = log_to_file(str(tmp_path / "run.log"))
     log.info("hello")
     logging.getLogger("pfb_tpu_torch").handlers[-1].flush()
     assert "hello" in open(fname).read()
-
-    timer = PhaseTimer()
-    x = torch.ones((4, 4))
-    with timer("phase1", sync_value=x):
-        x * 2
-    with timer("phase1"):
-        pass
-    assert "phase1" in timer.report() and timer.times["phase1"] > 0
-
-
-def test_compute_context_writes_one_trace(tmp_path):
-    from pfb_tpu_torch.utils.profiling import compute_context
-    with compute_context(str(tmp_path), name="phase"):
-        torch.ones(8).sum()
-    traces = list(tmp_path.glob("phase_*.json"))
-    assert len(traces) == 1
-    with compute_context(None):
-        pass
 
 
 def test_cli_log_directory(tmp_path):

@@ -53,6 +53,9 @@ OUT = {
     (_PF, "consts_lane_tw_for"): ("kernels.py", "twiddles"),
     (_PF, "consts_k1t_for"): ("kernels.py", "twiddles"),
     (_PF, "consts_k3t_for"): ("kernels.py", "twiddles"),
+    # the port's program spans, on while a torch profiler runs
+    ("utils/profiling.py", "compute_context"): ("utils/profiling.py", "span"),
+    ("utils/profiling.py", "PhaseTimer"): ("utils/profiling.py", "span"),
 }
 
 
