@@ -548,6 +548,7 @@ def counters():
                                        psf_cols_line, psf_rows,
                                        psf_rows_line, psf_stage_cols_fwd,
                                        psf_stage_cols_inv, psf_stage_rows)
+    from pfb_tpu_torch.ops.psi import psi_dot, psi_hdot
     # cols_line / rows_line: the PSF stages' shared-memory line kernels
     # (line_fft_kernel and K2's, psf_rows_kernel), off the routes
     return {"K1": psf_convolve_h, "K2": psf_convolve_h_cg, "K3": fftx_c2c,
@@ -565,7 +566,8 @@ def counters():
             "K14": pf.psf_convolve_pallas_opt, "K15a": pf.v3_cols_fwd,
             "K15b": pf.v3_cols_inv, "L2a": memlab.lab_copy,
             "L2b": fftx_c2c_split, "L2c": fftx_c2c_lab,
-            "cols_line": psf_cols_line, "rows_line": psf_rows_line}
+            "cols_line": psf_cols_line, "rows_line": psf_rows_line,
+            "S1": psi_dot, "S2": psi_hdot}
 
 
 def bound(nbytes, flops, tc_flops=0.0):
@@ -3848,6 +3850,65 @@ def report_mm(rmm):
         need(st[stage]["K3"] == 0, f"K3 launched inside the mm {stage}")
 
 
+# phase 36: S1 / S2 (csrc/sara.cu) at the card tests' shapes: (nband, nx,
+# ny), bases, levels
+SARA_SHAPES = [((8, 2048, 2048), ("self", "db1", "db2"), 3),
+               ((2, 3072, 3072), ("self", "db1", "db2"), 3),
+               ((3, 1350, 1000), ("self", "db1", "db2", "db3", "db4"), 3),
+               ((2, 64, 48), ("self", "db1", "db2"), 3),
+               ((1, 100, 100), ("self", "db3", "db4"), 2)]
+
+
+def sara_work(p, nb):
+    """(bytes, FP32 operations) of one psi_dot or psi_hdot: the image and
+    the packed coefficients each moved once; a level's two stride-2
+    passes over nx_in x ny_in, 2 F FMAs an input row point and 4 F an
+    output coefficient, as the analysis counts them (the synthesis does
+    the same sums the other way)."""
+    nbytes = 4 * nb * (p.nx * p.ny + p.nbasis * p.Nymax * p.Nxmax)
+    ops = 0
+    for sp in p.specs:
+        if sp is None:
+            continue
+        nxi = p.nx
+        for k in range(p.nlevel):
+            ops += 2 * (2 * sp.F * nxi * sp.sy[k] + 4 * sp.F * sp.sx[k]
+                        * sp.sy[k])
+            nxi = sp.sx[k]
+    return nbytes, nb * ops
+
+
+def sara_checks(device, shapes=SARA_SHAPES, timing=True):
+    """Phase 36: psi_dot (S1) and psi_hdot (S2) against their plain
+    versions (float32 on the card, conv1d with TF32 off), CUDA-event
+    medians of both routes, the bound of sara_work. Returns the
+    records."""
+    import torch
+
+    from pfb_tpu_torch.ops import psi as P
+    recs = []
+    for shape, bases, nl in shapes:
+        p = P.make_psi(shape[1], shape[2], bases, nl)
+        g = torch.Generator(device=device).manual_seed(36)
+        x = torch.randn(shape, generator=g, device=device)
+        a = torch.randn((shape[0], p.nbasis, p.Nymax, p.Nxmax), generator=g,
+                        device=device)
+        tag = f"{tuple(shape)} {','.join(bases)} L{nl}"
+        work = sara_work(p, shape[0])
+        recs.append(_record(
+            f"S1 psi_dot {tag}", shape, P.psi_dot(x, p),
+            P.psi_dot_plain(x, p), lambda: P.psi_dot(x, p),
+            lambda: P.psi_dot_plain(x, p), timing, work=work))
+        recs.append(_record(
+            f"S2 psi_hdot {tag}", a.shape, P.psi_hdot(a, p),
+            P.psi_hdot_plain(a, p), lambda: P.psi_hdot(a, p),
+            lambda: P.psi_hdot_plain(a, p), timing, work=work))
+        del x, a
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return recs
+
+
 def api_inputs(rpg, cubes):
     """What phase 35 keeps of the pg path (phase 6): its datasets (host
     arrays), its grid's cell, and its PSF cube and band weights, on the
@@ -4506,6 +4567,16 @@ def main():
         report_api(r35, time.perf_counter() - t0)
         torch.cuda.empty_cache()
 
+        # 36. S1 / S2, the SARA analysis and synthesis kernels
+        sara_recs = sara_checks(device)
+        for r in sara_recs:
+            print("[sara] " + json.dumps(r))
+        recs += sara_recs
+        for tag, lc in (("wgrid _spotless", lw["spotless"]),
+                        ("pg _spotless", lp["spotless"])):
+            for k in ("S1", "S2"):
+                need(lc[k] > 0, f"{k} never launched inside {tag}")
+
         # every rows stage of the PSF paths at NY = 4096, 6144 and 8192
         # took the register kernel (none took psf_rows_kernel)
         for tag, lc in (("wgrid _spotless", lw["spotless"]),
@@ -4798,7 +4869,11 @@ def main():
                  ("L2c", "fftx_c2c_lab", "cfft.cu",
                   "scripts/wl_g2i_lab.py:170"),
                  ("L3", "pg_spread (pack_entries)", "pg_grid.cu",
-                  "scripts/wl_capacity_ab.py:121")]
+                  "scripts/wl_capacity_ab.py:121"),
+                 ("S1", "psi_dot", "sara.cu",
+                  "none (the JAX package runs SARA as jnp)"),
+                 ("S2", "psi_hdot", "sara.cu",
+                  "none (the JAX package runs SARA as jnp)")]
         kern = {"kernels": [
             {"name": name, "route": "cuda",
              "source": f"pfb_tpu_torch/csrc/{src}", "replaces": rep,

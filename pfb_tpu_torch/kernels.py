@@ -27,7 +27,7 @@ _SOURCES = ("cfft.cu", "psf_conv.cu", "pg_grid.cu", "pg_fold.cu",
             "cfft_rows.cu", "psf_cols.cu", "psf_rows.cu", "lab_spread.cu",
             "lab_degrid.cu", "cfft_four.cu", "psf_rows_mid.cu",
             "psf_rows_long.cu", "psf_rows_short.cu", "cfft_four_rows.cu",
-            "cfft_rows_long.cu", "cfft_cols_long.cu")
+            "cfft_rows_long.cu", "cfft_cols_long.cu", "sara.cu")
 _HEADERS = ("fft_lines.cuh", "pg_degrid.cuh", "pg_es.cuh", "pg_spread.cuh",
             "psf_cols.cuh", "psf_rows.cuh", "psf_rows_kernel.cuh",
             "rows_fft.cuh")
@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "pfbt_cfft": [_P] * 4 + [_I] * 8 + [_P] * 2,
     "pfbt_cfft_lab": [_P] * 4 + [_I] * 10 + [_P] * 2,
@@ -75,6 +76,9 @@ _SIGNATURES = {
     "pfbt_pg_fold_gs": [_P] * 3 + [_I] * 11 + [_P],
     "pfbt_pg_degrid_gs": [_P] * 6 + [_I] * 12 + [_D, _P],
     "pfbt_pg_degrid_lab": [_P] * 6 + [_I] * 12 + [_D, _I, _I, _P],
+    "pfbt_psi_dot_level": [_P] * 5 + [_I] * 5 + [_L, _P],
+    "pfbt_psi_hdot_level": [_P] * 5 + [_I] * 6 + [_L, _P],
+    "pfbt_psi_zero": [_P] * 2 + [_I] * 3 + [_L, _P],
 }
 
 

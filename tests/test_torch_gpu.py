@@ -2469,3 +2469,76 @@ def test_dual_update_21_on_card_matches_cpu_float64(cuda):
     assert float((got.cpu().double() - ref).abs().max()) <= \
         1e-6 * float(ref.abs().max())
     assert not got[:, 0, :4].any()
+
+
+# S1 / S2 (csrc/sara.cu): psi_dot and psi_hdot's kernel route against the
+# plain route, both float32 on the card. The plain route is strided conv1d
+# with TF32 off; the kernels' FMAs sum the taps in another order.
+def _sara_cases():
+    from pfb_tpu_torch.ops.filters import dwt_max_level
+    big = [((8, 2048, 2048), ("self", "db1", "db2"), (3,)),
+           ((2, 3072, 3072), ("self", "db1", "db2"), (3,))]
+    return big + [((nb, nx, ny), ("self", w),
+                   tuple(range(1, dwt_max_level(min(nx, ny), w) + 1)))
+                  for nb, nx, ny in ((3, 1350, 1000), (2, 64, 48),
+                                     (1, 100, 100))
+                  for w in ("db1", "db2", "db3", "db4")]
+
+
+def _sara_id(case):
+    (nb, nx, ny), bases, _ = case
+    return f"{nb}x{nx}x{ny}-{'+'.join(bases)}"
+
+
+@pytest.mark.parametrize("case", _sara_cases(), ids=_sara_id)
+def test_sara_kernels_match_plain(cuda, case):
+    """Every level count of the case: both directions within 1e-5 of
+    max|plain|, the slots' pad and uncovered area exactly 0, psi.kernel
+    counting each call and S1 / S2 launching."""
+    from pfb_tpu_torch.ops import psi as P
+    from pfb_tpu_torch.utils import profiling
+    shape, bases, levels = case
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda)
+    for nl in levels:
+        p = P.make_psi(shape[1], shape[2], bases, nl)
+        a = torch.randn((shape[0], p.nbasis, p.Nymax, p.Nxmax), generator=g,
+                        device=cuda)
+        n0 = (P.psi_dot.launches, P.psi_hdot.launches)
+        profiling.reset()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            c = P.psi_dot(x, p)
+            h = P.psi_hdot(a, p)
+            counts = profiling.counters()
+        profiling.reset()
+        torch.cuda.synchronize()
+        assert counts.get("psi.kernel") == 2 and "psi.plain" not in counts
+        assert P.psi_dot.launches - n0[0] == nl + bool(
+            P.sara_plan(p, shape[0]).rects)
+        assert P.psi_hdot.launches - n0[1] == nl
+        ref = P.psi_dot_plain(x, p)
+        assert _ok(c, ref), (nl, float((c - ref).abs().max()))
+        href = P.psi_hdot_plain(a, p)
+        assert _ok(h, href), (nl, float((h - href).abs().max()))
+        for off, y0, y1, x0, x1 in P.sara_plan(p, shape[0]).rects:
+            s = off // (p.Nymax * p.Nxmax)
+            assert not c[:, s, y0:y1, x0:x1].any()
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 2048), (2, 100, 100)])
+def test_sara_kernels_adjoint_and_round_trip(cuda, shape):
+    """<psi_dot(x), a> = <x, psi_hdot(a)> and psi_hdot(psi_dot(x)) =
+    nbasis x, on the kernel route (sums in float64 on the card)."""
+    from pfb_tpu_torch.ops import psi as P
+    p = P.make_psi(shape[1], shape[2], ("self", "db1", "db2"), 3)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(shape, generator=g, device=cuda)
+    a = torch.randn((shape[0], p.nbasis, p.Nymax, p.Nxmax), generator=g,
+                    device=cuda)
+    lhs = (P.psi_dot(x, p).double() * a.double()).sum()
+    rhs = (x.double() * P.psi_hdot(a, p).double()).sum()
+    assert abs(float(lhs - rhs)) <= 1e-5 * float(
+        (x.double().norm() * a.double().norm()))
+    back = P.psi_hdot(P.psi_dot(x, p), p)
+    assert _ok(back, p.nbasis * x)
